@@ -48,6 +48,7 @@ def build(config: ExperimentConfig, preset: str, device, group):
         reuse_query=config.reuse_query,
         matricize="last",  # the JAX package's matrices: output features last
         orthogonalize_impl=config.orthogonalize_impl,
+        compress_impl=config.compress_impl,
     )
     step = make_train_step(
         image_classifier_loss(),

@@ -4,6 +4,7 @@ Usage, one process per rank (torchrun sets ``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR`` and ``MASTER_PORT``; without them the run is one rank)::
 
     python -m network_distributed_pytorch_tpu_torch.launch powersgd_cifar10 --preset full
+    python -m network_distributed_pytorch_tpu_torch.launch powersgd_cifar10 --preset full --compress-impl pallas
     torchrun --nproc-per-node 4 -m network_distributed_pytorch_tpu_torch.launch powersgd_cifar10
 
 The last line of standard output is the run summary as JSON.
@@ -18,7 +19,7 @@ import os
 import sys
 
 from .experiments import powersgd_cifar10
-from .utils.config import ExperimentConfig
+from .utils.config import COMPRESS_IMPLS, ORTHOGONALIZE_IMPLS, ExperimentConfig
 
 EXPERIMENTS = {"powersgd_cifar10": powersgd_cifar10}
 
@@ -36,6 +37,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=714)
     p.add_argument("--data-dir", type=str, default="./data")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument(
+        "--compress-impl", choices=list(COMPRESS_IMPLS), default=None,
+        help="PowerSGD compress pipeline: 'pallas' runs the fused CUDA kernels"
+             " (EF add + P=MQ; Gram-Schmidt + Q=M^T P; decompress + residual),"
+             " one launch each per shape group",
+    )
+    p.add_argument(
+        "--orthogonalize-impl", choices=list(ORTHOGONALIZE_IMPLS), default=None,
+        help="Gram-Schmidt of the 'xla' pipeline: 'auto' the CUDA kernel on the"
+             " card and its plain version on the CPU, 'cuda' the kernel only,"
+             " 'eager' the plain version",
+    )
     return p
 
 
@@ -52,6 +65,8 @@ def config_from_args(args) -> ExperimentConfig:
         ("learning_rate", args.lr),
         ("momentum", args.momentum),
         ("reducer_rank", args.reducer_rank),
+        ("compress_impl", args.compress_impl),
+        ("orthogonalize_impl", args.orthogonalize_impl),
     ):
         if value is not None:
             setattr(cfg, attr, value)

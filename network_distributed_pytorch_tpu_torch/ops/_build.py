@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file has a plain C interface and compiles on its own into
 a shared library under the package's ``_build/`` directory (git-ignored),
 named by a hash of its source so an edited kernel is never served from a
 stale build. Nothing here runs at import time: a wrapper calls
-:func:`load` the first time it launches its kernel, and ``chip_smoke.py``
-calls :func:`build_all` to compile every source in parallel up front.
+:func:`load` (through :class:`Kernel`) the first time it launches its
+kernel, and ``chip_smoke.py`` calls :func:`build_all` to compile every
+source in parallel up front.
 """
 
 from __future__ import annotations
@@ -18,12 +19,14 @@ import subprocess
 import threading
 from typing import Dict, List
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # every kernel source of the port, by library name
-SOURCES = {"gram_schmidt": "gram_schmidt.cu"}
+SOURCES = {"gram_schmidt": "gram_schmidt.cu", "powersgd": "powersgd.cu"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -93,3 +96,31 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             _LOADED[name] = lib
         return lib
+
+
+class Kernel:
+    """One C entry point of a kernel library, loaded on first use, and a
+    count of its launches, so a run can show that its main path went
+    through the kernel. ``argtypes`` lists the entry's arguments before the
+    stream, which :meth:`launch` appends."""
+
+    def __init__(self, name: str, library: str, symbol: str, argtypes):
+        self.name = name
+        self.launches = 0
+        self._library, self._symbol = library, symbol
+        self._argtypes = [*argtypes, ctypes.c_void_p]
+        self._fn = None
+
+    def launch(self, device, *args) -> None:
+        """Call the entry on ``device``'s current stream and count the
+        launch; raise if CUDA refused it."""
+        if self._fn is None:
+            fn = getattr(load(self._library), self._symbol)
+            fn.argtypes = self._argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        with torch.cuda.device(device):
+            err = self._fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        self.launches += 1
+        if err != 0:
+            raise RuntimeError(f"{self.name}: CUDA launch failed with error {err}")

@@ -29,28 +29,10 @@ from . import _build
 from .orthogonalize import orthogonalize
 
 
-class _Kernel:
-    """The loaded library and a count of launches, so a run can show that
-    its main path went through the kernel."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.launches = 0
-        self._fn = None
-
-    def fn(self):
-        if self._fn is None:
-            fn = _build.load(self.name).gram_schmidt_f32
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
-
-
-KERNEL = _Kernel("gram_schmidt")
+KERNEL = _build.Kernel(
+    "gram_schmidt", "gram_schmidt", "gram_schmidt_f32",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float],
+)
 
 
 def gram_schmidt(p: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -72,11 +54,5 @@ def gram_schmidt(p: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     out = torch.empty_like(p)
     if out.numel() == 0:
         return out
-    fn = KERNEL.fn()
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = fn(p.data_ptr(), out.data_ptr(), g, n, r, eps, stream)
-    KERNEL.launches += 1
-    if err != 0:
-        raise RuntimeError(f"gram_schmidt: CUDA launch failed with error {err}")
+    KERNEL.launch(p.device, p.data_ptr(), out.data_ptr(), g, n, r, eps)
     return out

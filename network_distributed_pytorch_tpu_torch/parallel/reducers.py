@@ -8,13 +8,15 @@ the model's parameter order::
 
 ``group=None`` is the single-process fallback (no collectives).
 
-PowerSGD (``PowerSGDReducer``) is the JAX package's ``compress_impl="xla"``
-path (the fused ``"pallas"`` pipeline is not ported yet): split rank-1 from high-rank tensors, ``r = min(n, m, rank)``, batch
-same-shaped matrices into ``(g, n, m)`` shape groups, then per round
-``P = M Q`` -> all-reduce(P) -> Gram-Schmidt -> ``Q = M^T P`` ->
-all-reduce(Q), and decompress ``P Q^T`` with the residual kept as
-error-feedback memory. All Ps ride one collective, all Qs another, and the
-rank-1 tensors a third.
+PowerSGD (``PowerSGDReducer``): split rank-1 from high-rank tensors,
+``r = min(n, m, rank)``, batch same-shaped matrices into ``(g, n, m)`` shape
+groups, then per round ``P = M Q`` -> all-reduce(P) -> Gram-Schmidt ->
+``Q = M^T P`` -> all-reduce(Q), and decompress ``P Q^T`` with the residual
+kept as error-feedback memory. All Ps ride one collective, all Qs another,
+and the rank-1 tensors a third. ``compress_impl`` picks the JAX package's
+pipeline of the same name: ``"xla"`` runs each step as plain PyTorch ops,
+``"pallas"`` the fused kernels of :mod:`..ops.powersgd`, one per shape group
+per step.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import torch
 
 from ..ops.gram_schmidt import gram_schmidt
 from ..ops.orthogonalize import orthogonalize
-from ..utils.config import ORTHOGONALIZE_IMPLS
+from ..ops.powersgd import fused_decompress_residual, fused_ef_compress, fused_orthogonalize_project
+from ..utils.config import COMPRESS_IMPLS, ORTHOGONALIZE_IMPLS
 from .comm import all_reduce_mean, n_bits
 from .packing import TensorPacker
 
@@ -87,6 +90,11 @@ class PowerSGDReducer:
     ``orthogonalize_impl``: ``"auto"`` runs the CUDA Gram-Schmidt kernel on
     CUDA tensors and its plain version on CPU tensors; ``"cuda"`` requires
     CUDA tensors; ``"eager"`` always runs the plain version.
+    ``compress_impl="pallas"`` swaps the per-group pipeline for the fused
+    kernels (K2a/K2b ``P = (G + E) Q``, K3 Gram-Schmidt + ``Q = M^T P-hat``,
+    K4 decompress + residual), which absorb the Gram-Schmidt, so
+    ``orthogonalize_impl`` is not used there, as in the JAX package; the
+    payloads and bits on the wire are the same as ``"xla"``'s.
     ``compression_dtype`` (e.g. ``torch.bfloat16``) is the wire dtype of
     the P, Q and rank-1 payloads; P and Q are cast back to the gradients'
     dtype for the math.
@@ -101,7 +109,10 @@ class PowerSGDReducer:
         matricize: str = "first",
         orthogonalize_impl: str = "auto",
         compression_dtype=None,
+        compress_impl: str = "xla",
     ):
+        if compress_impl not in COMPRESS_IMPLS:
+            raise ValueError(f"unknown compress_impl {compress_impl!r}")
         if orthogonalize_impl not in ORTHOGONALIZE_IMPLS:
             raise ValueError(f"unknown orthogonalize_impl {orthogonalize_impl!r}")
         if matricize not in ("first", "last"):
@@ -117,6 +128,7 @@ class PowerSGDReducer:
         self.matricize = matricize
         self.orthogonalize_impl = orthogonalize_impl
         self.compression_dtype = compression_dtype
+        self.compress_impl = compress_impl
 
     # ---- static layout ---------------------------------------------------
 
@@ -212,11 +224,25 @@ class PowerSGDReducer:
     # ---- the hot path ----------------------------------------------------
 
     def reduce_ef(self, state: PowerSGDState, grads, memories, group):
-        """``reduce(state, grads + memories, group)``."""
+        """``reduce(state, grads + memories, group)``. On the fused path the
+        high-rank adds happen inside the compress kernel (K2a)."""
+        if self.compress_impl == "pallas":
+            return self._reduce(state, list(grads), list(memories), group)
         return self.reduce(state, [g + e for g, e in zip(grads, memories)], group)
 
     def reduce(self, state: PowerSGDState, send: List[torch.Tensor], group):
-        leaves = list(send)
+        return self._reduce(state, list(send), None, group)
+
+    def _reduce(self, state: PowerSGDState, g_leaves, e_leaves, group):
+        """The JAX package's ``_reduce``: ``e_leaves`` is None, or the error
+        memories that the fused path adds inside K2a."""
+        fused = self.compress_impl == "pallas"
+        # the leaves the rest of the pipeline sees are the send values; on
+        # the fused path the high-rank adds happen in K2a, rank-1 ones here
+        if e_leaves is None:
+            leaves = g_leaves
+        else:
+            leaves = [g if g.dim() > 1 else g + e for g, e in zip(g_leaves, e_leaves)]
         rank1_idx, _ = self._split(leaves)
         metas = self._metas(leaves)
         p_packer, q_packer, rank1_packer = self._packers(leaves, metas)
@@ -227,6 +253,7 @@ class PowerSGDReducer:
         # the high-rank entries are filled in below
         mem_leaves = [torch.zeros_like(t) if t.dim() <= 1 else None for t in leaves]
 
+        first_ps = None
         if metas:
             math_dtype = leaves[metas[0].leaf_index].dtype
             device = leaves[metas[0].leaf_index].device
@@ -242,15 +269,34 @@ class PowerSGDReducer:
                 torch.stack([qs[p] for p in poss]).to(device=device, dtype=math_dtype)
                 for poss in groups
             ]
-            m_stacks = [self._stack_matrices(leaves, metas, poss) for poss in groups]
+            if fused and e_leaves is not None:
+                # M = G + E and P = M Q in one kernel per shape group (K2a);
+                # M is written once because K3 and K4 read it again
+                m_stacks, first_ps = [], []
+                for poss, q_st in zip(groups, q_stacks):
+                    m_st, p_st = fused_ef_compress(
+                        self._stack_matrices(g_leaves, metas, poss),
+                        q_st,
+                        self._stack_matrices(e_leaves, metas, poss),
+                    )
+                    m_stacks.append(m_st)
+                    first_ps.append(p_st)
+            else:
+                m_stacks = [self._stack_matrices(leaves, metas, poss) for poss in groups]
         new_q_memory = state.q_memory
 
         for it in range(1 + self.n_power_iterations):
             if metas:
-                # P = M Q, one batched matmul per shape group; ALL_REDUCE_MEAN(P)
+                # P = M Q, one batched product per shape group (fused: K2b,
+                # or K2a's P in round 0); ALL_REDUCE_MEAN(P)
+                if it == 0 and first_ps is not None:
+                    p_sts = first_ps
+                elif fused:
+                    p_sts = [fused_ef_compress(m_st, q_st)[1] for m_st, q_st in zip(m_stacks, q_stacks)]
+                else:
+                    p_sts = [torch.bmm(m_st, q_st) for m_st, q_st in zip(m_stacks, q_stacks)]
                 ps = [None] * len(metas)
-                for poss, m_st, q_st in zip(groups, m_stacks, q_stacks):
-                    p_st = torch.bmm(m_st, q_st)
+                for poss, p_st in zip(groups, p_sts):
                     for j, p in enumerate(poss):
                         ps[p] = p_st[j]
                 p_flat = all_reduce_mean(p_packer.pack(ps), group)
@@ -270,12 +316,20 @@ class PowerSGDReducer:
                     out_leaves[i] = o.to(leaves[i].dtype)
 
             if metas:
-                # P-hat = Gram-Schmidt(P): one launch per shape group;
-                # Q = M^T P-hat; ALL_REDUCE_MEAN(Q)
-                p_stacks = [self._orthogonalize(p_st) for p_st in p_stacks]
+                # P-hat = Gram-Schmidt(P) and Q = M^T P-hat: one launch per
+                # shape group (fused: both in K3); ALL_REDUCE_MEAN(Q)
+                if fused:
+                    pqs = [fused_orthogonalize_project(p_st, m_st) for p_st, m_st in zip(p_stacks, m_stacks)]
+                    p_stacks = [phat for phat, _ in pqs]
+                    q_sts = [q_st for _, q_st in pqs]
+                else:
+                    p_stacks = [self._orthogonalize(p_st) for p_st in p_stacks]
+                    q_sts = [
+                        torch.bmm(m_st.transpose(1, 2), p_st)
+                        for m_st, p_st in zip(m_stacks, p_stacks)
+                    ]
                 qs = [None] * len(metas)
-                for poss, m_st, p_st in zip(groups, m_stacks, p_stacks):
-                    q_st = torch.bmm(m_st.transpose(1, 2), p_st)
+                for poss, q_st in zip(groups, q_sts):
                     for j, p in enumerate(poss):
                         qs[p] = q_st[j]
                 q_flat = all_reduce_mean(q_packer.pack(qs), group)
@@ -286,15 +340,23 @@ class PowerSGDReducer:
                 ]
                 new_q_memory = q_flat
 
-        # decompress P-hat Q^T; error memory = send - out
+        # decompress P-hat Q^T; error memory = send - out (fused: both in K4,
+        # against M = G + E; the results are views in torch layout)
         if metas:
-            for poss, p_st, q_st in zip(groups, p_stacks, q_stacks):
-                approx = torch.bmm(p_st, q_st.transpose(1, 2))
+            for poss, p_st, q_st, m_st in zip(groups, p_stacks, q_stacks, m_stacks):
+                if fused:
+                    out_st, mem_st = fused_decompress_residual(p_st, q_st, m_st)
+                else:
+                    out_st, mem_st = torch.bmm(p_st, q_st.transpose(1, 2)), None
                 for j, p in enumerate(poss):
                     meta = metas[p]
-                    out = self._from_matrix(approx[j], meta.shape)
+                    out = self._from_matrix(out_st[j], meta.shape)
                     out_leaves[meta.leaf_index] = out
-                    mem_leaves[meta.leaf_index] = leaves[meta.leaf_index] - out
+                    mem_leaves[meta.leaf_index] = (
+                        leaves[meta.leaf_index] - out
+                        if mem_st is None
+                        else self._from_matrix(mem_st[j], meta.shape)
+                    )
 
         return PowerSGDState(new_q_memory, state.generator), out_leaves, mem_leaves, bits
 

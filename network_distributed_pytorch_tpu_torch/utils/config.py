@@ -13,6 +13,7 @@ from dataclasses import dataclass, fields
 from typing import Optional
 
 ORTHOGONALIZE_IMPLS = ("auto", "eager", "cuda")
+COMPRESS_IMPLS = ("xla", "pallas")
 
 
 @dataclass
@@ -43,8 +44,9 @@ class ExperimentConfig:
     comm_strategy: str = "interleave"
     bucket_bytes: Optional[int] = None
 
-    # kernel implementation: compress_impl "xla" is the plain PyTorch
-    # compress pipeline (the fused kernels are the next slice);
+    # kernel implementation, by the JAX package's names: compress_impl "xla"
+    # is the plain PyTorch compress pipeline, "pallas" the fused CUDA
+    # kernels of ops/powersgd.py (their plain versions on CPU tensors);
     # orthogonalize_impl "auto" | "cuda" run the CUDA Gram-Schmidt kernel on
     # CUDA tensors and its plain version on CPU tensors, "eager" always the
     # plain version
@@ -63,12 +65,10 @@ class ExperimentConfig:
     plan_path: Optional[str] = None
 
     def __post_init__(self) -> None:
-        if self.compress_impl == "pallas":
-            raise NotImplementedError(
-                "compress_impl='pallas' (the fused PowerSGD kernels) is not ported yet"
+        if self.compress_impl not in COMPRESS_IMPLS:
+            raise ValueError(
+                f"compress_impl must be one of {COMPRESS_IMPLS}, got {self.compress_impl!r}"
             )
-        if self.compress_impl != "xla":
-            raise ValueError(f"unknown compress_impl {self.compress_impl!r}")
         if self.orthogonalize_impl not in ORTHOGONALIZE_IMPLS:
             raise ValueError(
                 f"orthogonalize_impl must be one of {ORTHOGONALIZE_IMPLS},"

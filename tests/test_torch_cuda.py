@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need a CUDA card: the CUDA Gram-Schmidt
-kernel against its plain version, and the PowerSGD reducer's ``"auto"``
-choice launching it once per shape group.
+kernel and the fused PowerSGD kernels (``ops/powersgd.py``) against their
+plain versions, and the PowerSGD reducer launching them once per shape
+group.
 
 This file imports torch and the port, never jax, so it also runs on a
 machine that has the card and no JAX (``--noconftest`` skips the JAX
@@ -13,6 +14,9 @@ Where there is no card every test here skips.
 Tolerance: fp32, rtol = atol = 1e-5, as in ``test_torch_orthogonalize.py``:
 the kernel sums each column's squares and projections in another order than
 the plain version, and later columns inherit the earlier columns' rounding.
+The fused kernels' products (P, Q, out, mem) are held to
+``1e-5 * max(1, max|plain|)``: sums of up to n or m terms in another order;
+M = G + E is one rounded add, so it must be bitwise equal.
 """
 
 import numpy as np
@@ -20,6 +24,7 @@ import pytest
 import torch
 
 from network_distributed_pytorch_tpu_torch.ops import gram_schmidt as gs
+from network_distributed_pytorch_tpu_torch.ops import powersgd as ps
 from network_distributed_pytorch_tpu_torch.ops.orthogonalize import orthogonalize
 from network_distributed_pytorch_tpu_torch.parallel.reducers import PowerSGDReducer
 
@@ -77,3 +82,101 @@ def test_auto_reducer_launches_the_kernel_per_shape_group(cuda_device, n_power_i
     assert results["auto"][2] == groups * (1 + n_power_iterations) == 3 * (1 + n_power_iterations)
     for want, got in zip(results["eager"][0] + results["eager"][1], results["auto"][0] + results["auto"][1]):
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def _close_scaled(got, want):
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+def _stack(shape, seed, dev):
+    return torch.from_numpy(_x(shape, seed)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "g,n,m,r", [(1, 64, 32, 4), (3, 100, 37, 8), (2, 5, 3, 2), (2, 6, 9, 1), (3, 4608, 512, 4), (1, 512, 2048, 40)]
+)
+def test_fused_ef_compress_matches_plain(cuda_device, g, n, m, r):
+    grads, resid, q = _stack((g, n, m), 1, cuda_device), _stack((g, n, m), 2, cuda_device), _stack((g, m, r), 3, cuda_device)
+    launches = (ps.EF_COMPRESS.launches, ps.COMPRESS.launches)
+    m_out, p = ps.fused_ef_compress(grads, q, resid)
+    m_plain, p_plain = ps.ef_compress_reference(grads, q, resid)
+    same, p2 = ps.fused_ef_compress(m_out, q)
+    torch.cuda.synchronize()
+    assert (ps.EF_COMPRESS.launches, ps.COMPRESS.launches) == (launches[0] + 1, launches[1] + 1)
+    assert torch.equal(m_out, m_plain)
+    assert same is m_out
+    _close_scaled(p, p_plain)
+    _close_scaled(p2, ps.compress_reference(m_plain, q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "g,n,m,r,route",
+    [(1, 64, 32, 4, "one_launch"), (2, 100, 37, 8, "one_launch"), (2, 6, 9, 1, "one_launch"),
+     (3, 4608, 512, 4, "one_launch"), (1, 4608, 512, 32, "two_launch"), (1, 2048, 70, 40, "two_launch")],
+)
+def test_fused_orthogonalize_project_matches_plain(cuda_device, g, n, m, r, route):
+    p, mat = _stack((g, n, r), 6, cuda_device), _stack((g, n, m), 7, cuda_device)
+    launches = ps.ORTHOGONALIZE_PROJECT.launches
+    phat, q = ps.fused_orthogonalize_project(p, mat)
+    torch.cuda.synchronize()
+    assert ps.ORTHOGONALIZE_PROJECT.launches == launches + 1
+    assert ps.ORTHOGONALIZE_PROJECT.last_route == route
+    phat_plain, q_plain = ps.orthogonalize_project_reference(p, mat)
+    torch.testing.assert_close(phat, phat_plain, rtol=0, atol=1e-5)
+    _close_scaled(q, q_plain)
+    # K3's Gram-Schmidt is K1's arithmetic in K1's order
+    assert torch.equal(phat, gs.gram_schmidt(p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n,m,r", [(1, 64, 32, 4), (3, 100, 37, 8), (2, 5, 3, 2), (3, 4608, 512, 4), (2, 70, 45, 40)])
+def test_fused_decompress_residual_matches_plain(cuda_device, g, n, m, r):
+    p, q, mat = _stack((g, n, r), 10, cuda_device), _stack((g, m, r), 11, cuda_device), _stack((g, n, m), 12, cuda_device)
+    launches = ps.DECOMPRESS_RESIDUAL.launches
+    out, mem = ps.fused_decompress_residual(p, q, mat)
+    torch.cuda.synchronize()
+    assert ps.DECOMPRESS_RESIDUAL.launches == launches + 1
+    out_plain, mem_plain = ps.decompress_residual_reference(p, q, mat)
+    _close_scaled(out, out_plain)
+    _close_scaled(mem, mem_plain)
+
+
+@pytest.mark.cuda
+def test_fused_kernels_refuse_non_fp32(cuda_device):
+    bf = dict(dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(TypeError):
+        ps.fused_ef_compress(torch.zeros((1, 8, 4), **bf), torch.zeros((1, 4, 2), **bf), torch.zeros((1, 8, 4), **bf))
+    with pytest.raises(TypeError):
+        ps.fused_orthogonalize_project(torch.zeros((1, 8, 2), **bf), torch.zeros((1, 8, 4), **bf))
+    with pytest.raises(TypeError):
+        ps.fused_decompress_residual(torch.zeros((1, 8, 2), **bf), torch.zeros((1, 4, 2), **bf), torch.zeros((1, 8, 4), **bf))
+    with pytest.raises(ValueError):  # one operand on the CPU
+        ps.fused_decompress_residual(torch.zeros((1, 8, 2)), torch.zeros((1, 4, 2), device=cuda_device), torch.zeros((1, 8, 4), device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_fused_reducer_launches_each_kernel_per_shape_group(cuda_device):
+    """A fused ``reduce_ef`` on CUDA tensors launches K2a, K3 and K4 once per
+    shape group, K2b and K1 never, and gives what the ``"xla"`` path gives."""
+    shapes = [(8, 3, 3, 3), (8, 8, 3, 3), (8, 8, 3, 3), (8,), (10, 16), (10,), (2, 3)]
+    grads = [torch.from_numpy(_x(s, 30 + i)).to(cuda_device) for i, s in enumerate(shapes)]
+    mems = [torch.from_numpy(0.3 * _x(s, 40 + i)).to(cuda_device) if len(s) > 1 else torch.zeros(s, device=cuda_device) for i, s in enumerate(shapes)]
+    results = {}
+    for impl in ("xla", "pallas"):
+        reducer = PowerSGDReducer(compression_rank=4, matricize="last", compress_impl=impl)
+        kernels = (ps.EF_COMPRESS, ps.COMPRESS, ps.ORTHOGONALIZE_PROJECT, ps.DECOMPRESS_RESIDUAL, gs.KERNEL)
+        before = [k.launches for k in kernels]
+        state, out, mem, bits = reducer.reduce_ef(reducer.init(grads), grads, mems, None)
+        torch.cuda.synchronize()
+        results[impl] = (out, mem, bits, state.q_memory, [k.launches - b for k, b in zip(kernels, before)])
+    groups = PowerSGDReducer(compression_rank=4, matricize="last").n_shape_groups(grads)
+    assert groups == 4  # (8, 3, 3, 3), the two (8, 8, 3, 3), (10, 16), (2, 3)
+    assert results["pallas"][4] == [groups, 0, groups, groups, 0]
+    assert results["xla"][4] == [0, 0, 0, 0, groups]
+    assert results["pallas"][2] == results["xla"][2]
+    for want, got in zip(results["xla"][0] + results["xla"][1], results["pallas"][0] + results["pallas"][1]):
+        _close_scaled(got, want)
+    _close_scaled(results["pallas"][3], results["xla"][3])

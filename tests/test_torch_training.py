@@ -1,7 +1,7 @@
 """The slice as a whole: two ``ef_momentum`` PowerSGD training steps of the
 port's ``make_train_step`` against the JAX package's, on the small ResNet-18
 from carried weights, the same batches and the same initial Q, on one
-worker and on two (two Gloo ranks against a two-device JAX mesh); the
+worker (with either of the port's compress pipelines) and on two (two Gloo ranks against a two-device JAX mesh); the
 exact-DDP identity; gradient accumulation and clipping; and the entry point
 on the CPU.
 
@@ -12,6 +12,8 @@ backward in different orders), and PowerSGD's Gram-Schmidt divides by
 column norms, which carries that difference into the compressed update.
 Losses: 1e-5, as the logits.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -67,10 +69,10 @@ def _close(got, want, tol, what):
         np.testing.assert_allclose(got[k].detach().numpy(), w.numpy(), rtol=tol, atol=tol, err_msg=f"{what} {k}")
 
 
-@pytest.mark.parametrize(
-    "accum_steps,max_grad_norm", [(1, None), (2, 0.5)], ids=["plain", "accum2_clip"]
-)
-def test_one_worker_two_steps_match_jax(accum_steps, max_grad_norm):
+@functools.lru_cache(maxsize=None)
+def _jax_two_steps(accum_steps, max_grad_norm):
+    """The JAX ``"xla"`` side of the one-worker check, run once per
+    (accumulation, clipping) and shared by the port's compress pipelines."""
     variables, jstep, jstate = _jax_setup(None, accum_steps, max_grad_norm)
     batches = numpy_batches(seed=12, n_steps=2, batch=8)
     if accum_steps > 1:
@@ -79,10 +81,22 @@ def test_one_worker_two_steps_match_jax(accum_steps, max_grad_norm):
     for b in batches:
         jstate, loss = jstep(jstate, tuple(jnp.asarray(a) for a in b))
         jlosses.append(float(loss))
+    return variables, jstep, jstate, batches, jlosses
+
+
+@pytest.mark.parametrize(
+    "accum_steps,max_grad_norm,compress_impl",
+    [(1, None, "xla"), (2, 0.5, "xla"), (1, None, "pallas")],
+    ids=["plain", "accum2_clip", "plain_fused"],
+)
+def test_one_worker_two_steps_match_jax(accum_steps, max_grad_norm, compress_impl):
+    """The port's step, on either compress pipeline, against the JAX
+    ``"xla"`` step."""
+    variables, jstep, jstate, batches, jlosses = _jax_two_steps(accum_steps, max_grad_norm)
 
     model = resnet18(num_classes=10, norm="batch", stem="cifar", width=16, device="cpu")
     model.load_state_dict(resnet_state_dict_from_flax(to_numpy(variables)))
-    reducer = PowerSGDReducer(random_seed=1, compression_rank=4, matricize="last")
+    reducer = PowerSGDReducer(random_seed=1, compression_rank=4, matricize="last", compress_impl=compress_impl)
     step = make_train_step(
         image_classifier_loss(), reducer, model, LR, 0.9, "ef_momentum",
         accum_steps=accum_steps, max_grad_norm=max_grad_norm,
@@ -212,8 +226,9 @@ def test_entry_points_raise_without_a_card_unless_cpu():
 
 
 def test_config_rejects_unported_options():
-    with pytest.raises(NotImplementedError):
-        ExperimentConfig(compress_impl="pallas")
+    assert ExperimentConfig(compress_impl="pallas").compress_impl == "pallas"
+    with pytest.raises(ValueError):
+        ExperimentConfig(compress_impl="bogus")
     with pytest.raises(NotImplementedError):
         ExperimentConfig(bucket_bytes=1 << 20)
     with pytest.raises(NotImplementedError):

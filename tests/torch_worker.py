@@ -119,6 +119,24 @@ def powersgd_rank(rank, world, group, sends_per_rank, q_memory, kwargs):
     return {"steps": outs, "q_memory": state.q_memory}
 
 
+def powersgd_ef_rank(rank, world, group, grads_per_rank, q_memory, kwargs):
+    """An error-feedback chain (``reduce_ef``, memories carried from step to
+    step) on each compress pipeline, from the same Q; ``grads_per_rank[rank][s]``
+    is this rank's list of torch-layout gradients at step ``s``."""
+    out = {}
+    for impl in ("xla", "pallas"):
+        reducer = PowerSGDReducer(compress_impl=impl, **kwargs)
+        grads = grads_per_rank[rank]
+        state = PowerSGDState(q_memory.clone(), reducer.init(grads[0]).generator)
+        mems = [torch.zeros_like(g) for g in grads[0]]
+        steps = []
+        for g in grads:
+            state, delta, mems, bits = reducer.reduce_ef(state, g, mems, group)
+            steps.append({"out": [d.contiguous() for d in delta], "mem": [m.contiguous() for m in mems], "bits": bits})
+        out[impl] = {"steps": steps, "q_memory": state.q_memory}
+    return out
+
+
 def exact_rank(rank, world, group, sends_per_rank):
     _, out, mem, bits = ExactReducer().reduce({}, sends_per_rank[rank], group)
     return {"out": out, "mem": mem, "bits": bits}
