@@ -10,23 +10,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. the card (``nvidia-smi``), torch and CUDA versions, and the build of
    every CUDA kernel of the port (one ``nvcc`` per source, started together);
 2. with TF32 off, each kernel against its plain PyTorch version on the card:
-   the Gram-Schmidt kernel (K1) at every (g, n, r) shape group of the main
-   path (ResNet-152, rank 4), a ragged n = 100 and r in {1, 8, 32} at
-   n = 4608; the fused PowerSGD kernels (K2a, K2b, K3, K4) at every
-   (g, n, m, r) shape group, a ragged (3, 100, 37, 8), a clipped
-   (1, 2, 3, 2) and r in {1, 8, 32} at n = 4608, m = 512 (r = 32 takes K3's
-   two-launch route);
-3. the main path, ``powersgd_cifar10.run`` with preset ``full`` (ResNet-152,
-   ImageNet stem, width 64, global batch 512, PowerSGD rank 4) through a
-   one-rank NCCL group, 2 warm-up and 5 timed steps, then 3 steps under
-   ``torch.profiler``: once on the ``compress_impl="xla"`` path (K1) and
-   once on the fused ``"pallas"`` path (K2a, K3, K4), each with the launch
-   counts set to 0 just before it and read just after;
+   the Gram-Schmidt kernel (K1) at every (g, n, r) shape group of the
+   ResNet path (ResNet-152, rank 4) and of the DistilBERT path
+   (``distilbert_base``, rank 16, n = 30522 for the word table), a ragged
+   n = 100 and r in {1, 8, 32} at n = 4608; the fused PowerSGD kernels
+   (K2a, K2b, K3, K4) at every (g, n, m, r) shape group, a ragged
+   (3, 100, 37, 8), a clipped (1, 2, 3, 2) and r in {1, 8, 32} at n = 4608,
+   m = 512 (r = 32 takes K3's two-launch route); flash attention (K5) at
+   DistilBERT's full width (B 16, T 256, H 12, D 64) with the synthetic-IMDb
+   padding, without a mask, causal, with fully masked rows (-1e30 and
+   finfo(f32).min), at D = 128, and against the plain version's
+   block_q != block_k;
+3. the main paths through a one-rank NCCL group, 2 warm-up and 5 timed
+   steps, then 3 steps under ``torch.profiler``, each with the launch
+   counts set to 0 just before it and read just after:
+   ``powersgd_cifar10.run`` with preset ``full`` (ResNet-152, ImageNet
+   stem, width 64, global batch 512, PowerSGD rank 4) on the
+   ``compress_impl="xla"`` path (K1) and on the fused ``"pallas"`` path
+   (K2a, K3, K4); ``powersgd_imdb.run`` with preset ``full``
+   (``distilbert_base``, batch 16, max_len 256, rank 16: K5 and K1);
 4. two steps from the same weights and batches, deterministic cuDNN: plain
    Gram-Schmidt against the kernel; fused against xla; fused against xla
-   with one extra power iteration (K2b's path); and the small preset on the
-   card against the same two steps on the CPU;
-5. one ``{"kernels": [...]}`` line: each kernel's launches on its path, its
+   with one extra power iteration (K2b's path); the small ResNet on the card
+   against the same two steps on the CPU; DistilBERT with flash attention
+   (K5) against ``attn_impl="einsum"`` on the card; and the tiny DistilBERT
+   on the card against the CPU;
+5. one ``{"kernels": [...]}`` line: each kernel's launches on its paths, its
    time for one main-path step, the plain version's, one PyTorch call's
    where one computes the same function, and the least time the card could
    take; before it, the xla path's library calls for the same work.
@@ -57,8 +66,28 @@ PARAM_TOL = 1e-5  # the same, carried through two updates of lr 0.001
 # another order, through a ResNet-18 and two PowerSGD steps
 SMALL_TOL = 1e-4
 
+# flash attention: out within ATTN_TOL * max(1, max|plain|) and lse within
+# ATTN_TOL relative (fp32 sums over the keys in another order: the kernel
+# in 64-key tiles, the plain version in block_k tiles); a fully masked row
+# exactly 0 with lse 1e30
+ATTN_TOL = 1e-5
+# DistilBERT two-step checks (flash against einsum on the card, the tiny
+# model on the card against the CPU): parameters and losses. At PowerSGD
+# rank 1 every leaf is held to IMDB_TOL. At the slice's rank 16 every leaf
+# whose first-step gradient has at least the rank r that the reducer gives
+# it is held to IMDB_TOL; the others (the 2-label classifier, whose gradient
+# has rank 1 < r = 2) get normalised rounding noise as P-hat's extra columns,
+# which differs between any two summation orders, so there every leaf and
+# the losses are held to IMDB_RANK16_TOL, set from the H100's readings
+# (flash against einsum: 8.4e-6 in the parameters, 3.6e-6 in the losses)
+IMDB_TOL = 1e-5
+IMDB_RANK16_TOL = 5e-5
+
 MAIN_STEPS, WARMUP_STEPS = 7, 2
 PROFILE_STEPS = 3
+# distilbert_base at batch 16, max_len 256: folded heads and launches per step
+IMDB_B, IMDB_T, IMDB_H, IMDB_D, IMDB_LAYERS = 16, 256, 12, 64, 6
+IMDB_BITS = 61_969_600  # the JAX reducer's payload bits per step over distilbert_base, rank 16
 
 
 def fail(msg: str) -> None:
@@ -146,6 +175,64 @@ def fused_bounds(shapes):
     return {name: (bound(*w), w[0]) for name, w in work.items()}
 
 
+def attention_bound(b, t, h, d, launches, keys=None):
+    """The least time of ``launches`` non-causal flash-attention forwards
+    over (B*H, T, D) fp32 heads: q, k, v and the (B, T) mask read once, out
+    and lse written once; 4 H T D operations (q.k and p.v) for each key that
+    the mask lets through, ``keys`` of them over the B rows (None: every
+    key). A padded key adds nothing to the function's result."""
+    keys = b * t if keys is None else keys
+    nbytes = 4 * (4 * b * h * t * d + b * t + b * h * t)
+    return bound(launches * nbytes, launches * 4 * h * t * d * keys)
+
+
+def check_flash_attention(fa, dev, gen, imdb_mask):
+    """K5 against its plain version on the same inputs, case by case; fails
+    past ATTN_TOL or where a fully masked row is not exactly 0 / 1e30.
+    ``imdb_mask`` is the (16, 256) additive mask of the first synthetic-IMDb
+    batch. Returns the errors and the full-width inputs."""
+    import torch
+
+    f32_min = torch.finfo(torch.float32).min
+    full = (IMDB_B, IMDB_T, IMDB_H, IMDB_D)
+    rows_masked = torch.zeros((4, IMDB_T))
+    rows_masked[0, :] = -1e30
+    rows_masked[1, :] = f32_min
+    rows_masked[2, 100:] = -1e30
+    cases = {  # (b, t, h, d), mask, causal, block_q, block_k of the plain version
+        "imdb_padding": (full, imdb_mask, False, 128, 128),
+        "no_mask": (full, torch.zeros((IMDB_B, IMDB_T)), False, 128, 128),
+        "causal": (full, imdb_mask, True, 128, 128),
+        "fully_masked_rows": ((4, IMDB_T, IMDB_H, IMDB_D), rows_masked, False, 128, 128),
+        "d128": ((2, IMDB_T, 4, 128), imdb_mask[:2], True, 128, 128),
+        "block_q64_block_k128": (full, imdb_mask, True, 64, 128),
+    }
+    report, kept = {}, None
+    for name, ((b, t, h, d), mask, causal, bq, bk) in cases.items():
+        q, k, v = (torch.randn((b * h, t, d), generator=gen).to(dev) for _ in range(3))
+        mask = mask.to(dev)
+        out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, bq, bk, d**-0.5)
+        want_out, want_lse = fa.flash_attention_reference(q, k, v, mask, causal, bq, bk, d**-0.5)
+        torch.cuda.synchronize()
+        err = (out - want_out).abs().max().item()
+        lse_err = ((lse - want_lse).abs() / want_lse.abs().clamp_min(1.0)).max().item()
+        tol = ATTN_TOL * max(1.0, want_out.abs().max().item())
+        if not (math.isfinite(err) and err <= tol and math.isfinite(lse_err) and lse_err <= ATTN_TOL):
+            fail(f"flash_attention {name}: max |kernel - plain| out {err} (tol {tol}), lse {lse_err} (tol {ATTN_TOL})")
+        empty = (mask <= -1e29).all(dim=1).repeat_interleave(h)  # fully masked heads
+        if empty.any():
+            for o, l, who in ((out, lse, "kernel"), (want_out, want_lse, "plain")):
+                if not (bool((o[empty] == 0).all()) and bool((l[empty] == 1e30).all())):
+                    fail(f"flash_attention {name}: {who}'s fully masked rows are not 0 / 1e30")
+        report[name] = {
+            "shape": [b, t, h, d], "causal": causal, "plain_blocks": [bq, bk], "max_abs_err": err,
+            "lse_max_rel_err": lse_err, "fully_masked_heads": int(empty.sum().item()),
+        }
+        if name == "imdb_padding":
+            kept = (q, k, v, mask)
+    return report, kept
+
+
 def check_fused_kernels(ps, shapes, dev, gen, keep):
     """Each fused kernel against its plain version on the same inputs at
     every (g, n, m, r) in ``shapes``; fails past the tolerances. Returns the
@@ -194,18 +281,17 @@ def check_fused_kernels(ps, shapes, dev, gen, keep):
     return report, kept
 
 
-def profile_main_path(dev, cfg, kernels):
+def profile_main_path(dev, experiment, cfg, arrays, kernels):
     """Where a main-path step's time goes: ``torch.profiler`` over
-    PROFILE_STEPS steps of the full preset with ``cfg`` through a one-rank
-    NCCL group, after one warm-up step; ``kernels`` maps each port kernel to
-    a part of its device function's name. Device numbers are None where the
-    profiler saw no device activity."""
+    PROFILE_STEPS steps of ``experiment``'s full preset with ``cfg`` on the
+    data ``arrays`` through a one-rank NCCL group, after one warm-up step;
+    ``kernels`` maps each port kernel to a part of its device function's
+    name. Device numbers are None where the profiler saw no device
+    activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from network_distributed_pytorch_tpu_torch.data.cifar10 import load_cifar10_or_synthetic
-    from network_distributed_pytorch_tpu_torch.experiments import powersgd_cifar10
     from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches
     from network_distributed_pytorch_tpu_torch.parallel.mesh import (
         DistributedConfig,
@@ -215,11 +301,10 @@ def profile_main_path(dev, cfg, kernels):
 
     group = initialize_distributed(DistributedConfig(), dev)
     try:
-        model, step, state = powersgd_cifar10.build(cfg, "full", dev, group)
-        images, labels, _ = load_cifar10_or_synthetic(train=True)
+        model, step, state = experiment.build(cfg, "full", dev, group)
         batches = [
             tuple(torch.from_numpy(a).to(dev) for a in b)
-            for b in accumulated_batches([images, labels], cfg, 1 + PROFILE_STEPS)(0)
+            for b in accumulated_batches(arrays, cfg, 1 + PROFILE_STEPS)(0)
         ]
         state, loss = step(state, batches[0])
         loss.item()
@@ -247,7 +332,8 @@ def profile_main_path(dev, cfg, kernels):
             "device_us_per_launch": total_us / max(count, 1) if seen else None,
         }
     return {
-        "phase": "profile", "compress_impl": cfg.compress_impl, "steps": PROFILE_STEPS,
+        "phase": "profile", "experiment": experiment.__name__.rsplit(".", 1)[-1],
+        "compress_impl": cfg.compress_impl, "steps": PROFILE_STEPS,
         "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms if seen else None,
         "device_idle_share": 1 - busy_ms / wall_ms if seen else None,
@@ -294,9 +380,11 @@ def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from network_distributed_pytorch_tpu_torch.data.cifar10 import load_cifar10_or_synthetic
-        from network_distributed_pytorch_tpu_torch.experiments import powersgd_cifar10
+        from network_distributed_pytorch_tpu_torch.data.imdb import prepare_imdb
+        from network_distributed_pytorch_tpu_torch.experiments import powersgd_cifar10, powersgd_imdb
         from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches
         from network_distributed_pytorch_tpu_torch.ops import _build
+        from network_distributed_pytorch_tpu_torch.ops import flash_attention as fa
         from network_distributed_pytorch_tpu_torch.ops import gram_schmidt as gs
         from network_distributed_pytorch_tpu_torch.ops import powersgd as ps
         from network_distributed_pytorch_tpu_torch.ops.orthogonalize import orthogonalize
@@ -321,22 +409,27 @@ def main() -> None:
     # ---- 2. each kernel against its plain version ------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = powersgd_cifar10.default_config()
-    model, step, _ = powersgd_cifar10.build(cfg, "full", dev, group=None)
-    params = list(model.parameters())
-    reducer = step.reducer
-    metas = reducer._metas(params)
-    group_shapes = [
-        (len(poss), metas[poss[0]].n, metas[poss[0]].m, metas[poss[0]].r)
-        for poss in reducer._shape_groups(metas)
-    ]
+    def reducer_groups(experiment, cfg):
+        """(g, n, m, r) of every shape group of ``experiment``'s full preset."""
+        model, step, _ = experiment.build(cfg, "full", dev, group=None)
+        params = list(model.parameters())
+        metas = step.reducer._metas(params)
+        return [
+            (len(poss), metas[poss[0]].n, metas[poss[0]].m, metas[poss[0]].r)
+            for poss in step.reducer._shape_groups(metas)
+        ]
+
+    group_shapes = reducer_groups(powersgd_cifar10, powersgd_cifar10.default_config())
+    imdb_cfg = powersgd_imdb.default_config()
+    imdb_cfg.global_batch_size = IMDB_B
+    imdb_group_shapes = reducer_groups(powersgd_imdb, imdb_cfg)
     main_shapes = [(g, n, r) for g, n, _, r in group_shapes]
-    del model, step, params
+    imdb_shapes = [(g, n, r) for g, n, _, r in imdb_group_shapes]
     extra_shapes = [(3, 100, 4), (1, 4608, 1), (1, 4608, 8), (1, 4608, 32)]
     gen = torch.Generator().manual_seed(0)
     errs = {}
     inputs = {}
-    for shape in main_shapes + extra_shapes:
+    for shape in main_shapes + imdb_shapes + extra_shapes:
         x = torch.randn(shape, generator=gen).to(dev)
         got = gs.gram_schmidt(x)
         want = orthogonalize(x)
@@ -353,15 +446,65 @@ def main() -> None:
     per_group_ms = {
         str(s): cuda_ms(lambda x=inputs[s]: gs.gram_schmidt(x)) for s in main_shapes
     }
-    main_err = max(errs[str(s)] for s in main_shapes)
+    main_err = max(errs[str(s)] for s in main_shapes + imdb_shapes)
+    # the DistilBERT path's six groups, (30522, 16) among them
+    imdb_inputs = [inputs[s] for s in imdb_shapes]
+    gs_imdb = {
+        "groups": len(imdb_shapes), "max_abs_err": max(errs[str(s)] for s in imdb_shapes),
+        "ms_per_step": cuda_ms(lambda: [gs.gram_schmidt(x) for x in imdb_inputs]),
+        "device_ms_per_step": device_ms(lambda: [gs.gram_schmidt(x) for x in imdb_inputs], "gram_schmidt_kernel"),
+        "plain_ms_per_step": cuda_ms(lambda: [orthogonalize(x) for x in imdb_inputs], reps=5),
+        "ms_per_group": {str(s): cuda_ms(lambda x=inputs[s]: gs.gram_schmidt(x)) for s in imdb_shapes},
+    }
+    gs_imdb["bound_ms"], gs_imdb["bound_by"] = gs_bound(imdb_shapes)
     emit({
         "phase": "gram_schmidt", "tolerance": GS_TOL, "max_abs_err": errs,
         "main_path_groups": len(main_shapes), "ms_per_step": gs_ms,
         "device_ms_per_step": device_ms(lambda: [gs.gram_schmidt(x) for x in main_inputs], "gram_schmidt_kernel"),
         "plain_ms_per_step": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "ms_per_group": per_group_ms,
+        "ms_per_group": per_group_ms, "imdb_path": gs_imdb,
     })
-    del inputs, main_inputs
+    del inputs, main_inputs, imdb_inputs
+
+    # flash attention at DistilBERT's width, with the first synthetic-IMDb
+    # batch's padding (about 214 of 256 keys per row)
+    imdb_full, _, _ = prepare_imdb(max_len=IMDB_T, seed=imdb_cfg.seed)
+    imdb_arrays = [imdb_full["input_ids"], imdb_full["attention_mask"], imdb_full["labels"]]
+    first_amask = torch.from_numpy(next(accumulated_batches(imdb_arrays, imdb_cfg)(0))[1])
+    imdb_mask = torch.where(first_amask > 0, 0.0, torch.finfo(torch.float32).min)
+    attn_report, (aq, ak, av, amask) = check_flash_attention(fa, dev, gen, imdb_mask)
+    scale = IMDB_D**-0.5
+    sdpa_q, sdpa_k, sdpa_v = (x.view(IMDB_B, IMDB_H, IMDB_T, IMDB_D) for x in (aq, ak, av))
+    sdpa_mask = amask[:, None, None, :]
+    per_step = {  # IMDB_LAYERS launches: one DistilBERT step's forwards
+        "kernel": lambda: [fa.flash_attention_fwd(aq, ak, av, amask, False, 128, 128, scale) for _ in range(IMDB_LAYERS)],
+        "plain": lambda: [fa.flash_attention_reference(aq, ak, av, amask, False, 128, 128, scale) for _ in range(IMDB_LAYERS)],
+        "library": lambda: [
+            torch.nn.functional.scaled_dot_product_attention(sdpa_q, sdpa_k, sdpa_v, attn_mask=sdpa_mask)
+            for _ in range(IMDB_LAYERS)
+        ],
+    }
+    launches_before = fa.KERNEL.launches
+    attn_ms = cuda_ms(per_step["kernel"], reps=20)
+    attn_row = {
+        "max_abs_err": max(r["max_abs_err"] for r in attn_report.values()),
+        "ms": attn_ms, "device_ms": device_ms(per_step["kernel"], "flash_fwd_kernel"),
+        "plain_ms": cuda_ms(per_step["plain"], reps=5), "library_ms": cuda_ms(per_step["library"], reps=20),
+    }
+    # the timed mask's real keys: the work the function needs on this data
+    valid_keys = int((amask > -1e29).sum())
+    attn_row["bound_ms"], attn_row["bound_by"] = attention_bound(
+        IMDB_B, IMDB_T, IMDB_H, IMDB_D, IMDB_LAYERS, keys=valid_keys
+    )
+    attn_row["bound_ms_all_keys"], _ = attention_bound(IMDB_B, IMDB_T, IMDB_H, IMDB_D, IMDB_LAYERS)
+    emit({
+        "phase": "flash_attention", "tolerance": ATTN_TOL, "cases": attn_report,
+        "launches_per_step": IMDB_LAYERS, "per_step": attn_row,
+        "us_per_launch": attn_ms * 1e3 / IMDB_LAYERS,
+        "timing_launches": fa.KERNEL.launches - launches_before,
+        "mean_valid_keys_per_row": valid_keys / IMDB_B,
+    })
+    del aq, ak, av, amask, sdpa_q, sdpa_k, sdpa_v, sdpa_mask
 
     # the fused kernels, at every main-path shape group and a few others
     extra_groups = [(3, 100, 37, 8), (1, 2, 3, 2), (1, 4608, 512, 1), (1, 4608, 512, 8), (1, 4608, 512, 32)]
@@ -424,47 +567,89 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
 
-    # ---- 3. the main path, xla and fused ----------------------------------------
+    # ---- 3. the main paths: ResNet xla and fused, DistilBERT ---------------------
+    all_kernels = (gs.KERNEL, *ps.KERNELS, fa.KERNEL)
+    device_fns = {  # a part of each kernel's device function name
+        "gram_schmidt": "gram_schmidt_kernel", "ef_compress": "ef_compress_kernel",
+        "orthogonalize_project": "orthogonalize_project_kernel",
+        "decompress_residual": "decompress_residual_kernel", "flash_attention": "flash_fwd_kernel",
+    }
+    images, labels, _ = load_cifar10_or_synthetic(train=True)
     results = {}
     launches = {}
+
+    def drive(name, run, want):
+        """``run()`` with every launch count set to 0 just before it and
+        read just after; fails unless they are ``want``."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in all_kernels:
+            k.launches = 0
+        result = run()
+        launches[name] = {k.name: k.launches for k in all_kernels}
+        full_want = {k.name: want.get(k.name, 0) for k in all_kernels}
+        if launches[name] != full_want or not any(full_want.values()):
+            fail(f"{name} launched {launches[name]}, expected {full_want}")
+        results[name] = result
+        return result, torch.cuda.max_memory_allocated(dev)
+
     for impl in ("xla", "pallas"):
         cfg = powersgd_cifar10.default_config()
         cfg.training_epochs = 1
         cfg.compress_impl = impl
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        for k in (gs.KERNEL, *ps.KERNELS):
-            k.launches = 0
-        result = powersgd_cifar10.run(cfg, preset="full", device=dev, max_steps_per_epoch=MAIN_STEPS)
-        launches[impl] = {k.name: k.launches for k in (gs.KERNEL, *ps.KERNELS)}
-        peak = torch.cuda.max_memory_allocated(dev)
-        results[impl] = result
-        groups = result["shape_groups"]
-        expected = MAIN_STEPS * groups
+        expected = MAIN_STEPS * len(group_shapes)
         want = (
-            {"gram_schmidt": expected, "ef_compress": 0, "compress": 0, "orthogonalize_project": 0, "decompress_residual": 0}
-            if impl == "xla" else
-            {"gram_schmidt": 0, "ef_compress": expected, "compress": 0, "orthogonalize_project": expected, "decompress_residual": expected}
+            {"gram_schmidt": expected} if impl == "xla" else
+            {"ef_compress": expected, "orthogonalize_project": expected, "decompress_residual": expected}
         )
-        if expected <= 0 or launches[impl] != want:
-            fail(f"{impl} main path launched {launches[impl]}, expected {want}")
+        result, peak = drive(
+            impl, lambda: powersgd_cifar10.run(cfg, preset="full", device=dev, max_steps_per_epoch=MAIN_STEPS), want
+        )
         record = main_path_record("main_path" if impl == "xla" else "main_path_fused", result, cfg, peak)
         record["launches"] = launches[impl]
         emit(record)
-        emit(profile_main_path(dev, cfg, {
-            "gram_schmidt": "gram_schmidt_kernel", "ef_compress": "ef_compress_kernel",
-            "orthogonalize_project": "orthogonalize_project_kernel",
-            "decompress_residual": "decompress_residual_kernel",
+        emit(profile_main_path(dev, powersgd_cifar10, cfg, [images, labels], {
+            k: device_fns[k] for k in ("gram_schmidt", "ef_compress", "orthogonalize_project", "decompress_residual")
         }))
     if results["pallas"]["bits_per_step"] != results["xla"]["bits_per_step"]:
         fail(f"bits per step: fused {results['pallas']['bits_per_step']} != xla {results['xla']['bits_per_step']}")
+
+    # DistilBERT/IMDb: flash attention once per layer and K1 once per shape
+    # group in every step
+    cfg = powersgd_imdb.default_config()
+    cfg.training_epochs = 1
+    result, peak = drive(
+        "imdb", lambda: powersgd_imdb.run(cfg, preset="full", device=dev, max_steps_per_epoch=MAIN_STEPS),
+        {"gram_schmidt": MAIN_STEPS * len(imdb_shapes), "flash_attention": MAIN_STEPS * IMDB_LAYERS},
+    )
+    losses = result["losses"]
+    if len(losses) != MAIN_STEPS or not all(math.isfinite(v) for v in losses):
+        fail(f"imdb losses {losses}")
+    if result["bits_per_step"] != IMDB_BITS + 32 or result["shape_groups"] != len(imdb_shapes):
+        fail(f"imdb bits per step {result['bits_per_step']} (want {IMDB_BITS} + 32), groups {result['shape_groups']}")
+    timed_ms = result["device_time_ms"][WARMUP_STEPS:]
+    p50_ms = statistics.median(timed_ms)
+    emit({
+        "phase": "main_path_imdb", "model": "distilbert_base", "global_batch": result["global_batch"],
+        "max_len": result["max_len"], "reducer_rank": result["reducer_rank"],
+        "world_size": result["num_devices"], "losses": losses, "timed_steps": len(timed_ms),
+        "step_device_ms": timed_ms, "step_device_ms_p50": p50_ms,
+        "step_host_s_p50": statistics.median(result["step_time_s"][WARMUP_STEPS:]),
+        "sequences_per_s": result["global_batch"] / (p50_ms / 1e3), "peak_memory_bytes": peak,
+        "bits_per_step": result["bits_per_step"], "shape_groups": result["shape_groups"],
+        "launches": launches["imdb"],
+    })
+    imdb_cfg = powersgd_imdb.default_config()
+    imdb_cfg.global_batch_size = IMDB_B
+    emit(profile_main_path(dev, powersgd_imdb, imdb_cfg, imdb_arrays, {
+        k: device_fns[k] for k in ("gram_schmidt", "flash_attention")
+    }))
 
     # ---- 4. two steps against two steps ---------------------------------------
     # with deterministic cuDNN and no TF32, so that only what is compared differs
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.allow_tf32 = False
-    images, labels, _ = load_cifar10_or_synthetic(train=True)
 
     def two_steps(cfg, preset, device, n_power_iterations=0):
         model, step, state = powersgd_cifar10.build(cfg, preset, device, group=None)
@@ -534,6 +719,66 @@ def main() -> None:
         "max_param_diff": diff, "max_loss_diff": loss_diff, "tolerance": SMALL_TOL,
     })
 
+    # DistilBERT: flash attention (the kernel) against einsum attention on
+    # the card at full width; then the tiny model on the card against the CPU
+    imdb_small, _, _ = prepare_imdb(max_len=64, vocab_size=1024, seed=imdb_cfg.seed)
+
+    def imdb_two_steps(preset, device, arrays, **fields):
+        """Losses and parameters after two steps, and the names of the
+        compressed leaves whose gradient on the first batch has a rank below
+        the reducer's r for them."""
+        cfg = powersgd_imdb.default_config()
+        cfg.global_batch_size = IMDB_B
+        for k, v in fields.items():
+            setattr(cfg, k, v)
+        model, step, state = powersgd_imdb.build(cfg, preset, device, group=None)
+        batches = [
+            tuple(torch.from_numpy(a).to(device) for a in batch)
+            for batch in accumulated_batches(arrays, cfg, max_steps_per_epoch=2)(0)
+        ]
+        names, leaves = zip(*model.named_parameters())
+        powersgd_imdb.sequence_classifier_loss()(model, batches[0]).backward()
+        deficient = sorted(
+            names[m.leaf_index] for m in step.reducer._metas(list(leaves))
+            if int(torch.linalg.matrix_rank(leaves[m.leaf_index].grad)) < m.r
+        )
+        losses = []
+        for batch in batches:  # the step sets every .grad to None first
+            state, loss = step(state, batch)
+            losses.append(loss.item())
+        return losses, {k: v.detach().cpu() for k, v in state.params.items()}, deficient
+
+    small_arrays = [imdb_small["input_ids"], imdb_small["attention_mask"], imdb_small["labels"]]
+    for phase, preset, arrays, sides in (
+        ("imdb_flash_vs_einsum", "full", imdb_arrays,
+         ((dev, {"attn_impl": "flash"}), (dev, {"attn_impl": "einsum"}))),
+        ("imdb_cuda_vs_cpu", "small", small_arrays, ((dev, {}), (torch.device("cpu"), {}))),
+    ):
+        record = {"phase": phase, "preset": preset, "global_batch": IMDB_B, "steps": 2, "tolerance_full_rank_leaves": IMDB_TOL}
+        for rank in (1, powersgd_imdb.default_config().reducer_rank):
+            before = fa.KERNEL.launches
+            (losses_a, params_a, deficient), (losses_b, params_b, _) = (
+                imdb_two_steps(preset, device, arrays, reducer_rank=rank, **fields) for device, fields in sides
+            )
+            if rank == 1 and deficient:
+                fail(f"{phase} at rank 1: leaves of gradient rank 0: {deficient}")
+            full_rank = {k: v for k, v in params_a.items() if k not in deficient}
+            diff_full_rank = max_diff(full_rank, params_b)
+            diff = max_diff(params_a, params_b)
+            loss_diff = max(abs(a - b) for a, b in zip(losses_a, losses_b))
+            tol = IMDB_TOL if rank == 1 else IMDB_RANK16_TOL
+            if not (math.isfinite(diff) and diff_full_rank <= IMDB_TOL and diff <= tol and loss_diff <= tol):
+                fail(
+                    f"{phase} at rank {rank}: params {diff_full_rank} over the leaves of full gradient rank"
+                    f" (tol {IMDB_TOL}), {diff} over all and losses {loss_diff} (tol {tol})"
+                )
+            record[f"rank_{rank}"] = {
+                "losses": [losses_a, losses_b], "max_param_diff_full_rank_leaves": diff_full_rank,
+                "max_param_diff": diff, "max_loss_diff": loss_diff, "tolerance_all_leaves_and_losses": tol,
+                "rank_deficient_leaves": deficient, "flash_launches": fa.KERNEL.launches - before,
+            }
+        emit(record)
+
     # ---- 5. the kernels ------------------------------------------------------
     # what the xla path runs for the same work, as a yardstick for later work
     emit({"phase": "xla_yardstick", "ms_per_step": xla_ms})
@@ -548,13 +793,17 @@ def main() -> None:
         "route": "cuda",
         "source": "network_distributed_pytorch_tpu_torch/csrc/gram_schmidt.cu",
         "replaces": "network_distributed_pytorch_tpu/ops/pallas_orthogonalize.py:28",
-        "launches": launches["xla"]["gram_schmidt"],
+        # on both paths that run it: ResNet (xla pipeline) and DistilBERT
+        "launches": launches["xla"]["gram_schmidt"] + launches["imdb"]["gram_schmidt"],
+        "launches_by_path": {"resnet152_xla": launches["xla"]["gram_schmidt"], "distilbert_imdb": launches["imdb"]["gram_schmidt"]},
         "max_abs_err": main_err,
         "ms": gs_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes this sequential Gram-Schmidt
+        # ms, plain_ms and bound_ms above are one ResNet step's; one DistilBERT step's:
+        "distilbert_imdb": {k: gs_imdb[k] for k in ("ms_per_step", "plain_ms_per_step", "bound_ms", "bound_by")},
     }]
     for name, row in fused_rows.items():
         kernels.append({
@@ -563,6 +812,16 @@ def main() -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "network_distributed_pytorch_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "network_distributed_pytorch_tpu/ops/flash_attention.py:76",
+        "launches": launches["imdb"]["flash_attention"], "max_abs_err": attn_row["max_abs_err"],
+        "ms": attn_row["ms"], "plain_ms": attn_row["plain_ms"], "bound_ms": attn_row["bound_ms"],
+        "bound_by": attn_row["bound_by"], "library_ms": attn_row["library_ms"],  # SDPA, same additive mask
+        # bound_ms counts the timed mask's real keys; this, every key
+        "bound_ms_all_keys": attn_row["bound_ms_all_keys"],
+    })
     emit({"kernels": kernels})
     # the card's name and power limit, exactly as nvidia-smi gives them
     sys.stdout.write(smi + "\n")

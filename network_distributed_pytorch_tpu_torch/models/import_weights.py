@@ -8,20 +8,28 @@
 - BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
   running_var.
 
+``distilbert_state_dict_from_flax`` maps the JAX DistilBERT's ``{"params"}``
+onto the port's (HuggingFace-named) ``state_dict``, the inverse of the JAX
+package's ``distilbert_variables_from_torch``: Dense kernels (in, out) ->
+Linear weights (out, in); Embed tables (num, dim) stay as they are, since
+``nn.Embedding`` keeps the same layout; LayerNorm scale -> weight.
+
 ``powersgd_state_from_jax`` maps the JAX ``PowerSGDState.q_memory`` onto the
 port reducer's Q buffer. The two packages order their parameters
 differently (``jax.tree_util`` flattens dicts by sorted key, so
 ``BottleneckBlock_10`` comes before ``BottleneckBlock_2``; torch keeps
 registration order), so the Qs are joined by parameter name, never by flat
-index. Both packages matricize the same way under ``matricize="last"``, so
-each Q carries over unchanged.
+index (``name_map`` turns a flax path into the port's name: ResNet's by
+default, :func:`distilbert_torch_name` for DistilBERT). Both packages
+matricize the same way under ``matricize="last"`` (embedding tables given
+to the reducer as ``features_last``), so each Q carries over unchanged.
 """
 
 from __future__ import annotations
 
 import math
 import re
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +78,45 @@ def _to_torch_layout(value: np.ndarray) -> np.ndarray:
     return value
 
 
+_LAYER = re.compile(r"^layer_(\d+)$")
+_DISTILBERT_MODULES = {
+    "word_embeddings": "embeddings.word_embeddings",
+    "position_embeddings": "embeddings.position_embeddings",
+    "embed_layer_norm": "embeddings.LayerNorm",
+    "ffn_lin1": "ffn.lin1",
+    "ffn_lin2": "ffn.lin2",
+}
+_DISTILBERT_LEAVES = {"kernel": "weight", "embedding": "weight", "scale": "weight", "bias": "bias"}
+
+
+def distilbert_torch_name(path: Tuple[str, ...]) -> str:
+    """The port's (HuggingFace) parameter name for a flax DistilBERT path,
+    e.g. ``("distilbert", "layer_3", "ffn_lin1", "kernel")`` ->
+    ``"distilbert.transformer.layer.3.ffn.lin1.weight"``."""
+    *modules, leaf = path
+    parts = []
+    for mod in modules:
+        layer = _LAYER.match(mod)
+        if layer:
+            parts += ["transformer", "layer", layer.group(1)]
+        else:
+            parts.append(_DISTILBERT_MODULES.get(mod, mod))
+    parts.append(_DISTILBERT_LEAVES[leaf])
+    return ".".join(parts)
+
+
+def distilbert_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``{"params"}`` of ``DistilBertForSequenceClassification`` -> the
+    port model's ``state_dict``. Also maps any params-shaped tree given as
+    ``{"params": tree}`` (momenta, error memories, gradients)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(variables["params"]):
+        if path[-1] == "kernel":  # Dense (in, out) -> Linear (out, in)
+            value = value.T
+        sd[distilbert_torch_name(path)] = torch.from_numpy(np.array(value, order="C", copy=True))
+    return sd
+
+
 def resnet_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax ``{"params"[, "batch_stats"]}`` -> the port ResNet's state_dict.
 
@@ -88,13 +135,20 @@ def resnet_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch
     return sd
 
 
-def powersgd_state_from_jax(q_memory, flax_params: Mapping[str, Any], reducer, model):
+def powersgd_state_from_jax(
+    q_memory,
+    flax_params: Mapping[str, Any],
+    reducer,
+    model,
+    name_map: Callable[[Tuple[str, ...]], str] = torch_name,
+):
     """The port's ``PowerSGDState`` whose Q buffers equal the JAX reducer's
     ``q_memory`` (a numpy array), joined by parameter name.
 
     ``flax_params`` gives the JAX leaf order and shapes; ``reducer`` is the
     port's ``PowerSGDReducer`` (``matricize="last"``, the same rank as the
-    JAX one) and ``model`` the port model whose parameters it reduces."""
+    JAX one) and ``model`` the port model whose parameters it reduces;
+    ``name_map`` names a flax path in the port."""
     if reducer.matricize != "last":
         raise ValueError("Q carries over only under matricize='last'")
     q_memory = np.asarray(q_memory)
@@ -106,7 +160,7 @@ def powersgd_state_from_jax(q_memory, flax_params: Mapping[str, Any], reducer, m
         m = value.shape[-1]
         n = math.prod(value.shape[:-1])
         r = min(n, m, reducer.compression_rank)
-        by_name[torch_name(path)] = q_memory[offset : offset + m * r].reshape(m, r)
+        by_name[name_map(path)] = q_memory[offset : offset + m * r].reshape(m, r)
         offset += m * r
     if offset != q_memory.size:
         raise ValueError(f"q_memory holds {q_memory.size} values, the parameters need {offset}")

@@ -26,7 +26,11 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # every kernel source of the port, by library name
-SOURCES = {"gram_schmidt": "gram_schmidt.cu", "powersgd": "powersgd.cu"}
+SOURCES = {
+    "gram_schmidt": "gram_schmidt.cu",
+    "powersgd": "powersgd.cu",
+    "flash_attention": "flash_attention.cu",
+}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -25,6 +25,7 @@ import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 
 from ..ops.gram_schmidt import gram_schmidt
 from ..ops.orthogonalize import orthogonalize
@@ -59,12 +60,24 @@ class ExactReducer:
         return sum(n_bits(t) for t in grads_template)
 
 
+def embedding_leaves(model: nn.Module) -> Tuple[int, ...]:
+    """Positions, in ``model.parameters()`` order, of the ``nn.Embedding``
+    weights: tables stored ``(num, dim)``, the layout of flax's ``Embed``,
+    unlike a ``Linear`` weight's ``(out, in)``. ``PowerSGDReducer``'s
+    ``features_last`` takes them."""
+    tables = {id(mod.weight) for mod in model.modules() if isinstance(mod, nn.Embedding)}
+    return tuple(i for i, p in enumerate(model.parameters()) if id(p) in tables)
+
+
 class _MatrixMeta(NamedTuple):
     leaf_index: int
     shape: Tuple[int, ...]
     n: int  # matrix rows
     m: int  # matrix columns
     r: int  # min(n, m, compression_rank)
+    # the permutation that puts the torch-layout leaf into the matrix's
+    # row-major order, or None when the plain reshape already does
+    perm: Optional[Tuple[int, ...]]
 
 
 class PowerSGDState(NamedTuple):
@@ -86,6 +99,11 @@ class PowerSGDReducer:
       ``w.permute(2, 3, 1, 0).reshape(-1, O)``, a Linear weight ``w.t()``.
       The decompressed update is mapped back through the inverse
       permutation. The two modes give transposed (different) problems.
+      The leaves at the positions in ``features_last`` (embedding tables,
+      see :func:`embedding_leaves`) already keep the output features last,
+      as flax's ``Embed`` does, and are taken as stored:
+      ``(prod(shape[:-1]), shape[-1])``, so a ``(30522, 768)`` word table
+      is the JAX package's ``(30522, 768)`` matrix, not its transpose.
 
     ``orthogonalize_impl``: ``"auto"`` runs the CUDA Gram-Schmidt kernel on
     CUDA tensors and its plain version on CPU tensors; ``"cuda"`` requires
@@ -110,6 +128,7 @@ class PowerSGDReducer:
         orthogonalize_impl: str = "auto",
         compression_dtype=None,
         compress_impl: str = "xla",
+        features_last: Sequence[int] = (),
     ):
         if compress_impl not in COMPRESS_IMPLS:
             raise ValueError(f"unknown compress_impl {compress_impl!r}")
@@ -129,6 +148,7 @@ class PowerSGDReducer:
         self.orthogonalize_impl = orthogonalize_impl
         self.compression_dtype = compression_dtype
         self.compress_impl = compress_impl
+        self.features_last = frozenset(features_last)
 
     # ---- static layout ---------------------------------------------------
 
@@ -139,23 +159,19 @@ class PowerSGDReducer:
         high = [i for i, t in enumerate(leaves) if t.dim() > 1]
         return rank1, high
 
-    def _perm(self, ndim: int) -> Optional[Tuple[int, ...]]:
-        """The permutation that puts a torch-layout tensor into the matrix's
-        row-major order, or None when the plain reshape already does."""
-        if self.matricize == "first":
-            return None
-        return tuple(range(2, ndim)) + (1, 0)
-
     def _metas(self, leaves) -> List[_MatrixMeta]:
         _, high = self._split(leaves)
         metas = []
         for i in high:
             shape = tuple(leaves[i].shape)
             if self.matricize == "first":
-                n, m = shape[0], math.prod(shape[1:])
+                n, m, perm = shape[0], math.prod(shape[1:]), None
+            elif i in self.features_last:
+                n, m, perm = math.prod(shape[:-1]), shape[-1], None
             else:
                 n, m = math.prod(shape[1:]), shape[0]
-            metas.append(_MatrixMeta(i, shape, n, m, min(n, m, self.compression_rank)))
+                perm = tuple(range(2, len(shape))) + (1, 0)
+            metas.append(_MatrixMeta(i, shape, n, m, min(n, m, self.compression_rank), perm))
         return metas
 
     @staticmethod
@@ -183,15 +199,14 @@ class PowerSGDReducer:
     def _stack_matrices(self, leaves, metas, poss) -> torch.Tensor:
         """The ``(g, n, m)`` stack of one shape group's matrices (one copy)."""
         meta = metas[poss[0]]
-        perm = self._perm(len(meta.shape))
         views = [leaves[metas[p].leaf_index] for p in poss]
-        if perm is not None:
-            views = [v.permute(perm) for v in views]
+        views = [v if metas[p].perm is None else v.permute(metas[p].perm) for v, p in zip(views, poss)]
         return torch.stack(views).reshape(len(poss), meta.n, meta.m)
 
-    def _from_matrix(self, mat: torch.Tensor, shape) -> torch.Tensor:
-        """Inverse of the matricization: a view of ``mat`` in ``shape``."""
-        perm = self._perm(len(shape))
+    @staticmethod
+    def _from_matrix(mat: torch.Tensor, meta: _MatrixMeta) -> torch.Tensor:
+        """Inverse of the matricization: a view of ``mat`` in the leaf's shape."""
+        shape, perm = meta.shape, meta.perm
         if perm is None:
             return mat.reshape(shape)
         inv = [0] * len(perm)
@@ -350,12 +365,12 @@ class PowerSGDReducer:
                     out_st, mem_st = torch.bmm(p_st, q_st.transpose(1, 2)), None
                 for j, p in enumerate(poss):
                     meta = metas[p]
-                    out = self._from_matrix(out_st[j], meta.shape)
+                    out = self._from_matrix(out_st[j], meta)
                     out_leaves[meta.leaf_index] = out
                     mem_leaves[meta.leaf_index] = (
                         leaves[meta.leaf_index] - out
                         if mem_st is None
-                        else self._from_matrix(mem_st[j], meta.shape)
+                        else self._from_matrix(mem_st[j], meta)
                     )
 
         return PowerSGDState(new_q_memory, state.generator), out_leaves, mem_leaves, bits

@@ -14,6 +14,7 @@ from typing import Optional
 
 ORTHOGONALIZE_IMPLS = ("auto", "eager", "cuda")
 COMPRESS_IMPLS = ("xla", "pallas")
+ATTN_IMPLS = ("auto", "einsum", "flash")
 
 
 @dataclass
@@ -49,7 +50,9 @@ class ExperimentConfig:
     # kernels of ops/powersgd.py (their plain versions on CPU tensors);
     # orthogonalize_impl "auto" | "cuda" run the CUDA Gram-Schmidt kernel on
     # CUDA tensors and its plain version on CPU tensors, "eager" always the
-    # plain version
+    # plain version; attn_impl (None = the model's "auto") picks DistilBERT's
+    # attention: "flash" the CUDA flash-attention kernel on CUDA tensors and
+    # its plain version on CPU tensors, "einsum" plain PyTorch
     compress_impl: str = "xla"
     orthogonalize_impl: str = "auto"
     attn_impl: Optional[str] = None
@@ -74,6 +77,8 @@ class ExperimentConfig:
                 f"orthogonalize_impl must be one of {ORTHOGONALIZE_IMPLS},"
                 f" got {self.orthogonalize_impl!r}"
             )
+        if self.attn_impl is not None and self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
         defaults = {f.name: f.default for f in fields(self)}
         for name in _NOT_PORTED:
             if getattr(self, name) != defaults[name]:
@@ -81,7 +86,7 @@ class ExperimentConfig:
 
 
 _NOT_PORTED = (
-    "compute_dtype", "comm_chunks", "comm_strategy", "bucket_bytes", "attn_impl", "event_log",
+    "compute_dtype", "comm_chunks", "comm_strategy", "bucket_bytes", "event_log",
     "trace_dir", "audit_wire", "health_every", "chaos_plan", "adaptive_comm",
     "comm_fabric", "plan_path",
 )

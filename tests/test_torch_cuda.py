@@ -1,7 +1,8 @@
 """Tests of the PyTorch port that need a CUDA card: the CUDA Gram-Schmidt
-kernel and the fused PowerSGD kernels (``ops/powersgd.py``) against their
-plain versions, and the PowerSGD reducer launching them once per shape
-group.
+kernel, the fused PowerSGD kernels (``ops/powersgd.py``) and the flash
+attention kernel (``ops/flash_attention.py``) against their plain versions,
+the PowerSGD reducer launching its kernels once per shape group, and
+DistilBERT launching flash attention once per layer.
 
 This file imports torch and the port, never jax, so it also runs on a
 machine that has the card and no JAX (``--noconftest`` skips the JAX
@@ -16,13 +17,18 @@ the kernel sums each column's squares and projections in another order than
 the plain version, and later columns inherit the earlier columns' rounding.
 The fused kernels' products (P, Q, out, mem) are held to
 ``1e-5 * max(1, max|plain|)``: sums of up to n or m terms in another order;
-M = G + E is one rounded add, so it must be bitwise equal.
+M = G + E is one rounded add, so it must be bitwise equal. Flash attention:
+out within ``1e-5 * max(1, max|plain|)`` and lse within 1e-5 relative (fp32
+sums over the keys in another order, the kernel in 64-key tiles); a fully
+masked row exactly 0 with lse 1e30.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from network_distributed_pytorch_tpu_torch.models.distilbert import distilbert_tiny
+from network_distributed_pytorch_tpu_torch.ops import flash_attention as fa
 from network_distributed_pytorch_tpu_torch.ops import gram_schmidt as gs
 from network_distributed_pytorch_tpu_torch.ops import powersgd as ps
 from network_distributed_pytorch_tpu_torch.ops.orthogonalize import orthogonalize
@@ -180,3 +186,55 @@ def test_fused_reducer_launches_each_kernel_per_shape_group(cuda_device):
     for want, got in zip(results["xla"][0] + results["xla"][1], results["pallas"][0] + results["pallas"][1]):
         _close_scaled(got, want)
     _close_scaled(results["pallas"][3], results["xla"][3])
+
+
+def _attention_inputs(bh, t, d, h, dev, seed=50):
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.randn(bh, t, d).astype(np.float32)).to(dev) for _ in range(3))
+    mask = np.zeros((bh // h, t), np.float32)
+    mask[0, :] = np.finfo(np.float32).min  # a fully masked row
+    if bh // h > 1:
+        mask[1, t // 3 :] = -1e30  # a padded tail
+    return q, k, v, torch.from_numpy(mask).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,t,h,d,causal", [(4, 256, 12, 64, False), (2, 128, 4, 64, True), (3, 100, 2, 40, False), (2, 64, 2, 128, True)]
+)
+def test_flash_attention_kernel_matches_plain(cuda_device, b, t, h, d, causal):
+    q, k, v, mask = _attention_inputs(b * h, t, d, h, cuda_device)
+    launches = fa.KERNEL.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, 128, 128, d**-0.5)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == launches + 1
+    block = t if t % 64 else 64
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, mask, causal, block, block, d**-0.5)
+    _close_scaled(out, want_out)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    assert torch.all(out[:h] == 0.0) and torch.all(lse[:h] == 1e30)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_non_fp32(cuda_device):
+    x = torch.zeros((1, 16, 2, 8), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(TypeError):
+        fa.flash_attention(x, x, x)
+
+
+@pytest.mark.cuda
+def test_distilbert_forward_launches_flash_attention_per_layer(cuda_device):
+    """One forward of the tiny DistilBERT on the card launches K5 once per
+    layer and gives what its einsum attention gives."""
+    ids = torch.from_numpy(np.random.RandomState(51).randint(3, 1024, (2, 64))).to(cuda_device)
+    amask = torch.ones_like(ids)
+    amask[1, 20:] = 0
+    logits = {}
+    for impl in ("einsum", "auto"):
+        model = distilbert_tiny(device=cuda_device, seed=3, attn_impl=impl)
+        launches = fa.KERNEL.launches
+        with torch.no_grad():
+            logits[impl] = model(ids, amask)
+        torch.cuda.synchronize()
+        assert fa.KERNEL.launches - launches == (0 if impl == "einsum" else model.config.n_layers)
+    torch.testing.assert_close(logits["auto"], logits["einsum"], rtol=1e-5, atol=1e-5)
