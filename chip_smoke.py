@@ -13,14 +13,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the Gram-Schmidt kernel (K1) at every (g, n, r) shape group of the
    ResNet path (ResNet-152, rank 4) and of the DistilBERT path
    (``distilbert_base``, rank 16, n = 30522 for the word table), a ragged
-   n = 100 and r in {1, 8, 32} at n = 4608; the fused PowerSGD kernels
+   n = 100, r in {1, 8, 32} at n = 4608, (1, 30522, 32) (the streaming
+   route), (1, 30523, 16), (1, 17, 16) and (25, 768, 16), with the route
+   and cluster size of each and the device time of each DistilBERT group;
+   the fused PowerSGD kernels
    (K2a, K2b, K3, K4) at every (g, n, m, r) shape group, a ragged
    (3, 100, 37, 8), a clipped (1, 2, 3, 2) and r in {1, 8, 32} at n = 4608,
    m = 512 (r = 32 takes K3's two-launch route); flash attention (K5) at
    DistilBERT's full width (B 16, T 256, H 12, D 64) with the synthetic-IMDb
    padding, without a mask, causal, with fully masked rows (-1e30 and
-   finfo(f32).min), at D = 128, and against the plain version's
-   block_q != block_k;
+   finfo(f32).min), at D = 128, against the plain version's
+   block_q != block_k, with left padding (real keys only in the last tile),
+   one real key inside a padded tile and at T = 100; NaN in K and V of
+   every all-padding tile must leave out and lse bitwise unchanged (those
+   tiles are skipped, not read); one step's launches timed with the IMDb
+   mask and without one, each beside SDPA on the same inputs;
 3. the main paths through a one-rank NCCL group, 2 warm-up and 5 timed
    steps, then 3 steps under ``torch.profiler``, each with the launch
    counts set to 0 just before it and read just after:
@@ -36,9 +43,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (K5) against ``attn_impl="einsum"`` on the card; and the tiny DistilBERT
    on the card against the CPU;
 5. one ``{"kernels": [...]}`` line: each kernel's launches on its paths, its
-   time for one main-path step, the plain version's, one PyTorch call's
-   where one computes the same function, and the least time the card could
-   take; before it, the xla path's library calls for the same work.
+   time for one main-path step (CUDA events, ``ms``, and the profiler's
+   device time, ``device_ms``), the plain version's, one PyTorch call's
+   where one computes the same function (events and device time) and the
+   least time the card could take; before it, the xla path's library calls
+   for the same work.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the port beside this script, it prints no result and exits 1.
@@ -52,9 +61,13 @@ import subprocess
 import sys
 import time
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor-core) FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor-core) FLOP/s
+# and dense TF32 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+# K5 computes each fp32 product as three TF32 tensor-core products (3xTF32)
+FP32_AS_3XTF32_FLOPS = TF32_FLOPS / 3
 
 GS_TOL = 1e-5  # fp32 sums in another order; entries of P-hat are at most 1
 # the fused kernels: P-hat as GS_TOL; P, Q, out and mem are sums of up to n
@@ -117,15 +130,17 @@ def cuda_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, part, reps=3):
-    """Device time of the kernels whose name holds ``part`` in one call of
-    ``fn()``, by ``torch.profiler`` over ``reps`` calls after a warm-up;
-    None where the profiler saw no device activity."""
+def device_ms(fn, part=None, reps=10):
+    """Device time of the kernels whose name holds ``part`` (every kernel
+    where ``part`` is None) in one call of ``fn()``, by ``torch.profiler``
+    over ``reps`` calls after three warm-up calls; None where the profiler
+    saw no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for _ in range(3):
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -133,15 +148,15 @@ def device_ms(fn, part, reps=3):
         torch.cuda.synchronize()
     us = sum(
         e.self_device_time_total for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and part in e.key
+        if e.device_type == DeviceType.CUDA and (part is None or part in e.key)
     )
     return us / 1e3 / reps if us > 0 else None
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, flops=FP32_FLOPS):
     """The least time for ``nbytes`` of device memory traffic and ``ops``
-    fp32 operations: the larger of the two over the card's peaks."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    fp32 operations at ``flops`` per second: the larger of the two."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -175,20 +190,50 @@ def fused_bounds(shapes):
     return {name: (bound(*w), w[0]) for name, w in work.items()}
 
 
-def attention_bound(b, t, h, d, launches, keys=None):
+def attention_bound(b, t, h, d, launches, keys=None, flops=FP32_AS_3XTF32_FLOPS):
     """The least time of ``launches`` non-causal flash-attention forwards
-    over (B*H, T, D) fp32 heads: q, k, v and the (B, T) mask read once, out
-    and lse written once; 4 H T D operations (q.k and p.v) for each key that
-    the mask lets through, ``keys`` of them over the B rows (None: every
-    key). A padded key adds nothing to the function's result."""
+    over (B*H, T, D) fp32 heads, ``keys`` of whose B T keys the mask lets
+    through (None: every key). A padded key adds nothing to the function's
+    result, so only the real keys' rows of k and v are counted: bytes are q
+    and the (B, T) mask read once, k and v read once for each real key, out
+    and lse written once; operations are 4 H T D (q.k and p.v) for each real
+    key, at ``flops`` per second (K5 does its fp32 products as 3xTF32 on
+    the tensor cores)."""
     keys = b * t if keys is None else keys
-    nbytes = 4 * (4 * b * h * t * d + b * t + b * h * t)
-    return bound(launches * nbytes, launches * 4 * h * t * d * keys)
+    nbytes = 4 * (2 * b * h * t * d + 2 * h * d * keys + b * t + b * h * t)
+    return bound(launches * nbytes, launches * 4 * h * t * d * keys, flops)
+
+
+def attention_bounds(b, t, h, d, launches, keys=None):
+    """``attention_bound`` at 3xTF32 (the peak K5's products run at) and at
+    the fp32 SIMT peak, by name."""
+    (ms, by), (simt_ms, simt_by) = (
+        attention_bound(b, t, h, d, launches, keys, flops) for flops in (FP32_AS_3XTF32_FLOPS, FP32_FLOPS)
+    )
+    return {
+        "bound_ms": ms, "bound_by": by, "bound_ops_peak": "3xTF32 tensor cores, 495/3 TFLOP/s",
+        "bound_ms_fp32_simt": simt_ms, "bound_by_fp32_simt": simt_by,
+    }
+
+
+def attention_tiles(mask, t, h, q_rows=128, keys=64):
+    """The (head, block of ``q_rows`` q rows, tile of ``keys`` keys) triples
+    of one non-causal K5 launch over the (B, T) ``mask``: all of them, and
+    those it skips because no key of the tile is valid."""
+    import torch
+
+    n_tiles, n_blocks = -(-t // keys), -(-t // q_rows)
+    padded = torch.full((mask.shape[0], n_tiles * keys), -1e30, device=mask.device)
+    padded[:, :t] = mask
+    empty = (padded.view(mask.shape[0], n_tiles, keys) <= -1e29).all(-1)  # (B, tiles)
+    return h * n_blocks * mask.shape[0] * n_tiles, h * n_blocks * int(empty.sum())
 
 
 def check_flash_attention(fa, dev, gen, imdb_mask):
     """K5 against its plain version on the same inputs, case by case; fails
-    past ATTN_TOL or where a fully masked row is not exactly 0 / 1e30.
+    past ATTN_TOL or where a fully masked row is not exactly 0 / 1e30; then,
+    on the IMDb-padding case, fails unless NaN in K and V of every 64-key
+    tile that holds only padding leaves out and lse bitwise unchanged.
     ``imdb_mask`` is the (16, 256) additive mask of the first synthetic-IMDb
     batch. Returns the errors and the full-width inputs."""
     import torch
@@ -199,6 +244,16 @@ def check_flash_attention(fa, dev, gen, imdb_mask):
     rows_masked[0, :] = -1e30
     rows_masked[1, :] = f32_min
     rows_masked[2, 100:] = -1e30
+    # real keys only in the last tile: 1 to 64 of them at the end of each row
+    left = torch.full((IMDB_B, IMDB_T), f32_min)
+    # one real key in the middle of tile i % 4 of row i, the rest padding
+    lone = torch.full((IMDB_B, IMDB_T), f32_min)
+    for i in range(IMDB_B):
+        left[i, IMDB_T - 1 - (i * 13) % 64 :] = 0.0
+        lone[i, 64 * (i % 4) + 30] = 0.0
+    t100 = torch.zeros((IMDB_B, 100))
+    t100[:, 70:] = f32_min
+    t100[1::2, 20:] = f32_min
     cases = {  # (b, t, h, d), mask, causal, block_q, block_k of the plain version
         "imdb_padding": (full, imdb_mask, False, 128, 128),
         "no_mask": (full, torch.zeros((IMDB_B, IMDB_T)), False, 128, 128),
@@ -206,6 +261,9 @@ def check_flash_attention(fa, dev, gen, imdb_mask):
         "fully_masked_rows": ((4, IMDB_T, IMDB_H, IMDB_D), rows_masked, False, 128, 128),
         "d128": ((2, IMDB_T, 4, 128), imdb_mask[:2], True, 128, 128),
         "block_q64_block_k128": (full, imdb_mask, True, 64, 128),
+        "left_padding": (full, left, False, 128, 128),
+        "lone_middle_key": (full, lone, False, 128, 128),
+        "t100": ((IMDB_B, 100, IMDB_H, IMDB_D), t100, False, 100, 100),
     }
     report, kept = {}, None
     for name, ((b, t, h, d), mask, causal, bq, bk) in cases.items():
@@ -230,6 +288,19 @@ def check_flash_attention(fa, dev, gen, imdb_mask):
         }
         if name == "imdb_padding":
             kept = (q, k, v, mask)
+    # NaN in K and V of every all-padding tile of the IMDb case
+    q, k, v, mask = kept
+    empty = (mask.view(IMDB_B, IMDB_T // 64, 64) <= -1e29).all(-1).repeat_interleave(IMDB_H, 0)
+    poison = empty.repeat_interleave(64, 1)[..., None]  # (BH, T, 1)
+    clean = fa.flash_attention_fwd(q, k, v, mask, False, 128, 128, IMDB_D**-0.5)
+    dirty = fa.flash_attention_fwd(
+        q, *(torch.where(poison, float("nan"), x) for x in (k, v)), mask, False, 128, 128, IMDB_D**-0.5
+    )
+    torch.cuda.synchronize()
+    if not (torch.equal(clean[0], dirty[0]) and torch.equal(clean[1], dirty[1])):
+        fail("flash_attention: NaN in the all-padding tiles of K and V changed out or lse")
+    report["imdb_padding"]["nan_poisoned_tiles"] = int(empty.sum())
+    report["imdb_padding"]["nan_poisoned_bitwise_equal"] = True
     return report, kept
 
 
@@ -425,13 +496,17 @@ def main() -> None:
     imdb_group_shapes = reducer_groups(powersgd_imdb, imdb_cfg)
     main_shapes = [(g, n, r) for g, n, _, r in group_shapes]
     imdb_shapes = [(g, n, r) for g, n, _, r in imdb_group_shapes]
-    extra_shapes = [(3, 100, 4), (1, 4608, 1), (1, 4608, 8), (1, 4608, 32)]
+    extra_shapes = [
+        (3, 100, 4), (1, 4608, 1), (1, 4608, 8), (1, 4608, 32),
+        (1, 30522, 32), (1, 30523, 16), (1, 17, 16), (25, 768, 16),
+    ]
     gen = torch.Generator().manual_seed(0)
-    errs = {}
+    errs, routes = {}, {}
     inputs = {}
     for shape in main_shapes + imdb_shapes + extra_shapes:
         x = torch.randn(shape, generator=gen).to(dev)
         got = gs.gram_schmidt(x)
+        routes[str(shape)] = {"route": gs.KERNEL.last_route, "cluster": gs.KERNEL.last_cluster}
         want = orthogonalize(x)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
@@ -439,6 +514,11 @@ def main() -> None:
             fail(f"gram_schmidt {shape}: max |kernel - plain| = {err} > {GS_TOL}")
         errs[str(shape)] = err
         inputs[shape] = x
+    word_table, streamed = routes[str((1, 30522, 16))], routes[str((1, 30522, 32))]
+    if word_table["route"] != "on_chip" or word_table["cluster"] < 2:
+        fail(f"gram_schmidt (1, 30522, 16) took {word_table}, not P on chip over a cluster of CTAs")
+    if streamed["route"] != "streaming":
+        fail(f"gram_schmidt (1, 30522, 32) took {streamed}, not the streaming route")
     main_inputs = [inputs[s] for s in main_shapes]
     gs_ms = cuda_ms(lambda: [gs.gram_schmidt(x) for x in main_inputs])
     plain_ms = cuda_ms(lambda: [orthogonalize(x) for x in main_inputs], reps=10)
@@ -455,12 +535,15 @@ def main() -> None:
         "device_ms_per_step": device_ms(lambda: [gs.gram_schmidt(x) for x in imdb_inputs], "gram_schmidt_kernel"),
         "plain_ms_per_step": cuda_ms(lambda: [orthogonalize(x) for x in imdb_inputs], reps=5),
         "ms_per_group": {str(s): cuda_ms(lambda x=inputs[s]: gs.gram_schmidt(x)) for s in imdb_shapes},
+        "device_ms_per_group": {
+            str(s): device_ms(lambda x=inputs[s]: gs.gram_schmidt(x), "gram_schmidt_kernel") for s in imdb_shapes
+        },
     }
     gs_imdb["bound_ms"], gs_imdb["bound_by"] = gs_bound(imdb_shapes)
+    gs_device_ms = device_ms(lambda: [gs.gram_schmidt(x) for x in main_inputs], "gram_schmidt_kernel")
     emit({
-        "phase": "gram_schmidt", "tolerance": GS_TOL, "max_abs_err": errs,
-        "main_path_groups": len(main_shapes), "ms_per_step": gs_ms,
-        "device_ms_per_step": device_ms(lambda: [gs.gram_schmidt(x) for x in main_inputs], "gram_schmidt_kernel"),
+        "phase": "gram_schmidt", "tolerance": GS_TOL, "max_abs_err": errs, "route_and_cluster": routes,
+        "main_path_groups": len(main_shapes), "ms_per_step": gs_ms, "device_ms_per_step": gs_device_ms,
         "plain_ms_per_step": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "ms_per_group": per_group_ms, "imdb_path": gs_imdb,
     })
@@ -475,36 +558,45 @@ def main() -> None:
     attn_report, (aq, ak, av, amask) = check_flash_attention(fa, dev, gen, imdb_mask)
     scale = IMDB_D**-0.5
     sdpa_q, sdpa_k, sdpa_v = (x.view(IMDB_B, IMDB_H, IMDB_T, IMDB_D) for x in (aq, ak, av))
-    sdpa_mask = amask[:, None, None, :]
-    per_step = {  # IMDB_LAYERS launches: one DistilBERT step's forwards
-        "kernel": lambda: [fa.flash_attention_fwd(aq, ak, av, amask, False, 128, 128, scale) for _ in range(IMDB_LAYERS)],
-        "plain": lambda: [fa.flash_attention_reference(aq, ak, av, amask, False, 128, 128, scale) for _ in range(IMDB_LAYERS)],
-        "library": lambda: [
+    launches_before = fa.KERNEL.launches
+
+    def attention_row(mask):
+        """One DistilBERT step's IMDB_LAYERS forwards over ``mask``: the
+        kernel, its plain version and SDPA given the same additive mask."""
+        sdpa_mask = mask[:, None, None, :]
+        kernel = lambda: [fa.flash_attention_fwd(aq, ak, av, mask, False, 128, 128, scale) for _ in range(IMDB_LAYERS)]
+        library = lambda: [
             torch.nn.functional.scaled_dot_product_attention(sdpa_q, sdpa_k, sdpa_v, attn_mask=sdpa_mask)
             for _ in range(IMDB_LAYERS)
-        ],
-    }
-    launches_before = fa.KERNEL.launches
-    attn_ms = cuda_ms(per_step["kernel"], reps=20)
-    attn_row = {
-        "max_abs_err": max(r["max_abs_err"] for r in attn_report.values()),
-        "ms": attn_ms, "device_ms": device_ms(per_step["kernel"], "flash_fwd_kernel"),
-        "plain_ms": cuda_ms(per_step["plain"], reps=5), "library_ms": cuda_ms(per_step["library"], reps=20),
-    }
-    # the timed mask's real keys: the work the function needs on this data
-    valid_keys = int((amask > -1e29).sum())
-    attn_row["bound_ms"], attn_row["bound_by"] = attention_bound(
-        IMDB_B, IMDB_T, IMDB_H, IMDB_D, IMDB_LAYERS, keys=valid_keys
-    )
-    attn_row["bound_ms_all_keys"], _ = attention_bound(IMDB_B, IMDB_T, IMDB_H, IMDB_D, IMDB_LAYERS)
+        ]
+        walked, skipped = attention_tiles(mask, IMDB_T, IMDB_H)
+        # the mask's real keys: the work the function needs on this data
+        valid_keys = int((mask > -1e29).sum())
+        return {
+            "ms": cuda_ms(kernel, reps=20),
+            "device_ms": device_ms(kernel, "flash_fwd_kernel"),
+            "plain_ms": cuda_ms(
+                lambda: [fa.flash_attention_reference(aq, ak, av, mask, False, 128, 128, scale) for _ in range(IMDB_LAYERS)],
+                reps=5,
+            ),
+            "library_ms": cuda_ms(library, reps=20),
+            "library_device_ms": device_ms(library),
+            **attention_bounds(IMDB_B, IMDB_T, IMDB_H, IMDB_D, IMDB_LAYERS, keys=valid_keys),
+            "bound_ms_all_keys": attention_bound(IMDB_B, IMDB_T, IMDB_H, IMDB_D, IMDB_LAYERS)[0],
+            "mean_valid_keys_per_row": valid_keys / IMDB_B,
+            "tiles_walked_per_launch": walked - skipped, "tiles_skipped_per_launch": skipped,
+        }
+
+    attn_row = attention_row(amask)
+    attn_row["max_abs_err"] = max(r["max_abs_err"] for r in attn_report.values())
+    no_mask_row = attention_row(torch.zeros_like(amask))
     emit({
         "phase": "flash_attention", "tolerance": ATTN_TOL, "cases": attn_report,
-        "launches_per_step": IMDB_LAYERS, "per_step": attn_row,
-        "us_per_launch": attn_ms * 1e3 / IMDB_LAYERS,
+        "launches_per_step": IMDB_LAYERS, "per_step": attn_row, "per_step_no_mask": no_mask_row,
+        "us_per_launch": attn_row["ms"] * 1e3 / IMDB_LAYERS,
         "timing_launches": fa.KERNEL.launches - launches_before,
-        "mean_valid_keys_per_row": valid_keys / IMDB_B,
     })
-    del aq, ak, av, amask, sdpa_q, sdpa_k, sdpa_v, sdpa_mask
+    del aq, ak, av, amask, sdpa_q, sdpa_k, sdpa_v
 
     # the fused kernels, at every main-path shape group and a few others
     extra_groups = [(3, 100, 37, 8), (1, 2, 3, 2), (1, 4608, 512, 1), (1, 4608, 512, 8), (1, 4608, 512, 32)]
@@ -554,9 +646,12 @@ def main() -> None:
         fused_rows[name] = {
             "max_abs_err": max(max(report[str(s)][name].values()) for s in group_shapes),
             "ms": step_ms(kernel, 20), "plain_ms": step_ms(plain, 5),
-            "device_ms": device_ms(lambda: [kernel(x) for x in main_x], device_fn[name]),
+            "device_ms": device_ms(lambda: [kernel(x) for x in main_x], device_fn[name], reps=3),
             "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
             "library_ms": step_ms(library, 20) if library is not None else None,
+            "library_device_ms": (
+                device_ms(lambda: [library(x) for x in main_x]) if library is not None else None
+            ),
         }
     xla_ms = {name: step_ms(xla, 20) for name, (_, _, _, xla) in timed.items()}
     emit({
@@ -577,6 +672,7 @@ def main() -> None:
     images, labels, _ = load_cifar10_or_synthetic(train=True)
     results = {}
     launches = {}
+    profiles = {}
 
     def drive(name, run, want):
         """``run()`` with every launch count set to 0 just before it and
@@ -608,9 +704,10 @@ def main() -> None:
         record = main_path_record("main_path" if impl == "xla" else "main_path_fused", result, cfg, peak)
         record["launches"] = launches[impl]
         emit(record)
-        emit(profile_main_path(dev, powersgd_cifar10, cfg, [images, labels], {
+        profiles[impl] = profile_main_path(dev, powersgd_cifar10, cfg, [images, labels], {
             k: device_fns[k] for k in ("gram_schmidt", "ef_compress", "orthogonalize_project", "decompress_residual")
-        }))
+        })
+        emit(profiles[impl])
     if results["pallas"]["bits_per_step"] != results["xla"]["bits_per_step"]:
         fail(f"bits per step: fused {results['pallas']['bits_per_step']} != xla {results['xla']['bits_per_step']}")
 
@@ -641,9 +738,10 @@ def main() -> None:
     })
     imdb_cfg = powersgd_imdb.default_config()
     imdb_cfg.global_batch_size = IMDB_B
-    emit(profile_main_path(dev, powersgd_imdb, imdb_cfg, imdb_arrays, {
+    profiles["imdb"] = profile_main_path(dev, powersgd_imdb, imdb_cfg, imdb_arrays, {
         k: device_fns[k] for k in ("gram_schmidt", "flash_attention")
-    }))
+    })
+    emit(profiles["imdb"])
 
     # ---- 4. two steps against two steps ---------------------------------------
     # with deterministic cuDNN and no TF32, so that only what is compared differs
@@ -798,29 +896,37 @@ def main() -> None:
         "launches_by_path": {"resnet152_xla": launches["xla"]["gram_schmidt"], "distilbert_imdb": launches["imdb"]["gram_schmidt"]},
         "max_abs_err": main_err,
         "ms": gs_ms,
+        "device_ms": gs_device_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes this sequential Gram-Schmidt
-        # ms, plain_ms and bound_ms above are one ResNet step's; one DistilBERT step's:
-        "distilbert_imdb": {k: gs_imdb[k] for k in ("ms_per_step", "plain_ms_per_step", "bound_ms", "bound_by")},
+        "library_device_ms": None,
+        "device_ms_in_path_profile": profiles["xla"]["kernels"]["gram_schmidt"]["device_ms_per_step"],
+        # ms, device_ms, plain_ms and bound_ms above are one ResNet step's; one DistilBERT step's:
+        "distilbert_imdb": {
+            **{k: gs_imdb[k] for k in ("ms_per_step", "device_ms_per_step", "plain_ms_per_step", "bound_ms", "bound_by")},
+            "device_ms_in_path_profile": profiles["imdb"]["kernels"]["gram_schmidt"]["device_ms_per_step"],
+            "device_ms_per_group": gs_imdb["device_ms_per_group"],
+        },
+        "route_and_cluster": routes,
     }]
     for name, row in fused_rows.items():
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces[name],
             "launches": launches["pallas"][name], "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"], "library_device_ms": row["library_device_ms"],
         })
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "network_distributed_pytorch_tpu_torch/csrc/flash_attention.cu",
         "replaces": "network_distributed_pytorch_tpu/ops/flash_attention.py:76",
         "launches": launches["imdb"]["flash_attention"], "max_abs_err": attn_row["max_abs_err"],
-        "ms": attn_row["ms"], "plain_ms": attn_row["plain_ms"], "bound_ms": attn_row["bound_ms"],
-        "bound_by": attn_row["bound_by"], "library_ms": attn_row["library_ms"],  # SDPA, same additive mask
-        # bound_ms counts the timed mask's real keys; this, every key
-        "bound_ms_all_keys": attn_row["bound_ms_all_keys"],
+        # one step's launches on the first IMDb batch's mask; SDPA given the same additive mask
+        **{k: v for k, v in attn_row.items() if k != "max_abs_err"},
+        "device_ms_in_path_profile": profiles["imdb"]["kernels"]["flash_attention"]["device_ms_per_step"],
+        "no_mask": no_mask_row,
     })
     emit({"kernels": kernels})
     # the card's name and power limit, exactly as nvidia-smi gives them

@@ -17,65 +17,145 @@
 //   out = acc / max(l, 1e-37);  lse = l > 0 ? m + log(l) : 1e30
 // A fully masked row keeps l = 0 and acc = 0, so its out is exactly 0.
 //
-// Design (simple and right first):
-//   * one block of 256 threads per (head, tile of 64 q rows); a loop over
-//     tiles of 64 keys, each staged in shared memory (Q, K, V, the mask
-//     tile and its validity flags, the 64 x 64 scores);
-//   * a 16 x 16 thread grid: thread (rg, cg) computes the scores of q rows
-//     4 rg .. 4 rg + 3 against keys cg + 16 j, and owns the output columns
-//     cg + 16 j of the same rows, in registers; four threads per row run the
-//     online max / normaliser update;
-//   * fp32 FMA only, no tensor cores (TF32 would miss the 1e-5 the plain
-//     version is held to); causal mode ends the key loop at the diagonal;
-//   * any T (the ragged last tile is masked), D up to 128.
+// Design:
+//   * one block of 8 warps per (head, tile of 128 q rows); each warp owns 16
+//     q rows. Q sits in shared memory (scaled as its fragments are read);
+//     tiles of 64 keys of K, V and the mask arrive by cp.async into a
+//     double-buffered ring, the next tile's copy in flight while the current
+//     one is used, so no thread ever waits on a load of its own;
+//   * key tiles in which no key is valid are skipped: before a tile is
+//     fetched, each warp reads its 64 mask values and votes (__any_sync),
+//     and a tile with no valid key is neither loaded nor multiplied. This is
+//     exact: such a tile leaves m' = m, c = 1, l += 0 and acc *= 1, so out
+//     and lse are bitwise what walking it would give. A tile with one real
+//     key anywhere is walked. In causal mode the walk ends at the diagonal;
+//   * both products run on the tensor cores with mma.sync m16n8k8 TF32 and
+//     the 3xTF32 split: each fp32 operand x becomes hi = tf32(x) and
+//     lo = tf32(x - hi), and a.b = lo_a.hi_b + hi_a.lo_b + hi_a.hi_b,
+//     accumulated in fp32. That keeps about 22 bits of each product, so the
+//     kernel stays within the 1e-5 its plain version holds it to, where one
+//     TF32 pass (11 bits) would not. A warp issues its products kGroup
+//     output tiles at a time, pass by pass, so that an mma never waits on
+//     the one just before it (the three passes into one tile are a chain);
+//   * S = Q.K^T lands in the accumulator fragments and stays in registers:
+//     the mask, the validity flag, the row max and sum (quad shuffles) and
+//     exp run there, and the fragments are P's A operand for P.V as they
+//     are, with V's B operand read in the matching key order. The
+//     normaliser l is kept per thread and summed over the quad at the end;
+//   * shared rows are padded to D + 4 floats, so every fragment load is free
+//     of bank conflicts; any T (the ragged last tile is zero-filled and
+//     flagged invalid), D up to 128 (padded to 64 or 128 with zeros).
 //
-// What bounds it on an H100: operations. At DistilBERT's width (BH = 192,
-// T = 256, D = 64) one launch does 4 BH T^2 D = 3.2 GFLOP against ~50 MB of
-// traffic: 0.048 ms at 67 TFLOP/s fp32 against 0.015 ms at 3.35 TB/s. This
-// version feeds each FMA from shared memory (about one load per two FMAs),
-// so shared-memory bandwidth, not the FMA units, sets its speed; register
-// tiles fed by wgmma, and skipping key tiles that are all padding, are
-// later work (PERF.md has the measured times).
+// What bounds it on an H100: at DistilBERT's width (BH = 192, T = 256,
+// D = 64) one launch moves 50 MB (q, k, v, out; 15 us at 3.35 TB/s) and does
+// 4 BH T^2 D = 3.2 GFLOP over every key, three tensor-core passes of it at
+// 495 TFLOP/s TF32: 20 us. With the synthetic-IMDb padding most key tiles
+// are skipped, so bytes bound it; without a mask the three passes do. The
+// fp32 split (two cvt and a subtract per operand element, repeated by each
+// warp for K and V) and mma.sync, not wgmma, keep it above those bounds.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;        // q rows per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16
+constexpr int kBQ = 128;      // q rows per block
+constexpr int kBK = 64;       // keys per tile
+constexpr int kWarps = 8;     // 16 q rows each
+constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxD = 128;
+constexpr int kGroup = 4;    // independent mma chains interleaved
 constexpr float kNegInf = -1e30f;   // running-max start (finite: m - m' stays finite)
 constexpr float kMaskPad = -1e29f;  // mask values at or below this are padding
 constexpr float kLseEmpty = 1e30f;  // lse of a fully masked row
 
-size_t smem_bytes(int d) {
-  const int ds = d + 1;
-  return sizeof(float) * (static_cast<size_t>(kBQ) * ds + kBK * ds + kBK * d +
-                          kBQ * (kBK + 1) + 2 * kBK + 3 * kBQ);
+// row stride of the shared Q, K and V tiles: D padded to DP, plus 4
+__host__ __device__ constexpr int row_stride(int dp) { return dp + 4; }
+
+size_t smem_bytes(int dp) {
+  return sizeof(float) * (static_cast<size_t>(row_stride(dp)) * (kBQ + 4 * kBK) + 2 * kBK);
 }
 
-// DJ: output columns per thread, D <= 16 * DJ
-template <int DJ>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// x = hi + lo, both TF32 (the low 13 bits of each are 0)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d[n] += a.b[n] for kG independent products in 3xTF32, the two small terms
+// first; pass by pass over the group, so that no mma waits on the one before
+template <int kG>
+__device__ __forceinline__ void mma_3xtf32(float (*d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[kG][2], const uint32_t (&bl)[kG][2]) {
+#pragma unroll
+  for (int n = 0; n < kG; ++n) mma_tf32(d[n], al, bh[n]);
+#pragma unroll
+  for (int n = 0; n < kG; ++n) mma_tf32(d[n], ah, bl[n]);
+#pragma unroll
+  for (int n = 0; n < kG; ++n) mma_tf32(d[n], ah, bh[n]);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The first key tile at or after `from` (before `end`) that holds a valid
+// key; `end` if none. Every warp scans for itself and finds the same tile.
+__device__ __forceinline__ int next_tile(const float* mrow, int from, int end, int T) {
+  const int lane = threadIdx.x & 31;
+  for (int tile = from; tile < end; ++tile) {
+    const int a = tile * kBK + lane, b = a + 32;
+    const bool valid = (a < T && __ldg(mrow + a) > kMaskPad) || (b < T && __ldg(mrow + b) > kMaskPad);
+    if (__any_sync(0xffffffffu, valid)) return tile;
+  }
+  return end;
+}
+
+// DT: D padded to DP = 8 DT columns (8: D <= 64, 16: D <= 128). At D <= 64
+// two blocks share an SM (registers held to 128 a thread, 2 x 103 KB of
+// shared memory), so one block's products overlap the other's waits.
+template <int DT>
+__global__ void __launch_bounds__(kThreads, DT == 8 ? 2 : 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ mask,
                  float* __restrict__ out, float* __restrict__ lse, int T, int D,
                  int H, int causal, float scale) {
-  extern __shared__ float smem[];
-  const int ds = D + 1;                 // padded row stride of the Q and K tiles
-  float* qs = smem;                     // kBQ x ds, pre-scaled
-  float* ks = qs + kBQ * ds;            // kBK x ds
-  float* vs = ks + kBK * ds;            // kBK x D
-  float* ss = vs + kBK * D;             // kBQ x (kBK + 1): scores, then p
-  float* mk = ss + kBQ * (kBK + 1);     // kBK mask values
-  float* ok = mk + kBK;                 // kBK: 1 where the key is not padding
-  float* m_s = ok + kBK;                // kBQ running max
-  float* l_s = m_s + kBQ;               // kBQ running normaliser
-  float* c_s = l_s + kBQ;               // kBQ correction of the current tile
+  constexpr int DP = 8 * DT;
+  constexpr int LD = row_stride(DP);
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;              // kBQ x LD
+  float* kv = qs + kBQ * LD;     // two stages of (K tile, V tile), kBK x LD each
+  float* mk = kv + 4 * kBK * LD; // two stages of the tile's kBK mask values
 
-  const int tid = threadIdx.x;
-  const int rg = tid >> 4, cg = tid & 15;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * kBQ;
   const size_t head = static_cast<size_t>(bh) * T * D;
@@ -84,161 +164,209 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vh = v + head;
   const float* mrow = mask + static_cast<size_t>(bh / H) * T;
 
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx - r * D;
-    const int t = q0 + r;
-    qs[r * ds + c] = t < T ? qh[static_cast<size_t>(t) * D + c] * scale : 0.f;
-  }
-  if (tid < kBQ) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
+  // the copies fill columns [0, D) only: zero the padding of Q and of both
+  // stages of K and V
+  for (int idx = tid; idx < (kBQ + 4 * kBK) * (DP - D); idx += kThreads) {
+    const int r = idx / (DP - D), c = D + idx - r * (DP - D);
+    qs[r * LD + c] = 0.f;
   }
 
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  int n_tiles = (T + kBK - 1) / kBK;
-  if (causal) n_tiles = min(n_tiles, (q0 + kBQ + kBK - 1) / kBK);
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
+  // rows [row0, row0 + n) of a (T, D) head into a tile of stride LD; rows
+  // past T are zero-filled
+  const bool vec4 = (D & 3) == 0;
+  auto load_rows = [&](float* dst, const float* head_src, int row0, int n) {
+    if (vec4) {
+      const int chunks = D >> 2;  // 16-byte pieces per row
+      for (int idx = tid; idx < n * chunks; idx += kThreads) {
+        const int r = idx / chunks, c = (idx - r * chunks) << 2;
+        const bool in = row0 + r < T;
+        cp_async16(dst + r * LD + c, head_src + (in ? static_cast<size_t>(row0 + r) * D + c : 0), in);
+      }
+    } else {
+      for (int idx = tid; idx < n * D; idx += kThreads) {
+        const int r = idx / D, c = idx - r * D;
+        const bool in = row0 + r < T;
+        cp_async4(dst + r * LD + c, head_src + (in ? static_cast<size_t>(row0 + r) * D + c : 0), in);
+      }
+    }
+  };
+  auto load_tile = [&](int tile, int stage) {
+    float* ks = kv + stage * 2 * kBK * LD;
     const int k0 = tile * kBK;
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int r = idx / D, c = idx - r * D;
-      const int t = k0 + r;
-      const bool in = t < T;
-      ks[r * ds + c] = in ? kh[static_cast<size_t>(t) * D + c] : 0.f;
-      vs[r * D + c] = in ? vh[static_cast<size_t>(t) * D + c] : 0.f;
-    }
+    load_rows(ks, kh, k0, kBK);
+    load_rows(ks + kBK * LD, vh, k0, kBK);
     if (tid < kBK) {
-      const int t = k0 + tid;
-      const float mv = t < T ? mrow[t] : kNegInf;
-      mk[tid] = mv;
-      ok[tid] = (t < T && mv > kMaskPad) ? 1.f : 0.f;
+      const bool in = k0 + tid < T;
+      cp_async4(mk + stage * kBK + tid, mrow + (in ? k0 + tid : 0), in);
     }
-    __syncthreads();
+  };
 
-    // s = (q * scale) . k + mask, causal-masked to -1e30 as the JAX kernel does
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(rg * 4 + i) * ds + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ks[(cg + 16 * j) * ds + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rg * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = cg + 16 * j;
-        float x = s[i][j] + mk[c];
-        if (causal && q0 + r < k0 + c) x = kNegInf;
-        ss[r * (kBK + 1) + c] = x;
-      }
-    }
-    __syncthreads();
+  int end = (T + kBK - 1) / kBK;
+  if (causal) end = min(end, (q0 + kBQ + kBK - 1) / kBK);
+  int tile = next_tile(mrow, 0, end, T);
+  load_rows(qs, qh, q0, kBQ);  // Q travels with the first tile
+  if (tile < end) load_tile(tile, 0);
+  cp_async_commit();
 
-    // online softmax: four threads per row, 16 keys each
-    {
-      const int r = tid >> 2, part = tid & 3;
-      const int qpos = q0 + r;
-      float* srow = ss + r * (kBK + 1) + part * 16;
-      float mx = kNegInf;
+  // this thread's q rows (local): ra for fragment entries 0, 1; rb for 2, 3
+  const int ra = warp * 16 + g, rb = ra + 8;
+  const int qa = q0 + ra, qb = q0 + rb;
+  float m_run[2] = {kNegInf, kNegInf};
+  float l_run[2] = {0.f, 0.f};  // this thread's share; the quad's sum is l
+  float o[DT][4];
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const int col = part * 16 + c;
-        const bool valid = ok[col] != 0.f && (!causal || qpos >= k0 + col);
-        if (valid) mx = fmaxf(mx, srow[c]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
+  for (int n = 0; n < DT; ++n)
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const int col = part * 16 + c;
-        const bool valid = ok[col] != 0.f && (!causal || qpos >= k0 + col);
-        const float p = valid ? expf(srow[c] - m_new) : 0.f;
-        srow[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      __syncwarp();  // every lane of the row has read m_s[r]
-      if (part == 0) {
-        const float corr = expf(m_old - m_new);
-        c_s[r] = corr;
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
-    // acc = acc * c + p . v
-    float corr[4];
+  int stage = 0;
+  while (tile < end) {
+    const int next = next_tile(mrow, tile + 1, end, T);
+    if (next < end) load_tile(next, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies have landed
+    __syncthreads();     // ... every thread's, and Q
+
+    const float* ks = kv + stage * 2 * kBK * LD;
+    const float* vs = ks + kBK * LD;
+    const float* ms = mk + stage * kBK;
+    const int k0 = tile * kBK;
+
+    // S = (q * scale) . k over 8 groups of 8 keys: s[j] holds keys 8 j + 2 t
+    // and 8 j + 2 t + 1 of rows ra (entries 0, 1) and rb (2, 3)
+    float s[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) corr[i] = c_s[rg * 4 + i];
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr[i];
-    for (int kk = 0; kk < kBK; ++kk) {
-      float p[4];
+    for (int kk = 0; kk < DT; ++kk) {
+      if (8 * kk >= D) break;
+      uint32_t ah[4], al[4];
+      split(qs[ra * LD + 8 * kk + t] * scale, ah[0], al[0]);
+      split(qs[rb * LD + 8 * kk + t] * scale, ah[1], al[1]);
+      split(qs[ra * LD + 8 * kk + t + 4] * scale, ah[2], al[2]);
+      split(qs[rb * LD + 8 * kk + t + 4] * scale, ah[3], al[3]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ss[(rg * 4 + i) * (kBK + 1) + kk];
+      for (int j0 = 0; j0 < 8; j0 += kGroup) {
+        uint32_t bh[kGroup][2], bl[kGroup][2];
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int c = cg + 16 * j;
-        const float vv = c < D ? vs[kk * D + c] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
+        for (int j = 0; j < kGroup; ++j) {
+          split(ks[(8 * (j0 + j) + g) * LD + 8 * kk + t], bh[j][0], bl[j][0]);
+          split(ks[(8 * (j0 + j) + g) * LD + 8 * kk + t + 4], bh[j][1], bl[j][1]);
+        }
+        mma_3xtf32(s + j0, ah, al, bh, bl);
       }
     }
-    __syncthreads();  // the next tile overwrites ks, vs, ss
+
+    // + mask, causal, validity, and the row max over valid keys
+    uint32_t valid_bits = 0;  // bit 4 j + e
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + 8 * j + 2 * t + c;
+        const float mv = ms[8 * j + 2 * t + c];  // 0 past T, where ok is false
+        const bool ok = key < T && mv > kMaskPad;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 2 * h + c;
+          const bool keep = !causal || (h ? qb : qa) >= key;
+          const float x = keep ? s[j][e] + mv : kNegInf;
+          s[j][e] = x;
+          if (ok && keep) {
+            valid_bits |= 1u << (4 * j + e);
+            mx[h] = fmaxf(mx[h], x);
+          }
+        }
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_run[h], mx[h]);
+      corr[h] = expf(m_run[h] - m_new);
+      m_run[h] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = (valid_bits >> (4 * j + e)) & 1u ? expf(s[j][e] - m_run[e >> 1]) : 0.f;
+        s[j][e] = p;
+        sum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * corr[h] + sum[h];
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
+
+    // acc += P . V: s[kk] is P's A fragment for keys 8 kk .. 8 kk + 7 with
+    // its k index t standing for key 2 t and t + 4 for key 2 t + 1; V's B
+    // fragment is read in that order
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t ah[4], al[4];
+      split(s[kk][0], ah[0], al[0]);
+      split(s[kk][2], ah[1], al[1]);
+      split(s[kk][1], ah[2], al[2]);
+      split(s[kk][3], ah[3], al[3]);
+      const float* v0 = vs + (8 * kk + 2 * t) * LD + g;
+#pragma unroll
+      for (int n0 = 0; n0 < DT; n0 += kGroup) {
+        if (8 * n0 >= D) break;  // the columns past D are zero
+        uint32_t bh[kGroup][2], bl[kGroup][2];
+#pragma unroll
+        for (int n = 0; n < kGroup; ++n) {
+          split(v0[8 * (n0 + n)], bh[n][0], bl[n][0]);
+          split(v0[LD + 8 * (n0 + n)], bh[n][1], bl[n][1]);
+        }
+        mma_3xtf32(o + n0, ah, al, bh, bl);
+      }
+    }
+    __syncthreads();  // the next copy overwrites this stage
+    tile = next;
+    stage ^= 1;
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = rg * 4 + i;
-    const int t = q0 + r;
-    if (t >= T) continue;
-    const float l = l_s[r];
+  for (int h = 0; h < 2; ++h) {
+    float l = l_run[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int tq = h ? qb : qa;
+    if (tq >= T) continue;
     const float denom = fmaxf(l, 1e-37f);
-    float* orow = out + head + static_cast<size_t>(t) * D;
+    float* orow = out + head + static_cast<size_t>(tq) * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int c = cg + 16 * j;
-      if (c < D) orow[c] = acc[i][j] / denom;
+    for (int n = 0; n < DT; ++n) {
+      const int c = 8 * n + 2 * t;
+      if (c < D) orow[c] = o[n][2 * h] / denom;
+      if (c + 1 < D) orow[c + 1] = o[n][2 * h + 1] / denom;
     }
-    if (cg == 0)
-      lse[static_cast<size_t>(bh) * T + t] = l > 0.f ? m_s[r] + logf(denom) : kLseEmpty;
+    if (t == 0)
+      lse[static_cast<size_t>(bh) * T + tq] = l > 0.f ? m_run[h] + logf(denom) : kLseEmpty;
   }
 }
 
-template <int DJ>
+template <int DT>
 int launch(const float* q, const float* k, const float* v, const float* mask,
            float* out, float* lse, int bh, int T, int D, int H, int causal,
            float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
+  const size_t smem = smem_bytes(8 * DT);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bh, (T + kBQ - 1) / kBQ);
-  flash_fwd_kernel<DJ><<<grid, kThreads, smem, stream>>>(q, k, v, mask, out, lse,
+  flash_fwd_kernel<DT><<<grid, kThreads, smem, stream>>>(q, k, v, mask, out, lse,
                                                          T, D, H, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -258,6 +386,6 @@ extern "C" int flash_attention_fwd_f32(const float* q, const float* k,
   if (D < 1 || D > kMaxD || H < 1 || bh % H != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 64) return launch<4>(q, k, v, mask, out, lse, bh, T, D, H, causal, scale, s);
-  return launch<8>(q, k, v, mask, out, lse, bh, T, D, H, causal, scale, s);
+  if (D <= 64) return launch<8>(q, k, v, mask, out, lse, bh, T, D, H, causal, scale, s);
+  return launch<16>(q, k, v, mask, out, lse, bh, T, D, H, causal, scale, s);
 }

@@ -8,119 +8,363 @@
 //     col_j <- col_j - <col_i, col_j> col_i        for every LATER j > i
 // Columns before i are never touched again. This is not QR: QR differs in
 // column signs and rounding, and PowerSGD's P-hat depends on this order.
+// The projection is formed as <c_i, c_j> / norm from the column before its
+// normalisation, the same quantity as <c_i / norm, c_j> with other
+// rounding, so that one reduction per column yields the norm and every
+// projection at once.
 //
-// Design (simple and right first):
-//   * one thread block per matrix of the group (blockIdx.x = matrix);
-//   * every thread owns the rows k = tid, tid + blockDim.x, ... for the whole
-//     kernel, so a row is only ever read and written by one thread and the
-//     only cross-thread traffic is the block-wide reductions in shared memory;
-//   * per column: one block reduction for the norm, one for the projections
-//     onto up to kChunk later columns at a time (so any r works), then the
-//     row update;
-//   * the matrix is worked on in place in `out` (device memory). Nothing
-//     assumes n * r fits in shared memory: rank 32 at n = 4608 is fine.
+// Design for Hopper:
+//   * a matrix gets a thread-block cluster of C CTAs (grid (C, g), cluster
+//     (C, 1, 1)); CTA c owns a contiguous range of about n / C rows, and each
+//     thread owns the rows tid, tid + 256, ... of that range for the whole
+//     kernel, so no row is ever shared between threads;
+//   * per column, one pass over the rows applies the previous column's
+//     update (normalise it, subtract its projections) and sums the partial
+//     <c_i, c_j> for j >= i, up to RC columns per round (one round for
+//     r <= 32); a reduce-scatter over the warp's lanes (RC - 1 + log2(32 / RC)
+//     shuffles) and shared memory reduce them within the CTA, and each CTA
+//     reads every CTA's partials through distributed shared memory after one
+//     cluster barrier (a CTA barrier where C = 1), all loads in flight at
+//     once and summed in rank order, so that every CTA derives bitwise the
+//     same norm and projections;
+//   * route "on_chip": the CTA's rows live in shared memory, column-major
+//     (a column is contiguous, as in the Pallas kernel's transpose), brought
+//     in by cp.async; P is read from and written to device memory once. Route "streaming": where
+//     a share of n r floats does not fit a CTA even at C = 16 (r = 32 at
+//     n = 30522), the same kernel works in place in `out`, its rows coming
+//     from L2 on every pass;
+//   * C is the fewest CTAs (1, 2, 4, 8, 16) whose share fits 128 KB, else the
+//     fewest that fit at all, among the sizes that cudaOccupancyMaxActiveClusters
+//     says can be scheduled; the streaming route takes the most that can.
 //
-// What bounds it on an H100: bytes. The least traffic is one read and one
-// write of P, 2 * n * r * 4 bytes per matrix; at PowerSGD's shapes
-// (n <= 4608, r = 4) that is at most ~150 KB per matrix, which lives in L2,
-// so a launch costs about its launch latency. The r sequential columns and
-// the 2 * r block barriers per column are the critical path. Staging P in
-// shared memory, several blocks per matrix and wgmma are later work.
+// What bounds it on an H100: neither bytes nor operations. P is at most a
+// few MB (one read and one write: 2 n r 4 bytes, 3.9 us for the 1.95 MB word
+// table at 3.35 TB/s) and the arithmetic is about 2 n r^2 operations. The r
+// sequential columns are the critical path: each costs a pass over the
+// CTA's rows and one cluster barrier. Latency sets both: 8 warps a CTA hide
+// little of a row's chain of shared-memory loads, and the reductions and
+// barriers of a column are serial, so on an H100 a column takes about 1 us
+// plus 0.7 us per row a thread owns at r = 16 (PERF.md).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 8;  // later columns projected per reduction round
+constexpr int kMaxCluster = 16;
+constexpr size_t kOnChipTarget = 128 * 1024;  // bytes of P per CTA that C aims at
 
-__device__ __forceinline__ float warp_sum(float v) {
+enum Route { kOnChipRoute = 1, kStreamingRoute = 2 };
+
+// Sums each of v[0 .. N) over the warp's 32 lanes with N - 1 + log2(32 / N)
+// shuffles (a reduce-scatter, not N full reductions). On return v[0] holds
+// the sum of value (lane / (32 / N)); the lanes of one value agree bitwise.
+template <int N>
+__device__ __forceinline__ void warp_reduce_scatter(float (&v)[N]) {
+  const int lane = threadIdx.x & 31;
+  int width = N;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__global__ void __launch_bounds__(kThreads)
-gram_schmidt_kernel(const float* __restrict__ in, float* __restrict__ out,
-                    int n, int r, float eps) {
-  __shared__ float red[kChunk][kWarps];
-  __shared__ float bcast[kChunk];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const size_t base = static_cast<size_t>(blockIdx.x) * n * r;
-  const float* src = in + base;
-  float* x = out + base;
-
-  for (int k = tid; k < n; k += kThreads)
-    for (int j = 0; j < r; ++j) x[k * r + j] = src[k * r + j];
-
-  for (int i = 0; i < r; ++i) {
-    // norm of column i: sqrt(sum c^2) + eps (not rsqrt(sum + eps))
-    float s = 0.f;
-    for (int k = tid; k < n; k += kThreads) {
-      const float c = x[k * r + i];
-      s += c * c;
-    }
-    s = warp_sum(s);
-    if (lane == 0) red[0][warp] = s;
-    __syncthreads();
-    if (tid == 0) {
-      float t = 0.f;
-      for (int w = 0; w < kWarps; ++w) t += red[0][w];
-      bcast[0] = sqrtf(t) + eps;
-    }
-    __syncthreads();
-    const float norm = bcast[0];
-    __syncthreads();  // bcast is reused below
-
-    // normalise column i in place
-    for (int k = tid; k < n; k += kThreads) x[k * r + i] = x[k * r + i] / norm;
-
-    // remove its projection from the later columns, kChunk at a time
-    for (int j0 = i + 1; j0 < r; j0 += kChunk) {
-      const int cnt = min(kChunk, r - j0);
-      float acc[kChunk];
+  for (int off = 16; off > 0; off >>= 1) {
+    if (width > 1) {
+      const bool upper = lane & off;  // keeps the upper half, sends the lower
+      const int half = width / 2;
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) acc[c] = 0.f;
-      for (int k = tid; k < n; k += kThreads) {
-        const float ci = x[k * r + i];
-#pragma unroll
-        for (int c = 0; c < kChunk; ++c)
-          if (c < cnt) acc[c] += ci * x[k * r + j0 + c];
+      for (int c = 0; c < N / 2; ++c) {
+        if (c < half) {
+          const float send = upper ? v[c] : v[c + half];
+          const float keep = upper ? v[c + half] : v[c];
+          v[c] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+        }
       }
-#pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const float v = warp_sum(acc[c]);
-        if (lane == 0) red[c][warp] = v;
-      }
-      __syncthreads();
-      if (tid < cnt) {
-        float t = 0.f;
-        for (int w = 0; w < kWarps; ++w) t += red[tid][w];
-        bcast[tid] = t;
-      }
-      __syncthreads();
-      for (int k = tid; k < n; k += kThreads) {
-        const float ci = x[k * r + i];
-        for (int c = 0; c < cnt; ++c) x[k * r + j0 + c] -= bcast[c] * ci;
-      }
-      __syncthreads();  // red and bcast are reused by the next round
+      width = half;
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
     }
   }
+}
+
+// RC: columns whose partial sums a thread carries per round (r <= RC is one
+// round per column). kOnChip: the CTA's rows in shared memory, else in `out`.
+template <int RC, bool kOnChip>
+__global__ void __launch_bounds__(kThreads, 1)
+gram_schmidt_kernel(const float* __restrict__ in, float* out, int n, int r, float eps) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[kWarps][RC];
+  __shared__ float part[2][RC];  // this CTA's partials, double-buffered by round
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_cta = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rows_cta = (n + n_cta - 1) / n_cta;
+  const int row0 = min(n, rank * rows_cta);
+  const int rows = min(n, row0 + rows_cta) - row0;
+  const size_t offset = (static_cast<size_t>(blockIdx.y) * n + row0) * r;
+  const float* src = in + offset;
+  float* dst = out + offset;
+  // on chip: rows_cta x r column-major, then coef; streaming: coef only
+  float* x = kOnChip ? smem : dst;
+  float* coef = kOnChip ? smem + static_cast<size_t>(rows_cta) * r : smem;
+  // column j of the CTA's row k (n r < 2^31, so int offsets)
+  auto at = [&](int j, int k) -> float& { return kOnChip ? x[j * rows_cta + k] : x[k * r + j]; };
+
+  // P in, every load in flight at once and a warp on consecutive floats:
+  // on chip by cp.async into the column-major tile, element idx = k r + j
+  // going to column j of row k ((k, j) stepped without a division);
+  // streaming, a flat copy into `out`, unrolled
+  const bool vec4 = (r & 3) == 0 && ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const int count = rows * r, dk = kThreads / r, dj = kThreads % r;
+  if constexpr (kOnChip) {
+    int k = tid / r, j = tid % r;
+    for (int idx = tid; idx < count; idx += kThreads) {
+      const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(&at(j, k)));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src + idx));
+      k += dk;
+      j += dj;
+      if (j >= r) j -= r, ++k;
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
+  } else {
+    if (vec4) {
+#pragma unroll 8
+      for (int idx = tid; idx < count / 4; idx += kThreads)
+        reinterpret_cast<float4*>(dst)[idx] = reinterpret_cast<const float4*>(src)[idx];
+    } else {
+#pragma unroll 8
+      for (int idx = tid; idx < count; idx += kThreads) dst[idx] = src[idx];
+    }
+  }
+  __syncthreads();
+  const bool clustered = n_cta > 1;
+
+  // column p's update on row k: coef[p] holds its norm, coef[j > p] the
+  // projections <c_p, c_j> / norm; cf holds coef[0 .. RC) in registers
+  float cf[RC];
+  auto update = [&](int p, int k) {
+    // every load of the row before any store: a store might alias a later
+    // load, so loads and stores interleaved would each wait in turn
+    float old[RC];
+#pragma unroll
+    for (int j = 0; j < RC; ++j) old[j] = j > p && j < r ? at(j, k) : 0.f;
+    const float cp = at(p, k) / coef[p];
+    at(p, k) = cp;
+#pragma unroll
+    for (int j = 0; j < RC; ++j)
+      if (j > p && j < r) at(j, k) = old[j] - cf[j] * cp;
+    for (int j = max(p + 1, RC); j < r; ++j) at(j, k) -= coef[j] * cp;
+  };
+
+  int round = 0;
+  for (int i = 0; i < r; ++i) {
+    for (int j0 = i; j0 < r; j0 += RC, ++round) {
+      if (i > 0 && j0 == i) {
+#pragma unroll
+        for (int j = 0; j < RC; ++j) cf[j] = j < r ? coef[j] : 0.f;
+      }
+      float acc[RC];
+#pragma unroll
+      for (int c = 0; c < RC; ++c) acc[c] = 0.f;
+      for (int k = tid; k < rows; k += kThreads) {
+        if (i > 0 && j0 == i) update(i - 1, k);
+        const float ci = at(i, k);
+#pragma unroll
+        for (int c = 0; c < RC; ++c)
+          if (j0 + c < r) acc[c] += ci * at(j0 + c, k);
+      }
+      warp_reduce_scatter(acc);
+      if ((lane & (32 / RC - 1)) == 0) red[warp][lane / (32 / RC)] = acc[0];
+      __syncthreads();
+      const int buf = round & 1;
+      if (tid < RC) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) s += red[w][tid];
+        part[buf][tid] = s;
+      }
+      // every CTA's partials are complete and visible across the cluster;
+      // part[buf] is rewritten two rounds on, after the next barrier, by
+      // which time every CTA has read this round's
+      if (clustered) cluster.sync();
+      else __syncthreads();
+      if (tid < RC && j0 + tid < r) {
+        // every load in flight at once, summed in rank order
+        float mine[kMaxCluster], first[kMaxCluster];
+#pragma unroll
+        for (int c = 0; c < kMaxCluster; ++c) {
+          if (c < n_cta) {
+            const float* remote = clustered ? cluster.map_shared_rank(&part[buf][0], c) : &part[buf][0];
+            mine[c] = remote[tid];
+            first[c] = remote[0];
+          }
+        }
+        float s = 0.f, s0 = 0.f;
+#pragma unroll
+        for (int c = 0; c < kMaxCluster; ++c) {
+          if (c < n_cta) {
+            s += mine[c];
+            s0 += first[c];
+          }
+        }
+        const float norm = j0 == i ? sqrtf(s0) + eps : coef[i];
+        coef[j0 + tid] = j0 + tid == i ? norm : s / norm;
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < RC; ++j) cf[j] = j < r ? coef[j] : 0.f;
+  for (int k = tid; k < rows; k += kThreads) update(r - 1, k);
+  if constexpr (kOnChip) {  // P out, a warp on consecutive floats
+    __syncthreads();
+    int k = tid / r, j = tid % r;
+    for (int idx = tid; idx < count; idx += kThreads) {
+      dst[idx] = at(j, k);
+      k += dk;
+      j += dj;
+      if (j >= r) j -= r, ++k;
+    }
+  }
+  // no CTA may leave while another can still read its shared memory
+  if (clustered) cluster.sync();
+}
+
+using KernelFn = void (*)(const float*, float*, int, int, float);
+
+template <int RC>
+KernelFn kernel_for(bool on_chip) {
+  return on_chip ? gram_schmidt_kernel<RC, true> : gram_schmidt_kernel<RC, false>;
+}
+
+KernelFn pick_kernel(int r, bool on_chip) {
+  if (r <= 4) return kernel_for<4>(on_chip);
+  if (r <= 8) return kernel_for<8>(on_chip);
+  if (r <= 16) return kernel_for<16>(on_chip);
+  return kernel_for<32>(on_chip);
+}
+
+cudaLaunchConfig_t launch_config(int cluster, int g, size_t smem, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, g, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+std::mutex g_mutex;
+// (device, kernel) -> the dynamic shared memory it may use; attributes set
+std::map<std::tuple<int, KernelFn>, int> g_prepared;
+// (device, kernel, cluster size, shared bytes) -> cudaOccupancyMaxActiveClusters
+std::map<std::tuple<int, KernelFn, int, size_t>, int> g_fits;
+
+// The dynamic shared memory `fn` may use on `dev`, after raising its limit
+// and allowing clusters of 16; -1 on a CUDA error.
+int prepare(int dev, KernelFn fn) {
+  const auto key = std::make_tuple(dev, fn);
+  auto it = g_prepared.find(key);
+  if (it != g_prepared.end()) return it->second;
+  int optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, fn) != cudaSuccess)
+    return -1;
+  const int dyn = optin - static_cast<int>(attr.sharedSizeBytes);
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn) != cudaSuccess ||
+      cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) != cudaSuccess)
+    return -1;
+  g_prepared[key] = dyn;
+  return dyn;
+}
+
+// Whether a cluster of `cluster` CTAs of `fn` with `smem` bytes each can be
+// scheduled on `dev`.
+bool fits(int dev, KernelFn fn, int cluster, size_t smem, int g, cudaStream_t stream) {
+  const auto key = std::make_tuple(dev, fn, cluster, smem);
+  auto it = g_fits.find(key);
+  if (it == g_fits.end()) {
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = launch_config(cluster, g, smem, stream, &attr);
+    int active = 0;
+    if (cudaOccupancyMaxActiveClusters(&active, reinterpret_cast<const void*>(fn), &cfg) != cudaSuccess) {
+      cudaGetLastError();  // a refused query is a "no", not a sticky error
+      active = 0;
+    }
+    it = g_fits.emplace(key, active).first;
+  }
+  return it->second > 0;
 }
 
 }  // namespace
 
-// C entry, loaded with ctypes. Launches on `stream`, does not synchronise,
-// and returns cudaGetLastError() so a refused launch is reported at once.
-extern "C" int gram_schmidt_f32(const float* in, float* out, int g, int n,
-                                int r, float eps, void* stream) {
-  if (g > 0 && n > 0 && r > 0) {
-    gram_schmidt_kernel<<<g, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        in, out, n, r, eps);
+// C entry, loaded with ctypes. Picks the route and the cluster size (written
+// to *route: 1 on chip, 2 streaming; *cluster: CTAs per matrix), launches on
+// `stream`, does not synchronise, and returns the CUDA error of the launch
+// (cudaErrorInvalidConfiguration where no cluster size can be scheduled).
+extern "C" int gram_schmidt_f32(const float* in, float* out, int g, int n, int r, float eps,
+                                int* route, int* cluster, void* stream) {
+  *route = 0;
+  *cluster = 0;
+  if (g <= 0 || n <= 0 || r <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  std::lock_guard<std::mutex> lock(g_mutex);
+  KernelFn fn = nullptr;
+  size_t smem = 0;
+  const size_t coef_bytes = sizeof(float) * r;
+  const KernelFn on_chip = pick_kernel(r, true);
+  const int on_chip_dyn = prepare(dev, on_chip);
+  if (on_chip_dyn < 0) return static_cast<int>(cudaGetLastError());
+  // on chip: the fewest CTAs whose share fits the target, else the fewest that fit
+  for (size_t limit : {kOnChipTarget, static_cast<size_t>(on_chip_dyn)}) {
+    for (int c = 1; c <= kMaxCluster && !fn; c *= 2) {
+      const size_t rows = (static_cast<size_t>(n) + c - 1) / c;
+      const size_t bytes = sizeof(float) * rows * r + coef_bytes;
+      if (bytes <= limit && bytes <= static_cast<size_t>(on_chip_dyn) && fits(dev, on_chip, c, bytes, g, s)) {
+        fn = on_chip;
+        smem = bytes;
+        *cluster = c;
+        *route = kOnChipRoute;
+      }
+    }
+    if (fn) break;
   }
+  // streaming: the most CTAs that can be scheduled
+  if (!fn) {
+    const KernelFn streaming = pick_kernel(r, false);
+    if (prepare(dev, streaming) < 0) return static_cast<int>(cudaGetLastError());
+    for (int c = kMaxCluster; c >= 1 && !fn; c /= 2) {
+      if (fits(dev, streaming, c, coef_bytes, g, s)) {
+        fn = streaming;
+        smem = coef_bytes;
+        *cluster = c;
+        *route = kStreamingRoute;
+      }
+    }
+  }
+  if (!fn) return static_cast<int>(cudaErrorInvalidConfiguration);
+
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = launch_config(*cluster, g, smem, s, &attr);
+  err = cudaLaunchKernelEx(&cfg, fn, in, out, n, r, eps);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,11 +25,15 @@
 
 #include <cuda_runtime.h>
 
+// K1, the first launch of K3's two-launch route (csrc/gram_schmidt.cu)
+extern "C" int gram_schmidt_f32(const float* in, float* out, int g, int n, int r, float eps,
+                                int* route, int* cluster, void* stream);
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 8;           // Gram-Schmidt: later columns per reduction round, as K1
+constexpr int kChunk = 8;           // Gram-Schmidt: later columns per reduction round
 constexpr int kMaxRank = 32;        // factor columns summed in registers per pass
 constexpr int kRowsPerBlock = 64;   // K2: rows of M per block, 8 per warp
 constexpr int kTile = 32;           // K4: a block covers a 32 x 32 tile of (n, m)
@@ -41,14 +45,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// K1's recurrence (csrc/gram_schmidt.cu) on one (n, r) matrix at x, in
-// place, by a whole block of kThreads threads:
+// The reference recurrence of K1 (csrc/gram_schmidt.cu) on one (n, r)
+// matrix in shared memory at x, in place, by a whole block of kThreads
+// threads:
 //     col_i <- col_i / (sqrt(sum col_i^2) + eps)
 //     col_j <- col_j - <col_i, col_j> col_i        for every LATER j > i
 // Thread tid owns rows tid, tid + kThreads, ..., which it must have written
-// itself; the arithmetic and its order are K1's, so P-hat has K1's bits.
-// x may lie in shared or in device memory. The caller synchronises before
-// other threads read x.
+// itself. This is K1's first, one-block design: it normalises a column
+// before it forms the projections and sums in another order than K1's
+// cluster kernel, so K3's one-launch route agrees with K1 to fp32 rounding
+// (1e-5), not bit for bit. The caller synchronises before other threads
+// read x.
 __device__ void gram_schmidt_block(float* x, int n, int r, float eps) {
   __shared__ float red[kChunk][kWarps];
   __shared__ float bcast[kChunk];
@@ -179,10 +186,11 @@ ef_compress_kernel(const float* __restrict__ g, const float* __restrict__ e,
 //
 // grid (g, tiles of 32 columns of M); block kThreads. With kInShared (the
 // one-launch route) the block copies P of its matrix into shared memory and
-// runs K1's recurrence there: every column tile repeats it, which is cheap
-// next to reading M; the first tile writes P-hat out. Without it (the
+// runs gram_schmidt_block there: every column tile repeats it, which is
+// cheap next to reading M; the first tile writes P-hat out. Without it (the
 // two-launch route, when n r floats do not fit) P-hat was written to device
-// memory by two_launch_gram_schmidt_kernel and is read from there. Then the
+// memory by K1 itself (gram_schmidt_f32, linked from csrc/gram_schmidt.cu,
+// so that route's P-hat has K1's bits) and is read from there. Then the
 // projection: lane l of every warp owns column tile * 32 + l, so the warp
 // reads 32 neighbouring floats of a row of M; the kWarps warps split the n
 // rows, and their partial sums are added in warp order through shared
@@ -248,17 +256,6 @@ orthogonalize_project_kernel(const float* __restrict__ p, const float* __restric
       __syncthreads();  // part is reused by the next pass
     }
   }
-}
-
-// The first launch of K3's two-launch route: K1 itself, P -> P-hat, one
-// block per matrix, in place in device memory.
-__global__ void __launch_bounds__(kThreads)
-two_launch_gram_schmidt_kernel(const float* __restrict__ in, float* out, int n, int r,
-                               float eps) {
-  const size_t base = static_cast<size_t>(blockIdx.x) * n * r;
-  for (int k = threadIdx.x; k < n; k += kThreads)
-    for (int j = 0; j < r; ++j) out[base + k * r + j] = in[base + k * r + j];
-  gram_schmidt_block(out + base, n, r, eps);
 }
 
 // ---- K4: out = P-hat Q^T, mem = M - out -------------------------------------
@@ -384,8 +381,9 @@ cudaError_t launch_orthogonalize_project(const float* p, const float* mat, float
     return cudaGetLastError();
   }
   *route = 2;
-  two_launch_gram_schmidt_kernel<<<count, kThreads, 0, stream>>>(p, phat, n, r, eps);
-  err = cudaGetLastError();
+  int k1_route = 0, k1_cluster = 0;
+  err = static_cast<cudaError_t>(
+      gram_schmidt_f32(p, phat, count, n, r, eps, &k1_route, &k1_cluster, stream));
   if (err != cudaSuccess) return err;
   orthogonalize_project_kernel<kRC, false><<<grid, kThreads, part_bytes, stream>>>(
       p, mat, phat, q, n, mm, r, eps);

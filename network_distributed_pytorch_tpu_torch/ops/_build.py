@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/*.cu`` file has a plain C interface and compiles on its own into
-a shared library under the package's ``_build/`` directory (git-ignored),
-named by a hash of its source so an edited kernel is never served from a
-stale build. Nothing here runs at import time: a wrapper calls
-:func:`load` (through :class:`Kernel`) the first time it launches its
-kernel, and ``chip_smoke.py`` calls :func:`build_all` to compile every
-source in parallel up front.
+Each library compiles from its ``csrc/*.cu`` sources (plain C interfaces)
+into a shared object under the package's ``_build/`` directory
+(git-ignored), named by a hash of those sources so an edited kernel is never
+served from a stale build. The fused PowerSGD library links K1's source
+too: K3's two-launch route launches K1 itself. Nothing here runs at import
+time: a wrapper calls :func:`load` (through :class:`Kernel`) the first time
+it launches its kernel, and ``chip_smoke.py`` calls :func:`build_all` to
+compile every library in parallel up front.
 """
 
 from __future__ import annotations
@@ -25,11 +26,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# every kernel source of the port, by library name
+# the kernel sources of each library of the port, by library name
 SOURCES = {
-    "gram_schmidt": "gram_schmidt.cu",
-    "powersgd": "powersgd.cu",
-    "flash_attention": "flash_attention.cu",
+    "gram_schmidt": ("gram_schmidt.cu",),
+    "powersgd": ("powersgd.cu", "gram_schmidt.cu"),
+    "flash_attention": ("flash_attention.cu",),
 }
 
 NVCC_FLAGS = [
@@ -49,13 +50,16 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES[name]:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 
 def _start_build(name: str) -> "subprocess.Popen | None":
-    """Start ``nvcc`` for one source unless its library already exists.
+    """Start ``nvcc`` for one library unless it already exists.
     The output goes to a per-process temporary name and is renamed into
     place, so concurrent ranks never load a half-written library."""
     out = library_path(name)
@@ -63,7 +67,7 @@ def _start_build(name: str) -> "subprocess.Popen | None":
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[name])]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC, src) for src in SOURCES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     proc.out_path, proc.tmp_path = out, tmp  # type: ignore[attr-defined]
     return proc
@@ -79,7 +83,7 @@ def _finish_build(proc: "subprocess.Popen | None") -> None:
 
 
 def build_all() -> List[str]:
-    """Compile every kernel source, one ``nvcc`` each, all started together.
+    """Compile every kernel library, one ``nvcc`` each, all started together.
     Returns the library paths."""
     procs = [_start_build(name) for name in SOURCES]
     for p in procs:

@@ -1,7 +1,10 @@
 """Tests of the PyTorch port that need a CUDA card: the CUDA Gram-Schmidt
-kernel, the fused PowerSGD kernels (``ops/powersgd.py``) and the flash
-attention kernel (``ops/flash_attention.py``) against their plain versions,
-the PowerSGD reducer launching its kernels once per shape group, and
+kernel (with the route and cluster size it takes for the word table's
+height and for small matrices), the fused PowerSGD kernels
+(``ops/powersgd.py``) and the flash attention kernel
+(``ops/flash_attention.py``, with left padding, a lone real key, a ragged
+T and NaN in the key tiles it must skip) against their plain versions, the
+PowerSGD reducer launching its kernels once per shape group, and
 DistilBERT launching flash attention once per layer.
 
 This file imports torch and the port, never jax, so it also runs on a
@@ -56,6 +59,27 @@ def test_cuda_kernel_matches_plain(cuda_device, shape):
     got = gs.gram_schmidt(x)
     torch.cuda.synchronize()
     assert gs.KERNEL.launches == launches + 1
+    torch.testing.assert_close(got, orthogonalize(x), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,route",
+    [((1, 30522, 16), "on_chip"), ((1, 30522, 32), "streaming"), ((1, 30523, 16), "on_chip"),
+     ((25, 768, 16), "on_chip"), ((1, 17, 16), "on_chip")],
+)
+def test_cuda_kernel_routes_tall_and_small_matrices(cuda_device, shape, route):
+    """The word table's height (and one more row) is split over a cluster of
+    CTAs with P in their shared memory; at r = 32 it does not fit even at 16
+    CTAs and streams; the small matrices take one CTA each."""
+    x = torch.from_numpy(_x(shape, 12)).to(cuda_device)
+    got = gs.gram_schmidt(x)
+    torch.cuda.synchronize()
+    assert gs.KERNEL.last_route == route
+    if shape[1] > 30000:
+        assert gs.KERNEL.last_cluster > 1
+    else:
+        assert gs.KERNEL.last_cluster == 1
     torch.testing.assert_close(got, orthogonalize(x), rtol=RTOL, atol=ATOL)
 
 
@@ -133,8 +157,12 @@ def test_fused_orthogonalize_project_matches_plain(cuda_device, g, n, m, r, rout
     phat_plain, q_plain = ps.orthogonalize_project_reference(p, mat)
     torch.testing.assert_close(phat, phat_plain, rtol=0, atol=1e-5)
     _close_scaled(q, q_plain)
-    # K3's Gram-Schmidt is K1's arithmetic in K1's order
-    assert torch.equal(phat, gs.gram_schmidt(p))
+    # the two-launch route runs K1 itself; the one-launch route runs K1's
+    # recurrence in its own block, summing in another order
+    if route == "two_launch":
+        assert torch.equal(phat, gs.gram_schmidt(p))
+    else:
+        torch.testing.assert_close(phat, gs.gram_schmidt(p), rtol=0, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -213,6 +241,62 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, t, h, d, causal):
     _close_scaled(out, want_out)
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
     assert torch.all(out[:h] == 0.0) and torch.all(lse[:h] == 1e30)
+
+
+def _padded_mask(b, t, cases, dev):
+    """A (b, t) additive mask, 0 on the keys ``cases[i]`` (a slice or a list
+    of positions) of row i and finfo(f32).min elsewhere."""
+    mask = np.full((b, t), np.finfo(np.float32).min, np.float32)
+    for i, keys in enumerate(cases):
+        mask[i, keys] = 0.0
+    return torch.from_numpy(mask).to(dev)
+
+
+# b, t, h, d, causal, the real keys of each batch row
+_PADDING_CASES = {
+    "left_padding": (2, 256, 3, 64, False, [slice(214, 256), slice(192, 256)]),
+    "lone_middle_key": (2, 256, 3, 64, False, [[100], slice(0, 20)]),
+    "ragged_t100": (2, 100, 3, 64, False, [slice(0, 30), slice(70, 100)]),
+    "d128_causal_padded": (2, 256, 2, 128, True, [slice(0, 42), slice(0, 200)]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_PADDING_CASES))
+def test_flash_attention_kernel_padding_layouts(cuda_device, case):
+    """Real keys only in the last tile, one real key inside a padded tile, a
+    ragged last tile and causal with padding: each tile that holds a real
+    key is walked, whatever its place."""
+    b, t, h, d, causal, keys = _PADDING_CASES[case]
+    q, k, v, _ = _attention_inputs(b * h, t, d, h, cuda_device, seed=52)
+    mask = _padded_mask(b, t, keys, cuda_device)
+    out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, 128, 128, d**-0.5)
+    torch.cuda.synchronize()
+    block = t if t % 64 else 64
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, mask, causal, block, block, d**-0.5)
+    _close_scaled(out, want_out)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_kernel_skips_all_padding_tiles(cuda_device, causal):
+    """NaN in K and V of every 64-key tile that holds only padding leaves out
+    and lse bitwise as on the clean inputs: those tiles are not read."""
+    b, t, h, d = 3, 256, 2, 64
+    q, k, v, _ = _attention_inputs(b * h, t, d, h, cuda_device, seed=53)
+    mask = _padded_mask(b, t, [slice(0, 42), [5, 130], slice(0, 256)], cuda_device)
+    clean = fa.flash_attention_fwd(q, k, v, mask, causal, 128, 128, d**-0.5)
+    empty = (mask.view(b, t // 64, 64) <= -1e29).all(-1).repeat_interleave(h, 0)  # (BH, tiles)
+    assert empty.any()
+    poison = empty.repeat_interleave(64, 1)[..., None]
+    kp, vp = (torch.where(poison, float("nan"), x) for x in (k, v))
+    dirty = fa.flash_attention_fwd(q, kp, vp, mask, causal, 128, 128, d**-0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(dirty[0], clean[0]) and torch.equal(dirty[1], clean[1])
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, mask, causal, 64, 64, d**-0.5)
+    _close_scaled(clean[0], want_out)
+    torch.testing.assert_close(clean[1], want_lse, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda

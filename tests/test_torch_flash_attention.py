@@ -2,7 +2,9 @@
 the plain forward (out and lse) against the Pallas kernel in interpret mode,
 the blockwise backward against ``_flash_bwd_chunked`` on the same residuals,
 ``torch.autograd`` through the wrapper against ``jax.grad`` through the JAX
-function, and the fully masked rows for both padding values.
+function, the fully masked rows for both padding values, and that a key
+block holding only padding contributes nothing (what lets the CUDA kernel
+skip such tiles without reading them).
 
 Inputs are drawn with numpy from a seed and handed to both. Tolerance:
 fp32, 1e-5 (out, lse relative to max(1, |lse|), and the gradients relative
@@ -175,6 +177,56 @@ def test_fully_masked_rows(pad_value):
     for g in (tq.grad, tk.grad, tv.grad):
         assert torch.all(g[0] == 0.0)
     assert torch.any(tv.grad[1] != 0.0)
+
+
+def _padded(seed, t, keys, d=16, h=2):
+    """Folded q, k, v ((B*H, T, D), B = len(keys)) and a (B, T) mask that is
+    0 on the keys ``keys[i]`` of row i and finfo(f32).min elsewhere."""
+    rng = np.random.RandomState(seed)
+    b = len(keys)
+    qf, kf, vf = (rng.randn(b * h, t, d).astype(np.float32) for _ in range(3))
+    mask = np.full((b, t), F32_MIN, np.float32)
+    for i, k in enumerate(keys):
+        mask[i, k] = 0.0
+    return qf, kf, vf, mask
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_all_padding_key_blocks_contribute_nothing(causal):
+    """Skipping a 64-key block that holds only padding is exact: replacing
+    K and V in every such block by other finite values leaves the plain
+    forward's out and lse bitwise unchanged, and the JAX kernel agrees."""
+    t, h, block = 256, 2, 64
+    qf, kf, vf, mask = _padded(7, t, [slice(0, 42), slice(0, 100)], h=h)
+    empty = (mask.reshape(2, t // block, block) <= -1e29).all(-1).repeat(h, 0)  # (BH, blocks)
+    assert empty.sum() == 2 * (3 + 2)
+    other = np.random.RandomState(8)
+    kf2, vf2 = kf.copy(), vf.copy()
+    for bh, j in zip(*np.nonzero(empty)):
+        rows = slice(j * block, (j + 1) * block)
+        kf2[bh, rows] = 100.0 * other.randn(block, kf.shape[2])
+        vf2[bh, rows] = 100.0 * other.randn(block, kf.shape[2])
+    run = lambda k, v: fa.flash_attention_reference(
+        *(torch.from_numpy(a) for a in (qf, k, v, mask)), causal, block, block, 0.25
+    )
+    (out, lse), (out2, lse2) = run(kf, vf), run(kf2, vf2)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    want_out, want_lse = _jax_kernel(qf, kf2, vf2, mask, causal, block, block)
+    _scaled_close(out.numpy(), want_out, "out")
+    _lse_close(lse.numpy(), want_lse)
+
+
+def test_left_padding_and_lone_key_match_jax_kernel():
+    """Real keys only at the end of a row (left padding), and one real key
+    in the middle of an otherwise padded block: the plain forward against
+    the JAX kernel."""
+    qf, kf, vf, mask = _padded(9, 128, [slice(100, 128), [45], slice(60, 128)])
+    want_out, want_lse = _jax_kernel(qf, kf, vf, mask, False, 32, 32)
+    out, lse = fa.flash_attention_reference(
+        *(torch.from_numpy(a) for a in (qf, kf, vf, mask)), False, 32, 32, 0.25
+    )
+    _scaled_close(out.numpy(), want_out, "out")
+    _lse_close(lse.numpy(), want_lse)
 
 
 def test_wrapper_refuses_blocks_that_do_not_divide_t():

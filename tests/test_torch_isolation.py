@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: no port module, nor ``chip_smoke.py``, nor
-a test module that must run without JAX, imports jax, jaxlib, flax, optax or
-the JAX package (``network_distributed_pytorch_tpu``), and the whole port
-imports and runs one CPU training step with those blocked.
+"""The PyTorch port stands alone: no port module, nor ``chip_smoke.py`` or
+``scripts/torch_*.py``, nor a test module that must run without JAX,
+imports jax, jaxlib, flax, optax or the JAX package
+(``network_distributed_pytorch_tpu``), and the whole port imports and runs
+one CPU training step with those blocked.
 
 Based on ``scripts/lint_jax_free.py``: an AST walk over every file (imports
 at any scope), then the transitive check in a fresh interpreter with a
@@ -36,6 +37,10 @@ def port_files():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    # the port's measuring scripts, which run on the card's machine
+    for f in sorted(os.listdir(os.path.join(REPO, "scripts"))):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(REPO, "scripts", f)
     # test modules that run where there is no JAX: spawned ranks, card tests
     yield os.path.join(REPO, "tests", "torch_worker.py")
     yield os.path.join(REPO, "tests", "test_torch_cuda.py")
