@@ -18,8 +18,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and cluster size of each and the device time of each DistilBERT group;
    the fused PowerSGD kernels
    (K2a, K2b, K3, K4) at every (g, n, m, r) shape group, a ragged
-   (3, 100, 37, 8), a clipped (1, 2, 3, 2) and r in {1, 8, 32} at n = 4608,
-   m = 512 (r = 32 takes K3's two-launch route); flash attention (K5) at
+   (3, 100, 37, 8), a clipped (1, 2, 3, 2), m % 4 in {1, 2, 3} and r in
+   {1, 8, 32} at n = 4608, m = 512 (r = 32 takes K3's two-launch route),
+   with K3's P-hat held to K1's output bit for bit and a second launch of
+   K2a, K2b and K3 to the first's bits at every shape; flash attention (K5) at
    DistilBERT's full width (B 16, T 256, H 12, D 64) with the synthetic-IMDb
    padding, without a mask, causal, with fully masked rows (-1e30 and
    finfo(f32).min), at D = 128, against the plain version's
@@ -47,7 +49,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    device time, ``device_ms``), the plain version's, one PyTorch call's
    where one computes the same function (events and device time) and the
    least time the card could take; before it, the xla path's library calls
-   for the same work.
+   for the same work (CUDA events and device time).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the port beside this script, it prints no result and exits 1.
@@ -97,6 +99,7 @@ IMDB_TOL = 1e-5
 IMDB_RANK16_TOL = 5e-5
 
 MAIN_STEPS, WARMUP_STEPS = 7, 2
+FUSED_REPS = 10  # profiled calls per fused kernel's device time: K2b and torch.bmm have read 2.4 % apart, near the 2 % noise
 PROFILE_STEPS = 3
 # distilbert_base at batch 16, max_len 256: folded heads and launches per step
 IMDB_B, IMDB_T, IMDB_H, IMDB_D, IMDB_LAYERS = 16, 256, 12, 64, 6
@@ -304,11 +307,14 @@ def check_flash_attention(fa, dev, gen, imdb_mask):
     return report, kept
 
 
-def check_fused_kernels(ps, shapes, dev, gen, keep):
+def check_fused_kernels(ps, gs, shapes, dev, gen, keep):
     """Each fused kernel against its plain version on the same inputs at
     every (g, n, m, r) in ``shapes``; fails past the tolerances. Returns the
     errors and K3's route per shape, and the inputs of the shapes in
-    ``keep``. Each kernel's inputs are its plain predecessor's outputs."""
+    ``keep``. Each kernel's inputs are its plain predecessor's outputs. Fails
+    unless K3's P-hat is K1's (``gs.gram_schmidt``) bit for bit, and unless a
+    second launch of K2a, K2b and K3 on the same inputs gives the first's
+    bits."""
     import torch
 
     report, kept = {}, {}
@@ -330,9 +336,19 @@ def check_fused_kernels(ps, shapes, dev, gen, keep):
         want["phat"], want["qn"] = x["phat"], x["qn"]
         got["out"], got["mem"] = ps.fused_decompress_residual(x["phat"], x["qn"], x["m"])
         want["out"], want["mem"] = ps.decompress_residual_reference(x["phat"], x["qn"], x["m"])
+        k1_phat = gs.gram_schmidt(x["p"])
+        again = {}
+        again["m"], again["p"] = ps.fused_ef_compress(x["grads"], x["q"], x["resid"])
+        again["p2"] = ps.fused_ef_compress(x["m"], x["q"])[1]
+        again["phat"], again["qn"] = ps.fused_orthogonalize_project(x["p"], x["m"])
         torch.cuda.synchronize()
         if not torch.equal(got["m"], want["m"]):
             fail(f"ef_compress {shape}: M is not bitwise G + E")
+        if not torch.equal(got["phat"], k1_phat):
+            fail(f"orthogonalize_project {shape} ({route}): P-hat is not K1's bit for bit")
+        for key, value in again.items():
+            if not torch.equal(value, got[key]):
+                fail(f"fused kernels {shape}: a second launch changed the bits of {key}")
         errs = {}
         for key in ("p", "p2", "phat", "qn", "out", "mem"):
             err = (got[key] - want[key]).abs().max().item()
@@ -341,7 +357,7 @@ def check_fused_kernels(ps, shapes, dev, gen, keep):
                 fail(f"fused kernels {shape}: max |kernel - plain| of {key} = {err} > {tol}")
             errs[key] = err
         report[str(shape)] = {
-            "route": route,
+            "route": route, "phat_equals_k1": True, "second_launch_bitwise_equal": True,
             "ef_compress": {"m": 0.0, "p": errs["p"]},
             "compress": {"p": errs["p2"]},
             "orthogonalize_project": {"phat": errs["phat"], "q": errs["qn"]},
@@ -599,8 +615,11 @@ def main() -> None:
     del aq, ak, av, amask, sdpa_q, sdpa_k, sdpa_v
 
     # the fused kernels, at every main-path shape group and a few others
-    extra_groups = [(3, 100, 37, 8), (1, 2, 3, 2), (1, 4608, 512, 1), (1, 4608, 512, 8), (1, 4608, 512, 32)]
-    report, kept = check_fused_kernels(ps, group_shapes + extra_groups, dev, gen, set(group_shapes))
+    extra_groups = [
+        (3, 100, 37, 8), (1, 2, 3, 2), (2, 70, 7, 3), (2, 50, 10, 4), (2, 5, 256, 4),
+        (1, 4608, 512, 1), (1, 4608, 512, 8), (1, 4608, 512, 32),
+    ]
+    report, kept = check_fused_kernels(ps, gs, group_shapes + extra_groups, dev, gen, set(group_shapes))
     if report[str((1, 4608, 512, 32))]["route"] != "two_launch":
         fail("orthogonalize_project at r = 32, n = 4608 did not take the two-launch route")
     main_x = [kept[s] for s in group_shapes]
@@ -646,17 +665,31 @@ def main() -> None:
         fused_rows[name] = {
             "max_abs_err": max(max(report[str(s)][name].values()) for s in group_shapes),
             "ms": step_ms(kernel, 20), "plain_ms": step_ms(plain, 5),
-            "device_ms": device_ms(lambda: [kernel(x) for x in main_x], device_fn[name], reps=3),
+            "device_ms": device_ms(lambda: [kernel(x) for x in main_x], device_fn[name], reps=FUSED_REPS),
             "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
             "library_ms": step_ms(library, 20) if library is not None else None,
             "library_device_ms": (
-                device_ms(lambda: [library(x) for x in main_x]) if library is not None else None
+                device_ms(lambda: [library(x) for x in main_x], reps=FUSED_REPS) if library is not None else None
             ),
         }
     xla_ms = {name: step_ms(xla, 20) for name, (_, _, _, xla) in timed.items()}
+    xla_device_ms = {
+        name: device_ms(lambda xla=xla: [xla(x) for x in main_x], reps=FUSED_REPS) for name, (_, _, _, xla) in timed.items()
+    }
+    # each redesigned kernel's device time per shape group, and torch.bmm's for K2b's work
+    per_group = {
+        str(s): {
+            **{
+                name: device_ms(lambda x=x, k=timed[name][0]: k(x), device_fn[name], reps=FUSED_REPS)
+                for name in ("ef_compress", "compress", "orthogonalize_project")
+            },
+            "torch_bmm": device_ms(lambda x=x: torch.bmm(x["m"], x["q"]), reps=FUSED_REPS),
+        }
+        for s, x in zip(group_shapes, main_x)
+    }
     emit({
         "phase": "fused_kernels", "tolerance": FUSED_TOL, "main_path_groups": len(group_shapes),
-        "per_shape": report, "per_step": fused_rows,
+        "per_shape": report, "per_step": fused_rows, "device_ms_per_group": per_group,
     })
     del kept, main_x
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default
@@ -792,6 +825,7 @@ def main() -> None:
             fail(f"{phase}: fused launches {counts}, expected {want}")
         if extra_rounds:
             launches["pallas"]["compress"] = counts["compress"]
+            compress_by_path = {phase: counts["compress"]}
         diff = max_diff(finals["xla"], finals["pallas"])
         if not math.isfinite(diff) or diff > PARAM_TOL:
             fail(f"params after 2 steps, {phase}: max diff {diff} > {PARAM_TOL}")
@@ -879,7 +913,7 @@ def main() -> None:
 
     # ---- 5. the kernels ------------------------------------------------------
     # what the xla path runs for the same work, as a yardstick for later work
-    emit({"phase": "xla_yardstick", "ms_per_step": xla_ms})
+    emit({"phase": "xla_yardstick", "ms_per_step": xla_ms, "device_ms_per_step": xla_device_ms})
     source = "network_distributed_pytorch_tpu_torch/csrc/powersgd.cu"
     pallas = "network_distributed_pytorch_tpu/ops/pallas_powersgd.py"
     replaces = {  # the Pallas kernel bodies
@@ -914,7 +948,10 @@ def main() -> None:
     for name, row in fused_rows.items():
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces[name],
-            "launches": launches["pallas"][name], "max_abs_err": row["max_abs_err"],
+            "launches": launches["pallas"][name],
+            # K2b runs only with an extra power iteration: its launches come from that phase
+            **({"launches_by_path": compress_by_path} if name == "compress" else {}),
+            "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "library_device_ms": row["library_device_ms"],
         })

@@ -35,7 +35,9 @@
 //     from L2 on every pass;
 //   * C is the fewest CTAs (1, 2, 4, 8, 16) whose share fits 128 KB, else the
 //     fewest that fit at all, among the sizes that cudaOccupancyMaxActiveClusters
-//     says can be scheduled; the streaming route takes the most that can.
+//     says can be scheduled; the streaming route takes the most that can;
+//   * the per-CTA code (P in, the recurrence, P-hat out) is in
+//     gram_schmidt_cta.cuh, which K3 (csrc/powersgd.cu) includes as well.
 //
 // What bounds it on an H100: neither bytes nor operations. P is at most a
 // few MB (one read and one write: 2 n r 4 bytes, 3.9 us for the 1.95 MB word
@@ -46,65 +48,35 @@
 // barriers of a column are serial, so on an H100 a column takes about 1 us
 // plus 0.7 us per row a thread owns at r = 16 (PERF.md).
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 #include <map>
 #include <mutex>
 #include <tuple>
 
-namespace cg = cooperative_groups;
+#include "gram_schmidt_cta.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxCluster = 16;
-constexpr size_t kOnChipTarget = 128 * 1024;  // bytes of P per CTA that C aims at
+namespace cg = gs_cta::cg;
+using gs_cta::kMaxCluster;
+using gs_cta::kOnChipTarget;
+using gs_cta::kThreads;
+using gs_cta::launch_config;
 
 enum Route { kOnChipRoute = 1, kStreamingRoute = 2 };
 
-// Sums each of v[0 .. N) over the warp's 32 lanes with N - 1 + log2(32 / N)
-// shuffles (a reduce-scatter, not N full reductions). On return v[0] holds
-// the sum of value (lane / (32 / N)); the lanes of one value agree bitwise.
-template <int N>
-__device__ __forceinline__ void warp_reduce_scatter(float (&v)[N]) {
-  const int lane = threadIdx.x & 31;
-  int width = N;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    if (width > 1) {
-      const bool upper = lane & off;  // keeps the upper half, sends the lower
-      const int half = width / 2;
-#pragma unroll
-      for (int c = 0; c < N / 2; ++c) {
-        if (c < half) {
-          const float send = upper ? v[c] : v[c + half];
-          const float keep = upper ? v[c + half] : v[c];
-          v[c] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-        }
-      }
-      width = half;
-    } else {
-      v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
-    }
-  }
-}
-
 // RC: columns whose partial sums a thread carries per round (r <= RC is one
 // round per column). kOnChip: the CTA's rows in shared memory, else in `out`.
+// The body is gs_cta::gram_schmidt_rows, which K3 (csrc/powersgd.cu) runs too.
 template <int RC, bool kOnChip>
 __global__ void __launch_bounds__(kThreads, 1)
 gram_schmidt_kernel(const float* __restrict__ in, float* out, int n, int r, float eps) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ float red[kWarps][RC];
-  __shared__ float part[2][RC];  // this CTA's partials, double-buffered by round
 
   cg::cluster_group cluster = cg::this_cluster();
   const int n_cta = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rows_cta = (n + n_cta - 1) / n_cta;
   const int row0 = min(n, rank * rows_cta);
   const int rows = min(n, row0 + rows_cta) - row0;
@@ -114,127 +86,16 @@ gram_schmidt_kernel(const float* __restrict__ in, float* out, int n, int r, floa
   // on chip: rows_cta x r column-major, then coef; streaming: coef only
   float* x = kOnChip ? smem : dst;
   float* coef = kOnChip ? smem + static_cast<size_t>(rows_cta) * r : smem;
-  // column j of the CTA's row k (n r < 2^31, so int offsets)
-  auto at = [&](int j, int k) -> float& { return kOnChip ? x[j * rows_cta + k] : x[k * r + j]; };
 
-  // P in, every load in flight at once and a warp on consecutive floats:
-  // on chip by cp.async into the column-major tile, element idx = k r + j
-  // going to column j of row k ((k, j) stepped without a division);
-  // streaming, a flat copy into `out`, unrolled
-  const bool vec4 = (r & 3) == 0 && ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
-  const int count = rows * r, dk = kThreads / r, dj = kThreads % r;
-  if constexpr (kOnChip) {
-    int k = tid / r, j = tid % r;
-    for (int idx = tid; idx < count; idx += kThreads) {
-      const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(&at(j, k)));
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src + idx));
-      k += dk;
-      j += dj;
-      if (j >= r) j -= r, ++k;
-    }
-    asm volatile("cp.async.wait_all;\n" ::);
-  } else {
-    if (vec4) {
-#pragma unroll 8
-      for (int idx = tid; idx < count / 4; idx += kThreads)
-        reinterpret_cast<float4*>(dst)[idx] = reinterpret_cast<const float4*>(src)[idx];
-    } else {
-#pragma unroll 8
-      for (int idx = tid; idx < count; idx += kThreads) dst[idx] = src[idx];
-    }
-  }
+  gs_cta::load_rows<kOnChip>(src, dst, x, rows, rows_cta, r);
   __syncthreads();
-  const bool clustered = n_cta > 1;
-
-  // column p's update on row k: coef[p] holds its norm, coef[j > p] the
-  // projections <c_p, c_j> / norm; cf holds coef[0 .. RC) in registers
-  float cf[RC];
-  auto update = [&](int p, int k) {
-    // every load of the row before any store: a store might alias a later
-    // load, so loads and stores interleaved would each wait in turn
-    float old[RC];
-#pragma unroll
-    for (int j = 0; j < RC; ++j) old[j] = j > p && j < r ? at(j, k) : 0.f;
-    const float cp = at(p, k) / coef[p];
-    at(p, k) = cp;
-#pragma unroll
-    for (int j = 0; j < RC; ++j)
-      if (j > p && j < r) at(j, k) = old[j] - cf[j] * cp;
-    for (int j = max(p + 1, RC); j < r; ++j) at(j, k) -= coef[j] * cp;
-  };
-
-  int round = 0;
-  for (int i = 0; i < r; ++i) {
-    for (int j0 = i; j0 < r; j0 += RC, ++round) {
-      if (i > 0 && j0 == i) {
-#pragma unroll
-        for (int j = 0; j < RC; ++j) cf[j] = j < r ? coef[j] : 0.f;
-      }
-      float acc[RC];
-#pragma unroll
-      for (int c = 0; c < RC; ++c) acc[c] = 0.f;
-      for (int k = tid; k < rows; k += kThreads) {
-        if (i > 0 && j0 == i) update(i - 1, k);
-        const float ci = at(i, k);
-#pragma unroll
-        for (int c = 0; c < RC; ++c)
-          if (j0 + c < r) acc[c] += ci * at(j0 + c, k);
-      }
-      warp_reduce_scatter(acc);
-      if ((lane & (32 / RC - 1)) == 0) red[warp][lane / (32 / RC)] = acc[0];
-      __syncthreads();
-      const int buf = round & 1;
-      if (tid < RC) {
-        float s = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += red[w][tid];
-        part[buf][tid] = s;
-      }
-      // every CTA's partials are complete and visible across the cluster;
-      // part[buf] is rewritten two rounds on, after the next barrier, by
-      // which time every CTA has read this round's
-      if (clustered) cluster.sync();
-      else __syncthreads();
-      if (tid < RC && j0 + tid < r) {
-        // every load in flight at once, summed in rank order
-        float mine[kMaxCluster], first[kMaxCluster];
-#pragma unroll
-        for (int c = 0; c < kMaxCluster; ++c) {
-          if (c < n_cta) {
-            const float* remote = clustered ? cluster.map_shared_rank(&part[buf][0], c) : &part[buf][0];
-            mine[c] = remote[tid];
-            first[c] = remote[0];
-          }
-        }
-        float s = 0.f, s0 = 0.f;
-#pragma unroll
-        for (int c = 0; c < kMaxCluster; ++c) {
-          if (c < n_cta) {
-            s += mine[c];
-            s0 += first[c];
-          }
-        }
-        const float norm = j0 == i ? sqrtf(s0) + eps : coef[i];
-        coef[j0 + tid] = j0 + tid == i ? norm : s / norm;
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < RC; ++j) cf[j] = j < r ? coef[j] : 0.f;
-  for (int k = tid; k < rows; k += kThreads) update(r - 1, k);
+  gs_cta::gram_schmidt_rows<RC, kOnChip>(x, coef, rows, rows_cta, r, eps, n_cta);
   if constexpr (kOnChip) {  // P out, a warp on consecutive floats
     __syncthreads();
-    int k = tid / r, j = tid % r;
-    for (int idx = tid; idx < count; idx += kThreads) {
-      dst[idx] = at(j, k);
-      k += dk;
-      j += dj;
-      if (j >= r) j -= r, ++k;
-    }
+    gs_cta::store_rows(x, dst, rows, rows_cta, r);
   }
   // no CTA may leave while another can still read its shared memory
-  if (clustered) cluster.sync();
+  if (n_cta > 1) cluster.sync();
 }
 
 using KernelFn = void (*)(const float*, float*, int, int, float);
@@ -249,22 +110,6 @@ KernelFn pick_kernel(int r, bool on_chip) {
   if (r <= 8) return kernel_for<8>(on_chip);
   if (r <= 16) return kernel_for<16>(on_chip);
   return kernel_for<32>(on_chip);
-}
-
-cudaLaunchConfig_t launch_config(int cluster, int g, size_t smem, cudaStream_t stream,
-                                 cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, g, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
 }
 
 std::mutex g_mutex;

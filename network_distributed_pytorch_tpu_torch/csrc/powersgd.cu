@@ -16,14 +16,44 @@
 // costs 2r flops against 4 to 12 bytes moved (K2a reads G and E and writes
 // M; K2b and K3 read M; K4 reads M and writes out and mem), far below the
 // ~20 flop per byte where fp32 arithmetic would be the limit. So each kernel
-// touches every element of M once, with coalesced accesses, and keeps the
-// r-wide sums in registers. Simple and right first: plain loads, fp32 FMA;
-// TMA, wgmma and reading the torch layout in place are later work.
+// touches every element of M once and keeps the r-wide sums in registers.
+// A bytes-bound stream needs many loads in flight on every SM:
+//   * K2 is a tall-skinny product P = M Q. A group of L lanes takes a row
+//     (L from 4 to 32, the fewest that cover the row in one batch of four
+//     loads a lane), each lane issuing the 16-byte loads of its float4 of
+//     the row before its FMAs; Q sits in shared memory
+//     transposed, so one float4 of a factor column pairs with one float4 of
+//     M. The lanes' r partial sums are reduced by a reduce-scatter across
+//     the group, not r full reductions. The grid is sized to the card's
+//     resident blocks and each block walks a contiguous run of (matrix, row
+//     tile) pairs, reloading Q only when the matrix changes. The E and
+//     write-M modes are template parameters; m % 4 != 0 or a base pointer
+//     that is not 16-byte aligned takes the scalar loads.
+//   * K3 computes P-hat = GS(P) with K1's own device code
+//     (gram_schmidt_cta.cuh) and Q = M^T P-hat with the rows of M split over
+//     a thread-block cluster of C CTAs per matrix (C the largest at which
+//     all the group's clusters are resident at once, so the recurrence's
+//     latency is paid in one wave). Where K1 keeps P in one CTA, every CTA
+//     of the cluster runs that recurrence on the whole P in its shared
+//     memory while its rows of M are prefetched to L2, so P-hat is K1's bit
+//     for bit and the launch is one; elsewhere K1 runs first (two launches)
+//     and the projection reads its P-hat. Each CTA
+//     reads whole rows of M with float4 loads, sums its rows' products in
+//     shared memory, and after one cluster barrier sums the C partials of
+//     its share of Q in rank order through distributed shared memory.
+//   * K4 is the first, simple version: 32 x 32 tiles of (n, m), plain loads.
 //
 // No float atomics: every sum runs in a fixed order, so the same inputs give
 // the same bits on every run.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
+
+#include "gram_schmidt_cta.cuh"
 
 // K1, the first launch of K3's two-launch route (csrc/gram_schmidt.cu)
 extern "C" int gram_schmidt_f32(const float* in, float* out, int g, int n, int r, float eps,
@@ -31,229 +61,294 @@ extern "C" int gram_schmidt_f32(const float* in, float* out, int g, int n, int r
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 8;           // Gram-Schmidt: later columns per reduction round
-constexpr int kMaxRank = 32;        // factor columns summed in registers per pass
-constexpr int kRowsPerBlock = 64;   // K2: rows of M per block, 8 per warp
-constexpr int kTile = 32;           // K4: a block covers a 32 x 32 tile of (n, m)
+namespace cg = gs_cta::cg;
+using gs_cta::kMaxCluster;
+using gs_cta::kThreads;
+using gs_cta::kWarps;
+
+constexpr int kMaxRank = 32;     // K2 and K4: factor columns per pass
+constexpr int kUnroll = 4;       // K2: float4 of a row loaded before the FMAs
+constexpr int kProjCols = 8;     // K3: factor columns per projection pass
+constexpr int kProjUnroll = 8;   // K3: rows of M a thread loads before the FMAs
+constexpr size_t kPrefetchBytes = 32u << 20;  // K3: M prefetched to L2 during Gram-Schmidt, over all CTAs
+constexpr size_t kStaticSmem = 2048;  // K3: room for the recurrence's own shared arrays
+constexpr int kTile = 32;        // K4: a block covers a 32 x 32 tile of (n, m)
 constexpr int kMaxGridY = 65535;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// The reference recurrence of K1 (csrc/gram_schmidt.cu) on one (n, r)
-// matrix in shared memory at x, in place, by a whole block of kThreads
-// threads:
-//     col_i <- col_i / (sqrt(sum col_i^2) + eps)
-//     col_j <- col_j - <col_i, col_j> col_i        for every LATER j > i
-// Thread tid owns rows tid, tid + kThreads, ..., which it must have written
-// itself. This is K1's first, one-block design: it normalises a column
-// before it forms the projections and sums in another order than K1's
-// cluster kernel, so K3's one-launch route agrees with K1 to fp32 rounding
-// (1e-5), not bit for bit. The caller synchronises before other threads
-// read x.
-__device__ void gram_schmidt_block(float* x, int n, int r, float eps) {
-  __shared__ float red[kChunk][kWarps];
-  __shared__ float bcast[kChunk];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  for (int i = 0; i < r; ++i) {
-    float s = 0.f;
-    for (int k = tid; k < n; k += kThreads) {
-      const float c = x[k * r + i];
-      s += c * c;
-    }
-    s = warp_sum(s);
-    if (lane == 0) red[0][warp] = s;
-    __syncthreads();
-    if (tid == 0) {
-      float t = 0.f;
-      for (int w = 0; w < kWarps; ++w) t += red[0][w];
-      bcast[0] = sqrtf(t) + eps;
-    }
-    __syncthreads();
-    const float norm = bcast[0];
-    __syncthreads();
-
-    for (int k = tid; k < n; k += kThreads) x[k * r + i] = x[k * r + i] / norm;
-
-    for (int j0 = i + 1; j0 < r; j0 += kChunk) {
-      const int cnt = min(kChunk, r - j0);
-      float acc[kChunk];
-#pragma unroll
-      for (int c = 0; c < kChunk; ++c) acc[c] = 0.f;
-      for (int k = tid; k < n; k += kThreads) {
-        const float ci = x[k * r + i];
-#pragma unroll
-        for (int c = 0; c < kChunk; ++c)
-          if (c < cnt) acc[c] += ci * x[k * r + j0 + c];
-      }
-#pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const float v = warp_sum(acc[c]);
-        if (lane == 0) red[c][warp] = v;
-      }
-      __syncthreads();
-      if (tid < cnt) {
-        float t = 0.f;
-        for (int w = 0; w < kWarps; ++w) t += red[tid][w];
-        bcast[tid] = t;
-      }
-      __syncthreads();
-      for (int k = tid; k < n; k += kThreads) {
-        const float ci = x[k * r + i];
-        for (int c = 0; c < cnt; ++c) x[k * r + j0 + c] -= bcast[c] * ci;
-      }
-      __syncthreads();
-    }
-  }
-}
 
 // ---- K2a / K2b: M = G (+ E), P[:, c0:c0+rc] = M Q[:, c0:c0+rc] -------------
 //
-// grid (g, blocks of kRowsPerBlock rows); a warp per row of M, its lanes
-// striding over the m columns, so reads of G and E are coalesced. Each lane
-// keeps kRC fp32 partial sums, reduced across the warp with shuffles. Q's
-// rc columns sit transposed in shared memory (qs[c * m + j]: neighbouring
-// lanes, neighbouring banks) when kQShared, else they are read from device
-// memory, where L2 holds them. With e == null (K2b) G is M itself; m_out ==
-// null skips the write of M (K2b, and the later passes when r > kMaxRank).
-template <int kRC, bool kQShared>
+// A tile is kWarps * (32 / L) consecutive rows of one matrix; block b walks
+// tiles [b * per_block, (b + 1) * per_block) of the flattened (matrix, tile)
+// order. The L lanes of a group own one row of the tile; lane l reads the
+// row's float4 l, l + L, ... (kVec) or floats l, l + L, ... and keeps kRC
+// partial sums, in column order, then the group's reduce-scatter leaves
+// each sum on L / kRC lanes (or kRC / L sums on each lane). Q's rc columns
+// sit in shared memory as qs[c * m + j] (kQShared), reloaded when the tile's
+// matrix changes; where even one column does not fit (m > 58K), a pass of
+// one column reads Q from device memory. kEF: G + E is formed, rounded once,
+// and written to m_out, then multiplied; else G is M.
+template <int kRC, int L, bool kEF, bool kVec, bool kQShared>
 __global__ void __launch_bounds__(kThreads)
 ef_compress_kernel(const float* __restrict__ g, const float* __restrict__ e,
                    const float* __restrict__ q, float* __restrict__ m_out,
-                   float* __restrict__ p, int n, int mm, int r, int c0, int rc) {
-  extern __shared__ float qs[];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const size_t b = blockIdx.x;
-  const float* gb = g + b * n * mm;
-  const float* eb = e == nullptr ? nullptr : e + b * n * mm;
-  float* mb = m_out == nullptr ? nullptr : m_out + b * n * mm;
-  const float* qb = q + b * mm * r;
-  float* pb = p + b * n * r;
-
-  if (kQShared) {
-    for (int t = tid; t < mm * rc; t += kThreads) {
-      const int j = t / rc;
-      const int c = t - j * rc;
-      qs[c * mm + j] = qb[static_cast<size_t>(j) * r + c0 + c];
+                   float* __restrict__ p, int n, int mm, int r, int c0, int rc,
+                   int tiles_per_matrix, int total_tiles, int per_block) {
+  extern __shared__ __align__(16) float qs[];
+  constexpr int kGroups = 32 / L;
+  constexpr int kRowsPerTile = kWarps * kGroups;
+  constexpr int kHeld = kRC > L ? kRC / L : 1;     // sums a lane holds after the reduction
+  constexpr int kSpread = kRC < L ? L / kRC : 1;   // lanes that hold one sum
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sl = lane & (L - 1), grp = lane / L;
+  const int t_begin = blockIdx.x * per_block;
+  const int t_end = min(total_tiles, t_begin + per_block);
+  int cur = -1;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int b = t / tiles_per_matrix;
+    const int row = (t - b * tiles_per_matrix) * kRowsPerTile + warp * kGroups + grp;
+    const float* qb = q + static_cast<size_t>(b) * mm * r + c0;
+    if (kQShared && b != cur) {
+      __syncthreads();  // every warp is done with the previous matrix's Q
+      for (int i = tid; i < mm * rc; i += kThreads) {
+        const int j = i / rc;
+        const int c = i - j * rc;
+        qs[c * mm + j] = qb[static_cast<size_t>(j) * r + c];
+      }
+      __syncthreads();
+      cur = b;
     }
-    __syncthreads();
-  }
-
-  for (int row0 = blockIdx.y * kRowsPerBlock; row0 < n; row0 += gridDim.y * kRowsPerBlock) {
-    const int row_end = min(n, row0 + kRowsPerBlock);
-    for (int row = row0 + warp; row < row_end; row += kWarps) {
-      const size_t off = static_cast<size_t>(row) * mm;
-      float acc[kRC];
+    const bool active = row < n;
+    const size_t off = (static_cast<size_t>(b) * n + (active ? row : 0)) * mm;
+    float acc[kRC];
 #pragma unroll
-      for (int c = 0; c < kRC; ++c) acc[c] = 0.f;
-      for (int j = lane; j < mm; j += 32) {
-        float v = gb[off + j];
-        if (eb != nullptr) {
-          v = v + eb[off + j];  // the error-feedback add, rounded once as in G + E
-          if (mb != nullptr) mb[off + j] = v;
+    for (int c = 0; c < kRC; ++c) acc[c] = 0.f;
+    if constexpr (kVec) {
+      const float4* g4 = reinterpret_cast<const float4*>(g + off);
+      const float4* e4 = reinterpret_cast<const float4*>(e + off);
+      float4* m4 = reinterpret_cast<float4*>(m_out + off);
+      const int nv = active ? mm / 4 : 0;
+      for (int j0 = sl; j0 < nv; j0 += L * kUnroll) {
+        float4 v[kUnroll], ev[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int j = j0 + u * L;
+          v[u] = j < nv ? g4[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+          if constexpr (kEF) ev[u] = j < nv ? e4[j] : make_float4(0.f, 0.f, 0.f, 0.f);
         }
 #pragma unroll
-        for (int c = 0; c < kRC; ++c) {
-          if (c < rc) {
-            const float qv = kQShared ? qs[c * mm + j] : qb[static_cast<size_t>(j) * r + c0 + c];
-            acc[c] += v * qv;
+        for (int u = 0; u < kUnroll; ++u) {
+          const int j = j0 + u * L;
+          if (j >= nv) break;
+          if constexpr (kEF) {  // the error-feedback add, rounded once as in G + E
+            v[u] = make_float4(v[u].x + ev[u].x, v[u].y + ev[u].y, v[u].z + ev[u].z, v[u].w + ev[u].w);
+            m4[j] = v[u];
+          }
+#pragma unroll
+          for (int c = 0; c < kRC; ++c) {
+            if (c < rc) {
+              float4 qv;
+              if constexpr (kQShared) {
+                qv = *reinterpret_cast<const float4*>(qs + c * mm + 4 * j);
+              } else {
+                const float* qj = qb + static_cast<size_t>(4 * j) * r + c;
+                qv = make_float4(qj[0], qj[r], qj[2 * r], qj[3 * r]);
+              }
+              acc[c] += v[u].x * qv.x;
+              acc[c] += v[u].y * qv.y;
+              acc[c] += v[u].z * qv.z;
+              acc[c] += v[u].w * qv.w;
+            }
           }
         }
       }
+    } else {
+      const float* gr = g + off;
+      const float* er = e + off;
+      float* mr = m_out + off;
+      const int nj = active ? mm : 0;
+      for (int j0 = sl; j0 < nj; j0 += L * kUnroll) {
+        float v[kUnroll], ev[kUnroll];
 #pragma unroll
-      for (int c = 0; c < kRC; ++c)
-        if (c < rc) acc[c] = warp_sum(acc[c]);
-      if (lane == 0) {
+        for (int u = 0; u < kUnroll; ++u) {
+          const int j = j0 + u * L;
+          v[u] = j < nj ? gr[j] : 0.f;
+          if constexpr (kEF) ev[u] = j < nj ? er[j] : 0.f;
+        }
 #pragma unroll
-        for (int c = 0; c < kRC; ++c)
-          if (c < rc) pb[static_cast<size_t>(row) * r + c0 + c] = acc[c];
+        for (int u = 0; u < kUnroll; ++u) {
+          const int j = j0 + u * L;
+          if (j >= nj) break;
+          if constexpr (kEF) {
+            v[u] = v[u] + ev[u];
+            mr[j] = v[u];
+          }
+#pragma unroll
+          for (int c = 0; c < kRC; ++c) {
+            if (c < rc) {
+              const float qv = kQShared ? qs[c * mm + j] : qb[static_cast<size_t>(j) * r + c];
+              acc[c] += v[u] * qv;
+            }
+          }
+        }
       }
+    }
+    gs_cta::warp_reduce_scatter<kRC, L>(acc);
+    if (active && sl % kSpread == 0) {
+      const int first = kRC < L ? sl / kSpread : sl * kHeld;
+      float* prow = p + (static_cast<size_t>(b) * n + row) * r + c0;
+#pragma unroll
+      for (int k = 0; k < kHeld; ++k)
+        if (first + k < rc) prow[first + k] = acc[k];
     }
   }
 }
 
 // ---- K3: P-hat = Gram-Schmidt(P), Q = M^T P-hat -----------------------------
 //
-// grid (g, tiles of 32 columns of M); block kThreads. With kInShared (the
-// one-launch route) the block copies P of its matrix into shared memory and
-// runs gram_schmidt_block there: every column tile repeats it, which is
-// cheap next to reading M; the first tile writes P-hat out. Without it (the
-// two-launch route, when n r floats do not fit) P-hat was written to device
-// memory by K1 itself (gram_schmidt_f32, linked from csrc/gram_schmidt.cu,
-// so that route's P-hat has K1's bits) and is read from there. Then the
-// projection: lane l of every warp owns column tile * 32 + l, so the warp
-// reads 32 neighbouring floats of a row of M; the kWarps warps split the n
-// rows, and their partial sums are added in warp order through shared
-// memory, kRC factor columns per pass.
-template <int kRC, bool kInShared>
-__global__ void __launch_bounds__(kThreads)
+// grid (C, g), a cluster of the C CTAs of a matrix; CTA `rank` owns rows
+// [rank * ceil(n / C), ...) of M. kGS (the one-launch route): each CTA
+// copies the whole P into shared memory (column-major, as K1 keeps it) and
+// runs gs_cta::gram_schmidt_rows for one CTA, the code and the order of K1
+// at a cluster of one, so every CTA holds K1's P-hat; rank 0 writes it out.
+// Meanwhile the CTA's rows of M are on their way to L2, as much of them as
+// gives all CTAs together kPrefetchBytes. Without kGS (the two-launch route) K1 has written P-hat, and
+// it is read from there.
+// The projection: tr threads (a power of two, tr >= the row's float4s where
+// that is below kThreads) cover a chunk of tr float4 (kVec) or floats of a
+// row, and the kThreads / tr groups of them walk the CTA's rows, group grp
+// taking rows row0 + grp, row0 + grp + groups, ... in ascending order, each
+// thread the kProjUnroll rows' loads before their FMAs. Per pass of kPC
+// factor columns and chunk: the groups' partials are added in group order
+// in shared memory, then after a cluster barrier each CTA sums its share of
+// the chunk's (column, factor) entries over the C CTAs in rank order and
+// writes that share of Q; a second barrier frees the buffer.
+// One column unit of a row of M into v: a float4 (kVec) or one float.
+template <bool kVec>
+__device__ __forceinline__ void load_unit(const float* __restrict__ at, float (&v)[kVec ? 4 : 1]) {
+  if constexpr (kVec) {
+    const float4 t = *reinterpret_cast<const float4*>(at);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    v[0] = *at;
+  }
+}
+
+template <int GSRC, int kPC, bool kGS, bool kVec>
+__global__ void __launch_bounds__(kThreads, GSRC <= 8 ? 2 : 1)
 orthogonalize_project_kernel(const float* __restrict__ p, const float* __restrict__ mat,
                              float* phat, float* __restrict__ q, int n, int mm, int r,
                              float eps) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_cta = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const size_t b = blockIdx.x;
+  const size_t b = blockIdx.y;
   const float* mb = mat + b * n * mm;
   float* qb = q + b * mm * r;
   float* phat_b = phat + b * n * r;
+  const int rows_cta = (n + n_cta - 1) / n_cta;
+  const int row0 = min(n, rank * rows_cta);
+  const int row1 = min(n, row0 + rows_cta);
 
-  const float* x = phat_b;
-  float* part = smem;  // [kWarps][kRC][32]
-  if constexpr (kInShared) {
-    float* xs = smem;
-    part = smem + static_cast<size_t>(n) * r;
-    const float* src = p + b * n * r;
-    for (int k = tid; k < n; k += kThreads)
-      for (int j = 0; j < r; ++j) xs[k * r + j] = src[k * r + j];
-    gram_schmidt_block(xs, n, r, eps);
+  float* x = smem;  // kGS: P-hat, n x r column-major, then r coefficients
+  float* red = smem + (kGS ? (static_cast<size_t>(n) * r + r + 3) / 4 * 4 : 0);
+  if constexpr (kGS) {
+    const char* first = reinterpret_cast<const char*>(mb + static_cast<size_t>(row0) * mm);
+    const size_t share = static_cast<size_t>(row1 - row0) * mm * sizeof(float);
+    const size_t budget = kPrefetchBytes / (static_cast<size_t>(gridDim.x) * gridDim.y);
+    const size_t span = share < budget ? share : budget;
+    for (size_t o = static_cast<size_t>(tid) * 128; o < span; o += kThreads * 128)
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(first + o));
+    gs_cta::load_rows<true>(p + b * n * r, nullptr, x, n, n, r);
     __syncthreads();
-    if (blockIdx.y == 0)
-      for (int t = tid; t < n * r; t += kThreads) phat_b[t] = xs[t];
-    x = xs;
+    gs_cta::gram_schmidt_rows<GSRC, true>(x, x + static_cast<size_t>(n) * r, n, n, r, eps, 1);
+    __syncthreads();
+    if (rank == 0) gs_cta::store_rows(x, phat_b, n, n, r);
   }
 
-  for (int tile = blockIdx.y; tile * 32 < mm; tile += gridDim.y) {
-    const int col = tile * 32 + lane;
-    for (int c0 = 0; c0 < r; c0 += kRC) {
-      const int rc = min(kRC, r - c0);
-      float acc[kRC];
+  // P-hat's column c of row k, 0 past the last column
+  auto phat_at = [=](int c, int k) -> float {
+    if (c >= r) return 0.f;
+    return kGS ? x[c * n + k] : phat_b[static_cast<size_t>(k) * r + c];
+  };
+  constexpr int E = kVec ? 4 : 1;  // floats per column unit
+  const int units = mm / E;
+  int tr = 1;
+  while (tr < units && tr < kThreads) tr <<= 1;
+  const int groups = kThreads / tr;
+  const int grp = tid / tr, ci = tid % tr;
+  const int width = tr * E * kPC;  // (float, factor) entries of a chunk's partial
+
+  for (int ch = 0; ch * tr < units; ++ch) {
+    const int unit = ch * tr + ci;
+    for (int c0 = 0; c0 < r; c0 += kPC) {
+      float acc[E][kPC];
 #pragma unroll
-      for (int c = 0; c < kRC; ++c) acc[c] = 0.f;
-      if (col < mm) {
-        for (int k = warp; k < n; k += kWarps) {
-          const float v = mb[static_cast<size_t>(k) * mm + col];
-          const float* xr = x + static_cast<size_t>(k) * r + c0;
+      for (int f = 0; f < E; ++f)
 #pragma unroll
-          for (int c = 0; c < kRC; ++c)
-            if (c < rc) acc[c] += v * xr[c];
+        for (int c = 0; c < kPC; ++c) acc[f][c] = 0.f;
+      if (unit < units) {
+        const float* col = mb + static_cast<size_t>(unit) * E;
+        int k = row0 + grp;
+        for (; k + (kProjUnroll - 1) * groups < row1; k += kProjUnroll * groups) {
+          float v[kProjUnroll][E];
+#pragma unroll
+          for (int u = 0; u < kProjUnroll; ++u) load_unit<kVec>(col + static_cast<size_t>(k + u * groups) * mm, v[u]);
+#pragma unroll
+          for (int u = 0; u < kProjUnroll; ++u) {
+#pragma unroll
+            for (int c = 0; c < kPC; ++c) {
+              const float pc = phat_at(c0 + c, k + u * groups);
+#pragma unroll
+              for (int f = 0; f < E; ++f) acc[f][c] += v[u][f] * pc;
+            }
+          }
+        }
+        for (; k < row1; k += groups) {
+          float v[E];
+          load_unit<kVec>(col + static_cast<size_t>(k) * mm, v);
+#pragma unroll
+          for (int c = 0; c < kPC; ++c) {
+            const float pc = phat_at(c0 + c, k);
+#pragma unroll
+            for (int f = 0; f < E; ++f) acc[f][c] += v[f] * pc;
+          }
         }
       }
+      float* mine = red + static_cast<size_t>(grp) * width;
 #pragma unroll
-      for (int c = 0; c < kRC; ++c) part[(warp * kRC + c) * 32 + lane] = acc[c];
+      for (int f = 0; f < E; ++f)
+#pragma unroll
+        for (int c = 0; c < kPC; ++c) mine[(ci * E + f) * kPC + c] = acc[f][c];
       __syncthreads();
-      for (int t = tid; t < rc * 32; t += kThreads) {
-        const int c = t >> 5;
-        const int l = t & 31;
-        const int j = tile * 32 + l;
-        if (j < mm) {
-          float s = 0.f;
-          for (int w = 0; w < kWarps; ++w) s += part[(w * kRC + c) * 32 + l];
-          qb[static_cast<size_t>(j) * r + c0 + c] = s;
-        }
+      for (int i = tid; i < width; i += kThreads) {  // the groups in order, into group 0's slots
+        float s = red[i];
+        for (int gi = 1; gi < groups; ++gi) s += red[static_cast<size_t>(gi) * width + i];
+        red[i] = s;
       }
-      __syncthreads();  // part is reused by the next pass
+      // every CTA's partial of this chunk is complete and visible
+      if (n_cta > 1) cluster.sync();
+      else __syncthreads();
+      const int share = (width + n_cta - 1) / n_cta;
+      const int i_end = min(width, (rank + 1) * share);
+      for (int i = rank * share + tid; i < i_end; i += kThreads) {
+        float parts[kMaxCluster];
+#pragma unroll
+        for (int cc = 0; cc < kMaxCluster; ++cc)
+          if (cc < n_cta) parts[cc] = n_cta > 1 ? cluster.map_shared_rank(red, cc)[i] : red[i];
+        float s = 0.f;
+#pragma unroll
+        for (int cc = 0; cc < kMaxCluster; ++cc)
+          if (cc < n_cta) s += parts[cc];
+        const int el = i / kPC;
+        const int c = i - el * kPC;
+        const int j = ch * tr * E + el;
+        if (j < mm && c0 + c < r) qb[static_cast<size_t>(j) * r + c0 + c] = s;
+      }
+      // no CTA rewrites its buffer, or leaves, while another may read it
+      if (n_cta > 1) cluster.sync();
+      else __syncthreads();
     }
   }
 }
@@ -318,15 +413,32 @@ decompress_residual_kernel(const float* __restrict__ p, const float* __restrict_
   }
 }
 
+
 // ---- host side --------------------------------------------------------------
 
-int smem_optin() {
-  int dev = 0;
-  int bytes = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return bytes;
+std::mutex g_mutex;
+// (device, kernel, dynamic shared bytes) -> resident blocks per SM (K2)
+std::map<std::tuple<int, const void*, size_t>, int> g_blocks_per_sm;
+// (device, kernel) -> attributes set (K3)
+std::map<std::tuple<int, const void*>, bool> g_prepared;
+// (device, kernel, cluster size, shared bytes) -> cudaOccupancyMaxActiveClusters (K3)
+std::map<std::tuple<int, const void*, int, size_t>, int> g_clusters;
+
+struct Device {
+  int id = 0;
+  int sms = 0;
+  int smem_optin = 0;
+};
+
+cudaError_t current_device(Device* d) {
+  cudaError_t err = cudaGetDevice(&d->id);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&d->sms, cudaDevAttrMultiProcessorCount, d->id);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&d->smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, d->id);
+  return err;
 }
+
+bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
 // Above 48 KB a block gets dynamic shared memory only once the kernel is
 // allowed it.
@@ -337,6 +449,68 @@ cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+template <int kRC, int L, bool kEF, bool kVec, bool kQShared>
+cudaError_t launch_ef_compress(const Device& dev, const float* g, const float* e, const float* q,
+                               float* m_out, float* p, int count, int n, int mm, int r, int c0,
+                               int rc, cudaStream_t stream) {
+  auto kernel = ef_compress_kernel<kRC, L, kEF, kVec, kQShared>;
+  const size_t q_bytes = kQShared ? sizeof(float) * static_cast<size_t>(mm) * rc : 0;
+  int per_sm = 0;
+  {
+    std::lock_guard<std::mutex> lock(g_mutex);
+    const auto key = std::make_tuple(dev.id, reinterpret_cast<const void*>(kernel), q_bytes);
+    auto it = g_blocks_per_sm.find(key);
+    if (it == g_blocks_per_sm.end()) {
+      // the kernel's whole allowance, so that no later, larger Q is refused
+      cudaError_t err = allow_smem(kernel, q_bytes > 48 * 1024 ? dev.smem_optin : q_bytes);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, q_bytes);
+      if (err != cudaSuccess) return err;
+      it = g_blocks_per_sm.emplace(key, per_sm).first;
+    }
+    per_sm = max(it->second, 1);
+  }
+  constexpr int kRowsPerTile = kWarps * (32 / L);
+  const long long tiles_per_matrix = (n + kRowsPerTile - 1) / kRowsPerTile;
+  const long long total = tiles_per_matrix * count;
+  if (total >= (1ll << 31)) return cudaErrorInvalidValue;
+  const long long slots = static_cast<long long>(dev.sms) * per_sm;
+  const int per_block = static_cast<int>((total + slots - 1) / slots);
+  const int grid = static_cast<int>((total + per_block - 1) / per_block);
+  kernel<<<grid, kThreads, q_bytes, stream>>>(g, e, q, m_out, p, n, mm, r, c0, rc,
+                                              static_cast<int>(tiles_per_matrix),
+                                              static_cast<int>(total), per_block);
+  return cudaGetLastError();
+}
+
+// One pass of K2 with kRC registers of sums: the lane group, mode, load
+// width and home of Q picked at run time.
+template <int kRC>
+cudaError_t ef_compress_pass(const Device& dev, const float* g, const float* e, const float* q,
+                             float* m_out, float* p, int count, int n, int mm, int r, int c0,
+                             int rc, bool q_shared, cudaStream_t s) {
+  const bool ef = e != nullptr;
+  const bool vec = mm % 4 == 0 && aligned16(g) && (!ef || (aligned16(e) && aligned16(m_out)));
+#define K2_LAUNCH(L, EF, VEC, QS) \
+  launch_ef_compress<kRC, L, EF, VEC, QS>(dev, g, e, q, m_out, p, count, n, mm, r, c0, rc, s)
+#define K2_MODES(L, QS)                                              \
+  (ef ? (vec ? K2_LAUNCH(L, true, true, QS) : K2_LAUNCH(L, true, false, QS)) \
+      : (vec ? K2_LAUNCH(L, false, true, QS) : K2_LAUNCH(L, false, false, QS)))
+  // L: the fewest lanes (4 to 32) that take a row in one batch of kUnroll loads
+  const int units = vec ? mm / 4 : mm;
+  const int lanes = units <= 4 * kUnroll ? 4 : units <= 8 * kUnroll ? 8 : units <= 16 * kUnroll ? 16 : 32;
+#define K2_LANES(QS)                                                                  \
+  (lanes == 4 ? K2_MODES(4, QS) : lanes == 8 ? K2_MODES(8, QS)                        \
+   : lanes == 16 ? K2_MODES(16, QS) : K2_MODES(32, QS))
+  if constexpr (kRC == 1) {
+    if (!q_shared) return K2_LANES(false);
+  }
+  return K2_LANES(true);
+#undef K2_LANES
+#undef K2_MODES
+#undef K2_LAUNCH
+}
+
 // The register width for rc factor columns: the smallest of 1, 2, 4, 8, 16
 // and 32 that holds them.
 #define WITH_RANK_WIDTH(rc, fn, ...)                                          \
@@ -344,50 +518,86 @@ cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
    : (rc) <= 4 ? fn<4>(__VA_ARGS__) : (rc) <= 8 ? fn<8>(__VA_ARGS__)          \
    : (rc) <= 16 ? fn<16>(__VA_ARGS__) : fn<32>(__VA_ARGS__))
 
-template <int kRC>
-cudaError_t launch_ef_compress(const float* g, const float* e, const float* q, float* m_out,
-                               float* p, int count, int n, int mm, int r, int c0, int rc,
-                               cudaStream_t stream) {
-  const dim3 grid(count, min((n + kRowsPerBlock - 1) / kRowsPerBlock, kMaxGridY));
-  const size_t q_bytes = sizeof(float) * static_cast<size_t>(mm) * rc;
-  if (q_bytes <= static_cast<size_t>(smem_optin())) {
-    auto kernel = ef_compress_kernel<kRC, true>;
-    const cudaError_t err = allow_smem(kernel, q_bytes);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, q_bytes, stream>>>(g, e, q, m_out, p, n, mm, r, c0, rc);
-  } else {
-    ef_compress_kernel<kRC, false><<<grid, kThreads, 0, stream>>>(g, e, q, m_out, p, n, mm,
-                                                                  r, c0, rc);
+// Launches K3's kernel `fn` over g matrices with `smem` bytes. The cluster
+// size C is the largest (up to 16, and at most one CTA per 32 rows) at which
+// all g clusters are resident at once, so the Gram-Schmidt's latency is
+// paid in one wave; 1 where even single CTAs take several waves.
+template <typename Kernel>
+cudaError_t launch_projection(const Device& dev, Kernel* fn, size_t smem,
+                              cudaStream_t stream, const float* p, const float* mat, float* phat,
+                              float* q, int g, int n, int mm, int r, float eps) {
+  const void* key_fn = reinterpret_cast<const void*>(fn);
+  int cluster = 0;
+  {
+    std::lock_guard<std::mutex> lock(g_mutex);
+    if (!g_prepared.count(std::make_tuple(dev.id, key_fn))) {
+      cudaFuncAttributes attr;
+      cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   dev.smem_optin - static_cast<int>(attr.sharedSizeBytes));
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return err;
+      g_prepared[std::make_tuple(dev.id, key_fn)] = true;
+    }
+    const int most = max(1, min(kMaxCluster, n / 32));
+    for (int c = most; c >= 1 && cluster == 0; --c) {
+      const auto key = std::make_tuple(dev.id, key_fn, c, smem);
+      auto it = g_clusters.find(key);
+      if (it == g_clusters.end()) {
+        cudaLaunchAttribute attr;
+        cudaLaunchConfig_t cfg = gs_cta::launch_config(c, g, smem, stream, &attr);
+        int active = 0;
+        if (cudaOccupancyMaxActiveClusters(&active, key_fn, &cfg) != cudaSuccess) {
+          cudaGetLastError();  // a refused query is a "no", not a sticky error
+          active = 0;
+        }
+        it = g_clusters.emplace(key, active).first;
+      }
+      if (it->second >= g || (c == 1 && it->second > 0)) cluster = c;
+    }
   }
+  if (cluster == 0) return cudaErrorInvalidConfiguration;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = gs_cta::launch_config(cluster, g, smem, stream, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, fn, p, mat, phat, q, n, mm, r, eps);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <int kRC>
-cudaError_t launch_orthogonalize_project(const float* p, const float* mat, float* phat,
-                                         float* q, int count, int n, int mm, int r,
-                                         float eps, int* route, cudaStream_t stream) {
-  const dim3 grid(count, min((mm + 31) / 32, kMaxGridY));
-  const size_t part_bytes = sizeof(float) * kWarps * kRC * 32;
-  const size_t one_launch_bytes = sizeof(float) * static_cast<size_t>(n) * r + part_bytes;
-  auto one_launch = orthogonalize_project_kernel<kRC, true>;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, one_launch);
-  if (err != cudaSuccess) return err;
-  if (attr.sharedSizeBytes + one_launch_bytes <= static_cast<size_t>(smem_optin())) {
-    *route = 1;
-    err = allow_smem(one_launch, one_launch_bytes);
-    if (err != cudaSuccess) return err;
-    one_launch<<<grid, kThreads, one_launch_bytes, stream>>>(p, mat, phat, q, n, mm, r, eps);
-    return cudaGetLastError();
-  }
-  *route = 2;
-  int k1_route = 0, k1_cluster = 0;
-  err = static_cast<cudaError_t>(
-      gram_schmidt_f32(p, phat, count, n, r, eps, &k1_route, &k1_cluster, stream));
-  if (err != cudaSuccess) return err;
-  orthogonalize_project_kernel<kRC, false><<<grid, kThreads, part_bytes, stream>>>(
-      p, mat, phat, q, n, mm, r, eps);
-  return cudaGetLastError();
+template <int GSRC, int kPC, bool kGS>
+cudaError_t launch_orthogonalize_project(const Device& dev, const float* p, const float* mat,
+                                         float* phat, float* q, int g, int n, int mm, int r,
+                                         float eps, cudaStream_t stream) {
+  const bool vec = mm % 4 == 0 && aligned16(mat);
+  const int e = vec ? 4 : 1;
+  const size_t gs_floats = kGS ? (static_cast<size_t>(n) * r + r + 3) / 4 * 4 : 0;
+  const size_t smem = sizeof(float) * (gs_floats + static_cast<size_t>(kThreads) * e * kPC);
+  if (vec)
+    return launch_projection(dev, orthogonalize_project_kernel<GSRC, kPC, kGS, true>, smem, stream,
+                             p, mat, phat, q, g, n, mm, r, eps);
+  return launch_projection(dev, orthogonalize_project_kernel<GSRC, kPC, kGS, false>, smem, stream,
+                           p, mat, phat, q, g, n, mm, r, eps);
+}
+
+// The projection's factor columns per pass: the smallest of 1, 2, 4 and
+// kProjCols that holds min(r, kProjCols).
+#define WITH_PROJ_WIDTH(r, fn, ...)                                              \
+  ((r) <= 1 ? fn<1>(__VA_ARGS__) : (r) <= 2 ? fn<2>(__VA_ARGS__)                 \
+   : (r) <= 4 ? fn<4>(__VA_ARGS__) : fn<kProjCols>(__VA_ARGS__))
+
+template <int kPC>
+cudaError_t two_launch_projection(const Device& dev, const float* p, const float* mat, float* phat,
+                                  float* q, int g, int n, int mm, int r, float eps,
+                                  cudaStream_t s) {
+  return launch_orthogonalize_project<4, kPC, false>(dev, p, mat, phat, q, g, n, mm, r, eps, s);
+}
+
+template <int kPC>
+cudaError_t one_launch_r4(const Device& dev, const float* p, const float* mat, float* phat,
+                          float* q, int g, int n, int mm, int r, float eps, cudaStream_t s) {
+  return launch_orthogonalize_project<4, kPC, true>(dev, p, mat, phat, q, g, n, mm, r, eps, s);
 }
 
 }  // namespace
@@ -398,31 +608,65 @@ cudaError_t launch_orthogonalize_project(const float* p, const float* mat, float
 // p, phat (count, n, r); q (count, mm, r); all fp32, contiguous.
 
 // K2a (e given): m_out = g + e and p = m_out q. K2b (e and m_out null): p = g q.
+// Passes of up to kMaxRank factor columns, as many as Q's slice fits shared
+// memory; K2a's first pass writes M and the later passes read it back.
 extern "C" int ef_compress_f32(const float* g, const float* e, const float* q, float* m_out,
                                float* p, int count, int n, int mm, int r, void* stream) {
   if (count <= 0 || n <= 0 || mm <= 0 || r <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int c0 = 0; c0 < r; c0 += kMaxRank) {
-    const int rc = min(kMaxRank, r - c0);
-    float* m_write = c0 == 0 ? m_out : nullptr;  // M is written by the first pass only
-    const cudaError_t err =
-        WITH_RANK_WIDTH(rc, launch_ef_compress, g, e, q, m_write, p, count, n, mm, r, c0, rc, s);
+  Device dev;
+  cudaError_t err = current_device(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int pass = kMaxRank;
+  while (pass > 1 && sizeof(float) * static_cast<size_t>(mm) * pass > static_cast<size_t>(dev.smem_optin))
+    pass /= 2;
+  const bool q_shared = sizeof(float) * static_cast<size_t>(mm) * pass <= static_cast<size_t>(dev.smem_optin);
+  for (int c0 = 0; c0 < r; c0 += pass) {
+    const int rc = min(pass, r - c0);
+    const bool first = c0 == 0;
+    const float* src = first || e == nullptr ? g : m_out;
+    err = WITH_RANK_WIDTH(rc, ef_compress_pass, dev, src, first ? e : nullptr, q,
+                          first ? m_out : nullptr, p, count, n, mm, r, c0, rc, q_shared, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }
 
 // K3: phat = Gram-Schmidt(p), q = mat^T phat. *route is 1 for the one-launch
-// route (P-hat in shared memory) and 2 for the two-launch route.
+// route (where K1 keeps a matrix's P in one CTA: its recurrence in every CTA
+// of K3's clusters) and 2 for the two-launch route (K1, then the projection).
 extern "C" int orthogonalize_project_f32(const float* p, const float* mat, float* phat,
                                          float* q, int count, int n, int mm, int r,
                                          float eps, int* route, void* stream) {
   *route = 0;
   if (count <= 0 || n <= 0 || mm <= 0 || r <= 0) return 0;
-  const int width = min(r, kMaxRank);
-  return static_cast<int>(WITH_RANK_WIDTH(width, launch_orthogonalize_project, p, mat, phat,
-                                          q, count, n, mm, r, eps, route,
-                                          static_cast<cudaStream_t>(stream)));
+  if (count > kMaxGridY) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Device dev;
+  cudaError_t err = current_device(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t one_launch_bytes =
+      sizeof(float) * ((static_cast<size_t>(n) * r + r + 3) / 4 * 4 + static_cast<size_t>(kThreads) * 4 * kProjCols);
+  if (gs_cta::one_cta(n, r) && one_launch_bytes + kStaticSmem <= static_cast<size_t>(dev.smem_optin)) {
+    *route = 1;
+    const int width = gs_cta::round_width(r);
+    if (width == 4)
+      err = WITH_PROJ_WIDTH(r, one_launch_r4, dev, p, mat, phat, q, count, n, mm, r, eps, s);
+    else if (width == 8)
+      err = launch_orthogonalize_project<8, kProjCols, true>(dev, p, mat, phat, q, count, n, mm, r, eps, s);
+    else if (width == 16)
+      err = launch_orthogonalize_project<16, kProjCols, true>(dev, p, mat, phat, q, count, n, mm, r, eps, s);
+    else
+      err = launch_orthogonalize_project<32, kProjCols, true>(dev, p, mat, phat, q, count, n, mm, r, eps, s);
+    return static_cast<int>(err);
+  }
+  *route = 2;
+  int k1_route = 0, k1_cluster = 0;
+  err = static_cast<cudaError_t>(
+      gram_schmidt_f32(p, phat, count, n, r, eps, &k1_route, &k1_cluster, stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      WITH_PROJ_WIDTH(r, two_launch_projection, dev, p, mat, phat, q, count, n, mm, r, eps, s));
 }
 
 // K4: out = p q^T, mem = mat - out. count must be at most 65535 (grid.z).

@@ -2,9 +2,11 @@
 
 Each library compiles from its ``csrc/*.cu`` sources (plain C interfaces)
 into a shared object under the package's ``_build/`` directory
-(git-ignored), named by a hash of those sources so an edited kernel is never
-served from a stale build. The fused PowerSGD library links K1's source
-too: K3's two-launch route launches K1 itself. Nothing here runs at import
+(git-ignored), named by a hash of those sources and of the headers they
+include, so an edited kernel or header is never served from a stale build.
+The fused PowerSGD library links K1's source too: K3's two-launch route
+launches K1 itself, and K3's one-launch route runs K1's per-CTA code from
+the shared header ``gram_schmidt_cta.cuh``. Nothing here runs at import
 time: a wrapper calls :func:`load` (through :class:`Kernel`) the first time
 it launches its kernel, and ``chip_smoke.py`` calls :func:`build_all` to
 compile every library in parallel up front.
@@ -26,10 +28,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# the kernel sources of each library of the port, by library name
+# the kernel sources of each library of the port, by library name: the
+# ``.cu`` files go to nvcc, and every file (headers too) enters the hash
 SOURCES = {
-    "gram_schmidt": ("gram_schmidt.cu",),
-    "powersgd": ("powersgd.cu", "gram_schmidt.cu"),
+    "gram_schmidt": ("gram_schmidt.cu", "gram_schmidt_cta.cuh"),
+    "powersgd": ("powersgd.cu", "gram_schmidt.cu", "gram_schmidt_cta.cuh"),
     "flash_attention": ("flash_attention.cu",),
 }
 
@@ -67,7 +70,7 @@ def _start_build(name: str) -> "subprocess.Popen | None":
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC, src) for src in SOURCES[name])]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC, src) for src in SOURCES[name] if src.endswith(".cu"))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     proc.out_path, proc.tmp_path = out, tmp  # type: ignore[attr-defined]
     return proc

@@ -14,10 +14,12 @@ arguments and returns, on ``(g, n, m)`` shape-group stacks:
   error-feedback residual ``mem = M - out`` in one read of M (K4).
 
 The kernels are ``csrc/powersgd.cu`` (its header says how each is laid
-out on Hopper and what bounds it). K3 keeps P-hat in shared memory when
-its ``n * r`` floats fit in a block; otherwise it takes two launches, K1's
-kernel writing P-hat and a projection kernel reading it back, and
-:data:`ORTHOGONALIZE_PROJECT` records which route the last launch took.
+out on Hopper and what bounds it). K3 takes one launch where K1 keeps a
+matrix's P in one CTA: every CTA of a cluster runs K1's own recurrence on
+the whole P and projects its share of M's rows, so P-hat is K1's bit for
+bit. Elsewhere it takes two launches, K1's kernel writing P-hat and the
+projection reading it back, and :data:`ORTHOGONALIZE_PROJECT` records which
+route the last launch took.
 
 On CPU tensors a wrapper computes the plain version; on CUDA tensors it
 launches the kernel or raises. There is no fallback from one to the other.
@@ -59,7 +61,7 @@ DECOMPRESS_RESIDUAL = _build.Kernel(
 KERNELS = (EF_COMPRESS, COMPRESS, ORTHOGONALIZE_PROJECT, DECOMPRESS_RESIDUAL)
 
 _ROUTES = {1: "one_launch", 2: "two_launch"}
-_MAX_GROUP = 65535  # K4's grid.z
+_MAX_GROUP = 65535  # K3's grid.y and K4's grid.z
 
 
 # ---- plain versions ------------------------------------------------------
@@ -162,6 +164,8 @@ def fused_orthogonalize_project(
     _check("fused_orthogonalize_project", p=p, m=m)
     (g, n, r), mm = p.shape, m.shape[2]
     _expect("fused_orthogonalize_project", "m", m, (g, n, mm))
+    if g > _MAX_GROUP:
+        raise ValueError(f"fused_orthogonalize_project: a group of {g} matrices is above {_MAX_GROUP}")
     phat = torch.empty_like(p)
     q = torch.empty((g, mm, r), dtype=torch.float32, device=p.device)
     if phat.numel() and q.numel():

@@ -1,7 +1,9 @@
 """Tests of the PyTorch port that need a CUDA card: the CUDA Gram-Schmidt
 kernel (with the route and cluster size it takes for the word table's
 height and for small matrices), the fused PowerSGD kernels
-(``ops/powersgd.py``) and the flash attention kernel
+(``ops/powersgd.py``: ragged and misaligned stacks, K3's P-hat equal to the
+Gram-Schmidt kernel's bit for bit, two launches giving the same bits) and
+the flash attention kernel
 (``ops/flash_attention.py``, with left padding, a lone real key, a ragged
 T and NaN in the key tiles it must skip) against their plain versions, the
 PowerSGD reducer launching its kernels once per shape group, and
@@ -119,36 +121,72 @@ def _close_scaled(got, want):
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
 
 
-def _stack(shape, seed, dev):
+def _stack(shape, seed, dev, misalign=None):
+    """A contiguous (g, rows, cols) stack. ``misalign="stack"``: ``x[1:]`` of a
+    (g + 1, rows, cols) stack; ``"flat"``: a view of a flat buffer one float
+    in, so its data_ptr is 4-byte aligned only (with cols % 4 == 0 the only
+    way to reach the kernels' scalar loads)."""
+    if misalign == "stack":
+        return torch.from_numpy(_x((shape[0] + 1, *shape[1:]), seed)).to(dev)[1:]
+    if misalign == "flat":
+        flat = torch.from_numpy(_x((int(np.prod(shape)) + 1,), seed)).to(dev)
+        return flat[1:].view(shape)
     return torch.from_numpy(_x(shape, seed)).to(dev)
 
 
+def _case_id(case):
+    return "-".join(str(v) for v in case if v is not None)
+
+
+# (g, n, m, r, misalign): m % 4 in {1, 2, 3} (m = 10 is the ResNet fc
+# group), misaligned stacks, r in {1, 4, 8, 32, 40}, the two largest ResNet
+# groups, and n below one row group of the kernels (K3: with n >= r, since
+# past a matrix's rank Gram-Schmidt normalises rounding noise)
+_EF_CASES = [
+    (1, 64, 32, 4, None), (3, 100, 37, 8, None), (2, 5, 3, 2, None), (2, 6, 9, 1, None),
+    (3, 4608, 512, 4, None), (1, 512, 2048, 40, None), (1, 2048, 10, 4, None), (2, 50, 10, 4, None),
+    (2, 70, 7, 3, None), (3, 33, 65, 4, "stack"), (3, 40, 256, 4, "flat"), (2, 300, 256, 1, None),
+    (2, 300, 256, 32, None), (36, 2304, 256, 4, None), (2, 3, 256, 4, None), (3, 2, 64, 4, None),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "g,n,m,r", [(1, 64, 32, 4), (3, 100, 37, 8), (2, 5, 3, 2), (2, 6, 9, 1), (3, 4608, 512, 4), (1, 512, 2048, 40)]
-)
-def test_fused_ef_compress_matches_plain(cuda_device, g, n, m, r):
-    grads, resid, q = _stack((g, n, m), 1, cuda_device), _stack((g, n, m), 2, cuda_device), _stack((g, m, r), 3, cuda_device)
+@pytest.mark.parametrize("g,n,m,r,misalign", _EF_CASES, ids=[_case_id(c) for c in _EF_CASES])
+def test_fused_ef_compress_matches_plain(cuda_device, g, n, m, r, misalign):
+    grads = _stack((g, n, m), 1, cuda_device, misalign)
+    resid = _stack((g, n, m), 2, cuda_device, misalign)
+    q = _stack((g, m, r), 3, cuda_device)
+    if misalign == "flat":
+        assert grads.data_ptr() % 16 and resid.data_ptr() % 16
     launches = (ps.EF_COMPRESS.launches, ps.COMPRESS.launches)
     m_out, p = ps.fused_ef_compress(grads, q, resid)
     m_plain, p_plain = ps.ef_compress_reference(grads, q, resid)
-    same, p2 = ps.fused_ef_compress(m_out, q)
+    # K2b on the misaligned grads themselves, else on K2a's M
+    src = grads if misalign else m_out
+    same, p2 = ps.fused_ef_compress(src, q)
     torch.cuda.synchronize()
     assert (ps.EF_COMPRESS.launches, ps.COMPRESS.launches) == (launches[0] + 1, launches[1] + 1)
     assert torch.equal(m_out, m_plain)
-    assert same is m_out
+    assert same is src
     _close_scaled(p, p_plain)
-    _close_scaled(p2, ps.compress_reference(m_plain, q))
+    _close_scaled(p2, ps.compress_reference(src, q))
+
+
+# (g, n, m, r, misalign, route)
+_OP_CASES = [
+    (1, 64, 32, 4, None, "one_launch"), (2, 100, 37, 8, None, "one_launch"), (2, 6, 9, 1, None, "one_launch"),
+    (3, 4608, 512, 4, None, "one_launch"), (1, 4608, 512, 32, None, "two_launch"),
+    (1, 2048, 70, 40, None, "two_launch"), (1, 2048, 10, 4, None, "one_launch"), (2, 70, 7, 3, None, "one_launch"),
+    (2, 50, 10, 4, None, "one_launch"), (3, 33, 65, 4, "stack", "one_launch"), (3, 40, 256, 4, "flat", "one_launch"),
+    (1, 500, 64, 32, None, "one_launch"), (36, 2304, 256, 4, None, "one_launch"), (2, 5, 256, 4, None, "one_launch"),
+    (1, 147, 64, 4, None, "one_launch"), (2, 1500, 33, 16, "flat", "one_launch"),
+]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "g,n,m,r,route",
-    [(1, 64, 32, 4, "one_launch"), (2, 100, 37, 8, "one_launch"), (2, 6, 9, 1, "one_launch"),
-     (3, 4608, 512, 4, "one_launch"), (1, 4608, 512, 32, "two_launch"), (1, 2048, 70, 40, "two_launch")],
-)
-def test_fused_orthogonalize_project_matches_plain(cuda_device, g, n, m, r, route):
-    p, mat = _stack((g, n, r), 6, cuda_device), _stack((g, n, m), 7, cuda_device)
+@pytest.mark.parametrize("g,n,m,r,misalign,route", _OP_CASES, ids=[_case_id(c) for c in _OP_CASES])
+def test_fused_orthogonalize_project_matches_plain(cuda_device, g, n, m, r, misalign, route):
+    p, mat = _stack((g, n, r), 6, cuda_device, misalign), _stack((g, n, m), 7, cuda_device, misalign)
     launches = ps.ORTHOGONALIZE_PROJECT.launches
     phat, q = ps.fused_orthogonalize_project(p, mat)
     torch.cuda.synchronize()
@@ -157,12 +195,27 @@ def test_fused_orthogonalize_project_matches_plain(cuda_device, g, n, m, r, rout
     phat_plain, q_plain = ps.orthogonalize_project_reference(p, mat)
     torch.testing.assert_close(phat, phat_plain, rtol=0, atol=1e-5)
     _close_scaled(q, q_plain)
-    # the two-launch route runs K1 itself; the one-launch route runs K1's
-    # recurrence in its own block, summing in another order
-    if route == "two_launch":
-        assert torch.equal(phat, gs.gram_schmidt(p))
-    else:
-        torch.testing.assert_close(phat, gs.gram_schmidt(p), rtol=0, atol=1e-5)
+    # both routes give K1's P-hat bit for bit: the two-launch route launches
+    # K1, the one-launch route runs K1's per-CTA code where K1 takes one CTA
+    assert torch.equal(phat, gs.gram_schmidt(p.contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "g,n,m,r", [(36, 2304, 256, 4), (3, 4608, 512, 4), (1, 2048, 10, 4), (1, 4608, 512, 32), (2, 300, 256, 40)]
+)
+def test_redesigned_kernels_are_deterministic(cuda_device, g, n, m, r):
+    """Two launches of K2a, K2b and K3 on the same inputs give the same bits:
+    every sum runs in a fixed order, with no float atomics."""
+    grads, resid = _stack((g, n, m), 13, cuda_device), _stack((g, n, m), 14, cuda_device)
+    q = _stack((g, m, r), 15, cuda_device)
+    runs = []
+    for _ in range(2):
+        m_out, p = ps.fused_ef_compress(grads, q, resid)
+        runs.append([m_out, p, ps.fused_ef_compress(grads, q)[1], *ps.fused_orthogonalize_project(p, m_out)])
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
