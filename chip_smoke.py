@@ -38,12 +38,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``compress_impl="xla"`` path (K1) and on the fused ``"pallas"`` path
    (K2a, K3, K4); ``powersgd_imdb.run`` with preset ``full``
    (``distilbert_base``, batch 16, max_len 256, rank 16: K5 and K1);
+   ``exact_cifar10.run`` with preset ``full`` (ResNet-50, ImageNet stem,
+   width 64, global batch 256, exact DDP: no kernel of the port) under four
+   reducer layouts (one packed payload, 25 MiB buckets, 4 chunks, the ring),
+   with the bits and collectives of each, the layouts' parameters after two
+   steps held equal bit for bit, one profiled step (busy time, NCCL) and the
+   accuracy on the test split; ``imdb_baseline.run`` with preset ``full``
+   (``distilbert_base``, batch 16, max_len 256, one process: K5) under
+   Nesterov SGD and AdamW; and ``launch bare_init`` in a process of its own;
 4. two steps from the same weights and batches, deterministic cuDNN: plain
    Gram-Schmidt against the kernel; fused against xla; fused against xla
    with one extra power iteration (K2b's path); the small ResNet on the card
    against the same two steps on the CPU; DistilBERT with flash attention
-   (K5) against ``attn_impl="einsum"`` on the card; and the tiny DistilBERT
-   on the card against the CPU;
+   (K5) against ``attn_impl="einsum"`` on the card; the tiny DistilBERT
+   on the card against the CPU; and the IMDb baseline, under either
+   optimizer, with flash attention against einsum on the card;
 5. one ``{"kernels": [...]}`` line: each kernel's launches on its paths, its
    time for one main-path step (CUDA events, ``ms``, and the profiler's
    device time, ``device_ms``), the plain version's, one PyTorch call's
@@ -104,6 +113,24 @@ PROFILE_STEPS = 3
 # distilbert_base at batch 16, max_len 256: folded heads and launches per step
 IMDB_B, IMDB_T, IMDB_H, IMDB_D, IMDB_LAYERS = 16, 256, 12, 64, 6
 IMDB_BITS = 61_969_600  # the JAX reducer's payload bits per step over distilbert_base, rank 16
+# exact DDP: every fp32 gradient of ResNet-50 (23,528,522) and of
+# distilbert_base (66,955,010) once a step
+EXACT_BITS = 752_912_704
+BASELINE_BITS = 2_142_560_320
+# the exact reducer's layouts on the main path and the collectives of each
+# (25 MiB is torch DDP's default bucket cap)
+EXACT_LAYOUTS = {
+    "monolithic": ({}, 1),
+    "bucketed": ({"bucket_bytes": 25 << 20}, 4),
+    "chunked": ({"comm_chunks": 4}, 4),
+    "ring": ({"comm_strategy": "ring"}, 1),
+}
+EXACT_PROFILE_STEPS = 1
+TEXT_EVAL_BATCH = 64  # evaluate_text_classifier's batch
+# Adam moves a parameter at most about lr a step (|m-hat| / sqrt(v-hat) is
+# at most 1.0014 in two steps): the bound on two runs' difference where its
+# gradient is zero in exact arithmetic, per step and lr
+ADAM_NOISE_BOUND = 2.01
 
 
 def fail(msg: str) -> None:
@@ -368,12 +395,14 @@ def check_fused_kernels(ps, gs, shapes, dev, gen, keep):
     return report, kept
 
 
-def profile_main_path(dev, experiment, cfg, arrays, kernels):
-    """Where a main-path step's time goes: ``torch.profiler`` over
-    PROFILE_STEPS steps of ``experiment``'s full preset with ``cfg`` on the
-    data ``arrays`` through a one-rank NCCL group, after one warm-up step;
-    ``kernels`` maps each port kernel to a part of its device function's
-    name. Device numbers are None where the profiler saw no device
+def profile_main_path(dev, experiment, cfg, arrays, kernels, steps=PROFILE_STEPS, build=None):
+    """Where a main-path step's time goes: ``torch.profiler`` over ``steps``
+    steps of ``experiment``'s full preset with ``cfg`` on the data
+    ``arrays`` through a one-rank NCCL group, after one warm-up step;
+    ``build(group)`` makes the model, step and state where
+    ``experiment.build`` does not take a group. ``kernels`` maps each port
+    kernel to a part of its device function's name. NCCL's kernels are
+    summed apart. Device numbers are None where the profiler saw no device
     activity."""
     import torch
     from torch.autograd import DeviceType
@@ -388,10 +417,10 @@ def profile_main_path(dev, experiment, cfg, arrays, kernels):
 
     group = initialize_distributed(DistributedConfig(), dev)
     try:
-        model, step, state = experiment.build(cfg, "full", dev, group)
+        model, step, state = (build or (lambda g: experiment.build(cfg, "full", dev, g)))(group)
         batches = [
             tuple(torch.from_numpy(a).to(dev) for a in b)
-            for b in accumulated_batches(arrays, cfg, 1 + PROFILE_STEPS)(0)
+            for b in accumulated_batches(arrays, cfg, 1 + steps)(0)
         ]
         state, loss = step(state, batches[0])
         loss.item()
@@ -401,12 +430,12 @@ def profile_main_path(dev, experiment, cfg, arrays, kernels):
             for b in batches[1:]:
                 state, loss = step(state, b)
                 loss.item()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
         device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         del model, step, state
     finally:
         shutdown_distributed()
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / PROFILE_STEPS
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / steps
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
     seen = busy_ms > 0
     per_kernel = {}
@@ -414,31 +443,37 @@ def profile_main_path(dev, experiment, cfg, arrays, kernels):
         evs = [e for e in device if part in e.key]
         total_us, count = sum(e.self_device_time_total for e in evs), sum(e.count for e in evs)
         per_kernel[name] = {
-            "launches_per_step": count / PROFILE_STEPS,
-            "device_ms_per_step": total_us / 1e3 / PROFILE_STEPS if seen else None,
+            "launches_per_step": count / steps,
+            "device_ms_per_step": total_us / 1e3 / steps if seen else None,
             "device_us_per_launch": total_us / max(count, 1) if seen else None,
         }
+    nccl = [e for e in device if "nccl" in e.key.lower()]
     return {
         "phase": "profile", "experiment": experiment.__name__.rsplit(".", 1)[-1],
-        "compress_impl": cfg.compress_impl, "steps": PROFILE_STEPS,
+        "compress_impl": cfg.compress_impl, "steps": steps,
         "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms if seen else None,
         "device_idle_share": 1 - busy_ms / wall_ms if seen else None,
         "kernels": per_kernel,
+        "nccl_ms_per_step": sum(e.self_device_time_total for e in nccl) / 1e3 / steps if seen else None,
+        "nccl_kernels": [
+            {"name": e.key[:90], "ms_per_step": e.self_device_time_total / 1e3 / steps, "calls_per_step": e.count / steps}
+            for e in nccl
+        ],
         "top_kernels": [
             {
                 "name": e.key[:90],
-                "ms_per_step": e.self_device_time_total / 1e3 / PROFILE_STEPS,
-                "calls_per_step": e.count / PROFILE_STEPS,
+                "ms_per_step": e.self_device_time_total / 1e3 / steps,
+                "calls_per_step": e.count / steps,
             }
             for e in top
         ],
     }
 
 
-def main_path_record(name, result, cfg, peak):
-    """The ``main_path`` line of one run of ``powersgd_cifar10.run``; fails
-    on a non-finite loss."""
+def main_path_record(name, result, cfg, peak, model="resnet152"):
+    """The ``main_path`` line of one run of ``powersgd_cifar10.run`` or
+    ``exact_cifar10.run`` (``model``); fails on a non-finite loss."""
     import statistics
 
     losses = result["losses"]
@@ -447,15 +482,13 @@ def main_path_record(name, result, cfg, peak):
     timed_ms = result["device_time_ms"][WARMUP_STEPS:]
     p50_ms = statistics.median(timed_ms)
     return {
-        "phase": name, "compress_impl": cfg.compress_impl, "model": "resnet152",
-        "stem": "imagenet", "width": 64, "global_batch": cfg.global_batch_size,
-        "reducer_rank": cfg.reducer_rank, "world_size": result["num_devices"], "losses": losses,
+        "phase": name, "model": model, "stem": "imagenet", "width": 64,
+        "global_batch": cfg.global_batch_size, "world_size": result["num_devices"], "losses": losses,
         "timed_steps": len(timed_ms), "step_device_ms": timed_ms,
         "step_device_ms_p50": p50_ms,
         "step_host_s_p50": statistics.median(result["step_time_s"][WARMUP_STEPS:]),
         "images_per_s": cfg.global_batch_size / (p50_ms / 1e3),
         "peak_memory_bytes": peak, "bits_per_step": result["bits_per_step"],
-        "shape_groups": result["shape_groups"],
     }
 
 
@@ -468,13 +501,23 @@ def main() -> None:
     try:
         from network_distributed_pytorch_tpu_torch.data.cifar10 import load_cifar10_or_synthetic
         from network_distributed_pytorch_tpu_torch.data.imdb import prepare_imdb
-        from network_distributed_pytorch_tpu_torch.experiments import powersgd_cifar10, powersgd_imdb
+        from network_distributed_pytorch_tpu_torch.experiments import (
+            exact_cifar10,
+            imdb_baseline,
+            powersgd_cifar10,
+            powersgd_imdb,
+        )
         from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches
         from network_distributed_pytorch_tpu_torch.ops import _build
         from network_distributed_pytorch_tpu_torch.ops import flash_attention as fa
         from network_distributed_pytorch_tpu_torch.ops import gram_schmidt as gs
         from network_distributed_pytorch_tpu_torch.ops import powersgd as ps
         from network_distributed_pytorch_tpu_torch.ops.orthogonalize import orthogonalize
+        from network_distributed_pytorch_tpu_torch.parallel.mesh import (
+            DistributedConfig,
+            initialize_distributed,
+            shutdown_distributed,
+        )
     except ImportError as e:
         fail(f"the port is not importable next to this script: {e}")
 
@@ -567,7 +610,7 @@ def main() -> None:
 
     # flash attention at DistilBERT's width, with the first synthetic-IMDb
     # batch's padding (about 214 of 256 keys per row)
-    imdb_full, _, _ = prepare_imdb(max_len=IMDB_T, seed=imdb_cfg.seed)
+    imdb_full, imdb_val, _ = prepare_imdb(max_len=IMDB_T, seed=imdb_cfg.seed)
     imdb_arrays = [imdb_full["input_ids"], imdb_full["attention_mask"], imdb_full["labels"]]
     first_amask = torch.from_numpy(next(accumulated_batches(imdb_arrays, imdb_cfg)(0))[1])
     imdb_mask = torch.where(first_amask > 0, 0.0, torch.finfo(torch.float32).min)
@@ -707,9 +750,10 @@ def main() -> None:
     launches = {}
     profiles = {}
 
-    def drive(name, run, want):
+    def drive(name, run, want, kernel_free=False):
         """``run()`` with every launch count set to 0 just before it and
-        read just after; fails unless they are ``want``."""
+        read just after; fails unless they are ``want`` (all 0 only where
+        the path is ``kernel_free``)."""
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         for k in all_kernels:
@@ -717,7 +761,7 @@ def main() -> None:
         result = run()
         launches[name] = {k.name: k.launches for k in all_kernels}
         full_want = {k.name: want.get(k.name, 0) for k in all_kernels}
-        if launches[name] != full_want or not any(full_want.values()):
+        if launches[name] != full_want or not (kernel_free or any(full_want.values())):
             fail(f"{name} launched {launches[name]}, expected {full_want}")
         results[name] = result
         return result, torch.cuda.max_memory_allocated(dev)
@@ -735,7 +779,10 @@ def main() -> None:
             impl, lambda: powersgd_cifar10.run(cfg, preset="full", device=dev, max_steps_per_epoch=MAIN_STEPS), want
         )
         record = main_path_record("main_path" if impl == "xla" else "main_path_fused", result, cfg, peak)
-        record["launches"] = launches[impl]
+        record.update(
+            compress_impl=cfg.compress_impl, reducer_rank=cfg.reducer_rank,
+            shape_groups=result["shape_groups"], launches=launches[impl],
+        )
         emit(record)
         profiles[impl] = profile_main_path(dev, powersgd_cifar10, cfg, [images, labels], {
             k: device_fns[k] for k in ("gram_schmidt", "ef_compress", "orthogonalize_project", "decompress_residual")
@@ -775,6 +822,116 @@ def main() -> None:
         k: device_fns[k] for k in ("gram_schmidt", "flash_attention")
     })
     emit(profiles["imdb"])
+
+    # exact DDP of ResNet-50 under each reducer layout: no kernel of the port
+    # runs, every gradient rides NCCL (a world of one)
+    exact = {}
+    for layout, (fields, collectives) in EXACT_LAYOUTS.items():
+        cfg = exact_cifar10.default_config()
+        for k, v in fields.items():
+            setattr(cfg, k, v)
+        result, peak = drive(
+            f"exact_{layout}",
+            lambda: exact_cifar10.run(
+                cfg, preset="full", device=dev, max_steps_per_epoch=MAIN_STEPS, eval_after=layout == "monolithic"
+            ),
+            {}, kernel_free=True,
+        )
+        record = main_path_record(f"exact_{layout}", result, cfg, peak, model="resnet50")
+        if result["bits_per_step"] != EXACT_BITS + 32 or result["n_collectives"] != collectives:
+            fail(
+                f"exact {layout}: {result['bits_per_step']} bits per step (want {EXACT_BITS} + 32),"
+                f" {result['n_collectives']} collectives (want {collectives})"
+            )
+        exact[layout] = {**record, "reducer": fields, "n_collectives": collectives}
+    # the layouts' parameters after two steps from the same weights and
+    # batches, with deterministic cuDNN: bit for bit, since every layout
+    # reduces the same values over one rank
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    group = initialize_distributed(DistributedConfig(), dev)
+    try:
+        first = None
+        for layout, (fields, _) in EXACT_LAYOUTS.items():
+            cfg = exact_cifar10.default_config()
+            for k, v in fields.items():
+                setattr(cfg, k, v)
+            model, step, state = exact_cifar10.build(cfg, "full", dev, group)
+            for batch in accumulated_batches([images, labels], cfg, max_steps_per_epoch=2)(0):
+                state, loss = step(state, tuple(torch.from_numpy(a).to(dev) for a in batch))
+            params = {k: v.detach().clone() for k, v in state.params.items()}
+            del model, step, state
+            if first is None:
+                first = params
+            elif not all(torch.equal(params[k], first[k]) for k in first):
+                fail(f"exact {layout}: parameters after 2 steps differ from the monolithic layout's")
+        del first, params
+    finally:
+        shutdown_distributed()
+        torch.backends.cudnn.deterministic = False
+    profiles["exact"] = profile_main_path(
+        dev, exact_cifar10, exact_cifar10.default_config(), [images, labels], {}, steps=EXACT_PROFILE_STEPS
+    )
+    emit({
+        "phase": "main_path_exact", "model": "resnet50", "parameters": 23_528_522, "leaves": 161,
+        "layouts": exact, "params_after_2_steps_bitwise_equal": True,
+        "eval_accuracy": results["exact_monolithic"]["eval_accuracy"],
+        "eval_note": "synthetic CIFAR-10 test split, 7 steps from random weights: a number, not a target",
+        "profile": profiles["exact"],
+    })
+
+    # the single-node IMDb baseline: one process, no group, K5 in each layer
+    # of every training step and of every evaluation batch
+    eval_batches = -(-len(imdb_val["labels"]) // TEXT_EVAL_BATCH)
+    baseline = {}
+    for opt in imdb_baseline.OPTIMIZERS:
+        cfg = imdb_baseline.default_config(opt)
+        cfg.training_epochs = 1
+        result, peak = drive(
+            f"imdb_baseline_{opt}",
+            lambda: imdb_baseline.run(
+                cfg, preset="full", device=dev, max_steps_per_epoch=MAIN_STEPS, optimizer_name=opt, eval_after=True
+            ),
+            {"flash_attention": (MAIN_STEPS + eval_batches) * IMDB_LAYERS},
+        )
+        losses = result["losses"]
+        if len(losses) != MAIN_STEPS or not all(math.isfinite(v) for v in losses):
+            fail(f"imdb_baseline {opt} losses {losses}")
+        if result["bits_per_step"] != BASELINE_BITS:
+            fail(f"imdb_baseline {opt}: {result['bits_per_step']} bits per step, want {BASELINE_BITS}")
+        timed_ms = result["device_time_ms"][WARMUP_STEPS:]
+        p50_ms = statistics.median(timed_ms)
+        baseline[opt] = {
+            "epochs_of_the_reference": imdb_baseline.OPTIMIZERS[opt], "learning_rate": cfg.learning_rate,
+            "losses": losses, "timed_steps": len(timed_ms), "step_device_ms": timed_ms,
+            "step_device_ms_p50": p50_ms,
+            "step_host_s_p50": statistics.median(result["step_time_s"][WARMUP_STEPS:]),
+            "sequences_per_s": result["global_batch"] / (p50_ms / 1e3), "peak_memory_bytes": peak,
+            "bits_per_step": result["bits_per_step"], "launches": launches[f"imdb_baseline_{opt}"],
+            "flash_launches_training": MAIN_STEPS * IMDB_LAYERS,
+            "flash_launches_eval": eval_batches * IMDB_LAYERS, "eval_sequences": len(imdb_val["labels"]),
+            "eval_accuracy": result["eval_accuracy"],
+        }
+    baseline_cfg = imdb_baseline.default_config()
+    profiles["imdb_baseline"] = profile_main_path(
+        dev, imdb_baseline, baseline_cfg, imdb_arrays, {"flash_attention": device_fns["flash_attention"]},
+        build=lambda group: imdb_baseline.build(baseline_cfg, "full", dev),  # one process: no group
+    )
+    emit({
+        "phase": "main_path_imdb_baseline", "model": "distilbert_base", "global_batch": IMDB_B, "max_len": IMDB_T,
+        "world_size": 1, "optimizers": baseline, "profile_sgd_nesterov": profiles["imdb_baseline"],
+        "eval_note": "synthetic IMDb validation split, 7 steps from random weights: a number, not a target",
+    })
+
+    # bare_init through the launcher, in a process of its own
+    launched = subprocess.run(
+        [sys.executable, "-m", "network_distributed_pytorch_tpu_torch.launch", "bare_init"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=300,
+    )
+    lines = launched.stdout.strip().splitlines()
+    summary = json.loads(lines[-1]) if launched.returncode == 0 and lines else None
+    if summary is None or summary.get("num_devices") != 1 or summary.get("backend") != "nccl":
+        fail(f"launch bare_init exited {launched.returncode}: {launched.stdout[-2000:]} {launched.stderr[-2000:]}")
+    emit({"phase": "bare_init", "summary": summary})
 
     # ---- 4. two steps against two steps ---------------------------------------
     # with deterministic cuDNN and no TF32, so that only what is compared differs
@@ -911,6 +1068,47 @@ def main() -> None:
             }
         emit(record)
 
+    # the IMDb baseline: flash attention (K5) against einsum on the card, two
+    # steps from the same weights. Exact gradients: every leaf to IMDB_TOL,
+    # but for AdamW the attention's key biases, whose gradient is zero in
+    # exact arithmetic (a softmax does not change when all of a query's
+    # scores move together): Adam scales their rounding noise up to about lr
+    # a step, so there they are held to Adam's bound
+    def baseline_two_steps(opt, attn_impl):
+        cfg = imdb_baseline.default_config(opt)
+        cfg.attn_impl = attn_impl
+        model, step, state = imdb_baseline.build(cfg, "full", dev, opt)
+        losses = []
+        for batch in accumulated_batches(imdb_arrays, cfg, max_steps_per_epoch=2)(0):
+            state, loss = step(state, tuple(torch.from_numpy(a).to(dev) for a in batch))
+            losses.append(loss.item())
+        return losses, {k: v.detach().cpu() for k, v in state.params.items()}
+
+    record = {"phase": "imdb_baseline_flash_vs_einsum", "preset": "full", "global_batch": IMDB_B, "steps": 2,
+              "tolerance": IMDB_TOL}
+    for opt in imdb_baseline.OPTIMIZERS:
+        before = fa.KERNEL.launches
+        (losses_a, params_a), (losses_b, params_b) = (baseline_two_steps(opt, impl) for impl in ("flash", "einsum"))
+        flash_launches = fa.KERNEL.launches - before
+        noise = {k for k in params_a if k.endswith("attention.k_lin.bias")} if opt == "adamw" else set()
+        bound = ADAM_NOISE_BOUND * imdb_baseline.default_config(opt).learning_rate * 2
+        diff = max_diff({k: v for k, v in params_a.items() if k not in noise}, params_b)
+        noise_diff = max_diff({k: params_a[k] for k in noise}, params_b) if noise else 0.0
+        loss_diff = max(abs(a - b) for a, b in zip(losses_a, losses_b))
+        if flash_launches != 2 * IMDB_LAYERS:
+            fail(f"imdb_baseline {opt}: flash attention launched {flash_launches} times in 2 steps")
+        if not (math.isfinite(diff) and diff <= IMDB_TOL and loss_diff <= IMDB_TOL and noise_diff <= bound):
+            fail(
+                f"imdb_baseline {opt}, flash vs einsum: params {diff}, losses {loss_diff} (tol {IMDB_TOL}),"
+                f" key biases {noise_diff} (bound {bound})"
+            )
+        record[opt] = {
+            "losses": [losses_a, losses_b], "max_param_diff": diff, "max_loss_diff": loss_diff,
+            "key_bias_leaves": len(noise), "max_key_bias_diff": noise_diff, "key_bias_bound": bound,
+            "flash_launches": flash_launches,
+        }
+    emit(record)
+
     # ---- 5. the kernels ------------------------------------------------------
     # what the xla path runs for the same work, as a yardstick for later work
     emit({"phase": "xla_yardstick", "ms_per_step": xla_ms, "device_ms_per_step": xla_device_ms})
@@ -955,14 +1153,22 @@ def main() -> None:
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "library_device_ms": row["library_device_ms"],
         })
+    k5_paths = {
+        "distilbert_imdb": "imdb",
+        **{f"imdb_baseline_{opt}": f"imdb_baseline_{opt}" for opt in imdb_baseline.OPTIMIZERS},
+    }
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "network_distributed_pytorch_tpu_torch/csrc/flash_attention.cu",
         "replaces": "network_distributed_pytorch_tpu/ops/flash_attention.py:76",
-        "launches": launches["imdb"]["flash_attention"], "max_abs_err": attn_row["max_abs_err"],
+        # on every path that runs it: PowerSGD DistilBERT and the single-node baseline
+        "launches": sum(launches[path]["flash_attention"] for path in k5_paths.values()),
+        "launches_by_path": {name: launches[path]["flash_attention"] for name, path in k5_paths.items()},
+        "max_abs_err": attn_row["max_abs_err"],
         # one step's launches on the first IMDb batch's mask; SDPA given the same additive mask
         **{k: v for k, v in attn_row.items() if k != "max_abs_err"},
         "device_ms_in_path_profile": profiles["imdb"]["kernels"]["flash_attention"]["device_ms_per_step"],
+        "device_ms_in_baseline_profile": profiles["imdb_baseline"]["kernels"]["flash_attention"]["device_ms_per_step"],
         "no_mask": no_mask_row,
     })
     emit({"kernels": kernels})

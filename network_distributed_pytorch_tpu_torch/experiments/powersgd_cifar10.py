@@ -18,11 +18,20 @@ import torch.distributed as dist
 
 from ..data.cifar10 import load_cifar10_or_synthetic
 from ..models.resnet import resnet18, resnet152
-from ..parallel.mesh import DistributedConfig, initialize_distributed, resolve_device, shutdown_distributed
+from ..parallel.mesh import resolve_device
 from ..parallel.reducers import PowerSGDReducer
 from ..parallel.trainer import make_train_step
 from ..utils.config import ExperimentConfig
-from .common import accumulated_batches, image_classifier_loss, summarize, train_loop
+from .common import (
+    accumulated_batches,
+    evaluate_on_test_split,
+    image_classifier_loss,
+    powersgd_reducer_kwargs,
+    process_group,
+    require_defaults,
+    summarize,
+    train_loop,
+)
 
 
 def default_config() -> ExperimentConfig:
@@ -41,14 +50,14 @@ def build_model(preset: str, device="cuda", seed: int = 0):
 
 def build(config: ExperimentConfig, preset: str, device, group):
     """The model, the training step and its initial state."""
+    require_defaults(config, ("bucket_bytes",), "powersgd_cifar10")  # the exact reducer's knob
     model = build_model(preset, device, seed=config.seed)
     reducer = PowerSGDReducer(
         random_seed=config.seed,
         compression_rank=config.reducer_rank,
         reuse_query=config.reuse_query,
         matricize="last",  # the JAX package's matrices: output features last
-        orthogonalize_impl=config.orthogonalize_impl,
-        compress_impl=config.compress_impl,
+        **powersgd_reducer_kwargs(config),
     )
     step = make_train_step(
         image_classifier_loss(),
@@ -70,25 +79,16 @@ def run(
     data_dir: str = "./data",
     device="cuda",
     max_steps_per_epoch: Optional[int] = None,
+    eval_after: bool = False,
 ) -> Dict:
     """Train and return the run summary. Joins the default process group
     (creating one, of ``config.num_processes`` ranks, if none exists; a
-    world of one included), and leaves it as it found it."""
+    world of one included), and leaves it as it found it. ``eval_after``
+    adds ``eval_accuracy`` on the test split, from the ranks' mean BatchNorm
+    statistics."""
     config = config or default_config()
     device = resolve_device(device)
-    own_group = not dist.is_initialized()
-    if own_group:
-        initialize_distributed(
-            DistributedConfig(
-                process_id=config.process_id,
-                num_processes=config.num_processes,
-                coordinator_address=config.coordinator_address,
-                timeout_seconds=config.timeout_seconds,
-            ),
-            device,
-        )
-    try:
-        group = dist.group.WORLD
+    with process_group(config, device) as group:
         rank, world = dist.get_rank(group), dist.get_world_size(group)
         images, labels, is_real = load_cifar10_or_synthetic(data_dir, train=True)
         model, step, state = build(config, preset, device, group)
@@ -110,7 +110,6 @@ def run(
             "step_time_s": [r.step_time_s for r in logger.records],
             "device_time_ms": [r.device_time_ms for r in logger.records],
         }
+        if eval_after:
+            extra["eval_accuracy"] = evaluate_on_test_split(model, group, data_dir)
         return summarize("powersgd_cifar10", logger, extra)
-    finally:
-        if own_group:
-            shutdown_distributed()

@@ -22,12 +22,12 @@ import torch.distributed as dist
 
 from ..data.imdb import prepare_imdb
 from ..models.distilbert import distilbert_base, distilbert_tiny
-from ..parallel.mesh import DistributedConfig, initialize_distributed, resolve_device, shutdown_distributed
+from ..parallel.mesh import resolve_device
 from ..parallel.reducers import PowerSGDReducer, embedding_leaves
 from ..parallel.trainer import make_train_step
 from ..utils.config import ExperimentConfig
 from ..utils.losses import cross_entropy_loss
-from .common import accumulated_batches, summarize, train_loop
+from .common import accumulated_batches, process_group, require_defaults, summarize, train_loop
 
 PER_WORKER_BATCH = 16
 
@@ -64,11 +64,13 @@ def sequence_classifier_loss():
 def build(config: ExperimentConfig, preset: str, device, group):
     """The model, the training step and its initial state. The reducer is
     the JAX package's: its default pipeline (``compress_impl="xla"``, the
-    Gram-Schmidt kernel on the card); other values are refused."""
-    defaults = ExperimentConfig()
-    for name in ("compress_impl", "orthogonalize_impl"):
-        if getattr(config, name) != getattr(defaults, name):
-            raise ValueError(f"powersgd_imdb runs the default {name}={getattr(defaults, name)!r}")
+    Gram-Schmidt kernel on the card) and one collective per payload; other
+    values are refused."""
+    require_defaults(
+        config,
+        ("compress_impl", "orthogonalize_impl", "comm_chunks", "comm_strategy", "bucket_bytes"),
+        "powersgd_imdb",
+    )
     model = build_model(preset, device, seed=config.seed, attn_impl=config.attn_impl or "auto")
     reducer = PowerSGDReducer(
         random_seed=config.seed,
@@ -105,19 +107,7 @@ def run(
     found it."""
     config = config or default_config()
     device = resolve_device(device)
-    own_group = not dist.is_initialized()
-    if own_group:
-        initialize_distributed(
-            DistributedConfig(
-                process_id=config.process_id,
-                num_processes=config.num_processes,
-                coordinator_address=config.coordinator_address,
-                timeout_seconds=config.timeout_seconds,
-            ),
-            device,
-        )
-    try:
-        group = dist.group.WORLD
+    with process_group(config, device) as group:
         rank, world = dist.get_rank(group), dist.get_world_size(group)
         if not config.global_batch_size:
             config = dataclasses.replace(config, global_batch_size=PER_WORKER_BATCH * world)
@@ -149,6 +139,3 @@ def run(
             "device_time_ms": [r.device_time_ms for r in logger.records],
         }
         return summarize("powersgd_imdb", logger, extra)
-    finally:
-        if own_group:
-            shutdown_distributed()

@@ -1,12 +1,13 @@
 """Carry weights and PowerSGD state from the JAX package into the port.
 
 ``resnet_state_dict_from_flax`` maps the JAX ResNet's
-``{"params", "batch_stats"}`` (numpy arrays) onto the port's ``state_dict``:
+``{"params", "batch_stats"}`` (numpy arrays) onto the port's ``state_dict``,
+and the JAX ``SmallCNN``'s and ``MLP``'s ``{"params"}`` onto theirs:
 
 - conv kernels HWIO -> OIHW;
 - Dense kernels (in, out) -> Linear weights (out, in);
 - BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
-  running_var.
+  running_var; GroupNorm scale / bias -> weight / bias.
 
 ``distilbert_state_dict_from_flax`` maps the JAX DistilBERT's ``{"params"}``
 onto the port's (HuggingFace-named) ``state_dict``, the inverse of the JAX
@@ -37,7 +38,8 @@ import torch
 from ..parallel.reducers import PowerSGDState
 
 _BLOCK = re.compile(r"^(?:BasicBlock|BottleneckBlock)_(\d+)$")
-_SUB = re.compile(r"^(Conv|BatchNorm)_(\d+)$")
+_SUB = re.compile(r"^(Conv|BatchNorm|GroupNorm|Dense)_(\d+)$")
+_SUB_NAMES = {"Conv": "conv", "BatchNorm": "norm", "GroupNorm": "norm", "Dense": "dense"}
 _BN_FIELDS = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 
 
@@ -54,8 +56,9 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> List[Tuple[Tuple[str, ...], 
 
 
 def torch_name(path: Tuple[str, ...]) -> str:
-    """The port's parameter or buffer name for a flax ResNet variable path,
-    e.g. ``("BottleneckBlock_3", "Conv_1", "kernel")`` -> ``"blocks.3.conv1.weight"``."""
+    """The port's parameter or buffer name for a flax ResNet, SmallCNN or
+    MLP variable path, e.g. ``("BottleneckBlock_3", "Conv_1", "kernel")`` ->
+    ``"blocks.3.conv1.weight"``, ``("Dense_0", "bias")`` -> ``"dense0.bias"``."""
     *modules, leaf = path
     parts = []
     for mod in modules:
@@ -63,7 +66,7 @@ def torch_name(path: Tuple[str, ...]) -> str:
         if block:
             parts += ["blocks", block.group(1)]
         elif sub:
-            parts.append(("conv" if sub.group(1) == "Conv" else "norm") + sub.group(2))
+            parts.append(_SUB_NAMES[sub.group(1)] + sub.group(2))
         else:
             parts.append(mod)  # conv_init, norm_init, conv_proj, norm_proj, head
     parts.append("weight" if leaf == "kernel" else _BN_FIELDS.get(leaf, leaf))
@@ -118,7 +121,8 @@ def distilbert_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, t
 
 
 def resnet_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax ``{"params"[, "batch_stats"]}`` -> the port ResNet's state_dict.
+    """flax ``{"params"[, "batch_stats"]}`` -> the port ResNet's state_dict
+    (either norm), or the port ``SmallCNN``'s or ``MLP``'s.
 
     Also maps any params-shaped tree given as ``{"params": tree}`` (momenta,
     error memories, gradients). With ``batch_stats`` every BatchNorm also

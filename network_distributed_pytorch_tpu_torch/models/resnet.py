@@ -10,7 +10,10 @@ Details kept from the JAX model so weights carry across
   wherever the block changes shape;
 - ``stem="imagenet"``: 7x7/2 pad-3 conv and 3x3/2 pad-1 max-pool;
   ``stem="cifar"``: 3x3 pad-1 conv, no pool;
-- a global mean pool and a ``head`` Linear.
+- a global mean pool and a ``head`` Linear;
+- ``norm="batch"``: BatchNorm with flax's momentum 0.9 and epsilon 1e-5;
+  ``norm="group"``: flax's ``GroupNorm(num_groups=32)``, epsilon 1e-6
+  (torch's default is 1e-5), stateless.
 
 ``forward`` takes NHWC float input, the JAX package's layout, and permutes
 it inside; the permuted view has channels-last strides, which cuDNN takes
@@ -39,12 +42,17 @@ from ..parallel.mesh import resolve_device
 # momentum is the weight of the new batch statistic
 _BN_MOMENTUM = 0.1
 _BN_EPS = 1e-5
+# flax GroupNorm's defaults
+_GN_GROUPS = 32
+_GN_EPS = 1e-6
 
 
 def _norm(channels: int, norm: str) -> nn.Module:
-    if norm != "batch":
-        raise NotImplementedError(f"norm={norm!r} is not ported yet")
-    return nn.BatchNorm2d(channels, eps=_BN_EPS, momentum=_BN_MOMENTUM)
+    if norm == "batch":
+        return nn.BatchNorm2d(channels, eps=_BN_EPS, momentum=_BN_MOMENTUM)
+    if norm == "group":
+        return nn.GroupNorm(_GN_GROUPS, channels, eps=_GN_EPS)
+    raise ValueError(f"unknown norm {norm!r}")
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -150,7 +158,7 @@ class ResNet(nn.Module):
             elif isinstance(mod, nn.Linear):
                 _lecun_normal_(mod.weight, mod.in_features, gen)
                 mod.bias.zero_()
-            elif isinstance(mod, nn.BatchNorm2d):
+            elif isinstance(mod, (nn.BatchNorm2d, nn.GroupNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
         for block in self.blocks:

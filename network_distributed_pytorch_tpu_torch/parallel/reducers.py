@@ -13,7 +13,8 @@ PowerSGD (``PowerSGDReducer``): split rank-1 from high-rank tensors,
 groups, then per round ``P = M Q`` -> all-reduce(P) -> Gram-Schmidt ->
 ``Q = M^T P`` -> all-reduce(Q), and decompress ``P Q^T`` with the residual
 kept as error-feedback memory. All Ps ride one collective, all Qs another,
-and the rank-1 tensors a third. ``compress_impl`` picks the JAX package's
+and the rank-1 tensors a third (each may be split into chunks,
+``comm_chunks``). ``compress_impl`` picks the JAX package's
 pipeline of the same name: ``"xla"`` runs each step as plain PyTorch ops,
 ``"pallas"`` the fused kernels of :mod:`..ops.powersgd`, one per shape group
 per step.
@@ -30,27 +31,110 @@ from torch import nn
 from ..ops.gram_schmidt import gram_schmidt
 from ..ops.orthogonalize import orthogonalize
 from ..ops.powersgd import fused_decompress_residual, fused_ef_compress, fused_orthogonalize_project
-from ..utils.config import COMPRESS_IMPLS, ORTHOGONALIZE_IMPLS
-from .comm import all_reduce_mean, n_bits
+from ..utils.config import COMM_STRATEGIES, COMPRESS_IMPLS, ORTHOGONALIZE_IMPLS
+from .comm import (
+    all_reduce_mean,
+    bucket_assignments,
+    chunk_bounds,
+    chunked_all_reduce_mean,
+    n_bits,
+)
 from .packing import TensorPacker
 
 
+def _n_chunk_collectives(total_size: int, comm_chunks: Optional[int]) -> int:
+    """Collectives a flat payload of ``total_size`` elements costs under
+    :func:`..comm.chunked_all_reduce_mean` (1 when chunking is off or the
+    payload is empty)."""
+    if comm_chunks is None or total_size <= 0:
+        return 1
+    return len(chunk_bounds(total_size, comm_chunks))
+
+
 class ExactReducer:
-    """All-reduce-mean of every gradient, flat-packed into one collective
-    (the reference's ``average_gradients``, one collective in place of one
-    per tensor; the bytes are the same)."""
+    """Exact all-reduce-mean of every gradient (the reference's
+    ``average_gradients``).
+
+    By default every leaf is flat-packed into ONE collective; the bytes are
+    those of one collective per tensor. ``packed=False`` restores the
+    reference's one collective per tensor (161 for ResNet-50).
+
+    ``comm_chunks=K`` splits a packed payload into K collectives, and
+    ``comm_strategy="ring"`` runs each as the explicit ring of
+    :func:`..comm.ring_all_reduce_mean`. ``bucket_bytes=B`` is torch DDP's
+    bucket structure: leaves go into buckets of about B bytes in REVERSE
+    parameter order (the order the backward pass produces gradients,
+    :func:`..comm.bucket_assignments`), each bucket packs and reduces only
+    its own leaves, and ``comm_chunks`` applies per bucket. The buckets and
+    chunks partition the payload, so bits on the wire do not depend on the
+    layout; an all-reduce is elementwise, so the result does not either
+    wherever the collective's summation order does not depend on the
+    payload's size (two ranks, one rank, or dyadic values)."""
+
+    def __init__(
+        self,
+        packed: bool = True,
+        comm_chunks: Optional[int] = None,
+        comm_strategy: str = "interleave",
+        bucket_bytes: Optional[int] = None,
+    ):
+        if comm_strategy not in COMM_STRATEGIES:
+            raise ValueError(f"comm_strategy must be one of {COMM_STRATEGIES}, got {comm_strategy!r}")
+        if comm_chunks is not None and comm_chunks < 1:
+            raise ValueError(f"comm_chunks must be >= 1, got {comm_chunks}")
+        if bucket_bytes is not None and bucket_bytes < 1:
+            raise ValueError(f"bucket_bytes must be >= 1, got {bucket_bytes}")
+        # chunks and buckets re-partition the packed payload; one collective
+        # per tensor has none to split
+        if not packed and (comm_chunks is not None or bucket_bytes is not None):
+            raise ValueError("comm_chunks and bucket_bytes need packed=True")
+        self.packed = packed
+        self.comm_chunks = comm_chunks
+        self.comm_strategy = comm_strategy
+        self.bucket_bytes = bucket_bytes
+
+    def _buckets(self, leaves) -> List[List[int]]:
+        """Leaf-index buckets in backward order; one bucket of every leaf
+        when bucketing is off."""
+        if self.bucket_bytes is None:
+            return [list(range(len(leaves)))]
+        return bucket_assignments([n_bits(t) // 8 for t in leaves], self.bucket_bytes)
 
     def init(self, grads_template: Sequence[torch.Tensor]) -> dict:
         return {}
 
+    def n_collectives(self, grads_template: Sequence[torch.Tensor]) -> int:
+        leaves = list(grads_template)
+        if not self.packed:
+            return len(leaves)
+        return sum(
+            _n_chunk_collectives(sum(leaves[i].numel() for i in idxs), self.comm_chunks)
+            for idxs in self._buckets(leaves)
+        )
+
     def reduce(self, state: dict, send: List[torch.Tensor], group):
+        send = list(send)
         if not send:
             return state, [], [], 0
-        packer = TensorPacker.for_tensors(send)
-        reduced = all_reduce_mean(packer.pack(send), group)
-        out = [o.to(s.dtype) for o, s in zip(packer.unpack(reduced), send)]
+        out: List[Optional[torch.Tensor]] = [None] * len(send)
+        if self.packed:
+            bits = 0
+            for idxs in self._buckets(send):
+                blk = [send[i] for i in idxs]
+                packer = TensorPacker.for_tensors(blk)
+                reduced = chunked_all_reduce_mean(
+                    packer.pack(blk), group, self.comm_chunks, self.comm_strategy
+                )
+                bits += packer.bits()
+                for i, o in zip(idxs, packer.unpack(reduced)):
+                    out[i] = o.to(send[i].dtype)
+        else:
+            # the reference's structure: one collective per tensor, each on
+            # a copy (the collectives work in place)
+            out = [all_reduce_mean(s.clone(), group) for s in send]
+            bits = sum(n_bits(s) for s in send)
         new_memory = [torch.zeros_like(s) for s in send]
-        return state, out, new_memory, packer.bits()
+        return state, out, new_memory, bits
 
     def reduce_ef(self, state: dict, grads, memories, group):
         send = [g + e for g, e in zip(grads, memories)]
@@ -115,7 +199,9 @@ class PowerSGDReducer:
     payloads and bits on the wire are the same as ``"xla"``'s.
     ``compression_dtype`` (e.g. ``torch.bfloat16``) is the wire dtype of
     the P, Q and rank-1 payloads; P and Q are cast back to the gradients'
-    dtype for the math.
+    dtype for the math. ``comm_chunks`` and ``comm_strategy`` are the exact
+    reducer's: each of the P, Q and rank-1 payloads rides
+    :func:`..comm.chunked_all_reduce_mean`; the bits do not change.
     """
 
     def __init__(
@@ -129,7 +215,13 @@ class PowerSGDReducer:
         compression_dtype=None,
         compress_impl: str = "xla",
         features_last: Sequence[int] = (),
+        comm_chunks: Optional[int] = None,
+        comm_strategy: str = "interleave",
     ):
+        if comm_strategy not in COMM_STRATEGIES:
+            raise ValueError(f"comm_strategy must be one of {COMM_STRATEGIES}, got {comm_strategy!r}")
+        if comm_chunks is not None and comm_chunks < 1:
+            raise ValueError(f"comm_chunks must be >= 1, got {comm_chunks}")
         if compress_impl not in COMPRESS_IMPLS:
             raise ValueError(f"unknown compress_impl {compress_impl!r}")
         if orthogonalize_impl not in ORTHOGONALIZE_IMPLS:
@@ -149,6 +241,8 @@ class PowerSGDReducer:
         self.compression_dtype = compression_dtype
         self.compress_impl = compress_impl
         self.features_last = frozenset(features_last)
+        self.comm_chunks = comm_chunks
+        self.comm_strategy = comm_strategy
 
     # ---- static layout ---------------------------------------------------
 
@@ -213,6 +307,10 @@ class PowerSGDReducer:
         for k, p in enumerate(perm):
             inv[p] = k
         return mat.reshape([shape[p] for p in perm]).permute(inv)
+
+    def _reduce_flat(self, flat: torch.Tensor, group) -> torch.Tensor:
+        """One packed payload, all-reduce-meaned in place as configured."""
+        return chunked_all_reduce_mean(flat, group, self.comm_chunks, self.comm_strategy)
 
     def _orthogonalize(self, p: torch.Tensor) -> torch.Tensor:
         if self.orthogonalize_impl == "eager":
@@ -314,7 +412,7 @@ class PowerSGDReducer:
                 for poss, p_st in zip(groups, p_sts):
                     for j, p in enumerate(poss):
                         ps[p] = p_st[j]
-                p_flat = all_reduce_mean(p_packer.pack(ps), group)
+                p_flat = self._reduce_flat(p_packer.pack(ps), group)
                 bits += n_bits(p_flat)
                 ps = p_packer.unpack(p_flat)
                 p_stacks = [
@@ -323,7 +421,7 @@ class PowerSGDReducer:
 
             # rank-1 tensors: uncompressed, once
             if it == 0 and rank1_idx:
-                rank1_flat = all_reduce_mean(
+                rank1_flat = self._reduce_flat(
                     rank1_packer.pack([leaves[i] for i in rank1_idx]), group
                 )
                 bits += rank1_packer.bits()
@@ -347,7 +445,7 @@ class PowerSGDReducer:
                 for poss, q_st in zip(groups, q_sts):
                     for j, p in enumerate(poss):
                         qs[p] = q_st[j]
-                q_flat = all_reduce_mean(q_packer.pack(qs), group)
+                q_flat = self._reduce_flat(q_packer.pack(qs), group)
                 bits += n_bits(q_flat)
                 qs = q_packer.unpack(q_flat)
                 q_stacks = [

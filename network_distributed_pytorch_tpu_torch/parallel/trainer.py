@@ -1,12 +1,22 @@
 """L4: the training step.
 
-Two update rules, as in the JAX package's ``parallel/trainer.py``:
+The update rules of the JAX package's ``parallel/trainer.py``, by the same
+names:
 
-- ``"sgd"``: exact DDP, all-reduce-mean the gradients, then torch-style SGD
-  with momentum (``v <- mu v + g; p <- p - lr v``);
 - ``"ef_momentum"``: error-feedback SGD with momentum, PowerSGD Algorithm 2:
   ``send <- g + e``, compress / all-reduce / decompress (``e`` updated),
-  ``m <- mu m + delta; p <- p - lr (delta + m)``.
+  ``m <- mu m + delta; p <- p - lr (delta + m)``;
+- ``"sgd"``: exact DDP, reduce the gradients, then torch-style SGD with
+  momentum (``v <- mu v + g; p <- p - lr v``);
+- ``"sgd_nesterov"``: torch SGD with Nesterov momentum
+  (``v <- mu v + g; p <- p - lr (g + mu v)``), the reference's single-node
+  IMDb baseline;
+- ``"sgd_plain"``: SGD without momentum (``p <- p - lr g``);
+- ``"optax"``: a ``torch.optim.Optimizer`` applied to the reduced gradient
+  (the JAX package's name, where an optax transformation takes its place):
+  ``optimizer=`` is a factory from the parameters to the optimizer, and the
+  step writes the reduced, clipped gradient into ``.grad`` and calls
+  ``step()``.
 
 Gradients are synced by hand through the reducer, never by
 ``torch.nn.parallel.DistributedDataParallel``: the hand-rolled sync is what
@@ -36,15 +46,22 @@ LOSS_SYNC_BITS = 32
 # (model, batch) -> scalar loss; the forward runs in train mode, so it also
 # updates the model's BatchNorm running stats
 LossFn = Callable[[nn.Module, Any], torch.Tensor]
+# "optax": the parameters -> the optimizer that updates them
+OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
+
+ALGORITHMS = ("ef_momentum", "sgd", "sgd_nesterov", "sgd_plain", "optax")
+# the algorithms whose update keeps a momentum buffer per parameter
+_WITH_MOMENTA = ("ef_momentum", "sgd", "sgd_nesterov")
 
 
 @dataclass
 class TrainState:
     params: Dict[str, torch.Tensor]  # the model's own Parameters, by name
-    momenta: Dict[str, torch.Tensor]
+    momenta: Dict[str, torch.Tensor]  # empty for "sgd_plain" and "optax"
     memories: Dict[str, torch.Tensor]  # error feedback, this rank's own
     reducer_state: Any
     model_state: Dict[str, torch.Tensor]  # the model's buffers (BN stats), this rank's own
+    optimizer: Optional[torch.optim.Optimizer] = None  # "optax" only; holds its own state
 
 
 def sgd_momentum_update(params, momenta, delta, lr: float, mu: float) -> None:
@@ -52,6 +69,14 @@ def sgd_momentum_update(params, momenta, delta, lr: float, mu: float) -> None:
     for p, m, d in zip(params, momenta, delta):
         m.mul_(mu).add_(d)
         p.sub_(lr * m)
+
+
+def sgd_nesterov_update(params, momenta, delta, lr: float, mu: float) -> None:
+    """torch SGD with Nesterov momentum: ``v <- mu v + delta;
+    p <- p - lr (delta + mu v)``, in place."""
+    for p, m, d in zip(params, momenta, delta):
+        m.mul_(mu).add_(d)
+        p.sub_(lr * (d + mu * m))
 
 
 def ef_momentum_update(params, momenta, delta, lr: float, mu: float) -> None:
@@ -76,7 +101,8 @@ class TrainStep:
     ``group`` is the process group the reducer's collectives run over
     (``None``: one process, no collectives). With ``accum_steps > 1`` each
     batch tensor carries a leading ``accum_steps`` axis and the gradient is
-    the mean over the microbatches; the reducer still runs once per step."""
+    the mean over the microbatches; the reducer still runs once per step.
+    ``optimizer`` is given with ``algorithm="optax"`` and only then."""
 
     def __init__(
         self,
@@ -89,9 +115,12 @@ class TrainStep:
         group=None,
         accum_steps: int = 1,
         max_grad_norm: Optional[float] = None,
+        optimizer: Optional[OptimizerFactory] = None,
     ):
-        if algorithm not in ("ef_momentum", "sgd"):
-            raise NotImplementedError(f"algorithm {algorithm!r} is not ported yet")
+        if algorithm not in ALGORITHMS:
+            raise ValueError(f"algorithm must be one of {ALGORITHMS}, got {algorithm!r}")
+        if (algorithm == "optax") != (optimizer is not None):
+            raise ValueError("an optimizer factory goes with algorithm='optax' and only with it")
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.loss_fn = loss_fn
@@ -103,6 +132,7 @@ class TrainStep:
         self.group = group
         self.accum_steps = accum_steps
         self.max_grad_norm = max_grad_norm
+        self.optimizer = optimizer
         params = [p for _, p in model.named_parameters()]
         self.bits_per_step = reducer.bits_per_step(params) + (
             LOSS_SYNC_BITS if group is not None else 0
@@ -111,14 +141,18 @@ class TrainStep:
     def init_state(self) -> TrainState:
         params = dict(self.model.named_parameters())
         with torch.no_grad():
-            zeros = {k: torch.zeros_like(p) for k, p in params.items()}
+            momenta = (
+                {k: torch.zeros_like(p) for k, p in params.items()}
+                if self.algorithm in _WITH_MOMENTA else {}
+            )
             memories = {k: torch.zeros_like(p) for k, p in params.items()}
         return TrainState(
             params=params,
-            momenta=zeros,
+            momenta=momenta,
             memories=memories,
             reducer_state=self.reducer.init(list(params.values())),
             model_state=dict(self.model.named_buffers()),
+            optimizer=self.optimizer(list(params.values())) if self.optimizer is not None else None,
         )
 
     def _grads(self, state: TrainState, batch) -> torch.Tensor:
@@ -157,9 +191,21 @@ class TrainStep:
                 )
             if self.max_grad_norm is not None:
                 delta = clip_by_global_norm(delta, self.max_grad_norm)
-            momenta = [state.momenta[k] for k in names]
-            update = ef_momentum_update if self.algorithm == "ef_momentum" else sgd_momentum_update
-            update(params, momenta, delta, self.learning_rate, self.momentum)
+            if self.algorithm == "optax":
+                for p, d in zip(params, delta):
+                    p.grad = d
+                state.optimizer.step()
+            elif self.algorithm == "sgd_plain":
+                for p, d in zip(params, delta):
+                    p.sub_(self.learning_rate * d)
+            else:
+                momenta = [state.momenta[k] for k in names]
+                update = {
+                    "ef_momentum": ef_momentum_update,
+                    "sgd": sgd_momentum_update,
+                    "sgd_nesterov": sgd_nesterov_update,
+                }[self.algorithm]
+                update(params, momenta, delta, self.learning_rate, self.momentum)
             state.memories = dict(zip(names, new_mems))
             for p in params:
                 p.grad = None
@@ -178,9 +224,10 @@ def make_train_step(
     group=None,
     accum_steps: int = 1,
     max_grad_norm: Optional[float] = None,
+    optimizer: Optional[OptimizerFactory] = None,
 ) -> TrainStep:
     """Build the training step for ``model`` (see :class:`TrainStep`)."""
     return TrainStep(
         loss_fn, reducer, model, learning_rate, momentum, algorithm,
-        group, accum_steps, max_grad_norm,
+        group, accum_steps, max_grad_norm, optimizer,
     )

@@ -15,6 +15,7 @@ from typing import Optional
 ORTHOGONALIZE_IMPLS = ("auto", "eager", "cuda")
 COMPRESS_IMPLS = ("xla", "pallas")
 ATTN_IMPLS = ("auto", "einsum", "flash")
+COMM_STRATEGIES = ("interleave", "ring")
 
 
 @dataclass
@@ -41,8 +42,13 @@ class ExperimentConfig:
     log_every: int = 10
     accum_steps: int = 1  # gradient accumulation microbatches per step
     max_grad_norm: Optional[float] = None  # global-norm clipping of the reduced update
+    # each packed payload as K collectives (None: one)
     comm_chunks: Optional[int] = None
+    # "interleave": an all-reduce per chunk; "ring": the explicit ring of
+    # point-to-point sends per chunk (reassociated, about 1 ulp)
     comm_strategy: str = "interleave"
+    # the exact reducer's DDP buckets of about this many bytes, in backward
+    # order (None: one packed payload)
     bucket_bytes: Optional[int] = None
 
     # kernel implementation, by the JAX package's names: compress_impl "xla"
@@ -79,6 +85,14 @@ class ExperimentConfig:
             )
         if self.attn_impl is not None and self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
+        if self.comm_strategy not in COMM_STRATEGIES:
+            raise ValueError(
+                f"comm_strategy must be one of {COMM_STRATEGIES}, got {self.comm_strategy!r}"
+            )
+        for name in ("comm_chunks", "bucket_bytes"):
+            value = getattr(self, name)
+            if value is not None and value < 1:
+                raise ValueError(f"{name} must be None or >= 1, got {value}")
         defaults = {f.name: f.default for f in fields(self)}
         for name in _NOT_PORTED:
             if getattr(self, name) != defaults[name]:
@@ -86,7 +100,6 @@ class ExperimentConfig:
 
 
 _NOT_PORTED = (
-    "compute_dtype", "comm_chunks", "comm_strategy", "bucket_bytes", "event_log",
-    "trace_dir", "audit_wire", "health_every", "chaos_plan", "adaptive_comm",
-    "comm_fabric", "plan_path",
+    "compute_dtype", "event_log", "trace_dir", "audit_wire", "health_every",
+    "chaos_plan", "adaptive_comm", "comm_fabric", "plan_path",
 )

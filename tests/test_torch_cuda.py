@@ -6,8 +6,10 @@ Gram-Schmidt kernel's bit for bit, two launches giving the same bits) and
 the flash attention kernel
 (``ops/flash_attention.py``, with left padding, a lone real key, a ragged
 T and NaN in the key tiles it must skip) against their plain versions, the
-PowerSGD reducer launching its kernels once per shape group, and
-DistilBERT launching flash attention once per layer.
+PowerSGD reducer launching its kernels once per shape group,
+DistilBERT launching flash attention once per layer, exact-DDP steps of the
+small ResNet-18 on the card against the CPU, and the single-node IMDb
+baseline running flash attention on the card.
 
 This file imports torch and the port, never jax, so it also runs on a
 machine that has the card and no JAX (``--noconftest`` skips the JAX
@@ -32,6 +34,9 @@ import numpy as np
 import pytest
 import torch
 
+from network_distributed_pytorch_tpu_torch.data.cifar10 import load_cifar10_or_synthetic
+from network_distributed_pytorch_tpu_torch.experiments import exact_cifar10, imdb_baseline
+from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches
 from network_distributed_pytorch_tpu_torch.models.distilbert import distilbert_tiny
 from network_distributed_pytorch_tpu_torch.ops import flash_attention as fa
 from network_distributed_pytorch_tpu_torch.ops import gram_schmidt as gs
@@ -375,3 +380,57 @@ def test_distilbert_forward_launches_flash_attention_per_layer(cuda_device):
         torch.cuda.synchronize()
         assert fa.KERNEL.launches - launches == (0 if impl == "einsum" else model.config.n_layers)
     torch.testing.assert_close(logits["auto"], logits["einsum"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture
+def exact_conv_math():
+    """cuDNN without TF32 and with deterministic algorithms, restored after:
+    the card against the CPU, with only the summation order differing."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, True, False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def _two_exact_steps(device, layout):
+    cfg = exact_cifar10.default_config()
+    cfg.global_batch_size = 16
+    for k, v in layout.items():
+        setattr(cfg, k, v)
+    images, labels, _ = load_cifar10_or_synthetic(train=True)
+    model, step, state = exact_cifar10.build(cfg, "small", device, group=None)
+    losses = []
+    for batch in accumulated_batches([images, labels], cfg, max_steps_per_epoch=2)(0):
+        state, loss = step(state, tuple(torch.from_numpy(a).to(device) for a in batch))
+        losses.append(loss.item())
+    return losses, {k: v.detach().cpu() for k, v in state.params.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [{}, {"bucket_bytes": 50_000, "comm_chunks": 3}], ids=["mono", "bucket_chunks"])
+def test_exact_cifar10_small_on_the_card_matches_the_cpu(cuda_device, exact_conv_math, layout):
+    """Two exact-DDP steps of the small ResNet-18 on the card and on the CPU
+    from the same seed and batches: 1e-4 (cuDNN against PyTorch's CPU
+    convolutions, summed in other orders), as chip_smoke.py's small preset."""
+    (cpu_losses, cpu_params), (gpu_losses, gpu_params) = (
+        _two_exact_steps(torch.device("cpu"), layout), _two_exact_steps(cuda_device, layout)
+    )
+    np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=1e-4, atol=1e-4)
+    for name, want in cpu_params.items():
+        torch.testing.assert_close(gpu_params[name], want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer_name", ["sgd_nesterov", "adamw"])
+def test_imdb_baseline_runs_flash_attention_on_the_card(cuda_device, optimizer_name):
+    """The single-node baseline on the card: K5 once per layer and step (no
+    fallback to its plain version), finite losses, the gradient's bits."""
+    cfg = imdb_baseline.default_config(optimizer_name)
+    cfg.training_epochs = 1
+    launches = fa.KERNEL.launches
+    out = imdb_baseline.run(cfg, preset="small", device=cuda_device, max_steps_per_epoch=2, optimizer_name=optimizer_name)
+    model = distilbert_tiny(device="cpu")
+    assert fa.KERNEL.launches - launches == 2 * model.config.n_layers
+    assert out["steps"] == 2
+    assert np.isfinite(out["losses"]).all()
+    assert out["bits_per_step"] == 32 * sum(p.numel() for p in model.parameters())

@@ -48,7 +48,7 @@ from network_distributed_pytorch_tpu_torch.models.import_weights import (
 from network_distributed_pytorch_tpu_torch.parallel.reducers import PowerSGDReducer, embedding_leaves
 from network_distributed_pytorch_tpu_torch.parallel.trainer import make_train_step
 from network_distributed_pytorch_tpu_torch.utils.config import ExperimentConfig
-from torch_parity import to_numpy
+from torch_parity import random_distilbert_params, to_numpy
 from torch_worker import few_torch_threads  # noqa: F401  (autouse)
 
 TOL = 1e-5
@@ -59,24 +59,7 @@ Q_TOL_RANK16 = 5e-5  # see above
 
 
 def _random_params(model, seed):
-    """flax params of ``model`` drawn with numpy: LeCun-scaled kernels,
-    embeddings of std 0.5, LayerNorm scales near 1, small biases."""
-    shapes = jax.eval_shape(
-        lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, T), jnp.int32), jnp.ones((1, T), jnp.int32))
-    )["params"]
-    rng = np.random.RandomState(seed)
-
-    def draw(path, leaf):
-        name = str(getattr(path[-1], "key", path[-1]))
-        if name == "kernel":
-            return (rng.randn(*leaf.shape) / np.sqrt(leaf.shape[0])).astype(np.float32)
-        if name == "embedding":
-            return (0.5 * rng.randn(*leaf.shape)).astype(np.float32)
-        if name == "scale":
-            return (1.0 + 0.1 * rng.randn(*leaf.shape)).astype(np.float32)
-        return (0.1 * rng.randn(*leaf.shape)).astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(draw, shapes)
+    return random_distilbert_params(model, T, seed)
 
 
 def _batch(seed, vocab=1024, b=B):

@@ -226,12 +226,18 @@ def test_entry_points_raise_without_a_card_unless_cpu():
 
 
 def test_config_rejects_unported_options():
+    """The comm fields are ported and validated; the fields still unported
+    raise rather than being ignored."""
     assert ExperimentConfig(compress_impl="pallas").compress_impl == "pallas"
     with pytest.raises(ValueError):
         ExperimentConfig(compress_impl="bogus")
-    with pytest.raises(NotImplementedError):
-        ExperimentConfig(bucket_bytes=1 << 20)
-    with pytest.raises(NotImplementedError):
-        ExperimentConfig(comm_chunks=4)
+    cfg = ExperimentConfig(bucket_bytes=1 << 20, comm_chunks=4, comm_strategy="ring")
+    assert (cfg.bucket_bytes, cfg.comm_chunks, cfg.comm_strategy) == (1 << 20, 4, "ring")
+    for bad in ({"comm_chunks": 0}, {"bucket_bytes": 0}, {"comm_strategy": "tree"}):
+        with pytest.raises(ValueError):
+            ExperimentConfig(**bad)
+    for unported in ({"event_log": "events.jsonl"}, {"compute_dtype": "bfloat16"}, {"adaptive_comm": True}):
+        with pytest.raises(NotImplementedError):
+            ExperimentConfig(**unported)
     with pytest.raises(ValueError):
         ExperimentConfig(orthogonalize_impl="pallas")

@@ -16,11 +16,13 @@ import numpy as np
 import pytest
 import torch
 
-from network_distributed_pytorch_tpu_torch.experiments.common import image_classifier_loss
+from network_distributed_pytorch_tpu_torch.experiments import exact_cifar10
+from network_distributed_pytorch_tpu_torch.experiments.common import average_model_state, image_classifier_loss
 from network_distributed_pytorch_tpu_torch.models.resnet import resnet18
 from network_distributed_pytorch_tpu_torch.parallel.comm import (
     all_reduce_mean,
     chunked_all_reduce_mean,
+    ring_all_reduce_mean,
 )
 from network_distributed_pytorch_tpu_torch.parallel.mesh import (
     DistributedConfig,
@@ -33,6 +35,7 @@ from network_distributed_pytorch_tpu_torch.parallel.reducers import (
     PowerSGDState,
 )
 from network_distributed_pytorch_tpu_torch.parallel.trainer import make_train_step
+from network_distributed_pytorch_tpu_torch.utils.config import ExperimentConfig
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -140,6 +143,46 @@ def powersgd_ef_rank(rank, world, group, grads_per_rank, q_memory, kwargs):
 def exact_rank(rank, world, group, sends_per_rank):
     _, out, mem, bits = ExactReducer().reduce({}, sends_per_rank[rank], group)
     return {"out": out, "mem": mem, "bits": bits}
+
+
+def ring_rank(rank, world, group, xs, n_chunks):
+    """This rank's ``xs[rank]`` through the explicit ring, through
+    ``n_chunks`` chunked rings, and through one all-reduce-mean."""
+    x = xs[rank]
+    return {
+        "ring": ring_all_reduce_mean(x.clone(), group),
+        "chunked_ring": chunked_all_reduce_mean(x.clone(), group, n_chunks, "ring"),
+        "mean": all_reduce_mean(x.clone(), group),
+    }
+
+
+def exact_layouts_rank(rank, world, group, sends_per_rank, layouts):
+    """``ExactReducer.reduce`` of this rank's tensors under each layout
+    (``{name: constructor kwargs}``): the reduced tensors and the bits."""
+    out = {}
+    for name, kw in layouts.items():
+        _, reduced, mem, bits = ExactReducer(**kw).reduce({}, [t.clone() for t in sends_per_rank[rank]], group)
+        assert all(torch.count_nonzero(m) == 0 for m in mem)
+        out[name] = {"out": [t.contiguous() for t in reduced], "bits": bits}
+    return out
+
+
+def average_state_rank(rank, world, group):
+    """``average_model_state`` over a small ResNet whose floating-point
+    buffers hold ``rank + 1`` and whose batch counters hold ``10 + rank``."""
+    model = resnet18(num_classes=10, norm="batch", stem="cifar", width=16, device="cpu")
+    with torch.no_grad():
+        for name, b in model.named_buffers():
+            b.fill_(10 + rank if name.endswith("num_batches_tracked") else rank + 1)
+    average_model_state(model, group)
+    return {k: v.clone() for k, v in model.named_buffers()}
+
+
+def exact_cifar10_rank(rank, world, group, cfg_kwargs, steps):
+    """``exact_cifar10.run`` of the small preset on this rank, joining the
+    spawned group, with the evaluation after it."""
+    cfg = ExperimentConfig(process_id=rank, num_processes=world, **cfg_kwargs)
+    return exact_cifar10.run(cfg, preset="small", device="cpu", max_steps_per_epoch=steps, eval_after=True)
 
 
 # ---- training ---------------------------------------------------------------
