@@ -29,7 +29,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    one real key inside a padded tile and at T = 100; NaN in K and V of
    every all-padding tile must leave out and lse bitwise unchanged (those
    tiles are skipped, not read); one step's launches timed with the IMDb
-   mask and without one, each beside SDPA on the same inputs;
+   mask and without one, each beside SDPA on the same inputs; then K5 on
+   bf16 heads (the IMDb mask, GPT-2's causal (16, 1024, 12, 64), T = 100 at
+   D = 40, causal at D = 128, NaN in the skipped bf16 tiles) and causal in
+   fp32 at GPT-2's shape, against the plain version on the same inputs,
+   with one GPT-2 step's 12 causal launches timed in each dtype beside
+   SDPA ``is_causal``, and the fp32 K5 backward (PyTorch) of such a step;
 3. the main paths through a one-rank NCCL group, 2 warm-up and 5 timed
    steps, then 3 steps under ``torch.profiler``, each with the launch
    counts set to 0 just before it and read just after:
@@ -45,14 +50,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
    steps held equal bit for bit, one profiled step (busy time, NCCL) and the
    accuracy on the test split; ``imdb_baseline.run`` with preset ``full``
    (``distilbert_base``, batch 16, max_len 256, one process: K5) under
-   Nesterov SGD and AdamW; and ``launch bare_init`` in a process of its own;
+   Nesterov SGD and AdamW; ``gpt_lm.run`` with preset ``full`` (GPT-2
+   small at vocabulary 1024, T 1024, global batch 16, PowerSGD rank 4: K5
+   causal and K1) in fp32 and in bf16; ``gpt_generate.run`` with preset
+   ``full`` at vocabulary 50257 (batch 8, prompt 128, 128 new tokens; no
+   kernel of the port) in fp32 and bf16, with each fp32 decode step's
+   logits held to a full forward of the same prefix and the greedy tokens
+   to the full forwards' wherever the top two logits stand apart;
+   ``powersgd_imdb.run`` in bf16 (K5 on bf16 heads, K1); and ``launch
+   bare_init`` in a process of its own;
 4. two steps from the same weights and batches, deterministic cuDNN: plain
    Gram-Schmidt against the kernel; fused against xla; fused against xla
    with one extra power iteration (K2b's path); the small ResNet on the card
    against the same two steps on the CPU; DistilBERT with flash attention
    (K5) against ``attn_impl="einsum"`` on the card; the tiny DistilBERT
-   on the card against the CPU; and the IMDb baseline, under either
-   optimizer, with flash attention against einsum on the card;
+   on the card against the CPU; GPT-2 small with flash attention against
+   einsum on the card; and the IMDb baseline, under either optimizer, with
+   flash attention against einsum on the card;
 5. one ``{"kernels": [...]}`` line: each kernel's launches on its paths, its
    time for one main-path step (CUDA events, ``ms``, and the profiler's
    device time, ``device_ms``), the plain version's, one PyTorch call's
@@ -64,6 +78,7 @@ The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the port beside this script, it prints no result and exits 1.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -73,12 +88,15 @@ import sys
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor-core) FLOP/s
-# and dense TF32 tensor-core FLOP/s
+# and dense TF32 and bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
-# K5 computes each fp32 product as three TF32 tensor-core products (3xTF32)
+BF16_FLOPS = 989e12
+# K5 computes each fp32 product as three TF32 tensor-core products (3xTF32);
+# on bf16 heads, whose values are exact in TF32, as two (2xTF32)
 FP32_AS_3XTF32_FLOPS = TF32_FLOPS / 3
+BF16_AS_2XTF32_FLOPS = TF32_FLOPS / 2
 
 GS_TOL = 1e-5  # fp32 sums in another order; entries of P-hat are at most 1
 # the fused kernels: P-hat as GS_TOL; P, Q, out and mem are sums of up to n
@@ -131,6 +149,20 @@ TEXT_EVAL_BATCH = 64  # evaluate_text_classifier's batch
 # at most 1.0014 in two steps): the bound on two runs' difference where its
 # gradient is zero in exact arithmetic, per step and lr
 ADAM_NOISE_BOUND = 2.01
+# GPT-2 small at vocabulary 1024 (gpt_lm's preset full): T 1024, global batch
+# 16 (16,384 tokens a step), PowerSGD rank 4, 12 causal K5 launches a step
+GPT_B, GPT_T, GPT_H, GPT_D, GPT_LAYERS = 16, 1024, 12, 64, 12
+GPT_BITS = 25_575_424  # the JAX reducer's payload bits per step, rank 4
+GPT_GROUPS = 4  # (1024, 768) x 2, (768, 768) x 48, (768, 3072) x 12, (3072, 768) x 12
+# two fp32 steps of GPT-2 small, flash against einsum attention on the card:
+# parameters and losses (both sum in fp32, K5's products in 3xTF32)
+GPT_TOL = 1e-5
+# gpt_generate at GPT-2's own vocabulary: batch 8, prompt 128, 128 new tokens
+GEN_VOCAB, GEN_B, GEN_PROMPT, GEN_NEW = 50257, 8, 128, 128
+# a decode step's logits against a full forward of the same prefix (the JAX
+# package's own tolerance, test_decode_steps_match_full_forward): the cache's
+# fp32 einsum against the forward's K5 and its GEMMs, in fp32
+DECODE_TOL = 2e-4
 
 
 def fail(msg: str) -> None:
@@ -220,18 +252,25 @@ def fused_bounds(shapes):
     return {name: (bound(*w), w[0]) for name, w in work.items()}
 
 
-def attention_bound(b, t, h, d, launches, keys=None, flops=FP32_AS_3XTF32_FLOPS):
-    """The least time of ``launches`` non-causal flash-attention forwards
-    over (B*H, T, D) fp32 heads, ``keys`` of whose B T keys the mask lets
-    through (None: every key). A padded key adds nothing to the function's
-    result, so only the real keys' rows of k and v are counted: bytes are q
-    and the (B, T) mask read once, k and v read once for each real key, out
-    and lse written once; operations are 4 H T D (q.k and p.v) for each real
-    key, at ``flops`` per second (K5 does its fp32 products as 3xTF32 on
-    the tensor cores)."""
+def attention_bound(
+    b, t, h, d, launches, keys=None, flops=FP32_AS_3XTF32_FLOPS, elem_bytes=4, causal=False
+):
+    """The least time of ``launches`` flash-attention forwards over
+    (B*H, T, D) heads of ``elem_bytes`` per element (4: fp32, 2: bf16),
+    ``keys`` of whose B T keys the mask lets through (None: every key). A
+    padded key adds nothing to the function's result, so only the real
+    keys' rows of k and v are counted: bytes are q read and out written
+    once, k and v read once for each real key, the fp32 (B, T) mask read
+    and the fp32 lse written once. Operations are 4 D (q.k and p.v) for each
+    (query, key) pair the function attends: every query to every real key,
+    or, ``causal``, each query to the keys at or before it, T (T + 1) / 2
+    pairs a head (every key real); at ``flops`` per second."""
     keys = b * t if keys is None else keys
-    nbytes = 4 * (2 * b * h * t * d + 2 * h * d * keys + b * t + b * h * t)
-    return bound(launches * nbytes, launches * 4 * h * t * d * keys, flops)
+    if causal and keys != b * t:
+        raise ValueError("the causal bound counts heads whose every key is real")
+    nbytes = elem_bytes * (2 * b * h * t * d + 2 * h * d * keys) + 4 * (b * t + b * h * t)
+    pairs = b * h * t * (t + 1) // 2 if causal else h * t * keys
+    return bound(launches * nbytes, launches * 4 * d * pairs, flops)
 
 
 def attention_bounds(b, t, h, d, launches, keys=None):
@@ -334,6 +373,78 @@ def check_flash_attention(fa, dev, gen, imdb_mask):
     return report, kept
 
 
+def bf16_ulp(x):
+    """The spacing of bf16 at ``|x|`` (8 significant bits)."""
+    import torch
+
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), (e - 8).clamp_min(-133))
+
+
+def check_flash_attention_bf16(fa, dev, gen, imdb_mask):
+    """K5 on bf16 q, k, v (and causal in fp32 at GPT's shape) against its
+    plain version on the same inputs. A bf16 out: both sides sum in fp32 and
+    round once, so each element within ATTN_TOL * max(1, max|plain|) plus 1
+    bf16 ulp of the element; lse (fp32) within ATTN_TOL relative. Then NaN in
+    the bf16 K and V of every all-padding tile must leave out and lse
+    bitwise unchanged. Returns the errors and the inputs of the GPT cases."""
+    import torch
+
+    gpt = (GPT_B, GPT_T, GPT_H, GPT_D)
+    full = (IMDB_B, IMDB_T, IMDB_H, IMDB_D)
+    cases = {  # (b, t, h, d), mask or None (no mask), causal, dtype
+        "imdb_padding_bf16": (full, imdb_mask, False, torch.bfloat16),
+        "gpt_causal_bf16": (gpt, None, True, torch.bfloat16),
+        "gpt_causal_fp32": (gpt, None, True, torch.float32),
+        "t100_d40_bf16": ((IMDB_B, 100, 4, 40), imdb_mask[:, :100], False, torch.bfloat16),
+        "d128_causal_bf16": ((2, IMDB_T, 4, 128), imdb_mask[:2], True, torch.bfloat16),
+    }
+    report, kept = {}, {}
+    for name, ((b, t, h, d), mask, causal, dtype) in cases.items():
+        q, k, v = (torch.randn((b * h, t, d), generator=gen).to(dev).to(dtype) for _ in range(3))
+        mask = torch.zeros((b, t)) if mask is None else mask
+        mask = mask.to(dev)
+        bq = 128 if t % 128 == 0 else t
+        out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, bq, bq, d**-0.5)
+        want_out, want_lse = fa.flash_attention_reference(q, k, v, mask, causal, bq, bq, d**-0.5)
+        torch.cuda.synchronize()
+        if out.dtype != dtype or lse.dtype != torch.float32:
+            fail(f"flash_attention {name}: out {out.dtype}, lse {lse.dtype}")
+        err = (out.float() - want_out.float()).abs()
+        tol = ATTN_TOL * max(1.0, want_out.float().abs().max().item())
+        slack = err - tol - (bf16_ulp(want_out) if dtype == torch.bfloat16 else 0.0)
+        lse_err = ((lse - want_lse).abs() / want_lse.abs().clamp_min(1.0)).max().item()
+        if not (bool(torch.isfinite(err).all()) and slack.max().item() <= 0 and lse_err <= ATTN_TOL):
+            fail(
+                f"flash_attention {name}: max |kernel - plain| out {err.max().item()} (tol {tol}"
+                f"{' + 1 bf16 ulp' if dtype == torch.bfloat16 else ''}), lse {lse_err} (tol {ATTN_TOL})"
+            )
+        report[name] = {
+            "shape": [b, t, h, d], "causal": causal, "dtype": str(dtype).rsplit(".", 1)[-1],
+            "max_abs_err": err.max().item(), "lse_max_rel_err": lse_err,
+            "elements_differing": float((out != want_out).float().mean().item()),
+            # at most 1: the bf16 rounding's share of the error, past the fp32 tolerance
+            "max_err_past_fp32_tol_in_bf16_ulps": (
+                ((err - tol).clamp_min(0) / bf16_ulp(want_out)).max().item() if dtype == torch.bfloat16 else None
+            ),
+        }
+        if name == "imdb_padding_bf16":
+            empty = (mask.view(b, t // 64, 64) <= -1e29).all(-1).repeat_interleave(h, 0)
+            poison = empty.repeat_interleave(64, 1)[..., None]
+            dirty = fa.flash_attention_fwd(
+                q, *(torch.where(poison, float("nan"), x) for x in (k, v)), mask, False, 128, 128, d**-0.5
+            )
+            torch.cuda.synchronize()
+            if not (torch.equal(out, dirty[0]) and torch.equal(lse, dirty[1])):
+                fail("flash_attention bf16: NaN in the all-padding tiles of K and V changed out or lse")
+            report[name]["nan_poisoned_tiles"] = int(empty.sum())
+            report[name]["nan_poisoned_bitwise_equal"] = True
+            kept["imdb_bf16"] = (q, k, v, mask)
+        if name.startswith("gpt_"):
+            kept[name] = (q, k, v, mask)
+    return report, kept
+
+
 def check_fused_kernels(ps, gs, shapes, dev, gen, keep):
     """Each fused kernel against its plain version on the same inputs at
     every (g, n, m, r) in ``shapes``; fails past the tolerances. Returns the
@@ -395,15 +506,15 @@ def check_fused_kernels(ps, gs, shapes, dev, gen, keep):
     return report, kept
 
 
-def profile_main_path(dev, experiment, cfg, arrays, kernels, steps=PROFILE_STEPS, build=None):
+def profile_main_path(dev, experiment, cfg, arrays, kernels, steps=PROFILE_STEPS, build=None, batches=None):
     """Where a main-path step's time goes: ``torch.profiler`` over ``steps``
     steps of ``experiment``'s full preset with ``cfg`` on the data
-    ``arrays`` through a one-rank NCCL group, after one warm-up step;
-    ``build(group)`` makes the model, step and state where
-    ``experiment.build`` does not take a group. ``kernels`` maps each port
-    kernel to a part of its device function's name. NCCL's kernels are
-    summed apart. Device numbers are None where the profiler saw no device
-    activity."""
+    ``arrays`` (or the ``1 + steps`` global ``batches`` given) through a
+    one-rank NCCL group, after one warm-up step; ``build(group)`` makes the
+    model, step and state where ``experiment.build`` does not take a group
+    or takes more. ``kernels`` maps each port kernel to a part of its
+    device function's name. NCCL's kernels are summed apart. Device numbers
+    are None where the profiler saw no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -420,7 +531,7 @@ def profile_main_path(dev, experiment, cfg, arrays, kernels, steps=PROFILE_STEPS
         model, step, state = (build or (lambda g: experiment.build(cfg, "full", dev, g)))(group)
         batches = [
             tuple(torch.from_numpy(a).to(dev) for a in b)
-            for b in accumulated_batches(arrays, cfg, 1 + steps)(0)
+            for b in (batches or accumulated_batches(arrays, cfg, 1 + steps)(0))
         ]
         state, loss = step(state, batches[0])
         loss.item()
@@ -503,10 +614,13 @@ def main() -> None:
         from network_distributed_pytorch_tpu_torch.data.imdb import prepare_imdb
         from network_distributed_pytorch_tpu_torch.experiments import (
             exact_cifar10,
+            gpt_generate,
+            gpt_lm,
             imdb_baseline,
             powersgd_cifar10,
             powersgd_imdb,
         )
+        from network_distributed_pytorch_tpu_torch.models import gpt as gpt_model
         from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches
         from network_distributed_pytorch_tpu_torch.ops import _build
         from network_distributed_pytorch_tpu_torch.ops import flash_attention as fa
@@ -657,6 +771,73 @@ def main() -> None:
     })
     del aq, ak, av, amask, sdpa_q, sdpa_k, sdpa_v
 
+    # K5 on bf16 heads and causal at GPT's shape; one step's launches of each
+    # path's case timed beside SDPA on the same inputs
+    bf16_report, bf16_inputs = check_flash_attention_bf16(fa, dev, gen, imdb_mask)
+
+    def attention_step(q, k, v, mask, causal, b, t, h, d, layers):
+        """One step's ``layers`` K5 forwards on folded heads, the plain
+        version and SDPA (``is_causal``, or the mask's real keys as a
+        boolean mask) on the same inputs, and the bounds."""
+        scale_ = d**-0.5
+        sq, sk, sv = (x.view(b, h, t, d) for x in (q, k, v))
+        keep_keys = (mask > -1e29)[:, None, None, :]
+        kernel = lambda: [fa.flash_attention_fwd(q, k, v, mask, causal, 128, 128, scale_) for _ in range(layers)]
+        library = lambda: [
+            torch.nn.functional.scaled_dot_product_attention(
+                sq, sk, sv, **({"is_causal": True} if causal else {"attn_mask": keep_keys})
+            )
+            for _ in range(layers)
+        ]
+        valid_keys = int((mask > -1e29).sum())
+        elem = q.element_size()
+        peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_AS_3XTF32_FLOPS
+        route = BF16_AS_2XTF32_FLOPS if q.dtype == torch.bfloat16 else FP32_AS_3XTF32_FLOPS
+        bkw = dict(keys=None if causal else valid_keys, elem_bytes=elem, causal=causal)
+        (b_ms, b_by), (r_ms, r_by) = (attention_bound(b, t, h, d, layers, flops=f, **bkw) for f in (peak, route))
+        return {
+            "launches_per_step": layers, "dtype": str(q.dtype).rsplit(".", 1)[-1], "causal": causal,
+            "ms": cuda_ms(kernel, reps=10),
+            "device_ms": device_ms(kernel, "flash_fwd_kernel"),
+            "plain_ms": cuda_ms(
+                lambda: [fa.flash_attention_reference(q, k, v, mask, causal, 128, 128, scale_) for _ in range(layers)],
+                reps=2,
+            ),
+            "library_ms": cuda_ms(library, reps=10),
+            "library_device_ms": device_ms(library),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ops_peak": "bf16 tensor cores, 989 TFLOP/s" if elem == 2 else "3xTF32 tensor cores, 495/3 TFLOP/s",
+            "bound_ms_kernel_route": r_ms, "bound_by_kernel_route": r_by,
+            "kernel_route_peak": "2xTF32, 495/2 TFLOP/s" if elem == 2 else "3xTF32, 495/3 TFLOP/s",
+        }
+
+    def backward_step(q, k, v, mask, causal, layers):
+        """One step's ``layers`` K5 backwards (``flash_attention_bwd``,
+        PyTorch tensor code in fp32) on the forward's own out and lse."""
+        scale_ = q.shape[-1] ** -0.5
+        out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, 128, 128, scale_)
+        do = torch.randn(out.shape, generator=gen).to(dev).to(out.dtype)
+        fn = lambda: [  # noqa: E731
+            fa.flash_attention_bwd(q, k, v, mask, out, lse, do, causal, 128, scale_, need_dmask=False)
+            for _ in range(layers)
+        ]
+        return {"ms": cuda_ms(fn, reps=3), "device_ms": device_ms(fn, reps=3)}
+
+    gpt_rows = {
+        name: attention_step(*bf16_inputs[name], True, GPT_B, GPT_T, GPT_H, GPT_D, GPT_LAYERS)
+        for name in ("gpt_causal_fp32", "gpt_causal_bf16")
+    }
+    gpt_bwd = {name: backward_step(*bf16_inputs[name], True, GPT_LAYERS) for name in gpt_rows}
+    imdb_bf16_row = attention_step(*bf16_inputs["imdb_bf16"], False, IMDB_B, IMDB_T, IMDB_H, IMDB_D, IMDB_LAYERS)
+    bf16_err = max(r["max_abs_err"] for n, r in bf16_report.items() if n.endswith("bf16"))
+    emit({
+        "phase": "flash_attention_bf16_causal",
+        "tolerance": f"fp32 cases {ATTN_TOL} * max(1, max|plain|); bf16 out that plus 1 bf16 ulp of the element",
+        "cases": bf16_report, "gpt_per_step": gpt_rows, "gpt_backward_per_step": gpt_bwd,
+        "imdb_bf16_per_step": imdb_bf16_row,
+    })
+    del bf16_inputs
+
     # the fused kernels, at every main-path shape group and a few others
     extra_groups = [
         (3, 100, 37, 8), (1, 2, 3, 2), (2, 70, 7, 3), (2, 50, 10, 4), (2, 5, 256, 4),
@@ -739,7 +920,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
 
     # ---- 3. the main paths: ResNet xla and fused, DistilBERT ---------------------
-    all_kernels = (gs.KERNEL, *ps.KERNELS, fa.KERNEL)
+    all_kernels = (gs.KERNEL, *ps.KERNELS, fa.KERNEL, fa.KERNEL_BF16)
     device_fns = {  # a part of each kernel's device function name
         "gram_schmidt": "gram_schmidt_kernel", "ef_compress": "ef_compress_kernel",
         "orthogonalize_project": "orthogonalize_project_kernel",
@@ -748,6 +929,7 @@ def main() -> None:
     images, labels, _ = load_cifar10_or_synthetic(train=True)
     results = {}
     launches = {}
+    kinds = {}  # K5's launches of each path by kind (causal or masked)
     profiles = {}
 
     def drive(name, run, want, kernel_free=False):
@@ -757,9 +939,10 @@ def main() -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         for k in all_kernels:
-            k.launches = 0
+            k.reset()
         result = run()
         launches[name] = {k.name: k.launches for k in all_kernels}
+        kinds[name] = {k.name: dict(k.by_kind) for k in (fa.KERNEL, fa.KERNEL_BF16)}
         full_want = {k.name: want.get(k.name, 0) for k in all_kernels}
         if launches[name] != full_want or not (kernel_free or any(full_want.values())):
             fail(f"{name} launched {launches[name]}, expected {full_want}")
@@ -922,6 +1105,144 @@ def main() -> None:
         "eval_note": "synthetic IMDb validation split, 7 steps from random weights: a number, not a target",
     })
 
+    # GPT-2 small LM training (gpt_lm's preset full, T 1024, batch 16,
+    # PowerSGD rank 4): K5 causal once per layer and K1 once per shape group
+    # in every step, in fp32 and then in bf16 (K5 on bf16 heads)
+    gpt_runs = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = gpt_lm.default_config()
+        cfg.global_batch_size, cfg.compute_dtype = GPT_B, dtype
+        k5 = "flash_attention" if dtype == "float32" else "flash_attention_bf16"
+        name = f"gpt_{dtype}"
+        result, peak = drive(
+            name,
+            lambda: gpt_lm.run(cfg, preset="full", seq_len=GPT_T, steps_per_epoch=MAIN_STEPS, device=dev),
+            {"gram_schmidt": MAIN_STEPS * GPT_GROUPS, k5: MAIN_STEPS * GPT_LAYERS},
+        )
+        if kinds[name][k5] != {"causal": MAIN_STEPS * GPT_LAYERS}:
+            fail(f"{name}: K5 launches by kind {kinds[name][k5]}, want every one causal")
+        losses = result["losses"]
+        if len(losses) != MAIN_STEPS or not all(math.isfinite(v) for v in losses):
+            fail(f"{name} losses {losses}")
+        if result["bits_per_step"] != GPT_BITS + 32 or result["shape_groups"] != GPT_GROUPS:
+            fail(f"{name}: {result['bits_per_step']} bits per step (want {GPT_BITS} + 32), {result['shape_groups']} groups")
+        timed_ms = result["device_time_ms"][WARMUP_STEPS:]
+        p50_ms = statistics.median(timed_ms)
+        profiles[name] = profile_main_path(
+            dev, gpt_lm, cfg, None,
+            {"gram_schmidt": device_fns["gram_schmidt"], "flash_attention": device_fns["flash_attention"]},
+            build=lambda group: gpt_lm.build(cfg, "full", GPT_T, "powersgd", dev, group),
+            batches=list(gpt_lm.synthetic_lm_batches(result["vocab"], GPT_B, GPT_T, 1 + PROFILE_STEPS, cfg.seed)),
+        )
+        gpt_runs[dtype] = {
+            "losses": losses, "final_perplexity": result["final_perplexity"], "timed_steps": len(timed_ms),
+            "step_device_ms": timed_ms, "step_device_ms_p50": p50_ms,
+            "step_host_s_p50": statistics.median(result["step_time_s"][WARMUP_STEPS:]),
+            "tokens_per_s": result["tokens_per_step"] / (p50_ms / 1e3), "peak_memory_bytes": peak,
+            "bits_per_step": result["bits_per_step"], "launches": launches[name], "k5_launches_by_kind": kinds[name],
+            "profile": profiles[name],
+        }
+    busy_bf16 = profiles["gpt_bfloat16"]["device_busy_ms_per_step"]
+    bwd_bf16 = gpt_bwd["gpt_causal_bf16"]["device_ms"]
+    emit({
+        "phase": "main_path_gpt", "model": "gpt2_small", "vocab": 1024, "seq_len": GPT_T, "global_batch": GPT_B,
+        "tokens_per_step": GPT_B * GPT_T, "reducer_rank": gpt_lm.default_config().reducer_rank,
+        "parameters": result["parameters"], "shape_groups": GPT_GROUPS, "world_size": result["num_devices"],
+        "runs": gpt_runs,
+        "losses_fp32_and_bf16": [gpt_runs["float32"]["losses"], gpt_runs["bfloat16"]["losses"]],
+        "k5_backward_device_ms_per_step": {k: v["device_ms"] for k, v in gpt_bwd.items()},
+        "k5_backward_share_of_bf16_busy": bwd_bf16 / busy_bf16 if bwd_bf16 and busy_bf16 else None,
+    })
+
+    # GPT-2 small decoding at GPT-2's own vocabulary (gpt_generate): no
+    # kernel of the port (prefill and decode attend in plain fp32 PyTorch,
+    # as the JAX package's do)
+    gen_runs = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = gpt_generate.default_config()
+        cfg.compute_dtype = dtype
+        result, peak = drive(
+            f"generate_{dtype}",
+            lambda: gpt_generate.run(
+                cfg, preset="full", batch=GEN_B, prompt_len=GEN_PROMPT, max_new_tokens=GEN_NEW, vocab=GEN_VOCAB,
+                device=dev,
+            ),
+            {}, kernel_free=True,
+        )
+        gen_runs[dtype] = {**result, "peak_memory_bytes": peak}
+    # at full width in fp32: each decode step's logits against a full forward
+    # of the same prefix (einsum attention: a prefix of 129 to 255 tokens does
+    # not divide into K5's blocks), and the greedy tokens against the full
+    # forwards' wherever the top two logits stand more than the tolerance apart
+    total = GEN_PROMPT + GEN_NEW
+    model = gpt_generate.build_model("full", total, GEN_VOCAB, torch.float32, dev, seed=cfg.seed)
+    naive = gpt_model.GPTLM(dataclasses.replace(model.config, attn_impl="einsum"), device=dev, seed=cfg.seed)
+    naive.load_state_dict(model.state_dict())
+    prompt = torch.randint(
+        0, GEN_VOCAB, (GEN_B, GEN_PROMPT), generator=torch.Generator().manual_seed(cfg.seed + 1)
+    ).to(dev)
+    decode_err, sure_tokens = 0.0, 0
+    with torch.no_grad():
+        tokens = gpt_model.generate(model, prompt, GEN_NEW)
+        if tokens[0, :8].tolist() != gen_runs["float32"]["sample_head"]:
+            fail(f"generate: {tokens[0, :8].tolist()} != the run's sample head {gen_runs['float32']['sample_head']}")
+        logits, cache = gpt_model.gpt_prefill(model, prompt, total)
+        ids = prompt
+        for i in range(GEN_NEW):
+            full = naive(ids)[:, -1]
+            tol = DECODE_TOL * max(1.0, full.abs().max().item())
+            err = (logits - full).abs().max().item()
+            if not err <= tol:
+                fail(f"generate: decode logits at position {ids.shape[1] - 1} differ from a full forward by {err} > {tol}")
+            decode_err = max(decode_err, err)
+            top2 = full.topk(2).values
+            sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
+            if not torch.equal(full.argmax(-1)[sure], tokens[sure, i]):
+                fail(f"generate: greedy token {i} differs from the full forward's where the margin exceeds {2 * tol}")
+            sure_tokens += int(sure.sum())
+            if i + 1 < GEN_NEW:
+                logits, cache = gpt_model.gpt_decode_step(model, cache, tokens[:, i], ids.shape[1])
+            ids = torch.cat([ids, tokens[:, i : i + 1]], dim=1)
+    del model, naive, cache
+    emit({
+        "phase": "main_path_gpt_generate", "model": "gpt2_small", "vocab": GEN_VOCAB, "batch": GEN_B,
+        "prompt_len": GEN_PROMPT, "max_new_tokens": GEN_NEW, "runs": gen_runs,
+        "decode_vs_full_forward_max_abs_err": decode_err, "tolerance": DECODE_TOL,
+        "greedy_tokens_checked": sure_tokens, "greedy_tokens": GEN_B * GEN_NEW,
+    })
+
+    # DistilBERT/IMDb PowerSGD in bf16: K5 on bf16 heads once per layer
+    cfg = powersgd_imdb.default_config()
+    cfg.training_epochs, cfg.compute_dtype = 1, "bfloat16"
+    result, peak = drive(
+        "imdb_bf16", lambda: powersgd_imdb.run(cfg, preset="full", device=dev, max_steps_per_epoch=MAIN_STEPS),
+        {"gram_schmidt": MAIN_STEPS * len(imdb_shapes), "flash_attention_bf16": MAIN_STEPS * IMDB_LAYERS},
+    )
+    if kinds["imdb_bf16"]["flash_attention_bf16"] != {"masked": MAIN_STEPS * IMDB_LAYERS}:
+        fail(f"imdb_bf16: K5 launches by kind {kinds['imdb_bf16']['flash_attention_bf16']}")
+    losses = result["losses"]
+    if len(losses) != MAIN_STEPS or not all(math.isfinite(v) for v in losses):
+        fail(f"imdb_bf16 losses {losses}")
+    if result["bits_per_step"] != IMDB_BITS + 32:
+        fail(f"imdb_bf16 bits per step {result['bits_per_step']} (want {IMDB_BITS} + 32)")
+    timed_ms = result["device_time_ms"][WARMUP_STEPS:]
+    p50_ms = statistics.median(timed_ms)
+    bf16_cfg = powersgd_imdb.default_config()
+    bf16_cfg.global_batch_size, bf16_cfg.compute_dtype = IMDB_B, "bfloat16"
+    profiles["imdb_bf16"] = profile_main_path(dev, powersgd_imdb, bf16_cfg, imdb_arrays, {
+        k: device_fns[k] for k in ("gram_schmidt", "flash_attention")
+    })
+    emit({
+        "phase": "main_path_imdb_bf16", "model": "distilbert_base", "compute_dtype": "bfloat16",
+        "global_batch": result["global_batch"], "max_len": result["max_len"], "reducer_rank": result["reducer_rank"],
+        "losses": losses, "losses_fp32": results["imdb"]["losses"], "timed_steps": len(timed_ms),
+        "step_device_ms": timed_ms, "step_device_ms_p50": p50_ms,
+        "step_host_s_p50": statistics.median(result["step_time_s"][WARMUP_STEPS:]),
+        "sequences_per_s": result["global_batch"] / (p50_ms / 1e3), "peak_memory_bytes": peak,
+        "bits_per_step": result["bits_per_step"], "launches": launches["imdb_bf16"],
+        "k5_launches_by_kind": kinds["imdb_bf16"], "profile": profiles["imdb_bf16"],
+    })
+
     # bare_init through the launcher, in a process of its own
     launched = subprocess.run(
         [sys.executable, "-m", "network_distributed_pytorch_tpu_torch.launch", "bare_init"],
@@ -1068,6 +1389,47 @@ def main() -> None:
             }
         emit(record)
 
+    # GPT-2 small: flash attention (K5, causal) against einsum on the card,
+    # two fp32 PowerSGD steps from the same weights and batches
+    def gpt_two_steps(attn_impl):
+        cfg = gpt_lm.default_config()
+        cfg.global_batch_size, cfg.attn_impl = GPT_B, attn_impl
+        model, step, state = gpt_lm.build(cfg, "full", GPT_T, "powersgd", dev, group=None)
+        batches = [
+            tuple(torch.from_numpy(a).to(dev) for a in b)
+            for b in gpt_lm.synthetic_lm_batches(model.config.vocab_size, GPT_B, GPT_T, 2, cfg.seed)
+        ]
+        names, leaves = zip(*model.named_parameters())
+        gpt_lm.lm_loss()(model, batches[0]).backward()
+        deficient = sorted(
+            names[m.leaf_index] for m in step.reducer._metas(list(leaves))
+            if int(torch.linalg.matrix_rank(leaves[m.leaf_index].grad)) < m.r
+        )
+        losses, before = [], fa.KERNEL.launches
+        for batch in batches:  # the step sets every .grad to None first
+            state, loss = step(state, batch)
+            losses.append(loss.item())
+        launched = fa.KERNEL.launches - before
+        return losses, {k: v.detach().cpu() for k, v in state.params.items()}, deficient, launched
+
+    (losses_a, params_a, deficient, flash_launches), (losses_b, params_b, _, einsum_launches) = (
+        gpt_two_steps(i) for i in ("flash", "einsum")
+    )
+    diff, loss_diff = max_diff(params_a, params_b), max(abs(a - b) for a, b in zip(losses_a, losses_b))
+    if (flash_launches, einsum_launches) != (2 * GPT_LAYERS, 0) or deficient:
+        fail(
+            f"gpt flash vs einsum: {flash_launches} and {einsum_launches} K5 launches in 2 steps,"
+            f" rank-deficient leaves {deficient}"
+        )
+    if not (math.isfinite(diff) and diff <= GPT_TOL and loss_diff <= GPT_TOL):
+        fail(f"gpt flash vs einsum: params {diff}, losses {loss_diff} (tol {GPT_TOL})")
+    emit({
+        "phase": "gpt_flash_vs_einsum", "model": "gpt2_small", "global_batch": GPT_B, "seq_len": GPT_T, "steps": 2,
+        "losses": [losses_a, losses_b], "max_param_diff": diff, "max_loss_diff": loss_diff, "tolerance": GPT_TOL,
+        "rank_deficient_leaves": deficient, "flash_launches": flash_launches,
+    })
+    del params_a, params_b
+
     # the IMDb baseline: flash attention (K5) against einsum on the card, two
     # steps from the same weights. Exact gradients: every leaf to IMDB_TOL,
     # but for AdamW the attention's key biases, whose gradient is zero in
@@ -1118,14 +1480,18 @@ def main() -> None:
         "ef_compress": f"{pallas}:78", "compress": f"{pallas}:88",
         "orthogonalize_project": f"{pallas}:96", "decompress_residual": f"{pallas}:121",
     }
+    k1_paths = {
+        "resnet152_xla": "xla", "distilbert_imdb": "imdb", "distilbert_imdb_bf16": "imdb_bf16",
+        "gpt2_small_fp32": "gpt_float32", "gpt2_small_bf16": "gpt_bfloat16",
+    }
     kernels = [{
         "name": "gram_schmidt",
         "route": "cuda",
         "source": "network_distributed_pytorch_tpu_torch/csrc/gram_schmidt.cu",
         "replaces": "network_distributed_pytorch_tpu/ops/pallas_orthogonalize.py:28",
-        # on both paths that run it: ResNet (xla pipeline) and DistilBERT
-        "launches": launches["xla"]["gram_schmidt"] + launches["imdb"]["gram_schmidt"],
-        "launches_by_path": {"resnet152_xla": launches["xla"]["gram_schmidt"], "distilbert_imdb": launches["imdb"]["gram_schmidt"]},
+        # on every path that runs it: ResNet (xla pipeline), DistilBERT (fp32, bf16), GPT-2 (fp32, bf16)
+        "launches": sum(launches[path]["gram_schmidt"] for path in k1_paths.values()),
+        "launches_by_path": {name: launches[path]["gram_schmidt"] for name, path in k1_paths.items()},
         "max_abs_err": main_err,
         "ms": gs_ms,
         "device_ms": gs_device_ms,
@@ -1156,20 +1522,56 @@ def main() -> None:
     k5_paths = {
         "distilbert_imdb": "imdb",
         **{f"imdb_baseline_{opt}": f"imdb_baseline_{opt}" for opt in imdb_baseline.OPTIMIZERS},
+        "gpt2_small_fp32": "gpt_float32",
     }
+    k5_bf16_paths = {"gpt2_small_bf16": "gpt_bfloat16", "distilbert_imdb_bf16": "imdb_bf16"}
+
+    def by_kind(name, paths):
+        total = {}
+        for path in paths.values():
+            for kind, n in kinds[path][name].items():
+                total[kind] = total.get(kind, 0) + n
+        return total
+
+    k5 = {k: v for k, v in attn_row.items() if k != "max_abs_err"}
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "network_distributed_pytorch_tpu_torch/csrc/flash_attention.cu",
         "replaces": "network_distributed_pytorch_tpu/ops/flash_attention.py:76",
-        # on every path that runs it: PowerSGD DistilBERT and the single-node baseline
+        # fp32 heads, on every path that runs them: PowerSGD DistilBERT, the
+        # single-node baseline (masked) and GPT-2 small (causal)
         "launches": sum(launches[path]["flash_attention"] for path in k5_paths.values()),
         "launches_by_path": {name: launches[path]["flash_attention"] for name, path in k5_paths.items()},
-        "max_abs_err": attn_row["max_abs_err"],
+        "launches_by_kind": by_kind("flash_attention", k5_paths),
+        "max_abs_err": max(attn_row["max_abs_err"], bf16_report["gpt_causal_fp32"]["max_abs_err"]),
         # one step's launches on the first IMDb batch's mask; SDPA given the same additive mask
-        **{k: v for k, v in attn_row.items() if k != "max_abs_err"},
+        **k5,
         "device_ms_in_path_profile": profiles["imdb"]["kernels"]["flash_attention"]["device_ms_per_step"],
         "device_ms_in_baseline_profile": profiles["imdb_baseline"]["kernels"]["flash_attention"]["device_ms_per_step"],
         "no_mask": no_mask_row,
+        # one GPT-2 step's 12 causal launches at (16 x 12, 1024, 64); SDPA is_causal
+        "gpt_causal": {
+            **gpt_rows["gpt_causal_fp32"],
+            "device_ms_in_path_profile": profiles["gpt_float32"]["kernels"]["flash_attention"]["device_ms_per_step"],
+        },
+    })
+    bf16_row = gpt_rows["gpt_causal_bf16"]
+    kernels.append({
+        "name": "flash_attention_bf16", "route": "cuda",
+        "source": "network_distributed_pytorch_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "network_distributed_pytorch_tpu/ops/flash_attention.py:76",
+        # bf16 heads: GPT-2 small (causal) and PowerSGD DistilBERT (masked) in bf16
+        "launches": sum(launches[path]["flash_attention_bf16"] for path in k5_bf16_paths.values()),
+        "launches_by_path": {name: launches[path]["flash_attention_bf16"] for name, path in k5_bf16_paths.items()},
+        "launches_by_kind": by_kind("flash_attention_bf16", k5_bf16_paths),
+        "max_abs_err": bf16_err,
+        # one GPT-2 step's 12 causal launches on bf16 heads; SDPA is_causal on the same bf16 inputs
+        **bf16_row,
+        "device_ms_in_path_profile": profiles["gpt_bfloat16"]["kernels"]["flash_attention"]["device_ms_per_step"],
+        "imdb_mask": {
+            **imdb_bf16_row,
+            "device_ms_in_path_profile": profiles["imdb_bf16"]["kernels"]["flash_attention"]["device_ms_per_step"],
+        },
     })
     emit({"kernels": kernels})
     # the card's name and power limit, exactly as nvidia-smi gives them

@@ -1,7 +1,8 @@
 // Flash attention forward for Hopper: exact softmax attention over folded
-// (BH, T, D) fp32 heads with an additive (B, T) key mask, never building the
-// (T, T) score matrix in device memory. Writes out (BH, T, D) and the per-row
-// log-sum-exp lse (BH, T).
+// (BH, T, D) heads of fp32 or bf16 with an additive (B, T) fp32 key mask,
+// never building the (T, T) score matrix in device memory. Writes out
+// (BH, T, D) in the heads' dtype and the per-row log-sum-exp lse (BH, T) in
+// fp32.
 //
 // Replaces network_distributed_pytorch_tpu/ops/flash_attention.py
 // (_flash_kernel, called by flash_attention). The arithmetic is the Pallas
@@ -16,6 +17,10 @@
 //   l  = l c + sum p;  acc = acc c + p.v
 //   out = acc / max(l, 1e-37);  lse = l > 0 ? m + log(l) : 1e30
 // A fully masked row keeps l = 0 and acc = 0, so its out is exactly 0.
+// With bf16 heads every value is widened to fp32 as it leaves shared memory
+// (the Pallas kernel's astype(float32) of each tile), everything above runs
+// in fp32, and out is rounded to bf16 once, at the end, as the Pallas
+// kernel's o_ref store does.
 //
 // Design:
 //   * one block of 8 warps per (head, tile of 128 q rows); each warp owns 16
@@ -42,9 +47,16 @@
 //     exp run there, and the fragments are P's A operand for P.V as they
 //     are, with V's B operand read in the matching key order. The
 //     normaliser l is kept per thread and summed over the quad at the end;
-//   * shared rows are padded to D + 4 floats, so every fragment load is free
-//     of bank conflicts; any T (the ragged last tile is zero-filled and
-//     flagged invalid), D up to 128 (padded to 64 or 128 with zeros).
+//   * bf16 heads stay bf16 in shared memory, which halves the Q tile, the
+//     K/V ring and the bytes each copy moves. A bf16 value has 8
+//     significant bits, so it is exact in TF32: the lo half of k and of v is
+//     0, and the bf16 kernel drops the hi_a.lo_b pass of both products
+//     (2xTF32). The A operands, q * scale and the fp32 probabilities, keep
+//     their split, so the products keep the fp32 path's 22 bits;
+//   * shared rows are padded to D + 4 floats or D + 8 bf16 values, so every
+//     fragment load is free of bank conflicts; any T (the ragged last tile
+//     is zero-filled and flagged invalid), D up to 128 (padded to 64 or 128
+//     with zeros).
 //
 // What bounds it on an H100: at DistilBERT's width (BH = 192, T = 256,
 // D = 64) one launch moves 50 MB (q, k, v, out; 15 us at 3.35 TB/s) and does
@@ -53,7 +65,11 @@
 // are skipped, so bytes bound it; without a mask the three passes do. The
 // fp32 split (two cvt and a subtract per operand element, repeated by each
 // warp for K and V) and mma.sync, not wgmma, keep it above those bounds.
+// GPT-2's causal heads (BH = 192, T = 1024, D = 64) take 2 T (T + 1) D
+// products a head, 25.8 GFLOP a launch: operations bound them, in bf16 too,
+// since the 2xTF32 passes still run at the TF32 rate.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -69,11 +85,38 @@ constexpr float kNegInf = -1e30f;   // running-max start (finite: m - m' stays f
 constexpr float kMaskPad = -1e29f;  // mask values at or below this are padding
 constexpr float kLseEmpty = 1e30f;  // lse of a fully masked row
 
-// row stride of the shared Q, K and V tiles: D padded to DP, plus 4
-__host__ __device__ constexpr int row_stride(int dp) { return dp + 4; }
+// What the kernel needs of the heads' element type: widening to fp32 and
+// the one rounding of out (the cuda_bf16.h intrinsics for bf16), the row
+// padding of the shared tiles, and whether a value is exact in TF32
+template <typename Elt>
+struct Elem;
 
+template <>
+struct Elem<float> {
+  static constexpr int kPad = 4;         // 16 bytes: rows stay 16-byte aligned
+  static constexpr bool kTf32Exact = false;
+  __device__ static float widen(float x) { return x; }
+  __device__ static float narrow(float x) { return x; }
+  __device__ static float zero() { return 0.f; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int kPad = 8;
+  static constexpr bool kTf32Exact = true;  // 8 significant bits of TF32's 11
+  __device__ static float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+  __device__ static __nv_bfloat16 narrow(float x) { return __float2bfloat16_rn(x); }
+  __device__ static __nv_bfloat16 zero() { return __float2bfloat16_rn(0.f); }
+};
+
+// row stride, in elements, of the shared Q, K and V tiles: D padded to DP,
+// plus the element type's pad (a row stride of 4 banks mod 32 either way)
+template <typename Elt>
+__host__ __device__ constexpr int row_stride(int dp) { return dp + Elem<Elt>::kPad; }
+
+template <typename Elt>
 size_t smem_bytes(int dp) {
-  return sizeof(float) * (static_cast<size_t>(row_stride(dp)) * (kBQ + 4 * kBK) + 2 * kBK);
+  return sizeof(Elt) * static_cast<size_t>(row_stride<Elt>(dp)) * (kBQ + 4 * kBK) + sizeof(float) * 2 * kBK;
 }
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
@@ -96,20 +139,36 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// A B operand's hi and lo halves; where the value is exact in TF32 (bf16
+// widened to fp32: its low 16 bits are 0) hi is the value and lo is 0
+template <bool kExact>
+__device__ __forceinline__ void split_b(float x, uint32_t& hi, uint32_t& lo) {
+  if (kExact) {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  } else {
+    split(x, hi, lo);
+  }
+}
+
 // d[n] += a.b[n] for kG independent products in 3xTF32, the two small terms
-// first; pass by pass over the group, so that no mma waits on the one before
-template <int kG>
+// first; pass by pass over the group, so that no mma waits on the one before.
+// Where every b is exact in TF32 (kExactB) the hi_a.lo_b pass adds 0 and is
+// dropped: 2xTF32, with the same 22 bits of each product
+template <int kG, bool kExactB>
 __device__ __forceinline__ void mma_3xtf32(float (*d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
                                            const uint32_t (&bh)[kG][2], const uint32_t (&bl)[kG][2]) {
 #pragma unroll
   for (int n = 0; n < kG; ++n) mma_tf32(d[n], al, bh[n]);
+  if (!kExactB) {
 #pragma unroll
-  for (int n = 0; n < kG; ++n) mma_tf32(d[n], ah, bl[n]);
+    for (int n = 0; n < kG; ++n) mma_tf32(d[n], ah, bl[n]);
+  }
 #pragma unroll
   for (int n = 0; n < kG; ++n) mma_tf32(d[n], ah, bh[n]);
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(in ? 16 : 0));
 }
@@ -138,47 +197,55 @@ __device__ __forceinline__ int next_tile(const float* mrow, int from, int end, i
   return end;
 }
 
-// DT: D padded to DP = 8 DT columns (8: D <= 64, 16: D <= 128). At D <= 64
-// two blocks share an SM (registers held to 128 a thread, 2 x 103 KB of
-// shared memory), so one block's products overlap the other's waits.
-template <int DT>
+// Elt: the heads' element type (float or __nv_bfloat16). DT: D padded to
+// DP = 8 DT columns (8: D <= 64, 16: D <= 128). At D <= 64 two blocks share
+// an SM (registers held to 128 a thread; 2 x 103 KB of shared memory in fp32),
+// so one block's products overlap the other's waits.
+template <typename Elt, int DT>
 __global__ void __launch_bounds__(kThreads, DT == 8 ? 2 : 1)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ mask,
-                 float* __restrict__ out, float* __restrict__ lse, int T, int D,
+flash_fwd_kernel(const Elt* __restrict__ q, const Elt* __restrict__ k,
+                 const Elt* __restrict__ v, const float* __restrict__ mask,
+                 Elt* __restrict__ out, float* __restrict__ lse, int T, int D,
                  int H, int causal, float scale) {
+  using E = Elem<Elt>;
+  constexpr bool kExactB = E::kTf32Exact;  // k and v as B operands
   constexpr int DP = 8 * DT;
-  constexpr int LD = row_stride(DP);
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;              // kBQ x LD
-  float* kv = qs + kBQ * LD;     // two stages of (K tile, V tile), kBK x LD each
-  float* mk = kv + 4 * kBK * LD; // two stages of the tile's kBK mask values
+  constexpr int LD = row_stride<Elt>(DP);
+  constexpr int kVec = 16 / sizeof(Elt);  // elements in one 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Elt* qs = reinterpret_cast<Elt*>(smem_raw);  // kBQ x LD
+  Elt* kv = qs + kBQ * LD;                   // two stages of (K tile, V tile), kBK x LD each
+  float* mk = reinterpret_cast<float*>(kv + 4 * kBK * LD);  // two stages of the tile's kBK mask values
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * kBQ;
   const size_t head = static_cast<size_t>(bh) * T * D;
-  const float* qh = q + head;
-  const float* kh = k + head;
-  const float* vh = v + head;
+  const Elt* qh = q + head;
+  const Elt* kh = k + head;
+  const Elt* vh = v + head;
   const float* mrow = mask + static_cast<size_t>(bh / H) * T;
 
   // the copies fill columns [0, D) only: zero the padding of Q and of both
   // stages of K and V
   for (int idx = tid; idx < (kBQ + 4 * kBK) * (DP - D); idx += kThreads) {
     const int r = idx / (DP - D), c = D + idx - r * (DP - D);
-    qs[r * LD + c] = 0.f;
+    qs[r * LD + c] = E::zero();
   }
 
   // rows [row0, row0 + n) of a (T, D) head into a tile of stride LD; rows
-  // past T are zero-filled
-  const bool vec4 = (D & 3) == 0;
-  auto load_rows = [&](float* dst, const float* head_src, int row0, int n) {
-    if (vec4) {
-      const int chunks = D >> 2;  // 16-byte pieces per row
+  // past T are zero-filled. 16-byte cp.async where every row starts on 16
+  // bytes; else 4-byte cp.async (fp32) or plain loads (bf16), which finish
+  // before the __syncthreads that precedes the tile's use
+  const bool vec = D % kVec == 0 &&
+                   ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  auto load_rows = [&](Elt* dst, const Elt* head_src, int row0, int n) {
+    if (vec) {
+      const int chunks = D / kVec;  // 16-byte pieces per row
       for (int idx = tid; idx < n * chunks; idx += kThreads) {
-        const int r = idx / chunks, c = (idx - r * chunks) << 2;
+        const int r = idx / chunks, c = (idx - r * chunks) * kVec;
         const bool in = row0 + r < T;
         cp_async16(dst + r * LD + c, head_src + (in ? static_cast<size_t>(row0 + r) * D + c : 0), in);
       }
@@ -186,12 +253,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int idx = tid; idx < n * D; idx += kThreads) {
         const int r = idx / D, c = idx - r * D;
         const bool in = row0 + r < T;
-        cp_async4(dst + r * LD + c, head_src + (in ? static_cast<size_t>(row0 + r) * D + c : 0), in);
+        const Elt* src = head_src + (in ? static_cast<size_t>(row0 + r) * D + c : 0);
+        if constexpr (sizeof(Elt) == 4) {
+          cp_async4(reinterpret_cast<float*>(dst + r * LD + c), reinterpret_cast<const float*>(src), in);
+        } else {
+          dst[r * LD + c] = in ? *src : E::zero();
+        }
       }
     }
   };
   auto load_tile = [&](int tile, int stage) {
-    float* ks = kv + stage * 2 * kBK * LD;
+    Elt* ks = kv + stage * 2 * kBK * LD;
     const int k0 = tile * kBK;
     load_rows(ks, kh, k0, kBK);
     load_rows(ks + kBK * LD, vh, k0, kBK);
@@ -227,8 +299,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait<1>();  // this tile's copies have landed
     __syncthreads();     // ... every thread's, and Q
 
-    const float* ks = kv + stage * 2 * kBK * LD;
-    const float* vs = ks + kBK * LD;
+    const Elt* ks = kv + stage * 2 * kBK * LD;
+    const Elt* vs = ks + kBK * LD;
     const float* ms = mk + stage * kBK;
     const int k0 = tile * kBK;
 
@@ -243,19 +315,19 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int kk = 0; kk < DT; ++kk) {
       if (8 * kk >= D) break;
       uint32_t ah[4], al[4];
-      split(qs[ra * LD + 8 * kk + t] * scale, ah[0], al[0]);
-      split(qs[rb * LD + 8 * kk + t] * scale, ah[1], al[1]);
-      split(qs[ra * LD + 8 * kk + t + 4] * scale, ah[2], al[2]);
-      split(qs[rb * LD + 8 * kk + t + 4] * scale, ah[3], al[3]);
+      split(E::widen(qs[ra * LD + 8 * kk + t]) * scale, ah[0], al[0]);
+      split(E::widen(qs[rb * LD + 8 * kk + t]) * scale, ah[1], al[1]);
+      split(E::widen(qs[ra * LD + 8 * kk + t + 4]) * scale, ah[2], al[2]);
+      split(E::widen(qs[rb * LD + 8 * kk + t + 4]) * scale, ah[3], al[3]);
 #pragma unroll
       for (int j0 = 0; j0 < 8; j0 += kGroup) {
         uint32_t bh[kGroup][2], bl[kGroup][2];
 #pragma unroll
         for (int j = 0; j < kGroup; ++j) {
-          split(ks[(8 * (j0 + j) + g) * LD + 8 * kk + t], bh[j][0], bl[j][0]);
-          split(ks[(8 * (j0 + j) + g) * LD + 8 * kk + t + 4], bh[j][1], bl[j][1]);
+          split_b<kExactB>(E::widen(ks[(8 * (j0 + j) + g) * LD + 8 * kk + t]), bh[j][0], bl[j][0]);
+          split_b<kExactB>(E::widen(ks[(8 * (j0 + j) + g) * LD + 8 * kk + t + 4]), bh[j][1], bl[j][1]);
         }
-        mma_3xtf32(s + j0, ah, al, bh, bl);
+        mma_3xtf32<kGroup, kExactB>(s + j0, ah, al, bh, bl);
       }
     }
 
@@ -317,17 +389,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       split(s[kk][2], ah[1], al[1]);
       split(s[kk][1], ah[2], al[2]);
       split(s[kk][3], ah[3], al[3]);
-      const float* v0 = vs + (8 * kk + 2 * t) * LD + g;
+      const Elt* v0 = vs + (8 * kk + 2 * t) * LD + g;
 #pragma unroll
       for (int n0 = 0; n0 < DT; n0 += kGroup) {
         if (8 * n0 >= D) break;  // the columns past D are zero
         uint32_t bh[kGroup][2], bl[kGroup][2];
 #pragma unroll
         for (int n = 0; n < kGroup; ++n) {
-          split(v0[8 * (n0 + n)], bh[n][0], bl[n][0]);
-          split(v0[LD + 8 * (n0 + n)], bh[n][1], bl[n][1]);
+          split_b<kExactB>(E::widen(v0[8 * (n0 + n)]), bh[n][0], bl[n][0]);
+          split_b<kExactB>(E::widen(v0[LD + 8 * (n0 + n)]), bh[n][1], bl[n][1]);
         }
-        mma_3xtf32(o + n0, ah, al, bh, bl);
+        mma_3xtf32<kGroup, kExactB>(o + n0, ah, al, bh, bl);
       }
     }
     __syncthreads();  // the next copy overwrites this stage
@@ -344,48 +416,63 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int tq = h ? qb : qa;
     if (tq >= T) continue;
     const float denom = fmaxf(l, 1e-37f);
-    float* orow = out + head + static_cast<size_t>(tq) * D;
+    Elt* orow = out + head + static_cast<size_t>(tq) * D;
 #pragma unroll
     for (int n = 0; n < DT; ++n) {
       const int c = 8 * n + 2 * t;
-      if (c < D) orow[c] = o[n][2 * h] / denom;
-      if (c + 1 < D) orow[c + 1] = o[n][2 * h + 1] / denom;
+      if (c < D) orow[c] = E::narrow(o[n][2 * h] / denom);
+      if (c + 1 < D) orow[c + 1] = E::narrow(o[n][2 * h + 1] / denom);
     }
     if (t == 0)
       lse[static_cast<size_t>(bh) * T + tq] = l > 0.f ? m_run[h] + logf(denom) : kLseEmpty;
   }
 }
 
-template <int DT>
-int launch(const float* q, const float* k, const float* v, const float* mask,
-           float* out, float* lse, int bh, int T, int D, int H, int causal,
-           float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(8 * DT);
+template <typename Elt, int DT>
+int launch(const Elt* q, const Elt* k, const Elt* v, const float* mask, Elt* out, float* lse,
+           int bh, int T, int D, int H, int causal, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes<Elt>(8 * DT);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<Elt, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bh, (T + kBQ - 1) / kBQ);
-  flash_fwd_kernel<DT><<<grid, kThreads, smem, stream>>>(q, k, v, mask, out, lse,
-                                                         T, D, H, causal, scale);
+  flash_fwd_kernel<Elt, DT><<<grid, kThreads, smem, stream>>>(q, k, v, mask, out, lse,
+                                                            T, D, H, causal, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Elt>
+int dispatch(const void* q, const void* k, const void* v, const float* mask, void* out,
+             float* lse, int bh, int T, int D, int H, int causal, float scale, void* stream) {
+  if (bh <= 0 || T <= 0) return 0;
+  if (D < 1 || D > kMaxD || H < 1 || bh % H != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Elt* qt = static_cast<const Elt*>(q);
+  const Elt* kt = static_cast<const Elt*>(k);
+  const Elt* vt = static_cast<const Elt*>(v);
+  Elt* ot = static_cast<Elt*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 64) return launch<Elt, 8>(qt, kt, vt, mask, ot, lse, bh, T, D, H, causal, scale, s);
+  return launch<Elt, 16>(qt, kt, vt, mask, ot, lse, bh, T, D, H, causal, scale, s);
 }
 
 }  // namespace
 
-// C entry, loaded with ctypes. q, k, v, out: (bh, T, D) fp32 contiguous;
-// mask: (bh / H, T) fp32; lse: (bh, T) fp32. Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() so a refused launch is
-// reported at once.
-extern "C" int flash_attention_fwd_f32(const float* q, const float* k,
-                                       const float* v, const float* mask,
-                                       float* out, float* lse, int bh, int T,
-                                       int D, int H, int causal, float scale,
+// C entries, loaded with ctypes. q, k, v, out: (bh, T, D) contiguous, fp32
+// or bf16 by the entry's name; mask: (bh / H, T) fp32; lse: (bh, T) fp32.
+// Each launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() so a refused launch is reported at once.
+extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
+                                       const float* mask, void* out, float* lse, int bh,
+                                       int T, int D, int H, int causal, float scale,
                                        void* stream) {
-  if (bh <= 0 || T <= 0) return 0;
-  if (D < 1 || D > kMaxD || H < 1 || bh % H != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 64) return launch<8>(q, k, v, mask, out, lse, bh, T, D, H, causal, scale, s);
-  return launch<16>(q, k, v, mask, out, lse, bh, T, D, H, causal, scale, s);
+  return dispatch<float>(q, k, v, mask, out, lse, bh, T, D, H, causal, scale, stream);
+}
+
+extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
+                                        const float* mask, void* out, float* lse, int bh,
+                                        int T, int D, int H, int causal, float scale,
+                                        void* stream) {
+  return dispatch<__nv_bfloat16>(q, k, v, mask, out, lse, bh, T, D, H, causal, scale, stream);
 }

@@ -4,6 +4,7 @@ the loss, the epoch/step loop, evaluation and the run summary."""
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -52,6 +53,19 @@ def require_defaults(config, names, experiment: str) -> None:
     for name in names:
         if getattr(config, name) != getattr(defaults, name):
             raise ValueError(f"{experiment} runs the default {name}={getattr(defaults, name)!r}")
+
+
+def require_float32(config, experiment: str) -> None:
+    """Raise ``NotImplementedError`` for a ``compute_dtype`` other than
+    float32 in an experiment whose model has no bf16 path yet (the ResNet's:
+    flax's BatchNorm and GroupNorm casts are not ported)."""
+    if config.compute_dtype != "float32":
+        raise NotImplementedError(f"{experiment}: compute_dtype={config.compute_dtype!r} is not ported yet")
+
+
+def compute_dtype(config) -> torch.dtype:
+    """``config.compute_dtype`` as a torch dtype."""
+    return getattr(torch, config.compute_dtype)
 
 
 def reducer_comm_kwargs(config) -> Dict[str, Any]:
@@ -224,8 +238,16 @@ def evaluate_text_classifier(model: nn.Module, split, batch_size: int = 64) -> f
     return _accuracy(model, arrays, batch_size, lambda ids, mask: model(ids, mask, deterministic=True))
 
 
-def summarize(name: str, logger: MetricsLogger, extra: Optional[Dict] = None) -> Dict:
+def summarize(
+    name: str, logger: MetricsLogger, extra: Optional[Dict] = None, perplexity: bool = False
+) -> Dict:
+    """The run summary. ``perplexity=True`` (the LM experiments) adds
+    ``final_perplexity = exp(min(final_loss, 30))``, None where no step was
+    recorded."""
     out = {"experiment": name, **logger.summary()}
+    if perplexity:
+        final = out.get("final_loss")
+        out["final_perplexity"] = math.exp(min(final, 30.0)) if final is not None else None
     if extra:
         out.update(extra)
     return out

@@ -31,6 +31,7 @@ from .common import (
     exact_reducer_kwargs,
     image_classifier_loss,
     process_group,
+    require_float32,
     summarize,
     train_loop,
 )
@@ -54,6 +55,7 @@ def build(config: ExperimentConfig, preset: str, device, group, pretrained_state
     """The model (from ``pretrained_state_dict`` where one is given, e.g.
     from ``models.import_weights``, else from the seed), the training step
     and its initial state."""
+    require_float32(config, "exact_cifar10")
     model = build_model(preset, device, seed=config.seed)
     if pretrained_state_dict is not None:
         model.load_state_dict(pretrained_state_dict)

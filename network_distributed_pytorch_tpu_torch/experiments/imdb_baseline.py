@@ -12,7 +12,7 @@ decay 1e-4 on every parameter, eps 1e-8) through ``algorithm="optax"``.
 Preset ``full`` is ``distilbert_base`` at batch 16 and ``max_len`` 256;
 ``small`` is ``distilbert_tiny`` at ``max_len`` <= 64. Dropout is off in
 training (``deterministic=True``), so on the card attention runs the flash
-attention kernel (K5).
+attention kernel (K5), on bf16 q, k, v under ``compute_dtype="bfloat16"``.
 """
 
 from __future__ import annotations
@@ -26,7 +26,14 @@ from ..parallel.mesh import resolve_device
 from ..parallel.reducers import ExactReducer
 from ..parallel.trainer import make_train_step
 from ..utils.config import ExperimentConfig
-from .common import accumulated_batches, evaluate_text_classifier, require_defaults, summarize, train_loop
+from .common import (
+    accumulated_batches,
+    compute_dtype,
+    evaluate_text_classifier,
+    require_defaults,
+    summarize,
+    train_loop,
+)
 from .powersgd_imdb import PER_WORKER_BATCH, build_model, sequence_classifier_loss
 
 OPTIMIZERS = {"sgd_nesterov": 5, "adamw": 3}  # name: the reference's epochs
@@ -71,7 +78,9 @@ def build(
         ("compress_impl", "orthogonalize_impl", "comm_chunks", "comm_strategy", "bucket_bytes"),
         "imdb_baseline",
     )
-    model = build_model(preset, device, seed=config.seed, attn_impl=config.attn_impl or "auto")
+    model = build_model(
+        preset, device, seed=config.seed, attn_impl=config.attn_impl or "auto", dtype=compute_dtype(config)
+    )
     if pretrained_state_dict is not None:
         model.load_state_dict(pretrained_state_dict)
     step = make_train_step(
@@ -120,6 +129,7 @@ def run(
         "preset": preset,
         "real_data": is_real,
         "optimizer": optimizer_name,
+        "compute_dtype": config.compute_dtype,
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "num_devices": 1,
         "global_batch": config.global_batch_size,

@@ -29,6 +29,7 @@ from .common import (
     powersgd_reducer_kwargs,
     process_group,
     require_defaults,
+    require_float32,
     summarize,
     train_loop,
 )
@@ -51,6 +52,7 @@ def build_model(preset: str, device="cuda", seed: int = 0):
 def build(config: ExperimentConfig, preset: str, device, group):
     """The model, the training step and its initial state."""
     require_defaults(config, ("bucket_bytes",), "powersgd_cifar10")  # the exact reducer's knob
+    require_float32(config, "powersgd_cifar10")
     model = build_model(preset, device, seed=config.seed)
     reducer = PowerSGDReducer(
         random_seed=config.seed,

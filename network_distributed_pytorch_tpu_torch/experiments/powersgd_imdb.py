@@ -10,6 +10,8 @@ Preset ``small`` is ``distilbert_tiny`` at ``max_len`` <= 64. Without IMDb
 on disk the data is the deterministic synthetic stand-in; weights come from
 the seed. Dropout is off in training, as in the JAX package's loss
 (``deterministic=True``), so attention runs flash attention (K5).
+``compute_dtype="bfloat16"`` runs the model in bf16 at the JAX model's cast
+points (K5 on bf16 q, k, v) with fp32 parameters, gradients and reducer.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from ..parallel.reducers import PowerSGDReducer, embedding_leaves
 from ..parallel.trainer import make_train_step
 from ..utils.config import ExperimentConfig
 from ..utils.losses import cross_entropy_loss
-from .common import accumulated_batches, process_group, require_defaults, summarize, train_loop
+from .common import accumulated_batches, compute_dtype, process_group, require_defaults, summarize, train_loop
 
 PER_WORKER_BATCH = 16
 
@@ -41,11 +43,11 @@ def default_config() -> ExperimentConfig:
     )
 
 
-def build_model(preset: str, device="cuda", seed: int = 0, attn_impl: str = "auto"):
+def build_model(preset: str, device="cuda", seed: int = 0, attn_impl: str = "auto", dtype=torch.float32):
     if preset == "full":
-        return distilbert_base(num_labels=2, device=device, seed=seed, attn_impl=attn_impl)
+        return distilbert_base(num_labels=2, device=device, seed=seed, attn_impl=attn_impl, dtype=dtype)
     if preset == "small":
-        return distilbert_tiny(num_labels=2, device=device, seed=seed, attn_impl=attn_impl)
+        return distilbert_tiny(num_labels=2, device=device, seed=seed, attn_impl=attn_impl, dtype=dtype)
     raise ValueError(f"unknown preset {preset!r}")
 
 
@@ -71,7 +73,9 @@ def build(config: ExperimentConfig, preset: str, device, group):
         ("compress_impl", "orthogonalize_impl", "comm_chunks", "comm_strategy", "bucket_bytes"),
         "powersgd_imdb",
     )
-    model = build_model(preset, device, seed=config.seed, attn_impl=config.attn_impl or "auto")
+    model = build_model(
+        preset, device, seed=config.seed, attn_impl=config.attn_impl or "auto", dtype=compute_dtype(config)
+    )
     reducer = PowerSGDReducer(
         random_seed=config.seed,
         compression_rank=config.reducer_rank,
@@ -130,6 +134,7 @@ def run(
             "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
             "num_devices": world,
             "reducer_rank": config.reducer_rank,
+            "compute_dtype": config.compute_dtype,
             "global_batch": config.global_batch_size,
             "max_len": max_len,
             "bits_per_step": step.bits_per_step,

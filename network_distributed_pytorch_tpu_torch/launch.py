@@ -8,6 +8,8 @@ Usage, one process per rank (torchrun sets ``RANK``, ``WORLD_SIZE``,
     python -m network_distributed_pytorch_tpu_torch.launch powersgd_imdb --preset full
     python -m network_distributed_pytorch_tpu_torch.launch exact_cifar10 --preset full --bucket-bytes 26214400
     python -m network_distributed_pytorch_tpu_torch.launch imdb_baseline --preset full
+    python -m network_distributed_pytorch_tpu_torch.launch gpt_lm --preset full --dtype bfloat16
+    python -m network_distributed_pytorch_tpu_torch.launch gpt_generate --preset full --max-new-tokens 128
     python -m network_distributed_pytorch_tpu_torch.launch bare_init
     torchrun --nproc-per-node 4 -m network_distributed_pytorch_tpu_torch.launch powersgd_cifar10
 
@@ -22,12 +24,29 @@ import logging
 import os
 import sys
 
-from .experiments import bare_init, exact_cifar10, imdb_baseline, powersgd_cifar10, powersgd_imdb
-from .utils.config import ATTN_IMPLS, COMM_STRATEGIES, COMPRESS_IMPLS, ORTHOGONALIZE_IMPLS, ExperimentConfig
+from .experiments import (
+    bare_init,
+    exact_cifar10,
+    gpt_generate,
+    gpt_lm,
+    imdb_baseline,
+    powersgd_cifar10,
+    powersgd_imdb,
+)
+from .utils.config import (
+    ATTN_IMPLS,
+    COMM_STRATEGIES,
+    COMPRESS_IMPLS,
+    COMPUTE_DTYPES,
+    ORTHOGONALIZE_IMPLS,
+    ExperimentConfig,
+)
 
 EXPERIMENTS = {
     "bare_init": bare_init,
     "exact_cifar10": exact_cifar10,
+    "gpt_generate": gpt_generate,
+    "gpt_lm": gpt_lm,
     "imdb_baseline": imdb_baseline,
     "powersgd_cifar10": powersgd_cifar10,
     "powersgd_imdb": powersgd_imdb,
@@ -39,6 +58,9 @@ DEFAULT_DATA_DIR = "./data"
 # anywhere else the flag is refused, not ignored
 _CHUNKS_OK = ("exact_cifar10", "powersgd_cifar10")
 _BUCKETS_OK = ("exact_cifar10",)
+_GENERATE_OK = ("gpt_generate",)
+# the JAX launcher's gpt_generate defaults
+DEFAULT_MAX_NEW_TOKENS, DEFAULT_TEMPERATURE = 64, 0.0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -87,9 +109,23 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--attn-impl", choices=list(ATTN_IMPLS), default=None,
-        help="DistilBERT attention (IMDb experiments): 'flash' the CUDA flash-attention"
-             " kernel on the card and its plain version on the CPU, 'einsum' plain"
-             " PyTorch; 'auto' (the default) is 'flash'",
+        help="transformer attention (gpt_lm and the IMDb experiments): 'flash' the CUDA"
+             " flash-attention kernel on the card and its plain version on the CPU,"
+             " 'einsum' plain PyTorch; 'auto' (the default) is 'flash'",
+    )
+    p.add_argument(
+        "--dtype", choices=list(COMPUTE_DTYPES), default=None,
+        help="compute dtype of the transformers (gpt_lm, gpt_generate and the IMDb"
+             " experiments): 'bfloat16' runs matmuls, attention and activations in bf16"
+             " with fp32 parameters; the ResNet experiments refuse it",
+    )
+    p.add_argument(
+        "--max-new-tokens", type=int, default=None,
+        help=f"gpt_generate only: tokens to generate (default {DEFAULT_MAX_NEW_TOKENS})",
+    )
+    p.add_argument(
+        "--temperature", type=float, default=None,
+        help=f"gpt_generate only: 0 is greedy (default {DEFAULT_TEMPERATURE})",
     )
     return p
 
@@ -110,6 +146,7 @@ def config_from_args(args) -> ExperimentConfig:
         ("compress_impl", args.compress_impl),
         ("orthogonalize_impl", args.orthogonalize_impl),
         ("attn_impl", args.attn_impl),
+        ("compute_dtype", args.dtype),
         ("comm_chunks", args.comm_chunks),
         ("comm_strategy", args.comm_strategy),
         ("bucket_bytes", args.bucket_bytes),
@@ -130,6 +167,9 @@ def main(argv=None) -> dict:
         ("--comm-strategy", args.comm_strategy, _CHUNKS_OK),
         ("--bucket-bytes", args.bucket_bytes, _BUCKETS_OK),
         ("--strategy", None if args.strategy == "ddp" else args.strategy, ("exact_cifar10",)),
+        ("--max-new-tokens", args.max_new_tokens, _GENERATE_OK),
+        ("--temperature", args.temperature, _GENERATE_OK),
+        ("--dtype", args.dtype, tuple(name for name in EXPERIMENTS if name != "bare_init")),
     ):
         if value is not None and exp not in ok:
             raise ValueError(f"{flag} is not supported by {exp!r} (supported: {', '.join(ok)})")
@@ -137,7 +177,15 @@ def main(argv=None) -> dict:
     if device == "cuda":
         device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
     kwargs = {"device": device}
-    if exp != "bare_init":
+    if exp == "gpt_generate":
+        kwargs.update(
+            preset=args.preset,
+            max_new_tokens=DEFAULT_MAX_NEW_TOKENS if args.max_new_tokens is None else args.max_new_tokens,
+            temperature=DEFAULT_TEMPERATURE if args.temperature is None else args.temperature,
+        )
+    elif exp == "gpt_lm":
+        kwargs.update(preset=args.preset, max_steps_per_epoch=args.max_steps_per_epoch)
+    elif exp != "bare_init":
         data_dir = args.data_dir
         if exp in ("powersgd_imdb", "imdb_baseline") and data_dir == DEFAULT_DATA_DIR:
             data_dir = None

@@ -11,7 +11,12 @@ weights carry across both ways (``models/import_weights.py``).
 
 Details kept from the JAX model: LayerNorm eps 1e-12, exact (erf) GELU, the
 padding mask ``finfo(f32).min`` added to the scores, and dropout only when
-``deterministic`` is False, as flax applies it. ``attn_impl``:
+``deterministic`` is False, as flax applies it. ``dtype`` (``compute_dtype``)
+is flax's: fp32 parameters, each layer casting at the JAX model's points
+(``models/layers.py``), logits in fp32. In bf16 the padding value
+``finfo(f32).min`` rounds to ``-inf``, in the JAX model too: the einsum path
+adds ``-inf`` and flash attention sees an fp32 ``-inf``, padding by its
+validity flag. ``attn_impl``:
 
 - ``"einsum"``: scores ``q k^T / sqrt(head_dim)`` (scale after the
   product), softmax in fp32, attention dropout, ``weights v``;
@@ -41,6 +46,8 @@ from torch import nn
 from ..ops.flash_attention import flash_attention
 from ..parallel.mesh import resolve_device
 from ..utils.config import ATTN_IMPLS
+from .layers import check_compute_dtype, dense, embed, layer_norm, score_scale
+
 _LN_EPS = 1e-12
 _INIT_STD = 0.02
 
@@ -58,7 +65,7 @@ class DistilBertConfig:
     num_labels: int = 2
     dtype: Any = torch.float32
     # sequence parallelism and rematerialization keep their slots; setting
-    # either raises until they are ported (ROADMAP.md)
+    # either raises until they are ported
     seq_axis: Any = None
     attn_impl: str = "auto"
     remat: bool = False
@@ -68,8 +75,7 @@ class DistilBertConfig:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
         if self.dim % self.n_heads:
             raise ValueError(f"dim {self.dim} does not split into {self.n_heads} heads")
-        if self.dtype != torch.float32:
-            raise NotImplementedError("DistilBertConfig.dtype other than float32 is not ported yet")
+        check_compute_dtype(self.dtype)
         if self.seq_axis is not None:
             raise NotImplementedError("DistilBertConfig.seq_axis (sequence parallelism) is not ported yet")
         if self.remat:
@@ -108,17 +114,18 @@ class MultiHeadSelfAttention(nn.Module):
         def split(y):
             return y.reshape(b, t, cfg.n_heads, head_dim)
 
-        q, k, v = split(self.q_lin(x)), split(self.k_lin(x)), split(self.v_lin(x))
+        dt = cfg.dtype
+        q, k, v = (split(dense(lin, x, dt)) for lin in (self.q_lin, self.k_lin, self.v_lin))
         if self._attn_impl(deterministic) == "flash":
             ctx = flash_attention(q, k, v, mask=mask.float())
         else:
-            scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(head_dim)
-            # additive mask: 0 for real tokens, finfo.min for padding
+            scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / score_scale(head_dim, dt)
+            # additive mask: 0 for real tokens, finfo.min (fp32) or -inf (bf16) for padding
             scores = scores + mask[:, None, None, :]
-            weights = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+            weights = torch.softmax(scores.float(), dim=-1).to(dt)
             weights = F.dropout(weights, cfg.attention_dropout, training=not deterministic)
             ctx = torch.einsum("bhqk,bkhd->bqhd", weights, v)
-        return self.out_lin(ctx.reshape(b, t, cfg.dim))
+        return dense(self.out_lin, ctx.reshape(b, t, cfg.dim), dt)
 
 
 class TransformerBlock(nn.Module):
@@ -137,10 +144,11 @@ class TransformerBlock(nn.Module):
         self.output_layer_norm = nn.LayerNorm(config.dim, eps=_LN_EPS)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, deterministic: bool) -> torch.Tensor:
-        x = self.sa_layer_norm(x + self.attention(x, mask, deterministic))
-        h = F.gelu(self.ffn["lin1"](x), approximate="none")
-        h = F.dropout(self.ffn["lin2"](h), self.config.dropout, training=not deterministic)
-        return self.output_layer_norm(x + h)
+        dt = self.config.dtype
+        x = layer_norm(self.sa_layer_norm, x + self.attention(x, mask, deterministic), dt)
+        h = F.gelu(dense(self.ffn["lin1"], x, dt), approximate="none")
+        h = F.dropout(dense(self.ffn["lin2"], h, dt), self.config.dropout, training=not deterministic)
+        return layer_norm(self.output_layer_norm, x + h, dt)
 
 
 class DistilBertEncoder(nn.Module):
@@ -160,13 +168,15 @@ class DistilBertEncoder(nn.Module):
         self, input_ids: torch.Tensor, attention_mask: torch.Tensor, deterministic: bool = True
     ) -> torch.Tensor:
         cfg = self.config
+        dt = cfg.dtype
         emb = self.embeddings
         positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
-        x = emb["word_embeddings"](input_ids) + emb["position_embeddings"](positions)
-        x = emb["LayerNorm"](x)
+        x = embed(emb["word_embeddings"], input_ids, dt) + embed(emb["position_embeddings"], positions, dt)
+        x = layer_norm(emb["LayerNorm"], x, dt)
         x = F.dropout(x, cfg.dropout, training=not deterministic)
-        neg_inf = torch.finfo(torch.float32).min
-        mask = torch.where(attention_mask > 0, 0.0, neg_inf).to(cfg.dtype)
+        # jnp.asarray(finfo(f32).min, dtype): -inf in bf16
+        neg_inf = torch.tensor(torch.finfo(torch.float32).min, device=x.device).to(dt)
+        mask = torch.where(attention_mask > 0, torch.zeros((), dtype=dt, device=x.device), neg_inf)
         for block in self.transformer["layer"]:
             x = block(x, mask, deterministic)
         return x
@@ -201,39 +211,40 @@ class DistilBertForSequenceClassification(nn.Module):
     def forward(
         self, input_ids: torch.Tensor, attention_mask: torch.Tensor, deterministic: bool = True
     ) -> torch.Tensor:
+        dt = self.config.dtype
         hidden = self.distilbert(input_ids, attention_mask, deterministic)
-        pooled = F.relu(self.pre_classifier(hidden[:, 0]))
+        pooled = F.relu(dense(self.pre_classifier, hidden[:, 0], dt))
         pooled = F.dropout(pooled, self.config.dropout, training=not deterministic)
-        return self.classifier(pooled).float()
+        return dense(self.classifier, pooled, dt).float()
 
 
 def distilbert_base(
-    num_labels: int = 2, device="cuda", seed: int = 0, attn_impl: str = "auto"
+    num_labels: int = 2, device="cuda", seed: int = 0, attn_impl: str = "auto", dtype=torch.float32
 ) -> DistilBertForSequenceClassification:
     """distilbert-base-uncased's shape (66,955,010 parameters at 2 labels)."""
-    config = DistilBertConfig(num_labels=num_labels, attn_impl=attn_impl)
+    config = DistilBertConfig(num_labels=num_labels, attn_impl=attn_impl, dtype=dtype)
     return DistilBertForSequenceClassification(config, device, seed)
 
 
 def distilbert_wide(
-    num_labels: int = 2, device="cuda", seed: int = 0, attn_impl: str = "auto"
+    num_labels: int = 2, device="cuda", seed: int = 0, attn_impl: str = "auto", dtype=torch.float32
 ) -> DistilBertForSequenceClassification:
     """The accuracy-study tier: dim 256 at depth 1, wide enough that
     PowerSGD rank 16 is a real compression."""
     config = DistilBertConfig(
         vocab_size=1024, max_position_embeddings=64, dim=256, n_layers=1, n_heads=4,
-        hidden_dim=512, num_labels=num_labels, attn_impl=attn_impl,
+        hidden_dim=512, num_labels=num_labels, attn_impl=attn_impl, dtype=dtype,
     )
     return DistilBertForSequenceClassification(config, device, seed)
 
 
 def distilbert_tiny(
-    num_labels: int = 2, device="cuda", seed: int = 0, attn_impl: str = "auto"
+    num_labels: int = 2, device="cuda", seed: int = 0, attn_impl: str = "auto", dtype=torch.float32
 ) -> DistilBertForSequenceClassification:
     """The test tier: a DistilBERT-shaped toy transformer."""
     config = DistilBertConfig(
         vocab_size=1024, max_position_embeddings=64, dim=32, n_layers=2, n_heads=4,
-        hidden_dim=64, num_labels=num_labels, attn_impl=attn_impl,
+        hidden_dim=64, num_labels=num_labels, attn_impl=attn_impl, dtype=dtype,
     )
     return DistilBertForSequenceClassification(config, device, seed)
 

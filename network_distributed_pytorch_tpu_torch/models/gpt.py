@@ -1,0 +1,418 @@
+"""GPT-2 decoder LM in PyTorch, the counterpart of the JAX package's
+``models/gpt.py`` (Radford et al. 2019): learned token and position
+embeddings -> pre-LN blocks (causal self-attention, tanh-GELU MLP) -> final
+LayerNorm -> an LM head tied to the token table, fp32 logits. Then the
+KV-cache decoding of the same model: :func:`init_gpt_cache`,
+:func:`gpt_prefill`, :func:`gpt_decode_step`, :func:`decode_tokens` and
+:func:`generate`.
+
+Parameter names follow the JAX model's modules (``wte.weight``,
+``h.{i}.attn.q_proj.weight``, ``h.{i}.mlp_fc.bias``, ``ln_f.weight``), so
+``models.import_weights.gpt_state_dict_from_flax`` carries its weights
+across. ``wte`` is one ``nn.Embedding`` whose weight is also the head, so
+its gradient is the sum of both uses, as with flax's ``wte.attend``, and
+``parallel.reducers.embedding_leaves`` finds ``wte`` and ``wpe``.
+
+``dtype`` (``compute_dtype``) is flax's: fp32 parameters, and each layer
+casts at the JAX model's own points (``models/layers.py``): dense layers,
+the tables before their gathers and the head in ``dtype``, LayerNorm in
+fp32 returning ``dtype``; the einsum attention scales its bf16 scores and
+takes the softmax in fp32; prefill and decode take their scores in fp32;
+logits leave in fp32. ``attn_impl``:
+
+- ``"flash"``: :func:`..ops.flash_attention.flash_attention` with
+  ``causal=True`` (the CUDA kernel on the card, its plain version on the
+  CPU), which has no attention-weight dropout;
+- ``"einsum"``: scores, a causal ``-inf`` mask, softmax, dropout;
+- ``"auto"``: ``"flash"`` on both devices, except in training with dropout,
+  where it stays on ``"einsum"`` so that "auto" never changes the math.
+
+``deterministic`` defaults to True, as the JAX model's ``__call__`` does:
+``experiments/gpt_lm.py`` trains without dropout, so its steps run flash.
+
+Sequence parallelism (``seq_axis``, ``seq_impl``), ``remat`` and
+``scan_layers`` keep their slots and raise until they are ported; so do
+the slot, paged and shared-prefix decode steps of the serving engine, and
+the tensor- and pipeline-parallel helpers, which are not here.
+
+Weights are drawn on the CPU from an explicit ``torch.Generator`` (GPT-2's
+init: normal with std 0.02, the residual projections ``out_proj`` and
+``mlp_proj`` at 0.02 / sqrt(2 n_layers), zero biases, unit LayerNorm
+scales) and then moved to ``device``, so a seed gives the same weights on
+every device.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.flash_attention import flash_attention
+from ..parallel.mesh import resolve_device
+from ..utils.config import ATTN_IMPLS
+from .layers import attend, check_compute_dtype, dense, embed, layer_norm, score_scale
+
+_LN_EPS = 1e-5
+_INIT_STD = 0.02
+
+Cache = List[Dict[str, torch.Tensor]]
+
+
+@dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50257
+    max_position_embeddings: int = 1024
+    dim: int = 768
+    n_layers: int = 12
+    n_heads: int = 12
+    hidden_dim: int = 3072
+    dropout: float = 0.1
+    dtype: Any = torch.float32
+    seq_axis: Any = None
+    seq_impl: str = "ring"
+    attn_impl: str = "auto"
+    remat: bool = False
+    scan_layers: bool = False
+
+    def __post_init__(self) -> None:
+        check_compute_dtype(self.dtype)
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
+        if self.dim % self.n_heads:
+            raise ValueError(f"dim {self.dim} does not split into {self.n_heads} heads")
+        for name, default in (("seq_axis", None), ("seq_impl", "ring"), ("remat", False), ("scan_layers", False)):
+            if getattr(self, name) != default:
+                raise NotImplementedError(f"GPTConfig.{name} is not ported yet")
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+
+class CausalSelfAttention(nn.Module):
+    def __init__(self, config: GPTConfig):
+        super().__init__()
+        self.config = config
+        dim = config.dim
+        self.q_proj = nn.Linear(dim, dim)
+        self.k_proj = nn.Linear(dim, dim)
+        self.v_proj = nn.Linear(dim, dim)
+        self.out_proj = nn.Linear(dim, dim)
+
+    def _attn_impl(self, deterministic: bool) -> str:
+        cfg = self.config
+        if cfg.attn_impl == "auto":
+            # flash cannot dropout-mask the attention weights
+            return "einsum" if not deterministic and cfg.dropout > 0.0 else "flash"
+        return cfg.attn_impl  # an explicit "flash" trains without weight dropout
+
+    def forward(self, x: torch.Tensor, deterministic: bool) -> torch.Tensor:
+        cfg = self.config
+        dt = cfg.dtype
+        b, t, _ = x.shape
+
+        def split(y):
+            return y.reshape(b, t, cfg.n_heads, cfg.head_dim)
+
+        q, k, v = (split(dense(lin, x, dt)) for lin in (self.q_proj, self.k_proj, self.v_proj))
+        if self._attn_impl(deterministic) == "flash":
+            ctx = flash_attention(q, k, v, causal=True)
+        else:
+            scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / score_scale(cfg.head_dim, dt)
+            causal = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
+            scores = scores.masked_fill(~causal, float("-inf"))
+            weights = torch.softmax(scores.float(), dim=-1).to(dt)
+            weights = F.dropout(weights, cfg.dropout, training=not deterministic)
+            ctx = torch.einsum("bhqk,bkhd->bqhd", weights, v)
+        return dense(self.out_proj, ctx.reshape(b, t, cfg.dim), dt)
+
+
+class GPTBlock(nn.Module):
+    """Pre-LN block (GPT-2): ``x + attn(LN(x))``, then ``x + mlp(LN(x))``."""
+
+    def __init__(self, config: GPTConfig):
+        super().__init__()
+        self.config = config
+        self.ln_1 = nn.LayerNorm(config.dim, eps=_LN_EPS)
+        self.attn = CausalSelfAttention(config)
+        self.ln_2 = nn.LayerNorm(config.dim, eps=_LN_EPS)
+        self.mlp_fc = nn.Linear(config.dim, config.hidden_dim)
+        self.mlp_proj = nn.Linear(config.hidden_dim, config.dim)
+
+    def mlp(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.config.dtype
+        h = dense(self.mlp_fc, layer_norm(self.ln_2, x, dt), dt)
+        return dense(self.mlp_proj, F.gelu(h, approximate="tanh"), dt)
+
+    def forward(self, x: torch.Tensor, deterministic: bool) -> torch.Tensor:
+        x = x + self.attn(layer_norm(self.ln_1, x, self.config.dtype), deterministic)
+        h = F.dropout(self.mlp(x), self.config.dropout, training=not deterministic)
+        return x + h
+
+
+class GPTLM(nn.Module):
+    """Decoder LM: token ids ``(B, T)`` -> next-token logits ``(B, T, V)``
+    in fp32, the head tied to the token table."""
+
+    def __init__(self, config: GPTConfig, device="cuda", seed: int = 0):
+        super().__init__()
+        # "meta": the shapes alone, with no storage and no init (e.g. the
+        # reducer's shape groups and bits of a full-size model)
+        meta = torch.device(device).type == "meta"
+        device = torch.device("meta") if meta else resolve_device(device)
+        self.config = config
+        with device if meta else contextlib.nullcontext():
+            self.wte = nn.Embedding(config.vocab_size, config.dim)
+            self.wpe = nn.Embedding(config.max_position_embeddings, config.dim)
+            self.h = nn.ModuleList(GPTBlock(config) for _ in range(config.n_layers))
+            self.ln_f = nn.LayerNorm(config.dim, eps=_LN_EPS)
+        if not meta:
+            self._init_weights(torch.Generator().manual_seed(seed))
+            self.to(device)
+
+    @torch.no_grad()
+    def _init_weights(self, gen: torch.Generator) -> None:
+        residual_std = _INIT_STD / math.sqrt(2 * self.config.n_layers)
+        for name, mod in self.named_modules():
+            if isinstance(mod, (nn.Linear, nn.Embedding)):
+                std = residual_std if name.endswith(("out_proj", "mlp_proj")) else _INIT_STD
+                mod.weight.normal_(0.0, std, generator=gen)
+                if isinstance(mod, nn.Linear):
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+
+    def forward(self, input_ids: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+        cfg = self.config
+        dt = cfg.dtype
+        positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
+        x = embed(self.wte, input_ids, dt) + embed(self.wpe, positions, dt)
+        x = F.dropout(x, cfg.dropout, training=not deterministic)
+        for block in self.h:
+            x = block(x, deterministic)
+        x = layer_norm(self.ln_f, x, dt)
+        return attend(self.wte, x, dt).float()
+
+
+def gpt_small(dtype=torch.float32, device="cuda", seed: int = 0, **overrides) -> GPTLM:
+    """GPT-2 small's shape (124M at vocab 50257): dim 768, 12 layers, 12
+    heads, FFN 3072, 1024 positions."""
+    return GPTLM(GPTConfig(dtype=dtype, **overrides), device, seed)
+
+
+def gpt_tiny(dtype=torch.float32, device="cuda", seed: int = 0, **overrides) -> GPTLM:
+    """The test tier: 2 layers, 4 heads, dim 32."""
+    cfg = dict(
+        vocab_size=128, max_position_embeddings=128, dim=32, n_layers=2,
+        n_heads=4, hidden_dim=64, dropout=0.0,
+    )
+    cfg.update(overrides)
+    return GPTLM(GPTConfig(dtype=dtype, **cfg), device, seed)
+
+
+def next_token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy; ``labels`` already shifted host-side."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels.long()[..., None]).mean()
+
+
+# ---- KV-cache decoding ---------------------------------------------------
+#
+# The JAX package's functions take (config, params); here the GPTLM module
+# carries both. The attention of prefill and decode is plain PyTorch with
+# fp32 scores over the whole cache (positions past ``pos`` masked), as the
+# JAX functions compute it, not the flash kernel.
+
+
+def init_gpt_cache(config: GPTConfig, batch: int, max_len: int, device="cpu") -> Cache:
+    """Per-layer K/V cache: zeros of ``(B, max_len, H, D)`` in ``config.dtype``."""
+    shape = (batch, max_len, config.n_heads, config.head_dim)
+    return [
+        {"k": torch.zeros(shape, dtype=config.dtype, device=device),
+         "v": torch.zeros(shape, dtype=config.dtype, device=device)}
+        for _ in range(config.n_layers)
+    ]
+
+
+def _cached_attention(q, k, v, valid, head_dim):
+    """Softmax attention in fp32 of ``q`` over cached ``k``, ``v``
+    (``(B, S, H, D)``) where ``valid`` (broadcast to the scores) allows."""
+    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) / math.sqrt(head_dim)
+    scores = scores.masked_fill(~valid, float("-inf"))
+    weights = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqs,bshd->bqhd", weights, v.float())
+
+
+def _block_tail(block: GPTBlock, x, ctx, dt):
+    """The rest of a block after the attention context ``ctx``: out_proj,
+    the residual, then the MLP and its residual."""
+    x = x + dense(block.attn.out_proj, ctx.reshape(*x.shape).to(dt), dt)
+    return x + block.mlp(x)
+
+
+def _head(model: GPTLM, x, dt):
+    return attend(model.wte, layer_norm(model.ln_f, x, dt), dt).float()
+
+
+@torch.no_grad()
+def gpt_prefill(model: GPTLM, prompt_ids: torch.Tensor, max_len: int):
+    """Fill the K/V cache for the whole prompt in ONE batched forward.
+    Returns ``(last_logits (B, V) fp32, cache)`` with cache positions
+    ``< T_prompt`` filled."""
+    cfg = model.config
+    dt = cfg.dtype
+    b, t = prompt_ids.shape
+    device = prompt_ids.device
+    x = model.wte.weight[prompt_ids].to(dt) + model.wpe.weight[:t][None].to(dt)
+    cache = init_gpt_cache(cfg, b, max_len, device)
+    causal = torch.ones((t, t), dtype=torch.bool, device=device).tril()
+    for layer, block in zip(cache, model.h):
+        h = layer_norm(block.ln_1, x, dt)
+        q, k, v = (
+            dense(lin, h, dt).reshape(b, t, cfg.n_heads, cfg.head_dim)
+            for lin in (block.attn.q_proj, block.attn.k_proj, block.attn.v_proj)
+        )
+        layer["k"][:, :t] = k
+        layer["v"][:, :t] = v
+        x = _block_tail(block, x, _cached_attention(q, k, v, causal, cfg.head_dim), dt)
+    return _head(model, x[:, -1], dt), cache
+
+
+def _decode_step_(model: GPTLM, cache: Cache, tokens: torch.Tensor, pos: int) -> torch.Tensor:
+    """One decode step that writes ``tokens``' K/V into ``cache`` in place;
+    returns the logits ``(B, V)`` in fp32."""
+    cfg = model.config
+    dt = cfg.dtype
+    max_len = cache[0]["k"].shape[1]
+    x = model.wte.weight[tokens].to(dt) + model.wpe.weight[pos].to(dt)  # (B, dim)
+    valid = torch.arange(max_len, device=tokens.device) <= pos
+    for layer, block in zip(cache, model.h):
+        h = layer_norm(block.ln_1, x, dt)
+        q, k, v = (
+            dense(lin, h, dt).reshape(-1, 1, cfg.n_heads, cfg.head_dim)
+            for lin in (block.attn.q_proj, block.attn.k_proj, block.attn.v_proj)
+        )
+        layer["k"][:, pos] = k[:, 0]
+        layer["v"][:, pos] = v[:, 0]
+        ctx = _cached_attention(q, layer["k"], layer["v"], valid, cfg.head_dim)
+        x = _block_tail(block, x, ctx, dt)
+    return _head(model, x, dt)
+
+
+def _weights_cast_once(model: GPTLM) -> GPTLM:
+    """``model`` with its Linear and Embedding weights cast to its compute
+    dtype once, for a decode loop, whose weights do not change: every cast
+    a step would make gives these same values, so the logits are bitwise
+    those of ``model``. LayerNorm stays fp32, as flax keeps it. An fp32
+    model is returned as it is."""
+    dt = model.config.dtype
+    if dt == torch.float32:
+        return model
+    twin = copy.deepcopy(model)
+    for mod in twin.modules():
+        if isinstance(mod, (nn.Linear, nn.Embedding)):
+            mod.to(dt)
+    return twin
+
+
+def _copy_cache(cache: Cache) -> Cache:
+    return [{name: t.clone() for name, t in layer.items()} for layer in cache]
+
+
+@torch.no_grad()
+def gpt_decode_step(model: GPTLM, cache: Cache, tokens: torch.Tensor, pos: int):
+    """One decode step: ``tokens`` (B,) at position ``pos`` -> ``(logits
+    (B, V) fp32, new cache)``. Attends to cache positions ``<= pos``. The
+    input cache is not changed: a new one is returned."""
+    cache = _copy_cache(cache)
+    return _decode_step_(model, cache, tokens, pos), cache
+
+
+def _sample_token(logits: torch.Tensor, temperature: float, generator: Optional[torch.Generator]):
+    """Greedy (``temperature=0``, the first of equal maxima, as
+    ``jnp.argmax``) or a draw from ``softmax(logits / temperature)`` with
+    ``generator``; the draws cannot be ``jax.random``'s."""
+    if temperature == 0.0:
+        return logits.argmax(dim=-1)
+    probs = torch.softmax(logits / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def _decode(model, cache, first, t_prompt, n_steps, temperature, generator, eos_token_id):
+    """``n_steps`` decode steps from ``first`` at ``t_prompt``, writing into
+    ``cache``; ``(B, n_steps)`` ids. A row that has emitted
+    ``eos_token_id`` pads the rest of its row with it; the tokens before its
+    stop are those of the run without EOS."""
+    tok = first
+    done = None if eos_token_id is None else first == eos_token_id
+    out = []
+    for i in range(n_steps):
+        nxt = _sample_token(_decode_step_(model, cache, tok, t_prompt + i), temperature, generator)
+        if done is not None:
+            nxt = torch.where(done, eos_token_id, nxt)
+            done = done | (nxt == eos_token_id)
+        out.append(nxt)
+        tok = nxt
+    if not out:
+        return torch.zeros((first.shape[0], 0), dtype=torch.long, device=first.device)
+    return torch.stack(out, dim=1)
+
+
+@torch.no_grad()
+def decode_tokens(
+    model: GPTLM,
+    cache: Cache,
+    first: torch.Tensor,
+    t_prompt: int,
+    n_steps: int,
+    temperature: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    eos_token_id: Optional[int] = None,
+) -> torch.Tensor:
+    """The decode half of :func:`generate` on its own: feed ``first`` (B,)
+    at position ``t_prompt`` and run ``n_steps`` one-token decode steps,
+    returning the ``(B, n_steps)`` sampled ids. The caller's cache is not
+    changed."""
+    return _decode(
+        _weights_cast_once(model), _copy_cache(cache), first, t_prompt, n_steps, temperature, generator, eos_token_id
+    )
+
+
+@torch.no_grad()
+def generate(
+    model: GPTLM,
+    prompt_ids: torch.Tensor,
+    max_new_tokens: int,
+    temperature: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    eos_token_id: Optional[int] = None,
+    cache_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Autoregressive sampling: a batched prefill of the prompt, then
+    ``max_new_tokens - 1`` one-token decode steps; greedy
+    (``temperature=0``) or temperature sampling with ``generator``. Returns
+    ``(B, max_new_tokens)`` ids. ``eos_token_id`` stops a row (see
+    :func:`decode_tokens`); ``cache_len`` sets the KV cache's capacity
+    (default: exactly ``T_prompt + max_new_tokens``)."""
+    b, t_prompt = prompt_ids.shape
+    total = t_prompt + max_new_tokens
+    if total > model.config.max_position_embeddings:
+        raise ValueError(f"{total} positions > max_position_embeddings {model.config.max_position_embeddings}")
+    if max_new_tokens <= 0:
+        return torch.zeros((b, 0), dtype=torch.long, device=prompt_ids.device)
+    cache_len = total if cache_len is None else cache_len
+    if cache_len < total:
+        raise ValueError(f"cache_len {cache_len} < {total} positions")
+    model = _weights_cast_once(model)
+    last_logits, cache = gpt_prefill(model, prompt_ids, cache_len)
+    first = _sample_token(last_logits, temperature, generator)
+    rest = _decode(model, cache, first, t_prompt, max_new_tokens - 1, temperature, generator, eos_token_id)
+    return torch.cat([first[:, None], rest], dim=1)

@@ -15,13 +15,19 @@ package's ``distilbert_variables_from_torch``: Dense kernels (in, out) ->
 Linear weights (out, in); Embed tables (num, dim) stay as they are, since
 ``nn.Embedding`` keeps the same layout; LayerNorm scale -> weight.
 
+``gpt_state_dict_from_flax`` maps the JAX GPT's ``{"params"}`` onto the
+port ``GPTLM``'s ``state_dict``: Dense kernels (in, out) -> Linear weights
+(out, in); the tied ``wte`` and ``wpe`` tables (num, dim) as they are;
+LayerNorm scale -> weight.
+
 ``powersgd_state_from_jax`` maps the JAX ``PowerSGDState.q_memory`` onto the
 port reducer's Q buffer. The two packages order their parameters
 differently (``jax.tree_util`` flattens dicts by sorted key, so
 ``BottleneckBlock_10`` comes before ``BottleneckBlock_2``; torch keeps
 registration order), so the Qs are joined by parameter name, never by flat
 index (``name_map`` turns a flax path into the port's name: ResNet's by
-default, :func:`distilbert_torch_name` for DistilBERT). Both packages
+default, :func:`distilbert_torch_name` for DistilBERT, :func:`gpt_torch_name`
+for GPT). Both packages
 matricize the same way under ``matricize="last"`` (embedding tables given
 to the reducer as ``features_last``), so each Q carries over unchanged.
 """
@@ -117,6 +123,35 @@ def distilbert_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, t
         if path[-1] == "kernel":  # Dense (in, out) -> Linear (out, in)
             value = value.T
         sd[distilbert_torch_name(path)] = torch.from_numpy(np.array(value, order="C", copy=True))
+    return sd
+
+
+_GPT_BLOCK = re.compile(r"^h_(\d+)$")
+_GPT_LEAVES = {"kernel": "weight", "embedding": "weight", "scale": "weight", "bias": "bias"}
+
+
+def gpt_torch_name(path: Tuple[str, ...]) -> str:
+    """The port's parameter name for a flax GPT path, e.g.
+    ``("h_3", "attn", "q_proj", "kernel")`` -> ``"h.3.attn.q_proj.weight"``,
+    ``("wte", "embedding")`` -> ``"wte.weight"``."""
+    *modules, leaf = path
+    parts = []
+    for mod in modules:
+        block = _GPT_BLOCK.match(mod)
+        parts += ["h", block.group(1)] if block else [mod]
+    parts.append(_GPT_LEAVES[leaf])
+    return ".".join(parts)
+
+
+def gpt_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``{"params"}`` of ``GPTLM`` (the unrolled ``h_{i}`` layout) ->
+    the port model's ``state_dict``. Also maps any params-shaped tree given
+    as ``{"params": tree}`` (momenta, error memories, gradients)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(variables["params"]):
+        if path[-1] == "kernel":  # Dense (in, out) -> Linear (out, in)
+            value = value.T
+        sd[gpt_torch_name(path)] = torch.from_numpy(np.array(value, order="C", copy=True))
     return sd
 
 

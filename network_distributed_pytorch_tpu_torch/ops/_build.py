@@ -20,7 +20,8 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List
+from collections import Counter
+from typing import Dict, List, Optional
 
 import torch
 
@@ -112,19 +113,25 @@ def load(name: str) -> ctypes.CDLL:
 class Kernel:
     """One C entry point of a kernel library, loaded on first use, and a
     count of its launches, so a run can show that its main path went
-    through the kernel. ``argtypes`` lists the entry's arguments before the
-    stream, which :meth:`launch` appends."""
+    through the kernel; ``by_kind`` splits the count by what the wrapper
+    says of each launch (e.g. causal or masked). ``argtypes`` lists the
+    entry's arguments before the stream, which :meth:`launch` appends."""
 
     def __init__(self, name: str, library: str, symbol: str, argtypes):
         self.name = name
         self.launches = 0
+        self.by_kind: Counter = Counter()
         self._library, self._symbol = library, symbol
         self._argtypes = [*argtypes, ctypes.c_void_p]
         self._fn = None
 
-    def launch(self, device, *args) -> None:
+    def reset(self) -> None:
+        self.launches = 0
+        self.by_kind.clear()
+
+    def launch(self, device, *args, kind: Optional[str] = None) -> None:
         """Call the entry on ``device``'s current stream and count the
-        launch; raise if CUDA refused it."""
+        launch (under ``kind`` too, where given); raise if CUDA refused it."""
         if self._fn is None:
             fn = getattr(load(self._library), self._symbol)
             fn.argtypes = self._argtypes
@@ -133,5 +140,7 @@ class Kernel:
         with torch.cuda.device(device):
             err = self._fn(*args, torch.cuda.current_stream(device).cuda_stream)
         self.launches += 1
+        if kind is not None:
+            self.by_kind[kind] += 1
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with error {err}")

@@ -24,7 +24,12 @@ validity flag, never by exp underflow: a padding value of ``-1e30`` ties the
 running-max start, and ``finfo(f32).min`` plus a score can round to -inf.
 A fully masked row gives out = 0 and lse = ``_LSE_EMPTY``.
 
-On CUDA the kernel takes fp32 only and raises on other dtypes; the folding
+On CUDA the kernel takes q, k and v all fp32 or all bf16 (the mask stays
+fp32) and raises ``TypeError`` on any other dtype or a mix; bf16 heads are
+read as bf16 by the kernel, never copied to fp32 first, and ``out`` comes
+back in their dtype, ``lse`` in fp32, as the JAX kernel gives them. The
+plain version and the backward widen every tile to fp32 and round ``out``
+and each gradient to its input's dtype once, at the end. The folding
 transposes stay torch copies.
 """
 
@@ -44,10 +49,15 @@ MAX_HEAD_DIM = 128
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-KERNEL = _build.Kernel(
-    "flash_attention", "flash_attention", "flash_attention_fwd_f32",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F],
-)
+_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F]
+# one entry of the kernel per dtype of q, k and v; each counts its launches
+# by kind: "causal" or "masked" (not causal, the mask given or zero)
+KERNELS = {
+    torch.float32: _build.Kernel("flash_attention", "flash_attention", "flash_attention_fwd_f32", _ARGS),
+    torch.bfloat16: _build.Kernel("flash_attention_bf16", "flash_attention", "flash_attention_fwd_bf16", _ARGS),
+}
+KERNEL = KERNELS[torch.float32]
+KERNEL_BF16 = KERNELS[torch.bfloat16]
 
 
 # ---- plain versions ------------------------------------------------------
@@ -160,9 +170,11 @@ def _launch(qf, kf, vf, mask, causal: bool, scale: float):
     devices = {x.device for x in (qf, kf, vf, mask)}
     if len(devices) != 1:
         raise ValueError(f"{name}: operands on {sorted(map(str, devices))}; need one CUDA device")
-    for arg, x in (("q", qf), ("k", kf), ("v", vf), ("mask", mask)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernel takes float32, got {arg} in {x.dtype}")
+    dtypes = (qf.dtype, kf.dtype, vf.dtype)
+    if qf.dtype not in KERNELS or len(set(dtypes)) != 1:
+        raise TypeError(f"{name}: the CUDA kernel takes q, k, v all float32 or all bfloat16, got {dtypes}")
+    if mask.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes a float32 mask, got {mask.dtype}")
     bh, t, d = qf.shape
     if kf.shape != qf.shape or vf.shape != qf.shape:
         raise ValueError(f"{name}: q, k, v shapes {tuple(qf.shape)}, {tuple(kf.shape)}, {tuple(vf.shape)} differ")
@@ -176,9 +188,10 @@ def _launch(qf, kf, vf, mask, causal: bool, scale: float):
     out = torch.empty_like(qf)
     lse = torch.empty((bh, t), dtype=torch.float32, device=qf.device)
     if out.numel():
-        KERNEL.launch(
+        KERNELS[qf.dtype].launch(
             qf.device, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), mask.data_ptr(),
             out.data_ptr(), lse.data_ptr(), bh, t, d, bh // mask.shape[0], int(causal), scale,
+            kind="causal" if causal else "masked",
         )
     return out, lse
 
@@ -186,7 +199,8 @@ def _launch(qf, kf, vf, mask, causal: bool, scale: float):
 def flash_attention_fwd(qf, kf, vf, mask, causal: bool, block_q: int, block_k: int, scale: float):
     """The forward on folded heads, ``(out, lse)``: the plain version on CPU
     tensors, the kernel on CUDA tensors (its own 64 x 64 tiles; the results
-    agree with the plain version's up to fp32 summation order)."""
+    agree with the plain version's up to fp32 summation order, before a bf16
+    ``out``'s one rounding)."""
     if qf.device.type == "cpu":
         return flash_attention_reference(qf, kf, vf, mask, causal, block_q, block_k, scale)
     if qf.device.type != "cuda":

@@ -16,6 +16,8 @@ ORTHOGONALIZE_IMPLS = ("auto", "eager", "cuda")
 COMPRESS_IMPLS = ("xla", "pallas")
 ATTN_IMPLS = ("auto", "einsum", "flash")
 COMM_STRATEGIES = ("interleave", "ring")
+# compute_dtype: the models' matmul dtype; parameters and gradients stay fp32
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 @dataclass
@@ -38,6 +40,10 @@ class ExperimentConfig:
     reducer_rank: int = 4
     reuse_query: bool = True
 
+    # "bfloat16": the transformers' matrix products, attention and
+    # activations in bf16 at the JAX package's cast points, with fp32
+    # parameters (models/gpt.py, models/distilbert.py); the ResNet
+    # experiments refuse it
     compute_dtype: str = "float32"
     log_every: int = 10
     accum_steps: int = 1  # gradient accumulation microbatches per step
@@ -85,6 +91,8 @@ class ExperimentConfig:
             )
         if self.attn_impl is not None and self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {self.compute_dtype!r}")
         if self.comm_strategy not in COMM_STRATEGIES:
             raise ValueError(
                 f"comm_strategy must be one of {COMM_STRATEGIES}, got {self.comm_strategy!r}"
@@ -100,6 +108,6 @@ class ExperimentConfig:
 
 
 _NOT_PORTED = (
-    "compute_dtype", "event_log", "trace_dir", "audit_wire", "health_every",
+    "event_log", "trace_dir", "audit_wire", "health_every",
     "chaos_plan", "adaptive_comm", "comm_fabric", "plan_path",
 )

@@ -4,12 +4,14 @@ height and for small matrices), the fused PowerSGD kernels
 (``ops/powersgd.py``: ragged and misaligned stacks, K3's P-hat equal to the
 Gram-Schmidt kernel's bit for bit, two launches giving the same bits) and
 the flash attention kernel
-(``ops/flash_attention.py``, with left padding, a lone real key, a ragged
-T and NaN in the key tiles it must skip) against their plain versions, the
+(``ops/flash_attention.py``, fp32 and bf16, with left padding, a lone real
+key, a ragged T, GPT's causal T = 1024 and NaN in the key tiles it must
+skip) against their plain versions, the
 PowerSGD reducer launching its kernels once per shape group,
 DistilBERT launching flash attention once per layer, exact-DDP steps of the
-small ResNet-18 on the card against the CPU, and the single-node IMDb
-baseline running flash attention on the card.
+small ResNet-18 on the card against the CPU, the single-node IMDb
+baseline running flash attention on the card, and the tiny GPT training
+(K5 causal, fp32 and bf16) and generating on the card.
 
 This file imports torch and the port, never jax, so it also runs on a
 machine that has the card and no JAX (``--noconftest`` skips the JAX
@@ -27,7 +29,8 @@ The fused kernels' products (P, Q, out, mem) are held to
 M = G + E is one rounded add, so it must be bitwise equal. Flash attention:
 out within ``1e-5 * max(1, max|plain|)`` and lse within 1e-5 relative (fp32
 sums over the keys in another order, the kernel in 64-key tiles); a fully
-masked row exactly 0 with lse 1e30.
+masked row exactly 0 with lse 1e30. A bf16 out: that bound plus 1 bf16 ulp
+of the element (both sides sum in fp32 and round once).
 """
 
 import numpy as np
@@ -35,8 +38,9 @@ import pytest
 import torch
 
 from network_distributed_pytorch_tpu_torch.data.cifar10 import load_cifar10_or_synthetic
-from network_distributed_pytorch_tpu_torch.experiments import exact_cifar10, imdb_baseline
+from network_distributed_pytorch_tpu_torch.experiments import exact_cifar10, gpt_generate, gpt_lm, imdb_baseline
 from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches
+from network_distributed_pytorch_tpu_torch.models import gpt
 from network_distributed_pytorch_tpu_torch.models.distilbert import distilbert_tiny
 from network_distributed_pytorch_tpu_torch.ops import flash_attention as fa
 from network_distributed_pytorch_tpu_torch.ops import gram_schmidt as gs
@@ -359,9 +363,77 @@ def test_flash_attention_kernel_skips_all_padding_tiles(cuda_device, causal):
 
 @pytest.mark.cuda
 def test_flash_attention_refuses_non_fp32(cuda_device):
-    x = torch.zeros((1, 16, 2, 8), dtype=torch.bfloat16, device=cuda_device)
+    """The kernel takes q, k, v all fp32 or all bf16: fp16, or a mix,
+    raises (the JAX kernel takes any float dtype)."""
+    half = torch.zeros((1, 16, 2, 8), dtype=torch.float16, device=cuda_device)
     with pytest.raises(TypeError):
-        fa.flash_attention(x, x, x)
+        fa.flash_attention(half, half, half)
+    bf, f32 = (torch.zeros((2, 16, 8), dtype=dt, device=cuda_device) for dt in (torch.bfloat16, torch.float32))
+    mask = torch.zeros((1, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(bf, f32, f32, mask, False, 16, 16, 0.3)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(bf, bf, bf, mask.to(torch.bfloat16), False, 16, 16, 0.3)
+
+
+def _bf16_ulp(x):
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), (e - 8).clamp_min(-133))
+
+
+def _close_bf16(got, want):
+    """A bf16 out: both sides sum in fp32 (to fp32's 1e-5 of the largest
+    |out|) and round once, so at most that plus 1 bf16 ulp of the element."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs()
+    bound = 1e-5 * max(1.0, want.float().abs().max().item()) + _bf16_ulp(want)
+    assert bool((err <= bound).all()), f"max err {err.max().item()}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,t,h,d,causal,padded",
+    [(4, 256, 12, 64, False, True), (2, 1024, 4, 64, True, False), (3, 100, 2, 40, False, True),
+     (2, 64, 2, 128, True, True), (2, 256, 2, 128, True, False)],
+)
+def test_flash_attention_bf16_kernel_matches_plain(cuda_device, b, t, h, d, causal, padded):
+    """K5 on bf16 q, k, v against its plain version on the same bf16
+    inputs: masked, causal (GPT's T = 1024), a ragged T, D = 40 and 128;
+    out in bf16 with no fp32 copy of the inputs, lse in fp32."""
+    q, k, v, mask = _attention_inputs(b * h, t, d, h, cuda_device, seed=54)
+    if not padded:
+        mask = torch.zeros_like(mask)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    launches = fa.KERNEL_BF16.by_kind["causal" if causal else "masked"]
+    out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, 128, 128, d**-0.5)
+    torch.cuda.synchronize()
+    assert fa.KERNEL_BF16.by_kind["causal" if causal else "masked"] == launches + 1
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    block = t if t % 64 else 64
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, mask, causal, block, block, d**-0.5)
+    _close_bf16(out, want_out)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    if padded:
+        assert torch.all(out[:h] == 0.0) and torch.all(lse[:h] == 1e30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_bf16_kernel_skips_all_padding_tiles(cuda_device, causal):
+    """NaN in bf16 K and V of every all-padding tile changes nothing."""
+    b, t, h, d = 3, 256, 2, 64
+    q, k, v, _ = _attention_inputs(b * h, t, d, h, cuda_device, seed=55)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    mask = _padded_mask(b, t, [slice(0, 42), [5, 130], slice(0, 256)], cuda_device)
+    clean = fa.flash_attention_fwd(q, k, v, mask, causal, 128, 128, d**-0.5)
+    empty = (mask.view(b, t // 64, 64) <= -1e29).all(-1).repeat_interleave(h, 0)
+    poison = empty.repeat_interleave(64, 1)[..., None]
+    kp, vp = (torch.where(poison, float("nan"), x) for x in (k, v))
+    dirty = fa.flash_attention_fwd(q, kp, vp, mask, causal, 128, 128, d**-0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(dirty[0], clean[0]) and torch.equal(dirty[1], clean[1])
+    want_out, _ = fa.flash_attention_reference(q, k, v, mask, causal, 64, 64, d**-0.5)
+    _close_bf16(clean[0], want_out)
 
 
 @pytest.mark.cuda
@@ -380,6 +452,39 @@ def test_distilbert_forward_launches_flash_attention_per_layer(cuda_device):
         torch.cuda.synchronize()
         assert fa.KERNEL.launches - launches == (0 if impl == "einsum" else model.config.n_layers)
     torch.testing.assert_close(logits["auto"], logits["einsum"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpt_lm_and_generate_run_on_the_card(cuda_device, dtype):
+    """The tiny GPT trains on the card with K5 causal once per layer and
+    step (the kernel of q's dtype), and generates greedily: the same
+    tokens as the CPU where the top two logits stand apart."""
+    cfg = gpt_lm.default_config()
+    cfg.compute_dtype = dtype
+    kernel = fa.KERNELS[getattr(torch, dtype)]
+    launches = kernel.by_kind["causal"]
+    out = gpt_lm.run(cfg, preset="small", device=cuda_device, max_steps_per_epoch=2)
+    assert kernel.by_kind["causal"] - launches == 2 * 2  # 2 steps, 2 layers
+    assert out["steps"] == 2 and np.isfinite(out["losses"]).all()
+    assert out["shape_groups"] == 3 and out["compute_dtype"] == dtype
+    gcfg = gpt_generate.default_config()
+    gcfg.compute_dtype = dtype
+    res = gpt_generate.run(gcfg, preset="small", batch=4, prompt_len=8, max_new_tokens=8, device=cuda_device)
+    assert len(res["sample_head"]) == 8 and res["prefill_ms"] > 0 and res["decode_ms_per_token"] > 0
+    if dtype == "float32":
+        model = gpt.gpt_tiny(device=cuda_device, vocab_size=64, max_position_embeddings=32)
+        prompt = torch.randint(0, 64, (4, 8), generator=torch.Generator().manual_seed(0))
+        tokens = gpt.generate(model, prompt.to(cuda_device), 8)
+        ids = prompt.to(cuda_device)
+        with torch.no_grad():
+            for i in range(8):
+                logits = model(ids)[:, -1]
+                top2 = logits.topk(2).values
+                sure = (top2[:, 0] - top2[:, 1]) > 1e-4
+                nxt = logits.argmax(-1)
+                assert torch.equal(nxt[sure], tokens[sure, i])
+                ids = torch.cat([ids, tokens[:, i : i + 1]], 1)
 
 
 @pytest.fixture

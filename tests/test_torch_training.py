@@ -236,8 +236,13 @@ def test_config_rejects_unported_options():
     for bad in ({"comm_chunks": 0}, {"bucket_bytes": 0}, {"comm_strategy": "tree"}):
         with pytest.raises(ValueError):
             ExperimentConfig(**bad)
-    for unported in ({"event_log": "events.jsonl"}, {"compute_dtype": "bfloat16"}, {"adaptive_comm": True}):
+    for unported in ({"event_log": "events.jsonl"}, {"health_every": 5}, {"adaptive_comm": True}):
         with pytest.raises(NotImplementedError):
             ExperimentConfig(**unported)
+    # compute_dtype is ported for the transformers; the ResNet refuses bf16
+    with pytest.raises(ValueError):
+        ExperimentConfig(compute_dtype="float16")
+    with pytest.raises(NotImplementedError):
+        powersgd_cifar10.build(ExperimentConfig(compute_dtype="bfloat16"), "small", "cpu", None)
     with pytest.raises(ValueError):
         ExperimentConfig(orthogonalize_impl="pallas")

@@ -51,6 +51,19 @@ def random_distilbert_params(model, seq_len: int, seed: int):
             jax.random.PRNGKey(0), jnp.zeros((1, seq_len), jnp.int32), jnp.ones((1, seq_len), jnp.int32)
         )
     )["params"]
+    return _draw_transformer_params(shapes, seed)
+
+
+def random_gpt_params(model, seq_len: int, seed: int):
+    """flax params of a GPT ``model`` drawn as :func:`random_distilbert_params`
+    draws them."""
+    shapes = jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, seq_len), jnp.int32))
+    )["params"]
+    return _draw_transformer_params(shapes, seed)
+
+
+def _draw_transformer_params(shapes, seed: int):
     rng = np.random.RandomState(seed)
 
     def draw(path, leaf):
