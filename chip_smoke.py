@@ -34,10 +34,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    D = 40, causal at D = 128, NaN in the skipped bf16 tiles) and causal in
    fp32 at GPT-2's shape, against the plain version on the same inputs,
    with one GPT-2 step's 12 causal launches timed in each dtype beside
-   SDPA ``is_causal``, and the fp32 K5 backward (PyTorch) of such a step;
+   SDPA ``is_causal``; then K5's backward kernel, in fp32 and bf16, against
+   its plain version on the forward kernel's own out and lse (the IMDb
+   padding, no mask, causal, fully masked rows, left padding, real keys
+   alone in their tiles, T = 100 at D = 40, causal at D = 128, GPT-2's
+   causal shape and the mask's gradient), two calls bitwise equal, NaN in K and V of every
+   all-padding tile leaving dq and the real keys' dk and dv bitwise
+   unchanged (the padded keys' exactly 0), and one GPT-2 step's 12
+   backwards timed in each dtype beside the plain version and SDPA's
+   backward;
 3. the main paths through a one-rank NCCL group, 2 warm-up and 5 timed
    steps, then 3 steps under ``torch.profiler``, each with the launch
-   counts set to 0 just before it and read just after:
+   counts set to 0 just before it and read just after (K5's backward once
+   per layer and training step wherever K5 runs in training):
    ``powersgd_cifar10.run`` with preset ``full`` (ResNet-152, ImageNet
    stem, width 64, global batch 512, PowerSGD rank 4) on the
    ``compress_impl="xla"`` path (K1) and on the fused ``"pallas"`` path
@@ -67,7 +76,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    on the card against the CPU; GPT-2 small with flash attention against
    einsum on the card; and the IMDb baseline, under either optimizer, with
    flash attention against einsum on the card;
-5. one ``{"kernels": [...]}`` line: each kernel's launches on its paths, its
+5. one ``{"kernels": [...]}`` line (K5's forward and backward once per
+   dtype): each kernel's launches on its paths, its
    time for one main-path step (CUDA events, ``ms``, and the profiler's
    device time, ``device_ms``), the plain version's, one PyTorch call's
    where one computes the same function (events and device time) and the
@@ -94,9 +104,10 @@ FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 # K5 computes each fp32 product as three TF32 tensor-core products (3xTF32);
-# on bf16 heads, whose values are exact in TF32, as two (2xTF32)
+# on bf16 heads q.k as one bf16 product and P.V as two (P split into two
+# bf16 parts): three passes for the function's two products
 FP32_AS_3XTF32_FLOPS = TF32_FLOPS / 3
-BF16_AS_2XTF32_FLOPS = TF32_FLOPS / 2
+BF16_ROUTE_FLOPS = BF16_FLOPS * 2 / 3
 
 GS_TOL = 1e-5  # fp32 sums in another order; entries of P-hat are at most 1
 # the fused kernels: P-hat as GS_TOL; P, Q, out and mem are sums of up to n
@@ -273,6 +284,28 @@ def attention_bound(
     return bound(launches * nbytes, launches * 4 * d * pairs, flops)
 
 
+def attention_bwd_work(b, t, h, d, launches, keys=None, elem_bytes=4, causal=False):
+    """Bytes and operations of ``launches`` flash-attention backwards over
+    (B*H, T, D) heads of ``elem_bytes`` per element, ``keys`` real keys as
+    in ``attention_bound``. Bytes: q, out and dO read and dq, dk and dv
+    written once (dk and dv for every key: a padded key's gradient is
+    written as 0), k and v read once for each real key, the fp32 mask and
+    lse read once. Operations: the five products S = q.k, dP = dO.v,
+    dV += p.dO, dQ += dS.k and dK += dS.q, 2 D each for every (query, key)
+    pair the function attends."""
+    keys = b * t if keys is None else keys
+    if causal and keys != b * t:
+        raise ValueError("the causal bound counts heads whose every key is real")
+    nbytes = elem_bytes * (6 * b * h * t * d + 2 * h * d * keys) + 4 * (b * t + b * h * t)
+    pairs = b * h * t * (t + 1) // 2 if causal else h * t * keys
+    return launches * nbytes, launches * 10 * d * pairs
+
+
+def attention_bwd_bound(b, t, h, d, launches, keys=None, flops=FP32_AS_3XTF32_FLOPS, elem_bytes=4, causal=False):
+    """The least time of ``attention_bwd_work`` at ``flops`` per second."""
+    return bound(*attention_bwd_work(b, t, h, d, launches, keys, elem_bytes, causal), flops)
+
+
 def attention_bounds(b, t, h, d, launches, keys=None):
     """``attention_bound`` at 3xTF32 (the peak K5's products run at) and at
     the fp32 SIMT peak, by name."""
@@ -443,6 +476,109 @@ def check_flash_attention_bf16(fa, dev, gen, imdb_mask):
         if name.startswith("gpt_"):
             kept[name] = (q, k, v, mask)
     return report, kept
+
+
+def check_flash_attention_bwd(fa, dev, gen, imdb_mask):
+    """K5's backward kernel against its plain version (``flash_attention_bwd``)
+    on the same inputs, the forward kernel's own out and lse and the same
+    cotangent, in fp32 and bf16, case by case. Each gradient within
+    ATTN_TOL * max(1, max|plain|), a bf16 one plus 1 bf16 ulp of the element
+    (both sides sum in fp32 and round once); the mask's gradient (fp32 in
+    both) within the fp32 bound. Fails unless a second call gives the same
+    bits, unless the fully masked heads' gradients are exactly 0, and,
+    on the IMDb padding, unless NaN in K and V of every all-padding 64-key
+    tile leaves dq and the real keys' dk and dv bitwise unchanged with every
+    padded key's dk and dv exactly 0. Returns the errors, the largest per
+    dtype, and the GPT-2 cases' inputs."""
+    import torch
+
+    f32_min = torch.finfo(torch.float32).min
+    full = (IMDB_B, IMDB_T, IMDB_H, IMDB_D)
+    rows_masked = torch.zeros((4, IMDB_T))
+    rows_masked[0, :] = -1e30
+    rows_masked[1, :] = f32_min
+    rows_masked[2, 100:] = -1e30
+    # a row with a single real key has dq = dk = 0 exactly, and both fp32
+    # versions return their rounding noise there, the plain version's own of
+    # the order of the tolerance: so every row here has two real keys or
+    # more. Left padding: 2 to 64 keys at the end of each row; two lone keys,
+    # one in tile i % 3 and one in the last tile, each alone in its tile
+    left = torch.full((IMDB_B, IMDB_T), f32_min)
+    lone = torch.full((IMDB_B, IMDB_T), f32_min)
+    for i in range(IMDB_B):
+        left[i, IMDB_T - 2 - (i * 13) % 63 :] = 0.0
+        lone[i, 64 * (i % 3) + 30] = 0.0
+        lone[i, 192 + 30] = 0.0
+    t100 = torch.zeros((IMDB_B, 100))
+    t100[:, 70:] = f32_min
+    t100[1::2, 20:] = f32_min
+    cases = {  # (b, t, h, d), mask (None: no mask), causal, need_dmask
+        "imdb_padding": (full, imdb_mask, False, False),
+        "no_mask": (full, None, False, False),
+        "causal": (full, imdb_mask, True, False),
+        "fully_masked_rows": ((4, IMDB_T, IMDB_H, IMDB_D), rows_masked, False, False),
+        "left_padding": (full, left, False, False),
+        "lone_middle_keys": (full, lone, False, False),
+        "t100_d40": ((IMDB_B, 100, 4, 40), t100, False, False),
+        "d128_causal": ((2, IMDB_T, 4, 128), imdb_mask[:2], True, False),
+        "gpt_causal": ((GPT_B, GPT_T, GPT_H, GPT_D), None, True, False),
+        "dmask": ((4, IMDB_T, IMDB_H, IMDB_D), imdb_mask[:4], False, True),
+    }
+    report, worst, kept = {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).rsplit(".", 1)[-1]
+        for name, ((b, t, h, d), mask, causal, need_dmask) in cases.items():
+            q, k, v, do = (torch.randn((b * h, t, d), generator=gen).to(dev).to(dtype) for _ in range(4))
+            mask = (torch.zeros((b, t)) if mask is None else mask).to(dev)
+            scale = d**-0.5
+            block = 128 if t % 128 == 0 else t
+            out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, block, block, scale)
+            got = fa.flash_attention_vjp(q, k, v, mask, out, lse, do, causal, block, scale, need_dmask)
+            again = fa.flash_attention_vjp(q, k, v, mask, out, lse, do, causal, block, scale, need_dmask)
+            want = fa.flash_attention_bwd(q, k, v, mask, out, lse, do, causal, block, scale, need_dmask)
+            torch.cuda.synchronize()
+            errs = {}
+            for grad, g, a, w in zip(("dq", "dk", "dv", "dmask"), got, again, want):
+                if w is None:
+                    continue
+                if g.dtype != w.dtype or not torch.equal(g, a):
+                    fail(f"flash_attention backward {tag} {name}: {grad} is {g.dtype} or a second call changed its bits")
+                err = (g.float() - w.float()).abs()
+                tol = ATTN_TOL * max(1.0, w.float().abs().max().item())
+                ulp = bf16_ulp(w) if w.dtype == torch.bfloat16 else 0.0
+                if not (bool(torch.isfinite(err).all()) and (err - tol - ulp).max().item() <= 0):
+                    fail(
+                        f"flash_attention backward {tag} {name}: max |kernel - plain| of {grad} {err.max().item()}"
+                        f" (tol {tol}{' + 1 bf16 ulp' if w.dtype == torch.bfloat16 else ''})"
+                    )
+                errs[grad] = err.max().item()
+                worst[tag] = max(worst.get(tag, 0.0), errs[grad])
+            empty = (mask <= -1e29).all(dim=1).repeat_interleave(h)
+            if empty.any() and not all(bool((g[empty] == 0).all()) for g in got[:3]):
+                fail(f"flash_attention backward {tag} {name}: a fully masked head's gradient is not 0")
+            report[f"{name}_{tag}"] = {
+                "shape": [b, t, h, d], "causal": causal, "need_dmask": need_dmask, "max_abs_err": errs,
+                "fully_masked_heads": int(empty.sum().item()), "second_call_bitwise_equal": True,
+            }
+            if name == "imdb_padding":
+                tiles = (mask.view(b, t // 64, 64) <= -1e29).all(-1).repeat_interleave(h, 0)
+                poison = tiles.repeat_interleave(64, 1)[..., None]
+                dirty = fa.flash_attention_vjp(
+                    q, *(torch.where(poison, float("nan"), x) for x in (k, v)), mask, out, lse, do, False, block, scale,
+                    False,
+                )
+                torch.cuda.synchronize()
+                real = (mask > -1e29).repeat_interleave(h, 0)  # (BH, T)
+                if not (
+                    torch.equal(dirty[0], got[0])
+                    and all(torch.equal(x[real], y[real]) for x, y in zip(dirty[1:3], got[1:3]))
+                    and all(bool((x[~real] == 0).all()) for x in (*dirty[1:3], *got[1:3]))
+                ):
+                    fail(f"flash_attention backward {tag}: NaN in the all-padding tiles changed a gradient")
+                report[f"{name}_{tag}"].update(nan_poisoned_tiles=int(tiles.sum()), nan_poisoned_bitwise_equal=True)
+            if name == "gpt_causal":
+                kept[tag] = (q, k, v, mask, out, lse, do)
+    return report, worst, kept
 
 
 def check_fused_kernels(ps, gs, shapes, dev, gen, keep):
@@ -792,13 +928,13 @@ def main() -> None:
         valid_keys = int((mask > -1e29).sum())
         elem = q.element_size()
         peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_AS_3XTF32_FLOPS
-        route = BF16_AS_2XTF32_FLOPS if q.dtype == torch.bfloat16 else FP32_AS_3XTF32_FLOPS
+        route = BF16_ROUTE_FLOPS if q.dtype == torch.bfloat16 else FP32_AS_3XTF32_FLOPS
         bkw = dict(keys=None if causal else valid_keys, elem_bytes=elem, causal=causal)
         (b_ms, b_by), (r_ms, r_by) = (attention_bound(b, t, h, d, layers, flops=f, **bkw) for f in (peak, route))
         return {
             "launches_per_step": layers, "dtype": str(q.dtype).rsplit(".", 1)[-1], "causal": causal,
             "ms": cuda_ms(kernel, reps=10),
-            "device_ms": device_ms(kernel, "flash_fwd_kernel"),
+            "device_ms": device_ms(kernel, "flash_fwd"),
             "plain_ms": cuda_ms(
                 lambda: [fa.flash_attention_reference(q, k, v, mask, causal, 128, 128, scale_) for _ in range(layers)],
                 reps=2,
@@ -808,35 +944,83 @@ def main() -> None:
             "bound_ms": b_ms, "bound_by": b_by,
             "bound_ops_peak": "bf16 tensor cores, 989 TFLOP/s" if elem == 2 else "3xTF32 tensor cores, 495/3 TFLOP/s",
             "bound_ms_kernel_route": r_ms, "bound_by_kernel_route": r_by,
-            "kernel_route_peak": "2xTF32, 495/2 TFLOP/s" if elem == 2 else "3xTF32, 495/3 TFLOP/s",
+            "kernel_route_peak": (
+                "bf16, q.k once and P.V twice: 989 x 2/3 TFLOP/s" if elem == 2 else "3xTF32, 495/3 TFLOP/s"
+            ),
         }
-
-    def backward_step(q, k, v, mask, causal, layers):
-        """One step's ``layers`` K5 backwards (``flash_attention_bwd``,
-        PyTorch tensor code in fp32) on the forward's own out and lse."""
-        scale_ = q.shape[-1] ** -0.5
-        out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, 128, 128, scale_)
-        do = torch.randn(out.shape, generator=gen).to(dev).to(out.dtype)
-        fn = lambda: [  # noqa: E731
-            fa.flash_attention_bwd(q, k, v, mask, out, lse, do, causal, 128, scale_, need_dmask=False)
-            for _ in range(layers)
-        ]
-        return {"ms": cuda_ms(fn, reps=3), "device_ms": device_ms(fn, reps=3)}
 
     gpt_rows = {
         name: attention_step(*bf16_inputs[name], True, GPT_B, GPT_T, GPT_H, GPT_D, GPT_LAYERS)
         for name in ("gpt_causal_fp32", "gpt_causal_bf16")
     }
-    gpt_bwd = {name: backward_step(*bf16_inputs[name], True, GPT_LAYERS) for name in gpt_rows}
     imdb_bf16_row = attention_step(*bf16_inputs["imdb_bf16"], False, IMDB_B, IMDB_T, IMDB_H, IMDB_D, IMDB_LAYERS)
     bf16_err = max(r["max_abs_err"] for n, r in bf16_report.items() if n.endswith("bf16"))
     emit({
         "phase": "flash_attention_bf16_causal",
         "tolerance": f"fp32 cases {ATTN_TOL} * max(1, max|plain|); bf16 out that plus 1 bf16 ulp of the element",
-        "cases": bf16_report, "gpt_per_step": gpt_rows, "gpt_backward_per_step": gpt_bwd,
-        "imdb_bf16_per_step": imdb_bf16_row,
+        "cases": bf16_report, "gpt_per_step": gpt_rows, "imdb_bf16_per_step": imdb_bf16_row,
     })
     del bf16_inputs
+
+    # K5's backward kernel against its plain version; one GPT-2 step's 12
+    # causal backwards timed in each dtype beside the plain version and
+    # SDPA's backward on the same inputs
+    bwd_report, bwd_err, bwd_inputs = check_flash_attention_bwd(fa, dev, gen, imdb_mask)
+
+    def backward_step(q, k, v, mask, out, lse, do, b, t, h, d, layers):
+        """One step's ``layers`` causal K5 backwards on the forward's own out
+        and lse: the kernel, the plain version and SDPA's backward (the
+        gradient of its ``is_causal`` out in q, k and v with the same dO,
+        its forward excluded), and the bounds."""
+        scale_ = d**-0.5
+        kernel = lambda: [  # noqa: E731
+            fa.flash_attention_vjp(q, k, v, mask, out, lse, do, True, 128, scale_, False) for _ in range(layers)
+        ]
+        plain = lambda: [  # noqa: E731
+            fa.flash_attention_bwd(q, k, v, mask, out, lse, do, True, 128, scale_, need_dmask=False)
+            for _ in range(layers)
+        ]
+        sq, sk, sv = (x.view(b, h, t, d).detach().requires_grad_() for x in (q, k, v))
+        sout = torch.nn.functional.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+        library = lambda: [  # noqa: E731
+            torch.autograd.grad(sout, (sq, sk, sv), do.view(b, h, t, d), retain_graph=True) for _ in range(layers)
+        ]
+        bf16 = q.dtype == torch.bfloat16
+        # the kernels' own passes: S and dP in both kernels, dV, dK and dQ
+        # once each; bf16 one pass for S and dP and two for the split P and
+        # dS (10 of the function's 5 products), fp32 three TF32 passes for
+        # each of 7 products (21)
+        peak, route = (BF16_FLOPS, BF16_FLOPS * 5 / 10) if bf16 else (FP32_AS_3XTF32_FLOPS, TF32_FLOPS * 5 / 21)
+        bkw = dict(elem_bytes=q.element_size(), causal=True)
+        (b_ms, b_by), (r_ms, r_by) = (attention_bwd_bound(b, t, h, d, layers, flops=f, **bkw) for f in (peak, route))
+        row = {
+            "launches_per_step": layers, "dtype": str(q.dtype).rsplit(".", 1)[-1], "causal": True,
+            "ms": cuda_ms(kernel, reps=5),
+            "device_ms": device_ms(kernel, "flash_bwd", reps=3),
+            "plain_ms": cuda_ms(plain, reps=2),
+            "plain_device_ms": device_ms(plain, reps=2),
+            "library_ms": cuda_ms(library, reps=5),
+            "library_device_ms": device_ms(library, reps=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ops_peak": "bf16 tensor cores, 989 TFLOP/s" if bf16 else "3xTF32 tensor cores, 495/3 TFLOP/s",
+            "bound_ms_kernel_route": r_ms, "bound_by_kernel_route": r_by,
+            "kernel_route_peak": "10 bf16 passes of the 5 products" if bf16 else "21 TF32 passes of the 5 products",
+        }
+        del sq, sk, sv, sout
+        return row
+
+    gpt_bwd = {
+        tag: backward_step(*bwd_inputs[tag], GPT_B, GPT_T, GPT_H, GPT_D, GPT_LAYERS) for tag in ("float32", "bfloat16")
+    }
+    emit({
+        "phase": "flash_attention_bwd",
+        "tolerance": (
+            f"dq, dk, dv: fp32 {ATTN_TOL} * max(1, max|plain|), bf16 that plus 1 bf16 ulp of the element;"
+            " dmask (fp32) the fp32 bound"
+        ),
+        "cases": bwd_report, "max_abs_err": bwd_err, "gpt_per_step": gpt_bwd,
+    })
+    del bwd_inputs
 
     # the fused kernels, at every main-path shape group and a few others
     extra_groups = [
@@ -920,16 +1104,20 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
 
     # ---- 3. the main paths: ResNet xla and fused, DistilBERT ---------------------
-    all_kernels = (gs.KERNEL, *ps.KERNELS, fa.KERNEL, fa.KERNEL_BF16)
-    device_fns = {  # a part of each kernel's device function name
+    k5_kernels = (fa.KERNEL, fa.KERNEL_BF16, *fa.BWD_KERNELS.values())
+    all_kernels = (gs.KERNEL, *ps.KERNELS, *k5_kernels)
+    device_fns = {  # a part of each kernel's device function names (fp32 and bf16)
         "gram_schmidt": "gram_schmidt_kernel", "ef_compress": "ef_compress_kernel",
         "orthogonalize_project": "orthogonalize_project_kernel",
-        "decompress_residual": "decompress_residual_kernel", "flash_attention": "flash_fwd_kernel",
+        "decompress_residual": "decompress_residual_kernel", "flash_attention": "flash_fwd",
+        # the backward's entry launches three device functions: the rowsum
+        # pre-pass, dK/dV and dQ
+        "flash_attention_bwd": "flash_bwd",
     }
     images, labels, _ = load_cifar10_or_synthetic(train=True)
     results = {}
     launches = {}
-    kinds = {}  # K5's launches of each path by kind (causal or masked)
+    kinds = {}  # K5's launches (forward and backward) of each path by kind (causal or masked)
     profiles = {}
 
     def drive(name, run, want, kernel_free=False):
@@ -942,7 +1130,7 @@ def main() -> None:
             k.reset()
         result = run()
         launches[name] = {k.name: k.launches for k in all_kernels}
-        kinds[name] = {k.name: dict(k.by_kind) for k in (fa.KERNEL, fa.KERNEL_BF16)}
+        kinds[name] = {k.name: dict(k.by_kind) for k in k5_kernels}
         full_want = {k.name: want.get(k.name, 0) for k in all_kernels}
         if launches[name] != full_want or not (kernel_free or any(full_want.values())):
             fail(f"{name} launched {launches[name]}, expected {full_want}")
@@ -980,7 +1168,10 @@ def main() -> None:
     cfg.training_epochs = 1
     result, peak = drive(
         "imdb", lambda: powersgd_imdb.run(cfg, preset="full", device=dev, max_steps_per_epoch=MAIN_STEPS),
-        {"gram_schmidt": MAIN_STEPS * len(imdb_shapes), "flash_attention": MAIN_STEPS * IMDB_LAYERS},
+        {
+            "gram_schmidt": MAIN_STEPS * len(imdb_shapes), "flash_attention": MAIN_STEPS * IMDB_LAYERS,
+            "flash_attention_bwd": MAIN_STEPS * IMDB_LAYERS,
+        },
     )
     losses = result["losses"]
     if len(losses) != MAIN_STEPS or not all(math.isfinite(v) for v in losses):
@@ -1002,7 +1193,7 @@ def main() -> None:
     imdb_cfg = powersgd_imdb.default_config()
     imdb_cfg.global_batch_size = IMDB_B
     profiles["imdb"] = profile_main_path(dev, powersgd_imdb, imdb_cfg, imdb_arrays, {
-        k: device_fns[k] for k in ("gram_schmidt", "flash_attention")
+        k: device_fns[k] for k in ("gram_schmidt", "flash_attention", "flash_attention_bwd")
     })
     emit(profiles["imdb"])
 
@@ -1074,7 +1265,11 @@ def main() -> None:
             lambda: imdb_baseline.run(
                 cfg, preset="full", device=dev, max_steps_per_epoch=MAIN_STEPS, optimizer_name=opt, eval_after=True
             ),
-            {"flash_attention": (MAIN_STEPS + eval_batches) * IMDB_LAYERS},
+            # the backward in training only
+            {
+                "flash_attention": (MAIN_STEPS + eval_batches) * IMDB_LAYERS,
+                "flash_attention_bwd": MAIN_STEPS * IMDB_LAYERS,
+            },
         )
         losses = result["losses"]
         if len(losses) != MAIN_STEPS or not all(math.isfinite(v) for v in losses):
@@ -1096,7 +1291,8 @@ def main() -> None:
         }
     baseline_cfg = imdb_baseline.default_config()
     profiles["imdb_baseline"] = profile_main_path(
-        dev, imdb_baseline, baseline_cfg, imdb_arrays, {"flash_attention": device_fns["flash_attention"]},
+        dev, imdb_baseline, baseline_cfg, imdb_arrays,
+        {k: device_fns[k] for k in ("flash_attention", "flash_attention_bwd")},
         build=lambda group: imdb_baseline.build(baseline_cfg, "full", dev),  # one process: no group
     )
     emit({
@@ -1113,14 +1309,16 @@ def main() -> None:
         cfg = gpt_lm.default_config()
         cfg.global_batch_size, cfg.compute_dtype = GPT_B, dtype
         k5 = "flash_attention" if dtype == "float32" else "flash_attention_bf16"
+        k5_bwd = fa.BWD_KERNELS[getattr(torch, dtype)].name
         name = f"gpt_{dtype}"
         result, peak = drive(
             name,
             lambda: gpt_lm.run(cfg, preset="full", seq_len=GPT_T, steps_per_epoch=MAIN_STEPS, device=dev),
-            {"gram_schmidt": MAIN_STEPS * GPT_GROUPS, k5: MAIN_STEPS * GPT_LAYERS},
+            {"gram_schmidt": MAIN_STEPS * GPT_GROUPS, k5: MAIN_STEPS * GPT_LAYERS, k5_bwd: MAIN_STEPS * GPT_LAYERS},
         )
-        if kinds[name][k5] != {"causal": MAIN_STEPS * GPT_LAYERS}:
-            fail(f"{name}: K5 launches by kind {kinds[name][k5]}, want every one causal")
+        for kernel in (k5, k5_bwd):
+            if kinds[name][kernel] != {"causal": MAIN_STEPS * GPT_LAYERS}:
+                fail(f"{name}: {kernel} launches by kind {kinds[name][kernel]}, want every one causal")
         losses = result["losses"]
         if len(losses) != MAIN_STEPS or not all(math.isfinite(v) for v in losses):
             fail(f"{name} losses {losses}")
@@ -1130,7 +1328,7 @@ def main() -> None:
         p50_ms = statistics.median(timed_ms)
         profiles[name] = profile_main_path(
             dev, gpt_lm, cfg, None,
-            {"gram_schmidt": device_fns["gram_schmidt"], "flash_attention": device_fns["flash_attention"]},
+            {k: device_fns[k] for k in ("gram_schmidt", "flash_attention", "flash_attention_bwd")},
             build=lambda group: gpt_lm.build(cfg, "full", GPT_T, "powersgd", dev, group),
             batches=list(gpt_lm.synthetic_lm_batches(result["vocab"], GPT_B, GPT_T, 1 + PROFILE_STEPS, cfg.seed)),
         )
@@ -1143,7 +1341,7 @@ def main() -> None:
             "profile": profiles[name],
         }
     busy_bf16 = profiles["gpt_bfloat16"]["device_busy_ms_per_step"]
-    bwd_bf16 = gpt_bwd["gpt_causal_bf16"]["device_ms"]
+    bwd_bf16 = gpt_bwd["bfloat16"]["device_ms"]
     emit({
         "phase": "main_path_gpt", "model": "gpt2_small", "vocab": 1024, "seq_len": GPT_T, "global_batch": GPT_B,
         "tokens_per_step": GPT_B * GPT_T, "reducer_rank": gpt_lm.default_config().reducer_rank,
@@ -1216,10 +1414,14 @@ def main() -> None:
     cfg.training_epochs, cfg.compute_dtype = 1, "bfloat16"
     result, peak = drive(
         "imdb_bf16", lambda: powersgd_imdb.run(cfg, preset="full", device=dev, max_steps_per_epoch=MAIN_STEPS),
-        {"gram_schmidt": MAIN_STEPS * len(imdb_shapes), "flash_attention_bf16": MAIN_STEPS * IMDB_LAYERS},
+        {
+            "gram_schmidt": MAIN_STEPS * len(imdb_shapes), "flash_attention_bf16": MAIN_STEPS * IMDB_LAYERS,
+            "flash_attention_bwd_bf16": MAIN_STEPS * IMDB_LAYERS,
+        },
     )
-    if kinds["imdb_bf16"]["flash_attention_bf16"] != {"masked": MAIN_STEPS * IMDB_LAYERS}:
-        fail(f"imdb_bf16: K5 launches by kind {kinds['imdb_bf16']['flash_attention_bf16']}")
+    for kernel in ("flash_attention_bf16", "flash_attention_bwd_bf16"):
+        if kinds["imdb_bf16"][kernel] != {"masked": MAIN_STEPS * IMDB_LAYERS}:
+            fail(f"imdb_bf16: {kernel} launches by kind {kinds['imdb_bf16'][kernel]}")
     losses = result["losses"]
     if len(losses) != MAIN_STEPS or not all(math.isfinite(v) for v in losses):
         fail(f"imdb_bf16 losses {losses}")
@@ -1230,7 +1432,7 @@ def main() -> None:
     bf16_cfg = powersgd_imdb.default_config()
     bf16_cfg.global_batch_size, bf16_cfg.compute_dtype = IMDB_B, "bfloat16"
     profiles["imdb_bf16"] = profile_main_path(dev, powersgd_imdb, bf16_cfg, imdb_arrays, {
-        k: device_fns[k] for k in ("gram_schmidt", "flash_attention")
+        k: device_fns[k] for k in ("gram_schmidt", "flash_attention", "flash_attention_bwd")
     })
     emit({
         "phase": "main_path_imdb_bf16", "model": "distilbert_base", "compute_dtype": "bfloat16",
@@ -1405,28 +1607,29 @@ def main() -> None:
             names[m.leaf_index] for m in step.reducer._metas(list(leaves))
             if int(torch.linalg.matrix_rank(leaves[m.leaf_index].grad)) < m.r
         )
-        losses, before = [], fa.KERNEL.launches
+        k5 = (fa.KERNEL, fa.BWD_KERNELS[torch.float32])
+        losses, before = [], [k.launches for k in k5]
         for batch in batches:  # the step sets every .grad to None first
             state, loss = step(state, batch)
             losses.append(loss.item())
-        launched = fa.KERNEL.launches - before
+        launched = [k.launches - b for k, b in zip(k5, before)]  # forward, backward
         return losses, {k: v.detach().cpu() for k, v in state.params.items()}, deficient, launched
 
     (losses_a, params_a, deficient, flash_launches), (losses_b, params_b, _, einsum_launches) = (
         gpt_two_steps(i) for i in ("flash", "einsum")
     )
     diff, loss_diff = max_diff(params_a, params_b), max(abs(a - b) for a, b in zip(losses_a, losses_b))
-    if (flash_launches, einsum_launches) != (2 * GPT_LAYERS, 0) or deficient:
+    if (flash_launches, einsum_launches) != ([2 * GPT_LAYERS] * 2, [0, 0]) or deficient:
         fail(
-            f"gpt flash vs einsum: {flash_launches} and {einsum_launches} K5 launches in 2 steps,"
-            f" rank-deficient leaves {deficient}"
+            f"gpt flash vs einsum: {flash_launches} and {einsum_launches} K5 launches (forward, backward) in 2"
+            f" steps, rank-deficient leaves {deficient}"
         )
     if not (math.isfinite(diff) and diff <= GPT_TOL and loss_diff <= GPT_TOL):
         fail(f"gpt flash vs einsum: params {diff}, losses {loss_diff} (tol {GPT_TOL})")
     emit({
         "phase": "gpt_flash_vs_einsum", "model": "gpt2_small", "global_batch": GPT_B, "seq_len": GPT_T, "steps": 2,
         "losses": [losses_a, losses_b], "max_param_diff": diff, "max_loss_diff": loss_diff, "tolerance": GPT_TOL,
-        "rank_deficient_leaves": deficient, "flash_launches": flash_launches,
+        "rank_deficient_leaves": deficient, "flash_launches_forward_backward": flash_launches,
     })
     del params_a, params_b
 
@@ -1449,16 +1652,17 @@ def main() -> None:
     record = {"phase": "imdb_baseline_flash_vs_einsum", "preset": "full", "global_batch": IMDB_B, "steps": 2,
               "tolerance": IMDB_TOL}
     for opt in imdb_baseline.OPTIMIZERS:
-        before = fa.KERNEL.launches
+        k5 = (fa.KERNEL, fa.BWD_KERNELS[torch.float32])
+        before = [k.launches for k in k5]
         (losses_a, params_a), (losses_b, params_b) = (baseline_two_steps(opt, impl) for impl in ("flash", "einsum"))
-        flash_launches = fa.KERNEL.launches - before
+        flash_launches = [k.launches - b for k, b in zip(k5, before)]  # forward, backward
         noise = {k for k in params_a if k.endswith("attention.k_lin.bias")} if opt == "adamw" else set()
         bound = ADAM_NOISE_BOUND * imdb_baseline.default_config(opt).learning_rate * 2
         diff = max_diff({k: v for k, v in params_a.items() if k not in noise}, params_b)
         noise_diff = max_diff({k: params_a[k] for k in noise}, params_b) if noise else 0.0
         loss_diff = max(abs(a - b) for a, b in zip(losses_a, losses_b))
-        if flash_launches != 2 * IMDB_LAYERS:
-            fail(f"imdb_baseline {opt}: flash attention launched {flash_launches} times in 2 steps")
+        if flash_launches != [2 * IMDB_LAYERS] * 2:
+            fail(f"imdb_baseline {opt}: flash attention launched {flash_launches} times (forward, backward) in 2 steps")
         if not (math.isfinite(diff) and diff <= IMDB_TOL and loss_diff <= IMDB_TOL and noise_diff <= bound):
             fail(
                 f"imdb_baseline {opt}, flash vs einsum: params {diff}, losses {loss_diff} (tol {IMDB_TOL}),"
@@ -1467,7 +1671,7 @@ def main() -> None:
         record[opt] = {
             "losses": [losses_a, losses_b], "max_param_diff": diff, "max_loss_diff": loss_diff,
             "key_bias_leaves": len(noise), "max_key_bias_diff": noise_diff, "key_bias_bound": bound,
-            "flash_launches": flash_launches,
+            "flash_launches_forward_backward": flash_launches,
         }
     emit(record)
 
@@ -1573,6 +1777,23 @@ def main() -> None:
             "device_ms_in_path_profile": profiles["imdb_bf16"]["kernels"]["flash_attention"]["device_ms_per_step"],
         },
     })
+    for tag, paths in (("float32", k5_paths), ("bfloat16", k5_bf16_paths)):
+        name = fa.BWD_KERNELS[getattr(torch, tag)].name
+        gpt_path = "gpt_float32" if tag == "float32" else "gpt_bfloat16"
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "network_distributed_pytorch_tpu_torch/csrc/flash_attention_bwd.cu",
+            # _flash_bwd_chunked, the custom_vjp backward (an XLA scan, not a Pallas kernel)
+            "replaces": "network_distributed_pytorch_tpu/ops/flash_attention.py:152",
+            "launches": sum(launches[path][name] for path in paths.values()),
+            "launches_by_path": {label: launches[path][name] for label, path in paths.items()},
+            "launches_by_kind": by_kind(name, paths),
+            "max_abs_err": bwd_err[tag],
+            # one GPT-2 step's 12 causal backwards at (16 x 12, 1024, 64); SDPA's backward on the same inputs
+            **gpt_bwd[tag],
+            # the three device functions of each call, in the GPT-2 path's profile
+            "device_ms_in_path_profile": profiles[gpt_path]["kernels"]["flash_attention_bwd"]["device_ms_per_step"],
+        })
     emit({"kernels": kernels})
     # the card's name and power limit, exactly as nvidia-smi gives them
     sys.stdout.write(smi + "\n")

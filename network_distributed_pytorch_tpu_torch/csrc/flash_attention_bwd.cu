@@ -1,0 +1,565 @@
+// Flash attention backward for Hopper: the gradients of
+// csrc/flash_attention.cu's forward in q, k, v and (when asked) the additive
+// key mask, over folded (BH, T, D) heads of fp32 or bf16, from the forward's
+// out and fp32 lse and the cotangent dO, never building the (T, T) score
+// matrix in device memory.
+//
+// Replaces network_distributed_pytorch_tpu/ops/flash_attention.py
+// (_flash_bwd_chunked, the custom_vjp backward of flash_attention: an XLA
+// lax.scan over key blocks, not a Pallas kernel). The arithmetic is its:
+//   Dr = rowsum(dO * out)                                     (fp32)
+//   s  = scale q.k + mask[key];  P = valid ? exp(s - lse) : 0
+//   valid = mask[key] > -1e29 (and q_pos >= k_pos when causal): the forward's
+//     flag, never exp underflow (a fully masked row has lse = 1e30, so its P
+//     is 0 too)
+//   dP = dO.V^T;  dS = P * (dP - Dr)
+//   dV = P^T.dO;  dQ = scale dS.K;  dK = scale dS^T.Q
+//   dmask[b, key] = sum over heads and q rows of dS
+// Every product accumulates in fp32; dq, dk and dv are rounded to the heads'
+// dtype once, at the end; the mask's gradient stays fp32.
+//
+// Design: three launches behind one C entry per dtype, no atomics, so two
+// calls give the same bits.
+//   (i)   a pre-pass writes Dr (BH, T) in fp32, one warp a row;
+//   (ii)  dK and dV: one block of 4 warps per (head, tile of 64 keys), each
+//         warp owning 16 keys. K and V stay in shared memory; tiles of kBQ q
+//         rows of Q and dO (with their lse and Dr) arrive by cp.async into a
+//         double-buffered ring. The block computes S^T = K.Q^T and
+//         dP^T = V.dO^T directly, so the key axis is the products' M axis and
+//         P^T and dS^T are, in their accumulator fragments, the A operands of
+//         dV += P^T.dO and dK += dS^T.Q, with no trip through shared memory.
+//         It walks the q tiles from the diagonal (causal) or from 0, and
+//         writes dK and dV once. With the mask's gradient asked for, it also
+//         writes each key's sum of dS over q (per head) to a (BH, T) fp32
+//         scratch, which the wrapper sums over heads. A key tile whose every
+//         key is padding is neither loaded nor multiplied: its dK and dV are
+//         written as zeros, which is what the reference gives for finite
+//         inputs (P = 0 there);
+//   (iii) dQ: one block of 4 warps per (head, tile of 64 q rows), each warp
+//         owning 16 rows, Q and dO in shared memory, tiles of 64 keys of K, V
+//         and the mask in a double-buffered ring, all-padding tiles skipped
+//         by the forward's warp vote, the walk ending at the diagonal when
+//         causal. S, dP and dS are recomputed; dS's fragments are the A
+//         operand of dQ += dS.K.
+// Both kernels flag the ragged rows past T invalid (their shared rows are
+// zero-filled), take exp as ex2 of a log2(e)-scaled argument formed in
+// fmas, skip the per-element flag on a tile whose every (q row, key) pair is
+// valid, and reverse the causal walk's block order where the longest walks
+// would otherwise start last.
+//
+// Products, by dtype (csrc/flash_attention_mma.cuh):
+//   * fp32 heads: mma.sync m16n8k8 in 3xTF32, every operand split into TF32
+//     hi and lo (about 22 bits of each product), as the fp32 forward;
+//   * bf16 heads: mma.sync m16n8k16 with operands from ldmatrix. S and dP
+//     are exact bf16 products in one pass each. P and dS are fp32; each is
+//     split in registers into bf16 hi and lo (16 bits) for dV, dK and dQ,
+//     two passes each, against bf16 dO, Q and K, which are exact.
+//
+// What bounds it on an H100: GPT-2's causal heads (BH = 192, T = 1024,
+// D = 64) need five products of 2 D FLOP over T (T + 1) / 2 pairs a head:
+// 64.5 GFLOP a launch, 0.065 ms at the bf16 peak, 0.39 ms at 3xTF32's
+// 495/3 TFLOP/s; q, k, v, out, dO read and dq, dk, dv written are 202 MB in
+// bf16 (0.060 ms), 403 MB in fp32. The kernels recompute S and dP in both
+// passes (ten bf16 passes a pair in all, twenty-one TF32 passes in fp32),
+// issue mma.sync rather than wgmma, read every Q and dO (dK/dV) or K and V
+// (dQ) fragment from shared memory in each warp and, in fp32, split every
+// operand as it is read, so they stay well above those bounds: right and
+// plain first.
+
+#include "flash_attention_mma.cuh"
+
+namespace {
+
+constexpr int kWarps = 4;  // 16 rows (keys or q rows) each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // keys a dK/dV block owns, q rows a dQ block owns
+constexpr int kMaxD = 128;
+constexpr int kGroup = 4;  // independent mma chains interleaved (fp32)
+
+// The warp's products for each element type. Shared tiles are row-major
+// with row stride LD; DT is D padded to 8 DT columns (zeros past D).
+//   nt: c (16 x 8 NT) += A (16 x D) . B^T, A and B both stored as rows
+//       of length D (B's rows are C's columns);
+//   nn: c (16 x 8 DT) += A (16 x 8 KT) . B, A given as fp32 accumulator
+//       fragments a[0 .. KT), B stored as KT * 8 rows of length D.
+//
+// fp32 (F32Route): the tensor cores truncate as they accumulate, so a
+// chain of mma into one register drifts towards zero by up to an ulp of it
+// an mma. A walk of T = 1024 q rows is 384 mma into each dK and dV
+// fragment: a drift of order 384 ulp, about 2e-5 of the largest values,
+// past the 1e-5 tolerance. Over D = 64, dP is 24 mma, and dS = P (dP - Dr)
+// passes dP's error on whole where dP and Dr nearly cancel. So nt sums each
+// k step's three passes, and nn each call's KT k steps, into a fresh
+// fragment, added to the result in fp32 with rounding to nearest.
+struct F32Route {
+  using Elt = float;
+
+  template <int NT, int DT>
+  __device__ static void nt(float (*c)[4], const float* a, const float* b, int ld, int D) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < DT; ++kk) {
+      if (8 * kk >= D) break;
+      uint32_t ah[4], al[4];
+      split(a[g * ld + 8 * kk + t], ah[0], al[0]);
+      split(a[(g + 8) * ld + 8 * kk + t], ah[1], al[1]);
+      split(a[g * ld + 8 * kk + t + 4], ah[2], al[2]);
+      split(a[(g + 8) * ld + 8 * kk + t + 4], ah[3], al[3]);
+#pragma unroll
+      for (int n0 = 0; n0 < NT; n0 += kGroup) {
+        uint32_t bh[kGroup][2], bl[kGroup][2];
+#pragma unroll
+        for (int n = 0; n < kGroup; ++n) {
+          split(b[(8 * (n0 + n) + g) * ld + 8 * kk + t], bh[n][0], bl[n][0]);
+          split(b[(8 * (n0 + n) + g) * ld + 8 * kk + t + 4], bh[n][1], bl[n][1]);
+        }
+        float part[kGroup][4] = {};
+        mma_3xtf32<kGroup>(part, ah, al, bh, bl);
+#pragma unroll
+        for (int n = 0; n < kGroup; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[n0 + n][e] += part[n][e];
+      }
+    }
+  }
+
+  // a[j] covers columns 8 j .. 8 j + 7 of A; as an m16n8k8 A fragment its k
+  // index t stands for column 8 j + 2 t and t + 4 for 8 j + 2 t + 1, and B's
+  // rows are read in that order. Each call sums its KT * 3 products into a
+  // fresh fragment and adds that to c in fp32 (see F32Route on truncation)
+  template <int KT, int DT>
+  __device__ static void nn(float (*c)[4], const float (*a)[4], const float* b, int ld, int D) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int n0 = 0; n0 < DT; n0 += kGroup) {
+      if (8 * n0 >= D) break;
+      float part[kGroup][4] = {};
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        uint32_t ah[4], al[4];
+        split(a[j][0], ah[0], al[0]);
+        split(a[j][2], ah[1], al[1]);
+        split(a[j][1], ah[2], al[2]);
+        split(a[j][3], ah[3], al[3]);
+        const float* b0 = b + (8 * j + 2 * t) * ld + 8 * n0 + g;
+        uint32_t bh[kGroup][2], bl[kGroup][2];
+#pragma unroll
+        for (int n = 0; n < kGroup; ++n) {
+          split(b0[8 * n], bh[n][0], bl[n][0]);
+          split(b0[ld + 8 * n], bh[n][1], bl[n][1]);
+        }
+        mma_3xtf32<kGroup>(part, ah, al, bh, bl);
+      }
+#pragma unroll
+      for (int n = 0; n < kGroup; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[n0 + n][e] += part[n][e];
+    }
+  }
+};
+
+struct Bf16Route {
+  using Elt = __nv_bfloat16;
+
+  template <int NT, int DT>
+  __device__ static void nt(float (*c)[4], const Elt* a, const Elt* b, int ld, int D) {
+#pragma unroll
+    for (int kk = 0; kk < DT / 2; ++kk) {
+      if (16 * kk >= D) break;
+      uint32_t af[4];
+      ldmatrix_a(af, a, ld, 16 * kk);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bf[4];
+        ldmatrix_b_rows(bf, b + 16 * np * ld, ld, 16 * kk);
+        mma_bf16(c[2 * np], af, bf[0], bf[1]);
+        mma_bf16(c[2 * np + 1], af, bf[2], bf[3]);
+      }
+    }
+  }
+
+  // A split into bf16 hi and lo, lo's pass first
+  template <int KT, int DT>
+  __device__ static void nn(float (*c)[4], const float (*a)[4], const Elt* b, int ld, int D) {
+#pragma unroll
+    for (int kk = 0; kk < KT / 2; ++kk) {
+      uint32_t ah[4], al[4];
+      c_to_a_bf16(a[2 * kk], a[2 * kk + 1], ah, al);
+#pragma unroll
+      for (int np = 0; np < DT / 2; ++np) {
+        if (16 * np >= D) break;
+        uint32_t bf[4];
+        ldmatrix_b_trans(bf, b + 16 * kk * ld, ld, 16 * np);
+        mma_bf16(c[2 * np], al, bf[0], bf[1]);
+        mma_bf16(c[2 * np + 1], al, bf[2], bf[3]);
+        mma_bf16(c[2 * np], ah, bf[0], bf[1]);
+        mma_bf16(c[2 * np + 1], ah, bf[2], bf[3]);
+      }
+    }
+  }
+};
+
+template <int DT>
+__device__ __forceinline__ void zero_acc(float (&c)[DT][4]) {
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+}
+
+// rows (entries 0, 1: row g; 2, 3: row g + 8) of a warp's 16 x 8 DT
+// accumulator times `mul` into a (T, D) head at row r0, rows < T only
+template <typename Elt, int DT>
+__device__ __forceinline__ void store_rows(const float (&c)[DT][4], float mul, Elt* head, int r0, int T, int D) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    if (r >= T) continue;
+    Elt* row = head + static_cast<size_t>(r) * D;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      const int col = 8 * n + 2 * t;
+      if (col < D) row[col] = narrow<Elt>(c[n][2 * h] * mul);
+      if (col + 1 < D) row[col + 1] = narrow<Elt>(c[n][2 * h + 1] * mul);
+    }
+  }
+}
+
+// (i) Dr[row] = sum over d of dO[row][d] * out[row][d], in fp32
+template <typename Elt>
+__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(const Elt* __restrict__ out,
+                                                              const Elt* __restrict__ dout,
+                                                              float* __restrict__ delta, int rows, int D) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const size_t base = static_cast<size_t>(row) * D;
+  float acc = 0.f;
+  for (int c = lane; c < D; c += 32) acc += widen(dout[base + c]) * widen(out[base + c]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+// q rows a dK/dV block walks at a time: 64, or 32 at D = 128 (registers)
+template <int DT>
+constexpr int kBQ = DT == 8 ? 64 : 32;
+
+template <typename Elt, int DT>
+constexpr size_t dkdv_smem() {
+  // K and V (kRows each), two stages of Q and dO (kBQ each); two stages of
+  // lse and Dr, and the key tile's mask
+  return sizeof(Elt) * row_stride<Elt>(8 * DT) * (2 * kRows + 4 * kBQ<DT>) + sizeof(float) * (4 * kBQ<DT> + kRows);
+}
+
+template <typename Elt, int DT>
+constexpr size_t dq_smem() {
+  // Q and dO (kRows each), two stages of K and V (kBK each); lse and Dr of
+  // the block's rows, and two stages of the key tile's mask
+  return sizeof(Elt) * row_stride<Elt>(8 * DT) * (2 * kRows + 4 * kBK) + sizeof(float) * (2 * kRows + 2 * kBK);
+}
+
+// (ii) dK, dV and the per-head column sums of dS
+template <typename R, int DT>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const typename R::Elt* __restrict__ q, const typename R::Elt* __restrict__ k,
+                      const typename R::Elt* __restrict__ v, const float* __restrict__ mask,
+                      const float* __restrict__ lse, const typename R::Elt* __restrict__ dout,
+                      const float* __restrict__ delta, typename R::Elt* __restrict__ dk,
+                      typename R::Elt* __restrict__ dv, float* __restrict__ dmask_part, int T, int D, int H,
+                      int causal, float scale) {
+  using Elt = typename R::Elt;
+  constexpr int DP = 8 * DT;
+  constexpr int LD = row_stride<Elt>(DP);
+  constexpr int BQ = kBQ<DT>;
+  constexpr int NQ = BQ / 8;  // n8 tiles of q rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Elt* ks = reinterpret_cast<Elt*>(smem_raw);  // kRows x LD
+  Elt* vs = ks + kRows * LD;
+  Elt* ring = vs + kRows * LD;  // two stages of (Q tile, dO tile), BQ x LD each
+  float* lse_s = reinterpret_cast<float*>(ring + 4 * BQ * LD);  // two stages of BQ
+  float* delta_s = lse_s + 2 * BQ;                              // two stages of BQ
+  float* mk = delta_s + 2 * BQ;                                 // kRows
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kRows;
+  const size_t head = static_cast<size_t>(bh) * T * D;
+  const float* mrow = mask + static_cast<size_t>(bh / H) * T;
+  const float scale_log2 = scale * kLog2e;
+
+  // a tile with no valid key: zeros, nothing read
+  const bool key_valid = tid < kRows && k0 + tid < T && __ldg(mrow + k0 + tid) > kMaskPad;
+  const bool all_keys = __syncthreads_and(key_valid || tid >= kRows);
+  if (!__syncthreads_or(key_valid)) {
+    const int n = min(kRows, T - k0) * D;
+    for (int i = tid; i < n; i += kThreads) {
+      dk[head + static_cast<size_t>(k0) * D + i] = narrow<Elt>(0.f);
+      dv[head + static_cast<size_t>(k0) * D + i] = narrow<Elt>(0.f);
+    }
+    if (dmask_part && tid < kRows && k0 + tid < T) dmask_part[static_cast<size_t>(bh) * T + k0 + tid] = 0.f;
+    return;
+  }
+
+  zero_padding<kThreads>(ks, LD, 2 * kRows + 4 * BQ, D, DP);  // K, V and the ring are contiguous
+  const bool vec = rows_aligned<Elt>(D, q, k, v) && rows_aligned<Elt>(D, dout, dout, dout);
+  load_rows<kThreads, DP>(ks, LD, k + head, k0, kRows, T, D, vec);
+  load_rows<kThreads, DP>(vs, LD, v + head, k0, kRows, T, D, vec);
+  load_floats<kThreads>(mk, mrow, k0, kRows, T);
+  auto load_q = [&](int qt, int stage) {
+    Elt* qs = ring + stage * 2 * BQ * LD;
+    load_rows<kThreads, DP>(qs, LD, q + head, qt * BQ, BQ, T, D, vec);
+    load_rows<kThreads, DP>(qs + BQ * LD, LD, dout + head, qt * BQ, BQ, T, D, vec);
+    load_floats<kThreads>(lse_s + stage * BQ, lse + static_cast<size_t>(bh) * T, qt * BQ, BQ, T);
+    load_floats<kThreads>(delta_s + stage * BQ, delta + static_cast<size_t>(bh) * T, qt * BQ, BQ, T);
+  };
+  const int first = causal ? k0 / BQ : 0;  // the diagonal's q tile
+  const int end = (T + BQ - 1) / BQ;
+  load_q(first, 0);
+  cp_async_commit();
+
+  // this thread's keys: ka (entries 0, 1), kb (2, 3)
+  const int la = warp * 16 + g, lb = la + 8;
+  const int ka = k0 + la, kb = k0 + lb;
+  float dk_acc[DT][4], dv_acc[DT][4];
+  zero_acc<DT>(dk_acc);
+  zero_acc<DT>(dv_acc);
+  float dsum[2] = {0.f, 0.f};
+
+  int stage = 0;
+  for (int qt = first; qt < end; ++qt) {
+    if (qt + 1 < end) load_q(qt + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const Elt* qs = ring + stage * 2 * BQ * LD;
+    const Elt* dos = qs + BQ * LD;
+    const float* ls = lse_s + stage * BQ;
+    const float* ds_ = delta_s + stage * BQ;
+
+    float s[NQ][4], dp[NQ][4];  // S^T and dP^T: rows ka, kb; columns q rows 8 j + 2 t (+1)
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    R::template nt<NQ, DT>(s, ks + warp * 16 * LD, qs, LD, D);
+    R::template nt<NQ, DT>(dp, vs + warp * 16 * LD, dos, LD, D);
+    const bool key_ok[2] = {ka < T && mk[la] > kMaskPad, kb < T && mk[lb] > kMaskPad};
+    const float mask_log2[2] = {mk[la] * kLog2e, mk[lb] * kLog2e};
+    // every (key, q row) pair of the tile valid: no flag to test
+    const bool full = all_keys && (qt + 1) * BQ <= T && (!causal || qt * BQ >= k0 + kRows - 1);
+    auto probabilities = [&](auto all_valid_tag) {
+      constexpr bool all_valid = decltype(all_valid_tag)::value;
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int lq = 8 * j + 2 * t + (e & 1), qrow = qt * BQ + lq, key = e < 2 ? ka : kb;
+          const bool valid = all_valid || (key_ok[e >> 1] && qrow < T && (!causal || qrow >= key));
+          const float p = valid ? ex2(fmaf(s[j][e], scale_log2, fmaf(ls[lq], -kLog2e, mask_log2[e >> 1]))) : 0.f;
+          const float ds = p * (dp[j][e] - ds_[lq]);
+          s[j][e] = p;
+          dp[j][e] = ds;
+          dsum[e >> 1] += ds;
+        }
+    };
+    if (full) {
+      probabilities(std::true_type{});
+    } else {
+      probabilities(std::false_type{});
+    }
+    R::template nn<NQ, DT>(dv_acc, s, dos, LD, D);  // dV += P^T.dO
+    R::template nn<NQ, DT>(dk_acc, dp, qs, LD, D);  // dK += dS^T.Q
+    __syncthreads();  // the next copy overwrites this stage
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+  store_rows<Elt, DT>(dk_acc, scale, dk + head, k0 + warp * 16, T, D);
+  store_rows<Elt, DT>(dv_acc, 1.f, dv + head, k0 + warp * 16, T, D);
+  if (dmask_part) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x = dsum[h];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      const int key = h ? kb : ka;
+      if (t == 0 && key < T) dmask_part[static_cast<size_t>(bh) * T + key] = x;
+    }
+  }
+}
+
+// (iii) dQ
+template <typename R, int DT>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const typename R::Elt* __restrict__ q, const typename R::Elt* __restrict__ k,
+                    const typename R::Elt* __restrict__ v, const float* __restrict__ mask,
+                    const float* __restrict__ lse, const typename R::Elt* __restrict__ dout,
+                    const float* __restrict__ delta, typename R::Elt* __restrict__ dq, int T, int D, int H,
+                    int causal, float scale) {
+  using Elt = typename R::Elt;
+  constexpr int DP = 8 * DT;
+  constexpr int LD = row_stride<Elt>(DP);
+  constexpr int NK = kBK / 8;  // n8 tiles of keys
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Elt* qs = reinterpret_cast<Elt*>(smem_raw);  // kRows x LD
+  Elt* dos = qs + kRows * LD;
+  Elt* ring = dos + kRows * LD;  // two stages of (K tile, V tile), kBK x LD each
+  float* lse_s = reinterpret_cast<float*>(ring + 4 * kBK * LD);  // kRows
+  float* delta_s = lse_s + kRows;                                 // kRows
+  float* mk = delta_s + kRows;                                    // two stages of kBK
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  // causal: the last q tile (the longest walk) first
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kRows;
+  const size_t head = static_cast<size_t>(bh) * T * D;
+  const float* mrow = mask + static_cast<size_t>(bh / H) * T;
+  const float scale_log2 = scale * kLog2e;
+
+  zero_padding<kThreads>(qs, LD, 2 * kRows + 4 * kBK, D, DP);
+  const bool vec = rows_aligned<Elt>(D, q, k, v) && rows_aligned<Elt>(D, dout, dout, dout);
+  auto load_k = [&](int tile, int stage) {
+    Elt* kt = ring + stage * 2 * kBK * LD;
+    load_rows<kThreads, DP>(kt, LD, k + head, tile * kBK, kBK, T, D, vec);
+    load_rows<kThreads, DP>(kt + kBK * LD, LD, v + head, tile * kBK, kBK, T, D, vec);
+    load_floats<kThreads>(mk + stage * kBK, mrow, tile * kBK, kBK, T);
+  };
+  int end = (T + kBK - 1) / kBK;
+  if (causal) end = min(end, (q0 + kRows + kBK - 1) / kBK);
+  int tile = next_tile(mrow, 0, end, T);
+  // Q, dO, lse and Dr travel with the first tile
+  load_rows<kThreads, DP>(qs, LD, q + head, q0, kRows, T, D, vec);
+  load_rows<kThreads, DP>(dos, LD, dout + head, q0, kRows, T, D, vec);
+  load_floats<kThreads>(lse_s, lse + static_cast<size_t>(bh) * T, q0, kRows, T);
+  load_floats<kThreads>(delta_s, delta + static_cast<size_t>(bh) * T, q0, kRows, T);
+  if (tile < end) load_k(tile, 0);
+  cp_async_commit();
+
+  const int la = warp * 16 + g, lb = la + 8;
+  const int qa = q0 + la, qb = q0 + lb;
+  float dq_acc[DT][4];
+  zero_acc<DT>(dq_acc);
+
+  int stage = 0;
+  while (tile < end) {
+    const int next = next_tile(mrow, tile + 1, end, T);
+    if (next < end) load_k(next, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const Elt* kt = ring + stage * 2 * kBK * LD;
+    const Elt* vt = kt + kBK * LD;
+    const float* ms = mk + stage * kBK;
+    const int k0 = tile * kBK;
+
+    float s[NK][4], dp[NK][4];  // S and dP: rows qa, qb; columns keys 8 j + 2 t (+1)
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    R::template nt<NK, DT>(s, qs + warp * 16 * LD, kt, LD, D);
+    R::template nt<NK, DT>(dp, dos + warp * 16 * LD, vt, LD, D);
+    const float lse_log2[2] = {lse_s[la] * kLog2e, lse_s[lb] * kLog2e};
+    const bool keys_valid = __all_sync(0xffffffffu, k0 + lane < T && ms[lane] > kMaskPad &&
+                                                        k0 + lane + 32 < T && ms[lane + 32] > kMaskPad);
+    // every (q row, key) pair of the warp's tile valid: no flag to test
+    const bool full = keys_valid && q0 + kRows <= T && (!causal || k0 + kBK - 1 <= q0 + warp * 16);
+    auto grads = [&](auto all_valid_tag) {
+      constexpr bool all_valid = decltype(all_valid_tag)::value;
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int lk = 8 * j + 2 * t + (e & 1), key = k0 + lk;
+          const int qrow = e < 2 ? qa : qb;
+          const float mv = ms[lk];
+          const bool valid = all_valid || (key < T && qrow < T && mv > kMaskPad && (!causal || qrow >= key));
+          const float p = valid ? ex2(fmaf(s[j][e], scale_log2, fmaf(mv, kLog2e, -lse_log2[e >> 1]))) : 0.f;
+          dp[j][e] = p * (dp[j][e] - delta_s[e < 2 ? la : lb]);
+        }
+    };
+    if (full) {
+      grads(std::true_type{});
+    } else {
+      grads(std::false_type{});
+    }
+    R::template nn<NK, DT>(dq_acc, dp, kt, LD, D);  // dQ += dS.K
+    __syncthreads();
+    tile = next;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+  store_rows<Elt, DT>(dq_acc, scale, dq + head, q0 + warp * 16, T, D);
+}
+
+template <typename R, int DT>
+int launch_grads(const typename R::Elt* q, const typename R::Elt* k, const typename R::Elt* v, const float* mask,
+                 const float* lse, const typename R::Elt* dout, const float* delta, typename R::Elt* dq,
+                 typename R::Elt* dk, typename R::Elt* dv, float* dmask_part, int bh, int T, int D, int H,
+                 int causal, float scale, cudaStream_t stream) {
+  using Elt = typename R::Elt;
+  constexpr size_t kv_smem = dkdv_smem<Elt, DT>(), q_smem = dq_smem<Elt, DT>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<R, DT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kv_smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<R, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(q_smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh, (T + kRows - 1) / kRows);
+  flash_bwd_dkdv_kernel<R, DT><<<grid, kThreads, kv_smem, stream>>>(q, k, v, mask, lse, dout, delta, dk, dv,
+                                                                     dmask_part, T, D, H, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_kernel<R, DT><<<grid, kThreads, q_smem, stream>>>(q, k, v, mask, lse, dout, delta, dq, T, D, H,
+                                                                   causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename R>
+int dispatch(const void* q, const void* k, const void* v, const float* mask, const void* out, const float* lse,
+             const void* dout, void* dq, void* dk, void* dv, float* delta, float* dmask_part, int bh, int T, int D,
+             int H, int causal, float scale, void* stream) {
+  using Elt = typename R::Elt;
+  if (bh <= 0 || T <= 0) return 0;
+  if (D < 1 || D > kMaxD || H < 1 || bh % H != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = bh * T;
+  flash_bwd_delta_kernel<Elt><<<(rows + 7) / 8, 256, 0, s>>>(static_cast<const Elt*>(out),
+                                                             static_cast<const Elt*>(dout), delta, rows, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto args = [&](auto launcher) {
+    return launcher(static_cast<const Elt*>(q), static_cast<const Elt*>(k), static_cast<const Elt*>(v), mask, lse,
+                    static_cast<const Elt*>(dout), delta, static_cast<Elt*>(dq), static_cast<Elt*>(dk),
+                    static_cast<Elt*>(dv), dmask_part, bh, T, D, H, causal, scale, s);
+  };
+  if (D <= 64) return args(launch_grads<R, 8>);
+  return args(launch_grads<R, 16>);
+}
+
+}  // namespace
+
+// C entries, loaded with ctypes. q, k, v, out, dout, dq, dk, dv: (bh, T, D)
+// contiguous, fp32 or bf16 by the entry's name; mask: (bh / H, T) fp32;
+// lse: (bh, T) fp32 from the forward; delta: (bh, T) fp32 scratch;
+// dmask_part: (bh, T) fp32, each key's sum of dS over q rows per head, or
+// null where the mask needs no gradient. Each launches its three kernels on
+// `stream`, does not synchronise, and returns cudaGetLastError() so a
+// refused launch is reported at once.
+extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v, const float* mask,
+                                       const void* out, const float* lse, const void* dout, void* dq, void* dk,
+                                       void* dv, float* delta, float* dmask_part, int bh, int T, int D, int H,
+                                       int causal, float scale, void* stream) {
+  return dispatch<F32Route>(q, k, v, mask, out, lse, dout, dq, dk, dv, delta, dmask_part, bh, T, D, H, causal,
+                            scale, stream);
+}
+
+extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v, const float* mask,
+                                        const void* out, const float* lse, const void* dout, void* dq, void* dk,
+                                        void* dv, float* delta, float* dmask_part, int bh, int T, int D, int H,
+                                        int causal, float scale, void* stream) {
+  return dispatch<Bf16Route>(q, k, v, mask, out, lse, dout, dq, dk, dv, delta, dmask_part, bh, T, D, H, causal,
+                             scale, stream);
+}

@@ -6,10 +6,12 @@ into a shared object under the package's ``_build/`` directory
 include, so an edited kernel or header is never served from a stale build.
 The fused PowerSGD library links K1's source too: K3's two-launch route
 launches K1 itself, and K3's one-launch route runs K1's per-CTA code from
-the shared header ``gram_schmidt_cta.cuh``. Nothing here runs at import
-time: a wrapper calls :func:`load` (through :class:`Kernel`) the first time
-it launches its kernel, and ``chip_smoke.py`` calls :func:`build_all` to
-compile every library in parallel up front.
+the shared header ``gram_schmidt_cta.cuh``. Flash attention's forward and
+backward are two libraries sharing ``flash_attention_mma.cuh``. Nothing
+here runs at import time: a wrapper calls :func:`load` (through
+:class:`Kernel`) the first time it launches its kernel, and
+``chip_smoke.py`` calls :func:`build_all` to compile every library in
+parallel up front.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = {
     "gram_schmidt": ("gram_schmidt.cu", "gram_schmidt_cta.cuh"),
     "powersgd": ("powersgd.cu", "gram_schmidt.cu", "gram_schmidt_cta.cuh"),
-    "flash_attention": ("flash_attention.cu",),
+    "flash_attention": ("flash_attention.cu", "flash_attention_mma.cuh"),
+    "flash_attention_bwd": ("flash_attention_bwd.cu", "flash_attention_mma.cuh"),
 }
 
 NVCC_FLAGS = [

@@ -1,20 +1,23 @@
-"""Flash attention (K5): the CUDA kernel, its plain version, the blockwise
-backward and the wrapper.
+"""Flash attention (K5): the CUDA kernels, forward and backward, their
+plain versions and the wrapper.
 
 Replaces the JAX package's ``ops/flash_attention.py``: ``_flash_kernel``,
 the Pallas TPU kernel behind ``flash_attention``, becomes
-``csrc/flash_attention.cu`` (its header says how it is laid out on Hopper
-and what bounds it). Exact softmax attention over folded ``(B*H, T, D)``
-heads with scale ``1/sqrt(D)`` applied to q, an additive ``(B, T)`` key
-mask shared over heads, and the per-row log-sum-exp.
+``csrc/flash_attention.cu``, and ``_flash_bwd_chunked``, its ``custom_vjp``
+backward (a ``lax.scan`` in the JAX package), becomes
+``csrc/flash_attention_bwd.cu`` (each source's header says how it is laid
+out on Hopper and what bounds it). Exact softmax attention over folded
+``(B*H, T, D)`` heads with scale ``1/sqrt(D)`` applied to q, an additive
+``(B, T)`` key mask shared over heads, and the per-row log-sum-exp.
 
-- :func:`flash_attention_reference` is the plain version, ``_flash_kernel``
-  step by step over ``(block_q, block_k)`` tiles;
-- :func:`flash_attention_bwd` is ``_flash_bwd_chunked`` (a ``lax.scan`` in
-  the JAX package, not a Pallas kernel) as PyTorch tensor code, one K block
-  at a time, so the ``(T, T)`` scores never exist whole;
-- :func:`flash_attention_fwd` is the forward on folded heads: the kernel on
-  CUDA tensors, the plain version on CPU tensors, nothing else;
+- :func:`flash_attention_reference` is the forward's plain version,
+  ``_flash_kernel`` step by step over ``(block_q, block_k)`` tiles;
+- :func:`flash_attention_bwd` is the backward's plain version,
+  ``_flash_bwd_chunked`` as PyTorch tensor code, one K block at a time, so
+  the ``(T, T)`` scores never exist whole;
+- :func:`flash_attention_fwd` and :func:`flash_attention_vjp` are the
+  forward and the backward on folded heads: the kernel on CUDA tensors,
+  the plain version on CPU tensors, nothing else;
 - :func:`flash_attention` is the public wrapper with the JAX signature and
   ``(B, T, H, D)`` layout, differentiable through a
   ``torch.autograd.Function``.
@@ -24,13 +27,14 @@ validity flag, never by exp underflow: a padding value of ``-1e30`` ties the
 running-max start, and ``finfo(f32).min`` plus a score can round to -inf.
 A fully masked row gives out = 0 and lse = ``_LSE_EMPTY``.
 
-On CUDA the kernel takes q, k and v all fp32 or all bf16 (the mask stays
-fp32) and raises ``TypeError`` on any other dtype or a mix; bf16 heads are
-read as bf16 by the kernel, never copied to fp32 first, and ``out`` comes
-back in their dtype, ``lse`` in fp32, as the JAX kernel gives them. The
-plain version and the backward widen every tile to fp32 and round ``out``
-and each gradient to its input's dtype once, at the end. The folding
-transposes stay torch copies.
+On CUDA the kernels take q, k and v all fp32 or all bf16 (the mask stays
+fp32; the backward's out and dO in the heads' dtype) and raise
+``TypeError`` on any other dtype or a mix; bf16 heads are read as bf16 by
+the kernels, never copied to fp32 first, and ``out`` and the gradients come
+back in their dtype, ``lse`` and the mask's gradient in fp32, as the JAX
+functions give them. The plain versions widen every tile to fp32 and round
+``out`` and each gradient to its input's dtype once, at the end; so do the
+kernels. The folding transposes stay torch copies.
 """
 
 from __future__ import annotations
@@ -58,6 +62,18 @@ KERNELS = {
 }
 KERNEL = KERNELS[torch.float32]
 KERNEL_BF16 = KERNELS[torch.bfloat16]
+# q, k, v, mask, out, lse, do, dq, dk, dv, the (BH, T) fp32 scratch of
+# rowsum(dO * out), the (BH, T) fp32 per-head column sums of dS (or null:
+# no mask gradient); bh, T, D, H, causal; scale
+_BWD_ARGS = [_P] * 12 + [_I] * 5 + [_F]
+# the backward, one entry per dtype (three launches behind each, counted as
+# one), by kind as the forward
+BWD_KERNELS = {
+    torch.float32: _build.Kernel("flash_attention_bwd", "flash_attention_bwd", "flash_attention_bwd_f32", _BWD_ARGS),
+    torch.bfloat16: _build.Kernel(
+        "flash_attention_bwd_bf16", "flash_attention_bwd", "flash_attention_bwd_bf16", _BWD_ARGS
+    ),
+}
 
 
 # ---- plain versions ------------------------------------------------------
@@ -162,28 +178,37 @@ def flash_attention_bwd(
     return dq.to(qf.dtype), dk.to(kf.dtype), dv.to(vf.dtype), dmask
 
 
-# ---- the kernel ----------------------------------------------------------
+# ---- the kernels ---------------------------------------------------------
 
 
-def _launch(qf, kf, vf, mask, causal: bool, scale: float):
-    name = "flash_attention"
-    devices = {x.device for x in (qf, kf, vf, mask)}
+def _check(name, qf, kf, vf, mask, *others):
+    """What both kernels need of their operands: one CUDA device; q, k, v
+    (and ``others``, the backward's out and dO) all fp32 or all bf16, of one
+    (BH, T, D) shape; an fp32 (B, T) mask; D <= 128; int indexing."""
+    devices = {x.device for x in (qf, kf, vf, mask, *others)}
     if len(devices) != 1:
         raise ValueError(f"{name}: operands on {sorted(map(str, devices))}; need one CUDA device")
-    dtypes = (qf.dtype, kf.dtype, vf.dtype)
+    what = "q, k, v, out, do" if others else "q, k, v"
+    dtypes = tuple(x.dtype for x in (qf, kf, vf, *others))
     if qf.dtype not in KERNELS or len(set(dtypes)) != 1:
-        raise TypeError(f"{name}: the CUDA kernel takes q, k, v all float32 or all bfloat16, got {dtypes}")
+        raise TypeError(f"{name}: the CUDA kernel takes {what} all float32 or all bfloat16, got {dtypes}")
     if mask.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes a float32 mask, got {mask.dtype}")
     bh, t, d = qf.shape
-    if kf.shape != qf.shape or vf.shape != qf.shape:
-        raise ValueError(f"{name}: q, k, v shapes {tuple(qf.shape)}, {tuple(kf.shape)}, {tuple(vf.shape)} differ")
+    shapes = [tuple(x.shape) for x in (qf, kf, vf, *others)]
+    if len(set(shapes)) != 1:
+        raise ValueError(f"{name}: {what} shapes {shapes} differ")
     if mask.dim() != 2 or mask.shape[1] != t or bh % mask.shape[0]:
         raise ValueError(f"{name}: mask {tuple(mask.shape)} does not fit {bh} heads of length {t}")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {d} > {MAX_HEAD_DIM}")
     if bh * t * d >= 2**31:
         raise ValueError(f"{name}: {bh} x {t} x {d} is too large for the kernel's int indexing")
+
+
+def _launch(qf, kf, vf, mask, causal: bool, scale: float):
+    _check("flash_attention", qf, kf, vf, mask)
+    bh, t, d = qf.shape
     qf, kf, vf, mask = (x.contiguous() for x in (qf, kf, vf, mask))
     out = torch.empty_like(qf)
     lse = torch.empty((bh, t), dtype=torch.float32, device=qf.device)
@@ -194,6 +219,31 @@ def _launch(qf, kf, vf, mask, causal: bool, scale: float):
             kind="causal" if causal else "masked",
         )
     return out, lse
+
+
+def _launch_bwd(qf, kf, vf, mask, out, lse, do, causal: bool, scale: float, need_dmask: bool):
+    name = "flash_attention backward"
+    if do.dtype != out.dtype:
+        raise TypeError(f"{name}: do is {do.dtype}, out {out.dtype}; the CUDA kernel takes them of one dtype")
+    _check(name, qf, kf, vf, mask, out, do)
+    bh, t, d = qf.shape
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (bh, t) or lse.device != qf.device:
+        raise ValueError(
+            f"{name}: lse must be float32 ({bh}, {t}) on {qf.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}"
+        )
+    qf, kf, vf, mask, out, lse, do = (x.contiguous() for x in (qf, kf, vf, mask, out, lse, do))
+    dq, dk, dv = (torch.empty_like(qf) for _ in range(3))
+    delta = torch.empty((bh, t), dtype=torch.float32, device=qf.device)
+    part = torch.zeros((bh, t), dtype=torch.float32, device=qf.device) if need_dmask else None
+    if dq.numel():
+        BWD_KERNELS[qf.dtype].launch(
+            qf.device, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            part.data_ptr() if need_dmask else None, bh, t, d, bh // mask.shape[0], int(causal), scale,
+            kind="causal" if causal else "masked",
+        )
+    dmask = part.view(mask.shape[0], bh // mask.shape[0], t).sum(1) if need_dmask else None
+    return dq, dk, dv, dmask
 
 
 def flash_attention_fwd(qf, kf, vf, mask, causal: bool, block_q: int, block_k: int, scale: float):
@@ -208,6 +258,19 @@ def flash_attention_fwd(qf, kf, vf, mask, causal: bool, block_q: int, block_k: i
     return _launch(qf, kf, vf, mask, causal, scale)
 
 
+def flash_attention_vjp(qf, kf, vf, mask, out, lse, do, causal: bool, block_k: int, scale: float, need_dmask: bool):
+    """The backward on folded heads, ``(dq, dk, dv, dmask)`` (dmask None
+    unless ``need_dmask``): the plain version on CPU tensors, the kernel on
+    CUDA tensors (its own 64-row tiles; the results agree with the plain
+    version's up to fp32 summation order, before a bf16 gradient's one
+    rounding)."""
+    if qf.device.type == "cpu":
+        return flash_attention_bwd(qf, kf, vf, mask, out, lse, do, causal, block_k, scale, need_dmask)
+    if qf.device.type != "cuda":
+        raise ValueError(f"flash_attention backward: unsupported device {qf.device}")
+    return _launch_bwd(qf, kf, vf, mask, out, lse, do, causal, scale, need_dmask)
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qf, kf, vf, mask, causal, block_q, block_k, scale):
@@ -219,9 +282,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         qf, kf, vf, mask, out, lse = ctx.saved_tensors
-        dq, dk, dv, dmask = flash_attention_bwd(
-            qf, kf, vf, mask, out, lse, do, ctx.causal, ctx.block_k, ctx.scale,
-            need_dmask=ctx.needs_input_grad[3],
+        dq, dk, dv, dmask = flash_attention_vjp(
+            qf, kf, vf, mask, out, lse, do, ctx.causal, ctx.block_k, ctx.scale, ctx.needs_input_grad[3]
         )
         return dq, dk, dv, dmask, None, None, None, None
 

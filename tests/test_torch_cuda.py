@@ -3,15 +3,17 @@ kernel (with the route and cluster size it takes for the word table's
 height and for small matrices), the fused PowerSGD kernels
 (``ops/powersgd.py``: ragged and misaligned stacks, K3's P-hat equal to the
 Gram-Schmidt kernel's bit for bit, two launches giving the same bits) and
-the flash attention kernel
+the flash attention kernels, forward and backward
 (``ops/flash_attention.py``, fp32 and bf16, with left padding, a lone real
-key, a ragged T, GPT's causal T = 1024 and NaN in the key tiles it must
-skip) against their plain versions, the
+key, a ragged T, GPT's causal T = 1024 and NaN in the key tiles they must
+skip; the backward also through ``torch.autograd`` with the mask's
+gradient, and two calls bitwise equal) against their plain versions, the
 PowerSGD reducer launching its kernels once per shape group,
 DistilBERT launching flash attention once per layer, exact-DDP steps of the
 small ResNet-18 on the card against the CPU, the single-node IMDb
-baseline running flash attention on the card, and the tiny GPT training
-(K5 causal, fp32 and bf16) and generating on the card.
+baseline running flash attention (forward and backward) on the card, and
+the tiny GPT training (K5 causal forward and backward, fp32 and bf16) and
+generating on the card.
 
 This file imports torch and the port, never jax, so it also runs on a
 machine that has the card and no JAX (``--noconftest`` skips the JAX
@@ -30,7 +32,9 @@ M = G + E is one rounded add, so it must be bitwise equal. Flash attention:
 out within ``1e-5 * max(1, max|plain|)`` and lse within 1e-5 relative (fp32
 sums over the keys in another order, the kernel in 64-key tiles); a fully
 masked row exactly 0 with lse 1e30. A bf16 out: that bound plus 1 bf16 ulp
-of the element (both sides sum in fp32 and round once).
+of the element (both sides sum in fp32 and round once). The backward's
+gradients are held like out: fp32 within ``1e-5 * max(1, max|plain|)``,
+bf16 that plus 1 bf16 ulp; the mask's gradient (fp32) like an fp32 one.
 """
 
 import numpy as np
@@ -394,12 +398,13 @@ def _close_bf16(got, want):
 @pytest.mark.parametrize(
     "b,t,h,d,causal,padded",
     [(4, 256, 12, 64, False, True), (2, 1024, 4, 64, True, False), (3, 100, 2, 40, False, True),
-     (2, 64, 2, 128, True, True), (2, 256, 2, 128, True, False)],
+     (2, 64, 2, 128, True, True), (2, 256, 2, 128, True, False), (2, 200, 2, 64, True, True)],
 )
 def test_flash_attention_bf16_kernel_matches_plain(cuda_device, b, t, h, d, causal, padded):
     """K5 on bf16 q, k, v against its plain version on the same bf16
-    inputs: masked, causal (GPT's T = 1024), a ragged T, D = 40 and 128;
-    out in bf16 with no fp32 copy of the inputs, lse in fp32."""
+    inputs: masked, causal (GPT's T = 1024, and a ragged T = 200 whose q
+    tiles run last first), a ragged T, D = 40 and 128; out in bf16 with no
+    fp32 copy of the inputs, lse in fp32."""
     q, k, v, mask = _attention_inputs(b * h, t, d, h, cuda_device, seed=54)
     if not padded:
         mask = torch.zeros_like(mask)
@@ -436,6 +441,156 @@ def test_flash_attention_bf16_kernel_skips_all_padding_tiles(cuda_device, causal
     _close_bf16(clean[0], want_out)
 
 
+def _close_grad(got, want):
+    """A gradient of the backward kernel against the plain version's: fp32
+    within 1e-5 * max(1, max|plain|), bf16 that plus 1 bf16 ulp."""
+    if want.dtype == torch.bfloat16:
+        _close_bf16(got, want)
+    else:
+        _close_scaled(got, want)
+
+
+# b, t, h, d, causal, the real keys of each batch row (None: the padded
+# mask of _attention_inputs, with a fully masked row; "none": no mask)
+_BWD_CASES = {
+    "padded": (4, 256, 12, 64, False, None),
+    "gpt_causal_1024": (2, 1024, 4, 64, True, "none"),
+    "ragged_t100_d40": (3, 100, 2, 40, False, None),
+    "d128_causal_padded": (2, 256, 2, 128, True, None),
+    "left_padding": (2, 256, 3, 64, False, [slice(214, 256), slice(192, 256)]),
+    # two real keys, each alone in its tile (a row with a single real key has
+    # dq = dk = 0 exactly, where both fp32 versions return rounding noise)
+    "lone_middle_keys": (2, 256, 3, 64, False, [[100, 230], slice(0, 20)]),
+}
+
+
+def _bwd_case(case, dtype, dev, seed=60):
+    b, t, h, d, causal, keys = _BWD_CASES[case]
+    q, k, v, mask = _attention_inputs(b * h, t, d, h, dev, seed=seed)
+    if keys == "none":
+        mask = torch.zeros_like(mask)
+    elif keys is not None:
+        mask = _padded_mask(b, t, keys, dev)
+    do = torch.from_numpy(np.random.RandomState(seed + 1).randn(b * h, t, d).astype(np.float32)).to(dev)
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, 128, 128, d**-0.5)
+    return (q, k, v, mask, out, lse, do), causal, h, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(_BWD_CASES))
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, case, dtype):
+    """K5's backward kernel against ``flash_attention_bwd`` on the same
+    inputs and the forward kernel's own out and lse: dq, dk, dv in the
+    heads' dtype, one launch a call, two calls bitwise equal, and a fully
+    masked head's gradients exactly 0."""
+    args, causal, h, d = _bwd_case(case, dtype, cuda_device)
+    kernel = fa.BWD_KERNELS[dtype]
+    launches = kernel.by_kind["causal" if causal else "masked"]
+    got = fa.flash_attention_vjp(*args, causal, 128, d**-0.5, False)
+    again = fa.flash_attention_vjp(*args, causal, 128, d**-0.5, False)
+    torch.cuda.synchronize()
+    assert kernel.by_kind["causal" if causal else "masked"] == launches + 2
+    assert got[3] is None
+    block = args[0].shape[1] if args[0].shape[1] % 64 else 64
+    want = fa.flash_attention_bwd(*args, causal, block, d**-0.5, need_dmask=False)
+    for g, a, w in zip(got[:3], again[:3], want[:3]):
+        assert g.dtype == dtype and torch.equal(g, a)
+        _close_grad(g, w)
+    empty = (args[3] <= -1e29).all(dim=1).repeat_interleave(h)
+    for g in got[:3]:
+        assert torch.all(g[empty] == 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_bwd_kernel_skips_all_padding_tiles(cuda_device, causal, dtype):
+    """NaN in K and V of every 64-key tile that holds only padding leaves dq
+    and the real keys' dk and dv bitwise unchanged: those tiles are not
+    read; every padded key's dk and dv is exactly 0."""
+    b, t, h, d = 3, 256, 2, 64
+    q, k, v, _ = _attention_inputs(b * h, t, d, h, cuda_device, seed=61)
+    mask = _padded_mask(b, t, [slice(0, 42), [5, 130], slice(0, 256)], cuda_device)
+    do = torch.randn((b * h, t, d), generator=torch.Generator().manual_seed(62)).to(cuda_device)
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, 128, 128, d**-0.5)
+    clean = fa.flash_attention_vjp(q, k, v, mask, out, lse, do, causal, 128, d**-0.5, False)
+    empty = (mask.view(b, t // 64, 64) <= -1e29).all(-1).repeat_interleave(h, 0)
+    assert empty.any()
+    poison = empty.repeat_interleave(64, 1)[..., None]
+    kp, vp = (torch.where(poison, float("nan"), x) for x in (k, v))
+    dirty = fa.flash_attention_vjp(q, kp, vp, mask, out, lse, do, causal, 128, d**-0.5, False)
+    torch.cuda.synchronize()
+    real = (mask > -1e29).repeat_interleave(h, 0)
+    assert torch.equal(dirty[0], clean[0])
+    for x, y in zip(dirty[1:3], clean[1:3]):
+        assert torch.equal(x[real], y[real])
+        assert torch.all(x[~real] == 0.0) and torch.all(y[~real] == 0.0)
+    want = fa.flash_attention_bwd(q, k, v, mask, out, lse, do, causal, 64, d**-0.5, need_dmask=False)
+    for g, w in zip(clean[:3], want[:3]):
+        _close_grad(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_autograd_on_the_card_matches_plain(cuda_device, causal, dtype):
+    """``torch.autograd`` through ``flash_attention`` on the card runs the
+    forward and backward kernels once each and gives the plain backward's
+    gradients in q, k, v and the mask (the mask's in fp32)."""
+    b, t, h, d = 2, 192, 3, 64
+    rng = np.random.RandomState(63)
+    q, k, v, w = (torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).to(cuda_device) for _ in range(4))
+    q, k, v, w = (x.to(dtype) for x in (q, k, v, w))
+    mask = torch.zeros((b, t), device=cuda_device)
+    mask[1, 150:] = -1e30
+    mask[0, 7] = -0.5  # a real key with a nonzero additive mask
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, mask)]
+    kernels = (fa.KERNELS[dtype], fa.BWD_KERNELS[dtype])
+    before = [x.launches for x in kernels]
+    out = fa.flash_attention(*leaves[:3], leaves[3], causal=causal, block_q=64, block_k=64)
+    (out.float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert [x.launches - n for x, n in zip(kernels, before)] == [1, 1]
+
+    def fold(x):
+        return x.permute(0, 2, 1, 3).reshape(b * h, t, d).contiguous()
+
+    qf, kf, vf, do = fold(q), fold(k), fold(v), fold(w)
+    fout, lse = fa.flash_attention_fwd(qf, kf, vf, mask, causal, 64, 64, d**-0.5)
+    want = fa.flash_attention_bwd(qf, kf, vf, mask, fout, lse, do, causal, 64, d**-0.5, need_dmask=True)
+    for leaf, wg in zip(leaves[:3], want[:3]):
+        _close_grad(fold(leaf.grad), wg)
+    assert leaves[3].grad.dtype == torch.float32
+    _close_scaled(leaves[3].grad, want[3])
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_refuses_other_dtypes(cuda_device):
+    """The backward kernel takes q, k, v, out and dO all fp32 or all bf16:
+    fp16, a mix of heads, or a dO of another dtype than out raises before
+    any launch."""
+    dev = cuda_device
+    mask, lse = torch.zeros((1, 16), device=dev), torch.zeros((2, 16), device=dev)
+
+    def heads(dtype):
+        return torch.zeros((2, 16, 8), dtype=dtype, device=dev)
+
+    f32, bf, half = heads(torch.float32), heads(torch.bfloat16), heads(torch.float16)
+    launches = {k: v.launches for k, v in fa.BWD_KERNELS.items()}
+    for args in (
+        (half, half, half, mask, half, lse, half),
+        (bf, f32, f32, mask, f32, lse, f32),
+        (f32, f32, f32, mask, f32, lse, bf),
+        (bf, bf, bf, mask, bf, lse, f32),
+    ):
+        with pytest.raises(TypeError):
+            fa.flash_attention_vjp(*args, False, 16, 0.3, False)
+    assert {k: v.launches for k, v in fa.BWD_KERNELS.items()} == launches
+
+
 @pytest.mark.cuda
 def test_distilbert_forward_launches_flash_attention_per_layer(cuda_device):
     """One forward of the tiny DistilBERT on the card launches K5 once per
@@ -457,15 +612,16 @@ def test_distilbert_forward_launches_flash_attention_per_layer(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gpt_lm_and_generate_run_on_the_card(cuda_device, dtype):
-    """The tiny GPT trains on the card with K5 causal once per layer and
-    step (the kernel of q's dtype), and generates greedily: the same
+    """The tiny GPT trains on the card with K5 causal, forward and backward,
+    once per layer and step (the kernels of q's dtype), and generates
+    greedily: the same
     tokens as the CPU where the top two logits stand apart."""
     cfg = gpt_lm.default_config()
     cfg.compute_dtype = dtype
-    kernel = fa.KERNELS[getattr(torch, dtype)]
-    launches = kernel.by_kind["causal"]
+    kernels = (fa.KERNELS[getattr(torch, dtype)], fa.BWD_KERNELS[getattr(torch, dtype)])
+    launches = [k.by_kind["causal"] for k in kernels]
     out = gpt_lm.run(cfg, preset="small", device=cuda_device, max_steps_per_epoch=2)
-    assert kernel.by_kind["causal"] - launches == 2 * 2  # 2 steps, 2 layers
+    assert [k.by_kind["causal"] - n for k, n in zip(kernels, launches)] == [2 * 2] * 2  # 2 steps, 2 layers
     assert out["steps"] == 2 and np.isfinite(out["losses"]).all()
     assert out["shape_groups"] == 3 and out["compute_dtype"] == dtype
     gcfg = gpt_generate.default_config()
@@ -528,14 +684,16 @@ def test_exact_cifar10_small_on_the_card_matches_the_cpu(cuda_device, exact_conv
 @pytest.mark.cuda
 @pytest.mark.parametrize("optimizer_name", ["sgd_nesterov", "adamw"])
 def test_imdb_baseline_runs_flash_attention_on_the_card(cuda_device, optimizer_name):
-    """The single-node baseline on the card: K5 once per layer and step (no
-    fallback to its plain version), finite losses, the gradient's bits."""
+    """The single-node baseline on the card: K5's forward and backward once
+    per layer and step (no fallback to their plain versions), finite
+    losses, the gradient's bits."""
     cfg = imdb_baseline.default_config(optimizer_name)
     cfg.training_epochs = 1
-    launches = fa.KERNEL.launches
+    kernels = (fa.KERNEL, fa.BWD_KERNELS[torch.float32])
+    launches = [k.launches for k in kernels]
     out = imdb_baseline.run(cfg, preset="small", device=cuda_device, max_steps_per_epoch=2, optimizer_name=optimizer_name)
     model = distilbert_tiny(device="cpu")
-    assert fa.KERNEL.launches - launches == 2 * model.config.n_layers
+    assert [k.launches - n for k, n in zip(kernels, launches)] == [2 * model.config.n_layers] * 2
     assert out["steps"] == 2
     assert np.isfinite(out["losses"]).all()
     assert out["bits_per_step"] == 32 * sum(p.numel() for p in model.parameters())
