@@ -67,6 +67,7 @@
 // plain first.
 
 #include "flash_attention_mma.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -517,6 +518,365 @@ int launch_grads(const typename R::Elt* q, const typename R::Elt* k, const typen
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16 heads, D <= 64: warpgroup products (csrc/wgmma_bf16.cuh) ----------
+//
+// One warpgroup (the block's 4 warps) per block; every shared tile is a
+// swizzled 64 x 64 bf16 tile. The elementwise code between the products is
+// the mma.sync kernels' own: warp w holds rows 16 w .. 16 w + 15 of each
+// 64 x 64 accumulator in m16n8 C fragments.
+
+using Bf16 = __nv_bfloat16;
+
+// six swizzled tiles, and 1024 bytes to align them, before `floats` fp32
+constexpr int wgmma_smem(int floats) { return 6 * kSwTileBytes + 1024 + 4 * floats; }
+
+// S (or S^T, dP, dP^T): c = A.B^T over D, A and B K-major tiles
+__device__ __forceinline__ void products_nt(float (&c)[8][4], const unsigned char* a, const unsigned char* b,
+                                            int ksteps) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk >= ksteps) break;
+    wgmma_ss<0>(c, desc_k_major(a, kk), desc_k_major(b, kk), kk);
+  }
+}
+
+// c += A.B over 64 keys (or q rows), A = the fp32 accumulator `a` split into
+// bf16 hi and lo (each k16 step's lo pass first), B an MN-major tile
+__device__ __forceinline__ void products_nn(float (&c)[8][4], const uint32_t (&hi)[4][4], const uint32_t (&lo)[4][4],
+                                            const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_rs<1>(c, lo[kk], desc_mn_major(b, kk), 1);
+    wgmma_rs<1>(c, hi[kk], desc_mn_major(b, kk), 1);
+  }
+}
+
+__device__ __forceinline__ void split_acc(const float (&c)[8][4], uint32_t (&hi)[4][4], uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) c_to_a_bf16(c[2 * kk], c[2 * kk + 1], hi[kk], lo[kk]);
+}
+
+// (ii) dK, dV and the per-head column sums of dS: one warpgroup per (head,
+// 64 keys), K and V as A of S^T = K.Q^T and dP^T = V.dO^T, tiles of 64 q
+// rows of Q and dO in a two-stage cp.async ring as their K-major B and as
+// the MN-major B of dV += P^T.dO and dK += dS^T.Q
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__ k, const Bf16* __restrict__ v,
+                            const float* __restrict__ mask, const float* __restrict__ lse,
+                            const Bf16* __restrict__ dout, const float* __restrict__ delta, Bf16* __restrict__ dk,
+                            Bf16* __restrict__ dv, float* __restrict__ dmask_part, int T, int D, int H, int causal,
+                            float scale) {
+  constexpr int BQ = 64;
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  unsigned char* ks = align1024(wg_smem);
+  unsigned char* vs = ks + kSwTileBytes;
+  unsigned char* ring = vs + kSwTileBytes;  // two stages of (Q tile, dO tile)
+  float* lse_s = reinterpret_cast<float*>(ring + 4 * kSwTileBytes);  // two stages of BQ
+  float* delta_s = lse_s + 2 * BQ;                                    // two stages of BQ
+  float* mk = delta_s + 2 * BQ;                                       // kRows
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kRows;
+  const size_t head = static_cast<size_t>(bh) * T * D;
+  const float* mrow = mask + static_cast<size_t>(bh / H) * T;
+  const float scale_log2 = scale * kLog2e;
+  const int ksteps = (D + 15) / 16;
+
+  // a tile with no valid key: zeros, nothing read
+  const bool key_valid = tid < kRows && k0 + tid < T && __ldg(mrow + k0 + tid) > kMaskPad;
+  const bool all_keys = __syncthreads_and(key_valid || tid >= kRows);
+  if (!__syncthreads_or(key_valid)) {
+    const int n = min(kRows, T - k0) * D;
+    for (int i = tid; i < n; i += kThreads) {
+      dk[head + static_cast<size_t>(k0) * D + i] = narrow<Bf16>(0.f);
+      dv[head + static_cast<size_t>(k0) * D + i] = narrow<Bf16>(0.f);
+    }
+    if (dmask_part && tid < kRows && k0 + tid < T) dmask_part[static_cast<size_t>(bh) * T + k0 + tid] = 0.f;
+    return;
+  }
+
+  if (D < 64) zero_padding_sw128<kThreads>(ks, 6, D);  // K, V and the ring are contiguous
+  const bool vec = rows_aligned<Bf16>(D, q, k, v) && rows_aligned<Bf16>(D, dout, dout, dout);
+  load_rows_sw128<kThreads>(ks, k + head, k0, T, D, vec);
+  load_rows_sw128<kThreads>(vs, v + head, k0, T, D, vec);
+  load_floats<kThreads>(mk, mrow, k0, kRows, T);
+  auto load_q = [&](int qt, int stage) {
+    unsigned char* qs = ring + stage * 2 * kSwTileBytes;
+    load_rows_sw128<kThreads>(qs, q + head, qt * BQ, T, D, vec);
+    load_rows_sw128<kThreads>(qs + kSwTileBytes, dout + head, qt * BQ, T, D, vec);
+    load_floats<kThreads>(lse_s + stage * BQ, lse + static_cast<size_t>(bh) * T, qt * BQ, BQ, T);
+    load_floats<kThreads>(delta_s + stage * BQ, delta + static_cast<size_t>(bh) * T, qt * BQ, BQ, T);
+  };
+  const int first = causal ? k0 / BQ : 0;  // the diagonal's q tile
+  const int end = (T + BQ - 1) / BQ;
+  load_q(first, 0);
+  cp_async_commit();
+
+  // this thread's keys: ka (entries 0, 1), kb (2, 3)
+  const int la = warp * 16 + g, lb = la + 8;
+  const int ka = k0 + la, kb = k0 + lb;
+  float dk_acc[8][4], dv_acc[8][4];
+  zero_acc<8>(dk_acc);
+  zero_acc<8>(dv_acc);
+  float dsum[2] = {0.f, 0.f};
+
+  int stage = 0;
+  for (int qt = first; qt < end; ++qt) {
+    cp_async_wait<0>();
+    fence_async_shared();
+    __syncthreads();  // the tile is in for every thread; the other stage's products are done
+    if (qt + 1 < end) load_q(qt + 1, stage ^ 1);
+    cp_async_commit();
+    const unsigned char* qs = ring + stage * 2 * kSwTileBytes;
+    const unsigned char* dos = qs + kSwTileBytes;
+    const float* ls = lse_s + stage * BQ;
+    const float* ds_ = delta_s + stage * BQ;
+
+    float s[8][4], dp[8][4];  // S^T and dP^T: rows ka, kb; columns q rows 8 j + 2 t (+1)
+    wgmma_fence();
+    products_nt(s, ks, qs, ksteps);
+    products_nt(dp, vs, dos, ksteps);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    const bool key_ok[2] = {ka < T && mk[la] > kMaskPad, kb < T && mk[lb] > kMaskPad};
+    const float mask_log2[2] = {mk[la] * kLog2e, mk[lb] * kLog2e};
+    // every (key, q row) pair of the tile valid: no flag to test
+    const bool full = all_keys && (qt + 1) * BQ <= T && (!causal || qt * BQ >= k0 + kRows - 1);
+    auto probabilities = [&](auto all_valid_tag) {
+      constexpr bool all_valid = decltype(all_valid_tag)::value;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int lq = 8 * j + 2 * t + (e & 1), qrow = qt * BQ + lq, key = e < 2 ? ka : kb;
+          const bool valid = all_valid || (key_ok[e >> 1] && qrow < T && (!causal || qrow >= key));
+          const float p = valid ? ex2(fmaf(s[j][e], scale_log2, fmaf(ls[lq], -kLog2e, mask_log2[e >> 1]))) : 0.f;
+          const float ds = p * (dp[j][e] - ds_[lq]);
+          s[j][e] = p;
+          dp[j][e] = ds;
+          dsum[e >> 1] += ds;
+        }
+    };
+    if (full) {
+      probabilities(std::true_type{});
+    } else {
+      probabilities(std::false_type{});
+    }
+    uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
+    split_acc(s, ph, pl);
+    split_acc(dp, dh, dl);
+    wgmma_fence();
+    products_nn(dv_acc, ph, pl, dos);  // dV += P^T.dO
+    products_nn(dk_acc, dh, dl, qs);   // dK += dS^T.Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dv_acc);
+    reg_fence(dk_acc);
+    reg_fence(ph);
+    reg_fence(pl);
+    reg_fence(dh);
+    reg_fence(dl);
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+  store_rows<Bf16, 8>(dk_acc, scale, dk + head, k0 + warp * 16, T, D);
+  store_rows<Bf16, 8>(dv_acc, 1.f, dv + head, k0 + warp * 16, T, D);
+  if (dmask_part) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x = dsum[h];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      const int key = h ? kb : ka;
+      if (t == 0 && key < T) dmask_part[static_cast<size_t>(bh) * T + key] = x;
+    }
+  }
+}
+
+// (iii) dQ: one warpgroup per (head, 64 q rows), Q and dO as A of
+// S = Q.K^T and dP = dO.V^T, tiles of 64 keys of K and V in a two-stage
+// cp.async ring as their K-major B and (K) the MN-major B of dQ += dS.K
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__ k, const Bf16* __restrict__ v,
+                          const float* __restrict__ mask, const float* __restrict__ lse,
+                          const Bf16* __restrict__ dout, const float* __restrict__ delta, Bf16* __restrict__ dq,
+                          int T, int D, int H, int causal, float scale) {
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  unsigned char* qs = align1024(wg_smem);
+  unsigned char* dos = qs + kSwTileBytes;
+  unsigned char* ring = dos + kSwTileBytes;  // two stages of (K tile, V tile)
+  float* lse_s = reinterpret_cast<float*>(ring + 4 * kSwTileBytes);  // kRows
+  float* delta_s = lse_s + kRows;                                     // kRows
+  float* mk = delta_s + kRows;                                        // two stages of kBK
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  // causal: the last q tile (the longest walk) first
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kRows;
+  const size_t head = static_cast<size_t>(bh) * T * D;
+  const float* mrow = mask + static_cast<size_t>(bh / H) * T;
+  const float scale_log2 = scale * kLog2e;
+  const int ksteps = (D + 15) / 16;
+
+  if (D < 64) zero_padding_sw128<kThreads>(qs, 6, D);
+  const bool vec = rows_aligned<Bf16>(D, q, k, v) && rows_aligned<Bf16>(D, dout, dout, dout);
+  auto load_k = [&](int tile, int stage) {
+    unsigned char* kt = ring + stage * 2 * kSwTileBytes;
+    load_rows_sw128<kThreads>(kt, k + head, tile * kBK, T, D, vec);
+    load_rows_sw128<kThreads>(kt + kSwTileBytes, v + head, tile * kBK, T, D, vec);
+    load_floats<kThreads>(mk + stage * kBK, mrow, tile * kBK, kBK, T);
+  };
+  int end = (T + kBK - 1) / kBK;
+  if (causal) end = min(end, (q0 + kRows + kBK - 1) / kBK);
+  int tile = next_tile(mrow, 0, end, T);
+  // Q, dO, lse and Dr travel with the first tile
+  load_rows_sw128<kThreads>(qs, q + head, q0, T, D, vec);
+  load_rows_sw128<kThreads>(dos, dout + head, q0, T, D, vec);
+  load_floats<kThreads>(lse_s, lse + static_cast<size_t>(bh) * T, q0, kRows, T);
+  load_floats<kThreads>(delta_s, delta + static_cast<size_t>(bh) * T, q0, kRows, T);
+  if (tile < end) load_k(tile, 0);
+  cp_async_commit();
+
+  const int la = warp * 16 + g, lb = la + 8;
+  const int qa = q0 + la, qb = q0 + lb;
+  float dq_acc[8][4];
+  zero_acc<8>(dq_acc);
+
+  int stage = 0;
+  while (tile < end) {
+    const int next = next_tile(mrow, tile + 1, end, T);
+    cp_async_wait<0>();
+    fence_async_shared();
+    __syncthreads();  // the tile is in for every thread; the other stage's products are done
+    if (next < end) load_k(next, stage ^ 1);
+    cp_async_commit();
+    const unsigned char* kt = ring + stage * 2 * kSwTileBytes;
+    const unsigned char* vt = kt + kSwTileBytes;
+    const float* ms = mk + stage * kBK;
+    const int k0 = tile * kBK;
+
+    float s[8][4], dp[8][4];  // S and dP: rows qa, qb; columns keys 8 j + 2 t (+1)
+    wgmma_fence();
+    products_nt(s, qs, kt, ksteps);
+    products_nt(dp, dos, vt, ksteps);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    const float lse_log2[2] = {lse_s[la] * kLog2e, lse_s[lb] * kLog2e};
+    const bool keys_valid = __all_sync(0xffffffffu, k0 + lane < T && ms[lane] > kMaskPad &&
+                                                        k0 + lane + 32 < T && ms[lane + 32] > kMaskPad);
+    // every (q row, key) pair of the warp's 16 rows valid: no flag to test
+    const bool full = keys_valid && q0 + kRows <= T && (!causal || k0 + kBK - 1 <= q0 + warp * 16);
+    auto grads = [&](auto all_valid_tag) {
+      constexpr bool all_valid = decltype(all_valid_tag)::value;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int lk = 8 * j + 2 * t + (e & 1), key = k0 + lk;
+          const int qrow = e < 2 ? qa : qb;
+          const float mv = ms[lk];
+          const bool valid = all_valid || (key < T && qrow < T && mv > kMaskPad && (!causal || qrow >= key));
+          const float p = valid ? ex2(fmaf(s[j][e], scale_log2, fmaf(mv, kLog2e, -lse_log2[e >> 1]))) : 0.f;
+          dp[j][e] = p * (dp[j][e] - delta_s[e < 2 ? la : lb]);
+        }
+    };
+    if (full) {
+      grads(std::true_type{});
+    } else {
+      grads(std::false_type{});
+    }
+    uint32_t dh[4][4], dl[4][4];
+    split_acc(dp, dh, dl);
+    wgmma_fence();
+    products_nn(dq_acc, dh, dl, kt);  // dQ += dS.K
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dq_acc);
+    reg_fence(dh);
+    reg_fence(dl);
+    tile = next;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+  store_rows<Bf16, 8>(dq_acc, scale, dq + head, q0 + warp * 16, T, D);
+}
+
+int launch_wgmma(const Bf16* q, const Bf16* k, const Bf16* v, const float* mask, const float* lse, const Bf16* dout,
+                 const float* delta, Bf16* dq, Bf16* dk, Bf16* dv, float* dmask_part, int bh, int T, int D, int H,
+                 int causal, float scale, cudaStream_t stream) {
+  constexpr int kv_smem = wgmma_smem(5 * kRows), q_smem = wgmma_smem(4 * kRows);
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, q_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh, (T + kRows - 1) / kRows);
+  flash_bwd_dkdv_wgmma_kernel<<<grid, kThreads, kv_smem, stream>>>(q, k, v, mask, lse, dout, delta, dk, dv,
+                                                                    dmask_part, T, D, H, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_wgmma_kernel<<<grid, kThreads, q_smem, stream>>>(q, k, v, mask, lse, dout, delta, dq, T, D, H,
+                                                                  causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One 64 x 64 x 64 product on one warpgroup, c = A.B in fp32 (row-major):
+// A (row-major) from a swizzled tile (rs = 0) or from registers (rs = 1);
+// B ([k][n], row-major) as a K-major tile whose rows are B's columns
+// (trans_b = 0) or as it stands, MN-major (trans_b = 1). It holds the
+// descriptors and fragment layouts that the kernels above rely on.
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_wgmma_selftest_kernel(const Bf16* __restrict__ a, const Bf16* __restrict__ b, float* __restrict__ c,
+                                int rs, int trans_b) {
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  unsigned char* as = align1024(wg_smem);
+  unsigned char* bs = as + kSwTileBytes;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  load_rows_sw128<kThreads>(as, a, 0, 64, 64, true);
+  if (trans_b) {
+    load_rows_sw128<kThreads>(bs, b, 0, 64, 64, true);
+  } else {
+    for (int idx = tid; idx < 64 * 64; idx += kThreads)
+      *reinterpret_cast<Bf16*>(bs + sw128_offset(idx >> 6, idx & 63)) = b[(idx & 63) * 64 + (idx >> 6)];
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_async_shared();
+  __syncthreads();
+  uint32_t af[4][4];
+  const uint32_t* a32 = reinterpret_cast<const uint32_t*>(a);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) af[kk][e] = a32[((16 * warp + g + 8 * (e & 1)) * 64 + 16 * kk + 2 * t + 8 * (e >> 1)) / 2];
+  float acc[8][4];
+  zero_acc<8>(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (rs && trans_b) wgmma_rs<1>(acc, af[kk], desc_mn_major(bs, kk), kk);
+    if (rs && !trans_b) wgmma_rs<0>(acc, af[kk], desc_k_major(bs, kk), kk);
+    if (!rs && trans_b) wgmma_ss<1>(acc, desc_k_major(as, kk), desc_mn_major(bs, kk), kk);
+    if (!rs && !trans_b) wgmma_ss<0>(acc, desc_k_major(as, kk), desc_k_major(bs, kk), kk);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(acc);
+  reg_fence(af);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[(16 * warp + g + 8 * (e >> 1)) * 64 + 8 * j + 2 * t + (e & 1)] = acc[j][e];
+}
+
 template <typename R>
 int dispatch(const void* q, const void* k, const void* v, const float* mask, const void* out, const float* lse,
              const void* dout, void* dq, void* dk, void* dv, float* delta, float* dmask_part, int bh, int T, int D,
@@ -535,7 +895,11 @@ int dispatch(const void* q, const void* k, const void* v, const float* mask, con
                     static_cast<const Elt*>(dout), delta, static_cast<Elt*>(dq), static_cast<Elt*>(dk),
                     static_cast<Elt*>(dv), dmask_part, bh, T, D, H, causal, scale, s);
   };
-  if (D <= 64) return args(launch_grads<R, 8>);
+  if constexpr (std::is_same_v<R, Bf16Route>) {
+    if (D <= 64) return args(launch_wgmma);
+  } else {
+    if (D <= 64) return args(launch_grads<R, 8>);
+  }
   return args(launch_grads<R, 16>);
 }
 
@@ -562,4 +926,13 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void
                                         int causal, float scale, void* stream) {
   return dispatch<Bf16Route>(q, k, v, mask, out, lse, dout, dq, dk, dv, delta, dmask_part, bh, T, D, H, causal,
                              scale, stream);
+}
+
+// The warpgroup product's self-test (flash_bwd_wgmma_selftest_kernel): a, b
+// (64, 64) bf16 and c (64, 64) fp32, contiguous on the card; rs and trans_b
+// as the kernel's. Launches on `stream` and returns cudaGetLastError().
+extern "C" int flash_bwd_wgmma_selftest(const void* a, const void* b, void* c, int rs, int trans_b, void* stream) {
+  flash_bwd_wgmma_selftest_kernel<<<1, kThreads, 2 * kSwTileBytes + 1024, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Bf16*>(a), static_cast<const Bf16*>(b), static_cast<float*>(c), rs, trans_b);
+  return static_cast<int>(cudaGetLastError());
 }

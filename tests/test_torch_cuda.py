@@ -37,6 +37,10 @@ gradients are held like out: fp32 within ``1e-5 * max(1, max|plain|)``,
 bf16 that plus 1 bf16 ulp; the mask's gradient (fp32) like an fp32 one.
 """
 
+import ctypes
+import os
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -46,6 +50,7 @@ from network_distributed_pytorch_tpu_torch.experiments import exact_cifar10, gpt
 from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches
 from network_distributed_pytorch_tpu_torch.models import gpt
 from network_distributed_pytorch_tpu_torch.models.distilbert import distilbert_tiny
+from network_distributed_pytorch_tpu_torch.ops import _build
 from network_distributed_pytorch_tpu_torch.ops import flash_attention as fa
 from network_distributed_pytorch_tpu_torch.ops import gram_schmidt as gs
 from network_distributed_pytorch_tpu_torch.ops import powersgd as ps
@@ -589,6 +594,86 @@ def test_flash_attention_bwd_refuses_other_dtypes(cuda_device):
         with pytest.raises(TypeError):
             fa.flash_attention_vjp(*args, False, 16, 0.3, False)
     assert {k: v.launches for k, v in fa.BWD_KERNELS.items()} == launches
+
+
+def _bwd_library():
+    """The backward library, built on first use, and its path."""
+    return _build.load("flash_attention_bwd"), _build.library_path("flash_attention_bwd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rs", [0, 1], ids=["a_shared", "a_registers"])
+@pytest.mark.parametrize("trans_b", [0, 1], ids=["b_k_major", "b_mn_major"])
+def test_wgmma_product_matches_matmul(cuda_device, rs, trans_b):
+    """One 64 x 64 x 64 warpgroup product of the backward library's
+    self-test, A from swizzled shared memory or registers, B K-major or
+    MN-major (the transpose bit): the descriptors and fragment layouts the
+    bf16 backward kernels use. Small integers make every product and sum
+    exact, so the result must equal ``a @ b`` bit for bit."""
+    lib, _ = _bwd_library()
+    fn = lib.flash_bwd_wgmma_selftest
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rng = np.random.RandomState(70 + 2 * rs + trans_b)
+    a, b = (torch.from_numpy(rng.randint(-8, 9, (64, 64)).astype(np.float32)).to(cuda_device) for _ in range(2))
+    a16, b16 = a.bfloat16(), b.bfloat16()
+    c = torch.full((64, 64), float("nan"), device=cuda_device)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    assert fn(a16.data_ptr(), b16.data_ptr(), c.data_ptr(), rs, trans_b, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(c, a @ b)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_bf16_kernels_use_wgmma(cuda_device):
+    """The bf16 backward's kernels for D <= 64 (dK/dV and dQ, each named
+    ``flash_bwd_..._wgmma``) hold HGMMA, the warpgroup product, in the SASS
+    of the built library; the mma.sync kernels (fp32, and bf16 at D > 64)
+    hold none."""
+    _, path = _bwd_library()
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", path], capture_output=True, text=True, check=True).stdout
+    functions = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        functions[name.strip()] = body
+    bwd = {name: body for name, body in functions.items() if "flash_bwd" in name}
+    for kernel in ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"):
+        found = [name for name in bwd if kernel in name]
+        assert len(found) == 1, (kernel, sorted(bwd))
+        assert "HGMMA" in bwd[found[0]], kernel
+    plain = [name for name in bwd if "wgmma" not in name and ("dkdv" in name or "dq" in name)]
+    assert plain and not any("HGMMA" in bwd[name] for name in plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["masked", "causal"])
+@pytest.mark.parametrize("d", [36, 40, 64])
+@pytest.mark.parametrize("t", [100, 130])
+def test_flash_attention_bwd_bf16_wgmma_route(cuda_device, t, d, causal):
+    """The bf16 backward's warpgroup kernels (D <= 64) on a ragged T, D = 40
+    (16-byte rows), 36 (rows copied element by element) and 64, masked and
+    causal, with a fully masked row and a row whose later key tiles are all
+    padding, against ``flash_attention_bwd``; two calls bitwise equal, one
+    launch a call under its kind, a fully masked head's gradients 0."""
+    b, h = 3, 2
+    q, k, v, _ = _attention_inputs(b * h, t, d, h, cuda_device, seed=64)
+    mask = _padded_mask(b, t, [slice(0, t), [], slice(0, 30)], cuda_device)
+    do = torch.randn((b * h, t, d), generator=torch.Generator().manual_seed(65)).to(cuda_device)
+    q, k, v, do = (x.bfloat16() for x in (q, k, v, do))
+    out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, 128, 128, d**-0.5)
+    kernel, kind = fa.BWD_KERNELS[torch.bfloat16], "causal" if causal else "masked"
+    launches = kernel.by_kind[kind]
+    got = fa.flash_attention_vjp(q, k, v, mask, out, lse, do, causal, 128, d**-0.5, False)
+    again = fa.flash_attention_vjp(q, k, v, mask, out, lse, do, causal, 128, d**-0.5, False)
+    torch.cuda.synchronize()
+    assert kernel.by_kind[kind] == launches + 2
+    want = fa.flash_attention_bwd(q, k, v, mask, out, lse, do, causal, t, d**-0.5, need_dmask=False)
+    empty = (mask <= -1e29).all(dim=1).repeat_interleave(h)
+    for g, a, w in zip(got[:3], again[:3], want[:3]):
+        assert torch.equal(g, a)
+        _close_grad(g, w)
+        assert torch.all(g[empty] == 0.0)
 
 
 @pytest.mark.cuda
