@@ -520,40 +520,72 @@ int launch_grads(const typename R::Elt* q, const typename R::Elt* k, const typen
 
 // ---- bf16 heads, D <= 64: warpgroup products (csrc/wgmma_bf16.cuh) ----------
 //
-// One warpgroup (the block's 4 warps) per block; every shared tile is a
+// One warpgroup (the block's 4 warps) per block, blocks of one head next to
+// each other in the grid, so that the tiles they all read (Q and dO, or K
+// and V) are shared in L2 by the blocks in flight; every shared tile is a
 // swizzled 64 x 64 bf16 tile. The elementwise code between the products is
 // the mma.sync kernels' own: warp w holds rows 16 w .. 16 w + 15 of each
-// 64 x 64 accumulator in m16n8 C fragments.
+// 64 x 64 accumulator in m16n8 C fragments. The products of a tile run
+// while the warps work: S and dP are two commit groups, so P is formed
+// while dP is still in the tensor cores, and dV (dK/dV) runs while dS is
+// formed; the last products of a tile run on into the next tile's S.
+// A wait for a tile's S so also finds the previous tile's products done,
+// and only then is that tile's stage of the ring refilled.
 
 using Bf16 = __nv_bfloat16;
 
 // six swizzled tiles, and 1024 bytes to align them, before `floats` fp32
 constexpr int wgmma_smem(int floats) { return 6 * kSwTileBytes + 1024 + 4 * floats; }
 
-// S (or S^T, dP, dP^T): c = A.B^T over D, A and B K-major tiles
-__device__ __forceinline__ void products_nt(float (&c)[8][4], const unsigned char* a, const unsigned char* b,
-                                            int ksteps) {
+// S (or S^T, dP, dP^T): c = A.B^T over D padded to 64 (the padding's zeros
+// add nothing), A and B K-major tiles
+__device__ __forceinline__ void products_nt(float (&c)[8][4], const unsigned char* a, const unsigned char* b) {
+  wgmma_ss<0, 0>(c, desc_k_major(a, 0), desc_k_major(b, 0));
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if (kk >= ksteps) break;
-    wgmma_ss<0>(c, desc_k_major(a, kk), desc_k_major(b, kk), kk);
-  }
+  for (int kk = 1; kk < 4; ++kk) wgmma_ss<0, 1>(c, desc_k_major(a, kk), desc_k_major(b, kk));
 }
 
-// c += A.B over 64 keys (or q rows), A = the fp32 accumulator `a` split into
-// bf16 hi and lo (each k16 step's lo pass first), B an MN-major tile
+// c += A.B over 64 keys (or q rows), A an fp32 accumulator split into bf16
+// hi and lo (each k16 step's lo pass first), B an MN-major tile
 __device__ __forceinline__ void products_nn(float (&c)[8][4], const uint32_t (&hi)[4][4], const uint32_t (&lo)[4][4],
                                             const unsigned char* b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    wgmma_rs<1>(c, lo[kk], desc_mn_major(b, kk), 1);
-    wgmma_rs<1>(c, hi[kk], desc_mn_major(b, kk), 1);
+    wgmma_rs<1>(c, lo[kk], desc_mn_major(b, kk));
+    wgmma_rs<1>(c, hi[kk], desc_mn_major(b, kk));
   }
 }
 
 __device__ __forceinline__ void split_acc(const float (&c)[8][4], uint32_t (&hi)[4][4], uint32_t (&lo)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) c_to_a_bf16(c[2 * kk], c[2 * kk + 1], hi[kk], lo[kk]);
+}
+
+// (i) on bf16 heads with 16-byte rows: Dr as flash_bwd_delta_kernel, eight
+// threads a row, 8 elements (16 bytes) a thread at a time
+__global__ void __launch_bounds__(256) flash_bwd_delta_bf16_kernel(const Bf16* __restrict__ out,
+                                                                   const Bf16* __restrict__ dout,
+                                                                   float* __restrict__ delta, int rows, int D) {
+  const int row = blockIdx.x * 32 + (threadIdx.x >> 3), part = threadIdx.x & 7;
+  float acc = 0.f;
+  if (row < rows) {
+    const size_t base = static_cast<size_t>(row) * D;
+    for (int c = 8 * part; c < D; c += 64) {
+      const uint4 a = *reinterpret_cast<const uint4*>(out + base + c);
+      const uint4 b = *reinterpret_cast<const uint4*>(dout + base + c);
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 x = __bfloat1622float2(a2[i]), y = __bfloat1622float2(b2[i]);
+        acc = fmaf(y.x, x.x, acc);
+        acc = fmaf(y.y, x.y, acc);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && part == 0) delta[row] = acc;
 }
 
 // (ii) dK, dV and the per-head column sums of dS: one warpgroup per (head,
@@ -577,12 +609,12 @@ flash_bwd_dkdv_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kRows;
+  const int tiles = (T + kRows - 1) / kRows;
+  const int bh = blockIdx.x / tiles;
+  const int k0 = (blockIdx.x - bh * tiles) * kRows;
   const size_t head = static_cast<size_t>(bh) * T * D;
   const float* mrow = mask + static_cast<size_t>(bh / H) * T;
   const float scale_log2 = scale * kLog2e;
-  const int ksteps = (D + 15) / 16;
 
   // a tile with no valid key: zeros, nothing read
   const bool key_valid = tid < kRows && k0 + tid < T && __ldg(mrow + k0 + tid) > kMaskPad;
@@ -621,27 +653,36 @@ flash_bwd_dkdv_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__
   zero_acc<8>(dk_acc);
   zero_acc<8>(dv_acc);
   float dsum[2] = {0.f, 0.f};
+  // the A operands of dV and dK: the tensor cores read them until the next
+  // tile's wait for S
+  uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
 
   int stage = 0;
   for (int qt = first; qt < end; ++qt) {
     cp_async_wait<0>();
     fence_async_shared();
-    __syncthreads();  // the tile is in for every thread; the other stage's products are done
-    if (qt + 1 < end) load_q(qt + 1, stage ^ 1);
-    cp_async_commit();
+    __syncthreads();  // the tile is in for every thread, and every warp is past the last tile
     const unsigned char* qs = ring + stage * 2 * kSwTileBytes;
     const unsigned char* dos = qs + kSwTileBytes;
     const float* ls = lse_s + stage * BQ;
     const float* ds_ = delta_s + stage * BQ;
 
-    float s[8][4], dp[8][4];  // S^T and dP^T: rows ka, kb; columns q rows 8 j + 2 t (+1)
+    // S^T and dP^T (only the tensor cores write them), then P^T and dS^T:
+    // rows ka, kb; columns q rows 8 j + 2 t (+1)
+    float s[8][4], dp[8][4], p[8][4];
     wgmma_fence();
-    products_nt(s, ks, qs, ksteps);
-    products_nt(dp, vs, dos, ksteps);
+    products_nt(s, ks, qs);
     wgmma_commit();
-    wgmma_wait<0>();
+    products_nt(dp, vs, dos);
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T, and the last tile's dV and dK: its stage is free
     reg_fence(s);
-    reg_fence(dp);
+    reg_fence(ph);
+    reg_fence(pl);
+    reg_fence(dh);
+    reg_fence(dl);
+    if (qt + 1 < end) load_q(qt + 1, stage ^ 1);
+    cp_async_commit();
     const bool key_ok[2] = {ka < T && mk[la] > kMaskPad, kb < T && mk[lb] > kMaskPad};
     const float mask_log2[2] = {mk[la] * kLog2e, mk[lb] * kLog2e};
     // every (key, q row) pair of the tile valid: no flag to test
@@ -654,11 +695,7 @@ flash_bwd_dkdv_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__
         for (int e = 0; e < 4; ++e) {
           const int lq = 8 * j + 2 * t + (e & 1), qrow = qt * BQ + lq, key = e < 2 ? ka : kb;
           const bool valid = all_valid || (key_ok[e >> 1] && qrow < T && (!causal || qrow >= key));
-          const float p = valid ? ex2(fmaf(s[j][e], scale_log2, fmaf(ls[lq], -kLog2e, mask_log2[e >> 1]))) : 0.f;
-          const float ds = p * (dp[j][e] - ds_[lq]);
-          s[j][e] = p;
-          dp[j][e] = ds;
-          dsum[e >> 1] += ds;
+          p[j][e] = valid ? ex2(fmaf(s[j][e], scale_log2, fmaf(ls[lq], -kLog2e, mask_log2[e >> 1]))) : 0.f;
         }
     };
     if (full) {
@@ -666,12 +703,22 @@ flash_bwd_dkdv_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__
     } else {
       probabilities(std::false_type{});
     }
-    uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
-    split_acc(s, ph, pl);
-    split_acc(dp, dh, dl);
+    split_acc(p, ph, pl);
     wgmma_fence();
     products_nn(dv_acc, ph, pl, dos);  // dV += P^T.dO
-    products_nn(dk_acc, dh, dl, qs);   // dK += dS^T.Q
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T
+    reg_fence(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[j][e] *= dp[j][e] - ds_[8 * j + 2 * t + (e & 1)];  // dS^T
+        dsum[e >> 1] += p[j][e];
+      }
+    split_acc(p, dh, dl);
+    wgmma_fence();
+    products_nn(dk_acc, dh, dl, qs);  // dK += dS^T.Q
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(dv_acc);
@@ -682,6 +729,13 @@ flash_bwd_dkdv_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__
     reg_fence(dl);
     stage ^= 1;
   }
+  wgmma_wait<0>();
+  reg_fence(dv_acc);
+  reg_fence(dk_acc);
+  reg_fence(ph);
+  reg_fence(pl);
+  reg_fence(dh);
+  reg_fence(dl);
   cp_async_wait<0>();
   store_rows<Bf16, 8>(dk_acc, scale, dk + head, k0 + warp * 16, T, D);
   store_rows<Bf16, 8>(dv_acc, 1.f, dv + head, k0 + warp * 16, T, D);
@@ -715,13 +769,14 @@ flash_bwd_dq_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__ k
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.x;
-  // causal: the last q tile (the longest walk) first
-  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kRows;
+  const int tiles = (T + kRows - 1) / kRows;
+  const int bh = blockIdx.x / tiles;
+  const int yt = blockIdx.x - bh * tiles;
+  // causal: each head's last q tile (the longest walk) first
+  const int q0 = (causal ? tiles - 1 - yt : yt) * kRows;
   const size_t head = static_cast<size_t>(bh) * T * D;
   const float* mrow = mask + static_cast<size_t>(bh / H) * T;
   const float scale_log2 = scale * kLog2e;
-  const int ksteps = (D + 15) / 16;
 
   if (D < 64) zero_padding_sw128<kThreads>(qs, 6, D);
   const bool vec = rows_aligned<Bf16>(D, q, k, v) && rows_aligned<Bf16>(D, dout, dout, dout);
@@ -746,34 +801,39 @@ flash_bwd_dq_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__ k
   const int qa = q0 + la, qb = q0 + lb;
   float dq_acc[8][4];
   zero_acc<8>(dq_acc);
+  uint32_t dh[4][4], dl[4][4];  // dQ's A operand, read until the next tile's wait for S
 
   int stage = 0;
   while (tile < end) {
     const int next = next_tile(mrow, tile + 1, end, T);
     cp_async_wait<0>();
     fence_async_shared();
-    __syncthreads();  // the tile is in for every thread; the other stage's products are done
-    if (next < end) load_k(next, stage ^ 1);
-    cp_async_commit();
+    __syncthreads();  // the tile is in for every thread, and every warp is past the last tile
     const unsigned char* kt = ring + stage * 2 * kSwTileBytes;
     const unsigned char* vt = kt + kSwTileBytes;
     const float* ms = mk + stage * kBK;
     const int k0 = tile * kBK;
 
-    float s[8][4], dp[8][4];  // S and dP: rows qa, qb; columns keys 8 j + 2 t (+1)
+    // S and dP (only the tensor cores write them), then P and dS: rows qa,
+    // qb; columns keys 8 j + 2 t (+1)
+    float s[8][4], dp[8][4], p[8][4];
     wgmma_fence();
-    products_nt(s, qs, kt, ksteps);
-    products_nt(dp, dos, vt, ksteps);
+    products_nt(s, qs, kt);
     wgmma_commit();
-    wgmma_wait<0>();
+    products_nt(dp, dos, vt);
+    wgmma_commit();
+    wgmma_wait<1>();  // S, and the last tile's dQ: its stage is free
     reg_fence(s);
-    reg_fence(dp);
+    reg_fence(dh);
+    reg_fence(dl);
+    if (next < end) load_k(next, stage ^ 1);
+    cp_async_commit();
     const float lse_log2[2] = {lse_s[la] * kLog2e, lse_s[lb] * kLog2e};
     const bool keys_valid = __all_sync(0xffffffffu, k0 + lane < T && ms[lane] > kMaskPad &&
                                                         k0 + lane + 32 < T && ms[lane + 32] > kMaskPad);
     // every (q row, key) pair of the warp's 16 rows valid: no flag to test
     const bool full = keys_valid && q0 + kRows <= T && (!causal || k0 + kBK - 1 <= q0 + warp * 16);
-    auto grads = [&](auto all_valid_tag) {
+    auto probabilities = [&](auto all_valid_tag) {
       constexpr bool all_valid = decltype(all_valid_tag)::value;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -783,17 +843,22 @@ flash_bwd_dq_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__ k
           const int qrow = e < 2 ? qa : qb;
           const float mv = ms[lk];
           const bool valid = all_valid || (key < T && qrow < T && mv > kMaskPad && (!causal || qrow >= key));
-          const float p = valid ? ex2(fmaf(s[j][e], scale_log2, fmaf(mv, kLog2e, -lse_log2[e >> 1]))) : 0.f;
-          dp[j][e] = p * (dp[j][e] - delta_s[e < 2 ? la : lb]);
+          p[j][e] = valid ? ex2(fmaf(s[j][e], scale_log2, fmaf(mv, kLog2e, -lse_log2[e >> 1]))) : 0.f;
         }
     };
     if (full) {
-      grads(std::true_type{});
+      probabilities(std::true_type{});
     } else {
-      grads(std::false_type{});
+      probabilities(std::false_type{});
     }
-    uint32_t dh[4][4], dl[4][4];
-    split_acc(dp, dh, dl);
+    wgmma_wait<0>();  // dP
+    reg_fence(dp);
+    const float dr[2] = {delta_s[la], delta_s[lb]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[j][e] *= dp[j][e] - dr[e >> 1];  // dS
+    split_acc(p, dh, dl);
     wgmma_fence();
     products_nn(dq_acc, dh, dl, kt);  // dQ += dS.K
     wgmma_commit();
@@ -804,6 +869,10 @@ flash_bwd_dq_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__ k
     tile = next;
     stage ^= 1;
   }
+  wgmma_wait<0>();
+  reg_fence(dq_acc);
+  reg_fence(dh);
+  reg_fence(dl);
   cp_async_wait<0>();
   store_rows<Bf16, 8>(dq_acc, scale, dq + head, q0 + warp * 16, T, D);
 }
@@ -817,13 +886,13 @@ int launch_wgmma(const Bf16* q, const Bf16* k, const Bf16* v, const float* mask,
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, q_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (T + kRows - 1) / kRows);
-  flash_bwd_dkdv_wgmma_kernel<<<grid, kThreads, kv_smem, stream>>>(q, k, v, mask, lse, dout, delta, dk, dv,
-                                                                    dmask_part, T, D, H, causal, scale);
+  const int blocks = bh * ((T + kRows - 1) / kRows);  // (head, tile), a head's tiles together
+  flash_bwd_dkdv_wgmma_kernel<<<blocks, kThreads, kv_smem, stream>>>(q, k, v, mask, lse, dout, delta, dk, dv,
+                                                                      dmask_part, T, D, H, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_wgmma_kernel<<<grid, kThreads, q_smem, stream>>>(q, k, v, mask, lse, dout, delta, dq, T, D, H,
-                                                                  causal, scale);
+  flash_bwd_dq_wgmma_kernel<<<blocks, kThreads, q_smem, stream>>>(q, k, v, mask, lse, dout, delta, dq, T, D, H,
+                                                                    causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -862,10 +931,10 @@ flash_bwd_wgmma_selftest_kernel(const Bf16* __restrict__ a, const Bf16* __restri
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    if (rs && trans_b) wgmma_rs<1>(acc, af[kk], desc_mn_major(bs, kk), kk);
-    if (rs && !trans_b) wgmma_rs<0>(acc, af[kk], desc_k_major(bs, kk), kk);
-    if (!rs && trans_b) wgmma_ss<1>(acc, desc_k_major(as, kk), desc_mn_major(bs, kk), kk);
-    if (!rs && !trans_b) wgmma_ss<0>(acc, desc_k_major(as, kk), desc_k_major(bs, kk), kk);
+    if (rs && trans_b) wgmma_rs<1>(acc, af[kk], desc_mn_major(bs, kk));
+    if (rs && !trans_b) wgmma_rs<0>(acc, af[kk], desc_k_major(bs, kk));
+    if (!rs && trans_b) wgmma_ss<1, 1>(acc, desc_k_major(as, kk), desc_mn_major(bs, kk));
+    if (!rs && !trans_b) wgmma_ss<0, 1>(acc, desc_k_major(as, kk), desc_k_major(bs, kk));
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -886,8 +955,14 @@ int dispatch(const void* q, const void* k, const void* v, const float* mask, con
   if (D < 1 || D > kMaxD || H < 1 || bh % H != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = bh * T;
-  flash_bwd_delta_kernel<Elt><<<(rows + 7) / 8, 256, 0, s>>>(static_cast<const Elt*>(out),
-                                                             static_cast<const Elt*>(dout), delta, rows, D);
+  if (std::is_same_v<R, Bf16Route> && D % 8 == 0 &&
+      ((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(dout)) & 15) == 0) {
+    flash_bwd_delta_bf16_kernel<<<(rows + 31) / 32, 256, 0, s>>>(static_cast<const Bf16*>(out),
+                                                                 static_cast<const Bf16*>(dout), delta, rows, D);
+  } else {
+    flash_bwd_delta_kernel<Elt><<<(rows + 7) / 8, 256, 0, s>>>(static_cast<const Elt*>(out),
+                                                               static_cast<const Elt*>(dout), delta, rows, D);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   auto args = [&](auto launcher) {

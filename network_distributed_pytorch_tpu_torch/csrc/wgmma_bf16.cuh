@@ -90,40 +90,51 @@ __device__ __forceinline__ void reg_fence(uint32_t (&a)[K][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[k][e])::"memory");
 }
 
-#define WGMMA_C32                                                                                                 \
-  "+f"(c[0][0]), "+f"(c[0][1]), "+f"(c[0][2]), "+f"(c[0][3]), "+f"(c[1][0]), "+f"(c[1][1]), "+f"(c[1][2]),        \
-      "+f"(c[1][3]), "+f"(c[2][0]), "+f"(c[2][1]), "+f"(c[2][2]), "+f"(c[2][3]), "+f"(c[3][0]), "+f"(c[3][1]),    \
-      "+f"(c[3][2]), "+f"(c[3][3]), "+f"(c[4][0]), "+f"(c[4][1]), "+f"(c[4][2]), "+f"(c[4][3]), "+f"(c[5][0]),    \
-      "+f"(c[5][1]), "+f"(c[5][2]), "+f"(c[5][3]), "+f"(c[6][0]), "+f"(c[6][1]), "+f"(c[6][2]), "+f"(c[6][3]),    \
-      "+f"(c[7][0]), "+f"(c[7][1]), "+f"(c[7][2]), "+f"(c[7][3])
+#define WGMMA_C32(m)                                                                                           \
+  m(c[0][0]), m(c[0][1]), m(c[0][2]), m(c[0][3]), m(c[1][0]), m(c[1][1]), m(c[1][2]), m(c[1][3]), m(c[2][0]),    \
+      m(c[2][1]), m(c[2][2]), m(c[2][3]), m(c[3][0]), m(c[3][1]), m(c[3][2]), m(c[3][3]), m(c[4][0]), m(c[4][1]), \
+      m(c[4][2]), m(c[4][3]), m(c[5][0]), m(c[5][1]), m(c[5][2]), m(c[5][3]), m(c[6][0]), m(c[6][1]), m(c[6][2]), \
+      m(c[6][3]), m(c[7][0]), m(c[7][1]), m(c[7][2]), m(c[7][3])
 #define WGMMA_D32                                                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, " \
   "%23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WGMMA_RW(x) "+f"(x)
+#define WGMMA_W(x) "=f"(x)
 
-// c (64 x 64, fp32) = A.B + (accumulate ? c : 0) for one k16 step, A and B
-// from shared memory; kTransB 1 takes B MN-major
-template <int kTransB>
-__device__ __forceinline__ void wgmma_ss(float (&c)[8][4], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32 ", %32, %33, p, 1, 1, 0, %35;\n}\n"
-      : WGMMA_C32
-      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransB));
+// c (64 x 64, fp32) = A.B + (kAccumulate ? c : 0) for one k16 step, A and
+// B from shared memory; kTransB 1 takes B MN-major. Without kAccumulate c
+// is output only: no instruction has to set it up before the product
+template <int kTransB, int kAccumulate>
+__device__ __forceinline__ void wgmma_ss(float (&c)[8][4], uint64_t da, uint64_t db) {
+  if constexpr (kAccumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32 ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : WGMMA_C32(WGMMA_RW)
+        : "l"(da), "l"(db), "r"(1), "n"(kTransB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32 ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : WGMMA_C32(WGMMA_W)
+        : "l"(da), "l"(db), "r"(0), "n"(kTransB));
+  }
 }
 
-// c = A.B + (accumulate ? c : 0) for one k16 step, A from registers (an
-// m16n8k16 A fragment of the warp's 16 rows), B from shared memory;
-// kTransB as wgmma_ss
+// c += A.B for one k16 step, A from registers (an m16n8k16 A fragment of
+// the warp's 16 rows), B from shared memory; kTransB as wgmma_ss
 template <int kTransB>
-__device__ __forceinline__ void wgmma_rs(float (&c)[8][4], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+__device__ __forceinline__ void wgmma_rs(float (&c)[8][4], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : WGMMA_C32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(kTransB));
+      : WGMMA_C32(WGMMA_RW)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(kTransB));
 }
 
+#undef WGMMA_RW
+#undef WGMMA_W
 #undef WGMMA_C32
 #undef WGMMA_D32
 
