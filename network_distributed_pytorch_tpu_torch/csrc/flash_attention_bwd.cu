@@ -540,19 +540,21 @@ constexpr int wgmma_smem(int floats) { return 6 * kSwTileBytes + 1024 + 4 * floa
 // S (or S^T, dP, dP^T): c = A.B^T over D padded to 64 (the padding's zeros
 // add nothing), A and B K-major tiles
 __device__ __forceinline__ void products_nt(float (&c)[8][4], const unsigned char* a, const unsigned char* b) {
-  wgmma_ss<0, 0>(c, desc_k_major(a, 0), desc_k_major(b, 0));
+  const uint64_t da = desc_k_major(a), db = desc_k_major(b);
+  wgmma_ss<0, 0>(c, da, db);
 #pragma unroll
-  for (int kk = 1; kk < 4; ++kk) wgmma_ss<0, 1>(c, desc_k_major(a, kk), desc_k_major(b, kk));
+  for (int kk = 1; kk < 4; ++kk) wgmma_ss<0, 1>(c, da + kStepK * kk, db + kStepK * kk);
 }
 
 // c += A.B over 64 keys (or q rows), A an fp32 accumulator split into bf16
 // hi and lo (each k16 step's lo pass first), B an MN-major tile
 __device__ __forceinline__ void products_nn(float (&c)[8][4], const uint32_t (&hi)[4][4], const uint32_t (&lo)[4][4],
                                             const unsigned char* b) {
+  const uint64_t db = desc_mn_major(b);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    wgmma_rs<1>(c, lo[kk], desc_mn_major(b, kk));
-    wgmma_rs<1>(c, hi[kk], desc_mn_major(b, kk));
+    wgmma_rs<1>(c, lo[kk], db + kStepMN * kk);
+    wgmma_rs<1>(c, hi[kk], db + kStepMN * kk);
   }
 }
 
@@ -631,13 +633,21 @@ flash_bwd_dkdv_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__
 
   if (D < 64) zero_padding_sw128<kThreads>(ks, 6, D);  // K, V and the ring are contiguous
   const bool vec = rows_aligned<Bf16>(D, q, k, v) && rows_aligned<Bf16>(D, dout, dout, dout);
-  load_rows_sw128<kThreads>(ks, k + head, k0, T, D, vec);
-  load_rows_sw128<kThreads>(vs, v + head, k0, T, D, vec);
+  const TileCopy copy(D);
+  auto load_tile = [&](unsigned char* tile, const Bf16* src, int row0) {
+    if (vec) {
+      copy(tile, src, row0, T, D);
+    } else {
+      load_rows_sw128<kThreads>(tile, src, row0, T, D);
+    }
+  };
+  load_tile(ks, k + head, k0);
+  load_tile(vs, v + head, k0);
   load_floats<kThreads>(mk, mrow, k0, kRows, T);
   auto load_q = [&](int qt, int stage) {
     unsigned char* qs = ring + stage * 2 * kSwTileBytes;
-    load_rows_sw128<kThreads>(qs, q + head, qt * BQ, T, D, vec);
-    load_rows_sw128<kThreads>(qs + kSwTileBytes, dout + head, qt * BQ, T, D, vec);
+    load_tile(qs, q + head, qt * BQ);
+    load_tile(qs + kSwTileBytes, dout + head, qt * BQ);
     load_floats<kThreads>(lse_s + stage * BQ, lse + static_cast<size_t>(bh) * T, qt * BQ, BQ, T);
     load_floats<kThreads>(delta_s + stage * BQ, delta + static_cast<size_t>(bh) * T, qt * BQ, BQ, T);
   };
@@ -690,13 +700,16 @@ flash_bwd_dkdv_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__
     auto probabilities = [&](auto all_valid_tag) {
       constexpr bool all_valid = decltype(all_valid_tag)::value;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int lq = 8 * j + 2 * t + (e & 1), qrow = qt * BQ + lq, key = e < 2 ? ka : kb;
           const bool valid = all_valid || (key_ok[e >> 1] && qrow < T && (!causal || qrow >= key));
-          p[j][e] = valid ? ex2(fmaf(s[j][e], scale_log2, fmaf(ls[lq], -kLog2e, mask_log2[e >> 1]))) : 0.f;
+          const float l = e & 1 ? l2.y : l2.x;
+          p[j][e] = valid ? ex2(fmaf(s[j][e], scale_log2, fmaf(l, -kLog2e, mask_log2[e >> 1]))) : 0.f;
         }
+      }
     };
     if (full) {
       probabilities(std::true_type{});
@@ -710,12 +723,14 @@ flash_bwd_dkdv_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__
     wgmma_wait<1>();  // dP^T
     reg_fence(dp);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(ds_ + 8 * j + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        p[j][e] *= dp[j][e] - ds_[8 * j + 2 * t + (e & 1)];  // dS^T
+        p[j][e] *= dp[j][e] - (e & 1 ? d2.y : d2.x);  // dS^T
         dsum[e >> 1] += p[j][e];
       }
+    }
     split_acc(p, dh, dl);
     wgmma_fence();
     products_nn(dk_acc, dh, dl, qs);  // dK += dS^T.Q
@@ -780,18 +795,26 @@ flash_bwd_dq_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__ k
 
   if (D < 64) zero_padding_sw128<kThreads>(qs, 6, D);
   const bool vec = rows_aligned<Bf16>(D, q, k, v) && rows_aligned<Bf16>(D, dout, dout, dout);
+  const TileCopy copy(D);
+  auto load_tile = [&](unsigned char* tile, const Bf16* src, int row0) {
+    if (vec) {
+      copy(tile, src, row0, T, D);
+    } else {
+      load_rows_sw128<kThreads>(tile, src, row0, T, D);
+    }
+  };
   auto load_k = [&](int tile, int stage) {
     unsigned char* kt = ring + stage * 2 * kSwTileBytes;
-    load_rows_sw128<kThreads>(kt, k + head, tile * kBK, T, D, vec);
-    load_rows_sw128<kThreads>(kt + kSwTileBytes, v + head, tile * kBK, T, D, vec);
+    load_tile(kt, k + head, tile * kBK);
+    load_tile(kt + kSwTileBytes, v + head, tile * kBK);
     load_floats<kThreads>(mk + stage * kBK, mrow, tile * kBK, kBK, T);
   };
   int end = (T + kBK - 1) / kBK;
   if (causal) end = min(end, (q0 + kRows + kBK - 1) / kBK);
   int tile = next_tile(mrow, 0, end, T);
   // Q, dO, lse and Dr travel with the first tile
-  load_rows_sw128<kThreads>(qs, q + head, q0, T, D, vec);
-  load_rows_sw128<kThreads>(dos, dout + head, q0, T, D, vec);
+  load_tile(qs, q + head, q0);
+  load_tile(dos, dout + head, q0);
   load_floats<kThreads>(lse_s, lse + static_cast<size_t>(bh) * T, q0, kRows, T);
   load_floats<kThreads>(delta_s, delta + static_cast<size_t>(bh) * T, q0, kRows, T);
   if (tile < end) load_k(tile, 0);
@@ -836,15 +859,17 @@ flash_bwd_dq_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__ k
     auto probabilities = [&](auto all_valid_tag) {
       constexpr bool all_valid = decltype(all_valid_tag)::value;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j) {
+        const float2 m2 = *reinterpret_cast<const float2*>(ms + 8 * j + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int lk = 8 * j + 2 * t + (e & 1), key = k0 + lk;
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
           const int qrow = e < 2 ? qa : qb;
-          const float mv = ms[lk];
+          const float mv = e & 1 ? m2.y : m2.x;
           const bool valid = all_valid || (key < T && qrow < T && mv > kMaskPad && (!causal || qrow >= key));
           p[j][e] = valid ? ex2(fmaf(s[j][e], scale_log2, fmaf(mv, kLog2e, -lse_log2[e >> 1]))) : 0.f;
         }
+      }
     };
     if (full) {
       probabilities(std::true_type{});
@@ -909,9 +934,10 @@ flash_bwd_wgmma_selftest_kernel(const Bf16* __restrict__ a, const Bf16* __restri
   unsigned char* bs = as + kSwTileBytes;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  load_rows_sw128<kThreads>(as, a, 0, 64, 64, true);
+  const TileCopy copy(64);
+  copy(as, a, 0, 64, 64);
   if (trans_b) {
-    load_rows_sw128<kThreads>(bs, b, 0, 64, 64, true);
+    copy(bs, b, 0, 64, 64);
   } else {
     for (int idx = tid; idx < 64 * 64; idx += kThreads)
       *reinterpret_cast<Bf16*>(bs + sw128_offset(idx >> 6, idx & 63)) = b[(idx & 63) * 64 + (idx >> 6)];
@@ -931,10 +957,12 @@ flash_bwd_wgmma_selftest_kernel(const Bf16* __restrict__ a, const Bf16* __restri
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    if (rs && trans_b) wgmma_rs<1>(acc, af[kk], desc_mn_major(bs, kk));
-    if (rs && !trans_b) wgmma_rs<0>(acc, af[kk], desc_k_major(bs, kk));
-    if (!rs && trans_b) wgmma_ss<1, 1>(acc, desc_k_major(as, kk), desc_mn_major(bs, kk));
-    if (!rs && !trans_b) wgmma_ss<0, 1>(acc, desc_k_major(as, kk), desc_k_major(bs, kk));
+    const uint64_t da = desc_k_major(as) + kStepK * kk;
+    const uint64_t db = trans_b ? desc_mn_major(bs) + kStepMN * kk : desc_k_major(bs) + kStepK * kk;
+    if (rs && trans_b) wgmma_rs<1>(acc, af[kk], db);
+    if (rs && !trans_b) wgmma_rs<0>(acc, af[kk], db);
+    if (!rs && trans_b) wgmma_ss<1, 1>(acc, da, db);
+    if (!rs && !trans_b) wgmma_ss<0, 1>(acc, da, db);
   }
   wgmma_commit();
   wgmma_wait<0>();

@@ -2,7 +2,7 @@
 // backward (csrc/flash_attention_bwd.cu): shared-memory descriptors of the
 // 128-byte swizzled layout, the wgmma fence, commit and wait, the
 // m64n64k16 product with A from shared memory (SS) or registers (RS), and
-// cp.async copies of (T, D <= 64) rows into that layout.
+// copies of (T, D <= 64) rows into that layout.
 //
 // Layout. A tile is 64 rows of 64 bf16 (128 bytes: one swizzle row), 8 KB,
 // based on 1024 bytes. The 16-byte chunk c of row r lies at chunk
@@ -44,15 +44,16 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
-// a swizzled tile as a K-major operand at k16 step kk
-__device__ __forceinline__ uint64_t desc_k_major(const void* tile, int kk) {
-  return sw128_desc(smem_addr(tile) + 32 * kk, 16, 1024);
-}
+// a swizzled tile as a K-major operand at k16 step 0; step kk starts
+// 32 kk bytes in: add kStepK * kk (the start address field cannot carry
+// over: shared addresses stay below its 2^18 bytes)
+__device__ __forceinline__ uint64_t desc_k_major(const void* tile) { return sw128_desc(smem_addr(tile), 16, 1024); }
+constexpr uint64_t kStepK = 32 >> 4;
 
-// a swizzled tile as an MN-major (transposed) B operand at k16 step kk
-__device__ __forceinline__ uint64_t desc_mn_major(const void* tile, int kk) {
-  return sw128_desc(smem_addr(tile) + 2048 * kk, 1024, 1024);
-}
+// a swizzled tile as an MN-major (transposed) B operand at k16 step 0;
+// step kk starts 16 rows (2048 bytes) in: add kStepMN * kk
+__device__ __forceinline__ uint64_t desc_mn_major(const void* tile) { return sw128_desc(smem_addr(tile), 1024, 1024); }
+constexpr uint64_t kStepMN = 2048 >> 4;
 
 // the start of dynamic shared memory rounded up to 1024 bytes (the launch
 // asks for 1024 bytes more than the kernel uses)
@@ -150,28 +151,50 @@ __device__ __forceinline__ void zero_padding_sw128(unsigned char* tiles, int n_t
   }
 }
 
-// rows [row0, row0 + 64) of a (T, D <= 64) bf16 head into a swizzled tile;
-// rows past T zero-filled. 16-byte cp.async where `vec` (rows 16-byte
-// aligned), else plain loads, which finish before the __syncthreads that
-// precedes the tile's use
+// One thread's share of the 16-byte cp.async copies of 64 rows of a (T, D)
+// bf16 head whose rows are 16-byte aligned into a swizzled tile, for a block
+// of 128 threads: chunk column tid % 8 (unless it lies past D) of rows
+// tid / 8 + 16 i, i < 4, which share one swizzle pattern, so their shared
+// offsets are fixed and 2048 bytes apart. Rows past T are zero-filled
+struct TileCopy {
+  int r0, soff, goff;  // first row, its shared byte offset, its element offset in the tile's rows
+  bool on;
+
+  __device__ explicit TileCopy(int D)
+      : r0(threadIdx.x >> 3),
+        soff(sw128_offset(threadIdx.x >> 3, (threadIdx.x & 7) * 8)),
+        goff((threadIdx.x >> 3) * D + (threadIdx.x & 7) * 8),
+        on((threadIdx.x & 7) * 8 < D) {}
+
+  __device__ __forceinline__ void operator()(unsigned char* tile, const __nv_bfloat16* head, int row0, int T,
+                                             int D) const {
+    if (!on) return;
+    const __nv_bfloat16* src = head + static_cast<size_t>(row0) * D + goff;
+    if (row0 + 64 <= T) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) cp_async16(tile + soff + 2048 * i, src + 16 * i * D, true);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool in = row0 + r0 + 16 * i < T;
+        cp_async16(tile + soff + 2048 * i, in ? src + 16 * i * D : head, in);
+      }
+    }
+  }
+};
+
+// rows [row0, row0 + 64) of a (T, D <= 64) bf16 head into a swizzled tile,
+// element by element (rows of any alignment), rows past T zero-filled;
+// plain stores, which finish before the __syncthreads that precedes the
+// tile's use
 template <int kThreads>
 __device__ __forceinline__ void load_rows_sw128(unsigned char* tile, const __nv_bfloat16* head, int row0, int T,
-                                                int D, bool vec) {
-  const int tid = threadIdx.x;
-  if (vec) {
-    for (int idx = tid; idx < 64 * 8; idx += kThreads) {
-      const int r = idx >> 3, c = (idx & 7) * 8;
-      if (c >= D) continue;
-      const bool in = row0 + r < T;
-      cp_async16(tile + sw128_offset(r, c), head + (in ? static_cast<size_t>(row0 + r) * D + c : 0), in);
-    }
-  } else {
-    for (int idx = tid; idx < 64 * D; idx += kThreads) {
-      const int r = idx / D, c = idx - r * D;
-      const bool in = row0 + r < T;
-      *reinterpret_cast<__nv_bfloat16*>(tile + sw128_offset(r, c)) =
-          in ? head[static_cast<size_t>(row0 + r) * D + c] : __float2bfloat16_rn(0.f);
-    }
+                                                int D) {
+  for (int idx = threadIdx.x; idx < 64 * D; idx += kThreads) {
+    const int r = idx / D, c = idx - r * D;
+    const bool in = row0 + r < T;
+    *reinterpret_cast<__nv_bfloat16*>(tile + sw128_offset(r, c)) =
+        in ? head[static_cast<size_t>(row0 + r) * D + c] : __float2bfloat16_rn(0.f);
   }
 }
 
