@@ -20,9 +20,10 @@
 //
 // Design: three launches behind one C entry per dtype, no atomics, so two
 // calls give the same bits.
-//   (i)   a pre-pass writes Dr (BH, T) in fp32, one warp a row;
+//   (i)   a pre-pass writes Dr (BH, T) in fp32, one warp a row (eight
+//         threads a row on bf16 heads with 16-byte rows);
 //   (ii)  dK and dV: one block of 4 warps per (head, tile of 64 keys), each
-//         warp owning 16 keys. K and V stay in shared memory; tiles of kBQ q
+//         warp owning 16 keys. K and V stay in shared memory; tiles of q
 //         rows of Q and dO (with their lse and Dr) arrive by cp.async into a
 //         double-buffered ring. The block computes S^T = K.Q^T and
 //         dP^T = V.dO^T directly, so the key axis is the products' M axis and
@@ -47,24 +48,37 @@
 // valid, and reverse the causal walk's block order where the longest walks
 // would otherwise start last.
 //
-// Products, by dtype (csrc/flash_attention_mma.cuh):
-//   * fp32 heads: mma.sync m16n8k8 in 3xTF32, every operand split into TF32
-//     hi and lo (about 22 bits of each product), as the fp32 forward;
-//   * bf16 heads: mma.sync m16n8k16 with operands from ldmatrix. S and dP
-//     are exact bf16 products in one pass each. P and dS are fp32; each is
-//     split in registers into bf16 hi and lo (16 bits) for dV, dK and dQ,
-//     two passes each, against bf16 dO, Q and K, which are exact.
+// Products, by dtype and head dimension:
+//   * fp32 heads: mma.sync m16n8k8 in 3xTF32 (csrc/flash_attention_mma.cuh),
+//     every operand split into TF32 hi and lo (about 22 bits of each
+//     product), as the fp32 forward;
+//   * bf16 heads, D <= 64 (GPT-2's and DistilBERT's 64): warpgroup products
+//     (wgmma m64n64k16, csrc/wgmma_bf16.cuh), one warpgroup a block, every
+//     tile in shared memory in the 128-byte swizzled layout that wgmma
+//     reads. S and dP are exact bf16 products in one pass each, A and B
+//     from shared memory (SS: Q, dO or K, V as A; the walked tile K-major as
+//     B). P and dS are fp32; each is split in registers into bf16 hi and lo
+//     (16 bits), whose accumulator fragments are the register A operand (RS)
+//     of dV, dK and dQ, two passes each against the walked tile as an
+//     MN-major B (the descriptor's transpose bit). The tensor cores read B
+//     once for the warpgroup, where each warp of an mma.sync block read
+//     every fragment of it, and run while the warps work (P while dP runs,
+//     dS while dV runs); the copies into the ring go on under both;
+//   * bf16 heads, 64 < D <= 128: mma.sync m16n8k16 from ldmatrix, the same
+//     arithmetic (the accumulators of dK and dV at D = 128 would not fit
+//     beside the m64 tiles).
 //
 // What bounds it on an H100: GPT-2's causal heads (BH = 192, T = 1024,
 // D = 64) need five products of 2 D FLOP over T (T + 1) / 2 pairs a head:
 // 64.5 GFLOP a launch, 0.065 ms at the bf16 peak, 0.39 ms at 3xTF32's
 // 495/3 TFLOP/s; q, k, v, out, dO read and dq, dk, dv written are 202 MB in
 // bf16 (0.060 ms), 403 MB in fp32. The kernels recompute S and dP in both
-// passes (ten bf16 passes a pair in all, twenty-one TF32 passes in fp32),
-// issue mma.sync rather than wgmma, read every Q and dO (dK/dV) or K and V
-// (dQ) fragment from shared memory in each warp and, in fp32, split every
-// operand as it is read, so they stay well above those bounds: right and
-// plain first.
+// passes (ten bf16 passes a pair in all, twenty-one TF32 passes in fp32) on
+// whole 64 x 64 tiles, diagonal ones included. On bf16 at D = 64 a
+// warpgroup's 64 x 64 products are short (32 cycles each at the peak), so
+// the loop's own instructions (copies, exp, the hi/lo split, the waits)
+// set its pace more than the tensor cores do; in fp32 every operand is
+// split as it is read. Both stay well above those bounds.
 
 #include "flash_attention_mma.cuh"
 #include "wgmma_bf16.cuh"
@@ -528,9 +542,11 @@ int launch_grads(const typename R::Elt* q, const typename R::Elt* k, const typen
 // 64 x 64 accumulator in m16n8 C fragments. The products of a tile run
 // while the warps work: S and dP are two commit groups, so P is formed
 // while dP is still in the tensor cores, and dV (dK/dV) runs while dS is
-// formed; the last products of a tile run on into the next tile's S.
-// A wait for a tile's S so also finds the previous tile's products done,
-// and only then is that tile's stage of the ring refilled.
+// formed. A tile's last products are waited for before the loop's back
+// edge: with a product in flight across it, the compiler serialises every
+// product of the loop (ptxas warning C7515), which measured slower than
+// the wait. The next tile's copy, issued as a tile starts into the stage
+// the last tile left, runs under the whole tile.
 
 using Bf16 = __nv_bfloat16;
 
@@ -663,15 +679,14 @@ flash_bwd_dkdv_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__
   zero_acc<8>(dk_acc);
   zero_acc<8>(dv_acc);
   float dsum[2] = {0.f, 0.f};
-  // the A operands of dV and dK: the tensor cores read them until the next
-  // tile's wait for S
-  uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];
 
   int stage = 0;
   for (int qt = first; qt < end; ++qt) {
     cp_async_wait<0>();
     fence_async_shared();
     __syncthreads();  // the tile is in for every thread, and every warp is past the last tile
+    if (qt + 1 < end) load_q(qt + 1, stage ^ 1);
+    cp_async_commit();
     const unsigned char* qs = ring + stage * 2 * kSwTileBytes;
     const unsigned char* dos = qs + kSwTileBytes;
     const float* ls = lse_s + stage * BQ;
@@ -685,14 +700,8 @@ flash_bwd_dkdv_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__
     wgmma_commit();
     products_nt(dp, vs, dos);
     wgmma_commit();
-    wgmma_wait<1>();  // S^T, and the last tile's dV and dK: its stage is free
+    wgmma_wait<1>();  // S^T
     reg_fence(s);
-    reg_fence(ph);
-    reg_fence(pl);
-    reg_fence(dh);
-    reg_fence(dl);
-    if (qt + 1 < end) load_q(qt + 1, stage ^ 1);
-    cp_async_commit();
     const bool key_ok[2] = {ka < T && mk[la] > kMaskPad, kb < T && mk[lb] > kMaskPad};
     const float mask_log2[2] = {mk[la] * kLog2e, mk[lb] * kLog2e};
     // every (key, q row) pair of the tile valid: no flag to test
@@ -716,6 +725,7 @@ flash_bwd_dkdv_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__
     } else {
       probabilities(std::false_type{});
     }
+    uint32_t ph[4][4], pl[4][4], dh[4][4], dl[4][4];  // the A operands of dV and dK
     split_acc(p, ph, pl);
     wgmma_fence();
     products_nn(dv_acc, ph, pl, dos);  // dV += P^T.dO
@@ -735,7 +745,7 @@ flash_bwd_dkdv_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__
     wgmma_fence();
     products_nn(dk_acc, dh, dl, qs);  // dK += dS^T.Q
     wgmma_commit();
-    wgmma_wait<0>();
+    wgmma_wait<0>();  // dV and dK: nothing in flight across the back edge
     reg_fence(dv_acc);
     reg_fence(dk_acc);
     reg_fence(ph);
@@ -744,13 +754,6 @@ flash_bwd_dkdv_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__
     reg_fence(dl);
     stage ^= 1;
   }
-  wgmma_wait<0>();
-  reg_fence(dv_acc);
-  reg_fence(dk_acc);
-  reg_fence(ph);
-  reg_fence(pl);
-  reg_fence(dh);
-  reg_fence(dl);
   cp_async_wait<0>();
   store_rows<Bf16, 8>(dk_acc, scale, dk + head, k0 + warp * 16, T, D);
   store_rows<Bf16, 8>(dv_acc, 1.f, dv + head, k0 + warp * 16, T, D);
@@ -824,7 +827,6 @@ flash_bwd_dq_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__ k
   const int qa = q0 + la, qb = q0 + lb;
   float dq_acc[8][4];
   zero_acc<8>(dq_acc);
-  uint32_t dh[4][4], dl[4][4];  // dQ's A operand, read until the next tile's wait for S
 
   int stage = 0;
   while (tile < end) {
@@ -832,6 +834,8 @@ flash_bwd_dq_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__ k
     cp_async_wait<0>();
     fence_async_shared();
     __syncthreads();  // the tile is in for every thread, and every warp is past the last tile
+    if (next < end) load_k(next, stage ^ 1);
+    cp_async_commit();
     const unsigned char* kt = ring + stage * 2 * kSwTileBytes;
     const unsigned char* vt = kt + kSwTileBytes;
     const float* ms = mk + stage * kBK;
@@ -845,12 +849,8 @@ flash_bwd_dq_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__ k
     wgmma_commit();
     products_nt(dp, dos, vt);
     wgmma_commit();
-    wgmma_wait<1>();  // S, and the last tile's dQ: its stage is free
+    wgmma_wait<1>();  // S
     reg_fence(s);
-    reg_fence(dh);
-    reg_fence(dl);
-    if (next < end) load_k(next, stage ^ 1);
-    cp_async_commit();
     const float lse_log2[2] = {lse_s[la] * kLog2e, lse_s[lb] * kLog2e};
     const bool keys_valid = __all_sync(0xffffffffu, k0 + lane < T && ms[lane] > kMaskPad &&
                                                         k0 + lane + 32 < T && ms[lane + 32] > kMaskPad);
@@ -883,21 +883,18 @@ flash_bwd_dq_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__ k
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) p[j][e] *= dp[j][e] - dr[e >> 1];  // dS
+    uint32_t dh[4][4], dl[4][4];  // dQ's A operand
     split_acc(p, dh, dl);
     wgmma_fence();
     products_nn(dq_acc, dh, dl, kt);  // dQ += dS.K
     wgmma_commit();
-    wgmma_wait<0>();
+    wgmma_wait<0>();  // nothing in flight across the back edge
     reg_fence(dq_acc);
     reg_fence(dh);
     reg_fence(dl);
     tile = next;
     stage ^= 1;
   }
-  wgmma_wait<0>();
-  reg_fence(dq_acc);
-  reg_fence(dh);
-  reg_fence(dl);
   cp_async_wait<0>();
   store_rows<Bf16, 8>(dq_acc, scale, dq + head, q0 + warp * 16, T, D);
 }
