@@ -55,9 +55,9 @@
 //   * bf16 heads, D <= 64 (GPT-2's and DistilBERT's 64): warpgroup products
 //     (wgmma m64n64k16, csrc/wgmma_bf16.cuh), one warpgroup a block, every
 //     tile in shared memory in the 128-byte swizzled layout that wgmma
-//     reads. S and dP are exact bf16 products in one pass each, A and B
-//     from shared memory (SS: Q, dO or K, V as A; the walked tile K-major as
-//     B). P and dS are fp32; each is split in registers into bf16 hi and lo
+//     reads. S and dP are exact bf16 products in one pass each, the walked
+//     tile K-major as B; A is K or V in registers, loaded once by ldmatrix
+//     (dK/dV, RS), or Q or dO in shared memory (dQ, SS). P and dS are fp32; each is split in registers into bf16 hi and lo
 //     (16 bits), whose accumulator fragments are the register A operand (RS)
 //     of dV, dK and dQ, two passes each against the walked tile as an
 //     MN-major B (the descriptor's transpose bit). The tensor cores read B
@@ -553,13 +553,22 @@ using Bf16 = __nv_bfloat16;
 // six swizzled tiles, and 1024 bytes to align them, before `floats` fp32
 constexpr int wgmma_smem(int floats) { return 6 * kSwTileBytes + 1024 + 4 * floats; }
 
-// S (or S^T, dP, dP^T): c = A.B^T over D padded to 64 (the padding's zeros
-// add nothing), A and B K-major tiles
+// S or dP (dQ): c = A.B^T over D padded to 64 (the padding's zeros add
+// nothing), A and B K-major tiles
 __device__ __forceinline__ void products_nt(float (&c)[8][4], const unsigned char* a, const unsigned char* b) {
   const uint64_t da = desc_k_major(a), db = desc_k_major(b);
   wgmma_ss<0, 0>(c, da, db);
 #pragma unroll
   for (int kk = 1; kk < 4; ++kk) wgmma_ss<0, 1>(c, da + kStepK * kk, db + kStepK * kk);
+}
+
+// S^T or dP^T (dK/dV): the same with A from registers, K or V held for the
+// walk, so that the tensor cores read only B from shared memory
+__device__ __forceinline__ void products_nt(float (&c)[8][4], const uint32_t (&a)[4][4], const unsigned char* b) {
+  const uint64_t db = desc_k_major(b);
+  wgmma_rs<0, 0>(c, a[0], db);
+#pragma unroll
+  for (int kk = 1; kk < 4; ++kk) wgmma_rs<0>(c, a[kk], db + kStepK * kk);
 }
 
 // c += A.B over 64 keys (or q rows), A an fp32 accumulator split into bf16
@@ -660,6 +669,7 @@ flash_bwd_dkdv_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__
   load_tile(ks, k + head, k0);
   load_tile(vs, v + head, k0);
   load_floats<kThreads>(mk, mrow, k0, kRows, T);
+  cp_async_commit();
   auto load_q = [&](int qt, int stage) {
     unsigned char* qs = ring + stage * 2 * kSwTileBytes;
     load_tile(qs, q + head, qt * BQ);
@@ -671,6 +681,12 @@ flash_bwd_dkdv_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__
   const int end = (T + BQ - 1) / BQ;
   load_q(first, 0);
   cp_async_commit();
+  // K and V as A operands, held in registers for the walk
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t ka_frag[4][4], va_frag[4][4];
+  ldmatrix_a_sw128(ka_frag, ks);
+  ldmatrix_a_sw128(va_frag, vs);
 
   // this thread's keys: ka (entries 0, 1), kb (2, 3)
   const int la = warp * 16 + g, lb = la + 8;
@@ -696,9 +712,9 @@ flash_bwd_dkdv_wgmma_kernel(const Bf16* __restrict__ q, const Bf16* __restrict__
     // rows ka, kb; columns q rows 8 j + 2 t (+1)
     float s[8][4], dp[8][4], p[8][4];
     wgmma_fence();
-    products_nt(s, ks, qs);
+    products_nt(s, ka_frag, qs);
     wgmma_commit();
-    products_nt(dp, vs, dos);
+    products_nt(dp, va_frag, dos);
     wgmma_commit();
     wgmma_wait<1>();  // S^T
     reg_fence(s);

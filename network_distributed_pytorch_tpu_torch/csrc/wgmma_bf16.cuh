@@ -122,22 +122,42 @@ __device__ __forceinline__ void wgmma_ss(float (&c)[8][4], uint64_t da, uint64_t
   }
 }
 
-// c += A.B for one k16 step, A from registers (an m16n8k16 A fragment of
-// the warp's 16 rows), B from shared memory; kTransB as wgmma_ss
-template <int kTransB>
+// c = A.B + (kAccumulate ? c : 0) for one k16 step, A from registers (an
+// m16n8k16 A fragment of the warp's 16 rows), B from shared memory;
+// kTransB and kAccumulate as wgmma_ss
+template <int kTransB, int kAccumulate = 1>
 __device__ __forceinline__ void wgmma_rs(float (&c)[8][4], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : WGMMA_C32(WGMMA_RW)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(kTransB));
+  if constexpr (kAccumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : WGMMA_C32(WGMMA_RW)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(kTransB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : WGMMA_C32(WGMMA_W)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0), "n"(kTransB));
+  }
 }
 
 #undef WGMMA_RW
 #undef WGMMA_W
 #undef WGMMA_C32
 #undef WGMMA_D32
+
+// The register A operands of a swizzled tile, as the warp's 16 rows
+// (16 w .. 16 w + 15 of the warpgroup's 64) for each k16 step, by ldmatrix:
+// lane l reads row l % 16 of the warp's rows at chunk 2 kk + l / 16
+__device__ __forceinline__ void ldmatrix_a_sw128(uint32_t (&a)[4][4], const unsigned char* tile) {
+  const int lane = threadIdx.x & 31, r = 16 * ((threadIdx.x >> 5) & 3) + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    ldmatrix_x4(a[kk], reinterpret_cast<const __nv_bfloat16*>(tile + r * 128 + ((((2 * kk + (lane >> 4)) ^ r) & 7) << 4)));
+}
 
 // zero the elements [D, 64) of each row of `tiles` consecutive swizzled
 // tiles: the copies never write them, and the products read them as zeros
