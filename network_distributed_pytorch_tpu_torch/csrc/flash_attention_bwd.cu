@@ -57,13 +57,13 @@
 //     tile in shared memory in the 128-byte swizzled layout that wgmma
 //     reads. S and dP are exact bf16 products in one pass each, the walked
 //     tile K-major as B; A is K or V in registers, loaded once by ldmatrix
-//     (dK/dV, RS), or Q or dO in shared memory (dQ, SS). P and dS are fp32; each is split in registers into bf16 hi and lo
-//     (16 bits), whose accumulator fragments are the register A operand (RS)
-//     of dV, dK and dQ, two passes each against the walked tile as an
-//     MN-major B (the descriptor's transpose bit). The tensor cores read B
-//     once for the warpgroup, where each warp of an mma.sync block read
-//     every fragment of it, and run while the warps work (P while dP runs,
-//     dS while dV runs); the copies into the ring go on under both;
+//     (dK/dV, RS), or Q or dO in shared memory (dQ, SS). P and dS are fp32;
+//     each is split in registers into bf16 hi and lo (16 bits), whose
+//     accumulator fragments are the register A operand (RS) of dV, dK and
+//     dQ, two passes each against the walked tile as an MN-major B (the
+//     descriptor's transpose bit). The tensor cores read B once for the
+//     warpgroup, not once a warp as mma.sync does, and run while the warps
+//     work (P while dP runs, dS while dV runs);
 //   * bf16 heads, 64 < D <= 128: mma.sync m16n8k16 from ldmatrix, the same
 //     arithmetic (the accumulators of dK and dV at D = 128 would not fit
 //     beside the m64 tiles).
@@ -964,7 +964,8 @@ flash_bwd_wgmma_selftest_kernel(const Bf16* __restrict__ a, const Bf16* __restri
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) af[kk][e] = a32[((16 * warp + g + 8 * (e & 1)) * 64 + 16 * kk + 2 * t + 8 * (e >> 1)) / 2];
+    for (int e = 0; e < 4; ++e)
+      af[kk][e] = a32[((16 * warp + g + 8 * (e & 1)) * 64 + 16 * kk + 2 * t + 8 * (e >> 1)) / 2];
   float acc[8][4];
   zero_acc<8>(acc);
   wgmma_fence();

@@ -1,15 +1,16 @@
 // Hopper warpgroup products (wgmma) on bf16 64 x 64 tiles, for K5's bf16
 // backward (csrc/flash_attention_bwd.cu): shared-memory descriptors of the
 // 128-byte swizzled layout, the wgmma fence, commit and wait, the
-// m64n64k16 product with A from shared memory (SS) or registers (RS), and
-// copies of (T, D <= 64) rows into that layout.
+// m64n64k16 product with A from shared memory (SS) or registers (RS), a
+// tile's register A operands by ldmatrix, and copies of (T, D <= 64) rows
+// into that layout.
 //
 // Layout. A tile is 64 rows of 64 bf16 (128 bytes: one swizzle row), 8 KB,
 // based on 1024 bytes. The 16-byte chunk c of row r lies at chunk
 // c ^ (r % 8) of the row: 8-row groups of 1024 bytes (the swizzle atom)
 // follow each other. The same tile serves as either operand kind:
 //   * K-major (rows along M or N, the depth K along the row): the rows of
-//     A = Q, K, V or of B = K, V, Q, dO for the products over D. A k16 step
+//     A = Q, dO or of B = K, V, Q, dO for the products over D. A k16 step
 //     kk starts 32 kk bytes into the rows; the 8-row groups are SBO = 1024
 //     bytes apart (LBO is not used by a swizzled K-major operand: 16);
 //   * MN-major (rows along K, N along the row, the transpose bit set): B =
@@ -35,7 +36,9 @@ namespace {
 constexpr int kSwTileBytes = 64 * 128;  // one swizzled 64 x 64 bf16 tile
 
 // the byte offset of bf16 element (r, c) in a swizzled tile
-__device__ __forceinline__ int sw128_offset(int r, int c) { return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2; }
+__device__ __forceinline__ int sw128_offset(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
 
 // the 64-bit descriptor (start address, LBO and SBO in 16-byte units,
 // layout type 1: 128-byte swizzle; base offset 0, the atoms 1024-aligned)
@@ -156,7 +159,7 @@ __device__ __forceinline__ void ldmatrix_a_sw128(uint32_t (&a)[4][4], const unsi
   const int lane = threadIdx.x & 31, r = 16 * ((threadIdx.x >> 5) & 3) + (lane & 15);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    ldmatrix_x4(a[kk], reinterpret_cast<const __nv_bfloat16*>(tile + r * 128 + ((((2 * kk + (lane >> 4)) ^ r) & 7) << 4)));
+    ldmatrix_x4(a[kk], reinterpret_cast<const __nv_bfloat16*>(tile + sw128_offset(r, 8 * (2 * kk + (lane >> 4)))));
 }
 
 // zero the elements [D, 64) of each row of `tiles` consecutive swizzled
