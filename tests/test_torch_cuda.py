@@ -8,7 +8,9 @@ the flash attention kernels, forward and backward
 key, a ragged T, GPT's causal T = 1024 and NaN in the key tiles they must
 skip; the backward also through ``torch.autograd`` with the mask's
 gradient, and two calls bitwise equal) against their plain versions, the
-PowerSGD reducer launching its kernels once per shape group,
+bf16 backward's warpgroup (``wgmma``) route at ragged T and D <= 64, one
+product of each ``wgmma`` form against ``a @ b`` and ``HGMMA`` in the SASS
+of its kernels, the PowerSGD reducer launching its kernels once per shape group,
 DistilBERT launching flash attention once per layer, exact-DDP steps of the
 small ResNet-18 on the card against the CPU, the single-node IMDb
 baseline running flash attention (forward and backward) on the card, and
