@@ -82,6 +82,7 @@
 
 #include "flash_attention_mma.cuh"
 #include "wgmma_bf16.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -934,6 +935,500 @@ int launch_wgmma(const Bf16* q, const Bf16* k, const Bf16* v, const float* mask,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- fp32 heads, D <= 64: 3xTF32 warpgroup products (csrc/wgmma_tf32.cuh) ----
+//
+// The bf16 kernels' walk, blocks and elementwise code, on fp32 tiles of 16
+// KB with every product in three TF32 passes (lo.hi, hi.lo, then hi.hi).
+// A TF32 wgmma reads both shared-memory operands K-major, so each walked
+// tile, as it arrives, is split once by the warps (derive_tf32) into its lo
+// part and, where a product's depth is the walk, into its transpose's hi
+// and lo parts, in the permuted order that lets P's and dS's accumulator
+// registers be the register A operand as they stand. The first pass of S
+// and dP (the block's lo part against the walked tile as it arrived) runs
+// in the tensor cores while the warps split. Every product is one chain of
+// 24 passes into one accumulator, the small passes first: S and dP whole
+// (their error stays within a few ulp: the self-test's chain readings,
+// PERF.md), dV, dK and dQ as a fresh partial a tile, added to the running
+// sums in fp32 with rounding to nearest, so that no accumulator takes a
+// walk's 384 passes. One block an SM: 224 KB (dK/dV) and 194 KB (dQ) of
+// shared memory.
+
+// fp32 heads, D <= 64: fp32 tiles a block, and the bytes of `floats` fp32 and
+// of the 1024-byte alignment beside them
+constexpr int tf32_smem(int tiles, int floats) { return tiles * kSwTileF32Bytes + 1024 + 4 * floats; }
+
+// one tile of a (T, D) fp32 head into a swizzled tile: by cp.async where
+// every row is 16-byte aligned, else element by element
+struct LoadTileF32 {
+  TileCopyF32 copy;
+  bool vec;
+  __device__ __forceinline__ void operator()(unsigned char* tile, const float* head, int row0, int T, int D) const {
+    if (vec) {
+      copy(tile, head, row0, T, D);
+    } else {
+      load_rows_f32<kThreads>(tile, head, row0, T, D);
+    }
+  }
+};
+
+// (ii) dK, dV and the per-head column sums of dS, on fp32 heads: one
+// warpgroup per (head, 64 keys). K and V (and their lo parts) are the A of
+// S^T = K.Q^T and dP^T = V.dO^T; tiles of 64 q rows of Q and dO arrive in a
+// two-stage cp.async ring and are split into Q lo and dO lo (the B lo of
+// S^T and dP^T) and Q^T and dO^T, hi and lo (the B of dK += dS^T.Q and
+// dV += P^T.dO). Registers: dK, dV, S^T, dP^T, the partial and P's lo part
+// (32 each); the partial's dV is added before dS^T is split, so that dS^T's
+// lo part never lives beside P's
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_tf32_wgmma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ mask,
+                                 const float* __restrict__ lse, const float* __restrict__ dout,
+                                 const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+                                 float* __restrict__ dmask_part, int T, int D, int H, int causal, float scale) {
+  constexpr int BQ = 64, F = kSwTileF32Bytes;
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  // the tiles as they arrive (K, V, two stages of (Q, dO)), contiguous for
+  // zero_padding_f32; then K's and V's lo parts and the walked tile's parts
+  unsigned char* ks = align1024(wg_smem);
+  unsigned char* vs = ks + F;
+  unsigned char* ring = vs + F;
+  unsigned char* klo = ring + 4 * F;
+  unsigned char* vlo = klo + F;
+  unsigned char* qlo = vlo + F;
+  unsigned char* dolo = qlo + F;
+  unsigned char* qth = dolo + F;  // Q^T hi, lo
+  unsigned char* qtl = qth + F;
+  unsigned char* doth = qtl + F;  // dO^T hi, lo
+  unsigned char* dotl = doth + F;
+  float* lse_s = reinterpret_cast<float*>(dotl + F);  // two stages of BQ
+  float* delta_s = lse_s + 2 * BQ;                   // two stages of BQ
+  float* mk = delta_s + 2 * BQ;                      // kRows
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles = (T + kRows - 1) / kRows;
+  const int bh = blockIdx.x / tiles;
+  const int k0 = (blockIdx.x - bh * tiles) * kRows;
+  const size_t head = static_cast<size_t>(bh) * T * D;
+  const float* mrow = mask + static_cast<size_t>(bh / H) * T;
+  const float scale_log2 = scale * kLog2e;
+
+  // a tile with no valid key: zeros, nothing read
+  const bool key_valid = tid < kRows && k0 + tid < T && __ldg(mrow + k0 + tid) > kMaskPad;
+  const bool all_keys = __syncthreads_and(key_valid || tid >= kRows);
+  if (!__syncthreads_or(key_valid)) {
+    const int n = min(kRows, T - k0) * D;
+    for (int i = tid; i < n; i += kThreads) {
+      dk[head + static_cast<size_t>(k0) * D + i] = 0.f;
+      dv[head + static_cast<size_t>(k0) * D + i] = 0.f;
+    }
+    if (dmask_part && tid < kRows && k0 + tid < T) dmask_part[static_cast<size_t>(bh) * T + k0 + tid] = 0.f;
+    return;
+  }
+
+  if (D < 64) zero_padding_f32<kThreads>(ks, 6, D);
+  const LoadTileF32 load_tile{TileCopyF32(D), rows_aligned<float>(D, q, k, v) && rows_aligned<float>(D, dout, dout, dout)};
+  load_tile(ks, k + head, k0, T, D);
+  load_tile(vs, v + head, k0, T, D);
+  load_floats<kThreads>(mk, mrow, k0, kRows, T);
+  cp_async_commit();
+  auto load_q = [&](int qt, int stage) {
+    unsigned char* qs = ring + stage * 2 * F;
+    load_tile(qs, q + head, qt * BQ, T, D);
+    load_tile(qs + F, dout + head, qt * BQ, T, D);
+    load_floats<kThreads>(lse_s + stage * BQ, lse + static_cast<size_t>(bh) * T, qt * BQ, BQ, T);
+    load_floats<kThreads>(delta_s + stage * BQ, delta + static_cast<size_t>(bh) * T, qt * BQ, BQ, T);
+  };
+  const int first = causal ? k0 / BQ : 0;  // the diagonal's q tile
+  const int end = (T + BQ - 1) / BQ;
+  load_q(first, 0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  derive_tf32<false>(ks, klo, nullptr, nullptr);
+  derive_tf32<false>(vs, vlo, nullptr, nullptr);
+
+  // this thread's keys: ka (entries 0, 1), kb (2, 3)
+  const int la = warp * 16 + g, lb = la + 8;
+  const int ka = k0 + la, kb = k0 + lb;
+  float dk_acc[8][4], dv_acc[8][4];
+  zero_acc<8>(dk_acc);
+  zero_acc<8>(dv_acc);
+  float dsum[2] = {0.f, 0.f};
+
+  int stage = 0;
+  for (int qt = first; qt < end; ++qt) {
+    cp_async_wait<0>();
+    fence_async_shared();
+    __syncthreads();  // the tile (and K's and V's lo parts) in for every thread, every warp past the last tile
+    if (qt + 1 < end) load_q(qt + 1, stage ^ 1);
+    cp_async_commit();
+    const unsigned char* qs = ring + stage * 2 * F;
+    const unsigned char* dos = qs + F;
+    const float* ls = lse_s + stage * BQ;
+    const float* ds_ = delta_s + stage * BQ;
+
+    // S^T and dP^T (only the tensor cores write them): their first passes
+    // while the warps split the tile
+    float s[8][4], dp[8][4], p[8][4];
+    wgmma_fence();
+    products_nt_tf32_first<8>(s, klo, qs);
+    products_nt_tf32_first<8>(dp, vlo, dos);
+    wgmma_commit();
+    derive_tf32<true>(qs, qlo, qth, qtl);
+    derive_tf32<true>(dos, dolo, doth, dotl);
+    fence_async_shared();
+    __syncthreads();
+    products_nt_tf32_rest<8>(s, ks, qlo, qs);
+    wgmma_commit();
+    products_nt_tf32_rest<8>(dp, vs, dolo, dos);
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T
+    reg_fence(s);
+    const bool key_ok[2] = {ka < T && mk[la] > kMaskPad, kb < T && mk[lb] > kMaskPad};
+    const float mask_log2[2] = {mk[la] * kLog2e, mk[lb] * kLog2e};
+    // every (key, q row) pair of the tile valid: no flag to test
+    const bool full = all_keys && (qt + 1) * BQ <= T && (!causal || qt * BQ >= k0 + kRows - 1);
+    auto probabilities = [&](auto all_valid_tag) {
+      constexpr bool all_valid = decltype(all_valid_tag)::value;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int lq = 8 * j + 2 * t + (e & 1), qrow = qt * BQ + lq, key = e < 2 ? ka : kb;
+          const bool valid = all_valid || (key_ok[e >> 1] && qrow < T && (!causal || qrow >= key));
+          const float l = e & 1 ? l2.y : l2.x;
+          p[j][e] = valid ? ex2(fmaf(s[j][e], scale_log2, fmaf(l, -kLog2e, mask_log2[e >> 1]))) : 0.f;
+        }
+      }
+    };
+    if (full) {
+      probabilities(std::true_type{});
+    } else {
+      probabilities(std::false_type{});
+    }
+    float part[8][4];                        // a tile's dV, then its dK
+    uint32_t ah[8][4], al[8][4];             // P^T's parts, then dS^T's: the A of dV, then of dK
+    split_acc_tf32(p, ah, al);
+    wgmma_fence();
+    products_nn_tf32(part, ah, al, doth, dotl);  // P^T.dO
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T
+    reg_fence(dp);
+    float ds[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(ds_ + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ds[j][e] = p[j][e] * (dp[j][e] - (e & 1 ? d2.y : d2.x));  // dS^T
+        dsum[e >> 1] += ds[j][e];
+      }
+    }
+    wgmma_wait<0>();
+    reg_fence(part);
+    reg_fence(ah);
+    reg_fence(al);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv_acc[j][e] += part[j][e];
+    split_acc_tf32(ds, ah, al);
+    wgmma_fence();
+    products_nn_tf32(part, ah, al, qth, qtl);  // dS^T.Q
+    wgmma_commit();
+    wgmma_wait<0>();  // nothing in flight across the back edge
+    reg_fence(part);
+    reg_fence(ah);
+    reg_fence(al);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[j][e] += part[j][e];
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+  store_rows<float, 8>(dk_acc, scale, dk + head, k0 + warp * 16, T, D);
+  store_rows<float, 8>(dv_acc, 1.f, dv + head, k0 + warp * 16, T, D);
+  if (dmask_part) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x = dsum[h];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      const int key = h ? kb : ka;
+      if (t == 0 && key < T) dmask_part[static_cast<size_t>(bh) * T + key] = x;
+    }
+  }
+}
+
+// (iii) dQ on fp32 heads: one warpgroup per (head, 64 q rows). Q and dO
+// (and their lo parts) are the A of S = Q.K^T and dP = dO.V^T; tiles of 64
+// keys of K and V arrive in a two-stage cp.async ring and are split into K
+// lo and V lo (the B lo of S and dP) and K^T, hi and lo (the B of
+// dQ += dS.K)
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_tf32_wgmma_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                               const float* __restrict__ mask, const float* __restrict__ lse,
+                               const float* __restrict__ dout, const float* __restrict__ delta,
+                               float* __restrict__ dq, int T, int D, int H, int causal, float scale) {
+  constexpr int F = kSwTileF32Bytes;
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  // the tiles as they arrive (Q, dO, two stages of (K, V)), contiguous for
+  // zero_padding_f32; then Q's and dO's lo parts and the walked tile's parts
+  unsigned char* qs = align1024(wg_smem);
+  unsigned char* dos = qs + F;
+  unsigned char* ring = dos + F;
+  unsigned char* qlo = ring + 4 * F;
+  unsigned char* dolo = qlo + F;
+  unsigned char* klo = dolo + F;
+  unsigned char* vlo = klo + F;
+  unsigned char* kth = vlo + F;  // K^T hi, lo
+  unsigned char* ktl = kth + F;
+  float* lse_s = reinterpret_cast<float*>(ktl + F);  // kRows
+  float* delta_s = lse_s + kRows;                    // kRows
+  float* mk = delta_s + kRows;                       // two stages of kBK
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles = (T + kRows - 1) / kRows;
+  const int bh = blockIdx.x / tiles;
+  const int yt = blockIdx.x - bh * tiles;
+  // causal: each head's last q tile (the longest walk) first
+  const int q0 = (causal ? tiles - 1 - yt : yt) * kRows;
+  const size_t head = static_cast<size_t>(bh) * T * D;
+  const float* mrow = mask + static_cast<size_t>(bh / H) * T;
+  const float scale_log2 = scale * kLog2e;
+
+  if (D < 64) zero_padding_f32<kThreads>(qs, 6, D);
+  const LoadTileF32 load_tile{TileCopyF32(D), rows_aligned<float>(D, q, k, v) && rows_aligned<float>(D, dout, dout, dout)};
+  auto load_k = [&](int tile, int stage) {
+    unsigned char* kt = ring + stage * 2 * F;
+    load_tile(kt, k + head, tile * kBK, T, D);
+    load_tile(kt + F, v + head, tile * kBK, T, D);
+    load_floats<kThreads>(mk + stage * kBK, mrow, tile * kBK, kBK, T);
+  };
+  int end = (T + kBK - 1) / kBK;
+  if (causal) end = min(end, (q0 + kRows + kBK - 1) / kBK);
+  int tile = next_tile(mrow, 0, end, T);
+  load_tile(qs, q + head, q0, T, D);
+  load_tile(dos, dout + head, q0, T, D);
+  load_floats<kThreads>(lse_s, lse + static_cast<size_t>(bh) * T, q0, kRows, T);
+  load_floats<kThreads>(delta_s, delta + static_cast<size_t>(bh) * T, q0, kRows, T);
+  cp_async_commit();
+  if (tile < end) load_k(tile, 0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  derive_tf32<false>(qs, qlo, nullptr, nullptr);
+  derive_tf32<false>(dos, dolo, nullptr, nullptr);
+
+  const int la = warp * 16 + g, lb = la + 8;
+  const int qa = q0 + la, qb = q0 + lb;
+  float dq_acc[8][4];
+  zero_acc<8>(dq_acc);
+
+  int stage = 0;
+  while (tile < end) {
+    const int next = next_tile(mrow, tile + 1, end, T);
+    cp_async_wait<0>();
+    fence_async_shared();
+    __syncthreads();  // the tile (and Q's and dO's lo parts) in for every thread, every warp past the last tile
+    if (next < end) load_k(next, stage ^ 1);
+    cp_async_commit();
+    const unsigned char* kt = ring + stage * 2 * F;
+    const unsigned char* vt = kt + F;
+    const float* ms = mk + stage * kBK;
+    const int k0 = tile * kBK;
+
+    // S and dP (only the tensor cores write them): their first passes
+    // while the warps split the tile
+    float s[8][4], dp[8][4], p[8][4];
+    wgmma_fence();
+    products_nt_tf32_first<8>(s, qlo, kt);
+    products_nt_tf32_first<8>(dp, dolo, vt);
+    wgmma_commit();
+    derive_tf32<true>(kt, klo, kth, ktl);
+    derive_tf32<false>(vt, vlo, nullptr, nullptr);
+    fence_async_shared();
+    __syncthreads();
+    products_nt_tf32_rest<8>(s, qs, klo, kt);
+    wgmma_commit();
+    products_nt_tf32_rest<8>(dp, dos, vlo, vt);
+    wgmma_commit();
+    wgmma_wait<1>();  // S
+    reg_fence(s);
+    const float lse_log2[2] = {lse_s[la] * kLog2e, lse_s[lb] * kLog2e};
+    const bool keys_valid = __all_sync(0xffffffffu, k0 + lane < T && ms[lane] > kMaskPad &&
+                                                        k0 + lane + 32 < T && ms[lane + 32] > kMaskPad);
+    // every (q row, key) pair of the warp's 16 rows valid: no flag to test
+    const bool full = keys_valid && q0 + kRows <= T && (!causal || k0 + kBK - 1 <= q0 + warp * 16);
+    auto probabilities = [&](auto all_valid_tag) {
+      constexpr bool all_valid = decltype(all_valid_tag)::value;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 m2 = *reinterpret_cast<const float2*>(ms + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const int qrow = e < 2 ? qa : qb;
+          const float mv = e & 1 ? m2.y : m2.x;
+          const bool valid = all_valid || (key < T && qrow < T && mv > kMaskPad && (!causal || qrow >= key));
+          p[j][e] = valid ? ex2(fmaf(s[j][e], scale_log2, fmaf(mv, kLog2e, -lse_log2[e >> 1]))) : 0.f;
+        }
+      }
+    };
+    if (full) {
+      probabilities(std::true_type{});
+    } else {
+      probabilities(std::false_type{});
+    }
+    wgmma_wait<0>();  // dP
+    reg_fence(dp);
+    const float dr[2] = {delta_s[la], delta_s[lb]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[j][e] *= dp[j][e] - dr[e >> 1];  // dS
+    float part[8][4];
+    uint32_t ah[8][4], al[8][4];  // dQ's A operand
+    split_acc_tf32(p, ah, al);
+    wgmma_fence();
+    products_nn_tf32(part, ah, al, kth, ktl);  // dS.K
+    wgmma_commit();
+    wgmma_wait<0>();  // nothing in flight across the back edge
+    reg_fence(part);
+    reg_fence(ah);
+    reg_fence(al);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq_acc[j][e] += part[j][e];
+    tile = next;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+  store_rows<float, 8>(dq_acc, scale, dq + head, q0 + warp * 16, T, D);
+}
+
+int launch_wgmma_tf32(const float* q, const float* k, const float* v, const float* mask, const float* lse,
+                      const float* dout, const float* delta, float* dq, float* dk, float* dv, float* dmask_part,
+                      int bh, int T, int D, int H, int causal, float scale, cudaStream_t stream) {
+  constexpr int kv_smem = tf32_smem(14, 5 * kRows), q_smem = tf32_smem(12, 4 * kRows);
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_dkdv_tf32_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dq_tf32_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, q_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = bh * ((T + kRows - 1) / kRows);  // (head, tile), a head's tiles together
+  flash_bwd_dkdv_tf32_wgmma_kernel<<<blocks, kThreads, kv_smem, stream>>>(q, k, v, mask, lse, dout, delta, dk, dv,
+                                                                           dmask_part, T, D, H, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_tf32_wgmma_kernel<<<blocks, kThreads, q_smem, stream>>>(q, k, v, mask, lse, dout, delta, dq, T, D, H,
+                                                                         causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The TF32 products on one warpgroup, c = A.B (64 x 64, fp32, row-major)
+// for A (64 x k) and B (k x 64) fp32, row-major:
+//   mode 0: one pass a k8 step, A and B from shared memory as given (the
+//           tensor cores' own TF32 of each value);
+//   mode 1: the same with A from registers (its bits, the m16n8k8 layout);
+//   mode 2 (k = 64): the kernels' products_nn_tf32: A read as fp32
+//           accumulator fragments and split in registers, B copied as a
+//           walked tile is (TileCopyF32) and split and transposed by
+//           derive_tf32 into the permuted order;
+//   mode 3 (k = 8, 32, 64 or 128): the kernels' products_nt_tf32_first and
+//           _rest, 3xTF32 in one accumulator, a chain of 3 k / 8 passes,
+//           the lo parts by derive_tf32.
+// It holds the layouts, descriptors and fragment orders that the fp32
+// kernels above rely on, and what the tensor cores do with an fp32 value.
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_wgmma_tf32_selftest_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
+                                     int k, int mode) {
+  constexpr int F2 = 2 * kSwTileF32Bytes;  // a 64 x 128 tile
+  extern __shared__ __align__(128) unsigned char wg_smem[];
+  unsigned char* ah = align1024(wg_smem);
+  unsigned char* al = ah + F2;
+  unsigned char* bh = al + F2;
+  unsigned char* bl = bh + F2;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  if (mode == 2) {
+    TileCopyF32(64)(al, b, 0, 64, 64);  // B as a walked tile arrives: rows k
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    derive_tf32<true>(al, ah, bh, bl);
+  } else {
+    // A as it stands and B transposed (rows n), zero past k
+    for (int idx = tid; idx < 64 * 128; idx += kThreads) {
+      const int r = idx >> 7, col = idx & 127;
+      *reinterpret_cast<float*>(ah + sw128_f32_offset(r, col)) = col < k ? a[r * k + col] : 0.f;
+      *reinterpret_cast<float*>(bh + sw128_f32_offset(r, col)) = col < k ? b[col * 64 + r] : 0.f;
+    }
+    __syncthreads();
+    if (mode == 3) {
+      for (int half = 0; half < 2; ++half) {
+        derive_tf32<false>(ah + half * kSwTileF32Bytes, al + half * kSwTileF32Bytes, nullptr, nullptr);
+        derive_tf32<false>(bh + half * kSwTileF32Bytes, bl + half * kSwTileF32Bytes, nullptr, nullptr);
+      }
+    }
+  }
+  fence_async_shared();
+  __syncthreads();
+  const int ra = 16 * warp + g;  // this thread's rows ra, ra + 8
+  float acc[8][4];
+  uint32_t hi[8][4], lo[8][4];
+  zero_acc<8>(acc);
+  wgmma_fence();
+  if (mode == 0 || mode == 1) {
+    const uint64_t da = desc_k_major(ah), db = desc_k_major(bh);
+    for (int kk = 0; kk < k / 8; ++kk) {
+      const uint32_t af[4] = {
+          __float_as_uint(a[ra * k + 8 * kk + t]), __float_as_uint(a[(ra + 8) * k + 8 * kk + t]),
+          __float_as_uint(a[ra * k + 8 * kk + t + 4]), __float_as_uint(a[(ra + 8) * k + 8 * kk + t + 4])};
+      if (mode == 0) {
+        wgmma_tf32_ss<1>(acc, step_tf32(da, kk), step_tf32(db, kk));
+      } else {
+        wgmma_tf32_rs<1>(acc, af, step_tf32(db, kk));
+      }
+    }
+  } else if (mode == 2) {
+    float af[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) af[j][e] = a[(ra + 8 * (e >> 1)) * 64 + 8 * j + 2 * t + (e & 1)];
+    split_acc_tf32(af, hi, lo);
+    wgmma_fence();
+    products_nn_tf32(acc, hi, lo, bh, bl);
+  } else if (k == 8) {
+    products_nt_tf32_first<1>(acc, al, bh);
+    products_nt_tf32_rest<1>(acc, ah, bl, bh);
+  } else if (k == 32) {
+    products_nt_tf32_first<4>(acc, al, bh);
+    products_nt_tf32_rest<4>(acc, ah, bl, bh);
+  } else if (k == 64) {
+    products_nt_tf32_first<8>(acc, al, bh);
+    products_nt_tf32_rest<8>(acc, ah, bl, bh);
+  } else {
+    products_nt_tf32_first<16>(acc, al, bh);
+    products_nt_tf32_rest<16>(acc, ah, bl, bh);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(acc);
+  reg_fence(hi);
+  reg_fence(lo);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[(ra + 8 * (e >> 1)) * 64 + 8 * j + 2 * t + (e & 1)] = acc[j][e];
+}
+
 // One 64 x 64 x 64 product on one warpgroup, c = A.B in fp32 (row-major):
 // A (row-major) from a swizzled tile (rs = 0) or from registers (rs = 1);
 // B ([k][n], row-major) as a K-major tile whose rows are B's columns
@@ -1015,7 +1510,7 @@ int dispatch(const void* q, const void* k, const void* v, const float* mask, con
   if constexpr (std::is_same_v<R, Bf16Route>) {
     if (D <= 64) return args(launch_wgmma);
   } else {
-    if (D <= 64) return args(launch_grads<R, 8>);
+    if (D <= 64) return args(launch_wgmma_tf32);
   }
   return args(launch_grads<R, 16>);
 }
@@ -1051,5 +1546,19 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void
 extern "C" int flash_bwd_wgmma_selftest(const void* a, const void* b, void* c, int rs, int trans_b, void* stream) {
   flash_bwd_wgmma_selftest_kernel<<<1, kThreads, 2 * kSwTileBytes + 1024, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const Bf16*>(a), static_cast<const Bf16*>(b), static_cast<float*>(c), rs, trans_b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The TF32 products' self-test (flash_bwd_wgmma_tf32_selftest_kernel): a
+// (64, k) and b (k, 64) fp32, c (64, 64) fp32, contiguous on the card; k
+// and mode as the kernel's. Returns cudaGetLastError() after the launch on
+// `stream`, or the error of setting its shared memory.
+extern "C" int flash_bwd_wgmma_tf32_selftest(const void* a, const void* b, void* c, int k, int mode, void* stream) {
+  constexpr int smem = 8 * kSwTileF32Bytes + 1024;
+  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_wgmma_tf32_selftest_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_wgmma_tf32_selftest_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(c), k, mode);
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,7 +37,9 @@ SOURCES = {
     "gram_schmidt": ("gram_schmidt.cu", "gram_schmidt_cta.cuh"),
     "powersgd": ("powersgd.cu", "gram_schmidt.cu", "gram_schmidt_cta.cuh"),
     "flash_attention": ("flash_attention.cu", "flash_attention_mma.cuh"),
-    "flash_attention_bwd": ("flash_attention_bwd.cu", "flash_attention_mma.cuh", "wgmma_bf16.cuh"),
+    "flash_attention_bwd": (
+        "flash_attention_bwd.cu", "flash_attention_mma.cuh", "wgmma_bf16.cuh", "wgmma_tf32.cuh",
+    ),
 }
 
 NVCC_FLAGS = [

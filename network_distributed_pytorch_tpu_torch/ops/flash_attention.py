@@ -246,6 +246,30 @@ def _launch_bwd(qf, kf, vf, mask, out, lse, do, causal: bool, scale: float, need
     return dq, dk, dv, dmask
 
 
+def wgmma_tf32_selftest(a: torch.Tensor, b: torch.Tensor, mode: int) -> torch.Tensor:
+    """``a @ b`` on one warpgroup by the backward library's TF32 self-test
+    (``flash_bwd_wgmma_tf32_selftest``; ``csrc/flash_attention_bwd.cu`` gives
+    the modes: 0 and 1 one pass from shared memory or registers, 2 and 3 the
+    fp32 kernels' 3xTF32 products): ``a`` (64, k) and ``b`` (k, 64) fp32 on
+    one CUDA device. A check of the fp32 backward's building blocks, on no
+    path of the port."""
+    k = a.shape[1]
+    if a.dtype != torch.float32 or b.dtype != torch.float32 or a.device.type != "cuda" or b.device != a.device:
+        raise ValueError("wgmma_tf32_selftest: a and b must be float32 on one CUDA device")
+    if tuple(a.shape) != (64, k) or tuple(b.shape) != (k, 64) or k not in ((64,) if mode == 2 else (8, 32, 64, 128)):
+        raise ValueError(f"wgmma_tf32_selftest: shapes {tuple(a.shape)}, {tuple(b.shape)} for mode {mode}")
+    fn = _build.load("flash_attention_bwd").flash_bwd_wgmma_tf32_selftest
+    fn.argtypes = [_P, _P, _P, _I, _I, _P]
+    fn.restype = _I
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.full((64, 64), float("nan"), device=a.device)
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), k, mode, torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"wgmma_tf32_selftest: CUDA launch failed with error {err}")
+    return c
+
+
 def flash_attention_fwd(qf, kf, vf, mask, causal: bool, block_q: int, block_k: int, scale: float):
     """The forward on folded heads, ``(out, lse)``: the plain version on CPU
     tensors, the kernel on CUDA tensors (its own 64 x 64 tiles; the results

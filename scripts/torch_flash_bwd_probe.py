@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""K5's bf16 backward kernels timed alone, one kernel at a time, so that two
+"""K5's backward kernels timed alone, one kernel at a time, so that two
 versions of the port can be compared in turns on one card.
 
 Run from the root of the repository on a machine with a CUDA card::
 
-    python3 scripts/torch_flash_bwd_probe.py [--root DIR] [--reps N]
+    python3 scripts/torch_flash_bwd_probe.py [--root DIR] [--reps N] [--dtype {bfloat16,float32}]
 
 ``--root`` imports the port from another checkout (for instance an older
 commit unpacked with ``git archive`` into a git-ignored directory), whose
 kernels it builds there; the script itself may be newer than that checkout.
-On random bf16 heads from a fixed seed, each case's forward kernel gives out
-and lse, and the backward then runs ``launches`` times a step:
+On random heads of ``--dtype`` (bf16 unless asked) from a fixed seed, each
+case's forward kernel gives out and lse, and the backward then runs
+``launches`` times a step:
 
 - ``gpt2_causal``: GPT-2 small's causal heads (B 16, T 1024, H 12, D 64),
   12 launches a step;
@@ -21,9 +22,13 @@ For each it reports the ``torch.profiler`` device time a step of every
 kernel whose name holds ``flash_bwd`` (the Dr pre-pass, dK/dV and dQ
 separately), their sum, CUDA events around the step (host enqueue
 included), and the device time of SDPA's backward on the same inputs (the
-gradient of its output in q, k, v, its forward excluded). It prints one
-JSON line, then the card's name and power limit. Without a CUDA device it
-prints no result and exits 1.
+gradient of its output in q, k, v, its forward excluded). On fp32, where
+the checkout has the TF32 self-test (``wgmma_tf32_selftest``), it also
+reports what the tensor cores take of an fp32 operand and how far 3xTF32
+chains of 3, 12, 24 and 48 passes into one accumulator stray from the same
+passes summed in fp64 (``tf32_facts``). It prints one JSON line, then the
+card's name and power limit. Without a CUDA device it prints no result and
+exits 1.
 """
 
 import argparse
@@ -82,12 +87,57 @@ def events_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _tf32(x):
+    """x's TF32 value as the tensor cores take it: each fp32's low 13 bits cleared."""
+    import torch
+
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_facts(fa, dev) -> dict:
+    """Stage 0 of the fp32 route, from the backward library's self-test:
+    whether an fp32 operand is taken truncated (its low 13 bits ignored) or
+    rounded, from A in shared memory (mode 0) and in registers (mode 1); and
+    for chains of 3 k / 8 passes (k = 8, 32, 64, 128) of the kernels' 3xTF32
+    product on unit normal (64, k) and (k, 64) operands, the largest error
+    against the same three TF32 passes summed in fp64 (the accumulation's
+    own drift) and against the fp64 product, each over max |a @ b|, the
+    largest of five seeds."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(0)
+    a = torch.from_numpy((1.0 + rng.randint(1, 2**13, (64, 64)) * 2.0**-23).astype(np.float32)).to(dev)
+    eye = torch.eye(64, device=dev)
+    facts = {}
+    for mode, name in ((0, "a_shared"), (1, "a_registers")):
+        c = fa.wgmma_tf32_selftest(a, eye, mode)
+        torch.cuda.synchronize()
+        facts[f"truncates_{name}"] = bool(torch.equal(c, _tf32(a)))
+    for k in (8, 32, 64, 128):
+        drift, total = 0.0, 0.0
+        for seed in range(5):
+            gen = torch.Generator().manual_seed(seed)
+            x, y = torch.randn((64, k), generator=gen).to(dev), torch.randn((k, 64), generator=gen).to(dev)
+            c = fa.wgmma_tf32_selftest(x, y, 3).double()
+            xh, yh = _tf32(x), _tf32(y)
+            xl, yl = _tf32(x - xh), _tf32(y - yh)
+            passes = xl.double() @ yh.double() + xh.double() @ yl.double() + xh.double() @ yh.double()
+            exact = x.double() @ y.double()
+            top = exact.abs().max().item()
+            drift = max(drift, (c - passes).abs().max().item() / top)
+            total = max(total, (c - exact).abs().max().item() / top)
+        facts[f"chain_{3 * k // 8}"] = {"drift_rel": drift, "err_vs_fp64_rel": total}
+    return facts
+
+
 def main() -> None:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=ROOT, help="the checkout whose port is timed")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this probe needs a CUDA device")
@@ -101,9 +151,12 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
-    report = {"root": root, "reps": args.reps}
+    dtype = getattr(torch, args.dtype)
+    report = {"root": root, "reps": args.reps, "dtype": args.dtype}
+    if dtype == torch.float32 and hasattr(fa, "wgmma_tf32_selftest"):
+        report["tf32_facts"] = tf32_facts(fa, dev)
     for name, (b, t, h, d, causal, keys, launches) in CASES.items():
-        q, k, v, do = (torch.randn((b * h, t, d), generator=gen).to(dev, torch.bfloat16) for _ in range(4))
+        q, k, v, do = (torch.randn((b * h, t, d), generator=gen).to(dev, dtype) for _ in range(4))
         mask = torch.zeros((b, t))
         if keys is not None:
             mask[:, keys:] = torch.finfo(torch.float32).min

@@ -14,6 +14,14 @@ the JAX Pallas kernel in interpret mode (out, lse) and to ``jax.vjp`` of
 the tolerance the card holds the kernels to: 1e-5 * max(1, max|JAX|) plus
 1 bf16 ulp of the element, lse within 1e-5 relative. With one bf16 part
 the same check fails: the second part is what the tolerance needs.
+
+On fp32 heads with D <= 64 the backward's products are 3xTF32 warpgroup
+products (``csrc/wgmma_tf32.cuh``): the tensor cores take an fp32 operand's
+top 19 bits (its TF32 value, the low 13 bits ignored, as the card's
+self-test found), so each operand is hi = that value and lo = the TF32 value
+of x - hi, and a product is lo.hi + hi.lo + hi.hi. ``_tf32_route_backward``
+does the same in fp32 PyTorch, held to ``jax.vjp`` within
+1e-5 * max(1, max|JAX|); with the hi.hi pass alone it misses that bound.
 """
 
 import functools
@@ -132,9 +140,40 @@ def _unfold(x):
     return x.reshape(B, H, T, D).permute(0, 2, 1, 3)
 
 
+def _tf32(x):
+    """x's TF32 value as the tensor cores take it: the low 13 bits of each
+    fp32 bit pattern cleared."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_mm(a, b, passes):
+    """a @ b as the fp32 route's products: lo_a.hi_b + hi_a.lo_b + hi_a.hi_b
+    with hi = _tf32(x) and lo = _tf32(x - hi) (3 passes), or hi_a.hi_b (1)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _tf32_route_backward(q, k, v, mask, out, lse, do, causal, passes):
+    """The fp32 backward kernels' products on folded fp32 heads: dq, dk, dv."""
+    bh, t, d = q.shape
+    maskh = mask.repeat_interleave(bh // mask.shape[0], 0)
+    scale = d**-0.5
+    delta = (do * out).sum(-1)
+    s = _tf32_mm(q, k.transpose(1, 2), passes) * scale + maskh[:, None, :]
+    p = torch.where(_valid(maskh, causal, t, 0, t), torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (_tf32_mm(do, v.transpose(1, 2), passes) - delta[..., None])
+    dq = _tf32_mm(ds, k, passes) * scale
+    dk = _tf32_mm(ds.transpose(1, 2), q, passes) * scale
+    dv = _tf32_mm(p.transpose(1, 2), do, passes)
+    return dq, dk, dv
+
+
 def _jax_kernel_bf16(jq, jk, jv, mask, causal):
-    """The Pallas ``_flash_kernel`` in interpret mode on bf16 (B, T, H, D)
-    inputs: (out bf16, lse fp32), folded."""
+    """The Pallas ``_flash_kernel`` in interpret mode on (B, T, H, D) inputs
+    of bf16 (or fp32): (out in their dtype, lse fp32), folded."""
     fold = lambda x: x.transpose(0, 2, 1, 3).reshape(B * H, T, D)  # noqa: E731
     kernel = functools.partial(jfa._flash_kernel, TILE, TILE, T, causal, 1.0 / D**0.5)
     out, lse = pl.pallas_call(
@@ -151,7 +190,7 @@ def _jax_kernel_bf16(jq, jk, jv, mask, causal):
             pl.BlockSpec((1, TILE), lambda i, j: (i, j)),
         ],
         out_shape=[
-            jax.ShapeDtypeStruct((B * H, T, D), jnp.bfloat16),
+            jax.ShapeDtypeStruct((B * H, T, D), jq.dtype),
             jax.ShapeDtypeStruct((B * H, T), jnp.float32),
         ],
         interpret=True,
@@ -212,6 +251,34 @@ def test_bf16_route_backward_matches_jax_vjp(case):
         assert g.dtype == BF16 and _within(g, w), name
     one_part = [_unfold(g) for g in _route_backward(*args, 1)]
     assert not all(_within(g, w) for g, w in zip(one_part, want))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_tf32_route_backward_matches_jax_vjp(case):
+    """The fp32 backward's 3xTF32 products (hi the TF32 value the tensor
+    cores take, lo the TF32 value of the rest) on the JAX forward's out and
+    lse against ``jax.vjp`` of ``flash_attention`` on fp32 inputs, within
+    1e-5 * max(1, max|JAX|); one TF32 pass alone misses that bound."""
+    causal, padded = CASES[case]
+    q, k, v, do, mask = _inputs(14, padded)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+
+    def attn(q, k, v):
+        return jfa.flash_attention(q, k, v, jnp.asarray(mask), causal=causal, block_q=TILE, block_k=TILE, interpret=True)
+
+    out, vjp = jax.vjp(attn, jq, jk, jv)
+    want = [torch.from_numpy(np.array(g)) for g in vjp(jdo)]
+    _, lse = _jax_kernel_bf16(jq, jk, jv, mask, causal)
+    args = (_fold(jq), _fold(jk), _fold(jv), torch.from_numpy(mask), _fold(out), lse, _fold(jdo), causal)
+
+    def within(g, w):
+        return bool(((g - w).abs() <= TOL * max(1.0, w.abs().max().item())).all())
+
+    got = [_unfold(g) for g in _tf32_route_backward(*args, 3)]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and within(g, w), name
+    one_pass = [_unfold(g) for g in _tf32_route_backward(*args, 1)]
+    assert not all(within(g, w) for g, w in zip(one_pass, want))
 
 
 def test_vjp_runs_the_plain_backward_on_cpu_and_refuses_other_devices():
