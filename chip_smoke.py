@@ -1474,6 +1474,9 @@ def main() -> None:
     def max_diff(a, b):
         return max((a[k] - b[k]).abs().max().item() for k in a)
 
+    def worst_leaf(a, b):  # the leaf of a that sets max_diff(a, b)
+        return max(a, key=lambda k: (a[k] - b[k]).abs().max().item())
+
     def full_config(**fields):
         cfg = powersgd_cifar10.default_config()
         for k, v in fields.items():
@@ -1628,8 +1631,8 @@ def main() -> None:
         fail(f"gpt flash vs einsum: params {diff}, losses {loss_diff} (tol {GPT_TOL})")
     emit({
         "phase": "gpt_flash_vs_einsum", "model": "gpt2_small", "global_batch": GPT_B, "seq_len": GPT_T, "steps": 2,
-        "losses": [losses_a, losses_b], "max_param_diff": diff, "max_loss_diff": loss_diff, "tolerance": GPT_TOL,
-        "rank_deficient_leaves": deficient, "flash_launches_forward_backward": flash_launches,
+        "losses": [losses_a, losses_b], "max_param_diff": diff, "max_param_diff_leaf": worst_leaf(params_a, params_b),
+        "max_loss_diff": loss_diff, "tolerance": GPT_TOL, "rank_deficient_leaves": deficient, "flash_launches_forward_backward": flash_launches,
     })
     del params_a, params_b
 
@@ -1658,7 +1661,8 @@ def main() -> None:
         flash_launches = [k.launches - b for k, b in zip(k5, before)]  # forward, backward
         noise = {k for k in params_a if k.endswith("attention.k_lin.bias")} if opt == "adamw" else set()
         bound = ADAM_NOISE_BOUND * imdb_baseline.default_config(opt).learning_rate * 2
-        diff = max_diff({k: v for k, v in params_a.items() if k not in noise}, params_b)
+        kept = {k: v for k, v in params_a.items() if k not in noise}
+        diff = max_diff(kept, params_b)
         noise_diff = max_diff({k: params_a[k] for k in noise}, params_b) if noise else 0.0
         loss_diff = max(abs(a - b) for a, b in zip(losses_a, losses_b))
         if flash_launches != [2 * IMDB_LAYERS] * 2:
@@ -1669,8 +1673,8 @@ def main() -> None:
                 f" key biases {noise_diff} (bound {bound})"
             )
         record[opt] = {
-            "losses": [losses_a, losses_b], "max_param_diff": diff, "max_loss_diff": loss_diff,
-            "key_bias_leaves": len(noise), "max_key_bias_diff": noise_diff, "key_bias_bound": bound,
+            "losses": [losses_a, losses_b], "max_param_diff": diff, "max_param_diff_leaf": worst_leaf(kept, params_b),
+            "max_loss_diff": loss_diff, "key_bias_leaves": len(noise), "max_key_bias_diff": noise_diff, "key_bias_bound": bound,
             "flash_launches_forward_backward": flash_launches,
         }
     emit(record)

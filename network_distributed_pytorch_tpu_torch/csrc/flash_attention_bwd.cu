@@ -49,9 +49,22 @@
 // would otherwise start last.
 //
 // Products, by dtype and head dimension:
-//   * fp32 heads: mma.sync m16n8k8 in 3xTF32 (csrc/flash_attention_mma.cuh),
-//     every operand split into TF32 hi and lo (about 22 bits of each
-//     product), as the fp32 forward;
+//   * fp32 heads, D <= 64 (GPT-2's and DistilBERT's 64): warpgroup
+//     products in 3xTF32 (wgmma m64n64k8, csrc/wgmma_tf32.cuh), one
+//     warpgroup a block, one block an SM (224 KB of shared memory for
+//     dK/dV, 194 KB for dQ), every tile a swizzled 64 x 64 fp32 tile. The
+//     tensor cores take an fp32 operand's top 19 bits (TF32; its low 13 are
+//     ignored), so a tile as it arrives is its own hi part; each walked tile
+//     is split once by the warps into its lo part and, for the products
+//     whose depth is the walk (dQ += dS.K, dV += P^T.dO, dK += dS^T.Q: a
+//     TF32 wgmma reads B K-major only), its transpose's hi and lo parts.
+//     S and dP are SS products (lo.hi, hi.lo, hi.hi) in one chain of 24
+//     passes; P and dS are split in registers and are the RS A operand of
+//     dV, dK and dQ as they stand, each a fresh partial a tile added to its
+//     running sum in fp32 (see below on the accumulators' truncation);
+//   * fp32 heads, 64 < D <= 128: mma.sync m16n8k8 in 3xTF32
+//     (csrc/flash_attention_mma.cuh, F32Route), every operand split into
+//     TF32 hi and lo as it is read (about 22 bits of each product);
 //   * bf16 heads, D <= 64 (GPT-2's and DistilBERT's 64): warpgroup products
 //     (wgmma m64n64k16, csrc/wgmma_bf16.cuh), one warpgroup a block, every
 //     tile in shared memory in the 128-byte swizzled layout that wgmma
@@ -74,11 +87,12 @@
 // 495/3 TFLOP/s; q, k, v, out, dO read and dq, dk, dv written are 202 MB in
 // bf16 (0.060 ms), 403 MB in fp32. The kernels recompute S and dP in both
 // passes (ten bf16 passes a pair in all, twenty-one TF32 passes in fp32) on
-// whole 64 x 64 tiles, diagonal ones included. On bf16 at D = 64 a
-// warpgroup's 64 x 64 products are short (32 cycles each at the peak), so
-// the loop's own instructions (copies, exp, the hi/lo split, the waits)
-// set its pace more than the tensor cores do; in fp32 every operand is
-// split as it is read. Both stay well above those bounds.
+// whole 64 x 64 tiles, diagonal ones included. At D = 64 a warpgroup's
+// 64 x 64 products are short (32 cycles each at the peak, bf16 k16 or TF32
+// k8), so the loop's own instructions (copies, exp, the splits, the waits)
+// set its pace more than the tensor cores do, and in fp32 one block an SM
+// leaves nothing to fill the tensor cores' gaps. Both stay well above
+// those bounds.
 
 #include "flash_attention_mma.cuh"
 #include "wgmma_bf16.cuh"
@@ -976,9 +990,11 @@ struct LoadTileF32 {
 // S^T = K.Q^T and dP^T = V.dO^T; tiles of 64 q rows of Q and dO arrive in a
 // two-stage cp.async ring and are split into Q lo and dO lo (the B lo of
 // S^T and dP^T) and Q^T and dO^T, hi and lo (the B of dK += dS^T.Q and
-// dV += P^T.dO). Registers: dK, dV, S^T, dP^T, the partial and P's lo part
-// (32 each); the partial's dV is added before dS^T is split, so that dS^T's
-// lo part never lives beside P's
+// dV += P^T.dO). Registers: dK, dV, dP^T, the partial, P^T and its lo part
+// (32 each) while dV's products run; dS^T is formed in P^T's registers once
+// they are done (246 registers, no spill; forming it while they run, in a
+// seventh array, spilled 32 bytes at the 255-register limit and was no
+// faster)
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_tf32_wgmma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                  const float* __restrict__ v, const float* __restrict__ mask,
@@ -1108,25 +1124,14 @@ flash_bwd_dkdv_tf32_wgmma_kernel(const float* __restrict__ q, const float* __res
     } else {
       probabilities(std::false_type{});
     }
-    float part[8][4];                        // a tile's dV, then its dK
-    uint32_t ah[8][4], al[8][4];             // P^T's parts, then dS^T's: the A of dV, then of dK
+    float part[8][4];             // a tile's dV, then its dK
+    uint32_t ah[8][4], al[8][4];  // P^T's parts, then dS^T's: the A of dV, then of dK
     split_acc_tf32(p, ah, al);
     wgmma_fence();
     products_nn_tf32(part, ah, al, doth, dotl);  // P^T.dO
     wgmma_commit();
-    wgmma_wait<1>();  // dP^T
+    wgmma_wait<0>();  // dP^T and dV
     reg_fence(dp);
-    float ds[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 d2 = *reinterpret_cast<const float2*>(ds_ + 8 * j + 2 * t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        ds[j][e] = p[j][e] * (dp[j][e] - (e & 1 ? d2.y : d2.x));  // dS^T
-        dsum[e >> 1] += ds[j][e];
-      }
-    }
-    wgmma_wait<0>();
     reg_fence(part);
     reg_fence(ah);
     reg_fence(al);
@@ -1134,7 +1139,16 @@ flash_bwd_dkdv_tf32_wgmma_kernel(const float* __restrict__ q, const float* __res
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dv_acc[j][e] += part[j][e];
-    split_acc_tf32(ds, ah, al);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(ds_ + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[j][e] *= dp[j][e] - (e & 1 ? d2.y : d2.x);  // dS^T
+        dsum[e >> 1] += p[j][e];
+      }
+    }
+    split_acc_tf32(p, ah, al);
     wgmma_fence();
     products_nn_tf32(part, ah, al, qth, qtl);  // dS^T.Q
     wgmma_commit();

@@ -8,9 +8,11 @@ the flash attention kernels, forward and backward
 key, a ragged T, GPT's causal T = 1024 and NaN in the key tiles they must
 skip; the backward also through ``torch.autograd`` with the mask's
 gradient, and two calls bitwise equal) against their plain versions, the
-bf16 backward's warpgroup (``wgmma``) route at ragged T and D <= 64, one
-product of each ``wgmma`` form against ``a @ b`` and ``HGMMA`` in the SASS
-of its kernels, the PowerSGD reducer launching its kernels once per shape group,
+bf16 and fp32 backwards' warpgroup (``wgmma``) routes at ragged T and
+D <= 64, one product of each bf16 and TF32 ``wgmma`` form against
+``a @ b``, what the tensor cores take of an fp32 operand, how far a 3xTF32
+chain drifts, and ``HGMMA`` in the SASS of both routes' kernels, the
+PowerSGD reducer launching its kernels once per shape group,
 DistilBERT launching flash attention once per layer, exact-DDP steps of the
 small ResNet-18 on the card against the CPU, the single-node IMDb
 baseline running flash attention (forward and backward) on the card, and
@@ -675,6 +677,124 @@ def test_flash_attention_bwd_bf16_wgmma_route(cuda_device, t, d, causal):
     for g, a, w in zip(got[:3], again[:3], want[:3]):
         assert torch.equal(g, a)
         _close_grad(g, w)
+        assert torch.all(g[empty] == 0.0)
+
+
+def _tf32(x):
+    """x's TF32 value as the tensor cores take it: each fp32's low 13 bits
+    cleared."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "mode,k", [(0, 64), (1, 64), (0, 128), (1, 8), (2, 64), (3, 8), (3, 32), (3, 64), (3, 128)],
+    ids=["ss", "rs", "ss_k128", "rs_k8", "nn_permuted", "nt_chain3", "nt_chain12", "nt_chain24", "nt_chain48"],
+)
+def test_wgmma_tf32_products_match_matmul(cuda_device, mode, k):
+    """The TF32 warpgroup products of the backward library's self-test on
+    small integers, exact in every form, so the result must equal
+    ``a @ b`` bit for bit: one pass with A from shared memory (ss) or
+    registers (rs); the fp32 kernels' register-A product with A read as
+    accumulator fragments and B split and transposed into the permuted k
+    order (nn_permuted); their 3xTF32 shared-memory product over 1 to 16 k8
+    steps (nt_chain*)."""
+    rng = np.random.RandomState(80 + mode + k)
+    a, b = (torch.from_numpy(rng.randint(-8, 9, shape).astype(np.float32)).to(cuda_device) for shape in ((64, k), (k, 64)))
+    c = fa.wgmma_tf32_selftest(a, b, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(c, a @ b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1], ids=["a_shared", "a_registers"])
+def test_wgmma_tf32_ignores_the_low_13_bits(cuda_device, mode):
+    """The tensor cores take an fp32 operand's top 19 bits and ignore the
+    low 13 (they truncate, never round): what the fp32 kernels assume when
+    they feed a tile as it arrived as its own hi part and lo = x - hi. With
+    B the identity each output is A's element as the tensor cores took it,
+    and with A the identity B's."""
+    rng = np.random.RandomState(81)
+    x = torch.from_numpy((1.0 + rng.randint(1, 2**13, (64, 64)) * 2.0**-23).astype(np.float32)).to(cuda_device)
+    x[0, 0] = 1 + 2**-11 + 2**-20  # rounds up to 1 + 2^-10, truncates to 1
+    eye = torch.eye(64, device=cuda_device)
+    got_a, got_b = fa.wgmma_tf32_selftest(x, eye, mode), fa.wgmma_tf32_selftest(eye, x, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got_a, _tf32(x)) and torch.equal(got_b, _tf32(x))
+    assert got_a[0, 0].item() == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 32, 64, 128], ids=["chain3", "chain12", "chain24", "chain48"])
+def test_wgmma_tf32_chain_drift_stays_small(cuda_device, k):
+    """A chain of 3 k / 8 TF32 passes into one accumulator (the fp32
+    kernels' 3xTF32 product, the small passes first) on unit normal
+    operands, as GPT-2's q, k, v and dO are: its sum strays from the same
+    passes summed in fp64 by at most 1e-6 of max |a @ b| (the kernels chain
+    24 passes into each accumulator and hold the gradients to 1e-5), and
+    from the fp64 product by at most 2e-6."""
+    gen = torch.Generator().manual_seed(82)
+    a, b = torch.randn((64, k), generator=gen).to(cuda_device), torch.randn((k, 64), generator=gen).to(cuda_device)
+    c = fa.wgmma_tf32_selftest(a, b, 3).double()
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    passes = al.double() @ bh.double() + ah.double() @ bl.double() + ah.double() @ bh.double()
+    exact = a.double() @ b.double()
+    top = exact.abs().max().item()
+    assert (c - passes).abs().max().item() <= 1e-6 * top
+    assert (c - exact).abs().max().item() <= 2e-6 * top
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_f32_kernels_use_wgmma(cuda_device):
+    """The fp32 backward's kernels for D <= 64 (dK/dV and dQ, named
+    ``flash_bwd_..._tf32_wgmma``) hold HGMMA, the warpgroup product, in the
+    SASS of the built library; the fp32 kernels for 64 < D <= 128 (mma.sync)
+    hold none."""
+    _, path = _bwd_library()
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", path], capture_output=True, text=True, check=True).stdout
+    functions = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        functions[name.strip()] = body
+    bwd = {name: body for name, body in functions.items() if "flash_bwd" in name}
+    for kernel in ("flash_bwd_dkdv_tf32_wgmma_kernel", "flash_bwd_dq_tf32_wgmma_kernel"):
+        found = [name for name in bwd if kernel in name]
+        assert len(found) == 1, (kernel, sorted(bwd))
+        assert "HGMMA" in bwd[found[0]], kernel
+    plain = [name for name in bwd if "F32Route" in name and ("dkdv" in name or "dq" in name)]
+    assert plain and not any("HGMMA" in bwd[name] for name in plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["masked", "causal"])
+@pytest.mark.parametrize("d", [36, 40, 64])
+@pytest.mark.parametrize("t", [100, 130])
+def test_flash_attention_bwd_f32_wgmma_route(cuda_device, t, d, causal):
+    """The fp32 backward's warpgroup kernels (D <= 64) on a ragged T, D = 36,
+    40 and 64, masked and causal, with a fully masked row and a row whose
+    later key tiles are all padding, against ``flash_attention_bwd`` within
+    1e-5 * max(1, max|plain|), the mask's gradient too; two calls bitwise
+    equal, one launch a call under its kind, a fully masked head's
+    gradients 0."""
+    b, h = 3, 2
+    q, k, v, _ = _attention_inputs(b * h, t, d, h, cuda_device, seed=66)
+    mask = _padded_mask(b, t, [slice(0, t), [], slice(0, 30)], cuda_device)
+    do = torch.randn((b * h, t, d), generator=torch.Generator().manual_seed(67)).to(cuda_device)
+    out, lse = fa.flash_attention_fwd(q, k, v, mask, causal, 128, 128, d**-0.5)
+    kernel, kind = fa.BWD_KERNELS[torch.float32], "causal" if causal else "masked"
+    launches = kernel.by_kind[kind]
+    got = fa.flash_attention_vjp(q, k, v, mask, out, lse, do, causal, 128, d**-0.5, True)
+    again = fa.flash_attention_vjp(q, k, v, mask, out, lse, do, causal, 128, d**-0.5, True)
+    torch.cuda.synchronize()
+    assert kernel.by_kind[kind] == launches + 2
+    want = fa.flash_attention_bwd(q, k, v, mask, out, lse, do, causal, t, d**-0.5, need_dmask=True)
+    empty = (mask <= -1e29).all(dim=1).repeat_interleave(h)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        _close_grad(g, w)
+    for g in got[:3]:
         assert torch.all(g[empty] == 0.0)
 
 
