@@ -957,15 +957,15 @@ int launch_wgmma(const Bf16* q, const Bf16* k, const Bf16* v, const float* mask,
 // tile, as it arrives, is split once by the warps (derive_tf32) into its lo
 // part and, where a product's depth is the walk, into its transpose's hi
 // and lo parts, in the permuted order that lets P's and dS's accumulator
-// registers be the register A operand as they stand. The first pass of S
-// and dP (the block's lo part against the walked tile as it arrived) runs
-// in the tensor cores while the warps split. Every product is one chain of
-// 24 passes into one accumulator, the small passes first: S and dP whole
-// (their error stays within a few ulp: the self-test's chain readings,
-// PERF.md), dV, dK and dQ as a fresh partial a tile, added to the running
-// sums in fp32 with rounding to nearest, so that no accumulator takes a
-// walk's 384 passes. One block an SM: 224 KB (dK/dV) and 194 KB (dQ) of
-// shared memory.
+// registers be the register A operand as they stand. The split takes about
+// a fifth of each kernel's time (PERF.md); issuing S's and dP's first
+// passes before it, to run while the warps split, measured no faster. Every
+// product is one chain of 24 passes into one accumulator, the small passes
+// first: S and dP whole (their drift stays within a few ulp: the
+// self-test's chain readings, PERF.md), dV, dK and dQ as a fresh partial a
+// tile, added to the running sums in fp32 with rounding to nearest, so that
+// no accumulator takes a walk's 384 passes. One block an SM: 224 KB (dK/dV)
+// and 194 KB (dQ) of shared memory.
 
 // fp32 heads, D <= 64: fp32 tiles a block, and the bytes of `floats` fp32 and
 // of the 1024-byte alignment beside them
@@ -1084,20 +1084,16 @@ flash_bwd_dkdv_tf32_wgmma_kernel(const float* __restrict__ q, const float* __res
     const float* ls = lse_s + stage * BQ;
     const float* ds_ = delta_s + stage * BQ;
 
-    // S^T and dP^T (only the tensor cores write them): their first passes
-    // while the warps split the tile
-    float s[8][4], dp[8][4], p[8][4];
-    wgmma_fence();
-    products_nt_tf32_first<8>(s, klo, qs);
-    products_nt_tf32_first<8>(dp, vlo, dos);
-    wgmma_commit();
     derive_tf32<true>(qs, qlo, qth, qtl);
     derive_tf32<true>(dos, dolo, doth, dotl);
     fence_async_shared();
     __syncthreads();
-    products_nt_tf32_rest<8>(s, ks, qlo, qs);
+    // S^T and dP^T (only the tensor cores write them)
+    float s[8][4], dp[8][4], p[8][4];
+    wgmma_fence();
+    products_nt_tf32<8>(s, ks, klo, qs, qlo);
     wgmma_commit();
-    products_nt_tf32_rest<8>(dp, vs, dolo, dos);
+    products_nt_tf32<8>(dp, vs, vlo, dos, dolo);
     wgmma_commit();
     wgmma_wait<1>();  // S^T
     reg_fence(s);
@@ -1256,20 +1252,16 @@ flash_bwd_dq_tf32_wgmma_kernel(const float* __restrict__ q, const float* __restr
     const float* ms = mk + stage * kBK;
     const int k0 = tile * kBK;
 
-    // S and dP (only the tensor cores write them): their first passes
-    // while the warps split the tile
-    float s[8][4], dp[8][4], p[8][4];
-    wgmma_fence();
-    products_nt_tf32_first<8>(s, qlo, kt);
-    products_nt_tf32_first<8>(dp, dolo, vt);
-    wgmma_commit();
     derive_tf32<true>(kt, klo, kth, ktl);
     derive_tf32<false>(vt, vlo, nullptr, nullptr);
     fence_async_shared();
     __syncthreads();
-    products_nt_tf32_rest<8>(s, qs, klo, kt);
+    // S and dP (only the tensor cores write them)
+    float s[8][4], dp[8][4], p[8][4];
+    wgmma_fence();
+    products_nt_tf32<8>(s, qs, qlo, kt, klo);
     wgmma_commit();
-    products_nt_tf32_rest<8>(dp, dos, vlo, vt);
+    products_nt_tf32<8>(dp, dos, dolo, vt, vlo);
     wgmma_commit();
     wgmma_wait<1>();  // S
     reg_fence(s);
@@ -1354,9 +1346,9 @@ int launch_wgmma_tf32(const float* q, const float* k, const float* v, const floa
 //           accumulator fragments and split in registers, B copied as a
 //           walked tile is (TileCopyF32) and split and transposed by
 //           derive_tf32 into the permuted order;
-//   mode 3 (k = 8, 32, 64 or 128): the kernels' products_nt_tf32_first and
-//           _rest, 3xTF32 in one accumulator, a chain of 3 k / 8 passes,
-//           the lo parts by derive_tf32.
+//   mode 3 (k = 8, 32, 64 or 128): the kernels' products_nt_tf32, 3xTF32
+//           in one accumulator, a chain of 3 k / 8 passes, the lo parts by
+//           derive_tf32.
 // It holds the layouts, descriptors and fragment orders that the fp32
 // kernels above rely on, and what the tensor cores do with an fp32 value.
 __global__ void __launch_bounds__(kThreads)
@@ -1420,17 +1412,13 @@ flash_bwd_wgmma_tf32_selftest_kernel(const float* __restrict__ a, const float* _
     wgmma_fence();
     products_nn_tf32(acc, hi, lo, bh, bl);
   } else if (k == 8) {
-    products_nt_tf32_first<1>(acc, al, bh);
-    products_nt_tf32_rest<1>(acc, ah, bl, bh);
+    products_nt_tf32<1>(acc, ah, al, bh, bl);
   } else if (k == 32) {
-    products_nt_tf32_first<4>(acc, al, bh);
-    products_nt_tf32_rest<4>(acc, ah, bl, bh);
+    products_nt_tf32<4>(acc, ah, al, bh, bl);
   } else if (k == 64) {
-    products_nt_tf32_first<8>(acc, al, bh);
-    products_nt_tf32_rest<8>(acc, ah, bl, bh);
+    products_nt_tf32<8>(acc, ah, al, bh, bl);
   } else {
-    products_nt_tf32_first<16>(acc, al, bh);
-    products_nt_tf32_rest<16>(acc, ah, bl, bh);
+    products_nt_tf32<16>(acc, ah, al, bh, bl);
   }
   wgmma_commit();
   wgmma_wait<0>();

@@ -108,27 +108,19 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&c)[8][4], const uint32_t (
 #undef TF32_D32
 
 // c = A.B^T in 3xTF32 over kSteps k8 steps, A and B K-major tiles given as
-// hi (the tile as it arrived) and lo, in one accumulator with the small
-// passes first. The first pass, c = A_lo.B_hi (c output only), reads no
-// lo part of B, so it can run while the warps derive B's;
+// hi (the tile as it arrived) and lo: A_lo.B_hi, A_hi.B_lo, then A_hi.B_hi,
+// in one accumulator with the small passes first; c is output only
 template <int kSteps>
-__device__ __forceinline__ void products_nt_tf32_first(float (&c)[8][4], const unsigned char* al,
-                                                       const unsigned char* bh) {
-  const uint64_t da = desc_k_major(al), db = desc_k_major(bh);
-  wgmma_tf32_ss<0>(c, da, db);
+__device__ __forceinline__ void products_nt_tf32(float (&c)[8][4], const unsigned char* ah, const unsigned char* al,
+                                                 const unsigned char* bh, const unsigned char* bl) {
+  const uint64_t dah = desc_k_major(ah), dal = desc_k_major(al), dbh = desc_k_major(bh), dbl = desc_k_major(bl);
+  wgmma_tf32_ss<0>(c, dal, dbh);
 #pragma unroll
-  for (int kk = 1; kk < kSteps; ++kk) wgmma_tf32_ss<1>(c, step_tf32(da, kk), step_tf32(db, kk));
-}
-
-// then c += A_hi.B_lo and c += A_hi.B_hi
-template <int kSteps>
-__device__ __forceinline__ void products_nt_tf32_rest(float (&c)[8][4], const unsigned char* ah,
-                                                      const unsigned char* bl, const unsigned char* bh) {
-  const uint64_t da = desc_k_major(ah), dl = desc_k_major(bl), dh = desc_k_major(bh);
+  for (int kk = 1; kk < kSteps; ++kk) wgmma_tf32_ss<1>(c, step_tf32(dal, kk), step_tf32(dbh, kk));
 #pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) wgmma_tf32_ss<1>(c, step_tf32(da, kk), step_tf32(dl, kk));
+  for (int kk = 0; kk < kSteps; ++kk) wgmma_tf32_ss<1>(c, step_tf32(dah, kk), step_tf32(dbl, kk));
 #pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) wgmma_tf32_ss<1>(c, step_tf32(da, kk), step_tf32(dh, kk));
+  for (int kk = 0; kk < kSteps; ++kk) wgmma_tf32_ss<1>(c, step_tf32(dah, kk), step_tf32(dbh, kk));
 }
 
 // The register A operands of k8 steps j = 0 .. 7 from an fp32 accumulator:
