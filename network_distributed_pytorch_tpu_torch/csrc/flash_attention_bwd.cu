@@ -992,7 +992,7 @@ struct LoadTileF32 {
 // S^T and dP^T) and Q^T and dO^T, hi and lo (the B of dK += dS^T.Q and
 // dV += P^T.dO). Registers: dK, dV, dP^T, the partial, P^T and its lo part
 // (32 each) while dV's products run; dS^T is formed in P^T's registers once
-// they are done (246 registers, no spill; forming it while they run, in a
+// they are done (236 registers, no spill; forming it while they run, in a
 // seventh array, spilled 32 bytes at the 255-register limit and was no
 // faster)
 __global__ void __launch_bounds__(kThreads)

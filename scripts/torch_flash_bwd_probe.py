@@ -5,6 +5,7 @@ versions of the port can be compared in turns on one card.
 Run from the root of the repository on a machine with a CUDA card::
 
     python3 scripts/torch_flash_bwd_probe.py [--root DIR] [--reps N] [--dtype {bfloat16,float32}]
+        [--gpt2-steps N]
 
 ``--root`` imports the port from another checkout (for instance an older
 commit unpacked with ``git archive`` into a git-ignored directory), whose
@@ -26,8 +27,13 @@ gradient of its output in q, k, v, its forward excluded). On fp32, where
 the checkout has the TF32 self-test (``wgmma_tf32_selftest``), it also
 reports what the tensor cores take of an fp32 operand and how far 3xTF32
 chains of 3, 12, 24 and 48 passes into one accumulator stray from the same
-passes summed in fp64 (``tf32_facts``). It prints one JSON line, then the
-card's name and power limit. Without a CUDA device it prints no result and
+passes summed in fp64 (``tf32_facts``). With ``--gpt2-steps N`` it also
+takes N + 2 training steps of GPT-2 small in ``--dtype`` (``gpt_lm``'s
+full preset, T 1024, global batch 16, PowerSGD rank 4, a one-rank NCCL
+group) and reports each of the last N steps' device time (CUDA events
+around the step), their median, and the device's busy time a step over
+them (``torch.profiler``). It prints one JSON line, then the card's name
+and power limit. Without a CUDA device it prints no result and
 exits 1.
 """
 
@@ -131,6 +137,55 @@ def tf32_facts(fa, dev) -> dict:
     return facts
 
 
+def gpt2_steps(dev, dtype: str, steps: int) -> dict:
+    """GPT-2 small's training step in ``dtype``, as the module docstring
+    says: two warm-up steps, then ``steps`` timed and profiled."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from network_distributed_pytorch_tpu_torch.experiments import gpt_lm
+    from network_distributed_pytorch_tpu_torch.parallel.mesh import (
+        DistributedConfig,
+        initialize_distributed,
+        shutdown_distributed,
+    )
+
+    b, t = 16, 1024
+    cfg = gpt_lm.default_config()
+    cfg.global_batch_size, cfg.compute_dtype = b, dtype
+    group = initialize_distributed(DistributedConfig(), dev)
+    try:
+        model, step, state = gpt_lm.build(cfg, "full", t, "powersgd", dev, group)
+        batches = [
+            tuple(torch.from_numpy(a).to(dev) for a in batch)
+            for batch in gpt_lm.synthetic_lm_batches(model.config.vocab_size, b, t, 2 + steps, cfg.seed)
+        ]
+        for batch in batches[:2]:
+            state, loss = step(state, batch)
+            loss.item()
+        torch.cuda.synchronize()
+        times = []
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for batch in batches[2:]:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, loss = step(state, batch)
+                end.record()
+                loss.item()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+        busy = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        del model, step, state
+    finally:
+        shutdown_distributed()
+    p50, busy_ms = statistics.median(times), busy / 1e3 / steps
+    return {"step_device_ms": times, "step_device_ms_p50": p50, "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": 1 - busy_ms / p50}
+
+
 def main() -> None:
     import torch
 
@@ -138,6 +193,7 @@ def main() -> None:
     ap.add_argument("--root", default=ROOT, help="the checkout whose port is timed")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    ap.add_argument("--gpt2-steps", type=int, default=0, help="GPT-2 small training steps to time (0: none)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this probe needs a CUDA device")
@@ -184,6 +240,8 @@ def main() -> None:
             "sdpa_backward_device_ms": sum(kernel_ms(library, "", args.reps).values()),
         }
         del sq, sk, sv, sout
+    if args.gpt2_steps:
+        report["gpt2_step"] = gpt2_steps(dev, args.dtype, args.gpt2_steps)
     print(json.dumps(report))
     print(smi)
 
