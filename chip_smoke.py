@@ -66,10 +66,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    kernel of the port) in fp32 and bf16, with each fp32 decode step's
    logits held to a full forward of the same prefix and the greedy tokens
    to the full forwards' wherever the top two logits stand apart;
-   ``powersgd_imdb.run`` in bf16 (K5 on bf16 heads, K1); and ``launch
+   ``powersgd_imdb.run`` in bf16 (K5 on bf16 heads, K1);
+   ``diloco_cifar10.run`` with preset ``full`` (ResNet-152, batch 512, two
+   rounds of H = 8 inner steps, the outer delta PowerSGD-compressed at rank
+   4: K1 once a shape group a round), with one round profiled;
+   ``bandwidth_study.run`` with preset ``full`` (ResNet-152, batch 256: exact,
+   PowerSGD at ranks 1, 2 and 4, TopK 1 %, SignSGD, QSGD int8, local SGD and
+   DiLoCo with PowerSGD at H = 8; each timed, its collectives recorded, its
+   step projected over the fabrics for eight workers); and ``launch
    bare_init`` in a process of its own;
 4. two steps from the same weights and batches, deterministic cuDNN: plain
-   Gram-Schmidt against the kernel; fused against xla; fused against xla
+   Gram-Schmidt against the kernel; two DiLoCo rounds of ResNet-152 with
+   the outer delta's Gram-Schmidt plain against the kernel; fused against xla; fused against xla
    with one extra power iteration (K2b's path); the small ResNet on the card
    against the same two steps on the CPU; DistilBERT with flash attention
    (K5) against ``attn_impl="einsum"`` on the card; the tiny DistilBERT
@@ -170,6 +178,17 @@ GPT_GROUPS = 4  # (1024, 768) x 2, (768, 768) x 48, (768, 3072) x 12, (3072, 768
 GPT_TOL = 1e-5
 # gpt_generate at GPT-2's own vocabulary: batch 8, prompt 128, 128 new tokens
 GEN_VOCAB, GEN_B, GEN_PROMPT, GEN_NEW = 50257, 8, 128, 128
+# diloco_cifar10's preset full: ResNet-152 at global batch 512, H = 8 inner
+# steps a round, PowerSGD rank 4 on the outer delta. The synthetic CIFAR-10
+# set holds 4096 images, 8 global batches: one round an epoch, so two epochs
+# under the cap of 16 steps an epoch are the two rounds
+DILOCO_H, DILOCO_STEPS, DILOCO_ROUNDS = 8, 16, 2
+# bandwidth_study's preset full (ResNet-152, global batch 256): a step
+# configuration runs a warm-up, a recorded and STUDY_TIMED_STEPS timed steps,
+# an avoidance row a warm-up, a recorded and STUDY_TIMED_ROUNDS timed rounds;
+# the projection is for eight workers
+STUDY_TIMED_STEPS, STUDY_TIMED_ROUNDS, STUDY_PROJECT_WORKERS = 3, 2, 8
+STUDY_POWERSGD_ROWS = ("powersgd_r1", "powersgd_r2", "powersgd_r4")
 # a decode step's logits against a full forward of the same prefix (the JAX
 # package's own tolerance, test_decode_steps_match_full_forward): the cache's
 # fp32 einsum against the forward's K5 and its GEMMs, in fp32
@@ -642,15 +661,19 @@ def check_fused_kernels(ps, gs, shapes, dev, gen, keep):
     return report, kept
 
 
-def profile_main_path(dev, experiment, cfg, arrays, kernels, steps=PROFILE_STEPS, build=None, batches=None):
+def profile_main_path(
+    dev, experiment, cfg, arrays, kernels, steps=PROFILE_STEPS, build=None, batches=None, units=None
+):
     """Where a main-path step's time goes: ``torch.profiler`` over ``steps``
     steps of ``experiment``'s full preset with ``cfg`` on the data
-    ``arrays`` (or the ``1 + steps`` global ``batches`` given) through a
-    one-rank NCCL group, after one warm-up step; ``build(group)`` makes the
-    model, step and state where ``experiment.build`` does not take a group
-    or takes more. ``kernels`` maps each port kernel to a part of its
-    device function's name. NCCL's kernels are summed apart. Device numbers
-    are None where the profiler saw no device activity."""
+    ``arrays`` (or the ``1 + steps`` global ``batches`` given, or the
+    ``1 + steps`` inputs ``units(dev)`` gives, already on the card: a
+    DiLoCo round's list of batches) through a one-rank NCCL group, after one
+    warm-up step; ``build(group)`` makes the model, step and state where
+    ``experiment.build`` does not take a group or takes more. ``kernels``
+    maps each port kernel to a part of its device function's name. NCCL's
+    kernels are summed apart. Device numbers are None where the profiler
+    saw no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -665,18 +688,18 @@ def profile_main_path(dev, experiment, cfg, arrays, kernels, steps=PROFILE_STEPS
     group = initialize_distributed(DistributedConfig(), dev)
     try:
         model, step, state = (build or (lambda g: experiment.build(cfg, "full", dev, g)))(group)
-        batches = [
+        batches = units(dev) if units is not None else [
             tuple(torch.from_numpy(a).to(dev) for a in b)
             for b in (batches or accumulated_batches(arrays, cfg, 1 + steps)(0))
         ]
         state, loss = step(state, batches[0])
-        loss.item()
+        loss.sum().item()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for b in batches[1:]:
                 state, loss = step(state, b)
-                loss.item()
+                loss.sum().item()
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
         device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         del model, step, state
@@ -749,6 +772,8 @@ def main() -> None:
         from network_distributed_pytorch_tpu_torch.data.cifar10 import load_cifar10_or_synthetic
         from network_distributed_pytorch_tpu_torch.data.imdb import prepare_imdb
         from network_distributed_pytorch_tpu_torch.experiments import (
+            bandwidth_study,
+            diloco_cifar10,
             exact_cifar10,
             gpt_generate,
             gpt_lm,
@@ -757,17 +782,19 @@ def main() -> None:
             powersgd_imdb,
         )
         from network_distributed_pytorch_tpu_torch.models import gpt as gpt_model
-        from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches
+        from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches, image_classifier_loss
         from network_distributed_pytorch_tpu_torch.ops import _build
         from network_distributed_pytorch_tpu_torch.ops import flash_attention as fa
         from network_distributed_pytorch_tpu_torch.ops import gram_schmidt as gs
         from network_distributed_pytorch_tpu_torch.ops import powersgd as ps
         from network_distributed_pytorch_tpu_torch.ops.orthogonalize import orthogonalize
+        from network_distributed_pytorch_tpu_torch.parallel.localsgd import make_diloco_train_fn
         from network_distributed_pytorch_tpu_torch.parallel.mesh import (
             DistributedConfig,
             initialize_distributed,
             shutdown_distributed,
         )
+        from network_distributed_pytorch_tpu_torch.parallel.reducers import PowerSGDReducer
     except ImportError as e:
         fail(f"the port is not importable next to this script: {e}")
 
@@ -1445,6 +1472,91 @@ def main() -> None:
         "k5_launches_by_kind": kinds["imdb_bf16"], "profile": profiles["imdb_bf16"],
     })
 
+    # DiLoCo on ResNet-152 (diloco_cifar10's preset full, batch 512): two
+    # rounds of 8 inner steps, the outer delta PowerSGD-compressed at rank 4,
+    # K1 once a shape group a round and no other kernel
+    cfg = diloco_cifar10.default_config()
+    cfg.training_epochs = DILOCO_ROUNDS
+    result, peak = drive(
+        "diloco",
+        lambda: diloco_cifar10.run(
+            cfg, preset="full", device=dev, sync_every=DILOCO_H, reducer="powersgd", max_steps_per_epoch=DILOCO_STEPS
+        ),
+        {"gram_schmidt": DILOCO_ROUNDS * len(group_shapes)},
+    )
+    losses = result["losses"]
+    if result["rounds"] != DILOCO_ROUNDS or not all(math.isfinite(v) for v in losses):
+        fail(f"diloco: {result['rounds']} rounds, losses {losses}")
+    # one PowerSGD pass over the parameters (the xla pipeline's bits) and H loss all-reduces
+    want_bits = results["xla"]["bits_per_step"] - 32 + DILOCO_H * 32
+    if result["bits_per_round"] != want_bits or result["shape_groups"] != len(group_shapes):
+        fail(f"diloco: {result['bits_per_round']} bits a round (want {want_bits}), {result['shape_groups']} groups")
+    round_p50 = statistics.median(result["round_device_ms"])
+
+    def diloco_rounds(device, cfg=cfg):
+        """Each round's batches, one epoch a round, on ``device``."""
+        return [
+            [tuple(torch.from_numpy(a).to(device) for a in b) for b in accumulated_batches([images, labels], cfg)(e)]
+            for e in range(DILOCO_ROUNDS)
+        ]
+
+    profiles["diloco"] = profile_main_path(
+        dev, diloco_cifar10, cfg, None, {"gram_schmidt": device_fns["gram_schmidt"]}, steps=1,
+        build=lambda group: diloco_cifar10.build(cfg, "full", dev, group, DILOCO_H, "powersgd"),
+        units=diloco_rounds,  # a warm-up round and a profiled one
+    )
+    emit({
+        "phase": "main_path_diloco", "model": "resnet152", "stem": "imagenet", "width": 64,
+        "global_batch": cfg.global_batch_size, "sync_every": DILOCO_H, "reducer": "powersgd",
+        "reducer_rank": result["reducer_rank"], "world_size": result["num_devices"], "rounds": result["rounds"],
+        "losses": losses, "round_device_ms": result["round_device_ms"], "round_device_ms_p50": round_p50,
+        "round_host_s": result["round_time_s"],
+        "images_per_s": cfg.global_batch_size * DILOCO_H / (round_p50 / 1e3),
+        # the first round's span holds the new model's first allocations; the last is steady
+        "images_per_s_last_round": cfg.global_batch_size * DILOCO_H / (result["round_device_ms"][-1] / 1e3),
+        "bits_per_round": result["bits_per_round"], "bits_per_step": result["bits_per_step"],
+        "shape_groups": result["shape_groups"], "peak_memory_bytes": peak, "launches": launches["diloco"],
+        "nvidia_smi": smi, "profile_one_round": profiles["diloco"],
+    })
+
+    # the bandwidth study at its full preset on one card: each configuration
+    # timed, its collectives recorded, its step projected for eight workers;
+    # K1 once a shape group in each PowerSGD step and each DiLoCo round
+    study_k1 = len(group_shapes) * (
+        len(STUDY_POWERSGD_ROWS) * (2 + STUDY_TIMED_STEPS) + (2 + STUDY_TIMED_ROUNDS)
+    )
+    study, peak = drive(
+        "bandwidth_study",
+        lambda: bandwidth_study.run(
+            preset="full", device=dev, timed_steps=STUDY_TIMED_STEPS, timed_rounds=STUDY_TIMED_ROUNDS,
+            project_workers=STUDY_PROJECT_WORKERS,
+        ),
+        {"gram_schmidt": study_k1},
+    )
+    rows = study["results"]
+    for name, r in rows.items():
+        recorded = r.get("recorded_bits_per_step", r.get("recorded_bits_per_round"))
+        if recorded != r.get("bits_per_round", r["bits_per_step"]) or not math.isfinite(r["final_loss"]):
+            fail(f"bandwidth_study {name}: recorded {recorded} bits against {r}")
+    if not set(STUDY_POWERSGD_ROWS) <= set(rows) or len(rows) != 9:
+        fail(f"bandwidth_study ran {sorted(rows)}")
+    emit({
+        "phase": "bandwidth_study", "model": "resnet152", "global_batch": study["global_batch"],
+        "world_size": study["num_devices"], "projected_workers": study["projected_workers"],
+        "rows": {
+            name: {
+                k: r.get(k) for k in (
+                    "measured_step_s", "bits_per_step", "bits_per_round", "projected_bits_per_step",
+                    "compression_ratio", "collectives", "collectives_per_round", "projected_step_s",
+                    "steps_run", "rounds_run",
+                )
+            }
+            for name, r in rows.items()
+        },
+        "table": study["table"], "launches": launches["bandwidth_study"], "peak_memory_bytes": peak,
+        "nvidia_smi": smi,
+    })
+
     # bare_init through the launcher, in a process of its own
     launched = subprocess.run(
         [sys.executable, "-m", "network_distributed_pytorch_tpu_torch.launch", "bare_init"],
@@ -1489,6 +1601,39 @@ def main() -> None:
     if not math.isfinite(diff) or diff > PARAM_TOL:
         fail(f"params after 2 steps, eager vs cuda Gram-Schmidt: max diff {diff} > {PARAM_TOL}")
     emit({"phase": "eager_vs_cuda", "steps": 2, "max_param_diff": diff, "tolerance": PARAM_TOL})
+
+    # DiLoCo on the ResNet-152 parameters: two rounds of 8 inner steps from
+    # the same weights and batches, the outer delta compressed by PowerSGD
+    # with K1 and with its plain version
+    def diloco_two_rounds(impl):
+        cfg = diloco_cifar10.default_config()
+        model = powersgd_cifar10.build_model("full", dev, seed=cfg.seed)
+        reducer = PowerSGDReducer(
+            random_seed=cfg.seed, compression_rank=cfg.reducer_rank, matricize="last", orthogonalize_impl=impl
+        )
+        rnd = make_diloco_train_fn(
+            image_classifier_loss(), model, inner_learning_rate=0.05, sync_every=DILOCO_H, reducer=reducer
+        )
+        state = rnd.init_state()
+        before = gs.KERNEL.launches
+        losses = []
+        for batches in diloco_rounds(dev):
+            state, round_losses = rnd(state, batches)
+            losses.append(round_losses.tolist())
+        return losses, {k: v.detach().cpu() for k, v in state.params.items()}, gs.KERNEL.launches - before
+
+    (losses_a, params_a, k1_a), (losses_b, params_b, k1_b) = (diloco_two_rounds(i) for i in ("cuda", "eager"))
+    diff = max_diff(params_a, params_b)
+    if (k1_a, k1_b) != (DILOCO_ROUNDS * len(group_shapes), 0):
+        fail(f"diloco cuda vs eager: K1 launched {k1_a} and {k1_b} times")
+    if not math.isfinite(diff) or diff > PARAM_TOL:
+        fail(f"params after {DILOCO_ROUNDS} DiLoCo rounds, cuda vs eager Gram-Schmidt: max diff {diff} > {PARAM_TOL}")
+    emit({
+        "phase": "diloco_eager_vs_cuda", "rounds": DILOCO_ROUNDS, "sync_every": DILOCO_H,
+        "losses": [losses_a, losses_b], "k1_launches": [k1_a, k1_b], "max_param_diff": diff,
+        "max_param_diff_leaf": worst_leaf(params_a, params_b), "tolerance": PARAM_TOL,
+    })
+    del params_a, params_b
 
     # the fused main path against xla; then with one extra power iteration,
     # whose second round runs K2b
@@ -1691,13 +1836,15 @@ def main() -> None:
     k1_paths = {
         "resnet152_xla": "xla", "distilbert_imdb": "imdb", "distilbert_imdb_bf16": "imdb_bf16",
         "gpt2_small_fp32": "gpt_float32", "gpt2_small_bf16": "gpt_bfloat16",
+        "resnet152_diloco": "diloco", "bandwidth_study": "bandwidth_study",
     }
     kernels = [{
         "name": "gram_schmidt",
         "route": "cuda",
         "source": "network_distributed_pytorch_tpu_torch/csrc/gram_schmidt.cu",
         "replaces": "network_distributed_pytorch_tpu/ops/pallas_orthogonalize.py:28",
-        # on every path that runs it: ResNet (xla pipeline), DistilBERT (fp32, bf16), GPT-2 (fp32, bf16)
+        # on every path that runs it: ResNet (xla pipeline), DistilBERT (fp32, bf16), GPT-2 (fp32, bf16),
+        # DiLoCo's outer delta (ResNet-152) and the bandwidth study's PowerSGD rows
         "launches": sum(launches[path]["gram_schmidt"] for path in k1_paths.values()),
         "launches_by_path": {name: launches[path]["gram_schmidt"] for name, path in k1_paths.items()},
         "max_abs_err": main_err,
@@ -1709,6 +1856,8 @@ def main() -> None:
         "library_ms": None,  # no single PyTorch call computes this sequential Gram-Schmidt
         "library_device_ms": None,
         "device_ms_in_path_profile": profiles["xla"]["kernels"]["gram_schmidt"]["device_ms_per_step"],
+        # the same 21 groups once a DiLoCo round
+        "device_ms_in_diloco_round_profile": profiles["diloco"]["kernels"]["gram_schmidt"]["device_ms_per_step"],
         # ms, device_ms, plain_ms and bound_ms above are one ResNet step's; one DistilBERT step's:
         "distilbert_imdb": {
             **{k: gs_imdb[k] for k in ("ms_per_step", "device_ms_per_step", "plain_ms_per_step", "bound_ms", "bound_by")},

@@ -14,9 +14,9 @@ from torch import nn
 
 from ..data.cifar10 import load_cifar10_or_synthetic
 from ..data.loader import iterate_batches
-from ..parallel.comm import all_reduce_mean, world_size
+from ..parallel.comm import world_size
+from ..parallel.localsgd import mean_model_state
 from ..parallel.mesh import DistributedConfig, initialize_distributed, shutdown_distributed
-from ..parallel.packing import TensorPacker
 from ..parallel.trainer import TrainState, TrainStep
 from ..utils.losses import cross_entropy_loss
 from ..utils.metrics import MetricsLogger
@@ -187,12 +187,10 @@ def average_model_state(model: nn.Module, group) -> None:
     as it is. Nothing changes on one rank."""
     if world_size(group) == 1:
         return
-    bufs = [b for b in model.buffers() if b.is_floating_point()]
-    if not bufs:
-        return
-    packer = TensorPacker.for_tensors(bufs)
-    for b, mean in zip(bufs, packer.unpack(all_reduce_mean(packer.pack(bufs), group))):
-        b.copy_(mean)
+    buffers = dict(model.named_buffers())
+    for name, mean in mean_model_state(buffers, group).items():
+        if mean is not buffers[name]:
+            buffers[name].copy_(mean)
 
 
 @torch.no_grad()

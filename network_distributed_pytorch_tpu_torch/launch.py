@@ -10,6 +10,9 @@ Usage, one process per rank (torchrun sets ``RANK``, ``WORLD_SIZE``,
     python -m network_distributed_pytorch_tpu_torch.launch imdb_baseline --preset full
     python -m network_distributed_pytorch_tpu_torch.launch gpt_lm --preset full --dtype bfloat16
     python -m network_distributed_pytorch_tpu_torch.launch gpt_generate --preset full --max-new-tokens 128
+    python -m network_distributed_pytorch_tpu_torch.launch diloco_cifar10 --preset full --diloco-reducer powersgd
+    python -m network_distributed_pytorch_tpu_torch.launch diloco_cifar10 --preset full --fragments 4
+    python -m network_distributed_pytorch_tpu_torch.launch bandwidth_study --preset full
     python -m network_distributed_pytorch_tpu_torch.launch bare_init
     torchrun --nproc-per-node 4 -m network_distributed_pytorch_tpu_torch.launch powersgd_cifar10
 
@@ -25,7 +28,9 @@ import os
 import sys
 
 from .experiments import (
+    bandwidth_study,
     bare_init,
+    diloco_cifar10,
     exact_cifar10,
     gpt_generate,
     gpt_lm,
@@ -43,7 +48,9 @@ from .utils.config import (
 )
 
 EXPERIMENTS = {
+    "bandwidth_study": bandwidth_study,
     "bare_init": bare_init,
+    "diloco_cifar10": diloco_cifar10,
     "exact_cifar10": exact_cifar10,
     "gpt_generate": gpt_generate,
     "gpt_lm": gpt_lm,
@@ -59,6 +66,9 @@ DEFAULT_DATA_DIR = "./data"
 _CHUNKS_OK = ("exact_cifar10", "powersgd_cifar10")
 _BUCKETS_OK = ("exact_cifar10",)
 _GENERATE_OK = ("gpt_generate",)
+_DILOCO_OK = ("diloco_cifar10",)
+# the experiments whose epochs of steps --max-steps-per-epoch caps
+_STEPS_OK = ("diloco_cifar10", "exact_cifar10", "gpt_lm", "imdb_baseline", "powersgd_cifar10", "powersgd_imdb")
 # the JAX launcher's gpt_generate defaults
 DEFAULT_MAX_NEW_TOKENS, DEFAULT_TEMPERATURE = 64, 0.0
 
@@ -120,6 +130,19 @@ def build_parser() -> argparse.ArgumentParser:
              " with fp32 parameters; the ResNet experiments refuse it",
     )
     p.add_argument(
+        "--sync-every", type=int, default=None,
+        help="diloco_cifar10 only: local steps per outer sync round (default 8)",
+    )
+    p.add_argument(
+        "--fragments", type=int, default=None,
+        help="diloco_cifar10 only: >1 switches to streaming DiLoCo (one fragment synced a round)",
+    )
+    p.add_argument(
+        "--diloco-reducer", choices=list(diloco_cifar10.REDUCERS), default=None,
+        help="diloco_cifar10 only: the reducer of the outer parameter delta (default exact);"
+             " --lr names the inner learning rate there",
+    )
+    p.add_argument(
         "--max-new-tokens", type=int, default=None,
         help=f"gpt_generate only: tokens to generate (default {DEFAULT_MAX_NEW_TOKENS})",
     )
@@ -169,7 +192,11 @@ def main(argv=None) -> dict:
         ("--strategy", None if args.strategy == "ddp" else args.strategy, ("exact_cifar10",)),
         ("--max-new-tokens", args.max_new_tokens, _GENERATE_OK),
         ("--temperature", args.temperature, _GENERATE_OK),
-        ("--dtype", args.dtype, tuple(name for name in EXPERIMENTS if name != "bare_init")),
+        ("--sync-every", args.sync_every, _DILOCO_OK),
+        ("--fragments", args.fragments, _DILOCO_OK),
+        ("--diloco-reducer", args.diloco_reducer, _DILOCO_OK),
+        ("--max-steps-per-epoch", args.max_steps_per_epoch, _STEPS_OK),
+        ("--dtype", args.dtype, tuple(n for n in EXPERIMENTS if n not in ("bare_init", "bandwidth_study"))),
     ):
         if value is not None and exp not in ok:
             raise ValueError(f"{flag} is not supported by {exp!r} (supported: {', '.join(ok)})")
@@ -185,6 +212,8 @@ def main(argv=None) -> dict:
         )
     elif exp == "gpt_lm":
         kwargs.update(preset=args.preset, max_steps_per_epoch=args.max_steps_per_epoch)
+    elif exp == "bandwidth_study":
+        kwargs.update(preset=args.preset, global_batch=cfg.global_batch_size)
     elif exp != "bare_init":
         data_dir = args.data_dir
         if exp in ("powersgd_imdb", "imdb_baseline") and data_dir == DEFAULT_DATA_DIR:
@@ -192,6 +221,14 @@ def main(argv=None) -> dict:
         kwargs.update(preset=args.preset, data_dir=data_dir, max_steps_per_epoch=args.max_steps_per_epoch)
     if exp == "exact_cifar10":
         kwargs["strategy"] = args.strategy
+    if exp == "diloco_cifar10":
+        for name, value in (
+            ("sync_every", args.sync_every), ("fragments", args.fragments), ("reducer", args.diloco_reducer),
+            # --lr names the INNER rate here (see diloco_cifar10.run)
+            ("inner_learning_rate", args.lr),
+        ):
+            if value is not None:
+                kwargs[name] = value
     result = EXPERIMENTS[exp].run(cfg, **kwargs)
     sys.stdout.write(json.dumps(result) + "\n")
     return result

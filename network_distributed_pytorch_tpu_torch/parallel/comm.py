@@ -18,11 +18,21 @@ A flat payload can ride K collectives (:func:`chunked_all_reduce_mean`),
 either as K all-reduces (``"interleave"``) or as K explicit rings of
 point-to-point sends (``"ring"``, :func:`ring_all_reduce_mean`), and the
 exact reducer's DDP-style buckets come from :func:`bucket_assignments`.
+:func:`all_gather` stacks the ranks' payloads, as the gather-based
+compressors of :mod:`.compression` send them.
+
+Every collective of the port is issued here, and :func:`record_collectives`
+records each one (its kind, the group's ranks and its payload bytes): the
+port's counterpart of the JAX package's HLO audit
+(``utils/hlo_audit.collective_summary``). With no recorder open, recording
+costs one test of an empty list a collective.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import contextlib
+from dataclasses import dataclass
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -39,12 +49,76 @@ def world_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+@dataclass(frozen=True)
+class CollectiveRecord:
+    """One collective as :func:`record_collectives` saw it. ``kind`` is
+    ``"all-reduce"``, ``"all-gather"`` or ``"send/recv"`` (one step of the
+    explicit ring: a send to the next rank and a receive from the previous
+    one); ``ranks`` are the group's global ranks. ``payload_bytes`` follows
+    the JAX audit's conventions: an all-reduce counts its payload, an
+    all-gather its gathered result (the group's size times each rank's
+    contribution), a ring step the shard it sends."""
+
+    kind: str
+    ranks: Tuple[int, ...]
+    payload_bytes: int
+
+    @property
+    def group_size(self) -> int:
+        return len(self.ranks)
+
+
+_RECORDERS: List[List[CollectiveRecord]] = []
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[List[CollectiveRecord]]:
+    """Record every collective issued through this module while the context
+    is open, in issue order, into the list it yields. Contexts nest: each
+    open one records every collective."""
+    records: List[CollectiveRecord] = []
+    _RECORDERS.append(records)
+    try:
+        yield records
+    finally:
+        _RECORDERS.remove(records)
+
+
+def recorded_bits(records: Sequence[CollectiveRecord]) -> int:
+    """Bits on the wire of ``records``: ``8 * sum(payload_bytes)``."""
+    return 8 * sum(r.payload_bytes for r in records)
+
+
+def _record(kind: str, group, payload_bytes: int) -> None:
+    if _RECORDERS:
+        rec = CollectiveRecord(kind, tuple(dist.get_process_group_ranks(group)), int(payload_bytes))
+        for records in _RECORDERS:
+            records.append(rec)
+
+
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """``dist.all_reduce(SUM)`` on ``x`` in place; identity without a group."""
     if group is None:
         return x
+    _record("all-reduce", group, x.numel() * x.element_size())
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
+
+
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``x`` stacked on a new leading axis, ``(W,) + x.shape``,
+    in rank order (the JAX package's ``all_gather_replicated``): the same
+    tensor on every rank. Without a group, ``x[None]``. The payload is sent
+    in its own dtype (uint8 bitmaps, int8 levels, int32 indices), never
+    widened."""
+    if group is None:
+        return x[None]
+    world = world_size(group)
+    out = torch.empty((world,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    _record("all-gather", group, out.numel() * out.element_size())
+    # the list form, into views of one buffer: Gloo has no all_gather_into_tensor
+    dist.all_gather(list(out.unbind(0)), x.contiguous(), group=group)
+    return out
 
 
 def _scale_to_mean_(x: torch.Tensor, world: int) -> torch.Tensor:
@@ -108,6 +182,7 @@ def _exchange(send: torch.Tensor, recv: torch.Tensor, group, rank: int, world: i
     receive, in the same order on every rank, would deadlock)."""
     nxt = dist.get_global_rank(group, (rank + 1) % world)
     prev = dist.get_global_rank(group, (rank - 1) % world)
+    _record("send/recv", group, send.numel() * send.element_size())
     ops = [dist.P2POp(dist.isend, send, nxt, group), dist.P2POp(dist.irecv, recv, prev, group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()

@@ -37,7 +37,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from .comm import all_reduce_mean
+from .comm import all_reduce_mean, world_size
 
 # The one collective outside the reducer: the scalar loss is all-reduced
 # for reporting (f32 = 32 bits), counted in bits_per_step.
@@ -134,7 +134,8 @@ class TrainStep:
         self.max_grad_norm = max_grad_norm
         self.optimizer = optimizer
         params = [p for _, p in model.named_parameters()]
-        self.bits_per_step = reducer.bits_per_step(params) + (
+        # a gather-based compressor's payload grows with the world size
+        self.bits_per_step = reducer.bits_per_step(params, world_size(group)) + (
             LOSS_SYNC_BITS if group is not None else 0
         )
 

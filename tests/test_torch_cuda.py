@@ -15,9 +15,11 @@ chain drifts, and ``HGMMA`` in the SASS of both routes' kernels, the
 PowerSGD reducer launching its kernels once per shape group,
 DistilBERT launching flash attention once per layer, exact-DDP steps of the
 small ResNet-18 on the card against the CPU, the single-node IMDb
-baseline running flash attention (forward and backward) on the card, and
-the tiny GPT training (K5 causal forward and backward, fp32 and bf16) and
-generating on the card.
+baseline running flash attention (forward and backward) on the card, the
+tiny GPT training (K5 causal forward and backward, fp32 and bf16) and
+generating on the card, the gather-based compressors on the card against
+the CPU (TopK's scatter-add bitwise equal across two calls), and a DiLoCo
+round of the small ResNet-18 with K1 against its plain twin.
 
 This file imports torch and the port, never jax, so it also runs on a
 machine that has the card and no JAX (``--noconftest`` skips the JAX
@@ -50,8 +52,14 @@ import pytest
 import torch
 
 from network_distributed_pytorch_tpu_torch.data.cifar10 import load_cifar10_or_synthetic
-from network_distributed_pytorch_tpu_torch.experiments import exact_cifar10, gpt_generate, gpt_lm, imdb_baseline
-from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches
+from network_distributed_pytorch_tpu_torch.experiments import (
+    diloco_cifar10,
+    exact_cifar10,
+    gpt_generate,
+    gpt_lm,
+    imdb_baseline,
+)
+from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches, image_classifier_loss
 from network_distributed_pytorch_tpu_torch.models import gpt
 from network_distributed_pytorch_tpu_torch.models.distilbert import distilbert_tiny
 from network_distributed_pytorch_tpu_torch.ops import _build
@@ -59,6 +67,8 @@ from network_distributed_pytorch_tpu_torch.ops import flash_attention as fa
 from network_distributed_pytorch_tpu_torch.ops import gram_schmidt as gs
 from network_distributed_pytorch_tpu_torch.ops import powersgd as ps
 from network_distributed_pytorch_tpu_torch.ops.orthogonalize import orthogonalize
+from network_distributed_pytorch_tpu_torch.parallel import compression
+from network_distributed_pytorch_tpu_torch.parallel.localsgd import make_diloco_train_fn
 from network_distributed_pytorch_tpu_torch.parallel.reducers import PowerSGDReducer
 
 RTOL = ATOL = 1e-5
@@ -904,3 +914,104 @@ def test_imdb_baseline_runs_flash_attention_on_the_card(cuda_device, optimizer_n
     assert out["steps"] == 2
     assert np.isfinite(out["losses"]).all()
     assert out["bits_per_step"] == 32 * sum(p.numel() for p in model.parameters())
+
+
+# ---- the gather-based compressors and DiLoCo on the card ----------------------------------
+
+
+class _FedNoiseQSGD(compression.QSGDReducer):
+    """Stochastic QSGD rounding with the noise given (the CPU's and the
+    card's generators draw different streams)."""
+
+    def __init__(self, noise):
+        super().__init__(stochastic=True)
+        self.fixed = noise
+
+    def noise(self, state, n, device, rank):
+        return self.fixed.to(device)
+
+
+def _compressor_leaves(device):
+    shapes = [(64, 3, 3, 3), (64,), (128, 64), (10,), (1000,)]
+    return [torch.from_numpy(_x(s, 60 + i)).to(device) for i, s in enumerate(shapes)]
+
+
+def _four_worker_gather(x, group):
+    """A stand-in for four workers' gather on one card: this rank's payload
+    and three scaled copies (the indices as they are, so every kept element
+    is added four times)."""
+    if not x.is_floating_point():
+        return torch.stack([x] * 4)
+    return torch.stack([x * (j + 1) for j in range(4)])
+
+
+@pytest.mark.cuda
+def test_topk_out_is_bitwise_equal_across_calls(cuda_device, monkeypatch):
+    """TopK's scatter-add on the card, with every kept element added by four
+    workers: two calls give the same bits (worker by worker, each add's
+    indices unique), and the CPU's sums within 1e-6."""
+    monkeypatch.setattr(compression, "all_gather", _four_worker_gather)
+    reducer = compression.TopKReducer(k_fraction=0.05)
+    outs = []
+    for device in (cuda_device, cuda_device, torch.device("cpu")):
+        leaves = _compressor_leaves(device)
+        _, out, mem, _ = reducer.reduce({}, leaves, None)
+        outs.append([o.cpu() for o in out + mem])
+    for a, b, c in zip(*outs):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["topk", "signsgd", "qsgd", "qsgd_stochastic"])
+def test_compressor_on_the_card_matches_the_cpu(cuda_device, name):
+    """Each compressor on the card against the CPU on the same leaves (QSGD's
+    stochastic rounding fed the same noise): ``out`` and the memories
+    within 1e-6 (the leaves' means and maxima summed in another order)."""
+    n = sum(t.numel() for t in _compressor_leaves("cpu"))
+    make = {
+        "topk": lambda: compression.TopKReducer(k_fraction=0.01),
+        "signsgd": compression.SignSGDReducer,
+        "qsgd": lambda: compression.QSGDReducer(stochastic=False),
+        "qsgd_stochastic": lambda: _FedNoiseQSGD(torch.rand(n, generator=torch.Generator().manual_seed(5))),
+    }[name]
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        reducer = make()
+        leaves = _compressor_leaves(device)
+        _, out, mem, bits = reducer.reduce(reducer.init(leaves), leaves, None)
+        results.append(([o.cpu() for o in out + mem], bits))
+    (card, card_bits), (cpu, cpu_bits) = results
+    assert card_bits == cpu_bits
+    for a, b in zip(card, cpu):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_diloco_round_with_k1_matches_its_plain_twin(cuda_device, exact_conv_math):
+    """One DiLoCo round of the small ResNet-18 on the card (H = 2), its outer
+    delta PowerSGD-compressed (rank 4): with K1, once a shape group, and with
+    K1's plain version, from the same weights and batches; parameters within
+    1e-5."""
+    cfg = diloco_cifar10.default_config()
+    cfg.global_batch_size = 16
+    images, labels, _ = load_cifar10_or_synthetic(train=True)
+    batches = [
+        tuple(torch.from_numpy(a).to(cuda_device) for a in b)
+        for b in accumulated_batches([images, labels], cfg, max_steps_per_epoch=2)(0)
+    ]
+    finals, launched = [], []
+    for impl in ("cuda", "eager"):
+        model = diloco_cifar10.build_model("small", cuda_device, seed=cfg.seed)
+        reducer = PowerSGDReducer(random_seed=cfg.seed, compression_rank=4, matricize="last", orthogonalize_impl=impl)
+        rnd = make_diloco_train_fn(image_classifier_loss(), model, inner_learning_rate=0.05, sync_every=2, reducer=reducer)
+        state = rnd.init_state()
+        before = gs.KERNEL.launches
+        state, losses = rnd(state, batches)
+        torch.cuda.synchronize()
+        launched.append(gs.KERNEL.launches - before)
+        assert torch.isfinite(losses).all()
+        finals.append({k: v.detach().cpu() for k, v in state.params.items()})
+    assert launched == [reducer.n_shape_groups(list(model.parameters())), 0]
+    for name, want in finals[1].items():
+        torch.testing.assert_close(finals[0][name], want, rtol=RTOL, atol=ATOL)

@@ -15,14 +15,27 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
-from network_distributed_pytorch_tpu_torch.experiments import exact_cifar10
+from network_distributed_pytorch_tpu_torch.experiments import bandwidth_study, exact_cifar10
 from network_distributed_pytorch_tpu_torch.experiments.common import average_model_state, image_classifier_loss
+from network_distributed_pytorch_tpu_torch.models.cnn import SmallCNN
 from network_distributed_pytorch_tpu_torch.models.resnet import resnet18
+from network_distributed_pytorch_tpu_torch.parallel import compression
 from network_distributed_pytorch_tpu_torch.parallel.comm import (
     all_reduce_mean,
     chunked_all_reduce_mean,
+    record_collectives,
+    recorded_bits,
     ring_all_reduce_mean,
+)
+from network_distributed_pytorch_tpu_torch.parallel.compression import QSGDReducer, SignSGDReducer, TopKReducer
+from network_distributed_pytorch_tpu_torch.parallel.hierarchical import HierarchicalReducer, make_hierarchical_groups
+from network_distributed_pytorch_tpu_torch.parallel.localsgd import (
+    drift_stats,
+    make_diloco_train_fn,
+    make_local_sgd_train_fn,
+    make_streaming_diloco_train_fn,
 )
 from network_distributed_pytorch_tpu_torch.parallel.mesh import (
     DistributedConfig,
@@ -256,3 +269,376 @@ def numpy_batches(seed: int, n_steps: int, batch: int, hw: int = 32):
         )
         for _ in range(n_steps)
     ]
+
+
+# ---- gather-based compressors -------------------------------------------------
+
+
+def plain_records(records):
+    """``(kind, ranks, payload_bytes)`` of each record: plain tuples, which
+    the ranks' results can carry back."""
+    return [(r.kind, r.ranks, r.payload_bytes) for r in records]
+
+
+class FedNoiseQSGD(QSGDReducer):
+    """Stochastic QSGD whose rounding noise is given, one ``(n,)`` tensor a
+    rank (the JAX package's key schedule, computed by the test)."""
+
+    def __init__(self, noises):
+        super().__init__(stochastic=True)
+        self.noises = noises
+
+    def noise(self, state, n, device, rank):
+        return self.noises[rank].to(device)
+
+
+def make_compressor(name: str, noises=None):
+    """The compressor a test names: ``topk`` (10 %), ``signsgd``, ``qsgd``
+    (deterministic rounding) or ``qsgd_stochastic`` (with ``noises``)."""
+    if name == "topk":
+        return TopKReducer(k_fraction=0.1)
+    if name == "signsgd":
+        return SignSGDReducer()
+    if name == "qsgd":
+        return QSGDReducer(random_seed=3, stochastic=False)
+    if name == "qsgd_stochastic":
+        return FedNoiseQSGD(noises)
+    raise ValueError(name)
+
+
+def compressor_rank(rank, world, group, name, sends_per_rank, noises=None):
+    """One ``reduce`` of this rank's tensors: the result, the payloads this
+    rank sent through ``all_gather`` and the collectives recorded."""
+    sent = []
+    inner = compression.all_gather
+    compression.all_gather = lambda x, g: (sent.append(x.clone()), inner(x, g))[1]
+    try:
+        reducer = make_compressor(name, noises)
+        sends = sends_per_rank[rank]
+        with record_collectives() as records:
+            _, out, mem, bits = reducer.reduce(reducer.init(sends), sends, group)
+    finally:
+        compression.all_gather = inner
+    return {
+        "out": out, "mem": mem, "bits": bits, "sent": sent, "records": plain_records(records),
+        "bits_per_step": reducer.bits_per_step(sends, world),
+    }
+
+
+def compressor_train_rank(rank, world, group, name, batch, steps):
+    """``steps`` ef_momentum steps of a tiny SmallCNN with compressor
+    ``name`` on one fixed global batch, each rank on its half; the losses,
+    the step's bits and the bits recorded in one step."""
+    model = SmallCNN(width=4, image_size=8, device="cpu", seed=1)
+    reducer = make_compressor(name) if name != "qsgd" else QSGDReducer(random_seed=1)
+    step = make_train_step(image_classifier_loss(), reducer, model, 0.05, 0.9, "ef_momentum", group)
+    state = step.init_state()
+    x, y = batch
+    b = len(x) // world
+    local = (torch.from_numpy(x[rank * b : (rank + 1) * b]), torch.from_numpy(y[rank * b : (rank + 1) * b]))
+    losses, recorded = [], None
+    for _ in range(steps):
+        with record_collectives() as records:
+            state, loss = step(state, local)
+        recorded = recorded_bits(records)
+        losses.append(float(loss))
+    return {"losses": losses, "bits_per_step": step.bits_per_step, "recorded_bits": recorded}
+
+
+_DIST_CALLS = (
+    "all_reduce", "all_gather", "all_gather_into_tensor", "all_gather_object", "broadcast",
+    "reduce", "reduce_scatter", "reduce_scatter_tensor", "all_to_all", "all_to_all_single",
+    "send", "recv", "batch_isend_irecv", "gather", "scatter",
+)  # isend and irecv stay: P2POp accepts only the functions themselves
+
+
+def bypass_rank(rank, world, group, sends_per_rank, batch):
+    """Every ``torch.distributed`` collective issued while each reducer (and
+    a training step) runs, counted at its outermost call, against the
+    records of :func:`record_collectives`."""
+    calls = {"n": 0, "depth": 0}
+
+    def counted(fn):
+        def wrapper(*args, **kwargs):
+            calls["n"] += calls["depth"] == 0
+            calls["depth"] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                calls["depth"] -= 1
+        return wrapper
+
+    saved = {name: getattr(dist, name) for name in _DIST_CALLS}
+    for name, fn in saved.items():
+        setattr(dist, name, counted(fn))
+    out = {}
+    try:
+        sends = sends_per_rank[rank]
+        reducers = {
+            "exact": ExactReducer(), "exact_per_tensor": ExactReducer(packed=False),
+            "exact_ring_chunks": ExactReducer(comm_chunks=3, comm_strategy="ring"),
+            "exact_buckets": ExactReducer(bucket_bytes=64),
+            "powersgd": PowerSGDReducer(compression_rank=2, matricize="last", n_power_iterations=1),
+            "powersgd_fused": PowerSGDReducer(compression_rank=2, matricize="last", compress_impl="pallas"),
+            "topk": TopKReducer(0.1), "signsgd": SignSGDReducer(), "qsgd": QSGDReducer(),
+        }
+        for name, reducer in reducers.items():
+            before = calls["n"]
+            with record_collectives() as records:
+                reducer.reduce_ef(reducer.init(sends), sends, [torch.zeros_like(s) for s in sends], group)
+            out[name] = (calls["n"] - before, len(records))
+        model = SmallCNN(width=4, image_size=8, device="cpu", seed=1)
+        step = make_train_step(image_classifier_loss(), TopKReducer(0.1), model, 0.05, 0.9, "ef_momentum", group)
+        before = calls["n"]
+        with record_collectives() as records:
+            step(step.init_state(), tuple(torch.from_numpy(a) for a in batch))
+        out["train_step"] = (calls["n"] - before, len(records))
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+    return out
+
+
+# ---- local SGD and DiLoCo -------------------------------------------------------
+
+
+class LinReg(torch.nn.Module):
+    """``x @ w + b`` from zeros, the JAX package's local-SGD test problem."""
+
+    def __init__(self, n_in=16, n_out=4):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.zeros(n_in, n_out))
+        self.b = torch.nn.Parameter(torch.zeros(n_out))
+
+    def forward(self, x):
+        return x @ self.w + self.b
+
+
+def mse_loss(model, batch):
+    x, y = batch
+    return torch.mean((model(x) - y) ** 2)
+
+
+def regression_problem(seed=0, n=64):
+    rng = np.random.RandomState(seed)
+    w_true = rng.randn(16, 4).astype(np.float32)
+    x = rng.randn(n, 16).astype(np.float32)
+    return x, (x @ w_true).astype(np.float32)
+
+
+def shard(batch, rank, world):
+    """This rank's contiguous slice of a global numpy batch, as tensors."""
+    b = len(batch[0]) // world
+    return tuple(torch.from_numpy(np.ascontiguousarray(a[rank * b : (rank + 1) * b])) for a in batch)
+
+
+def _clone(d):
+    return {k: v.detach().clone() for k, v in d.items()}
+
+
+def round_parity_rank(rank, world, group, sd, q_port, rounds, lr):
+    """Local SGD and DiLoCo (exact and PowerSGD outer reducers, the latter
+    from the injected Q) on the tiny SmallCNN over ``rounds`` (each a list
+    of global batches); after each round the parameters, losses and the
+    bits recorded, and at the end the per-rank state."""
+    out = {}
+    for kind in ("local_sgd", "diloco_exact", "diloco_powersgd"):
+        model = SmallCNN(width=4, image_size=8, device="cpu")
+        model.load_state_dict(sd)
+        h = len(rounds[0])
+        if kind == "local_sgd":
+            fn = make_local_sgd_train_fn(image_classifier_loss(), model, lr, 0.9, h, "sgd", group)
+        else:
+            reducer = (
+                PowerSGDReducer(random_seed=1, compression_rank=2, matricize="last")
+                if kind == "diloco_powersgd" else ExactReducer()
+            )
+            fn = make_diloco_train_fn(
+                image_classifier_loss(), model, inner_learning_rate=lr, sync_every=h, reducer=reducer, group=group
+            )
+        state = fn.init_state()
+        if kind == "diloco_powersgd":
+            state.reducer_state = PowerSGDState(q_port.clone(), state.reducer_state.generator)
+        per_round = []
+        for batches in rounds:
+            with record_collectives() as records:
+                state, losses = fn(state, [shard(b, rank, world) for b in batches])
+            per_round.append({
+                "params": _clone(state.params), "losses": losses.clone(),
+                "recorded_bits": recorded_bits(records), "collectives": len(records),
+            })
+        res = {"rounds": per_round, "bits_per_round": fn.bits_per_round, "buffers": _clone(dict(model.named_buffers()))}
+        if kind == "local_sgd":
+            res["momenta"] = _clone(state.momenta)
+        else:
+            res.update(
+                memories=_clone(state.memories), outer_momenta=_clone(state.outer_momenta),
+                inner_momenta=_clone(state.inner_opt),
+            )
+            if kind == "diloco_powersgd":
+                res["q_memory"] = state.reducer_state.q_memory.clone()
+        out[kind] = res
+    return out
+
+
+def h1_local_sgd_vs_ddp_rank(rank, world, group, steps):
+    """Local SGD at H = 1 with plain SGD, and exact DDP's plain-SGD step, on
+    the regression problem: each one's losses and final parameters."""
+    batch = shard(regression_problem(), rank, world)
+    model = LinReg()
+    local = make_local_sgd_train_fn(mse_loss, model, 0.05, sync_every=1, algorithm="sgd_plain", group=group)
+    lstate, llosses = local.init_state(), []
+    for _ in range(steps):
+        lstate, losses = local(lstate, [batch])
+        llosses.append(float(losses[0]))
+    ddp_model = LinReg()
+    ddp = make_train_step(mse_loss, ExactReducer(), ddp_model, 0.05, algorithm="sgd_plain", group=group)
+    dstate, dlosses = ddp.init_state(), []
+    for _ in range(steps):
+        dstate, loss = ddp(dstate, batch)
+        dlosses.append(float(loss))
+    return {"local": (llosses, _clone(lstate.params)), "ddp": (dlosses, _clone(dstate.params))}
+
+
+def identity_outer_rank(rank, world, group, rounds, h):
+    """DiLoCo at the identity outer step (outer lr 1, no momentum, exact)
+    and local SGD, ``rounds`` rounds of ``h`` steps on the regression
+    problem: their losses and parameters after each round."""
+    batch = shard(regression_problem(), rank, world)
+    diloco = make_diloco_train_fn(
+        mse_loss, LinReg(), inner_learning_rate=0.05, outer_learning_rate=1.0, outer_momentum=0.0,
+        sync_every=h, group=group,
+    )
+    local = make_local_sgd_train_fn(mse_loss, LinReg(), 0.05, sync_every=h, algorithm="sgd", group=group)
+    out = {"diloco": [], "local": []}
+    for name, fn in (("diloco", diloco), ("local", local)):
+        state = fn.init_state()
+        for _ in range(rounds):
+            state, losses = fn(state, [batch] * h)
+            out[name].append((losses.clone(), _clone(fn.eval_params(state))))
+    return out
+
+
+def padded_round_rank(rank, world, group):
+    """The pad-and-mask contract on the regression problem: a round of 4
+    slots fed 3 batches and a zero (or NaN) pad of weight 0, a round of 3,
+    and a round of 4 with and without all-ones weights; parameters, losses
+    and recorded bits of each."""
+    batch = shard(regression_problem(), rank, world)
+    zero_pad = tuple(torch.zeros_like(t) for t in batch)
+    nan_pad = tuple(torch.full_like(t, float("nan")) for t in batch)
+    out = {}
+    for name, h, batches, weights in (
+        ("zero_pad", 4, [batch] * 3 + [zero_pad], [1.0, 1.0, 1.0, 0.0]),
+        ("nan_pad", 4, [batch] * 3 + [nan_pad], torch.tensor([1.0, 1.0, 1.0, 0.0])),
+        ("short", 3, [batch] * 3, None),
+        ("ones", 4, [batch] * 4, torch.ones(4)),
+        ("none", 4, [batch] * 4, None),
+    ):
+        fn = make_diloco_train_fn(mse_loss, LinReg(), inner_learning_rate=0.05, sync_every=h, group=group)
+        state = fn.init_state()
+        with record_collectives() as records:
+            state, losses = fn(state, batches, weights)
+        out[name] = {
+            "params": _clone(state.params), "momenta": _clone(state.inner_opt), "losses": losses.clone(),
+            "recorded_bits": recorded_bits(records), "bits_per_round": fn.bits_per_round,
+        }
+    return out
+
+
+def adamw_inner_rank(rank, world, group, rounds, h):
+    """DiLoCo with a torch AdamW inner (the paper's recipe): the first and
+    last losses, and the inner optimizer's step count on this rank."""
+    batch = shard(regression_problem(), rank, world)
+    fn = make_diloco_train_fn(
+        mse_loss, LinReg(), sync_every=h, inner_algorithm="optax",
+        inner_optimizer=lambda ps: torch.optim.AdamW(ps, lr=3e-2), group=group,
+    )
+    state = fn.init_state()
+    losses = []
+    for _ in range(rounds):
+        state, round_losses = fn(state, [batch] * h)
+        losses.append(round_losses.clone())
+    steps = [int(s["step"]) for s in state.inner_opt.state.values()]
+    return {"losses": losses, "adam_steps": steps, "params": _clone(state.params)}
+
+
+def streaming_rank(rank, world, group, sd, rounds, lr, h):
+    """Streaming DiLoCo (K = 2, exact outer reducer) on the tiny SmallCNN
+    over ``rounds``, the parameters after each phase, the anchors, the
+    recorded bits and the drift; then K = 1 against plain DiLoCo on the
+    regression problem (four phases, the parameters after each)."""
+    model = SmallCNN(width=4, image_size=8, device="cpu")
+    model.load_state_dict(sd)
+    stream = make_streaming_diloco_train_fn(image_classifier_loss(), model, lr, num_fragments=2, sync_every=h, group=group)
+    state = stream.init_state()
+    phases = []
+    for batches in rounds:
+        with record_collectives() as records:
+            state, losses = stream(state, [shard(b, rank, world) for b in batches])
+        phases.append({
+            "params": _clone(state.params), "anchors": _clone(state.anchors), "losses": losses.clone(),
+            "recorded_bits": recorded_bits(records), "phase": state.phase,
+        })
+    out = {
+        "phases": phases, "bits_per_phase": stream.bits_per_phase, "fragments": stream.fragments,
+        "memories": _clone(state.memories), "outer_momenta": _clone(state.outer_momenta),
+        "drift": drift_stats(state, group), "eval_params": _clone(stream.eval_params(state)),
+    }
+    batch = shard(regression_problem(), rank, world)
+    one = make_streaming_diloco_train_fn(mse_loss, LinReg(), 0.05, num_fragments=1, sync_every=h, group=group)
+    plain = make_diloco_train_fn(mse_loss, LinReg(), inner_learning_rate=0.05, sync_every=h, group=group)
+    s1, sp = one.init_state(), plain.init_state()
+    k1 = []
+    for r in range(4):
+        s1, l1 = one(s1, [batch] * h, round_index=r)
+        sp, lp = plain(sp, [batch] * h)
+        k1.append({"stream": (l1.clone(), _clone(s1.params)), "plain": (lp.clone(), _clone(sp.params))})
+    out["k1"] = k1
+    return out
+
+
+# ---- the hierarchical reducer and the study ---------------------------------------
+
+
+def hierarchical_rank(rank, world, group, sends_per_rank, q_memory, steps):
+    """On a 2 x (W / 2) grid: exact hierarchical against flat exact DDP
+    (``steps`` sgd steps of the regression problem), one hierarchical
+    PowerSGD reduction of this rank's tensors from the injected Q with its
+    collectives recorded, and the groups' ranks."""
+    inner, outer, inner_world, outer_world = make_hierarchical_groups(2, group)
+    batch = shard(regression_problem(), rank, world)
+    runs = {}
+    for name, reducer in (
+        ("hier", HierarchicalReducer(ExactReducer(), inner, outer, inner_world, outer_world)),
+        ("flat", ExactReducer()),
+    ):
+        step = make_train_step(mse_loss, reducer, LinReg(), 0.05, 0.9, "sgd", group)
+        state, losses = step.init_state(), []
+        for _ in range(steps):
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+        runs[name] = (losses, _clone(state.params), step.bits_per_step)
+    hier = HierarchicalReducer(
+        PowerSGDReducer(compression_rank=2, matricize="last"), inner, outer, inner_world, outer_world
+    )
+    sends = sends_per_rank[rank]
+    state = PowerSGDState(q_memory.clone(), hier.init(sends).generator)
+    with record_collectives() as records:
+        _, out, mem, bits = hier.reduce_ef(state, sends, [torch.zeros_like(s) for s in sends], group)
+    return {
+        "runs": runs, "out": [o.contiguous() for o in out], "mem": [m.contiguous() for m in mem], "bits": bits,
+        "records": plain_records(records), "bits_by_fabric": hier.bits_by_fabric(sends),
+        "inner_ranks": tuple(dist.get_process_group_ranks(inner)),
+        "outer_ranks": tuple(dist.get_process_group_ranks(outer)),
+    }
+
+
+def study_rank(rank, world, group, global_batch):
+    """``bandwidth_study.run`` of the small preset on this rank, joining the
+    spawned group, one timed step and round a configuration."""
+    cfg = ExperimentConfig(process_id=rank, num_processes=world)
+    return bandwidth_study.run(
+        cfg, preset="small", device="cpu", global_batch=global_batch, reducer_ranks=(2,),
+        timed_steps=1, timed_rounds=1,
+    )
