@@ -66,6 +66,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
    kernel of the port) in fp32 and bf16, with each fp32 decode step's
    logits held to a full forward of the same prefix and the greedy tokens
    to the full forwards' wherever the top two logits stand apart;
+   ``serve_gpt`` with preset ``full`` (GPT-2 small at vocabulary 1024, 8
+   slots, 32 Poisson requests at 64 a second, up to 64 new tokens,
+   ``max_len`` 96; no kernel of the port): the slot engine in fp32 twice
+   (the same tokens bit for bit) and in bf16, every request finished in
+   fewer decode steps than padded static batching, the fp32 tokens
+   against a sequential batch-1 ``gpt_prefill`` + ``gpt_decode_step``
+   reference up to each first difference (allowed only where the
+   reference's top-2 margin is under ``SERVE_TIE`` times its largest
+   logit), the SLO p50 and p99, tokens/s, cache bytes and peak memory, and
+   one decode tick of each engine under ``torch.profiler`` (launches, busy
+   time, idle share; no flash or Gram-Schmidt kernel) with 20 ticks timed
+   (``main_path_serve``); the same workload through the paged engine
+   (block 16) and under self-drafted K = 4 speculation, each with the fp32
+   slot engine's tokens bit for bit and every reachable proposal accepted,
+   and eight prompts on one 32-token prefix, shared (one full prefill and
+   seven suffix prefills, 224 prompt tokens saved) against unshared under
+   the near-tie class, the pool's leak invariant every tick
+   (``main_path_serve_paged``);
    ``powersgd_imdb.run`` in bf16 (K5 on bf16 heads, K1);
    ``diloco_cifar10.run`` with preset ``full`` (ResNet-152, batch 512, two
    rounds of H = 8 inner steps, the outer delta PowerSGD-compressed at rank
@@ -193,6 +211,22 @@ STUDY_POWERSGD_ROWS = ("powersgd_r1", "powersgd_r2", "powersgd_r4")
 # package's own tolerance, test_decode_steps_match_full_forward): the cache's
 # fp32 einsum against the forward's K5 and its GEMMs, in fp32
 DECODE_TOL = 2e-4
+# serve_gpt's preset full: GPT-2 small at vocabulary 1024, 8 slots, 32
+# requests at 64 a second, each decoding 2 to 64 tokens (max_len 32 + 64)
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_RATE, SERVE_NEW, SERVE_MAX_LEN = 8, 32, 64.0, 64, 96
+SERVE_BLOCK, SERVE_SPEC_K = 16, 4
+# the dense slot cache of those 8 slots: 12 layers x K and V x (8, 96, 12, 64) fp32
+SERVE_DENSE_KV_BYTES = 56_623_104
+# eight prompts on one prefix of 32 tokens (two blocks), distinct 8-token
+# suffixes, 16 new tokens each
+SHARED_N, SHARED_PREFIX, SHARED_SUFFIX, SHARED_NEW = 8, 32, 8, 16
+# tokens held across shapes (the engine at batch 8 against a sequential
+# batch-1 reference; a suffix prefill against a full one): compared up to a
+# request's first difference, which is allowed only where the reference's
+# top-2 logit margin there is under SERVE_TIE * max|logit| (fp32); the
+# expected count is 0. Same shapes are held bit for bit.
+SERVE_TIE = 1e-4
+SERVE_TICKS = 20  # decode ticks timed at 8 busy slots
 
 
 def fail(msg: str) -> None:
@@ -760,6 +794,305 @@ def main_path_record(name, result, cfg, peak, model="resnet152"):
         "images_per_s": cfg.global_batch_size / (p50_ms / 1e3),
         "peak_memory_bytes": peak, "bits_per_step": result["bits_per_step"],
     }
+
+
+def reference_logits(gpt_model, model, prompt, tokens, max_len):
+    """The sequential reference's logits before each of ``tokens``:
+    ``gpt_prefill`` of the prompt at ``max_len``, then ``gpt_decode_step``
+    at batch 1 fed ``tokens[:-1]`` (teacher forcing: up to a first
+    difference, the reference's own tokens)."""
+    import torch
+
+    dev = model.wte.weight.device
+    with torch.no_grad():
+        logits, cache = gpt_model.gpt_prefill(model, torch.tensor([prompt], device=dev), max_len)
+        rows = [logits[0]]
+        for i, tok in enumerate(tokens[:-1]):
+            logits, cache = gpt_model.gpt_decode_step(model, cache, torch.tensor([tok], device=dev), len(prompt) + i)
+            rows.append(logits[0])
+        return torch.stack(rows)
+
+
+def near_tie(row):
+    """``(margin, max|logit|)`` of one reference logit row: the top-2 margin
+    and the scale the near-tie class measures it against."""
+    top2 = row.topk(2).values
+    return float(top2[0] - top2[1]), float(row.abs().max())
+
+
+def tokens_against_reference(gpt_model, model, requests, max_len, name):
+    """Each request's tokens against the sequential reference, up to its
+    first difference; fails on a difference outside the near-tie class.
+    Returns the differences found (each with its margin) and the tokens
+    compared."""
+    diffs, compared = [], 0
+    for r in requests:
+        ref = reference_logits(gpt_model, model, r.prompt, r.tokens, max_len)
+        want = ref.argmax(-1).tolist()
+        for i, tok in enumerate(r.tokens):
+            compared += 1
+            if want[i] != tok:
+                margin, scale = near_tie(ref[i])
+                diffs.append({"request": r.request_id, "token": i, "margin": margin, "max_abs_logit": scale})
+                if not margin < SERVE_TIE * scale:
+                    fail(f"{name}: {r.request_id} token {i} is {tok}, the reference's {want[i]}, margin {margin} >= {SERVE_TIE} x {scale}")
+                break
+    return diffs, compared
+
+
+def tokens_against_each_other(gpt_model, model, got, want, max_len, name):
+    """Requests ``got`` against the same requests ``want`` (run another
+    way), up to each first difference, which must fall in the near-tie
+    class of the sequential reference at that position."""
+    diffs = []
+    for a, b in zip(got, want):
+        i = next((j for j, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y), None)
+        if i is None:
+            if len(a.tokens) != len(b.tokens):
+                fail(f"{name}: {a.request_id} has {len(a.tokens)} tokens, {len(b.tokens)} the other way")
+            continue
+        margin, scale = near_tie(reference_logits(gpt_model, model, b.prompt, b.tokens[: i + 1], max_len)[i])
+        diffs.append({"request": a.request_id, "token": i, "margin": margin, "max_abs_logit": scale})
+        if not margin < SERVE_TIE * scale:
+            fail(f"{name}: {a.request_id} differs at token {i} with margin {margin} >= {SERVE_TIE} x {scale}")
+    return diffs
+
+
+def profile_decode_tick(engine, requests):
+    """``SERVE_TICKS`` decode ticks of ``engine`` with every slot busy, timed
+    by the host clock (each ends in the tick's read of its tokens), then
+    one more under ``torch.profiler``: its kernel launches, copies, busy
+    time, idle share and the names of its kernels. Fails where a kernel of
+    the port (flash attention, Gram-Schmidt) runs in it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for r in requests:
+        engine.submit(r)
+    engine.step()  # the admissions and one tick
+    engine.step()
+    tick_ms = []
+    for _ in range(SERVE_TICKS):
+        t0 = time.perf_counter()
+        engine.step()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    card = engine.device.type == "cuda"
+    if card:
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if card else [])) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if engine.n_active != len(requests):
+        fail(f"decode tick profile: {engine.n_active} slots busy, want {len(requests)}")
+    engine.evict_all()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in device if e.key.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in device if e not in copies]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    port = [e.key for e in kernels if "flash" in e.key.lower() or "gram_schmidt" in e.key.lower()]
+    if port:
+        fail(f"a decode tick launched kernels of the port: {port}")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {
+        "kernel_launches": sum(e.count for e in kernels), "copies": sum(e.count for e in copies),
+        "copies_by_kind": {e.key: e.count for e in copies},
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms if busy_ms > 0 else None,
+        "device_idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else None,
+        "tick_ms_p50": statistics.median(tick_ms), "tick_ms": tick_ms, "port_kernels": port,
+        "top_kernels": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3, "calls": e.count} for e in top],
+    }
+
+
+def serving_phases(dev, drive, all_kernels, preset="full", max_new_tokens=SERVE_NEW):
+    """``main_path_serve`` and ``main_path_serve_paged``: ``serve_gpt`` at
+    ``preset`` through the slot engine (fp32 twice, bf16), its fp32 tokens
+    against the sequential reference, a profiled decode tick of each
+    engine; then the paged engine, self-drafted speculative decoding and
+    eight prompts on one prefix, shared and unshared. ``drive(name, run,
+    want, kernel_free)`` runs ``run()`` with the launch counts set to 0 just
+    before it and read just after (``main``'s); every run here must launch
+    no kernel of the port."""
+    import torch
+
+    from network_distributed_pytorch_tpu_torch.experiments import serve_gpt
+    from network_distributed_pytorch_tpu_torch.models import gpt as gpt_model
+    from network_distributed_pytorch_tpu_torch.serving import Request, poisson_workload
+    from network_distributed_pytorch_tpu_torch.serving.engine import PagedEngine, SlotEngine
+
+    max_len = serve_gpt.serving_max_len(preset, max_new_tokens, "slot", SERVE_BLOCK)
+    if max_len % SERVE_BLOCK:
+        fail(f"serve_gpt: max_len {max_len} is not a whole number of blocks: the paged engine's would differ")
+    vocab = serve_gpt.PRESETS[preset][1]
+    serve_cfg = serve_gpt.default_config()
+    serve_model = serve_gpt.build_model(preset, max_len, torch.float32, dev, serve_cfg.seed)
+    cfg = serve_model.config
+    dense_bytes = cfg.n_layers * 2 * SERVE_SLOTS * max_len * cfg.dim * 4
+    if preset == "full" and (max_len, dense_bytes) != (SERVE_MAX_LEN, SERVE_DENSE_KV_BYTES):
+        fail(f"serve_gpt full: max_len {max_len}, dense cache {dense_bytes} B")
+
+    def serve_run(dtype, **kw):
+        cfg = serve_gpt.default_config()
+        cfg.compute_dtype = dtype
+        return serve_gpt.serve(
+            cfg, preset=preset, slots=SERVE_SLOTS, requests=SERVE_REQUESTS, request_rate=SERVE_RATE,
+            max_new_tokens=max_new_tokens, device=dev, **kw,
+        )
+
+    def served(name, summary, finished):
+        slo = summary["slo"]
+        if slo["n_finished"] != SERVE_REQUESTS or summary["live_requests_total"] != SERVE_REQUESTS:
+            fail(f"{name}: {slo['n_finished']} of {SERVE_REQUESTS} requests finished")
+        if not summary["decode_steps"] < summary["padded_static_decode_steps"]:
+            fail(f"{name}: {summary['decode_steps']} decode steps, padded static {summary['padded_static_decode_steps']}")
+        if summary["max_len"] != max_len:
+            fail(f"{name}: max_len {summary['max_len']}")
+        return sorted(finished, key=lambda r: r.request_id)
+
+    def slo_ms(slo):
+        out = {}
+        for phase in ("queue", "prefill", "total"):
+            for q in ("p50", "p99"):
+                out[f"{q}_{phase}_ms"] = 1e3 * slo[f"{q}_{phase}_s"]
+        for q in ("p50", "p99"):
+            out[f"{q}_decode_ms_per_token"] = slo[f"{q}_decode_ms_per_token"]
+        out["tokens_per_s"] = slo["tokens_per_s"]
+        return out
+
+    serve_runs, serve_reqs = {}, {}
+    for name, dtype in (("serve_float32", "float32"), ("serve_float32_again", "float32"), ("serve_bfloat16", "bfloat16")):
+        (summary, finished), peak = drive(name, lambda: serve_run(dtype), {}, kernel_free=True)
+        serve_reqs[name] = served(name, summary, finished)
+        serve_runs[name] = {
+            "compute_dtype": dtype, "decode_steps": summary["decode_steps"], "prefills": summary["prefills"],
+            "padded_static_decode_steps": summary["padded_static_decode_steps"], **slo_ms(summary["slo"]),
+            "total_tokens": summary["slo"]["total_tokens"], "cache_bytes": summary["kv_cache_bytes"],
+            "peak_memory_bytes": peak,
+        }
+    if [r.tokens for r in serve_reqs["serve_float32"]] != [r.tokens for r in serve_reqs["serve_float32_again"]]:
+        fail("serve_gpt: a second fp32 run gave other tokens")
+    if serve_runs["serve_float32"]["cache_bytes"] != dense_bytes:
+        fail(f"serve_gpt: cache bytes {serve_runs['serve_float32']['cache_bytes']}, want {dense_bytes}")
+    serve_diffs, serve_compared = tokens_against_reference(
+        gpt_model, serve_model, serve_reqs["serve_float32"], max_len, "serve_gpt fp32"
+    )
+    workload = poisson_workload(serve_gpt.workload_config(preset, SERVE_SLOTS, 0.0, max_new_tokens, serve_cfg.seed))
+
+    def busy_slots():  # eight requests that stay in their slots through the profiled ticks
+        return [Request(request_id=r.request_id, prompt=r.prompt, max_new_tokens=max_new_tokens) for r in workload]
+
+    ticks = {
+        "slot_float32": profile_decode_tick(
+            SlotEngine(serve_model, SERVE_SLOTS, max_len, device=dev), busy_slots()
+        ),
+        # without prefix sharing no request reserves a copy-on-write spare,
+        # so the default pool holds all eight at their full horizon
+        "paged_float32": profile_decode_tick(
+            PagedEngine(serve_model, SERVE_SLOTS, max_len, block_len=SERVE_BLOCK, prefix_sharing=False, device=dev),
+            busy_slots(),
+        ),
+        "slot_bfloat16": profile_decode_tick(
+            SlotEngine(
+                serve_gpt.build_model(preset, max_len, torch.bfloat16, dev, serve_cfg.seed),
+                SERVE_SLOTS, max_len, device=dev,
+            ),
+            busy_slots(),
+        ),
+    }
+    emit({
+        "phase": "main_path_serve", "preset": preset, "vocab": vocab, "slots": SERVE_SLOTS,
+        "requests": SERVE_REQUESTS, "request_rate": SERVE_RATE, "max_new_tokens": max_new_tokens, "max_len": max_len,
+        "engine": "slot", "runs": serve_runs, "fp32_second_run_bitwise": True,
+        "fp32_vs_sequential_reference": {
+            "tokens_compared": serve_compared, "differences": serve_diffs, "tie_class": SERVE_TIE,
+        },
+        "decode_tick": ticks,
+    })
+
+    # the same workload through the paged engine (block 16, the default
+    # pool: the dense cache's blocks + the garbage block), then with K = 4
+    # self-drafted speculative decoding: the same shapes, so the same bits
+    paged_runs = {}
+    fp32_tokens = [r.tokens for r in serve_reqs["serve_float32"]]
+    for name, kw in (("serve_paged", {}), ("serve_paged_spec", {"spec_k": SERVE_SPEC_K})):
+        (summary, finished), peak = drive(
+            name, lambda: serve_run("float32", engine="paged", block_len=SERVE_BLOCK, **kw), {}, kernel_free=True
+        )
+        reqs = served(name, summary, finished)
+        if [r.tokens for r in reqs] != fp32_tokens:
+            fail(f"{name}: tokens differ from the fp32 slot engine's")
+        paged_runs[name] = {
+            "decode_steps": summary["decode_steps"], "prefills": summary["prefills"],
+            "padded_static_decode_steps": summary["padded_static_decode_steps"], **slo_ms(summary["slo"]),
+            "kv": summary["kv"], "peak_memory_bytes": peak, "tokens_equal_slot_fp32": True,
+        }
+        if "spec" in summary:
+            # self-drafted: every proposal the budget lets through is accepted
+            rounds = sum(-(-(len(r.tokens) - 1) // SERVE_SPEC_K) for r in reqs)
+            reachable = sum(len(r.tokens) - 1 for r in reqs) - rounds
+            spec = summary["spec"]
+            if spec["spec_accepted"] != reachable or spec["spec_rounds"] != summary["decode_steps"]:
+                fail(f"{name}: {spec['spec_accepted']} proposals accepted of {reachable} the budgets let through")
+            paged_runs[name]["spec"] = {**spec, "accept_rate_of_reachable": spec["spec_accepted"] / reachable}
+    kv = paged_runs["serve_paged"]["kv"]
+
+    # eight prompts on one 32-token prefix: one full prefill, seven suffix
+    # prefills over the two linked prefix blocks; against the same requests
+    # unshared (suffix prefills at M = 8 against full ones at M = 40: the
+    # near-tie class), with the leak invariant checked every tick
+    gen = torch.Generator().manual_seed(serve_cfg.seed + 4)
+    prefix = torch.randint(0, vocab, (SHARED_PREFIX,), generator=gen).tolist()
+    prompts = [prefix + torch.randint(0, vocab, (SHARED_SUFFIX,), generator=gen).tolist() for _ in range(SHARED_N)]
+    shared_runs = {}
+    for name, sharing in (("shared", True), ("unshared", False)):
+        engine = PagedEngine(
+            serve_model, SHARED_N, max_len, block_len=SERVE_BLOCK, prefix_sharing=sharing, device=dev,
+            check_leaks=True,
+        )
+        reqs = [Request(request_id=f"p{i}", prompt=p, max_new_tokens=SHARED_NEW) for i, p in enumerate(prompts)]
+        for k in all_kernels:
+            k.reset()
+        for r in reqs:
+            engine.submit(r)
+        t0 = time.perf_counter()
+        engine.run(max_steps=10 * SHARED_NEW)
+        wall_ms = (time.perf_counter() - t0) * 1e3  # run() ends in the last tick's read of its tokens
+        if any(k.launches for k in all_kernels):
+            fail(f"shared prefix ({name}) launched {[(k.name, k.launches) for k in all_kernels if k.launches]}")
+        if any(len(r.tokens) != SHARED_NEW for r in reqs):
+            fail(f"shared prefix ({name}): a request did not finish")
+        stats = engine.stats()
+        engine.evict_all()
+        if engine.allocator.n_free != engine.allocator.n_usable:
+            fail(f"shared prefix ({name}): {engine.allocator.n_usable - engine.allocator.n_free} blocks leaked")
+        shared_runs[name] = {"reqs": reqs, "stats": {**stats, "wall_ms": wall_ms}}
+    st = shared_runs["shared"]["stats"]
+    if st["prefills"] != SHARED_N or st["prefix_hits_total"] != SHARED_N - 1 or st["prefill_tokens_saved_total"] < 224:
+        fail(f"shared prefix: {st['prefills']} prefills, {st['prefix_hits_total']} hits, {st['prefill_tokens_saved_total']} tokens saved")
+    shared_diffs = tokens_against_each_other(
+        gpt_model, serve_model, shared_runs["shared"]["reqs"], shared_runs["unshared"]["reqs"], max_len,
+        "shared prefix",
+    )
+    unshared_diffs, _ = tokens_against_reference(
+        gpt_model, serve_model, shared_runs["unshared"]["reqs"], max_len, "shared prefix (unshared)"
+    )
+    emit({
+        "phase": "main_path_serve_paged", "preset": preset, "vocab": vocab, "block_len": SERVE_BLOCK,
+        "runs": paged_runs,
+        "pool_bytes": kv["pool_bytes"], "dense_cache_bytes": dense_bytes, "pool_over_dense": kv["pool_bytes"] / dense_bytes,
+        "cow_copies": kv["cow_copies_total"], "prefix_hits": kv["prefix_hits_total"],
+        "shared_prefix": {
+            "requests": SHARED_N, "prefix_tokens": SHARED_PREFIX, "suffix_tokens": SHARED_SUFFIX,
+            "max_new_tokens": SHARED_NEW,
+            **{k: st[k] for k in ("prefills", "prefill_tokens", "prefix_hits_total", "prefill_tokens_saved_total",
+                                  "cow_copies_total", "decode_steps", "wall_ms")},
+            "unshared_prefill_tokens": shared_runs["unshared"]["stats"]["prefill_tokens"],
+            "unshared_wall_ms": shared_runs["unshared"]["stats"]["wall_ms"],
+            "differences_vs_unshared": shared_diffs, "unshared_vs_reference_differences": unshared_diffs,
+            "tie_class": SERVE_TIE, "leaks": 0,
+        },
+    })
 
 
 def main() -> None:
@@ -1435,6 +1768,11 @@ def main() -> None:
         "decode_vs_full_forward_max_abs_err": decode_err, "tolerance": DECODE_TOL,
         "greedy_tokens_checked": sure_tokens, "greedy_tokens": GEN_B * GEN_NEW,
     })
+
+    # GPT-2 small served (serve_gpt's preset full): no kernel of the port
+    # (the serving steps attend in plain fp32 PyTorch, the paged ops are
+    # torch indexing, as the JAX package's are XLA)
+    serving_phases(dev, drive, all_kernels)
 
     # DistilBERT/IMDb PowerSGD in bf16: K5 on bf16 heads once per layer
     cfg = powersgd_imdb.default_config()

@@ -13,6 +13,8 @@ Usage, one process per rank (torchrun sets ``RANK``, ``WORLD_SIZE``,
     python -m network_distributed_pytorch_tpu_torch.launch diloco_cifar10 --preset full --diloco-reducer powersgd
     python -m network_distributed_pytorch_tpu_torch.launch diloco_cifar10 --preset full --fragments 4
     python -m network_distributed_pytorch_tpu_torch.launch bandwidth_study --preset full
+    python -m network_distributed_pytorch_tpu_torch.launch serve_gpt --preset full --slots 8 --requests 32
+    python -m network_distributed_pytorch_tpu_torch.launch serve_gpt --preset full --engine paged --spec-k 4
     python -m network_distributed_pytorch_tpu_torch.launch bare_init
     torchrun --nproc-per-node 4 -m network_distributed_pytorch_tpu_torch.launch powersgd_cifar10
 
@@ -37,6 +39,7 @@ from .experiments import (
     imdb_baseline,
     powersgd_cifar10,
     powersgd_imdb,
+    serve_gpt,
 )
 from .utils.config import (
     ATTN_IMPLS,
@@ -57,6 +60,7 @@ EXPERIMENTS = {
     "imdb_baseline": imdb_baseline,
     "powersgd_cifar10": powersgd_cifar10,
     "powersgd_imdb": powersgd_imdb,
+    "serve_gpt": serve_gpt,
 }
 # the default --data-dir; for the IMDb experiments it means synthetic data,
 # as in the JAX package's launcher
@@ -66,11 +70,17 @@ DEFAULT_DATA_DIR = "./data"
 _CHUNKS_OK = ("exact_cifar10", "powersgd_cifar10")
 _BUCKETS_OK = ("exact_cifar10",)
 _GENERATE_OK = ("gpt_generate",)
+_SERVE_OK = ("serve_gpt",)
 _DILOCO_OK = ("diloco_cifar10",)
 # the experiments whose epochs of steps --max-steps-per-epoch caps
 _STEPS_OK = ("diloco_cifar10", "exact_cifar10", "gpt_lm", "imdb_baseline", "powersgd_cifar10", "powersgd_imdb")
 # the JAX launcher's gpt_generate defaults
 DEFAULT_MAX_NEW_TOKENS, DEFAULT_TEMPERATURE = 64, 0.0
+# serve_gpt's defaults where a flag is not given, as in the JAX launcher
+SERVE_DEFAULTS = {
+    "slots": 4, "requests": 16, "request_rate": 64.0, "engine": "slot", "block_len": 16, "spec_k": 0,
+    "max_wall_s": 120.0,
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -144,11 +154,50 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--max-new-tokens", type=int, default=None,
-        help=f"gpt_generate only: tokens to generate (default {DEFAULT_MAX_NEW_TOKENS})",
+        help=f"gpt_generate: tokens to generate; serve_gpt: each request's decode budget cap"
+             f" (uniform in [2, this]) (default {DEFAULT_MAX_NEW_TOKENS})",
     )
     p.add_argument(
         "--temperature", type=float, default=None,
         help=f"gpt_generate only: 0 is greedy (default {DEFAULT_TEMPERATURE})",
+    )
+    # --- serve_gpt (the serving/ continuous-batching engines) -------------
+    p.add_argument("--slots", type=int, default=None, help="serve_gpt only: the engine's batch slots (default 4)")
+    p.add_argument(
+        "--requests", type=int, default=None, help="serve_gpt only: requests in the Poisson workload (default 16)"
+    )
+    p.add_argument(
+        "--request-rate", type=float, default=None, help="serve_gpt only: Poisson arrivals a second (default 64)"
+    )
+    p.add_argument(
+        "--spool-dir", type=str, default=None,
+        help="serve_gpt only: a shared file-spool request queue (the fleet mode: ranks share only the spool)",
+    )
+    p.add_argument(
+        "--engine", choices=["slot", "paged"], default=None,
+        help="serve_gpt only: 'slot' (a dense cache a slot) or 'paged' (a block pool with copy-on-write"
+             " prefix sharing) (default slot)",
+    )
+    p.add_argument("--block-len", type=int, default=None, help="serve_gpt only (--engine paged): tokens a KV block (default 16)")
+    p.add_argument(
+        "--n-blocks", type=int, default=None,
+        help="serve_gpt only (--engine paged): blocks in the pool (default: the dense cache's bytes,"
+             " slots * max_len / block_len + 1)",
+    )
+    p.add_argument(
+        "--no-prefix-sharing", action="store_true",
+        help="serve_gpt only (--engine paged): no copy-on-write prompt-prefix sharing",
+    )
+    p.add_argument(
+        "--spec-k", type=int, default=None,
+        help="serve_gpt only (--engine paged): speculative decoding, K steps a round (default off)",
+    )
+    p.add_argument(
+        "--max-wall-s", type=float, default=None, help="serve_gpt only: the run's wall-clock limit (default 120)"
+    )
+    p.add_argument(
+        "--checkpoint-dir", type=str, default=None,
+        help="serve_gpt only: hot-load the newest training checkpoint (not ported yet: raises)",
     )
     return p
 
@@ -190,13 +239,21 @@ def main(argv=None) -> dict:
         ("--comm-strategy", args.comm_strategy, _CHUNKS_OK),
         ("--bucket-bytes", args.bucket_bytes, _BUCKETS_OK),
         ("--strategy", None if args.strategy == "ddp" else args.strategy, ("exact_cifar10",)),
-        ("--max-new-tokens", args.max_new_tokens, _GENERATE_OK),
+        ("--max-new-tokens", args.max_new_tokens, _GENERATE_OK + _SERVE_OK),
         ("--temperature", args.temperature, _GENERATE_OK),
         ("--sync-every", args.sync_every, _DILOCO_OK),
         ("--fragments", args.fragments, _DILOCO_OK),
         ("--diloco-reducer", args.diloco_reducer, _DILOCO_OK),
         ("--max-steps-per-epoch", args.max_steps_per_epoch, _STEPS_OK),
         ("--dtype", args.dtype, tuple(n for n in EXPERIMENTS if n not in ("bare_init", "bandwidth_study"))),
+        *(
+            (flag, getattr(args, flag[2:].replace("-", "_")), _SERVE_OK)
+            for flag in (
+                "--slots", "--requests", "--request-rate", "--spool-dir", "--engine", "--block-len", "--n-blocks",
+                "--spec-k", "--max-wall-s", "--checkpoint-dir",
+            )
+        ),
+        ("--no-prefix-sharing", args.no_prefix_sharing or None, _SERVE_OK),
     ):
         if value is not None and exp not in ok:
             raise ValueError(f"{flag} is not supported by {exp!r} (supported: {', '.join(ok)})")
@@ -210,6 +267,16 @@ def main(argv=None) -> dict:
             max_new_tokens=DEFAULT_MAX_NEW_TOKENS if args.max_new_tokens is None else args.max_new_tokens,
             temperature=DEFAULT_TEMPERATURE if args.temperature is None else args.temperature,
         )
+    elif exp == "serve_gpt":
+        kwargs.update(
+            preset=args.preset,
+            max_new_tokens=DEFAULT_MAX_NEW_TOKENS if args.max_new_tokens is None else args.max_new_tokens,
+            spool_dir=args.spool_dir, n_blocks=args.n_blocks, prefix_sharing=not args.no_prefix_sharing,
+            checkpoint_dir=args.checkpoint_dir,
+        )
+        for name, default in SERVE_DEFAULTS.items():
+            value = getattr(args, name)
+            kwargs[name] = default if value is None else value
     elif exp == "gpt_lm":
         kwargs.update(preset=args.preset, max_steps_per_epoch=args.max_steps_per_epoch)
     elif exp == "bandwidth_study":

@@ -4,7 +4,10 @@ embeddings -> pre-LN blocks (causal self-attention, tanh-GELU MLP) -> final
 LayerNorm -> an LM head tied to the token table, fp32 logits. Then the
 KV-cache decoding of the same model: :func:`init_gpt_cache`,
 :func:`gpt_prefill`, :func:`gpt_decode_step`, :func:`decode_tokens` and
-:func:`generate`.
+:func:`generate`; and the serving engine's steps (``serving/engine.py``):
+:func:`gpt_decode_step_slots` (a position per row),
+:func:`gpt_decode_step_paged` (the KV cache in a block pool) and
+:func:`gpt_prefill_shared` (a prompt's suffix over its shared prefix).
 
 Parameter names follow the JAX model's modules (``wte.weight``,
 ``h.{i}.attn.q_proj.weight``, ``h.{i}.mlp_fc.bias``, ``ln_f.weight``), so
@@ -31,9 +34,8 @@ logits leave in fp32. ``attn_impl``:
 ``experiments/gpt_lm.py`` trains without dropout, so its steps run flash.
 
 Sequence parallelism (``seq_axis``, ``seq_impl``), ``remat`` and
-``scan_layers`` keep their slots and raise until they are ported; so do
-the slot, paged and shared-prefix decode steps of the serving engine, and
-the tensor- and pipeline-parallel helpers, which are not here.
+``scan_layers`` keep their slots and raise until they are ported; the
+tensor- and pipeline-parallel helpers are not here.
 
 Weights are drawn on the CPU from an explicit ``torch.Generator`` (GPT-2's
 init: normal with std 0.02, the residual projections ``out_proj`` and
@@ -55,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention
+from ..ops.paged import gather_block_view, scatter_token_rows
 from ..parallel.mesh import resolve_device
 from ..utils.config import ATTN_IMPLS
 from .layers import attend, check_compute_dtype, dense, embed, layer_norm, score_scale
@@ -232,8 +235,10 @@ def next_token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 # JAX functions compute it, not the flash kernel.
 
 
-def init_gpt_cache(config: GPTConfig, batch: int, max_len: int, device="cpu") -> Cache:
-    """Per-layer K/V cache: zeros of ``(B, max_len, H, D)`` in ``config.dtype``."""
+def init_gpt_cache(config: GPTConfig, batch: int, max_len: int, *, device) -> Cache:
+    """Per-layer K/V cache: zeros of ``(B, max_len, H, D)`` in
+    ``config.dtype`` on ``device``, which has no default: a cache belongs
+    beside its model."""
     shape = (batch, max_len, config.n_heads, config.head_dim)
     return [
         {"k": torch.zeros(shape, dtype=config.dtype, device=device),
@@ -272,7 +277,7 @@ def gpt_prefill(model: GPTLM, prompt_ids: torch.Tensor, max_len: int):
     b, t = prompt_ids.shape
     device = prompt_ids.device
     x = model.wte.weight[prompt_ids].to(dt) + model.wpe.weight[:t][None].to(dt)
-    cache = init_gpt_cache(cfg, b, max_len, device)
+    cache = init_gpt_cache(cfg, b, max_len, device=device)
     causal = torch.ones((t, t), dtype=torch.bool, device=device).tril()
     for layer, block in zip(cache, model.h):
         h = layer_norm(block.ln_1, x, dt)
@@ -286,28 +291,139 @@ def gpt_prefill(model: GPTLM, prompt_ids: torch.Tensor, max_len: int):
     return _head(model, x[:, -1], dt), cache
 
 
-def _decode_step_(model: GPTLM, cache: Cache, tokens: torch.Tensor, pos: int) -> torch.Tensor:
-    """One decode step that writes ``tokens``' K/V into ``cache`` in place;
-    returns the logits ``(B, V)`` in fp32."""
+def _decode_layers(model: GPTLM, cache: Cache, x, valid, write) -> torch.Tensor:
+    """The blocks and the head of a one-token decode step from the embedded
+    tokens ``x`` ``(B, dim)``: in each layer ``write(layer, k, v)`` stores
+    the new token's K/V (``(B, H, D)`` each) in the cache and returns the
+    ``(B, S, H, D)`` keys and values to attend over where ``valid`` allows.
+    Returns the logits ``(B, V)`` in fp32."""
     cfg = model.config
     dt = cfg.dtype
-    max_len = cache[0]["k"].shape[1]
-    x = model.wte.weight[tokens].to(dt) + model.wpe.weight[pos].to(dt)  # (B, dim)
-    valid = torch.arange(max_len, device=tokens.device) <= pos
     for layer, block in zip(cache, model.h):
         h = layer_norm(block.ln_1, x, dt)
         q, k, v = (
             dense(lin, h, dt).reshape(-1, 1, cfg.n_heads, cfg.head_dim)
             for lin in (block.attn.q_proj, block.attn.k_proj, block.attn.v_proj)
         )
-        layer["k"][:, pos] = k[:, 0]
-        layer["v"][:, pos] = v[:, 0]
-        ctx = _cached_attention(q, layer["k"], layer["v"], valid, cfg.head_dim)
+        keys, values = write(layer, k[:, 0], v[:, 0])
+        ctx = _cached_attention(q, keys, values, valid, cfg.head_dim)
         x = _block_tail(block, x, ctx, dt)
     return _head(model, x, dt)
 
 
-def _weights_cast_once(model: GPTLM) -> GPTLM:
+def _decode_step_(model: GPTLM, cache: Cache, tokens: torch.Tensor, pos: int) -> torch.Tensor:
+    """One decode step that writes ``tokens``' K/V into ``cache`` in place;
+    returns the logits ``(B, V)`` in fp32."""
+    dt = model.config.dtype
+    max_len = cache[0]["k"].shape[1]
+    x = model.wte.weight[tokens].to(dt) + model.wpe.weight[pos].to(dt)  # (B, dim)
+    valid = torch.arange(max_len, device=tokens.device) <= pos
+
+    def write(layer, k, v):
+        layer["k"][:, pos] = k
+        layer["v"][:, pos] = v
+        return layer["k"], layer["v"]
+
+    return _decode_layers(model, cache, x, valid, write)
+
+
+def _embed_rows(model: GPTLM, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``wte[tokens] + wpe[pos]`` for a position per row; a position past the
+    table reads its last row, as JAX clamps a gather (a speculative round
+    feeds up to K - 1 positions past a finished row; those logits are
+    dropped)."""
+    dt = model.config.dtype
+    last = model.config.max_position_embeddings - 1
+    return model.wte.weight[tokens].to(dt) + model.wpe.weight[pos.clamp(max=last)].to(dt)
+
+
+def _row_valid(pos: torch.Tensor, max_len: int) -> torch.Tensor:
+    """Row ``b`` attends to positions ``<= pos[b]``: ``(B, 1, 1, max_len)``,
+    broadcast over the heads and the one query."""
+    return (torch.arange(max_len, device=pos.device)[None, :] <= pos[:, None])[:, None, None, :]
+
+
+@torch.no_grad()
+def gpt_decode_step_slots(model: GPTLM, cache: Cache, tokens: torch.Tensor, pos: torch.Tensor):
+    """One decode step with a position per row: row ``b`` feeds
+    ``tokens[b]`` at ``pos[b]`` (both ``(B,)``, long) and attends to its own
+    cache prefix ``<= pos[b]``, so slots at different depths share one step
+    (the continuous-batching step of ``serving.engine``). Each row's math is
+    :func:`gpt_decode_step`'s at that position. The K/V are written into
+    ``cache`` in place (where the JAX engine donates it); a position past the
+    cache writes its last row, as JAX's ``dynamic_update_slice`` clamps.
+    Returns ``(logits (B, V) fp32, cache)``."""
+    max_len = cache[0]["k"].shape[1]
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    at = pos.clamp(max=max_len - 1)
+
+    def write(layer, k, v):
+        layer["k"][rows, at] = k
+        layer["v"][rows, at] = v
+        return layer["k"], layer["v"]
+
+    logits = _decode_layers(model, cache, _embed_rows(model, tokens, pos), _row_valid(pos, max_len), write)
+    return logits, cache
+
+
+@torch.no_grad()
+def gpt_decode_step_paged(
+    model: GPTLM, pool: Cache, tables: torch.Tensor, tokens: torch.Tensor, pos: torch.Tensor
+):
+    """:func:`gpt_decode_step_slots` over a paged KV cache: each layer's K/V
+    live in a block pool ``(n_blocks, block_len, H, D)`` and row ``b``'s
+    logical ``(max_len, H, D)`` cache is stitched through its block table
+    (``tables`` ``(B, max_len // block_len)``, long). Row ``b`` writes its
+    K/V at ``(tables[b, pos[b] // L], pos[b] % L)`` in place
+    (``ops.paged.scatter_token_rows``: a position past the table goes to
+    the garbage block 0), then attends over the gathered ``(B, max_len, H,
+    D)`` view with the slot step's math, so valid positions carry the same
+    bits and the ``<= pos`` mask gives every other position a weight of
+    exactly 0. Returns ``(logits (B, V) fp32, pool)``."""
+    max_len = tables.shape[1] * pool[0]["k"].shape[1]
+
+    def write(layer, k, v):
+        scatter_token_rows(layer["k"], tables, pos, k)
+        scatter_token_rows(layer["v"], tables, pos, v)
+        return gather_block_view(layer["k"], tables), gather_block_view(layer["v"], tables)
+
+    logits = _decode_layers(model, pool, _embed_rows(model, tokens, pos), _row_valid(pos, max_len), write)
+    return logits, pool
+
+
+@torch.no_grad()
+def gpt_prefill_shared(model: GPTLM, suffix_ids: torch.Tensor, prefix_cache: Cache):
+    """Prefill only the suffix of a prompt whose first ``P`` tokens already
+    have K/V (prefix sharing: ``prefix_cache`` holds per layer ``(1, P, H,
+    D)``, gathered from the block pool). ``suffix_ids`` ``(1, t_s)`` sit at
+    positions ``P .. P + t_s - 1``; their queries attend over the prefix's
+    K/V and their own under the global causal mask, so each query's softmax
+    spans the keys a full prefill would give it. Returns ``(last_logits (1,
+    V) fp32, suffix_cache)``, the suffix's K/V per layer ``(1, t_s, H,
+    D)``."""
+    cfg = model.config
+    dt = cfg.dtype
+    b, t = suffix_ids.shape
+    p_len = prefix_cache[0]["k"].shape[1]
+    device = suffix_ids.device
+    x = model.wte.weight[suffix_ids].to(dt) + model.wpe.weight[p_len : p_len + t][None].to(dt)
+    # query j sits at position p_len + j: it attends to keys 0 .. p_len + j
+    causal = torch.arange(p_len + t, device=device)[None, :] <= (p_len + torch.arange(t, device=device))[:, None]
+    suffix_cache = []
+    for prefix, block in zip(prefix_cache, model.h):
+        h = layer_norm(block.ln_1, x, dt)
+        q, k, v = (
+            dense(lin, h, dt).reshape(b, t, cfg.n_heads, cfg.head_dim)
+            for lin in (block.attn.q_proj, block.attn.k_proj, block.attn.v_proj)
+        )
+        suffix_cache.append({"k": k, "v": v})
+        keys = torch.cat([prefix["k"].to(dt), k], dim=1)
+        values = torch.cat([prefix["v"].to(dt), v], dim=1)
+        x = _block_tail(block, x, _cached_attention(q, keys, values, causal, cfg.head_dim), dt)
+    return _head(model, x[:, -1], dt), suffix_cache
+
+
+def weights_cast_once(model: GPTLM) -> GPTLM:
     """``model`` with its Linear and Embedding weights cast to its compute
     dtype once, for a decode loop, whose weights do not change: every cast
     a step would make gives these same values, so the logits are bitwise
@@ -382,7 +498,7 @@ def decode_tokens(
     returning the ``(B, n_steps)`` sampled ids. The caller's cache is not
     changed."""
     return _decode(
-        _weights_cast_once(model), _copy_cache(cache), first, t_prompt, n_steps, temperature, generator, eos_token_id
+        weights_cast_once(model), _copy_cache(cache), first, t_prompt, n_steps, temperature, generator, eos_token_id
     )
 
 
@@ -411,7 +527,7 @@ def generate(
     cache_len = total if cache_len is None else cache_len
     if cache_len < total:
         raise ValueError(f"cache_len {cache_len} < {total} positions")
-    model = _weights_cast_once(model)
+    model = weights_cast_once(model)
     last_logits, cache = gpt_prefill(model, prompt_ids, cache_len)
     first = _sample_token(last_logits, temperature, generator)
     rest = _decode(model, cache, first, t_prompt, max_new_tokens - 1, temperature, generator, eos_token_id)

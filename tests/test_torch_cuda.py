@@ -18,8 +18,11 @@ small ResNet-18 on the card against the CPU, the single-node IMDb
 baseline running flash attention (forward and backward) on the card, the
 tiny GPT training (K5 causal forward and backward, fp32 and bf16) and
 generating on the card, the gather-based compressors on the card against
-the CPU (TopK's scatter-add bitwise equal across two calls), and a DiLoCo
-round of the small ResNet-18 with K1 against its plain twin.
+the CPU (TopK's scatter-add bitwise equal across two calls), a DiLoCo
+round of the small ResNet-18 with K1 against its plain twin, the paged KV
+ops on the card against the CPU (positions past the table included), and
+the tiny GPT served on the card by the slot and paged engines (and under
+speculative decoding) with the same tokens.
 
 This file imports torch and the port, never jax, so it also runs on a
 machine that has the card and no JAX (``--noconftest`` skips the JAX
@@ -27,7 +30,9 @@ harness of ``tests/conftest.py``)::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Where there is no card every test here skips.
+Where there is no card every test here skips, but for
+``test_serve_gpt_runs_on_the_card_or_raises_without_one``, which checks
+there that ``serve_gpt.run`` raises rather than serve on the CPU.
 
 Tolerance: fp32, rtol = atol = 1e-5, as in ``test_torch_orthogonalize.py``:
 the kernel sums each column's squares and projections in another order than
@@ -1015,3 +1020,85 @@ def test_diloco_round_with_k1_matches_its_plain_twin(cuda_device, exact_conv_mat
     assert launched == [reducer.n_shape_groups(list(model.parameters())), 0]
     for name, want in finals[1].items():
         torch.testing.assert_close(finals[0][name], want, rtol=RTOL, atol=ATOL)
+
+
+# ---- serving (no kernel of the port: torch indexing and cuBLAS) ----------------
+
+
+def _paged_inputs(seed):
+    gen = torch.Generator().manual_seed(seed)
+    pool = torch.randn(9, 4, 2, 3, generator=gen)
+    tables = torch.tensor([[1, 2, 3], [4, 5, 0], [6, 0, 0], [0, 0, 0]])
+    return pool, tables, torch.randn(4, 2, 3, generator=gen), torch.randn(12, 2, 3, generator=gen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [[0, 7, 3, 0], [11, 8, 13, 14]], ids=["in_range", "overrun"])
+def test_paged_ops_on_the_card_equal_the_cpu(cuda_device, pos):
+    """``ops/paged.py`` on CUDA tensors against the same calls on the CPU, bit
+    for bit: positions past the table land in block 0 on the card too (no
+    device-side assert), at offsets that do not collide."""
+    from network_distributed_pytorch_tpu_torch.ops import paged
+
+    pool, tables, rows, chain_rows = _paged_inputs(0)
+    pos = torch.tensor(pos)
+    results = []
+    for dev in ("cpu", cuda_device):
+        p = pool.to(dev)
+        t = tables.to(dev)
+        out = [paged.gather_block_view(p, t)]
+        out.append(paged.scatter_token_rows(p.clone(), t, pos.to(dev), rows.to(dev)))
+        out.append(paged.scatter_chain(p.clone(), torch.tensor([3, 7, 1], device=dev), chain_rows.to(dev)))
+        out.append(paged.copy_block(p.clone(), 3, 6))
+        out.append(paged.pool_chain_view(p, torch.tensor([4, 2, 0], device=dev)))
+        torch.cuda.synchronize()
+        results.append([o.cpu() for o in out])
+    for cpu, card in zip(*results):
+        assert torch.equal(cpu, card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slot_and_paged_engines_on_the_card_give_the_same_tokens(cuda_device, dtype):
+    """The tiny GPT served on the card: the slot engine, the paged engine and
+    the paged engine under a self-drafted K = 4 give the same tokens, bit
+    for bit (the same shapes on one device), every self-drafted proposal the
+    budget lets through is accepted, and the pool drains without a leak."""
+    from network_distributed_pytorch_tpu_torch.serving import Request
+    from network_distributed_pytorch_tpu_torch.serving.engine import PagedEngine, SlotEngine
+
+    model = gpt.gpt_tiny(dtype=getattr(torch, dtype), device=cuda_device, vocab_size=64, max_position_embeddings=32)
+    rng = np.random.RandomState(0)
+    specs = [([int(t) for t in rng.randint(0, 64, rng.randint(2, 12))], int(rng.randint(2, 17))) for _ in range(10)]
+
+    def serve(engine):
+        reqs = [Request(request_id=f"r{i:02d}", prompt=p, max_new_tokens=n) for i, (p, n) in enumerate(specs)]
+        for r in reqs:
+            engine.submit(r)
+        assert len(engine.run(max_steps=500)) == len(reqs)
+        return [r.tokens for r in reqs]
+
+    slot = serve(SlotEngine(model, n_slots=4, max_len=32, device=cuda_device))
+    paged = PagedEngine(model, n_slots=4, max_len=32, block_len=8, device=cuda_device, check_leaks=True)
+    spec = PagedEngine(model, n_slots=4, max_len=32, block_len=8, draft_model=model, spec_k=4, device=cuda_device)
+    assert serve(paged) == slot
+    assert serve(spec) == slot
+    rounds = sum(-(-(n - 1) // 4) for _, n in specs)
+    assert spec.spec_accepted == sum(n - 1 for _, n in specs) - rounds
+    paged.evict_all()
+    assert paged.allocator.n_free == paged.allocator.n_usable
+
+
+def test_serve_gpt_runs_on_the_card_or_raises_without_one():
+    """Not marked ``cuda``: it runs everywhere. ``serve_gpt.run`` defaults
+    to the card: where there is one, it serves there and names it; where
+    there is none, it raises rather than run on the CPU."""
+    from network_distributed_pytorch_tpu_torch.experiments import serve_gpt
+
+    kw = dict(preset="small", slots=2, requests=3, request_rate=0.0, max_new_tokens=4)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve_gpt.run(**kw)
+        return
+    out = serve_gpt.run(**kw)
+    assert out["device"] == torch.cuda.get_device_name(0) and out["slo"]["n_finished"] == 3

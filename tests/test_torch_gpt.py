@@ -130,7 +130,7 @@ def test_prefill_and_decode_steps_match_full_forward():
         logits, cache = gpt.gpt_decode_step(model, cache, ids[:, pos], pos)
         np.testing.assert_allclose(logits.numpy(), full[:, pos].numpy(), rtol=TOL, atol=TOL, err_msg=f"pos {pos}")
     # every step from an empty cache, as the JAX package's own test runs it
-    cache = gpt.init_gpt_cache(model.config, B, T)
+    cache = gpt.init_gpt_cache(model.config, B, T, device="cpu")
     for pos in range(T):
         logits, cache = gpt.gpt_decode_step(model, cache, ids[:, pos], pos)
         np.testing.assert_allclose(logits.numpy(), full[:, pos].numpy(), rtol=TOL, atol=TOL, err_msg=f"pos {pos}")

@@ -72,6 +72,25 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert not found, found
 
 
+SERVING_MODULES = (
+    "ops/paged.py", "observe/__init__.py", "observe/events.py", "observe/memory.py", "resilience/__init__.py",
+    "resilience/supervisor.py", "serving/__init__.py", "serving/request.py", "serving/blocks.py",
+    "serving/cache.py", "serving/engine.py", "serving/frontend.py", "experiments/serve_gpt.py",
+)
+
+
+def test_serving_modules_are_checked():
+    """The serving slice's modules, including the port's own copies of the
+    JAX package's modules that import no jax (``serving/blocks.py``,
+    ``request.py``, ``frontend.py``, ``observe/events.py``,
+    ``resilience/supervisor.py``), are among the files walked above and
+    import none of it."""
+    files = {os.path.relpath(p, os.path.join(REPO, PORT)) for p in port_files()}
+    assert set(SERVING_MODULES) <= files
+    for rel in SERVING_MODULES:
+        assert not list(violations(os.path.join(REPO, PORT, rel))), rel
+
+
 def test_port_imports_and_trains_with_jax_blocked():
     """In a fresh interpreter, block the banned imports, import every port
     module, and run one CPU PowerSGD step of the small ResNet-18."""
@@ -89,6 +108,9 @@ def test_port_imports_and_trains_with_jax_blocked():
         mods = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
         for m in mods:
             importlib.import_module(m)
+        for m in ("ops.paged", "observe.events", "observe.memory", "resilience.supervisor", "serving.blocks",
+                  "serving.cache", "serving.engine", "serving.frontend", "serving.request", "experiments.serve_gpt"):
+            assert {PORT!r} + "." + m in mods, m
         import torch
         torch.set_num_threads(1)  # a small step; the suite's workers share the cores
         from {PORT}.experiments import powersgd_cifar10 as pc
