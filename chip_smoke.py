@@ -91,8 +91,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``bandwidth_study.run`` with preset ``full`` (ResNet-152, batch 256: exact,
    PowerSGD at ranks 1, 2 and 4, TopK 1 %, SignSGD, QSGD int8, local SGD and
    DiLoCo with PowerSGD at H = 8; each timed, its collectives recorded, its
-   step projected over the fabrics for eight workers); and ``launch
-   bare_init`` in a process of its own;
+   step projected over the fabrics for eight workers); ``launch
+   bare_init`` in a process of its own; then the checkpointed paths
+   through a one-rank NCCL group, their checkpoints under a temporary
+   directory that is removed after: ``resilient_resume`` (ResNet-152
+   PowerSGD at batch 512, rank 4, the xla pipeline: K1) through
+   ``resilient_train_loop``, 3 epochs of 2 steps, under deterministic
+   algorithms (the ops without a deterministic kernel named): run
+   uninterrupted twice (bitwise equal), crashed on entry to epoch 2 and
+   resumed, preempted by ``guard.request()`` after step 1 of epoch 1 and
+   resumed past it, and resumed past a flipped bit in the newest step
+   (falling back to the one before, with a ``checkpoint_fallback``
+   event), every resume holding params, momenta, EF memories, Q and BN
+   buffers to the uninterrupted run's bit for bit, with the save
+   (serialize, sha256, commit), the restore, the bytes on disk and the
+   time from a resume's start to its first step; ``exact_resume``
+   (``launch.main`` of ``exact_cifar10 --checkpoint-dir`` at preset full
+   for 1 epoch, then 2: it resumes at epoch 1, 752,912,736 bits a step
+   both times); and ``serve_hot_load`` (GPT-2 small of the serving shape,
+   vocabulary 1024 and 96 positions, trained in fp32 at batch 8, T 64,
+   PowerSGD rank 4 through ``resilient_train_loop``, 2 epochs of 2 steps:
+   K5 causal forward and backward and K1; then ``serve_gpt`` preset full
+   with ``checkpoint_dir``: the served params the trained ones bit for
+   bit, ``checkpoint_step`` 1, the tokens against the sequential
+   reference under ``SERVE_TIE``, the hot-load's time);
 4. two steps from the same weights and batches, deterministic cuDNN: plain
    Gram-Schmidt against the kernel; two DiLoCo rounds of ResNet-152 with
    the outer delta's Gram-Schmidt plain against the kernel; fused against xla; fused against xla
@@ -114,14 +136,19 @@ The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the port beside this script, it prints no result and exits 1.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor-core) FLOP/s
 # and dense TF32 and bf16 tensor-core FLOP/s
@@ -227,6 +254,18 @@ SHARED_N, SHARED_PREFIX, SHARED_SUFFIX, SHARED_NEW = 8, 32, 8, 16
 # expected count is 0. Same shapes are held bit for bit.
 SERVE_TIE = 1e-4
 SERVE_TICKS = 20  # decode ticks timed at 8 busy slots
+# the checkpointed paths: ResNet-152 PowerSGD (powersgd_cifar10's preset
+# full: batch 512, rank 4, the xla pipeline, K1) through
+# resilient_train_loop, 3 epochs of 2 steps, the newest 2 checkpoints kept.
+# Its runs: uninterrupted twice (6 + 6 steps), a crash on entry to epoch 2
+# and its resume (4 + 2), a preemption after step 1 of epoch 1 and its
+# resume (3 + 3), and a resume past a flipped bit in the newest step (2)
+RESUME_EPOCHS, RESUME_STEPS, RESUME_KEEP = 3, 2, 2
+RESUME_K1_STEPS = 26
+# GPT-2 small of the serving shape (vocabulary 1024, 96 positions) trained
+# in fp32 at batch 8, T 64, PowerSGD rank 4, 2 epochs of 2 steps (K5 causal
+# forward and backward, K1), then hot-loaded by serve_gpt's preset full
+HOT_B, HOT_T, HOT_EPOCHS, HOT_STEPS = 8, 64, 2, 2
 
 
 def fail(msg: str) -> None:
@@ -903,6 +942,363 @@ def profile_decode_tick(engine, requests):
         "tick_ms_p50": statistics.median(tick_ms), "tick_ms": tick_ms, "port_kernels": port,
         "top_kernels": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3, "calls": e.count} for e in top],
     }
+
+
+class StepHook:
+    """A training step that calls ``hook(n)`` after its ``n``-th call."""
+
+    def __init__(self, step, hook):
+        self.step, self.hook, self.calls = step, hook, 0
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+    def __call__(self, state, batch):
+        out = self.step(state, batch)
+        self.calls += 1
+        self.hook(self.calls)
+        return out
+
+
+class Events:
+    """A telemetry sink that keeps ``(kind, step)`` of each failure event."""
+
+    def __init__(self):
+        self.seen = []
+
+    def emit(self, event):
+        self.seen.append((getattr(event, "kind", type(event).__name__), getattr(event, "step", None)))
+
+
+class Crash(Exception):
+    """A worker dying on entry to an epoch."""
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)``, warning where an op has
+    no deterministic kernel (the warnings are yielded, for the record),
+    cuBLAS's fixed workspace (``CUBLAS_WORKSPACE_CONFIG=:4096:8``) and
+    deterministic cuDNN without autotuning; all restored after."""
+    import torch
+
+    saved = (
+        torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark, os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+    )
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2], saved[3]
+        if saved[4] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[4]
+
+
+def tensors_of(state):
+    """Params, momenta, EF memories, BN buffers and Q of a ``TrainState``,
+    cloned on their device."""
+    out = {"q": state.reducer_state.q_memory.clone()}
+    for field in ("params", "momenta", "memories", "model_state"):
+        out.update({f"{field}.{k}": v.detach().clone() for k, v in getattr(state, field).items()})
+    return out
+
+
+def bitwise_equal(got, want):
+    """The names of ``want``'s tensors that ``got`` does not hold bit for bit."""
+    import torch
+
+    return [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+
+
+def resilience_phases(dev, drive, launches, kinds, images, labels, n_groups, smi, preset="full"):
+    """``resilient_resume``, ``exact_resume`` and ``serve_hot_load``: the
+    checkpointed paths on one card through a one-rank group, their
+    checkpoints under a temporary directory removed at the end. ``drive``
+    is ``main``'s (launch counts set to 0 just before each run, read just
+    after into ``launches`` and ``kinds``); ``n_groups`` is the ResNet's
+    shape groups. ``preset="small"`` (global batch 16) rehearses the
+    phases on the CPU."""
+    import torch
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    from network_distributed_pytorch_tpu_torch import launch
+    from network_distributed_pytorch_tpu_torch.experiments import gpt_lm, powersgd_cifar10, serve_gpt
+    from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches, resilient_train_loop
+    from network_distributed_pytorch_tpu_torch.models import gpt as gpt_model
+    from network_distributed_pytorch_tpu_torch.parallel.mesh import (
+        DistributedConfig,
+        initialize_distributed,
+        shutdown_distributed,
+    )
+    from network_distributed_pytorch_tpu_torch.parallel.reducers import PowerSGDReducer, embedding_leaves
+    from network_distributed_pytorch_tpu_torch.parallel.trainer import make_train_step
+    from network_distributed_pytorch_tpu_torch.resilience import PreemptionGuard, make_topology
+    from network_distributed_pytorch_tpu_torch.serving.cache import restore_serving_params
+    from network_distributed_pytorch_tpu_torch.utils.checkpoint import (
+        REPLICATED_FILE,
+        read_topology,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_checkpoints_")
+    group = initialize_distributed(DistributedConfig(), dev)
+    try:
+        # ---- resilient_resume: ResNet-152 PowerSGD, bit for bit ------------------
+        t_phase = time.perf_counter()  # each phase's wall time, its checks included
+        cfg = powersgd_cifar10.default_config()
+        cfg.compress_impl = "xla"
+        if preset == "small":
+            cfg.global_batch_size = 16
+        batches = accumulated_batches([images, labels], cfg, max_steps_per_epoch=RESUME_STEPS)
+
+        def crashing(epoch):
+            if epoch == 2:
+                raise Crash()
+            return batches(epoch)
+
+        def train(name, batches_fn=batches, hook=None, **kw):
+            """``resilient_train_loop`` of a fresh ResNet-152 from the seed
+            into ``root/name``; returns the state, the logger, the start
+            epoch and the time from the call to the end of its first step."""
+            _, step, state = powersgd_cifar10.build(cfg, preset, dev, group)
+            first = []
+
+            def on_step(n):
+                if n == 1:
+                    sync()
+                    first.append(time.perf_counter())
+                if hook is not None:
+                    hook(n)
+
+            topology = make_topology(
+                1, global_batch=cfg.global_batch_size, data_seed=cfg.seed, bits_per_step=step.bits_per_step,
+                rng_seed=cfg.seed,
+            )
+            t0 = time.perf_counter()
+            state, logger, start = resilient_train_loop(
+                StepHook(step, on_step), state, batches_fn, RESUME_EPOCHS, os.path.join(root, name), dev,
+                keep_last=RESUME_KEEP, topology=topology, **kw,
+            )
+            return state, logger, start, (first[0] - t0) if first else None
+
+        def resilient_resume():
+            out = {}
+            with deterministic_algorithms() as caught:
+                state, logger, _, _ = train("ref")
+                ref = tensors_of(state)
+                out["losses"], out["bits_per_step"] = [r.loss for r in logger.records], logger.bits_per_step
+                del state
+                state, _, _, _ = train("again")
+                out["uninterrupted_twice_differ_at"] = bitwise_equal(tensors_of(state), ref)
+                del state
+                try:
+                    train("crash", batches_fn=crashing)
+                    fail("resilient_resume: the crashing run did not crash")
+                except Crash:
+                    pass
+                events = Events()
+                state, logger, start, first_s = train("crash", telemetry=events)
+                out["crash"] = {
+                    "start_epoch": start, "steps": len(logger.records), "events": events.seen,
+                    "resume_to_first_step_ms": first_s * 1e3, "differ_at": bitwise_equal(tensors_of(state), ref),
+                }
+                del state
+                guard = PreemptionGuard()
+                with guard:
+                    _, logger, _, _ = train(
+                        "preempt", hook=lambda n: guard.request() if n == RESUME_STEPS + 1 else None,
+                        preemption_guard=guard,
+                    )
+                out["preempt_stop"] = {
+                    "steps": len(logger.records), "saved": guard.checkpoint_saved,
+                    "cursor": read_topology(os.path.join(root, "preempt", "step_1"))["epoch_cursor"],
+                }
+                events = Events()
+                state, logger, start, first_s = train("preempt", telemetry=events)
+                out["preempt"] = {
+                    "start_epoch": start, "steps": len(logger.records), "events": events.seen,
+                    "resume_to_first_step_ms": first_s * 1e3, "differ_at": bitwise_equal(tensors_of(state), ref),
+                }
+                del state
+                # a flipped bit in the newest step: the resume falls back to step_1
+                payload = os.path.join(root, "crash", f"step_{RESUME_EPOCHS - 1}", REPLICATED_FILE)
+                with open(payload, "r+b") as f:
+                    f.seek(os.path.getsize(payload) // 2)
+                    byte = f.read(1)[0]
+                    f.seek(-1, 1)
+                    f.write(bytes([byte ^ 0x10]))
+                events = Events()
+                state, logger, start, first_s = train("crash", telemetry=events)
+                out["bit_flip"] = {
+                    "start_epoch": start, "steps": len(logger.records), "events": events.seen,
+                    "resume_to_first_step_ms": first_s * 1e3, "differ_at": bitwise_equal(tensors_of(state), ref),
+                }
+                del ref
+                # one save and one restore of the final state, timed apart
+                timings = {}
+                sync()
+                t0 = time.perf_counter()
+                path = save_checkpoint(os.path.join(root, "timed"), state, step=0, group=group, timings=timings)
+                out["save_ms"] = (time.perf_counter() - t0) * 1e3
+                out["save"] = {f"{k[:-2]}_ms": v * 1e3 for k, v in timings.items() if k.endswith("_s")}
+                out["bytes_on_disk"] = timings["bytes"]
+                sync()
+                t0 = time.perf_counter()
+                restore_checkpoint(path, state, group=group)
+                sync()
+                out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+                del state
+            out["nondeterministic_ops_warned"] = sorted(
+                {str(w.message).split(" does not have")[0] for w in caught if "deterministic" in str(w.message)}
+            )
+            return out
+
+        result, peak = drive("resilient_resume", resilient_resume, {"gram_schmidt": RESUME_K1_STEPS * n_groups})
+        if result["uninterrupted_twice_differ_at"]:
+            fail(
+                f"resilient_resume: two uninterrupted runs differ at {result['uninterrupted_twice_differ_at'][:5]};"
+                f" ops without a deterministic kernel: {result['nondeterministic_ops_warned']}"
+            )
+        want = {
+            "crash": (2, RESUME_STEPS, [("resumed", 1)]),
+            "preempt": (1, RESUME_EPOCHS * RESUME_STEPS - RESUME_STEPS - 1, [("resumed", 1)]),
+            "bit_flip": (2, RESUME_STEPS, [("checkpoint_fallback", 2), ("resumed", 1)]),
+        }
+        for name, (start, steps, events) in want.items():
+            r = result[name]
+            if (r["start_epoch"], r["steps"], r["events"]) != (start, steps, events) or r["differ_at"]:
+                fail(f"resilient_resume {name}: {r}, want start epoch {start}, {steps} steps, events {events}")
+        if result["preempt_stop"] != {"steps": RESUME_STEPS + 1, "saved": True, "cursor": {"epoch": 1, "batches_done": 1}}:
+            fail(f"resilient_resume: the preempted run {result['preempt_stop']}")
+        emit({
+            "phase": "resilient_resume", "preset": preset, "global_batch": cfg.global_batch_size,
+            "reducer_rank": cfg.reducer_rank, "compress_impl": "xla", "epochs": RESUME_EPOCHS,
+            "steps_per_epoch": RESUME_STEPS, "keep_last": RESUME_KEEP, **result,
+            "bitwise": "params, momenta, EF memories, Q and BN buffers of every resume equal the uninterrupted run's",
+            "launches": launches["resilient_resume"], "peak_memory_bytes": peak, "nvidia_smi": smi,
+            "wall_s": time.perf_counter() - t_phase,
+        })
+
+        # ---- exact_resume: exact_cifar10 --checkpoint-dir through the launcher ------
+        t_phase = time.perf_counter()
+
+        def exact_resume():
+            runs = []
+            for epochs in ("1", "2"):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    runs.append(launch.main([
+                        "exact_cifar10", "--preset", preset, "--epochs", epochs, "--max-steps-per-epoch", "2",
+                        "--checkpoint-dir", os.path.join(root, "exact"), "--device", dev.type,
+                        *(["--global-batch", "16"] if preset == "small" else []),
+                    ]))
+            return runs
+
+        runs, peak = drive("exact_resume", exact_resume, {}, kernel_free=True)
+        want_bits = EXACT_BITS + 32 if preset == "full" else runs[0]["bits_per_step"]
+        if [r["start_epoch"] for r in runs] != [0, 1] or any(
+            r["bits_per_step"] != want_bits or r["steps"] != 2 for r in runs
+        ):
+            fail(f"exact_resume: {[(r['start_epoch'], r['steps'], r['bits_per_step']) for r in runs]}")
+        emit({
+            "phase": "exact_resume", "preset": preset,
+            "world_size": runs[0]["num_devices"], "start_epochs": [r["start_epoch"] for r in runs],
+            "bits_per_step": [r["bits_per_step"] for r in runs], "losses": [r["losses"] for r in runs],
+            "step_time_s": [r["step_time_s"] for r in runs], "peak_memory_bytes": peak,
+            "wall_s": time.perf_counter() - t_phase,
+        })
+
+        # ---- serve_hot_load: train the serving shape, then serve its checkpoint -----
+        t_phase = time.perf_counter()
+        gpt_cfg = gpt_lm.default_config()
+        max_len = serve_gpt.serving_max_len(preset, SERVE_NEW, "slot", SERVE_BLOCK)
+        vocab = serve_gpt.PRESETS[preset][1]
+        model = serve_gpt.build_model(preset, max_len, torch.float32, dev, gpt_cfg.seed)
+        reducer = PowerSGDReducer(
+            random_seed=gpt_cfg.seed, compression_rank=gpt_cfg.reducer_rank, matricize="last",
+            features_last=embedding_leaves(model),
+        )
+        step = make_train_step(
+            gpt_lm.lm_loss(), reducer, model, gpt_cfg.learning_rate, gpt_cfg.momentum, "ef_momentum", group
+        )
+        hot_groups = reducer.n_shape_groups(list(model.parameters()))
+        hot_dir = os.path.join(root, "gpt")
+        built = []
+
+        def serve_hot_load():
+            state, logger, _ = resilient_train_loop(
+                step, step.init_state(),
+                lambda e: gpt_lm.synthetic_lm_batches(vocab, HOT_B, HOT_T, HOT_STEPS, gpt_cfg.seed + e),
+                HOT_EPOCHS, hot_dir, dev, keep_last=RESUME_KEEP,
+                topology=make_topology(1, global_batch=HOT_B, bits_per_step=step.bits_per_step),
+            )
+            build_model = serve_gpt.build_model
+            serve_gpt.build_model = lambda *a, **k: built.append(build_model(*a, **k)) or built[-1]
+            try:
+                served = serve_gpt.serve(
+                    serve_gpt.default_config(), preset=preset, slots=SERVE_SLOTS, requests=SERVE_REQUESTS,
+                    request_rate=SERVE_RATE, max_new_tokens=SERVE_NEW, checkpoint_dir=hot_dir, device=dev,
+                )
+            finally:
+                serve_gpt.build_model = build_model
+            return [r.loss for r in logger.records], served
+
+        layers = model.config.n_layers
+        trained_steps = HOT_EPOCHS * HOT_STEPS
+        (losses, (summary, finished)), peak = drive(
+            "serve_hot_load", serve_hot_load,
+            {"gram_schmidt": trained_steps * hot_groups, "flash_attention": trained_steps * layers,
+             "flash_attention_bwd": trained_steps * layers},
+        )
+        trained = dict(model.named_parameters())
+        differ = [k for k, v in built[-1].named_parameters() if not torch.equal(v, trained[k])]
+        if summary["checkpoint_step"] != HOT_EPOCHS - 1 or differ or summary["slo"]["n_finished"] != SERVE_REQUESTS:
+            fail(f"serve_hot_load: checkpoint_step {summary['checkpoint_step']}, params differ at {differ[:5]}")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"serve_hot_load: training losses {losses}")
+        diffs, compared = tokens_against_reference(
+            gpt_model, model, sorted(finished, key=lambda r: r.request_id), max_len, "serve_hot_load"
+        )
+        # the hot-load alone, into a model of other weights
+        fresh = serve_gpt.build_model(preset, max_len, torch.float32, dev, gpt_cfg.seed + 1)
+        sync()
+        t0 = time.perf_counter()
+        _, hot_step = restore_serving_params(hot_dir, dict(fresh.named_parameters()))
+        sync()
+        hot_load_ms = (time.perf_counter() - t0) * 1e3
+        if hot_step != HOT_EPOCHS - 1 or any(not torch.equal(v, trained[k]) for k, v in fresh.named_parameters()):
+            fail("serve_hot_load: restore_serving_params did not give the trained params")
+        emit({
+            "phase": "serve_hot_load", "preset": preset, "vocab": vocab, "positions": max_len,
+            "global_batch": HOT_B, "seq_len": HOT_T, "epochs": HOT_EPOCHS, "steps_per_epoch": HOT_STEPS,
+            "reducer_rank": gpt_cfg.reducer_rank, "shape_groups": hot_groups, "losses": losses,
+            "bits_per_step": step.bits_per_step, "checkpoint_step": summary["checkpoint_step"],
+            "served_params_bitwise": True, "hot_load_ms": hot_load_ms,
+            "bytes_on_disk": sum(
+                os.path.getsize(os.path.join(hot_dir, f"step_{HOT_EPOCHS - 1}", n))
+                for n in os.listdir(os.path.join(hot_dir, f"step_{HOT_EPOCHS - 1}")) if n.endswith(".pt")
+            ),
+            "requests": SERVE_REQUESTS, "request_rate": SERVE_RATE, "slo_p50_total_s": summary["slo"]["p50_total_s"],
+            "slo_p99_total_s": summary["slo"]["p99_total_s"], "tokens_per_s": summary["slo"]["tokens_per_s"],
+            "vs_sequential_reference": {"tokens_compared": compared, "differences": diffs, "tie_class": SERVE_TIE},
+            "launches": launches["serve_hot_load"], "k5_launches_by_kind": kinds["serve_hot_load"],
+            "peak_memory_bytes": peak, "nvidia_smi": smi, "wall_s": time.perf_counter() - t_phase,
+        })
+        del model, fresh, built[:], step
+    finally:
+        shutdown_distributed()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def serving_phases(dev, drive, all_kernels, preset="full", max_new_tokens=SERVE_NEW):
@@ -1906,6 +2302,11 @@ def main() -> None:
         fail(f"launch bare_init exited {launched.returncode}: {launched.stdout[-2000:]} {launched.stderr[-2000:]}")
     emit({"phase": "bare_init", "summary": summary})
 
+    # the checkpointed paths: ResNet-152 PowerSGD resumed bit for bit (K1),
+    # exact_cifar10 --checkpoint-dir through the launcher, and GPT-2 small of
+    # the serving shape trained (K5, K1) and hot-loaded by serve_gpt
+    resilience_phases(dev, drive, launches, kinds, images, labels, len(group_shapes), smi)
+
     # ---- 4. two steps against two steps ---------------------------------------
     # with deterministic cuDNN and no TF32, so that only what is compared differs
     torch.backends.cudnn.deterministic = True
@@ -2175,6 +2576,7 @@ def main() -> None:
         "resnet152_xla": "xla", "distilbert_imdb": "imdb", "distilbert_imdb_bf16": "imdb_bf16",
         "gpt2_small_fp32": "gpt_float32", "gpt2_small_bf16": "gpt_bfloat16",
         "resnet152_diloco": "diloco", "bandwidth_study": "bandwidth_study",
+        "resnet152_resilient_resume": "resilient_resume", "gpt2_small_serve_hot_load": "serve_hot_load",
     }
     kernels = [{
         "name": "gram_schmidt",
@@ -2218,6 +2620,7 @@ def main() -> None:
         "distilbert_imdb": "imdb",
         **{f"imdb_baseline_{opt}": f"imdb_baseline_{opt}" for opt in imdb_baseline.OPTIMIZERS},
         "gpt2_small_fp32": "gpt_float32",
+        "gpt2_small_serve_hot_load": "serve_hot_load",
     }
     k5_bf16_paths = {"gpt2_small_bf16": "gpt_bfloat16", "distilbert_imdb_bf16": "imdb_bf16"}
 

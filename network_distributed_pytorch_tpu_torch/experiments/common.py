@@ -1,10 +1,14 @@
 """Shared experiment machinery: the reducers' keyword arguments, batches,
-the loss, the epoch/step loop, evaluation and the run summary."""
+the loss, the epoch/step loop and its checkpointed form
+(:func:`resilient_train_loop`), evaluation and the run summary."""
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
+import os
+import time
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -14,7 +18,7 @@ from torch import nn
 
 from ..data.cifar10 import load_cifar10_or_synthetic
 from ..data.loader import iterate_batches
-from ..parallel.comm import world_size
+from ..parallel.comm import agree, world_size
 from ..parallel.localsgd import mean_model_state
 from ..parallel.mesh import DistributedConfig, initialize_distributed, shutdown_distributed
 from ..parallel.trainer import TrainState, TrainStep
@@ -154,28 +158,249 @@ def train_loop(
     rank: int = 0,
     world_size: int = 1,
     log_every: int = 0,
+    start_epoch: int = 0,
+    skip_steps: int = 0,
+    watchdog: Any = None,
+    heartbeat: Any = None,
+    on_epoch_end: Optional[Callable[[int, TrainState], None]] = None,
+    on_step_end: Optional[Callable[[int, int, TrainState], bool]] = None,
 ) -> Tuple[TrainState, MetricsLogger]:
-    """Run ``epochs`` passes over the global batches, each rank stepping on
-    its own slice. Logs loss, step time and cumulative bits per step; the
-    host clock spans the step until its loss is on the host, and on CUDA a
-    pair of events around the step gives its device time."""
+    """Run epochs ``start_epoch..epochs-1`` over the global batches, each
+    rank stepping on its own slice. Logs loss, step time and cumulative
+    bits per step; the host clock spans the step until its loss is on the
+    host, and on CUDA a pair of events around the step gives its device
+    time.
+
+    The hooks, all off by default (:func:`resilient_train_loop` sets
+    them): ``skip_steps`` leaves out the first steps of ``start_epoch``
+    (already in a restored state); a ``utils.failure.StepWatchdog``
+    watches every step; a ``utils.failure.HeartbeatMonitor`` beats after
+    each; ``on_step_end(epoch, steps_done, state) -> stop?`` runs after
+    each (``steps_done`` counts this call's steps of the epoch), and True
+    ends the loop there; ``on_epoch_end(epoch, state)`` runs after each
+    epoch."""
     logger = MetricsLogger(bits_per_step=step.bits_per_step, log_every=log_every)
     on_cuda = device.type == "cuda"
-    for epoch in range(epochs):
-        for batch in batches_for_epoch(epoch):
+    for epoch in range(start_epoch, epochs):
+        batches = batches_for_epoch(epoch)
+        if skip_steps and epoch == start_epoch:
+            batches = itertools.islice(batches, skip_steps, None)
+        steps_done = 0
+        for batch in batches:
             batch = local_shard(batch, rank, world_size, step.accum_steps)
             batch = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in batch)
             logger.start_step()
-            if on_cuda:
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-            state, loss = step(state, batch)
-            if on_cuda:
-                end.record()
-            loss = loss.item()  # waits for the step
+            watch = watchdog.watch(f"epoch {epoch}") if watchdog is not None else contextlib.nullcontext()
+            with watch:
+                if on_cuda:
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                state, loss = step(state, batch)
+                if on_cuda:
+                    end.record()
+                loss = loss.item()  # waits for the step
             logger.end_step(epoch, loss, start.elapsed_time(end) if on_cuda else None)
+            steps_done += 1
+            if heartbeat is not None:
+                heartbeat.beat(epoch=epoch)
+            if on_step_end is not None and on_step_end(epoch, steps_done, state):
+                return state, logger
         logger.end_epoch(epoch, rank=rank)
+        if on_epoch_end is not None:
+            on_epoch_end(epoch, state)
     return state, logger
+
+
+def resilient_train_loop(
+    step: TrainStep,
+    init_state: TrainState,
+    batches_for_epoch: Callable[[int], Iterator[Any]],
+    epochs: int,
+    checkpoint_dir: str,
+    device: torch.device,
+    rank: int = 0,
+    world_size: int = 1,
+    log_every: int = 0,
+    watchdog_timeout_s: Optional[float] = None,
+    heartbeat: Any = None,
+    telemetry: Any = None,
+    trace_dir: Optional[str] = None,
+    audit: bool = False,
+    run_name: str = "train",
+    chaos_plan: Any = None,
+    incarnation: int = 0,
+    step_retries: int = 0,
+    guard_batches: bool = False,
+    keep_last: Optional[int] = None,
+    topology: Optional[Dict] = None,
+    preemption_guard: Any = None,
+    loader_state_fn: Optional[Callable[[int, int], Optional[Dict]]] = None,
+) -> Tuple[TrainState, MetricsLogger, int]:
+    """:func:`train_loop` with checkpoints, the JAX package's loop of the
+    same name (its ``common.py:872``). Every rank of ``step.group`` calls
+    it:
+
+    - on entry, resume from the newest committed checkpoint under
+      ``checkpoint_dir`` that passes verification (a torn or bit-flipped
+      directory is skipped with a ``checkpoint_fallback`` event), into
+      ``init_state``'s own tensors: the whole state, so the EF chain
+      continues exactly;
+    - after every epoch, save through the atomic commit protocol
+      (``keep_last`` keeps the newest K);
+    - a ``utils.failure.StepWatchdog`` (``watchdog_timeout_s``, the first
+      step spared) and a ``heartbeat`` beat per step;
+    - ``topology`` (``resilience.reshard.make_topology`` of THIS run's
+      world) tags every checkpoint; on resume a checkpoint of another world
+      goes through the resharder (memories fold by summation, BN statistics
+      merge), with ``resumed``, ``resharded`` and a ``note`` of the
+      accounting in ``telemetry``;
+    - ``preemption_guard`` (``resilience.guards.PreemptionGuard``): after
+      each step the ranks agree on its flag (one int32 max, recorded as
+      ``"preempt-flag"``, outside the step's bits), so a SIGTERM that
+      reached one rank stops all of them at the same step, with an
+      emergency committed checkpoint whose topology carries
+      ``epoch_cursor``; the next resume re-enters that epoch past the
+      steps done;
+    - ``loader_state_fn(epoch, batches_done)`` gives the loader-state
+      record committed with each checkpoint (``(epoch + 1, 0)`` at an
+      epoch's end, the cursor on a preemption save).
+
+    A save that the directory keeps refusing emits
+    ``checkpoint_unwritable`` and exits with ``CKPT_UNWRITABLE_EXIT_CODE``.
+    ``chaos_plan``, ``trace_dir``, ``audit``, ``step_retries`` and
+    ``guard_batches`` are not ported yet and raise. Returns ``(state,
+    logger, start_epoch)``."""
+    from ..observe import FailureEvent, NoteEvent
+    from ..resilience.guards import CKPT_UNWRITABLE_EXIT_CODE, CheckpointUnwritableError
+    from ..utils.checkpoint import read_topology, restore_latest, save_checkpoint
+    from ..utils.failure import StepWatchdog
+
+    for name, value in (("chaos_plan", chaos_plan), ("trace_dir", trace_dir), ("audit", audit or None),
+                        ("step_retries", step_retries or None), ("guard_batches", guard_batches or None)):
+        if value is not None:
+            raise NotImplementedError(f"resilient_train_loop: {name} is not ported yet")
+    group = step.group
+    state = init_state
+    start_epoch = 0
+    resume_skip = 0  # steps of start_epoch already in the restored state
+    reshard_note: Dict[str, Any] = {}
+
+    def _resharder(path, saved_topo):
+        from ..resilience.reshard import reshard_from_checkpoint
+
+        reshard_note["old"] = saved_topo or {}
+        return reshard_from_checkpoint(
+            path, init_state, saved_topology=saved_topo, mesh_axes=(topology or {}).get("mesh_axes"), group=group
+        )
+
+    resumed = restore_latest(
+        checkpoint_dir, init_state, telemetry=telemetry, label=run_name,
+        resharder=_resharder if topology is not None else None, group=group,
+    )
+    if resumed is not None:
+        state, resumed_epoch = resumed
+        restored_topo = read_topology(os.path.join(os.path.abspath(checkpoint_dir), f"step_{resumed_epoch}"))
+        cursor = (restored_topo or {}).get("epoch_cursor")
+        if cursor and cursor.get("batches_done"):
+            # a mid-epoch preemption save: re-enter that epoch past the steps
+            # already in the state (the epoch's batches are deterministic)
+            start_epoch = int(cursor["epoch"])
+            resume_skip = int(cursor["batches_done"])
+        else:
+            start_epoch = resumed_epoch + 1
+        if telemetry is not None:
+            mid = f" (+{resume_skip} steps)" if resume_skip else ""
+            telemetry.emit(
+                FailureEvent(
+                    kind="resumed", label=run_name, rank=rank, step=resumed_epoch, incarnation=incarnation,
+                    message=f"resumed from step_{resumed_epoch}, starting epoch {start_epoch}{mid}",
+                )
+            )
+        if reshard_note and telemetry is not None:
+            old, new = reshard_note["old"], topology or {}
+            new_bits = new.get("bits_per_step")
+            if new_bits is None:
+                new_bits = step.bits_per_step
+            mesh = f" (mesh {old.get('mesh_axes')} -> {new.get('mesh_axes')})" if old.get("mesh_axes") or new.get("mesh_axes") else ""
+            telemetry.emit(
+                FailureEvent(
+                    kind="resharded", label=run_name, rank=rank, step=resumed_epoch, incarnation=incarnation,
+                    message=f"world {old.get('world_size')} -> {new.get('world_size')}{mesh}: EF memories folded"
+                            f" by summation, per-worker stats merged, partitions re-split from the fixed"
+                            f" permutation",
+                )
+            )
+            telemetry.emit(
+                NoteEvent(
+                    message=f"reshard accounting: global_batch {old.get('global_batch')} ->"
+                            f" {new.get('global_batch')} (preserved), accum_steps {old.get('accum_steps')} ->"
+                            f" {new.get('accum_steps')}, bits_per_step {old.get('bits_per_step')} -> {new_bits}",
+                )
+            )
+
+    def _topo(cursor: Optional[Dict] = None) -> Optional[Dict]:
+        if topology is None:
+            return {"epoch_cursor": cursor} if cursor else None
+        return {**topology, "epoch_cursor": cursor}
+
+    def _loader_state(epoch: int, cursor: Optional[Dict]) -> Optional[Dict]:
+        if loader_state_fn is None:
+            return None
+        if cursor is None:  # an epoch-end save: the next epoch starts clean
+            return loader_state_fn(epoch + 1, 0)
+        return loader_state_fn(int(cursor["epoch"]), int(cursor["batches_done"]))
+
+    def _commit_save(st, epoch: int, cursor: Optional[Dict] = None) -> None:
+        # a small retry budget for a transient refusal, then the typed fail-fast
+        # exit: restarting into a read-only root is a restart storm
+        last = None
+        for attempt in range(2):
+            try:
+                save_checkpoint(
+                    checkpoint_dir, st, step=epoch, keep_last=keep_last, topology=_topo(cursor),
+                    loader_state=_loader_state(epoch, cursor), group=group,
+                )
+                return
+            except CheckpointUnwritableError as e:
+                last = e
+                time.sleep(0.05 * (attempt + 1))
+        if telemetry is not None:
+            telemetry.emit(
+                FailureEvent(
+                    kind="checkpoint_unwritable", label=run_name, rank=rank, step=epoch, incarnation=incarnation,
+                    message=f"save retry budget exhausted: {last}",
+                )
+            )
+        raise SystemExit(CKPT_UNWRITABLE_EXIT_CODE) from last
+
+    def _on_step_end(epoch: int, steps_done: int, st) -> bool:
+        # the ranks agree on the flag: a SIGTERM may have reached one of them
+        if not agree(int(preemption_guard.requested), group, "max", kind="preempt-flag"):
+            return False
+        if not preemption_guard.requested:
+            preemption_guard.peer_request()
+        done = steps_done + (resume_skip if epoch == start_epoch else 0)
+        _commit_save(st, epoch, cursor={"epoch": epoch, "batches_done": done})
+        preemption_guard.checkpoint_saved = True
+        if telemetry is not None:
+            telemetry.emit(
+                FailureEvent(
+                    kind="preempt_checkpoint", label=run_name, rank=rank, step=epoch, incarnation=incarnation,
+                    message=f"emergency checkpoint committed at epoch {epoch} after {done} steps; stopping for"
+                            f" preemption",
+                )
+            )
+        return True
+
+    # the first step is spared: it builds the kernels and warms the allocator
+    wd = StepWatchdog(watchdog_timeout_s, compile_grace=1) if watchdog_timeout_s is not None else None
+    state, logger = train_loop(
+        step, state, batches_for_epoch, epochs, device, rank=rank, world_size=world_size, log_every=log_every,
+        start_epoch=start_epoch, skip_steps=resume_skip, watchdog=wd, heartbeat=heartbeat,
+        on_epoch_end=lambda epoch, st: _commit_save(st, epoch),
+        on_step_end=_on_step_end if preemption_guard is not None else None,
+    )
+    return state, logger, start_epoch
 
 
 @torch.no_grad()

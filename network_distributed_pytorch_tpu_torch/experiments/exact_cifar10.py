@@ -10,6 +10,12 @@ the CIFAR stem at width 16. The reducer takes the configuration's
 ``comm_chunks``, ``comm_strategy`` and ``bucket_bytes``. Without CIFAR-10
 on disk the data is the deterministic synthetic stand-in; weights come from
 the seed.
+
+``checkpoint_dir`` runs the training through
+:func:`.common.resilient_train_loop`: a committed checkpoint at every
+epoch, resume on entry, a topology record of the world, and a
+``PreemptionGuard`` that turns a SIGTERM into an emergency checkpoint and
+an exit with ``PREEMPT_EXIT_CODE`` (75).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from .common import (
     image_classifier_loss,
     process_group,
     require_float32,
+    resilient_train_loop,
     summarize,
     train_loop,
 )
@@ -83,6 +90,7 @@ def run(
     strategy: str = "ddp",
     checkpoint_dir: Optional[str] = None,
     pretrained_state_dict=None,
+    keep_last: Optional[int] = None,
 ) -> Dict:
     """Train and return the run summary. Joins the default process group
     (creating one, of ``config.num_processes`` ranks, if none exists; a
@@ -90,17 +98,20 @@ def run(
     adds ``eval_accuracy`` on the test split, from the ranks' mean BatchNorm
     statistics.
 
-    ``strategy="ddp"`` is the reference's replicated exact DDP. The JAX
-    package's ``strategy="fsdp"``, ``checkpoint_dir`` (the checkpointed
-    loop), ``config.adaptive_comm`` and ``config.chaos_plan`` are not
-    ported yet and raise."""
+    ``strategy="ddp"`` is the reference's replicated exact DDP.
+    ``checkpoint_dir`` trains through the checkpointed loop (the
+    reference's ``:200-245``): every epoch committed there (``keep_last``
+    keeps the newest K), the newest resumed on entry (the summary's
+    ``start_epoch``), each checkpoint tagged with ``make_topology`` of the
+    world, and under a ``PreemptionGuard``: a SIGTERM saves at the next
+    step and exits with ``SystemExit(PREEMPT_EXIT_CODE)``. The JAX
+    package's ``strategy="fsdp"``, ``config.adaptive_comm`` and
+    ``config.chaos_plan`` are not ported yet and raise."""
     config = config or default_config()
     if strategy not in STRATEGIES:
         raise ValueError(f"strategy must be one of {STRATEGIES}, got {strategy!r}")
     if strategy == "fsdp":
         raise NotImplementedError("strategy='fsdp' is not ported yet")
-    if checkpoint_dir is not None:
-        raise NotImplementedError("checkpoint_dir (the checkpointed training loop) is not ported yet")
     if config.adaptive_comm or config.chaos_plan:
         raise NotImplementedError("adaptive_comm and chaos_plan are not ported yet")
     device = resolve_device(device)
@@ -109,11 +120,37 @@ def run(
         images, labels, is_real = load_cifar10_or_synthetic(data_dir, train=True)
         model, step, state = build(config, preset, device, group, pretrained_state_dict)
         batches = accumulated_batches([images, labels], config, max_steps_per_epoch)
-        state, logger = train_loop(
-            step, state, batches, config.training_epochs, device,
-            rank=rank, world_size=world, log_every=config.log_every,
-        )
-        extra = {
+        extra = {}
+        if checkpoint_dir is not None:
+            from ..observe import BannerSink
+            from ..resilience import PREEMPT_EXIT_CODE, PreemptionGuard, incarnation_from_env, make_topology
+
+            telemetry = BannerSink()
+            incarnation = incarnation_from_env()
+            with PreemptionGuard(
+                telemetry=telemetry, rank=rank, incarnation=incarnation, label="exact_cifar10"
+            ) as guard:
+                state, logger, extra["start_epoch"] = resilient_train_loop(
+                    step, state, batches, config.training_epochs, checkpoint_dir, device,
+                    rank=rank, world_size=world, log_every=config.log_every, telemetry=telemetry,
+                    run_name="exact_cifar10", incarnation=incarnation, keep_last=keep_last,
+                    # a restart at another world reshards instead of mis-resuming
+                    topology=make_topology(
+                        world, global_batch=config.global_batch_size, accum_steps=config.accum_steps,
+                        data_seed=config.seed, bits_per_step=step.bits_per_step, rng_seed=config.seed,
+                        incarnation=incarnation,
+                    ),
+                    preemption_guard=guard,
+                )
+            if guard.requested:
+                # the emergency checkpoint is committed: die with the graceful code
+                raise SystemExit(PREEMPT_EXIT_CODE)
+        else:
+            state, logger = train_loop(
+                step, state, batches, config.training_epochs, device,
+                rank=rank, world_size=world, log_every=config.log_every,
+            )
+        extra.update({
             "preset": preset,
             "real_data": is_real,
             "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
@@ -124,7 +161,7 @@ def run(
             "losses": [r.loss for r in logger.records],
             "step_time_s": [r.step_time_s for r in logger.records],
             "device_time_ms": [r.device_time_ms for r in logger.records],
-        }
+        })
         if eval_after:
             extra["eval_accuracy"] = evaluate_on_test_split(model, group, data_dir)
         return summarize("exact_cifar10", logger, extra)

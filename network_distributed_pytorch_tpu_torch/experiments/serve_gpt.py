@@ -24,12 +24,19 @@ the workload (``serving.frontend.replay``); and the spool
 ``FileSpool`` and runs the claim, step and complete loop
 (``serve_from_spool``). Ranks share only the spool: no process group.
 
+``checkpoint_dir`` hot-loads the parameters of the newest committed
+training checkpoint there (``serving.cache.restore_serving_params``, any
+training world), and the summary's ``checkpoint_step`` names its step;
+with nothing restorable the fresh parameters serve, and a
+:class:`..observe.NoteEvent` says so on standard error. The checkpoint must
+come from a model of the serving shape: the position table has
+``max_len`` rows.
+
 The summary holds the JAX run's keys (``device`` is the card's name), and
 ``compute_dtype`` and ``kv_cache_bytes``. ``live_requests_total`` counts
 the engine's terminal request events in state ``finished``, through the
 run's own sink; the reference's metric registry is not ported yet
-(ROADMAP.md §A item 8), nor is hot-loading a training checkpoint
-(``checkpoint_dir``, item 2).
+(ROADMAP.md §A item 8).
 """
 
 from __future__ import annotations
@@ -39,10 +46,11 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..models.gpt import GPTLM, gpt_small, gpt_tiny
-from ..observe.events import RequestEvent
+from ..observe.events import BannerSink, NoteEvent, RequestEvent
 from ..parallel.mesh import resolve_device
 from ..resilience import incarnation_from_env
 from ..serving import FileSpool, Request, WorkloadConfig, poisson_workload, replay, serve_from_spool, slo_summary
+from ..serving.cache import restore_serving_params
 from ..serving.engine import PagedEngine, SlotEngine, padded_static_decode_steps
 from ..utils.config import ExperimentConfig
 from .common import compute_dtype
@@ -120,15 +128,20 @@ def serve(
         raise ValueError(f"requests must be >= 1, got {requests}")
     if max_new_tokens < 2:
         raise ValueError(f"max_new_tokens must be >= 2 for serving, got {max_new_tokens}")
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "serve_gpt checkpoint_dir: hot-loading a training checkpoint needs the checkpoint and"
-            " resharding modules, not ported yet (ROADMAP.md §A item 2)"
-        )
     device = resolve_device(device)
     workload = workload_config(preset, requests, request_rate, max_new_tokens, config.seed)
     max_len = serving_max_len(preset, max_new_tokens, engine, block_len)
     model = build_model(preset, max_len, compute_dtype(config), device, config.seed)
+    ckpt_step = None
+    if checkpoint_dir is not None:
+        notes = BannerSink()
+        restored = restore_serving_params(
+            checkpoint_dir, dict(model.named_parameters()), telemetry=notes, label="serve_gpt"
+        )
+        if restored is None:
+            notes.emit(NoteEvent(f"serve_gpt: no restorable checkpoint under {checkpoint_dir}; serving fresh params"))
+        else:
+            ckpt_step = restored[1]
 
     sink = _FinishedCount()
     common = dict(device=device, telemetry=sink, rank=config.process_id, label="serve_gpt")
@@ -162,7 +175,7 @@ def serve(
         "requests": requests,
         "request_rate": request_rate,
         "max_len": max_len,
-        "checkpoint_step": None,
+        "checkpoint_step": ckpt_step,
         "engine": engine,
         "compute_dtype": config.compute_dtype,
         "decode_steps": eng.decode_steps,

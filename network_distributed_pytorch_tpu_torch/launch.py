@@ -15,10 +15,16 @@ Usage, one process per rank (torchrun sets ``RANK``, ``WORLD_SIZE``,
     python -m network_distributed_pytorch_tpu_torch.launch bandwidth_study --preset full
     python -m network_distributed_pytorch_tpu_torch.launch serve_gpt --preset full --slots 8 --requests 32
     python -m network_distributed_pytorch_tpu_torch.launch serve_gpt --preset full --engine paged --spec-k 4
+    python -m network_distributed_pytorch_tpu_torch.launch exact_cifar10 --preset full --checkpoint-dir ckpt
+    python -m network_distributed_pytorch_tpu_torch.launch serve_gpt --preset full --checkpoint-dir ckpt
     python -m network_distributed_pytorch_tpu_torch.launch bare_init
     torchrun --nproc-per-node 4 -m network_distributed_pytorch_tpu_torch.launch powersgd_cifar10
 
-The last line of standard output is the run summary as JSON.
+The last line of standard output is the run summary as JSON. A worker of
+``exact_cifar10 --checkpoint-dir`` that is sent SIGTERM commits an
+emergency checkpoint at the next step and exits with code 75
+(``resilience.PREEMPT_EXIT_CODE``); run again, it resumes there. Code 44
+(``CKPT_UNWRITABLE_EXIT_CODE``) means the directory refused the save.
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ _BUCKETS_OK = ("exact_cifar10",)
 _GENERATE_OK = ("gpt_generate",)
 _SERVE_OK = ("serve_gpt",)
 _DILOCO_OK = ("diloco_cifar10",)
+_CHECKPOINT_OK = ("exact_cifar10", "serve_gpt")
 # the experiments whose epochs of steps --max-steps-per-epoch caps
 _STEPS_OK = ("diloco_cifar10", "exact_cifar10", "gpt_lm", "imdb_baseline", "powersgd_cifar10", "powersgd_imdb")
 # the JAX launcher's gpt_generate defaults
@@ -197,7 +204,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--checkpoint-dir", type=str, default=None,
-        help="serve_gpt only: hot-load the newest training checkpoint (not ported yet: raises)",
+        help="exact_cifar10: train through the checkpointed loop (a committed checkpoint an epoch, resume"
+             " on entry, SIGTERM -> emergency checkpoint and exit 75); serve_gpt: hot-load the parameters"
+             " of the newest committed training checkpoint",
     )
     return p
 
@@ -250,9 +259,10 @@ def main(argv=None) -> dict:
             (flag, getattr(args, flag[2:].replace("-", "_")), _SERVE_OK)
             for flag in (
                 "--slots", "--requests", "--request-rate", "--spool-dir", "--engine", "--block-len", "--n-blocks",
-                "--spec-k", "--max-wall-s", "--checkpoint-dir",
+                "--spec-k", "--max-wall-s",
             )
         ),
+        ("--checkpoint-dir", args.checkpoint_dir, _CHECKPOINT_OK),
         ("--no-prefix-sharing", args.no_prefix_sharing or None, _SERVE_OK),
     ):
         if value is not None and exp not in ok:
@@ -287,7 +297,7 @@ def main(argv=None) -> dict:
             data_dir = None
         kwargs.update(preset=args.preset, data_dir=data_dir, max_steps_per_epoch=args.max_steps_per_epoch)
     if exp == "exact_cifar10":
-        kwargs["strategy"] = args.strategy
+        kwargs.update(strategy=args.strategy, checkpoint_dir=args.checkpoint_dir)
     if exp == "diloco_cifar10":
         for name, value in (
             ("sync_every", args.sync_every), ("fragments", args.fragments), ("reducer", args.diloco_reducer),

@@ -30,13 +30,19 @@ default, :func:`distilbert_torch_name` for DistilBERT, :func:`gpt_torch_name`
 for GPT). Both packages
 matricize the same way under ``matricize="last"`` (embedding tables given
 to the reducer as ``features_last``), so each Q carries over unchanged.
+
+``train_state_from_jax`` writes a JAX ``TrainState`` (numpy leaves, read
+by attribute) into rank ``r``'s port ``TrainState``: the replicated
+params, momenta and PowerSGD Q as they are, and row ``r`` of the
+per-worker memories and BatchNorm statistics, so both packages can resume
+from one state.
 """
 
 from __future__ import annotations
 
 import math
 import re
-from typing import Any, Callable, Dict, List, Mapping, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -216,3 +222,58 @@ def powersgd_state_from_jax(
     device = params[0].device
     state = reducer.init(list(params))
     return PowerSGDState(q_packer.pack(qs).to(device), state.generator)
+
+
+def _row(tree: Mapping[str, Any], rank: int) -> Dict[str, Any]:
+    """Row ``rank`` of every leaf of a per-worker tree."""
+    return {k: _row(v, rank) if isinstance(v, Mapping) else np.asarray(v)[rank] for k, v in tree.items()}
+
+
+@torch.no_grad()
+def train_state_from_jax(
+    jax_state: Any,
+    rank: int,
+    state,
+    model,
+    reducer=None,
+    state_dict_from_flax: Callable[[Mapping[str, Any]], Dict[str, torch.Tensor]] = resnet_state_dict_from_flax,
+    name_map: Callable[[Tuple[str, ...]], str] = torch_name,
+    world_axis: bool = True,
+):
+    """Write the JAX ``TrainState`` ``jax_state`` into rank ``rank``'s port
+    ``TrainState`` ``state`` (built by ``model``'s training step) in place,
+    and return ``state``.
+
+    ``jax_state``'s leaves are numpy arrays; it is read by attribute
+    (``params``, ``momenta``, ``memories``, ``reducer_state`` with its
+    ``q_memory``, ``model_state`` with its ``batch_stats``). With
+    ``world_axis`` its ``memories`` and ``model_state`` have the leading
+    world axis of the JAX package's distributed step, and row ``rank`` is
+    taken; without it they are one worker's. ``state_dict_from_flax``
+    names and lays out a params-shaped tree in the port
+    (:func:`resnet_state_dict_from_flax` for ResNets, ``SmallCNN`` and
+    ``MLP``; :func:`gpt_state_dict_from_flax`,
+    :func:`distilbert_state_dict_from_flax`), ``name_map`` a flax path for
+    the Q buffer; ``reducer`` is the step's ``PowerSGDReducer`` (None: no
+    Q). The port's ``num_batches_tracked`` has no flax counterpart and
+    stays as it is."""
+
+    def put(dst: Dict[str, torch.Tensor], tree: Optional[Mapping[str, Any]], collection: str = "params") -> None:
+        if not dst or tree is None:
+            return
+        src = state_dict_from_flax({collection: tree})
+        for name, value in src.items():
+            if name in dst and not name.endswith("num_batches_tracked"):
+                dst[name].copy_(value)
+
+    put(state.params, jax_state.params)
+    put(state.momenta, jax_state.momenta)
+    per_worker = (lambda tree: _row(tree, rank)) if world_axis else (lambda tree: tree)
+    put(state.memories, per_worker(jax_state.memories))
+    stats = (jax_state.model_state or {}).get("batch_stats")
+    if stats is not None:
+        put(state.model_state, per_worker(stats), "batch_stats")
+    if reducer is not None:
+        q = powersgd_state_from_jax(jax_state.reducer_state.q_memory, jax_state.params, reducer, model, name_map)
+        state.reducer_state.q_memory.copy_(q.q_memory)
+    return state

@@ -1,15 +1,21 @@
-"""Typed telemetry events of the serving engine, copied from the JAX
-package's ``observe/events.py``: the :class:`Event` base and the two
-records a serving engine emits, with the same ``record()`` dictionaries.
+"""Typed telemetry events, copied from the JAX package's
+``observe/events.py``: the :class:`Event` base, the two records a serving
+engine emits, and the failure-domain and note events of the checkpointed
+training loop, with the same ``record()`` dictionaries.
 
 A sink is any object with ``emit(event)``; the engines call it with one
 :class:`RequestEvent` per request that leaves them and, for the paged
-engine, :class:`KVPoolEvent` snapshots of its block pool.
+engine, :class:`KVPoolEvent` snapshots of its block pool. The checkpoint
+layer and ``resilient_train_loop`` emit :class:`FailureEvent` (``resumed``,
+``resharded``, ``checkpoint_fallback``, ``checkpoint_unwritable``,
+``preempt_notice``, ``preempt_checkpoint``) and :class:`NoteEvent`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import sys
 from dataclasses import dataclass
 from typing import ClassVar, Dict, Optional, Tuple
 
@@ -84,3 +90,52 @@ class KVPoolEvent(Event):
     admissions_deferred_total: int = 0
     rank: Optional[int] = None
     label: str = ""
+
+
+@dataclass
+class FailureEvent(Event):
+    """A failure-domain lifecycle event: a detected failure (a watchdog
+    timeout, a ``preempt_notice``), or a recovery action (a checkpoint
+    fallback, a resume, a ``resharded`` restore at another world, a
+    ``preempt_checkpoint`` emergency save). ``rank``, ``step`` and
+    ``incarnation`` locate it (None: not applicable). The banner is the
+    record itself as JSON."""
+
+    KIND: ClassVar[str] = "failure"
+
+    kind: str
+    label: str = ""
+    message: str = ""
+    rank: Optional[int] = None
+    step: Optional[int] = None
+    incarnation: Optional[int] = None
+
+    def banner(self) -> str:
+        rec = {k: v for k, v in self.record().items() if v is not None}
+        return json.dumps(rec, default=str)
+
+
+@dataclass
+class NoteEvent(Event):
+    """A free-form human banner that should also land in the structured
+    log (a reshard's accounting, a serving process that found no
+    checkpoint)."""
+
+    KIND: ClassVar[str] = "note"
+
+    message: str
+
+    def banner(self) -> str:
+        return self.message
+
+
+class BannerSink:
+    """A sink that writes each event's banner, where it has one, as a line
+    to standard error: the JAX package's default stdout banners, kept off
+    the standard output whose last line is a run's summary."""
+
+    def emit(self, event: Event) -> None:
+        text = event.banner()
+        if text is not None:
+            sys.stderr.write(text + "\n")
+            sys.stderr.flush()

@@ -54,7 +54,9 @@ class CollectiveRecord:
     """One collective as :func:`record_collectives` saw it. ``kind`` is
     ``"all-reduce"``, ``"all-gather"`` or ``"send/recv"`` (one step of the
     explicit ring: a send to the next rank and a receive from the previous
-    one); ``ranks`` are the group's global ranks. ``payload_bytes`` follows
+    one), or the kind an :func:`agree` was given (a flag or a number the
+    ranks agree on, outside any step's payload); ``ranks`` are the group's
+    global ranks. ``payload_bytes`` follows
     the JAX audit's conventions: an all-reduce counts its payload, an
     all-gather its gathered result (the group's size times each rank's
     contribution), a ring step the shard it sends."""
@@ -119,6 +121,26 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     # the list form, into views of one buffer: Gloo has no all_gather_into_tensor
     dist.all_gather(list(out.unbind(0)), x.contiguous(), group=group)
     return out
+
+
+def agree(value: int, group, op: str = "max", kind: str = "agree") -> int:
+    """The ranks' max (or ``op="min"``) of one int32 each, the same on every
+    rank: how the ranks agree on a flag (a preemption one rank was sent, a
+    write that failed on one) or a number (rank 0's pid). On a NCCL group
+    the int rides a tensor on the current CUDA device. The result is read
+    on the host, so every rank has passed the call once any has returned.
+    Recorded under ``kind``, apart from the reducers' all-reduces; without
+    a group, ``value``."""
+    if group is None:
+        return int(value)
+    if op not in ("max", "min"):
+        raise ValueError(f"op must be 'max' or 'min', got {op!r}")
+    on_nccl = "nccl" in str(dist.get_backend(group))
+    device = torch.device("cuda", torch.cuda.current_device()) if on_nccl else torch.device("cpu")
+    x = torch.tensor([int(value)], dtype=torch.int32, device=device)
+    _record(kind, group, x.numel() * x.element_size())
+    dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.MIN, group=group)
+    return int(x.item())
 
 
 def _scale_to_mean_(x: torch.Tensor, world: int) -> torch.Tensor:

@@ -158,6 +158,9 @@ def _check_sync_every(sync_every: int) -> None:
 
 @dataclass
 class LocalSGDState:
+    # what each rank holds its own of (utils.checkpoint writes them per rank)
+    PER_RANK_FIELDS = ("params", "momenta", "model_state")
+
     params: Dict[str, torch.Tensor]  # the model's own; this rank's between syncs
     momenta: Dict[str, torch.Tensor]  # this rank's ({} for "sgd_plain")
     model_state: Dict[str, torch.Tensor]  # this rank's buffers
@@ -382,6 +385,9 @@ def _fragment_indices(leaf_sizes: Sequence[int], num_fragments: int) -> List[Lis
 
 @dataclass
 class StreamingDiLoCoState:
+    # what each rank holds its own of (utils.checkpoint writes them per rank)
+    PER_RANK_FIELDS = ("params", "inner_opt", "memories", "model_state")
+
     params: Dict[str, torch.Tensor]  # the model's own; this rank's (only a synced fragment snaps back)
     anchors: Dict[str, torch.Tensor]  # each leaf at its last sync; the same on every rank
     outer_momenta: Dict[str, torch.Tensor]  # the same on every rank

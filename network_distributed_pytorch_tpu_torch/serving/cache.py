@@ -15,14 +15,13 @@ Writes are in place (where the JAX engine donates its cache) and return
 the cache they wrote; :func:`read_slot` returns views, which a later write
 changes, and :func:`read_chain` copies.
 
-Hot-loading a training checkpoint (``serving_state_template``,
-``restore_serving_params``) needs the checkpoint and resharding modules,
-which are not ported yet (ROADMAP.md §A item 2).
+:func:`restore_serving_params` hot-loads a training checkpoint's
+parameters into a serving model (the reference's ``:119-170``).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -86,3 +85,36 @@ def read_slot(cache: Cache, slot: int) -> Cache:
     """Row ``slot`` of the slot cache as a batch-1 cache of views: a later
     write into the slot cache shows through them."""
     return [{"k": layer["k"][slot : slot + 1], "v": layer["v"][slot : slot + 1]} for layer in cache]
+
+
+def serving_state_template(params: Dict[str, torch.Tensor]):
+    """A one-process ``TrainState`` around a serving model's parameters
+    (``dict(model.named_parameters())``), the restore target of
+    :func:`restore_serving_params`. Only ``params`` is read from a
+    checkpoint, so the other fields stay empty: whatever the training
+    run's reducer and world, its parameters fit."""
+    from ..parallel.trainer import TrainState
+
+    return TrainState(params=params, momenta={}, memories={}, reducer_state={}, model_state={})
+
+
+def restore_serving_params(
+    root: str, params: Dict[str, torch.Tensor], telemetry: Any = None, label: str = "serving"
+) -> Optional[Tuple[Dict[str, torch.Tensor], int]]:
+    """Boot a serving process from the newest committed TRAINING checkpoint
+    under ``root``: its parameters are copied into ``params`` (the serving
+    model's own, which give the shapes and the device) and ``(params,
+    step)`` returned; None when nothing restorable exists. A torn or
+    corrupt step falls back to an older one (``checkpoint_fallback``).
+
+    Any training world: the parameters are the same on every rank, and
+    rank 0 wrote them once, so a checkpoint of a W-rank fleet restores
+    into one process as it is; the per-rank training state (memories, BN
+    rows, momenta, the reducer's Q) is not read."""
+    from ..utils.checkpoint import restore_latest
+
+    restored = restore_latest(root, serving_state_template(params), telemetry=telemetry, label=label, fields=("params",))
+    if restored is None:
+        return None
+    state, step = restored
+    return state.params, step

@@ -22,7 +22,9 @@ the CPU (TopK's scatter-add bitwise equal across two calls), a DiLoCo
 round of the small ResNet-18 with K1 against its plain twin, the paged KV
 ops on the card against the CPU (positions past the table included), and
 the tiny GPT served on the card by the slot and paged engines (and under
-speculative decoding) with the same tokens.
+speculative decoding) with the same tokens, a checkpointed resume of the
+small ResNet-18 on the card bit for bit under deterministic algorithms,
+and a checkpoint written from CPU tensors restored onto the card.
 
 This file imports torch and the port, never jax, so it also runs on a
 machine that has the card and no JAX (``--noconftest`` skips the JAX
@@ -63,9 +65,11 @@ from network_distributed_pytorch_tpu_torch.experiments import (
     gpt_generate,
     gpt_lm,
     imdb_baseline,
+    powersgd_cifar10,
 )
 from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches, image_classifier_loss
 from network_distributed_pytorch_tpu_torch.models import gpt
+from network_distributed_pytorch_tpu_torch.models.cnn import SmallCNN
 from network_distributed_pytorch_tpu_torch.models.distilbert import distilbert_tiny
 from network_distributed_pytorch_tpu_torch.ops import _build
 from network_distributed_pytorch_tpu_torch.ops import flash_attention as fa
@@ -75,6 +79,8 @@ from network_distributed_pytorch_tpu_torch.ops.orthogonalize import orthogonaliz
 from network_distributed_pytorch_tpu_torch.parallel import compression
 from network_distributed_pytorch_tpu_torch.parallel.localsgd import make_diloco_train_fn
 from network_distributed_pytorch_tpu_torch.parallel.reducers import PowerSGDReducer
+from network_distributed_pytorch_tpu_torch.parallel.trainer import make_train_step
+from network_distributed_pytorch_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 RTOL = ATOL = 1e-5
 
@@ -1102,3 +1108,91 @@ def test_serve_gpt_runs_on_the_card_or_raises_without_one():
         return
     out = serve_gpt.run(**kw)
     assert out["device"] == torch.cuda.get_device_name(0) and out["slo"]["n_finished"] == 3
+
+
+@pytest.fixture
+def deterministic_algorithms(exact_conv_math):
+    """``torch.use_deterministic_algorithms(True)`` (warning, not raising,
+    where an op has no deterministic kernel) and cuBLAS's fixed workspace,
+    on top of deterministic cuDNN; all restored after."""
+    saved = (
+        torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+        os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+    )
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+    if saved[2] is None:
+        os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+    else:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[2]
+
+
+def _state_tensors(state):
+    """Params, momenta, memories, buffers and Q of a ``TrainState``, cloned."""
+    out = {"q": state.reducer_state.q_memory.clone()}
+    for field in ("params", "momenta", "memories", "model_state"):
+        out.update({f"{field}.{k}": v.detach().clone() for k, v in getattr(state, field).items()})
+    return out
+
+
+@pytest.mark.cuda
+def test_resnet18_resume_on_the_card_is_bit_for_bit(cuda_device, deterministic_algorithms, tmp_path):
+    """Two PowerSGD steps of the small ResNet-18 on the card (K1 in each),
+    saved after the first; a model of other weights restored from the save
+    takes the second step and lands on the uninterrupted run's bits."""
+    cfg = powersgd_cifar10.default_config()
+    cfg.global_batch_size = 16
+    images, labels, _ = load_cifar10_or_synthetic(train=True)
+    batches = [
+        tuple(torch.from_numpy(a).to(cuda_device) for a in b)
+        for b in accumulated_batches([images, labels], cfg, max_steps_per_epoch=2)(0)
+    ]
+    _, step, state = powersgd_cifar10.build(cfg, "small", cuda_device, group=None)
+    state, _ = step(state, batches[0])
+    path = save_checkpoint(str(tmp_path), state, step=0)
+    state, _ = step(state, batches[1])
+    want = _state_tensors(state)
+
+    launches = gs.KERNEL.launches
+    _, step, fresh = powersgd_cifar10.build(cfg, "small", cuda_device, group=None)
+    with torch.no_grad():
+        for p in fresh.params.values():
+            p.add_(1.0)
+    fresh, _ = step(restore_checkpoint(path, fresh), batches[1])
+    assert gs.KERNEL.launches - launches == step.reducer.n_shape_groups(list(fresh.params.values()))
+    got = _state_tensors(fresh)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["ef_momentum", "optax"])
+def test_a_cpu_checkpoint_restores_onto_the_card(cuda_device, tmp_path, algorithm):
+    """A checkpoint written from CPU tensors restored into a state on the
+    card: every leaf lands on the card with the CPU's values (an AdamW
+    optimizer's state too)."""
+
+    def setup(device):
+        model = SmallCNN(width=4, image_size=8, device=device, seed=0)
+        reducer = PowerSGDReducer(random_seed=7, compression_rank=2, matricize="last")
+        kw = {"optimizer": lambda ps: torch.optim.AdamW(ps, lr=1e-3)} if algorithm == "optax" else {}
+        step = make_train_step(image_classifier_loss(), reducer, model, 0.05, 0.9, algorithm, **kw)
+        return step, step.init_state()
+
+    step, state = setup("cpu")
+    gen = torch.Generator().manual_seed(0)
+    state, _ = step(state, (torch.randn(8, 8, 8, 3, generator=gen), torch.arange(8)))
+    path = save_checkpoint(str(tmp_path), state, step=0)
+    _, card = setup(cuda_device)
+    restored = restore_checkpoint(path, card)
+    want, got = _state_tensors(state), _state_tensors(restored)
+    for k, v in want.items():
+        assert got[k].device.type == "cuda" and torch.equal(got[k].cpu(), v), k
+    if algorithm == "optax":
+        for slot in restored.optimizer.state.values():
+            for name, v in slot.items():
+                if torch.is_tensor(v) and v.dim() > 0:
+                    assert v.device.type == "cuda", name

@@ -324,8 +324,6 @@ def test_run_refuses_what_is_not_ported():
         exact_cifar10.run(strategy="fsdp", device="cpu")
     with pytest.raises(ValueError, match="strategy"):
         exact_cifar10.run(strategy="zero", device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint_dir"):
-        exact_cifar10.run(checkpoint_dir="/nonexistent", device="cpu")
     cfg = exact_cifar10.default_config()
     cfg.adaptive_comm = True  # set after construction, past the config's own check
     with pytest.raises(NotImplementedError, match="adaptive_comm"):

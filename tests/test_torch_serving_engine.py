@@ -44,6 +44,7 @@ from network_distributed_pytorch_tpu_torch.serving.cache import (
     init_slot_cache,
     read_chain,
     read_slot,
+    serving_state_template,
     write_slot,
 )
 from network_distributed_pytorch_tpu_torch.serving.engine import (
@@ -51,6 +52,7 @@ from network_distributed_pytorch_tpu_torch.serving.engine import (
     SlotEngine,
     padded_static_decode_steps,
 )
+from network_distributed_pytorch_tpu_torch.utils.checkpoint import save_checkpoint
 from torch_parity import random_gpt_params, to_numpy
 from torch_worker import few_torch_threads  # noqa: F401  (autouse)
 
@@ -512,6 +514,9 @@ def test_launch_serve_gpt_on_the_cpu(capsys):
         ["imdb_baseline", "--requests", "3"],
         ["powersgd_cifar10", "--request-rate", "1"],
         ["gpt_lm", "--checkpoint-dir", "x"],
+        ["powersgd_cifar10", "--checkpoint-dir", "x"],
+        ["diloco_cifar10", "--checkpoint-dir", "x"],
+        ["gpt_generate", "--checkpoint-dir", "x"],
         ["serve_gpt", "--temperature", "1.0"],
     ],
 )
@@ -521,10 +526,21 @@ def test_launch_refuses_serve_flags_elsewhere(args):
 
 
 def test_checkpoint_dir_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 2"):
-        serve_gpt.run(preset="small", checkpoint_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        launch.main(["serve_gpt", "--device", "cpu", "--checkpoint-dir", str(tmp_path)])
+    """``checkpoint_dir`` hot-loads: ``serve_gpt.run`` and the launcher
+    serve the parameters of the newest committed checkpoint there, other
+    weights than the seed's, and report its step."""
+    max_len = serve_gpt.serving_max_len("small", 16, "slot", 16)
+    trained = serve_gpt.build_model("small", max_len, torch.float32, "cpu", seed=1)
+    save_checkpoint(str(tmp_path), serving_state_template(dict(trained.named_parameters())), step=3)
+    kw = dict(preset="small", device="cpu", requests=4, request_rate=0.0, max_new_tokens=16)
+    loaded, fresh = serve_gpt.serve(checkpoint_dir=str(tmp_path), **kw), serve_gpt.serve(**kw)
+    assert loaded[0]["checkpoint_step"] == 3 and fresh[0]["checkpoint_step"] is None
+    assert [r.tokens for r in loaded[1]] != [r.tokens for r in fresh[1]]
+    out = launch.main(
+        ["serve_gpt", "--device", "cpu", "--requests", "2", "--request-rate", "0", "--max-new-tokens", "16",
+         "--checkpoint-dir", str(tmp_path)]
+    )
+    assert out["checkpoint_step"] == 3 and out["slo"]["n_finished"] == 2
 
 
 def test_serve_gpt_raises_without_a_card_unless_cpu(model):

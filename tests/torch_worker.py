@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import multiprocessing as mp
 import os
+import signal
 
 import numpy as np
 import pytest
@@ -18,8 +19,13 @@ import torch
 import torch.distributed as dist
 
 from network_distributed_pytorch_tpu_torch.experiments import bandwidth_study, exact_cifar10
-from network_distributed_pytorch_tpu_torch.experiments.common import average_model_state, image_classifier_loss
+from network_distributed_pytorch_tpu_torch.experiments.common import (
+    average_model_state,
+    image_classifier_loss,
+    resilient_train_loop,
+)
 from network_distributed_pytorch_tpu_torch.models.cnn import SmallCNN
+from network_distributed_pytorch_tpu_torch.models.import_weights import train_state_from_jax
 from network_distributed_pytorch_tpu_torch.models.resnet import resnet18
 from network_distributed_pytorch_tpu_torch.parallel import compression
 from network_distributed_pytorch_tpu_torch.parallel.comm import (
@@ -48,6 +54,8 @@ from network_distributed_pytorch_tpu_torch.parallel.reducers import (
     PowerSGDState,
 )
 from network_distributed_pytorch_tpu_torch.parallel.trainer import make_train_step
+from network_distributed_pytorch_tpu_torch.resilience import PreemptionGuard, make_topology, reshard_from_checkpoint
+from network_distributed_pytorch_tpu_torch.utils.checkpoint import read_topology, restore_latest, save_checkpoint
 from network_distributed_pytorch_tpu_torch.utils.config import ExperimentConfig
 
 
@@ -642,3 +650,170 @@ def study_rank(rank, world, group, global_batch):
         cfg, preset="small", device="cpu", global_batch=global_batch, reducer_ranks=(2,),
         timed_steps=1, timed_rounds=1,
     )
+
+
+# ---- checkpointed training ---------------------------------------------------
+
+RESUME_EPOCHS, RESUME_STEPS, RESUME_BATCH, RESUME_HW = 3, 2, 16, 8
+
+
+def resume_batches(epoch, steps=RESUME_STEPS, batch=RESUME_BATCH, hw=RESUME_HW):
+    """The deterministic global batches of ``epoch``: class blobs, as the
+    JAX package's resilient-loop test draws them."""
+    rng = np.random.RandomState(1000 + epoch)
+    means = np.random.RandomState(999).randn(10, hw, hw, 3)
+    for _ in range(steps):
+        y = rng.randint(0, 10, batch)
+        yield (means[y] + 0.5 * rng.randn(batch, hw, hw, 3)).astype(np.float32), y.astype(np.int64)
+
+
+class Crash(Exception):
+    """A worker dying on entry to an epoch."""
+
+
+def crashing_batches(crash_at_epoch):
+    def fn(epoch):
+        if epoch == crash_at_epoch:
+            raise Crash()
+        return resume_batches(epoch)
+
+    return fn
+
+
+class Events:
+    """A telemetry sink that keeps ``(kind, step)`` of each failure event."""
+
+    def __init__(self):
+        self.seen = []
+
+    def emit(self, event):
+        self.seen.append((getattr(event, "kind", type(event).__name__), getattr(event, "step", None)))
+
+
+def resnet_resume_setup(group, seed=3):
+    """The small ResNet-18 (width 8, BatchNorm) under PowerSGD rank 2 with
+    error feedback and momentum: the model, the step and a fresh state."""
+    model = resnet18(num_classes=10, norm="batch", stem="cifar", width=8, device="cpu", seed=seed)
+    reducer = PowerSGDReducer(random_seed=7, compression_rank=2, matricize="last")
+    step = make_train_step(image_classifier_loss(), reducer, model, 0.05, 0.9, "ef_momentum", group)
+    return model, step, step.init_state()
+
+
+def snapshot(state):
+    """Every tensor of a ``TrainState``, cloned: params, momenta, memories,
+    the BN buffers (``num_batches_tracked`` included) and Q."""
+    return {
+        "params": _clone(state.params), "momenta": _clone(state.momenta), "memories": _clone(state.memories),
+        "buffers": _clone(state.model_state), "q": state.reducer_state.q_memory.clone(),
+    }
+
+
+def _resume_loop(state_step, root, batches=resume_batches, **kw):
+    _, step, state = state_step
+    world = 1 if step.group is None else dist.get_world_size(step.group)
+    rank = 0 if step.group is None else dist.get_rank(step.group)
+    return resilient_train_loop(
+        step, state, batches, RESUME_EPOCHS, root, torch.device("cpu"), rank=rank, world_size=world,
+        topology=make_topology(world, global_batch=RESUME_BATCH, bits_per_step=step.bits_per_step), **kw,
+    )
+
+
+class _AfterStep:
+    """A step that calls ``then()`` after its ``n``-th call."""
+
+    def __init__(self, step, n, then):
+        self.step, self.n, self.then, self.calls = step, n, then, 0
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+    def __call__(self, state, batch):
+        out = self.step(state, batch)
+        self.calls += 1
+        if self.calls == self.n:
+            self.then()
+        return out
+
+
+def resume_rank(rank, world, group, root):
+    """Each resume of the small ResNet-18 against the uninterrupted run:
+    a crash on entry to epoch 2 and a resume; ``guard.request()`` on rank 0
+    after step 1 of epoch 1 and a resume; a real SIGTERM to rank 1 after
+    the same step, which must stop both ranks there, and a resume."""
+    out = {}
+    state, _, _ = _resume_loop(resnet_resume_setup(group), os.path.join(root, "ref"))
+    out["ref"] = snapshot(state)
+
+    crash = os.path.join(root, "crash")
+    try:
+        _resume_loop(resnet_resume_setup(group), crash, batches=crashing_batches(2))
+        raise AssertionError("the crashing run did not crash")
+    except Crash:
+        pass
+    events = Events()
+    state, _, out["crash_start_epoch"] = _resume_loop(resnet_resume_setup(group), crash, telemetry=events)
+    out["crash"], out["crash_events"] = snapshot(state), events.seen
+
+    for name, preempt in (("preempt", lambda g: g.request() if rank == 0 else None),
+                          ("sigterm", lambda g: os.kill(os.getpid(), signal.SIGTERM) if rank == 1 else None)):
+        path = os.path.join(root, name)
+        setup = resnet_resume_setup(group)
+        with PreemptionGuard() as guard:
+            # after step 1 of epoch 1: the third step of the run
+            stepper = _AfterStep(setup[1], RESUME_STEPS + 1, lambda: preempt(guard))
+            _, logger, _ = _resume_loop((setup[0], stepper, setup[2]), path, preemption_guard=guard)
+        out[f"{name}_stopped_after"] = len(logger.records)
+        out[f"{name}_flags"] = (guard.requested, guard.checkpoint_saved)
+        out[f"{name}_cursor"] = read_topology(os.path.join(path, "step_1"))["epoch_cursor"]
+        events = Events()
+        state, logger, out[f"{name}_start_epoch"] = _resume_loop(resnet_resume_setup(group), path, telemetry=events)
+        out[name], out[f"{name}_events"] = snapshot(state), events.seen
+        out[f"{name}_resumed_steps"] = len(logger.records)
+
+    # a guard installed and never raised: one flag collective a step
+    setup = resnet_resume_setup(group)
+    with PreemptionGuard() as guard, record_collectives() as records:
+        _resume_loop(setup, os.path.join(root, "flag"), preemption_guard=guard)
+    out["flag_records"], out["bits_per_step"] = plain_records(records), setup[1].bits_per_step
+    return out
+
+
+def smallcnn_jax_parity_rank(rank, world, group, root, jax_init):
+    """``resilient_train_loop`` of the SmallCNN (width 4, 8x8 images) under
+    PowerSGD rank 2 from the JAX run's initial state (``jax_init``, numpy
+    leaves, converted by ``train_state_from_jax``): its final state."""
+    model = SmallCNN(width=4, image_size=8, device="cpu")
+    reducer = PowerSGDReducer(random_seed=7, compression_rank=2, matricize="last")
+    step = make_train_step(image_classifier_loss(), reducer, model, 0.05, 0.9, "ef_momentum", group)
+    state = train_state_from_jax(jax_init, rank, step.init_state(), model, reducer)
+    state, logger, _ = _resume_loop((model, step, state), os.path.join(root, "jax_parity"))
+    return {**snapshot(state), "losses": [r.loss for r in logger.records]}
+
+
+def reshard_rank(rank, world, group, root):
+    """Two steps of the small ResNet-18 at world ``world``, saved with its
+    topology; then ranks 0 and 1 restore it as a world of two through the
+    resharder. Returns each rank's rows before the save and, on ranks 0 and
+    1, the restored state."""
+    model, step, state = resnet_resume_setup(group)
+    for batch in resume_batches(0):
+        state, _ = step(state, shard(batch, rank, world))
+    saved = snapshot(state)
+    save_checkpoint(
+        os.path.join(root, "ckpt"), state, step=0, group=group,
+        topology=make_topology(world, global_batch=RESUME_BATCH, bits_per_step=step.bits_per_step),
+    )
+    pair = dist.new_group([0, 1])
+    out = {"saved": saved}
+    if rank < 2:
+        _, _, fresh = resnet_resume_setup(pair, seed=5)  # other weights: every field must be restored
+        worlds = []
+
+        def resharder(path, topo):
+            worlds.append(topo["world_size"])
+            return reshard_from_checkpoint(path, fresh, saved_topology=topo, group=pair)
+
+        restored, step_restored = restore_latest(os.path.join(root, "ckpt"), fresh, resharder=resharder, group=pair)
+        out.update(restored=snapshot(restored), restored_step=step_restored, resharded_from=worlds)
+    dist.barrier()
+    return out
