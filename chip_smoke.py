@@ -114,7 +114,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
    K5 causal forward and backward and K1; then ``serve_gpt`` preset full
    with ``checkpoint_dir``: the served params the trained ones bit for
    bit, ``checkpoint_step`` 1, the tokens against the sequential
-   reference under ``SERVE_TIE``, the hot-load's time);
+   reference under ``SERVE_TIE``, the hot-load's time); then the
+   model-parallel GPT entries through their own ``run()`` at GPT-2 small
+   widths (dim 768, 12 layers, 12 heads, vocabulary 1024), every mesh axis
+   of size 1 over the one-rank group, 3 steps each
+   (``model_parallel_phases``): ``main_path_gpt_tp`` (T 1024, batch 16,
+   the head replicated and vocabulary-parallel), ``main_path_gpt_sp``
+   (T 1024, batch 8, ring and Ulysses), ``main_path_gpt_pp`` (one stage
+   of 12 layers, 4 microbatches, T 1024, batch 16: K5 48 causal launches
+   forward and 48 backward a step; a save at the end of epoch 0 and a
+   resume bitwise the uninterrupted run under deterministic algorithms)
+   and ``main_path_gpt_moe`` (8 experts, T 256, batch 16, capacity factor
+   2, PowerSGD on the replicated parameters: top-1 and top-2 in fp32,
+   top-1 in bf16; K5 12 causal launches each way a step, K1 once a shape
+   group a step; the (T, E, C) dispatch bytes; ``switch_moe`` over the
+   one-rank group bitwise the single-process call), each with its step
+   p50, tokens a second, peak memory, launches, collectives and bits a
+   step, and its first step's loss and gradients against plain ``GPTLM``
+   (MoE: flash against einsum attention), the leaf of the largest
+   difference named;
 4. two steps from the same weights and batches, deterministic cuDNN: plain
    Gram-Schmidt against the kernel; two DiLoCo rounds of ResNet-152 with
    the outer delta's Gram-Schmidt plain against the kernel; fused against xla; fused against xla
@@ -266,6 +284,35 @@ RESUME_K1_STEPS = 26
 # in fp32 at batch 8, T 64, PowerSGD rank 4, 2 epochs of 2 steps (K5 causal
 # forward and backward, K1), then hot-loaded by serve_gpt's preset full
 HOT_B, HOT_T, HOT_EPOCHS, HOT_STEPS = 8, 64, 2, 2
+# the model-parallel GPT entries at GPT-2 small widths, every mesh axis of
+# size 1: (batch, T) of gpt_tp and gpt_sp, (batch, T, microbatches) of
+# gpt_pp, (batch, T, local experts) of gpt_moe; 3 steps each. MoE's (T, E,
+# C) dispatch and combine tensors: T = 16 * 256 = 4096 tokens, E = 8, C =
+# 2 * k * 4096 / 8 = 1024 k, so 4096 * 8 * 1024 * 4 B = 134 MB each a layer
+# at top-1 (268 MB at top-2)
+MP_SIZES = {"tp": (16, 1024), "sp": (8, 1024), "pp": (16, 1024, 4), "moe": (16, 256, 8)}
+MP_SIZES_SMALL = {"tp": (4, 32), "sp": (4, 32), "pp": (8, 32, 4), "moe": (8, 32, 8)}
+MP_STEPS = 3
+# the (B, T, H, D) of K5's launches there: a gpt_pp microbatch (16 / 4
+# sequences) and a gpt_moe batch, each held against the plain version
+MP_PP_HEADS, MP_MOE_HEADS = (4, 1024, 12, 64), (16, 256, 12, 64)
+MOE_FACTOR = 2.0
+# the MoE GPT's replicated parameters at rank 4: (1024, 768) the token
+# table, (256, 768) the positions, (768, 8) the 12 routers, (768, 768) the
+# 48 attention projections
+MOE_GROUPS = 4
+# a first step's loss and every gradient against the plain model's (flash
+# against einsum attention, or the TP and sequence-parallel schedules'
+# einsum against the flash kernel): fp32 sums in another order and K5's
+# 3xTF32 products, relative to max(1, max|plain|) of each leaf. The key
+# projections' biases have a gradient of 0 in exact arithmetic (a softmax
+# ignores a shift of a row's scores): both sides hold the rounding of a sum
+# over every token, up to 2.3e-9 on the H100. They are held to KEY_BIAS_TOL
+# relative to max(1, max|plain|) of the same layer's query bias, a sum of
+# the same kind that does not cancel (about 1e-3 at GPT-2 small's width):
+# a key-gradient at fault reads of that order
+MP_TOL = 1e-5
+KEY_BIAS_TOL = 1e-7
 
 
 def fail(msg: str) -> None:
@@ -523,6 +570,10 @@ def check_flash_attention_bf16(fa, dev, gen, imdb_mask):
         "gpt_causal_fp32": (gpt, None, True, torch.float32),
         "t100_d40_bf16": ((IMDB_B, 100, 4, 40), imdb_mask[:, :100], False, torch.bfloat16),
         "d128_causal_bf16": ((2, IMDB_T, 4, 128), imdb_mask[:2], True, torch.bfloat16),
+        # the model-parallel paths' own shapes: a gpt_pp microbatch, a gpt_moe batch
+        "pp_microbatch_causal_fp32": (MP_PP_HEADS, None, True, torch.float32),
+        "moe_causal_fp32": (MP_MOE_HEADS, None, True, torch.float32),
+        "moe_causal_bf16": (MP_MOE_HEADS, None, True, torch.bfloat16),
     }
     report, kept = {}, {}
     for name, ((b, t, h, d), mask, causal, dtype) in cases.items():
@@ -615,6 +666,8 @@ def check_flash_attention_bwd(fa, dev, gen, imdb_mask):
         "d128_causal": ((2, IMDB_T, 4, 128), imdb_mask[:2], True, False),
         "gpt_causal": ((GPT_B, GPT_T, GPT_H, GPT_D), None, True, False),
         "dmask": ((4, IMDB_T, IMDB_H, IMDB_D), imdb_mask[:4], False, True),
+        "pp_microbatch_causal": (MP_PP_HEADS, None, True, False),
+        "moe_causal": (MP_MOE_HEADS, None, True, False),
     }
     report, worst, kept = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1491,6 +1544,366 @@ def serving_phases(dev, drive, all_kernels, preset="full", max_new_tokens=SERVE_
     })
 
 
+def saved_leaves(path):
+    """Every leaf of the payload files (``*.pt``) of the checkpoint at
+    ``path``, by file and key path."""
+    import torch
+
+    leaves = {}
+
+    def walk(key, x):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(f"{key}/{k}", v)
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(f"{key}/{i}", v)
+        else:
+            leaves[key] = x
+
+    for name in sorted(os.listdir(path)):
+        if name.endswith(".pt"):
+            walk(name, torch.load(os.path.join(path, name), weights_only=True))
+    return leaves
+
+
+def worst_diff(got, want, names=None):
+    """The largest ``|got - want|`` over the leaves ``names`` of ``want``
+    (all by default), relative to ``max(1, max|want|)`` of its leaf, and
+    that leaf."""
+    worst, leaf = -1.0, None
+    for k in want if names is None else names:
+        w = want[k]
+        d = (got[k].float() - w.float()).abs().max().item() / max(1.0, w.abs().max().item())
+        if not d <= worst:
+            worst, leaf = d, k
+    return worst, leaf
+
+
+def model_parallel_phases(dev, drive, launches, kinds, smi, preset="full"):
+    """``main_path_gpt_tp``, ``_sp``, ``_pp`` and ``_moe``: the four
+    model-parallel entry points through their own ``run()`` at GPT-2 small
+    widths (dim 768, 12 layers, 12 heads, vocabulary 1024) on one card,
+    every mesh axis of size 1 over a one-rank NCCL group. Each record: the
+    step p50 by CUDA events (the first step is the warm-up), tokens a
+    second, peak memory, K5's and K1's launches by kind, the collectives
+    and bits a step, and the first step's loss and gradients against the
+    plain ``GPTLM`` (or, for MoE, the einsum attention) with the leaf that
+    sets the largest difference. ``drive`` is ``main``'s; ``preset="small"``
+    rehearses the phases on the CPU."""
+    import torch
+
+    from network_distributed_pytorch_tpu_torch.experiments import gpt_moe, gpt_pp, gpt_sp, gpt_tp
+    from network_distributed_pytorch_tpu_torch.experiments.gpt_lm import preset_vocab, synthetic_lm_batches
+    from network_distributed_pytorch_tpu_torch.models import gpt as G
+    from network_distributed_pytorch_tpu_torch.ops import flash_attention as fa
+    from network_distributed_pytorch_tpu_torch.ops import gram_schmidt as gs
+    from network_distributed_pytorch_tpu_torch.ops.orthogonalize import orthogonalize
+    from network_distributed_pytorch_tpu_torch.parallel.mesh import (
+        DistributedConfig,
+        initialize_distributed,
+        make_mesh,
+        shutdown_distributed,
+    )
+    from network_distributed_pytorch_tpu_torch.parallel.moe import switch_moe
+    from network_distributed_pytorch_tpu_torch.utils.checkpoint import latest_step_path
+
+    full = preset == "full"
+    on_cuda = dev.type == "cuda"
+    s = MP_SIZES if full else MP_SIZES_SMALL
+    steps = MP_STEPS
+    fwd32, bwd32 = fa.KERNEL.name, fa.BWD_KERNELS[torch.float32].name
+    fwd16, bwd16 = fa.KERNEL_BF16.name, fa.BWD_KERNELS[torch.bfloat16].name
+
+    def first_batch(vocab, b, t, seed):
+        x, y = next(iter(synthetic_lm_batches(vocab, b, t, 1, seed)))
+        return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+    def grads_of(loss, leaves):
+        return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    def timing(result, tokens_per_step):
+        ms = [m for m in result["device_time_ms"][1:] if m is not None]
+        p50 = statistics.median(ms) if ms else None
+        return {
+            "step_device_ms": result["device_time_ms"], "step_device_ms_p50": p50,
+            "tokens_per_s": tokens_per_step / (p50 / 1e3) if p50 else None,
+        }
+
+    def comms(result):
+        return {
+            "collectives": result["hlo_collectives"], "collective_bytes": result["collective_bytes"],
+            "bits_per_step": result["bits_per_step"],
+        }
+
+    def held(what, loss_got, loss_want, got, want):
+        key_bias = [k for k in want if k.endswith("attn.k_proj.bias")]
+        diff, leaf = worst_diff(got, want, [k for k in want if k not in key_bias])
+        share, noise, bound, noise_leaf = 0.0, 0.0, None, None  # the key bias nearest its bound
+        for k in key_bias:
+            d = (got[k] - want[k]).abs().max().item()
+            b = KEY_BIAS_TOL * max(1.0, want[k.replace("k_proj", "q_proj")].abs().max().item())
+            if not d / b <= share:
+                share, noise, bound, noise_leaf = d / b, d, b, k
+        loss_diff = abs(loss_got - loss_want) / max(1.0, abs(loss_want))
+        if not (diff <= MP_TOL and loss_diff <= MP_TOL and share <= 1.0):
+            fail(
+                f"{what}: gradients {diff} at {leaf}, loss {loss_diff} (tol {MP_TOL}), key biases {noise}"
+                f" at {noise_leaf} (bound {bound})"
+            )
+        return {
+            "max_grad_diff": diff, "max_grad_diff_leaf": leaf, "loss_diff": loss_diff, "tolerance": MP_TOL,
+            "max_key_bias_grad_diff": noise, "key_bias_bound": bound, "max_key_bias_grad_diff_leaf": noise_leaf,
+        }
+
+    # ---- tensor parallelism: one model shard, the vocabulary-parallel head on and off
+    tp_b, tp_t = s["tp"]
+    cfg = gpt_tp.default_config()
+    cfg.global_batch_size = tp_b
+    record = {"phase": "main_path_gpt_tp", "preset": preset, "model_shards": 1, "global_batch": tp_b,
+              "seq_len": tp_t, "steps": steps, "nvidia_smi": smi, "runs": {}}
+    for vp in (False, True):
+        name = "gpt_tp_vocab" if vp else "gpt_tp"
+        result, peak = drive(
+            name, lambda: gpt_tp.run(cfg, preset=preset, model_shards=1, vocab_parallel=vp, seq_len=tp_t, device=dev,
+                                     max_steps_per_epoch=steps),
+            {}, kernel_free=True,
+        )
+        record["runs"]["vocab_parallel" if vp else "replicated_head"] = {
+            "losses": result["losses"], **timing(result, tp_b * tp_t), "peak_memory_bytes": peak, **comms(result),
+            "launches": launches[name],
+        }
+    group = initialize_distributed(DistributedConfig(), dev)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        tcfg = gpt_tp.tp_config(preset, tp_t, torch.float32)
+        model = G.GPTLM(tcfg, device=dev, seed=cfg.seed)
+        x, y = first_batch(tcfg.vocab_size, tp_b, tp_t, cfg.seed)
+        params = dict(model.named_parameters())
+        plain_loss = G.next_token_loss(model(x), y)
+        plain = grads_of(plain_loss, params)
+        for vp in (False, True):
+            leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+            logits = G.tp_gpt_forward(tcfg, leaves, x, mesh.group("model"), vp)
+            loss = (G.vocab_parallel_next_token_loss(logits, y, mesh.group("model")) if vp
+                    else G.next_token_loss(logits, y))
+            key = "vocab_parallel" if vp else "replicated_head"
+            record["runs"][key]["vs_plain_gptlm"] = held(
+                f"gpt_tp ({key}) against GPTLM", loss.item(), plain_loss.item(), grads_of(loss, leaves), plain,
+            )
+        del model, params, plain
+    finally:
+        shutdown_distributed()
+    emit(record)
+
+    # ---- sequence parallelism: one shard of the ring and of Ulysses
+    sp_b, sp_t = s["sp"]
+    cfg = gpt_sp.default_config()
+    cfg.global_batch_size = sp_b
+    record = {"phase": "main_path_gpt_sp", "preset": preset, "seq_shards": 1, "global_batch": sp_b, "seq_len": sp_t,
+              "steps": steps, "nvidia_smi": smi, "runs": {}}
+    for impl in G.SEQ_IMPLS:
+        name = f"gpt_sp_{impl}"
+        result, peak = drive(
+            name, lambda: gpt_sp.run(cfg, preset=preset, seq_impl=impl, seq_len=sp_t, device=dev,
+                                     max_steps_per_epoch=steps),
+            {}, kernel_free=True,
+        )
+        record["runs"][impl] = {
+            "losses": result["losses"], **timing(result, sp_b * sp_t), "peak_memory_bytes": peak, **comms(result),
+            "launches": launches[name],
+        }
+    group = initialize_distributed(DistributedConfig(), dev)
+    try:
+        mesh = make_mesh((1,), ("seq",))
+        plain_model = gpt_sp.build_model(preset, sp_t, 1, "ring", torch.float32, dev, cfg.seed, None)
+        x, y = first_batch(plain_model.config.vocab_size, sp_b, sp_t, cfg.seed)
+        params = dict(plain_model.named_parameters())
+        plain_loss = G.next_token_loss(plain_model(x), y)
+        plain = grads_of(plain_loss, params)
+        for impl in G.SEQ_IMPLS:
+            model = gpt_sp.build_model(preset, sp_t, 1, impl, torch.float32, dev, cfg.seed, mesh.group("seq"))
+            model.load_state_dict(plain_model.state_dict())
+            loss = G.next_token_loss(model(x), y)
+            record["runs"][impl]["vs_plain_gptlm"] = held(
+                f"gpt_sp ({impl}) against GPTLM", loss.item(), plain_loss.item(),
+                grads_of(loss, dict(model.named_parameters())), plain,
+            )
+            del model
+        del plain_model, params, plain
+    finally:
+        shutdown_distributed()
+    emit(record)
+
+    # ---- pipeline: one stage of 12 layers, 1F1B over 4 microbatches (K5
+    # once a layer and microbatch, forward and backward; no recompute)
+    pp_b, pp_t, pp_mb = s["pp"]
+    cfg = gpt_pp.default_config()
+    cfg.global_batch_size = pp_b
+    per_step = G.GPTConfig().n_layers * pp_mb if full else 2 * pp_mb
+    result, peak = drive(
+        "gpt_pp", lambda: gpt_pp.run(cfg, preset=preset, seq_len=pp_t, num_microbatches=pp_mb, device=dev,
+                                     max_steps_per_epoch=steps),
+        {fwd32: steps * per_step, bwd32: steps * per_step} if on_cuda else {},
+    )
+    if on_cuda and any(kinds["gpt_pp"][k] != {"causal": steps * per_step} for k in (fwd32, bwd32)):
+        fail(f"gpt_pp: K5 launches by kind {kinds['gpt_pp']}")
+    record = {
+        "phase": "main_path_gpt_pp", "preset": preset, "stages": result["n_stages"],
+        "layers_per_stage": result["layers_per_stage"], "microbatches": pp_mb, "global_batch": pp_b,
+        "seq_len": pp_t, "steps": steps, "losses": result["losses"], **timing(result, pp_b * pp_t),
+        "peak_memory_bytes": peak, **comms(result), "launches": launches["gpt_pp"],
+        "k5_launches_by_kind": kinds["gpt_pp"], "k5_launches_per_step": per_step, "nvidia_smi": smi,
+    }
+    group = initialize_distributed(DistributedConfig(), dev)
+    try:
+        mesh = make_mesh((1,), ("pipe",))
+        # the plain model attends in einsum: the pipeline's K5 launches at a
+        # microbatch's shape are held against plain attention
+        model = (G.gpt_small if full else G.gpt_tiny)(
+            device=dev, seed=cfg.seed, vocab_size=preset_vocab(preset), max_position_embeddings=pp_t, dropout=0.0,
+            attn_impl="einsum",
+        )
+        x, y = first_batch(model.config.vocab_size, pp_b, pp_t, cfg.seed)
+        params = dict(model.named_parameters())
+        plain_loss = G.next_token_loss(model(x), y)
+        plain = grads_of(plain_loss, params)
+        embed, stages, final = G.split_gpt_params({k: v.detach() for k, v in params.items()}, 1)
+        stage_cfg = dataclasses.replace(model.config, attn_impl="auto")  # K5, as gpt_pp.run's stages
+        train = G.make_gpt_pipeline_train_fn(stage_cfg, model.config.n_layers, pp_mb, mesh.group("pipe"))
+        before = [fa.KERNEL.launches, fa.BWD_KERNELS[torch.float32].launches]
+        loss, (ge, g_stage, gf) = train(embed, stages[0], final, x, y)
+        launched = [fa.KERNEL.launches - before[0], fa.BWD_KERNELS[torch.float32].launches - before[1]]
+        if on_cuda and launched != [per_step, per_step]:
+            fail(f"gpt_pp against GPTLM: {launched} K5 launches (forward, backward), want {per_step} each")
+        got = {**ge, **gf, **{f"h.{j}.{k}": v[j] for k, v in g_stage.items() for j in range(model.config.n_layers)}}
+        record["vs_plain_gptlm_full_batch"] = {
+            **held("gpt_pp against GPTLM (einsum attention)", loss.item(), plain_loss.item(), got, plain),
+            "k5_launches_forward_backward": launched,
+        }
+        del model, params, plain, got, embed, stages, final
+    finally:
+        shutdown_distributed()
+    # save at the end of epoch 0 and resume: the final checkpoint (the
+    # whole carry) bitwise the uninterrupted run's
+    with tempfile.TemporaryDirectory() as root, deterministic_algorithms() as caught:
+        runs, dirs = {}, {"whole": os.path.join(root, "whole"), "split": os.path.join(root, "split")}
+        for label, epochs, ckpt in (("whole", 2, "whole"), ("first", 1, "split"), ("resumed", 2, "split")):
+            c = gpt_pp.default_config()
+            c.global_batch_size, c.training_epochs = pp_b, epochs
+            t0 = time.perf_counter()
+            result = gpt_pp.run(c, preset=preset, seq_len=pp_t, num_microbatches=pp_mb, device=dev,
+                                max_steps_per_epoch=2, checkpoint_dir=dirs[ckpt])
+            runs[label] = (result["losses"], time.perf_counter() - t0)
+        whole, resumed = (saved_leaves(latest_step_path(dirs[k])) for k in ("whole", "split"))
+        differ = sorted(set(whole) ^ set(resumed)) + [
+            k for k in whole if k in resumed and not (
+                torch.equal(whole[k], resumed[k]) if torch.is_tensor(whole[k]) else whole[k] == resumed[k]
+            )
+        ]
+        losses_ok = runs["resumed"][0] == runs["whole"][0][2:]
+        if differ or not losses_ok:
+            fail(f"gpt_pp resume: {len(differ)} saved leaves differ from the uninterrupted run's ({differ[:3]}),"
+                 f" losses {losses_ok}")
+        record["resume"] = {
+            "bitwise": True, "saved_leaves_compared": len(whole), "losses_whole": runs["whole"][0],
+            "losses_resumed": runs["resumed"][0], "run_s": {k: v[1] for k, v in runs.items()},
+            "nondeterministic_ops": sorted({str(w.message)[:120] for w in caught}),
+        }
+        del runs, whole, resumed
+    emit(record)
+
+    # ---- MoE: 8 local experts, capacity factor 2, PowerSGD on the replicated
+    # parameters (K1), top-1 and top-2 in fp32, top-1 in bf16 (K5 12 causal
+    # launches forward and backward a step, and 12 forward in the run's
+    # routing diagnostics after training)
+    moe_b, moe_t, moe_e = s["moe"]
+    record = {"phase": "main_path_gpt_moe", "preset": preset, "experts": moe_e, "global_batch": moe_b,
+              "seq_len": moe_t, "capacity_factor": MOE_FACTOR, "reducer": "powersgd", "steps": steps,
+              "nvidia_smi": smi, "runs": {}}
+    n_layers = G.GPTConfig().n_layers if full else 2
+    for name, top_k, dtype in (("gpt_moe_top1", 1, "float32"), ("gpt_moe_top2", 2, "float32"),
+                               ("gpt_moe_bf16", 1, "bfloat16")):
+        cfg = gpt_moe.default_config()
+        cfg.global_batch_size, cfg.compute_dtype = moe_b, dtype
+
+        def go(cfg=cfg, top_k=top_k):
+            return gpt_moe.run(cfg, preset=preset, experts_per_device=moe_e, reducer="powersgd", top_k=top_k,
+                               capacity_factor=MOE_FACTOR, seq_len=moe_t, device=dev, max_steps_per_epoch=steps)
+
+        groups = MOE_GROUPS if full else None
+        f, b = (fwd32, bwd32) if dtype == "float32" else (fwd16, bwd16)
+        w = {} if not on_cuda else {f: n_layers * (steps + 1), b: n_layers * steps, "gram_schmidt": steps * groups}
+        result, peak = drive(name, go, w)
+        if result["shape_groups"] != groups and on_cuda:
+            fail(f"{name}: {result['shape_groups']} shape groups, expected {groups}")
+        if on_cuda and any(kinds[name][k] and set(kinds[name][k]) != {"causal"} for k in (f, b)):
+            fail(f"{name}: K5 launches by kind {kinds[name]}")
+        record["runs"][name] = {
+            "top_k": top_k, "compute_dtype": dtype, "capacity": result["capacity"], "losses": result["losses"],
+            "final_ce": result["final_ce"], "final_aux_loss": result["final_aux_loss"],
+            "final_dropped_fraction": result["final_dropped_fraction"],
+            "dispatch_bytes_per_tensor_per_layer": result["dispatch_bytes_per_layer"],
+            **timing(result, moe_b * moe_t), "peak_memory_bytes": peak, **comms(result),
+            "shape_groups": result["shape_groups"], "launches": launches[name],
+            "k5_launches_by_kind": kinds[name],
+        }
+    group = initialize_distributed(DistributedConfig(), dev)
+    try:
+        world = make_mesh((1,), ("expert",)).group("expert")
+        mcfg = gpt_moe.moe_config(preset, moe_t, torch.float32)
+        base, routers, experts = gpt_moe.init_moe_params(mcfg, moe_e, 714)
+        params = {**{f"base/{k}": v for k, v in base.items()}, **{f"router/{k}": v for k, v in routers.items()},
+                  **{f"expert/{k}": v for k, v in experts.items()}}
+        leaves = {k: v.to(dev).requires_grad_(True) for k, v in params.items()}
+        x, y = first_batch(mcfg.vocab_size, moe_b, moe_t, 714)
+        capacity = max(1, int(MOE_FACTOR * moe_b * moe_t / moe_e))
+        pick = lambda p, pre: {k[len(pre):]: v for k, v in p.items() if k.startswith(pre)}  # noqa: E731
+        out = {}
+        for impl in ("flash", "einsum"):
+            attn = gpt_moe.attention_template(dataclasses.replace(mcfg, attn_impl=impl))
+            logits, aux, _ = gpt_moe.moe_gpt_forward(
+                mcfg, pick(leaves, "base/"), pick(leaves, "expert/"), pick(leaves, "router/"), x, capacity, world, 1, attn
+            )
+            loss = G.next_token_loss(logits, y) + 0.01 * aux
+            out[impl] = (loss.item(), grads_of(loss, leaves))
+        record["flash_vs_einsum_first_step"] = held(
+            "gpt_moe flash against einsum", out["flash"][0], out["einsum"][0], out["flash"][1], out["einsum"][1],
+        )
+        # switch_moe over the one-rank group (its all-to-alls through NCCL)
+        # against the single-process path: bit for bit
+        gen = torch.Generator().manual_seed(3)
+        h = torch.randn((moe_b * moe_t, mcfg.dim), generator=gen).to(dev)
+        layer = {k[len("h.0."):]: v.detach() for k, v in pick(params, "expert/").items() if k.startswith("h.0.")}
+        layer = {k: v.to(dev) for k, v in layer.items()}
+        router = routers["h.0"].to(dev)
+        a = switch_moe(h, router, layer, gpt_moe.expert_mlp, world, capacity)
+        b_ = switch_moe(h, router, layer, gpt_moe.expert_mlp, None, capacity)
+        if not all(torch.equal(u, v) for u, v in zip(a, b_)):
+            fail("switch_moe over a one-rank group differs from the single-process path")
+        record["switch_moe_world1_vs_single_process_bitwise"] = True
+        # K1 against plain Gram-Schmidt at the (g, n, r) of every shape group
+        # that gpt_moe's PowerSGD reducer makes of the replicated parameters
+        base_names = [k for k in params if not k.startswith("expert/")]
+        reducer = gpt_moe.make_reducer(gpt_moe.default_config(), "powersgd", base_names)
+        metas = reducer._metas([params[k] for k in base_names])
+        k1_errs = {}
+        for poss in reducer._shape_groups(metas):
+            shape = (len(poss), metas[poss[0]].n, metas[poss[0]].r)
+            p = torch.randn(shape, generator=gen).to(dev)
+            err = (gs.gram_schmidt(p) - orthogonalize(p)).abs().max().item()
+            if not err <= GS_TOL:
+                fail(f"gram_schmidt {shape} (gpt_moe's reducer): max |kernel - plain| = {err} > {GS_TOL}")
+            k1_errs[str(shape)] = err
+        if full and len(k1_errs) != MOE_GROUPS:
+            fail(f"gpt_moe's reducer: {len(k1_errs)} shape groups, expected {MOE_GROUPS}")
+        record["gram_schmidt_vs_plain"] = {"max_abs_err": k1_errs, "tolerance": GS_TOL}
+        del leaves, params, out
+    finally:
+        shutdown_distributed()
+    emit(record)
+
+
 def main() -> None:
     import torch
 
@@ -2307,6 +2720,9 @@ def main() -> None:
     # the serving shape trained (K5, K1) and hot-loaded by serve_gpt
     resilience_phases(dev, drive, launches, kinds, images, labels, len(group_shapes), smi)
 
+    # the model-parallel GPT entries at GPT-2 small widths on one card
+    model_parallel_phases(dev, drive, launches, kinds, smi)
+
     # ---- 4. two steps against two steps ---------------------------------------
     # with deterministic cuDNN and no TF32, so that only what is compared differs
     torch.backends.cudnn.deterministic = True
@@ -2577,6 +2993,8 @@ def main() -> None:
         "gpt2_small_fp32": "gpt_float32", "gpt2_small_bf16": "gpt_bfloat16",
         "resnet152_diloco": "diloco", "bandwidth_study": "bandwidth_study",
         "resnet152_resilient_resume": "resilient_resume", "gpt2_small_serve_hot_load": "serve_hot_load",
+        "gpt2_small_moe_top1": "gpt_moe_top1", "gpt2_small_moe_top2": "gpt_moe_top2",
+        "gpt2_small_moe_bf16": "gpt_moe_bf16",
     }
     kernels = [{
         "name": "gram_schmidt",
@@ -2621,8 +3039,13 @@ def main() -> None:
         **{f"imdb_baseline_{opt}": f"imdb_baseline_{opt}" for opt in imdb_baseline.OPTIMIZERS},
         "gpt2_small_fp32": "gpt_float32",
         "gpt2_small_serve_hot_load": "serve_hot_load",
+        "gpt2_small_pp": "gpt_pp",
+        "gpt2_small_moe_top1": "gpt_moe_top1",
+        "gpt2_small_moe_top2": "gpt_moe_top2",
     }
-    k5_bf16_paths = {"gpt2_small_bf16": "gpt_bfloat16", "distilbert_imdb_bf16": "imdb_bf16"}
+    k5_bf16_paths = {
+        "gpt2_small_bf16": "gpt_bfloat16", "distilbert_imdb_bf16": "imdb_bf16", "gpt2_small_moe_bf16": "gpt_moe_bf16",
+    }
 
     def by_kind(name, paths):
         total = {}
@@ -2641,7 +3064,9 @@ def main() -> None:
         "launches": sum(launches[path]["flash_attention"] for path in k5_paths.values()),
         "launches_by_path": {name: launches[path]["flash_attention"] for name, path in k5_paths.items()},
         "launches_by_kind": by_kind("flash_attention", k5_paths),
-        "max_abs_err": max(attn_row["max_abs_err"], bf16_report["gpt_causal_fp32"]["max_abs_err"]),
+        "max_abs_err": max(
+            attn_row["max_abs_err"], *(r["max_abs_err"] for n, r in bf16_report.items() if n.endswith("fp32"))
+        ),
         # one step's launches on the first IMDb batch's mask; SDPA given the same additive mask
         **k5,
         "device_ms_in_path_profile": profiles["imdb"]["kernels"]["flash_attention"]["device_ms_per_step"],

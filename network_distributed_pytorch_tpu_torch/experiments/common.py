@@ -1,15 +1,17 @@
 """Shared experiment machinery: the reducers' keyword arguments, batches,
 the loss, the epoch/step loop and its checkpointed form
-(:func:`resilient_train_loop`), evaluation and the run summary."""
+(:func:`resilient_train_loop`), the model-parallel experiments' loop over a
+hand-written step (:func:`carry_loop`), evaluation and the run summary."""
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import math
 import os
 import time
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,10 +20,11 @@ from torch import nn
 
 from ..data.cifar10 import load_cifar10_or_synthetic
 from ..data.loader import iterate_batches
-from ..parallel.comm import agree, world_size
+from ..parallel.comm import CollectiveRecord, agree, record_collectives, world_size
 from ..parallel.localsgd import mean_model_state
 from ..parallel.mesh import DistributedConfig, initialize_distributed, shutdown_distributed
 from ..parallel.trainer import TrainState, TrainStep
+from ..utils.checkpoint import restore_latest, save_checkpoint
 from ..utils.losses import cross_entropy_loss
 from ..utils.metrics import MetricsLogger
 
@@ -211,6 +214,91 @@ def train_loop(
     return state, logger
 
 
+@dataclasses.dataclass
+class Carry:
+    """The state a model-parallel experiment's step threads from step to
+    step. Every field is this rank's own (a stage, a shard, local experts,
+    this data worker's error memories), so each rank checkpoints all of it
+    in its own file."""
+
+    PER_RANK_FIELDS = ("params", "momenta", "memories", "reducer_state")
+    params: Dict[str, torch.Tensor]
+    momenta: Dict[str, torch.Tensor]
+    memories: Dict[str, torch.Tensor]
+    reducer_state: Any
+
+
+def collective_audit(records: Sequence[CollectiveRecord]) -> Dict[str, Any]:
+    """The JAX package's ``collective_summary`` of one step, from what
+    :func:`..parallel.comm.record_collectives` saw: the count and payload
+    bytes of each kind, and their total."""
+    kinds = sorted({r.kind for r in records})
+    return {
+        "count": len(records),
+        "by_kind": {k: sum(1 for r in records if r.kind == k) for k in kinds},
+        "bytes_by_kind": {k: sum(r.payload_bytes for r in records if r.kind == k) for k in kinds},
+        "total_payload_bytes": sum(r.payload_bytes for r in records),
+    }
+
+
+def carry_loop(
+    step_fn: Callable[[Any, torch.Tensor, torch.Tensor], Tuple[Any, torch.Tensor]],
+    carry: Any,
+    batches_for_epoch: Callable[[int], Iterator[Tuple[np.ndarray, np.ndarray]]],
+    epochs: int,
+    local_batch: Callable[[Tuple[np.ndarray, np.ndarray]], Tuple[np.ndarray, np.ndarray]],
+    device: torch.device,
+    rank: int = 0,
+    log_every: int = 0,
+    checkpoint_dir: Optional[str] = None,
+    group=None,
+) -> Tuple[Any, MetricsLogger, Optional[Dict[str, Any]]]:
+    """The loop of a hand-written ``step_fn(carry, x, y) -> (carry, loss)``
+    (the model-parallel experiments), the JAX package's
+    ``audited_carry_loop``. ``local_batch`` cuts this rank's part out of a
+    global batch. The first step runs under
+    :func:`..parallel.comm.record_collectives`, and its records are the
+    audit (:func:`collective_audit`) and the bits a step, in place of the
+    compiled step's HLO. The loss reaches the host once a step; on CUDA a
+    pair of events around the step gives its device time.
+
+    With ``checkpoint_dir`` the carry (a :class:`Carry`) is saved at every
+    epoch boundary through ``utils.checkpoint.save_checkpoint`` by every
+    rank of ``group``, and the newest committed checkpoint is restored on
+    entry (``restore_latest``), so a run that stops between epochs resumes
+    where it stopped. Returns ``(carry, logger, audit)``; the audit is None
+    when no step ran."""
+    start_epoch = 0
+    if checkpoint_dir is not None:
+        resumed = restore_latest(checkpoint_dir, carry, group=group)
+        if resumed is not None:
+            carry, done = resumed
+            start_epoch = done + 1
+    logger = MetricsLogger(log_every=log_every)
+    audit = None
+    on_cuda = device.type == "cuda"
+    for epoch in range(start_epoch, epochs):
+        for batch in batches_for_epoch(epoch):
+            x, y = (torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in local_batch(batch))
+            logger.start_step()
+            if on_cuda:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+            with record_collectives() if audit is None else contextlib.nullcontext() as records:
+                carry, loss = step_fn(carry, x, y)
+            if on_cuda:
+                end.record()
+            loss = loss.item()  # waits for the step
+            if audit is None:
+                audit = collective_audit(records)
+                logger.bits_per_step = 8 * audit["total_payload_bytes"]
+            logger.end_step(epoch, loss, start.elapsed_time(end) if on_cuda else None)
+        logger.end_epoch(epoch, rank=rank)
+        if checkpoint_dir is not None:
+            save_checkpoint(checkpoint_dir, carry, step=epoch, group=group)
+    return carry, logger, audit
+
+
 def resilient_train_loop(
     step: TrainStep,
     init_state: TrainState,
@@ -272,7 +360,7 @@ def resilient_train_loop(
     logger, start_epoch)``."""
     from ..observe import FailureEvent, NoteEvent
     from ..resilience.guards import CKPT_UNWRITABLE_EXIT_CODE, CheckpointUnwritableError
-    from ..utils.checkpoint import read_topology, restore_latest, save_checkpoint
+    from ..utils.checkpoint import read_topology
     from ..utils.failure import StepWatchdog
 
     for name, value in (("chaos_plan", chaos_plan), ("trace_dir", trace_dir), ("audit", audit or None),

@@ -19,6 +19,10 @@ Usage, one process per rank (torchrun sets ``RANK``, ``WORLD_SIZE``,
     python -m network_distributed_pytorch_tpu_torch.launch serve_gpt --preset full --checkpoint-dir ckpt
     python -m network_distributed_pytorch_tpu_torch.launch bare_init
     torchrun --nproc-per-node 4 -m network_distributed_pytorch_tpu_torch.launch powersgd_cifar10
+    torchrun --nproc-per-node 4 -m network_distributed_pytorch_tpu_torch.launch gpt_tp --model-shards 2 --tp-reducer powersgd
+    torchrun --nproc-per-node 4 -m network_distributed_pytorch_tpu_torch.launch gpt_sp --preset full
+    torchrun --nproc-per-node 4 -m network_distributed_pytorch_tpu_torch.launch gpt_pp --data-shards 2 --checkpoint-dir ckpt
+    torchrun --nproc-per-node 4 -m network_distributed_pytorch_tpu_torch.launch gpt_moe --experts-per-device 2 --moe-top-k 2
 
 The last line of standard output is the run summary as JSON. A worker of
 ``exact_cifar10 --checkpoint-dir`` that is sent SIGTERM commits an
@@ -42,6 +46,10 @@ from .experiments import (
     exact_cifar10,
     gpt_generate,
     gpt_lm,
+    gpt_moe,
+    gpt_pp,
+    gpt_sp,
+    gpt_tp,
     imdb_baseline,
     powersgd_cifar10,
     powersgd_imdb,
@@ -63,6 +71,10 @@ EXPERIMENTS = {
     "exact_cifar10": exact_cifar10,
     "gpt_generate": gpt_generate,
     "gpt_lm": gpt_lm,
+    "gpt_moe": gpt_moe,
+    "gpt_pp": gpt_pp,
+    "gpt_sp": gpt_sp,
+    "gpt_tp": gpt_tp,
     "imdb_baseline": imdb_baseline,
     "powersgd_cifar10": powersgd_cifar10,
     "powersgd_imdb": powersgd_imdb,
@@ -78,9 +90,14 @@ _BUCKETS_OK = ("exact_cifar10",)
 _GENERATE_OK = ("gpt_generate",)
 _SERVE_OK = ("serve_gpt",)
 _DILOCO_OK = ("diloco_cifar10",)
-_CHECKPOINT_OK = ("exact_cifar10", "serve_gpt")
+_CHECKPOINT_OK = ("exact_cifar10", "serve_gpt", "gpt_pp", "gpt_sp")
+# the model-parallel GPT entries' own flags, as the JAX launcher gives them
+_TP_OK, _PP_OK, _MOE_OK = ("gpt_tp",), ("gpt_pp",), ("gpt_moe",)
 # the experiments whose epochs of steps --max-steps-per-epoch caps
-_STEPS_OK = ("diloco_cifar10", "exact_cifar10", "gpt_lm", "imdb_baseline", "powersgd_cifar10", "powersgd_imdb")
+_STEPS_OK = (
+    "diloco_cifar10", "exact_cifar10", "gpt_lm", "gpt_moe", "gpt_pp", "gpt_sp", "gpt_tp", "imdb_baseline",
+    "powersgd_cifar10", "powersgd_imdb",
+)
 # the JAX launcher's gpt_generate defaults
 DEFAULT_MAX_NEW_TOKENS, DEFAULT_TEMPERATURE = 64, 0.0
 # serve_gpt's defaults where a flag is not given, as in the JAX launcher
@@ -206,7 +223,41 @@ def build_parser() -> argparse.ArgumentParser:
         "--checkpoint-dir", type=str, default=None,
         help="exact_cifar10: train through the checkpointed loop (a committed checkpoint an epoch, resume"
              " on entry, SIGTERM -> emergency checkpoint and exit 75); serve_gpt: hot-load the parameters"
-             " of the newest committed training checkpoint",
+             " of the newest committed training checkpoint; gpt_pp, gpt_sp: save the carry every epoch and"
+             " resume the newest",
+    )
+    # --- the model-parallel GPT entries -----------------------------------
+    p.add_argument(
+        "--model-shards", type=int, default=None,
+        help="gpt_tp only: tensor-parallel shards, mesh ('data', 'model') (default 4)",
+    )
+    p.add_argument(
+        "--tp-reducer", choices=list(gpt_tp.REDUCERS), default=None,
+        help="gpt_tp only: data-axis gradient reduction when ranks > --model-shards (default exact)",
+    )
+    p.add_argument(
+        "--vocab-parallel", action="store_true",
+        help="gpt_tp only: shard the tied token table over vocabulary rows and compute the CE without"
+             " full-vocabulary logits",
+    )
+    p.add_argument(
+        "--data-shards", type=int, default=None,
+        help="gpt_pp only: data parallelism over the pipeline, mesh ('data', 'pipe') (default 1)",
+    )
+    p.add_argument(
+        "--pp-reducer", choices=list(gpt_pp.REDUCERS), default=None,
+        help="gpt_pp only: cross-shard gradient reduction when --data-shards > 1 (default exact)",
+    )
+    p.add_argument(
+        "--experts-per-device", type=int, default=None,
+        help="gpt_moe only: local experts a rank (total = ranks x this) (default 1)",
+    )
+    p.add_argument(
+        "--moe-reducer", choices=list(gpt_moe.REDUCERS), default=None,
+        help="gpt_moe only: reduction of the replicated (non-expert) parameters (default exact)",
+    )
+    p.add_argument(
+        "--moe-top-k", type=int, default=None, help="gpt_moe only: experts a token (1 Switch, 2 GShard) (default 1)"
     )
     return p
 
@@ -264,6 +315,14 @@ def main(argv=None) -> dict:
         ),
         ("--checkpoint-dir", args.checkpoint_dir, _CHECKPOINT_OK),
         ("--no-prefix-sharing", args.no_prefix_sharing or None, _SERVE_OK),
+        ("--model-shards", args.model_shards, _TP_OK),
+        ("--tp-reducer", args.tp_reducer, _TP_OK),
+        ("--vocab-parallel", args.vocab_parallel or None, _TP_OK),
+        ("--data-shards", args.data_shards, _PP_OK),
+        ("--pp-reducer", args.pp_reducer, _PP_OK),
+        ("--experts-per-device", args.experts_per_device, _MOE_OK),
+        ("--moe-reducer", args.moe_reducer, _MOE_OK),
+        ("--moe-top-k", args.moe_top_k, _MOE_OK),
     ):
         if value is not None and exp not in ok:
             raise ValueError(f"{flag} is not supported by {exp!r} (supported: {', '.join(ok)})")
@@ -287,8 +346,19 @@ def main(argv=None) -> dict:
         for name, default in SERVE_DEFAULTS.items():
             value = getattr(args, name)
             kwargs[name] = default if value is None else value
-    elif exp == "gpt_lm":
+    elif exp in ("gpt_lm", "gpt_moe", "gpt_pp", "gpt_sp", "gpt_tp"):
         kwargs.update(preset=args.preset, max_steps_per_epoch=args.max_steps_per_epoch)
+        for name, value in {
+            "gpt_tp": (("model_shards", args.model_shards), ("reducer", args.tp_reducer),
+                       ("vocab_parallel", args.vocab_parallel or None)),
+            "gpt_pp": (("data_shards", args.data_shards), ("reducer", args.pp_reducer),
+                       ("checkpoint_dir", args.checkpoint_dir)),
+            "gpt_sp": (("checkpoint_dir", args.checkpoint_dir),),
+            "gpt_moe": (("experts_per_device", args.experts_per_device), ("reducer", args.moe_reducer),
+                        ("top_k", args.moe_top_k)),
+        }.get(exp, ()):
+            if value is not None:
+                kwargs[name] = value
     elif exp == "bandwidth_study":
         kwargs.update(preset=args.preset, global_batch=cfg.global_batch_size)
     elif exp != "bare_init":

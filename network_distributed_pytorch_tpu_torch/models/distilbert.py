@@ -27,6 +27,11 @@ validity flag. ``attn_impl``:
   own chip, except in training with attention dropout, where it stays on
   ``"einsum"`` so that "auto" never changes the math.
 
+With ``seq_axis`` (a process group: the mesh axis the sequence is sharded
+over) attention is ``seq_impl``'s exact schedule, ring or Ulysses
+(``parallel/sequence.py``), positions are offset by this rank's block, and
+attention dropout in training is refused, as in the JAX model.
+
 Weights are drawn on the CPU from an explicit ``torch.Generator``
 (HuggingFace's init: normal with std 0.02 for the dense and embedding
 weights, zero biases, unit LayerNorm scales) and then moved to ``device``,
@@ -40,11 +45,13 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention
 from ..parallel.mesh import resolve_device
+from ..parallel.sequence import ring_attention, ulysses_attention
 from ..utils.config import ATTN_IMPLS
 from .layers import check_compute_dtype, dense, embed, layer_norm, score_scale
 
@@ -64,9 +71,12 @@ class DistilBertConfig:
     attention_dropout: float = 0.1
     num_labels: int = 2
     dtype: Any = torch.float32
-    # sequence parallelism and rematerialization keep their slots; setting
-    # either raises until they are ported
+    # sequence parallelism: the process group the sequence is sharded over
+    # (a mesh axis) and the exact schedule that attends across it
+    # (``parallel/sequence.py``); rematerialization keeps its slot and
+    # raises until it is ported
     seq_axis: Any = None
+    seq_impl: str = "ring"
     attn_impl: str = "auto"
     remat: bool = False
 
@@ -76,8 +86,8 @@ class DistilBertConfig:
         if self.dim % self.n_heads:
             raise ValueError(f"dim {self.dim} does not split into {self.n_heads} heads")
         check_compute_dtype(self.dtype)
-        if self.seq_axis is not None:
-            raise NotImplementedError("DistilBertConfig.seq_axis (sequence parallelism) is not ported yet")
+        if self.seq_impl not in ("ring", "ulysses"):
+            raise ValueError(f"DistilBertConfig.seq_impl must be 'ring' or 'ulysses', got {self.seq_impl!r}")
         if self.remat:
             raise NotImplementedError("DistilBertConfig.remat is not ported yet")
 
@@ -95,6 +105,13 @@ class MultiHeadSelfAttention(nn.Module):
     def _attn_impl(self, deterministic: bool) -> str:
         cfg = self.config
         dropping = not deterministic and cfg.attention_dropout > 0.0
+        if cfg.seq_axis is not None:
+            if dropping:
+                raise ValueError(
+                    "attention_dropout > 0 cannot be applied on the sequence-parallel attention path"
+                    " (the weight matrix is never materialized). Set attention_dropout=0.0."
+                )
+            return cfg.seq_impl
         if cfg.attn_impl == "auto":
             # flash cannot dropout-mask the attention weights
             return "einsum" if dropping else "flash"
@@ -116,7 +133,11 @@ class MultiHeadSelfAttention(nn.Module):
 
         dt = cfg.dtype
         q, k, v = (split(dense(lin, x, dt)) for lin in (self.q_lin, self.k_lin, self.v_lin))
-        if self._attn_impl(deterministic) == "flash":
+        impl = self._attn_impl(deterministic)
+        if impl in ("ring", "ulysses"):
+            schedule = ring_attention if impl == "ring" else ulysses_attention
+            ctx = schedule(q, k, v, cfg.seq_axis, mask=mask)
+        elif impl == "flash":
             ctx = flash_attention(q, k, v, mask=mask.float())
         else:
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / score_scale(head_dim, dt)
@@ -171,6 +192,8 @@ class DistilBertEncoder(nn.Module):
         dt = cfg.dtype
         emb = self.embeddings
         positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
+        if cfg.seq_axis is not None:  # global positions: offset by this rank's block
+            positions = positions + dist.get_rank(cfg.seq_axis) * input_ids.shape[1]
         x = embed(emb["word_embeddings"], input_ids, dt) + embed(emb["position_embeddings"], positions, dt)
         x = layer_norm(emb["LayerNorm"], x, dt)
         x = F.dropout(x, cfg.dropout, training=not deterministic)

@@ -33,9 +33,25 @@ logits leave in fp32. ``attn_impl``:
 ``deterministic`` defaults to True, as the JAX model's ``__call__`` does:
 ``experiments/gpt_lm.py`` trains without dropout, so its steps run flash.
 
-Sequence parallelism (``seq_axis``, ``seq_impl``), ``remat`` and
-``scan_layers`` keep their slots and raise until they are ported; the
-tensor- and pipeline-parallel helpers are not here.
+Sequence parallelism: ``seq_axis`` is the process group the sequence is
+sharded over (a mesh axis, ``ProcessMesh.group("seq")``), and attention
+runs ``seq_impl``'s exact schedule from ``parallel/sequence.py``
+(``"ring"`` or ``"ulysses"``, plain PyTorch, no attention-weight dropout)
+with positions offset by ``axis_index * T_local``. ``remat`` and
+``scan_layers`` keep their slots and raise until they are ported.
+
+Below the model, the JAX package's model-parallel halves of the GPT on
+parameter dicts keyed by the port's names (``model.state_dict()``'s):
+the pipeline decomposition (:func:`split_gpt_params`,
+:func:`make_gpt_stage_fn`, :func:`gpt_embed_apply`, :func:`gpt_head_apply`,
+:func:`make_gpt_pipeline_train_fn`) and Megatron tensor parallelism
+(:func:`gpt_tp_param_specs`, :func:`tp_gpt_block_apply`,
+:func:`vocab_parallel_embed`, :func:`vocab_parallel_next_token_loss`,
+:func:`tp_gpt_forward`, :func:`make_gpt_tp_stage_fn`). A pipeline stage
+runs the model's own :class:`GPTBlock` (``torch.func.functional_call``),
+so a stage computes what ``GPTLM`` does, flash attention included. The TP
+block computes as the JAX function does: its products promote
+(``parallel/tensor.py``) and its attention is the einsum form.
 
 Weights are drawn on the CPU from an explicit ``torch.Generator`` (GPT-2's
 init: normal with std 0.02, the residual projections ``out_proj`` and
@@ -50,20 +66,27 @@ import contextlib
 import copy
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from ..ops.flash_attention import flash_attention
 from ..ops.paged import gather_block_view, scatter_token_rows
+from ..parallel.comm import all_gather, copy_to_axis, reduce_from_axis, world_size
 from ..parallel.mesh import resolve_device
+from ..parallel.pipeline import local_stage, make_pipeline_train_fn, stacked_stage_params
+from ..parallel.sequence import ring_attention, ulysses_attention
+from ..parallel.tensor import column_parallel_dense, row_parallel_dense, tp_mlp
 from ..utils.config import ATTN_IMPLS
 from .layers import attend, check_compute_dtype, dense, embed, layer_norm, score_scale
 
 _LN_EPS = 1e-5
 _INIT_STD = 0.02
+SEQ_IMPLS = ("ring", "ulysses")
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -90,8 +113,10 @@ class GPTConfig:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
         if self.dim % self.n_heads:
             raise ValueError(f"dim {self.dim} does not split into {self.n_heads} heads")
-        for name, default in (("seq_axis", None), ("seq_impl", "ring"), ("remat", False), ("scan_layers", False)):
-            if getattr(self, name) != default:
+        if self.seq_impl not in SEQ_IMPLS:
+            raise ValueError(f"GPTConfig.seq_impl must be one of {SEQ_IMPLS}, got {self.seq_impl!r}")
+        for name in ("remat", "scan_layers"):
+            if getattr(self, name):
                 raise NotImplementedError(f"GPTConfig.{name} is not ported yet")
 
     @property
@@ -125,7 +150,10 @@ class CausalSelfAttention(nn.Module):
             return y.reshape(b, t, cfg.n_heads, cfg.head_dim)
 
         q, k, v = (split(dense(lin, x, dt)) for lin in (self.q_proj, self.k_proj, self.v_proj))
-        if self._attn_impl(deterministic) == "flash":
+        if cfg.seq_axis is not None:
+            schedule = ring_attention if cfg.seq_impl == "ring" else ulysses_attention
+            ctx = schedule(q, k, v, cfg.seq_axis, causal=True)
+        elif self._attn_impl(deterministic) == "flash":
             ctx = flash_attention(q, k, v, causal=True)
         else:
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / score_scale(cfg.head_dim, dt)
@@ -196,7 +224,7 @@ class GPTLM(nn.Module):
     def forward(self, input_ids: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         cfg = self.config
         dt = cfg.dtype
-        positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
+        positions = gpt_position_ids(cfg, input_ids)
         x = embed(self.wte, input_ids, dt) + embed(self.wpe, positions, dt)
         x = F.dropout(x, cfg.dropout, training=not deterministic)
         for block in self.h:
@@ -225,6 +253,325 @@ def next_token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross-entropy; ``labels`` already shifted host-side."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, labels.long()[..., None]).mean()
+
+
+def gpt_position_ids(config: GPTConfig, input_ids: torch.Tensor) -> torch.Tensor:
+    """Position ids ``(1, T)`` of a token block: offset by this rank's index
+    on ``seq_axis`` times the block's length when the sequence is sharded."""
+    t = input_ids.shape[1]
+    positions = torch.arange(t, device=input_ids.device)[None, :]
+    if config.seq_axis is not None:
+        positions = positions + dist.get_rank(config.seq_axis) * t
+    return positions
+
+
+# ---- pipeline-parallel decomposition ----------------------------------------
+#
+# A GPT splits into the embedding front (cheap, on every pipe rank), N stages
+# of n_layers / N blocks (pipelined over the 'pipe' axis), and the final
+# LayerNorm with the tied head. Parameters are dicts of the port's names;
+# a stage's dict holds block-relative names ("attn.q_proj.weight") stacked
+# over the stage's layers.
+
+Params = Dict[str, torch.Tensor]
+_BLOCK_PREFIX = "h."
+
+
+def _block_template(config: GPTConfig) -> GPTBlock:
+    """A :class:`GPTBlock` with no storage, to apply with another block's
+    parameters (``functional_call``)."""
+    with torch.device("meta"):
+        return GPTBlock(config)
+
+
+def split_gpt_params(params: Params, n_stages: int) -> Tuple[Params, List[Params], Params]:
+    """Split a ``GPTLM`` parameter dict into ``(embed, stages, final)``:
+    ``embed`` holds ``wte.weight`` (the tied head too) and ``wpe.weight``,
+    ``stages[s]`` stage ``s``'s blocks stacked on a leading layer axis,
+    ``final`` ``ln_f``'s weight and bias."""
+    n_layers = 1 + max(int(k.split(".")[1]) for k in params if k.startswith(_BLOCK_PREFIX))
+    if n_layers % n_stages:
+        raise ValueError(f"{n_layers} layers do not split into {n_stages} equal stages")
+    per = n_layers // n_stages
+    embed = {k: params[k] for k in ("wte.weight", "wpe.weight")}
+    final = {k: params[k] for k in ("ln_f.weight", "ln_f.bias")}
+    names = [k[len("h.0."):] for k in params if k.startswith("h.0.")]
+    stages = []
+    for s in range(n_stages):
+        blocks = [{n: params[f"h.{s * per + j}.{n}"] for n in names} for j in range(per)]
+        stages.append(stacked_stage_params(blocks))
+    return embed, stages, final
+
+
+def make_gpt_stage_fn(config: GPTConfig, layers_per_stage: int) -> Callable[[Params, torch.Tensor], torch.Tensor]:
+    """``stage_fn(stage_params, x)`` applying the stage's blocks in turn,
+    each the model's own :class:`GPTBlock` without dropout. Refuses a
+    config with dropout: the schedules have no per-microbatch random
+    state."""
+    if config.dropout > 0:
+        raise ValueError("pipeline stages run deterministically (no dropout rng plumbing); use dropout=0.0")
+    block = _block_template(config)
+
+    def stage_fn(p: Params, x: torch.Tensor) -> torch.Tensor:
+        for j in range(layers_per_stage):
+            x = functional_call(block, local_stage(p, j), (x, True))
+        return x
+
+    return stage_fn
+
+
+def _table_rows(config: GPTConfig, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return F.embedding(ids, table.to(config.dtype))
+
+
+def gpt_position_embed(config: GPTConfig, wpe: torch.Tensor, input_ids: torch.Tensor) -> torch.Tensor:
+    """The position table's rows for ``input_ids`` (``seq_axis``-aware)."""
+    return _table_rows(config, wpe, gpt_position_ids(config, input_ids))
+
+
+def gpt_embed_apply(config: GPTConfig, embed: Params, input_ids: torch.Tensor) -> torch.Tensor:
+    """The embedding front: token ids -> the first block's input, as
+    ``GPTLM.forward`` computes it without dropout."""
+    return _table_rows(config, embed["wte.weight"], input_ids) + gpt_position_embed(
+        config, embed["wpe.weight"], input_ids
+    )
+
+
+def gpt_head_matmul(config: GPTConfig, ln_f: Params, wte_matrix: torch.Tensor, x: torch.Tensor, group=None):
+    """Final LayerNorm, then the tied head's product with ``wte_matrix``
+    (the whole table, or this rank's vocabulary rows: then ``group`` is the
+    model axis, and the replicated input's gradient is summed over it)."""
+    x = F.layer_norm(x.float(), (config.dim,), ln_f["weight"], ln_f["bias"], _LN_EPS).to(config.dtype)
+    x = copy_to_axis(x, group)
+    return F.linear(x, wte_matrix.to(config.dtype)).float()
+
+
+def gpt_head_apply(config: GPTConfig, final: Params, embed: Params, x: torch.Tensor) -> torch.Tensor:
+    """The head: final LayerNorm and the logits of the tied table, fp32."""
+    ln_f = {"weight": final["ln_f.weight"], "bias": final["ln_f.bias"]}
+    return gpt_head_matmul(config, ln_f, embed["wte.weight"], x)
+
+
+def _sum_over(trees: List[Params], group) -> List[Params]:
+    """Sum every leaf of ``trees`` over ``group`` in one all-reduce."""
+    if group is None:
+        return trees
+    flat = torch.cat([v.reshape(-1).float() for t in trees for v in t.values()])
+    flat = reduce_from_axis(flat, group)
+    out, at = [], 0
+    for t in trees:
+        d = {}
+        for k, v in t.items():
+            d[k] = flat[at : at + v.numel()].view(v.shape).to(v.dtype)
+            at += v.numel()
+        out.append(d)
+    return out
+
+
+def make_gpt_pipeline_train_fn(
+    config: GPTConfig,
+    layers_per_stage: int,
+    num_microbatches: int,
+    group,
+    stage_fn: Optional[Callable[[Params, torch.Tensor], torch.Tensor]] = None,
+):
+    """Full-model 1F1B training: every parameter gets its gradient.
+
+    The head and final LayerNorm are the schedule's loss parameters (their
+    gradients arrive on the last stage, the tied ``wte``'s head part
+    among them); the embedding's gradients come from the pipeline input's
+    gradient on stage 0, through the embedding front's backward. One
+    all-reduce over ``group`` (the ``pipe`` axis) sums both ends, so
+    ``embed`` and ``final`` gradients and the loss are the same on every
+    pipe rank, as the JAX function's psums make them.
+
+    Returns ``fn(embed, stage_params, final, ids, labels) -> (loss,
+    (embed_grads, stage_grads, final_grads))``, with this rank's stage.
+    ``stage_fn=make_gpt_tp_stage_fn(...)`` tensor-shards each stage over a
+    ``model`` axis as well: the 3-D ``data x pipe x model`` composition."""
+    if stage_fn is None:
+        stage_fn = make_gpt_stage_fn(config, layers_per_stage)
+
+    def mb_loss(lp, y, labels):  # lp: the tied table and ln_f
+        return next_token_loss(gpt_head_apply(config, lp, lp, y), labels)
+
+    pipe = make_pipeline_train_fn(
+        stage_fn, mb_loss, group, num_microbatches, loss_has_params=True, return_input_grads=True
+    )
+
+    def fn(embed: Params, stage_params: Params, final: Params, ids: torch.Tensor, labels: torch.Tensor):
+        e = {k: v.detach().requires_grad_(True) for k, v in embed.items()}
+        x = gpt_embed_apply(config, e, ids)
+        loss, stage_grads, dlp, dx = pipe(
+            stage_params, {"wte.weight": embed["wte.weight"], **final}, x.detach(), labels
+        )
+        first = group is None or dist.get_rank(group) == 0
+        if first:  # the embedding's own backward, on the stage that holds dx
+            torch.autograd.backward(x, grad_tensors=dx)
+        d_embed = {k: v.grad if v.grad is not None else torch.zeros_like(v) for k, v in e.items()}
+        d_embed["wte.weight"] = d_embed["wte.weight"] + dlp.pop("wte.weight")
+        d_embed, d_final = _sum_over([d_embed, dlp], group)
+        return loss, (d_embed, stage_grads, d_final)
+
+    return fn
+
+
+# ---- tensor parallelism ---------------------------------------------------------
+#
+# Megatron TP over a 'model' axis on a parameter dict of shards: q/k/v and
+# mlp_fc weights column-sharded (rows of the (out, in) weight: head groups,
+# since heads are contiguous head_dim blocks of the output features) with
+# their biases, out_proj and mlp_proj weights row-sharded (columns: input
+# features) with their biases replicated, LayerNorms and positions
+# replicated; the tied token table replicated, or vocabulary-sharded
+# (rows) with vocab_parallel. Two all-reduces a block forward, two
+# backward.
+
+_COLUMN = ("attn.q_proj", "attn.k_proj", "attn.v_proj", "mlp_fc")
+_ROW = ("attn.out_proj", "mlp_proj")
+
+
+def gpt_tp_param_specs(config: GPTConfig, vocab_parallel: bool = False) -> Dict[str, Optional[int]]:
+    """The dimension each ``GPTLM`` parameter is sharded on over the model
+    axis (None: replicated), by name."""
+    specs: Dict[str, Optional[int]] = {
+        "wte.weight": 0 if vocab_parallel else None, "wpe.weight": None, "ln_f.weight": None, "ln_f.bias": None,
+    }
+    for i in range(config.n_layers):
+        for ln in ("ln_1", "ln_2"):
+            specs[f"h.{i}.{ln}.weight"] = specs[f"h.{i}.{ln}.bias"] = None
+        for name in _COLUMN:
+            specs[f"h.{i}.{name}.weight"] = specs[f"h.{i}.{name}.bias"] = 0
+        for name in _ROW:
+            specs[f"h.{i}.{name}.weight"], specs[f"h.{i}.{name}.bias"] = 1, None
+    return specs
+
+
+def tp_shard(params: Params, specs: Dict[str, Optional[int]], index: int, n: int) -> Params:
+    """Rank ``index`` of ``n``'s shard of every parameter: the ``index``-th
+    of ``n`` equal slices along its spec's dimension, or the whole tensor."""
+    out = {}
+    for name, t in params.items():
+        dim = specs[name]
+        out[name] = t if dim is None else t.chunk(n, dim=dim)[index]
+    return out
+
+
+def _ln(config: GPTConfig, p: Params, name: str, x: torch.Tensor) -> torch.Tensor:
+    return F.layer_norm(x.float(), (config.dim,), p[f"{name}.weight"], p[f"{name}.bias"], _LN_EPS).to(config.dtype)
+
+
+def tp_gpt_block_apply(config: GPTConfig, p: Params, x: torch.Tensor, group) -> torch.Tensor:
+    """One GPT block, tensor-parallel over ``group`` (the model axis), on
+    this rank's shards ``p`` (block-relative names): head-sharded attention
+    (column-parallel q/k/v, the local heads, row-parallel out projection:
+    one all-reduce) and the column -> row MLP (one more). LayerNorms and
+    residuals run on the replicated stream on every rank. Deterministic,
+    the einsum attention with a causal mask."""
+    n = world_size(group)
+    if config.n_heads % n:
+        raise ValueError(f"{n} model shards do not divide n_heads={config.n_heads}")
+    local_heads = config.n_heads // n
+    hd = config.head_dim
+    h = copy_to_axis(_ln(config, p, "ln_1", x), group)
+    q, k, v = (
+        column_parallel_dense(h, p[f"attn.{name}.weight"], p[f"attn.{name}.bias"]).reshape(
+            x.shape[0], x.shape[1], local_heads, hd
+        )
+        for name in ("q_proj", "k_proj", "v_proj")
+    )
+    t = x.shape[1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / score_scale(hd, config.dtype)
+    causal = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
+    scores = scores.masked_fill(~causal, float("-inf"))
+    weights = torch.softmax(scores.float(), dim=-1).to(config.dtype)
+    dt = torch.promote_types(weights.dtype, v.dtype)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", weights.to(dt), v.to(dt)).reshape(x.shape[0], t, local_heads * hd)
+    x = x + row_parallel_dense(ctx, p["attn.out_proj.weight"], p["attn.out_proj.bias"], group)
+    h = _ln(config, p, "ln_2", x)
+    return x + tp_mlp(
+        h, p["mlp_fc.weight"], p["mlp_fc.bias"], p["mlp_proj.weight"], p["mlp_proj.bias"], group,
+        activation=lambda a: F.gelu(a, approximate="tanh"),
+    )
+
+
+def vocab_parallel_embed(config: GPTConfig, wte_shard: torch.Tensor, input_ids: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's vocabulary-parallel embedding: each rank looks up the ids
+    in its row range (zeros elsewhere), and one all-reduce assembles the
+    replicated embedding."""
+    local_v = wte_shard.shape[0]
+    local_ids = input_ids.long() - _rank(group) * local_v
+    in_range = (local_ids >= 0) & (local_ids < local_v)
+    rows = F.embedding(local_ids.clamp(0, local_v - 1), wte_shard.to(config.dtype))
+    rows = torch.where(in_range[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return reduce_from_axis(rows, group)
+
+
+def vocab_parallel_next_token_loss(logits_shard: torch.Tensor, labels: torch.Tensor, group) -> torch.Tensor:
+    """Mean next-token cross-entropy over vocabulary-sharded logits
+    ``(..., V / N)`` without the full-vocabulary row: the global max (a
+    stabiliser whose terms cancel, so it carries no gradient) from an
+    all-gather of the local maxima, then the sum of exponentials and the
+    target logit each summed over the axis. Equals :func:`next_token_loss`
+    on the assembled logits."""
+    logits_shard = logits_shard.float()
+    local_v = logits_shard.shape[-1]
+    with torch.no_grad():
+        m = all_gather(logits_shard.amax(dim=-1), group).amax(dim=0)
+    sumexp = reduce_from_axis(torch.exp(logits_shard - m[..., None]).sum(dim=-1), group)
+    local_labels = labels.long() - _rank(group) * local_v
+    in_range = (local_labels >= 0) & (local_labels < local_v)
+    tgt_local = logits_shard.gather(-1, local_labels.clamp(0, local_v - 1)[..., None])[..., 0]
+    tgt = reduce_from_axis(torch.where(in_range, tgt_local, torch.zeros_like(tgt_local)), group)
+    return torch.mean(m + torch.log(sumexp) - tgt)
+
+
+def _rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def _block_params(params: Params, i: int) -> Params:
+    prefix = f"h.{i}."
+    return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
+
+
+def tp_gpt_forward(
+    config: GPTConfig, params: Params, input_ids: torch.Tensor, group, vocab_parallel: bool = False
+) -> torch.Tensor:
+    """The whole decoder, tensor-parallel over ``group``, on this rank's
+    shards (:func:`gpt_tp_param_specs`, :func:`tp_shard`): embedding, TP
+    blocks, final LayerNorm and tied head. With ``vocab_parallel`` the
+    token table is sharded by rows, the lookup is
+    :func:`vocab_parallel_embed` and the head returns this rank's
+    vocabulary slice of the logits, for
+    :func:`vocab_parallel_next_token_loss`. Deterministic."""
+    if config.dropout > 0:
+        raise ValueError("tensor-parallel apply runs deterministically; use dropout=0.0")
+    if vocab_parallel:
+        x = vocab_parallel_embed(config, params["wte.weight"], input_ids, group)
+        x = x + gpt_position_embed(config, params["wpe.weight"], input_ids)
+    else:
+        x = gpt_embed_apply(config, params, input_ids)
+    for i in range(config.n_layers):
+        x = tp_gpt_block_apply(config, _block_params(params, i), x, group)
+    ln_f = {"weight": params["ln_f.weight"], "bias": params["ln_f.bias"]}
+    return gpt_head_matmul(config, ln_f, params["wte.weight"], x, group if vocab_parallel else None)
+
+
+def make_gpt_tp_stage_fn(config: GPTConfig, layers_per_stage: int, group):
+    """A tensor-parallel pipeline stage: each of its blocks through
+    :func:`tp_gpt_block_apply` on this rank's shards over ``group`` (the
+    model axis), stage parameters stacked on a leading layer axis as
+    :func:`make_gpt_stage_fn` takes them. Deterministic."""
+    if config.dropout > 0:
+        raise ValueError("pipeline stages run deterministically (no dropout rng plumbing); use dropout=0.0")
+
+    def stage_fn(p: Params, x: torch.Tensor) -> torch.Tensor:
+        for j in range(layers_per_stage):
+            x = tp_gpt_block_apply(config, local_stage(p, j), x, group)
+        return x
+
+    return stage_fn
 
 
 # ---- KV-cache decoding ---------------------------------------------------

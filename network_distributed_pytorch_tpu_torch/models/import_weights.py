@@ -20,6 +20,17 @@ port ``GPTLM``'s ``state_dict``: Dense kernels (in, out) -> Linear weights
 (out, in); the tied ``wte`` and ``wpe`` tables (num, dim) as they are;
 LayerNorm scale -> weight.
 
+The model-parallel layouts, from the JAX package's parameters as numpy
+arrays, so that both packages compute the same thing:
+
+- ``gpt_tp_shard_from_jax``: one model rank's tensor-parallel shard of a
+  GPT (``models.gpt.gpt_tp_param_specs``);
+- ``gpt_pipeline_params_from_jax``: the pipeline split, the embedding,
+  one stage's stacked blocks and the final LayerNorm
+  (``models.gpt.split_gpt_params``);
+- ``moe_params_from_jax``: the MoE GPT's base (no MLP leaves), routers
+  and one rank's experts (``experiments/gpt_moe.py``).
+
 ``powersgd_state_from_jax`` maps the JAX ``PowerSGDState.q_memory`` onto the
 port reducer's Q buffer. The two packages order their parameters
 differently (``jax.tree_util`` flattens dicts by sorted key, so
@@ -48,6 +59,7 @@ import numpy as np
 import torch
 
 from ..parallel.reducers import PowerSGDState
+from .gpt import tp_shard
 
 _BLOCK = re.compile(r"^(?:BasicBlock|BottleneckBlock)_(\d+)$")
 _SUB = re.compile(r"^(Conv|BatchNorm|GroupNorm|Dense)_(\d+)$")
@@ -159,6 +171,60 @@ def gpt_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Te
             value = value.T
         sd[gpt_torch_name(path)] = torch.from_numpy(np.array(value, order="C", copy=True))
     return sd
+
+
+def gpt_tp_shard_from_jax(
+    params: Mapping[str, Any], specs: Mapping[str, Optional[int]], coord: Tuple[int, int]
+) -> Dict[str, torch.Tensor]:
+    """Model rank ``coord = (index, n)``'s shard of a JAX ``GPTLM``'s
+    ``params``: each port parameter cut along its ``specs`` dimension
+    (None: whole), the ``index``-th of ``n`` slices."""
+    index, n = coord
+    return {k: v.clone() for k, v in tp_shard(gpt_state_dict_from_flax({"params": params}), specs, index, n).items()}
+
+
+def gpt_pipeline_params_from_jax(
+    embed: Mapping[str, Any], stacked: Mapping[str, Any], final: Mapping[str, Any], stage: int
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The JAX ``split_gpt_params`` pieces (``stacked`` with the stage axis
+    of ``stacked_stage_params``: ``{"layers": {...}}``, leaves ``(S, L,
+    ...)``) -> the port's ``(embed, stage's blocks, final)`` dicts for
+    stage ``stage``, the blocks stacked on their layer axis: a kernel
+    ``(L, in, out)`` becomes a weight ``(L, out, in)``."""
+    e = gpt_state_dict_from_flax({"params": embed})
+    f = gpt_state_dict_from_flax({"params": final})
+    blocks: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(stacked["layers"]):
+        value = np.asarray(value)[stage]
+        if path[-1] == "kernel":
+            value = value.swapaxes(-1, -2)
+        blocks[gpt_torch_name(path)] = torch.from_numpy(np.array(value, order="C", copy=True))
+    return e, blocks, f
+
+
+def moe_params_from_jax(
+    params: Mapping[str, Any], routers: Mapping[str, Any], experts: Mapping[str, Any], coord: Tuple[int, int]
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The JAX ``gpt_moe`` parameters -> the port's ``(base, routers,
+    experts)`` for expert rank ``coord = (index, n)``: ``params`` (a
+    ``GPTLM`` tree without MLP leaves) by the port's names, each block's
+    ``(dim, E)`` router as it is (``h.{i}``), and rows ``index * E / n ..``
+    of each stacked expert leaf, kept ``(E_local, in, out)``
+    (``h.{i}.w_up``)."""
+    index, n = coord
+    base = gpt_state_dict_from_flax({"params": params})
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a, order="C", copy=True))
+
+    out_routers = {f"h.{k[2:]}": tensor(v) for k, v in routers.items()}
+    out_experts = {}
+    for k, leaves in experts.items():
+        for leaf, v in leaves.items():
+            v = np.asarray(v)
+            per = v.shape[0] // n
+            out_experts[f"h.{k[2:]}.{leaf}"] = tensor(v[index * per : (index + 1) * per])
+    return base, out_routers, out_experts
 
 
 def resnet_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -21,6 +21,27 @@ exact reducer's DDP-style buckets come from :func:`bucket_assignments`.
 :func:`all_gather` stacks the ranks' payloads, as the gather-based
 compressors of :mod:`.compression` send them.
 
+The model-parallel layers (``parallel/tensor.py``, ``sequence.py``,
+``pipeline.py``, ``moe.py``) differentiate through their collectives, as
+the JAX package differentiates through ``shard_map``. Each such collective
+is a ``torch.autograd.Function`` here, with the backward that JAX's
+transpose gives it:
+
+- :func:`copy_to_axis` (identity; backward all-reduce) and
+  :func:`reduce_from_axis` (all-reduce; backward identity), the conjugate
+  pair of a sum over an axis. A replicated value that meets a sharded
+  weight passes through :func:`copy_to_axis`, where JAX's implicit
+  ``pvary`` transposes to a ``psum``; a ``psum`` of partial results is
+  :func:`reduce_from_axis`, whose transpose hands each rank the
+  replicated cotangent;
+- :func:`ppermute` (``lax.ppermute``: ``batch_isend_irecv`` pairs; backward
+  the inverse permutation) and :func:`exchange`, its one-sided form for a
+  schedule whose ranks are at different steps (the 1F1B pipeline);
+- :func:`all_to_all` (``lax.all_to_all`` tiled; backward the inverse
+  all-to-all);
+- :func:`all_gather_tiled` (``lax.all_gather`` tiled; backward a
+  reduce-scatter).
+
 Every collective of the port is issued here, and :func:`record_collectives`
 records each one (its kind, the group's ranks and its payload bytes): the
 port's counterpart of the JAX package's HLO audit
@@ -52,14 +73,17 @@ def world_size(group) -> int:
 @dataclass(frozen=True)
 class CollectiveRecord:
     """One collective as :func:`record_collectives` saw it. ``kind`` is
-    ``"all-reduce"``, ``"all-gather"`` or ``"send/recv"`` (one step of the
+    ``"all-reduce"``, ``"all-gather"``, ``"reduce-scatter"``,
+    ``"all-to-all"``, ``"collective-permute"`` (a :func:`ppermute`, or one
+    tensor an :func:`exchange` sends) or ``"send/recv"`` (one step of the
     explicit ring: a send to the next rank and a receive from the previous
     one), or the kind an :func:`agree` was given (a flag or a number the
     ranks agree on, outside any step's payload); ``ranks`` are the group's
-    global ranks. ``payload_bytes`` follows
-    the JAX audit's conventions: an all-reduce counts its payload, an
+    global ranks. ``payload_bytes`` follows the JAX audit's conventions: an
+    all-reduce, an all-to-all and a permute count their payload, an
     all-gather its gathered result (the group's size times each rank's
-    contribution), a ring step the shard it sends."""
+    contribution), a reduce-scatter the buffer it reduces, a ring step the
+    shard it sends."""
 
     kind: str
     ranks: Tuple[int, ...]
@@ -278,3 +302,170 @@ def chunked_all_reduce_mean(
     for start, end in bounds:
         all_reduce_sum(flat[start:end], group)
     return _scale_to_mean_(flat, world_size(group))
+
+
+# ---- differentiable collectives (the model-parallel layers) -------------------
+
+
+def _summed(x: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: the sum of ``x`` over ``group``."""
+    return all_reduce_sum(x.contiguous().clone(), group)
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_axis(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; the backward sums the cotangent over ``group``.
+    Where a value that is the same on every rank of the axis feeds a
+    sharded computation, its gradient is the sum of the shards' parts."""
+    return x if group is None else _CopyToAxis.apply(x, group)
+
+
+def reduce_from_axis(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` (``lax.psum``), into a new tensor;
+    the backward passes the cotangent through, since the sum is the same
+    on every rank and each rank's part reaches it once."""
+    return x if group is None else _ReduceFromAxis.apply(x, group)
+
+
+def _p2p(sends, recvs, group) -> None:
+    """Post every send ``(tensor, group rank)`` and receive ``(buffer,
+    group rank)`` of this rank in one ``batch_isend_irecv`` and wait for
+    all: a send that waited for its receive before the next was posted
+    could deadlock a ring."""
+    ops = [dist.P2POp(dist.isend, t.contiguous(), dist.get_global_rank(group, r), group) for t, r in sends]
+    ops += [dist.P2POp(dist.irecv, b, dist.get_global_rank(group, r), group) for b, r in recvs]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+def _permute(x: torch.Tensor, perm, group) -> torch.Tensor:
+    world = world_size(group)
+    me = 0 if group is None else dist.get_rank(group)
+    x = x.contiguous()
+    out = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+    sends, recvs = [], []
+    for src, dst in perm:
+        if not (0 <= src < world and 0 <= dst < world):
+            raise ValueError(f"permutation pair {(src, dst)} outside a group of {world}")
+        if src == dst == me:
+            out.copy_(x)
+        elif src == me:
+            sends.append((x, dst))
+        elif dst == me:
+            recvs.append((out, src))
+    if group is not None:
+        _record("collective-permute", group, x.numel() * x.element_size())
+        _p2p(sends, recvs, group)
+    return out
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, group):
+        ctx.perm, ctx.group = perm, group
+        return _permute(x, perm, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, [(d, s) for s, d in ctx.perm], ctx.group), None, None
+
+
+def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]], group) -> torch.Tensor:
+    """``lax.ppermute``: rank ``src`` of ``group`` sends ``x`` to rank
+    ``dst`` for each ``(src, dst)`` of ``perm``; a rank that receives
+    nothing gets zeros. Every rank of the group calls it with the same
+    ``perm``; its sends and receives are posted together. The backward
+    sends the cotangent along the inverse permutation. ``group=None`` is a
+    group of one."""
+    return _Ppermute.apply(x, tuple(tuple(p) for p in perm), group)
+
+
+def exchange(sends, recvs, group) -> None:
+    """The one-sided form of :func:`ppermute`, for a schedule whose ranks
+    are at different steps: send each ``(tensor, group rank)`` of
+    ``sends`` and receive into each ``(buffer, group rank)`` of ``recvs``,
+    all posted in one ``batch_isend_irecv``. Each send is recorded as one
+    ``"collective-permute"`` on the sending rank."""
+    for t, _ in sends:
+        _record("collective-permute", group, t.numel() * t.element_size())
+    _p2p([(t.detach(), r) for t, r in sends], recvs, group)
+
+
+def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group) -> torch.Tensor:
+    world = world_size(group)
+    if x.shape[split_dim] % world:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not split over {world} ranks")
+    if group is None:
+        return x
+    _record("all-to-all", group, x.numel() * x.element_size())
+    send = torch.stack(x.chunk(world, dim=split_dim)).contiguous()  # (world, ...): chunk j goes to rank j
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=concat_dim)  # rank i's chunk at place i
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return _all_to_all(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _all_to_all(g, concat_dim, split_dim, ctx.group), None, None, None
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group) -> torch.Tensor:
+    """``lax.all_to_all(..., tiled=True)``: ``x`` is cut into ``W`` equal
+    chunks along ``split_dim``, chunk ``j`` goes to rank ``j``, and the
+    chunks a rank receives are concatenated along ``concat_dim`` in rank
+    order. The backward is the inverse all-to-all."""
+    split_dim %= x.dim()
+    concat_dim %= x.dim()
+    return _AllToAll.apply(x, split_dim, concat_dim, group)
+
+
+class _AllGatherTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return torch.cat(all_gather(x.contiguous(), group).unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        world = world_size(ctx.group)
+        chunks = g.chunk(world, dim=ctx.dim)
+        flat = torch.cat([c.reshape(-1) for c in chunks])  # rank r's slice at place r
+        out = torch.empty(flat.numel() // world, dtype=g.dtype, device=g.device)
+        _record("reduce-scatter", ctx.group, flat.numel() * flat.element_size())
+        dist.reduce_scatter_tensor(out, flat, op=dist.ReduceOp.SUM, group=ctx.group)
+        return out.view(chunks[0].shape), None, None
+
+
+def all_gather_tiled(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``lax.all_gather(..., tiled=True)``: the ranks' ``x`` concatenated
+    along ``dim`` in rank order. The backward reduce-scatters the
+    cotangent: rank ``r`` gets the sum over ranks of its own slice."""
+    return x if group is None else _AllGatherTiled.apply(x, dim % x.dim(), group)

@@ -24,7 +24,10 @@ ops on the card against the CPU (positions past the table included), and
 the tiny GPT served on the card by the slot and paged engines (and under
 speculative decoding) with the same tokens, a checkpointed resume of the
 small ResNet-18 on the card bit for bit under deterministic algorithms,
-and a checkpoint written from CPU tensors restored onto the card.
+a checkpoint written from CPU tensors restored onto the card, and K5
+causal at GPT-2 small's width inside a pipeline stage and inside a
+one-rank MoE block, each against the same module on the CPU (K5's plain
+versions).
 
 This file imports torch and the port, never jax, so it also runs on a
 machine that has the card and no JAX (``--noconftest`` skips the JAX
@@ -53,6 +56,7 @@ bf16 that plus 1 bf16 ulp; the mask's gradient (fp32) like an fp32 one.
 import ctypes
 import os
 import subprocess
+from dataclasses import replace as dataclass_replace
 
 import numpy as np
 import pytest
@@ -1196,3 +1200,93 @@ def test_a_cpu_checkpoint_restores_onto_the_card(cuda_device, tmp_path, algorith
             for name, v in slot.items():
                 if torch.is_tensor(v) and v.dim() > 0:
                     assert v.device.type == "cuda", name
+
+
+def _stage_on(device, cfg, params, x, cot):
+    """One GPT-2 block as a pipeline stage (``make_gpt_stage_fn``) on
+    ``device``: its output and the gradients of ``sum(out * cot)``."""
+    leaves = {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+    xd = x.to(device).requires_grad_(True)
+    out = gpt.make_gpt_stage_fn(cfg, 1)(leaves, xd)
+    grads = torch.autograd.grad((out * cot.to(device)).sum(), [xd, *leaves.values()])
+    return out.detach().cpu(), [g.cpu() for g in grads]
+
+
+# the key projection's bias has a gradient of 0 in exact arithmetic (a
+# softmax ignores a shift of a row's scores): both sides hold the rounding
+# of a sum over every token (under 1e-9 at these shapes), held to
+# KEY_BIAS_ATOL of max(1, max|want|) of the same layer's query bias, a sum
+# of the same kind that does not cancel (about 1e-3 here)
+KEY_BIAS_ATOL = 1e-7
+
+
+def _held(got, want, names):
+    """Each tensor within ATOL of max(1, max|want|), a key projection's
+    bias within KEY_BIAS_ATOL of its query bias's."""
+    wants = dict(zip(names, want))
+    for name, g, w in zip(names, got, want):
+        if name.endswith("attn.k_proj.bias"):
+            atol = KEY_BIAS_ATOL * max(1.0, wants[name.replace("k_proj", "q_proj")].abs().max().item())
+        else:
+            atol = ATOL * max(1.0, w.abs().max().item())
+        torch.testing.assert_close(g, w, rtol=0, atol=atol, msg=name)
+
+
+@pytest.mark.cuda
+def test_k5_inside_a_pipeline_stage_matches_its_plain_version(cuda_device, exact_conv_math):
+    """A pipeline stage of GPT-2 small's width (dim 768, 12 heads, FFN
+    3072; GPT-2's init) on a microbatch of 4 sequences of 1024, with the
+    cotangent of a mean loss (1 / (B T) an element): the card's stage runs
+    K5 causal once forward and once backward, the CPU's the kernels' plain
+    versions; output and every gradient within 1e-5 of max(1, max|CPU|)."""
+    cfg = gpt.GPTConfig(vocab_size=1024, dropout=0.0)
+    model = gpt.GPTLM(dataclass_replace(cfg, n_layers=1), device="cpu", seed=5)
+    stacked = {k[len("h.0."):]: v.detach()[None] for k, v in model.named_parameters() if k.startswith("h.0.")}
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((4, 1024, 768), generator=gen)
+    cot = torch.randn((4, 1024, 768), generator=gen) / (4 * 1024)
+    before = [fa.KERNEL.by_kind["causal"], fa.BWD_KERNELS[torch.float32].by_kind["causal"]]
+    got = _stage_on(cuda_device, cfg, stacked, x, cot)
+    after = [fa.KERNEL.by_kind["causal"], fa.BWD_KERNELS[torch.float32].by_kind["causal"]]
+    assert [a - b for a, b in zip(after, before)] == [1, 1]
+    want = _stage_on(torch.device("cpu"), cfg, stacked, x, cot)
+    _held([got[0], *got[1]], [want[0], *want[1]], ["out", "x", *stacked])
+
+
+@pytest.mark.cuda
+def test_k5_inside_a_world1_moe_block_matches_its_plain_version(cuda_device, exact_conv_math):
+    """A GPT-2-wide MoE decoder (dim 768, 12 heads, 8 experts of width
+    1536, capacity factor 2) of one block over a one-rank NCCL group on
+    the card, 16 sequences of 256: K5 causal once forward and once
+    backward, against the same block on the CPU (K5's plain versions,
+    ``group=None``): logits, aux loss and every gradient within 1e-5 of
+    max(1, max|CPU|)."""
+    from network_distributed_pytorch_tpu_torch.experiments import gpt_moe
+    from network_distributed_pytorch_tpu_torch.parallel.mesh import (
+        DistributedConfig,
+        initialize_distributed,
+        shutdown_distributed,
+    )
+
+    cfg = dataclass_replace(gpt_moe.moe_config("full", 256, torch.float32), n_layers=1)
+    base, routers, experts = gpt_moe.init_moe_params(cfg, 8, 714)
+    ids = torch.randint(0, 1024, (16, 256), generator=torch.Generator().manual_seed(1))
+    capacity = int(2.0 * 16 * 256 / 8)
+
+    def block(device, group):
+        leaves = [{k: v.to(device).requires_grad_(True) for k, v in d.items()} for d in (base, experts, routers)]
+        logits, aux, _ = gpt_moe.moe_gpt_forward(cfg, *leaves, ids.to(device), capacity, group)
+        loss = gpt.next_token_loss(logits, ids.to(device).roll(-1, 1)) + aux
+        grads = torch.autograd.grad(loss, [v for d in leaves for v in d.values()])
+        return [logits.detach().cpu(), aux.detach().cpu(), *(g.cpu() for g in grads)]
+
+    group = initialize_distributed(DistributedConfig(), cuda_device)
+    try:
+        before = [fa.KERNEL.by_kind["causal"], fa.BWD_KERNELS[torch.float32].by_kind["causal"]]
+        got = block(cuda_device, group)
+        after = [fa.KERNEL.by_kind["causal"], fa.BWD_KERNELS[torch.float32].by_kind["causal"]]
+    finally:
+        shutdown_distributed()
+    assert [a - b for a, b in zip(after, before)] == [1, 1]
+    names = ["logits", "aux", *base, *experts, *routers]
+    _held(got, block(torch.device("cpu"), None), names)

@@ -289,9 +289,16 @@ def test_attn_impl_options():
     ids, mask, _ = (torch.from_numpy(a) for a in _batch(4))
     with pytest.raises(ValueError, match="attention_dropout"):
         model(ids, mask, deterministic=False)
-    for field in ({"remat": True}, {"seq_axis": "seq"}):
-        with pytest.raises(NotImplementedError):
-            distilbert.DistilBertConfig(**field)
+    with pytest.raises(NotImplementedError):
+        distilbert.DistilBertConfig(remat=True)
+    # sequence parallelism is ported: the schedule is checked, dropout refused
+    with pytest.raises(ValueError, match="seq_impl"):
+        distilbert.DistilBertConfig(seq_impl="pallas")
+    sp = distilbert.DistilBertConfig(seq_axis=object(), seq_impl="ulysses", n_layers=1, dim=32, n_heads=4)
+    block = distilbert.MultiHeadSelfAttention(sp)
+    with pytest.raises(ValueError, match="attention_dropout"):
+        block._attn_impl(deterministic=False)
+    assert block._attn_impl(deterministic=True) == "ulysses"
 
 
 @pytest.mark.parametrize("field", [{"compress_impl": "pallas"}, {"orthogonalize_impl": "eager"}])

@@ -402,9 +402,13 @@ def test_gpt_generate_run_matches_jax_run():
 
 
 def test_config_slots_and_dtypes():
-    for field in ({"remat": True}, {"scan_layers": True}, {"seq_axis": "seq"}, {"seq_impl": "ulysses"}):
+    for field in ({"remat": True}, {"scan_layers": True}):
         with pytest.raises(NotImplementedError):
             gpt.GPTConfig(**field)
+    # sequence parallelism is ported: any group and either schedule
+    assert gpt.GPTConfig(seq_axis=object(), seq_impl="ulysses").seq_impl == "ulysses"
+    with pytest.raises(ValueError, match="seq_impl"):
+        gpt.GPTConfig(seq_impl="pallas")
     with pytest.raises(NotImplementedError):
         gpt_lm.run(preset="small", device="cpu", remat=True)
     with pytest.raises(ValueError):

@@ -43,6 +43,7 @@ def port_files():
             yield os.path.join(REPO, "scripts", f)
     # test modules that run where there is no JAX: spawned ranks, card tests
     yield os.path.join(REPO, "tests", "torch_worker.py")
+    yield os.path.join(REPO, "tests", "torch_model_parallel_worker.py")
     yield os.path.join(REPO, "tests", "test_torch_cuda.py")
 
 
