@@ -132,7 +132,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    p50, tokens a second, peak memory, launches, collectives and bits a
    step, and its first step's loss and gradients against plain ``GPTLM``
    (MoE: flash against einsum attention), the leaf of the largest
-   difference named;
+   difference named; then ``exact_cifar10.run(strategy="fsdp")`` at
+   preset ``full`` (ZeRO-3 over the one-rank group: no kernel of the port),
+   monolithic and at ``comm_chunks=4``, with 1,505,825,440 bits a step by
+   kind, the step p50, peak memory, eval accuracy and 3 profiled steps,
+   the unsharded parameters after two steps bit for bit the DDP step's and
+   chunked bit for bit monolithic under deterministic algorithms
+   (``main_path_exact_fsdp``), and a save of the FSDP state restored by
+   ``restore_checkpoint_sharded`` whose next step is the uninterrupted
+   run's bit for bit, with the save and restore times
+   (``fsdp_checkpoint``);
 4. two steps from the same weights and batches, deterministic cuDNN: plain
    Gram-Schmidt against the kernel; two DiLoCo rounds of ResNet-152 with
    the outer delta's Gram-Schmidt plain against the kernel; fused against xla; fused against xla
@@ -313,6 +322,10 @@ MOE_GROUPS = 4
 # a key-gradient at fault reads of that order
 MP_TOL = 1e-5
 KEY_BIAS_TOL = 1e-7
+# FSDP of exact_cifar10's preset full at world 1: one all-gather and one
+# reduce-scatter of every leaf (2 x 752,912,704 bits) and the loss's 32
+FSDP_BITS = 1_505_825_440
+FSDP_CHUNKS = 4
 
 
 def fail(msg: str) -> None:
@@ -1904,6 +1917,170 @@ def model_parallel_phases(dev, drive, launches, kinds, smi, preset="full"):
     emit(record)
 
 
+def fsdp_phases(dev, drive, images, labels, smi, preset="full"):
+    """``main_path_exact_fsdp`` and ``fsdp_checkpoint``: ``exact_cifar10``
+    under ``strategy="fsdp"`` (ZeRO-3) through a one-rank group, where every
+    gather is a copy and each reduce-scatter sums one term. The main path
+    monolithic and at ``comm_chunks=4``, 2 warm-up and 5 timed steps each
+    (step p50, peak memory, bits and collectives by kind, eval accuracy on
+    the monolithic run), 3 profiled steps (busy time, idle share, NCCL);
+    then, under deterministic algorithms, two steps from the same weights
+    and batches: the unsharded FSDP parameters must equal the DDP step's
+    bit for bit, and chunked FSDP the monolithic; and a save of the FSDP
+    state after one step, restored by ``restore_checkpoint_sharded`` into
+    a state of other weights, whose next step must equal the
+    uninterrupted run's bit for bit (save and restore timed). No kernel of
+    the port runs. ``drive`` is ``main``'s; ``preset="small"`` (global batch
+    16) rehearses the phases on the CPU."""
+    import torch
+
+    from network_distributed_pytorch_tpu_torch.experiments import exact_cifar10
+    from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches
+    from network_distributed_pytorch_tpu_torch.parallel.mesh import (
+        DistributedConfig,
+        initialize_distributed,
+        shutdown_distributed,
+    )
+    from network_distributed_pytorch_tpu_torch.utils.checkpoint import restore_checkpoint_sharded, save_checkpoint
+
+    on_cuda = dev.type == "cuda"
+
+    def sync():
+        if on_cuda:
+            torch.cuda.synchronize()
+
+    def config(chunks=None):
+        cfg = exact_cifar10.default_config()
+        cfg.comm_chunks = chunks
+        if preset == "small":
+            cfg.global_batch_size = 16
+        return cfg
+
+    runs = {}
+    for name, chunks in (("monolithic", None), ("chunked", FSDP_CHUNKS)):
+        cfg = config(chunks)
+        start = torch.cuda.memory_allocated(dev) if on_cuda else 0  # what earlier phases hold: the peak counts it
+        result, peak = drive(
+            f"exact_fsdp_{name}",
+            lambda: exact_cifar10.run(
+                cfg, preset=preset, device=dev, max_steps_per_epoch=MAIN_STEPS, eval_after=chunks is None,
+                strategy="fsdp",
+            ),
+            {}, kernel_free=True,
+        )
+        losses = result["losses"]
+        if len(losses) != MAIN_STEPS or not all(math.isfinite(v) for v in losses):
+            fail(f"exact_fsdp {name} losses {losses}")
+        by_kind = {k: 8 * b for k, b in result["collectives"]["bytes_by_kind"].items()}
+        want_bits = FSDP_BITS if preset == "full" else result["bits_per_step"]
+        if result["bits_per_step"] != want_bits or sum(by_kind.values()) != want_bits:
+            fail(f"exact_fsdp {name}: {result['bits_per_step']} bits a step, {by_kind} by kind (want {want_bits})")
+        timed = result["device_time_ms"][WARMUP_STEPS:] if on_cuda else [1e3 * t for t in result["step_time_s"][WARMUP_STEPS:]]
+        runs[name] = {
+            "comm_chunks": chunks, "losses": losses, "step_device_ms" if on_cuda else "step_host_ms": timed,
+            "step_ms_p50": statistics.median(timed),
+            "step_host_s_p50": statistics.median(result["step_time_s"][WARMUP_STEPS:]),
+            "images_per_s": cfg.global_batch_size / (statistics.median(timed) / 1e3),
+            "peak_memory_bytes": peak, "allocated_at_start_bytes": start, "peak_above_start_bytes": peak - start,
+            "bits_per_step": result["bits_per_step"], "bits_by_kind": by_kind,
+            "collectives_by_kind": result["collectives"]["by_kind"], "eval_accuracy": result.get("eval_accuracy"),
+        }
+    profile = None
+    if on_cuda:
+        cfg = config()
+        profile = profile_main_path(
+            dev, exact_cifar10, cfg, [images, labels], {}, steps=PROFILE_STEPS,
+            build=lambda group: exact_cifar10.build(cfg, preset, dev, group, strategy="fsdp"),
+        )
+
+    group = initialize_distributed(DistributedConfig(), dev)
+    try:
+        with deterministic_algorithms() as caught:
+            cfg = config()
+            batches = [
+                tuple(torch.from_numpy(a).to(dev) for a in b)
+                for b in accumulated_batches([images, labels], cfg, max_steps_per_epoch=2)(0)
+            ]
+
+            def two_steps(strategy, chunks=None):
+                run_cfg = config(chunks)
+                _, step, state = exact_cifar10.build(run_cfg, preset, dev, group, strategy=strategy)
+                losses = []
+                for b in batches:
+                    state, loss = step(state, b)
+                    losses.append(loss.item())
+                params = step.unshard(state) if strategy == "fsdp" else {
+                    k: v.detach().clone() for k, v in state.params.items()
+                }
+                return losses, params
+
+            ddp_losses, ddp = two_steps("ddp")
+            mono_losses, mono = two_steps("fsdp")
+            chunked_losses, chunked = two_steps("fsdp", FSDP_CHUNKS)
+            fsdp_vs_ddp = bitwise_equal(mono, ddp)
+            chunked_vs_mono = bitwise_equal(chunked, mono)
+            if fsdp_vs_ddp or chunked_vs_mono or not (ddp_losses == mono_losses == chunked_losses):
+                fail(
+                    f"exact_fsdp after 2 steps: FSDP differs from DDP at {fsdp_vs_ddp[:5]}, chunked from"
+                    f" monolithic at {chunked_vs_mono[:5]}; losses {ddp_losses} {mono_losses} {chunked_losses}"
+                )
+            del ddp, mono, chunked
+            emit({
+                "phase": "main_path_exact_fsdp", "model": "resnet50" if preset == "full" else "resnet18",
+                "preset": preset, "global_batch": cfg.global_batch_size, "world_size": 1,
+                "runs": runs,
+                "eval_note": "synthetic CIFAR-10 test split, 7 steps from random weights: a number, not a target",
+                "params_after_2_steps": {"fsdp_vs_ddp_bitwise": True, "chunked_vs_monolithic_bitwise": True,
+                                         "losses": ddp_losses},
+                "nondeterministic_ops": sorted({str(w.message)[:120] for w in caught if w.category is UserWarning}),
+                "profile": profile, "nvidia_smi": smi,
+            })
+
+            # ---- fsdp_checkpoint: the sharded restore, bit for bit ----------------
+            root = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+            try:
+                _, step, state = exact_cifar10.build(cfg, preset, dev, group, strategy="fsdp")
+                state, _ = step(state, batches[0])
+                sync()
+                t0 = time.perf_counter()
+                timings = {}
+                path = save_checkpoint(root, state, step=0, group=group, timings=timings)
+                save_ms = (time.perf_counter() - t0) * 1e3
+                state, loss = step(state, batches[1])
+                want = fsdp_tensors(state)
+                fresh_cfg = config()
+                fresh_cfg.seed += 1  # other weights: every tensor must come from the file
+                _, fresh_step, fresh = exact_cifar10.build(fresh_cfg, preset, dev, group, strategy="fsdp")
+                sync()
+                t0 = time.perf_counter()
+                fresh = restore_checkpoint_sharded(path, fresh, group)
+                sync()
+                restore_ms = (time.perf_counter() - t0) * 1e3
+                fresh, fresh_loss = fresh_step(fresh, batches[1])
+                differ = bitwise_equal(fsdp_tensors(fresh), want)
+                if differ or loss.item() != fresh_loss.item():
+                    fail(f"fsdp_checkpoint: the resumed step differs at {differ[:5]} (loss {loss.item()} {fresh_loss.item()})")
+                emit({
+                    "phase": "fsdp_checkpoint", "preset": preset, "tensors": len(want), "resumed_step_bitwise": True,
+                    "save_ms": save_ms, "restore_ms": restore_ms, "bytes_on_disk": timings.get("bytes"),
+                    "hash_s": timings.get("hash_s"), "nvidia_smi": smi,
+                })
+                del state, fresh, step, fresh_step
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+    finally:
+        shutdown_distributed()
+
+
+def fsdp_tensors(state):
+    """Every tensor of an ``FSDPState`` (shards, momenta, BN buffers), cloned
+    on its device."""
+    out = {f"param_shards.{k}": v.detach().clone() for k, v in state.param_shards.items()}
+    out.update({f"opt_shards.{k}": v.clone() for k, v in state.opt_shards.items()})
+    out.update({f"model_state.{k}": v.clone() for k, v in state.model_state.items()})
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2373,6 +2550,7 @@ def main() -> None:
         cfg = exact_cifar10.default_config()
         for k, v in fields.items():
             setattr(cfg, k, v)
+        start = torch.cuda.memory_allocated(dev)  # what earlier phases hold: the peak counts it
         result, peak = drive(
             f"exact_{layout}",
             lambda: exact_cifar10.run(
@@ -2386,7 +2564,7 @@ def main() -> None:
                 f"exact {layout}: {result['bits_per_step']} bits per step (want {EXACT_BITS} + 32),"
                 f" {result['n_collectives']} collectives (want {collectives})"
             )
-        exact[layout] = {**record, "reducer": fields, "n_collectives": collectives}
+        exact[layout] = {**record, "reducer": fields, "n_collectives": collectives, "allocated_at_start_bytes": start}
     # the layouts' parameters after two steps from the same weights and
     # batches, with deterministic cuDNN: bit for bit, since every layout
     # reduces the same values over one rank
@@ -2722,6 +2900,9 @@ def main() -> None:
 
     # the model-parallel GPT entries at GPT-2 small widths on one card
     model_parallel_phases(dev, drive, launches, kinds, smi)
+
+    # exact_cifar10 under FSDP (ZeRO-3) at preset full, and its sharded restore
+    fsdp_phases(dev, drive, images, labels, smi)
 
     # ---- 4. two steps against two steps ---------------------------------------
     # with deterministic cuDNN and no TF32, so that only what is compared differs

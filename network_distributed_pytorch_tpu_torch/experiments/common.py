@@ -11,7 +11,7 @@ import itertools
 import math
 import os
 import time
-from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -226,6 +226,28 @@ class Carry:
     momenta: Dict[str, torch.Tensor]
     memories: Dict[str, torch.Tensor]
     reducer_state: Any
+
+
+class RecordedStep:
+    """A training step whose first call runs under
+    :func:`..parallel.comm.record_collectives`: ``records`` holds what that
+    step issued (None before it), so a run can report the bits it put on
+    the wire. Every other attribute is the step's."""
+
+    def __init__(self, step):
+        self.step = step
+        self.records: Optional[List[CollectiveRecord]] = None
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+    def __call__(self, state, batch):
+        if self.records is not None:
+            return self.step(state, batch)
+        with record_collectives() as records:
+            out = self.step(state, batch)
+        self.records = records
+        return out
 
 
 def collective_audit(records: Sequence[CollectiveRecord]) -> Dict[str, Any]:
@@ -525,11 +547,15 @@ def _accuracy(model: nn.Module, arrays, batch_size: int, predict) -> float:
     return correct / max(total, 1)
 
 
-def evaluate_image_classifier(model: nn.Module, images, labels, batch_size: int = 256) -> float:
+def evaluate_image_classifier(
+    model: nn.Module, images, labels, batch_size: int = 256, tensors: Optional[Dict[str, torch.Tensor]] = None
+) -> float:
     """Top-1 accuracy of an NHWC image classifier on every example, in eval
     mode (BatchNorm from its running statistics); the reference's
-    ``common.py:491-520``."""
-    return _accuracy(model, [images, labels], batch_size, model)
+    ``common.py:491-520``. ``tensors`` (parameters and buffers by name)
+    stand in for the model's own, as FSDP's unsharded parameters do."""
+    predict = model if tensors is None else (lambda x: torch.func.functional_call(model, tensors, (x,)))
+    return _accuracy(model, [images, labels], batch_size, predict)
 
 
 def evaluate_on_test_split(model: nn.Module, group, data_dir: str = "./data") -> float:

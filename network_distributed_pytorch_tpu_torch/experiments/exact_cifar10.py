@@ -16,6 +16,11 @@ the seed.
 epoch, resume on entry, a topology record of the world, and a
 ``PreemptionGuard`` that turns a SIGTERM into an emergency checkpoint and
 an exit with ``PREEMPT_EXIT_CODE`` (75).
+
+``strategy="fsdp"`` runs the same workload with parameters, gradients and
+momenta sharded over the ranks (ZeRO-3, :mod:`..parallel.fsdp`): the same
+exact data-parallel SGD, each rank's model and optimizer memory about
+``1 / world`` of DDP's.
 """
 
 from __future__ import annotations
@@ -27,12 +32,17 @@ import torch.distributed as dist
 
 from ..data.cifar10 import load_cifar10_or_synthetic
 from ..models.resnet import resnet18, resnet50
+from ..parallel.comm import recorded_bits
+from ..parallel.fsdp import make_fsdp_train_step
 from ..parallel.mesh import resolve_device
 from ..parallel.reducers import ExactReducer
 from ..parallel.trainer import make_train_step
 from ..utils.config import ExperimentConfig
 from .common import (
+    RecordedStep,
     accumulated_batches,
+    collective_audit,
+    evaluate_image_classifier,
     evaluate_on_test_split,
     exact_reducer_kwargs,
     image_classifier_loss,
@@ -58,14 +68,43 @@ def build_model(preset: str, device="cuda", seed: int = 0):
     raise ValueError(f"unknown preset {preset!r}")
 
 
-def build(config: ExperimentConfig, preset: str, device, group, pretrained_state_dict=None):
+def check_fsdp(config: ExperimentConfig, checkpoint_dir: Optional[str] = None) -> None:
+    """The reference's refusals under ``strategy="fsdp"``, with its
+    messages (its ``exact_cifar10.py:102-123``)."""
+    if config.adaptive_comm:
+        raise ValueError(
+            "adaptive_comm requires strategy='ddp' (the fallback ladder swaps reducers; the FSDP step has no"
+            " reducer to swap)"
+        )
+    if config.accum_steps > 1:
+        raise ValueError("accum_steps is not supported with strategy='fsdp'")
+    if config.max_grad_norm is not None:
+        raise ValueError("max_grad_norm is not supported with strategy='fsdp'")
+    if checkpoint_dir is not None:
+        raise ValueError(
+            "checkpoint_dir requires strategy='ddp' (the FSDP carry restores via restore_checkpoint_sharded,"
+            " not this loop)"
+        )
+    if config.comm_strategy != "interleave":
+        raise ValueError("strategy='fsdp' pipelines via chunked gathers; only comm_strategy='interleave' applies")
+
+
+def build(config: ExperimentConfig, preset: str, device, group, pretrained_state_dict=None, strategy: str = "ddp"):
     """The model (from ``pretrained_state_dict`` where one is given, e.g.
     from ``models.import_weights``, else from the seed), the training step
-    and its initial state."""
+    of ``strategy`` and its initial state. Under ``"fsdp"`` the state holds
+    this rank's shards and the model's own parameters are released."""
     require_float32(config, "exact_cifar10")
     model = build_model(preset, device, seed=config.seed)
     if pretrained_state_dict is not None:
         model.load_state_dict(pretrained_state_dict)
+    if strategy == "fsdp":
+        check_fsdp(config)
+        step = make_fsdp_train_step(
+            image_classifier_loss(), model, learning_rate=config.learning_rate, momentum=config.momentum,
+            algorithm="sgd", group=group, comm_chunks=config.comm_chunks,
+        )
+        return model, step, step.init_state()
     step = make_train_step(
         image_classifier_loss(),
         ExactReducer(**exact_reducer_kwargs(config)),
@@ -98,27 +137,36 @@ def run(
     adds ``eval_accuracy`` on the test split, from the ranks' mean BatchNorm
     statistics.
 
-    ``strategy="ddp"`` is the reference's replicated exact DDP.
+    ``strategy="ddp"`` is the reference's replicated exact DDP;
+    ``strategy="fsdp"`` shards parameters, gradients and momenta over the
+    ranks (the reference's refusals under it in :func:`check_fsdp`, before
+    any rendezvous), and its summary's ``bits_per_step`` and
+    ``collectives`` are what the first step issued
+    (``comm.record_collectives``); it evaluates the unsharded parameters
+    with the ranks' mean BatchNorm statistics.
+
     ``checkpoint_dir`` trains through the checkpointed loop (the
     reference's ``:200-245``): every epoch committed there (``keep_last``
     keeps the newest K), the newest resumed on entry (the summary's
     ``start_epoch``), each checkpoint tagged with ``make_topology`` of the
     world, and under a ``PreemptionGuard``: a SIGTERM saves at the next
     step and exits with ``SystemExit(PREEMPT_EXIT_CODE)``. The JAX
-    package's ``strategy="fsdp"``, ``config.adaptive_comm`` and
-    ``config.chaos_plan`` are not ported yet and raise."""
+    package's ``config.adaptive_comm`` and ``config.chaos_plan`` are not
+    ported yet and raise."""
     config = config or default_config()
     if strategy not in STRATEGIES:
         raise ValueError(f"strategy must be one of {STRATEGIES}, got {strategy!r}")
     if strategy == "fsdp":
-        raise NotImplementedError("strategy='fsdp' is not ported yet")
+        check_fsdp(config, checkpoint_dir)
     if config.adaptive_comm or config.chaos_plan:
         raise NotImplementedError("adaptive_comm and chaos_plan are not ported yet")
     device = resolve_device(device)
     with process_group(config, device) as group:
         rank, world = dist.get_rank(group), dist.get_world_size(group)
         images, labels, is_real = load_cifar10_or_synthetic(data_dir, train=True)
-        model, step, state = build(config, preset, device, group, pretrained_state_dict)
+        model, step, state = build(config, preset, device, group, pretrained_state_dict, strategy)
+        if strategy == "fsdp":
+            step = RecordedStep(step)
         batches = accumulated_batches([images, labels], config, max_steps_per_epoch)
         extra = {}
         if checkpoint_dir is not None:
@@ -156,12 +204,22 @@ def run(
             "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
             "num_devices": world,
             "strategy": strategy,
-            "bits_per_step": step.bits_per_step,
-            "n_collectives": step.reducer.n_collectives(list(model.parameters())),
             "losses": [r.loss for r in logger.records],
             "step_time_s": [r.step_time_s for r in logger.records],
             "device_time_ms": [r.device_time_ms for r in logger.records],
         })
-        if eval_after:
+        if strategy == "fsdp":
+            audit = collective_audit(step.records)
+            extra.update(bits_per_step=recorded_bits(step.records), n_collectives=audit["count"], collectives=audit)
+        else:
+            extra.update(
+                bits_per_step=step.bits_per_step, n_collectives=step.reducer.n_collectives(list(model.parameters()))
+            )
+        if eval_after and strategy == "fsdp":
+            # the reference's :333: the unsharded parameters, the ranks' mean statistics
+            tensors = {**step.unshard(state), **step.eval_model_state(state)}
+            test_x, test_y, _ = load_cifar10_or_synthetic(data_dir, train=False)
+            extra["eval_accuracy"] = evaluate_image_classifier(model, test_x, test_y, tensors=tensors)
+        elif eval_after:
             extra["eval_accuracy"] = evaluate_on_test_split(model, group, data_dir)
         return summarize("exact_cifar10", logger, extra)

@@ -149,7 +149,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--strategy", choices=list(exact_cifar10.STRATEGIES), default="ddp",
-        help="exact_cifar10: replicated DDP ('fsdp' is not ported yet and is refused)",
+        help="exact_cifar10: replicated DDP, or 'fsdp': parameters, gradients and momenta sharded over the"
+             " ranks (ZeRO-3); fsdp refuses --checkpoint-dir and --comm-strategy ring",
     )
     p.add_argument(
         "--attn-impl", choices=list(ATTN_IMPLS), default=None,

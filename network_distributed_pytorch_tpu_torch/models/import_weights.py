@@ -343,3 +343,76 @@ def train_state_from_jax(
         q = powersgd_state_from_jax(jax_state.reducer_state.q_memory, jax_state.params, reducer, model, name_map)
         state.reducer_state.q_memory.copy_(q.q_memory)
     return state
+
+
+def _flax_shape(torch_shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The flax shape of a leaf of torch shape ``torch_shape``: the inverse
+    of :func:`_to_torch_layout`'s transposes."""
+    if len(torch_shape) == 4:  # OIHW -> HWIO
+        o, i, h, w = torch_shape
+        return (h, w, i, o)
+    if len(torch_shape) == 2:  # (out, in) -> (in, out)
+        return tuple(reversed(torch_shape))
+    return tuple(torch_shape)
+
+
+def fsdp_state_from_jax(jax_state: Any, model, world: int) -> List[Any]:
+    """One port ``parallel.fsdp.FSDPState`` for each of ``world`` ranks
+    from the JAX ``FSDPState`` ``jax_state`` (numpy leaves, read by
+    attribute), so both packages start from one state: the parameter and
+    momentum shards unsharded by the reference's rule (each ``(world,
+    chunk)`` leaf flattened and cut to its size), mapped to the port's
+    names and layouts by :func:`resnet_state_dict_from_flax` (ResNets,
+    ``SmallCNN``, ``MLP``) and sharded again by the port's rule over the
+    torch layout; row ``r`` of the per-worker BatchNorm statistics. The
+    leaves' shapes come from ``model``'s parameters (read before a step
+    releases them). ``opt_shards`` carries the momenta where the JAX
+    optimizer state mirrors the parameter shards (``sgd``,
+    ``sgd_nesterov``, ``sgd_plain``'s zeros) and is None for an optax
+    state, which must be fresh (the port's step makes a fresh
+    ``torch.optim`` optimizer)."""
+    from ..parallel.fsdp import FSDPState, shard_params
+
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+
+    def full_tree(shards: Mapping[str, Any], prefix=()) -> Dict[str, Any]:
+        out = {}
+        for key, value in shards.items():
+            path = prefix + (key,)
+            if isinstance(value, Mapping):
+                out[key] = full_tree(value, path)
+            else:
+                shape = _flax_shape(shapes[torch_name(path)])
+                out[key] = np.asarray(value).reshape(-1)[: math.prod(shape)].reshape(shape)
+        return out
+
+    def torch_shards(shards: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        full = resnet_state_dict_from_flax({"params": full_tree(shards)})
+        return shard_params({k: full[k] for k in shapes}, world)
+
+    params = torch_shards(jax_state.param_shards)
+    opt = jax_state.opt_shards
+    mirrors = isinstance(opt, Mapping) and [p for p, _ in _flatten(opt)] == [p for p, _ in _flatten(jax_state.param_shards)]
+    if mirrors:
+        momenta = torch_shards(opt)
+    elif any(np.any(np.asarray(leaf)) for leaf in _leaves_of(opt)):
+        raise ValueError("an optax state carries over only fresh (all zeros): the port makes its own optimizer")
+    stats = (jax_state.model_state or {}).get("batch_stats")
+    states = []
+    for r in range(world):
+        buffers = resnet_state_dict_from_flax({"batch_stats": _row(stats, r)}) if stats is not None else {}
+        states.append(FSDPState(
+            {k: v[r].clone() for k, v in params.items()},
+            {k: v[r].clone() for k, v in momenta.items()} if mirrors else None,
+            buffers,
+        ))
+    return states
+
+
+def _leaves_of(tree: Any) -> List[Any]:
+    """Every array leaf of a tree of mappings, sequences and NamedTuples."""
+    if isinstance(tree, Mapping):
+        return [leaf for v in tree.values() for leaf in _leaves_of(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _leaves_of(v)]
+    return [] if tree is None else [tree]

@@ -40,7 +40,9 @@ transpose gives it:
 - :func:`all_to_all` (``lax.all_to_all`` tiled; backward the inverse
   all-to-all);
 - :func:`all_gather_tiled` (``lax.all_gather`` tiled; backward a
-  reduce-scatter).
+  reduce-scatter), and :func:`chunked_all_gather_tiled`, the same gather
+  of a flat shard as K collectives (FSDP's ``comm_chunks``), each with its
+  own reduce-scatter backward.
 
 Every collective of the port is issued here, and :func:`record_collectives`
 records each one (its kind, the group's ranks and its payload bytes): the
@@ -469,3 +471,27 @@ def all_gather_tiled(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     along ``dim`` in rank order. The backward reduce-scatters the
     cotangent: rank ``r`` gets the sum over ranks of its own slice."""
     return x if group is None else _AllGatherTiled.apply(x, dim % x.dim(), group)
+
+
+def chunked_all_gather_tiled(x: torch.Tensor, group, n_chunks: Optional[int]) -> torch.Tensor:
+    """:func:`all_gather_tiled` of a flat ``x`` (the reference FSDP's
+    chunked parameter gather, its ``parallel/fsdp.py:215-230``): ``x`` is
+    cut into the pieces of :func:`chunk_bounds` and each piece is gathered
+    by a collective of its own; the ``(W, piece)`` results are laid side by
+    side as ``(W, n)`` and flattened, so the result is the monolithic
+    gather's, in rank order. Each piece's backward is its own
+    reduce-scatter. ``n_chunks=None`` (or one piece) is one collective.
+
+    The JAX package fences each piece to the previous gather so that XLA
+    keeps the pieces in order; eager PyTorch issues collectives in program
+    order on one stream, so nothing here needs a fence."""
+    if group is None:
+        return x
+    bounds = chunk_bounds(x.numel(), n_chunks if n_chunks is not None else 1)
+    if len(bounds) <= 1:
+        return all_gather_tiled(x, 0, group)
+    world = world_size(group)
+    # split's backward concatenates the pieces' gradients: no sum of zeros
+    pieces = x.split([end - start for start, end in bounds])
+    gathered = [all_gather_tiled(p, 0, group).view(world, p.numel()) for p in pieces]
+    return torch.cat(gathered, dim=1).reshape(-1)

@@ -15,12 +15,21 @@ the port, whose checkpoints hold one row file a rank
 - **The global batch is kept**; :func:`rescale_accum_steps` gives the
   accumulation steps that keep each device's microbatch.
 
+- **Mesh shapes reshard, not just world sizes.** The topology record
+  carries the ``data x fsdp x tensor`` axes and the shard axis of every
+  tensor-parallel leaf (``tp_param_axes``): TP leaves merge and re-split
+  by pure byte movement (exact, :func:`reshard_tp_params`), memories fold
+  or pad along the data axis, and ``fsdp``, a layout axis over unsharded
+  parameters, changes degree with no data movement.
+
 The functions on per-rank leaves take and return numpy arrays with a
-leading world axis, in trees of dicts, lists and tuples: the JAX
-package's functions on the same arrays give the same bytes. The tensor-parallel leaf split and merge and an
-``fsdp`` degree above 1 wait for the port's tensor parallelism; a
-topology with either raises ``NotImplementedError``. ``derive_rank_key``
-(JAX PRNG lineage) has no counterpart.
+leading world (or TP-shard) axis, in trees of dicts, lists and tuples: the
+JAX package's functions on the same arrays give the same bytes. In the
+port's checkpoints a TP leaf lives as one shard in each rank's file, not
+as the reference's ``(T,) + shard`` stack: :func:`widen_template` states
+that stack, and :func:`reshard_from_checkpoint` fills it from the rank
+files. ``derive_rank_key`` (JAX PRNG lineage) has no counterpart: no port
+path draws per-rank randomness yet.
 """
 
 from __future__ import annotations
@@ -38,12 +47,15 @@ MESH_AXES: Tuple[str, ...] = ("data", "fsdp", "tensor")
 
 
 class RankRows(NamedTuple):
-    """The per-rank rows of a checkpoint, each leaf stacked on a leading
-    world axis (numpy): ``memories`` and ``model_state`` as the JAX
-    package's ``TrainState`` holds them in one controller."""
+    """The per-rank rows of a checkpoint (numpy): ``memories`` and
+    ``model_state`` with a leading data-axis row for each leaf, as the JAX
+    package's ``TrainState`` holds them in one controller, and, where the
+    parameters are per rank, ``params`` with each ``tp_param_axes`` leaf a
+    ``(T,) + shard`` stack and the others as one rank holds them."""
 
     memories: Any
     model_state: Any
+    params: Any = None
 
 
 def _tree_map(fn, tree: Any) -> Any:
@@ -64,6 +76,21 @@ def _leaves(tree: Any) -> List[Any]:
     out: List[Any] = []
     _tree_map(out.append, tree)
     return out
+
+
+def _tree_map_with_path(fn, tree: Any, path: Tuple[str, ...] = ()) -> Any:
+    """:func:`_tree_map` whose ``fn(path, leaf)`` also gets the leaf's
+    ``"/"``-joined path of keys and indices, the JAX package's
+    ``tp_param_axes`` keys."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_map_with_path(fn, v, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        return type(tree)(*(_tree_map_with_path(fn, v, path + (f,)) for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map_with_path(fn, v, path + (str(i),)) for i, v in enumerate(tree))
+    return fn("/".join(path), tree)
 
 
 # -- mesh geometry ------------------------------------------------------------
@@ -101,14 +128,6 @@ def topology_mesh(topology: Dict[str, Any]) -> Dict[str, int]:
     """The mesh a topology record describes (records without
     ``mesh_axes`` mean all data)."""
     return normalize_mesh_axes(topology.get("mesh_axes"), world_size=topology.get("world_size"))
-
-
-def _require_data_axis(axes: Dict[str, int]) -> None:
-    if axes["fsdp"] > 1 or axes["tensor"] > 1:
-        raise NotImplementedError(
-            f"resharding mesh {axes}: only the data axis is ported (the tensor-parallel and fsdp paths"
-            " wait for parallel/tensor.py)"
-        )
 
 
 # -- rank folding -----------------------------------------------------------
@@ -238,6 +257,52 @@ def rescale_accum_steps(global_batch: int, old_world: int, new_world: int, old_a
     return old_accum
 
 
+# -- tensor-parallel leaves ------------------------------------------------------
+#
+# A TP leaf moves as a stack ``(T,) + shard_shape`` whose ``shard_shape[axis]``
+# is ``full_dim / T``, for the axis ``tp_param_axes`` records (an index into
+# the unstacked shard's shape). Merge-then-split moves bytes and does no
+# arithmetic, so a change of TP degree is exact.
+
+
+def merge_tp_leaf(stacked: Any, axis: int) -> np.ndarray:
+    """Concatenate a ``(T,) + shard_shape`` stack into the full array along
+    the shard axis: pure byte movement."""
+    arr = np.asarray(stacked)
+    if arr.ndim < 2:
+        raise ValueError(f"TP leaf must have a leading shard axis, got shape {arr.shape}")
+    return np.concatenate([arr[i] for i in range(arr.shape[0])], axis=axis)
+
+
+def split_tp_leaf(full: Any, tp: int, axis: int) -> np.ndarray:
+    """Split a full array into a ``(tp,) + shard_shape`` stack along the
+    shard axis, which must divide evenly: a mesh whose TP degree does not
+    divide the parameter is no restart shape."""
+    arr = np.asarray(full)
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if arr.shape[axis] % tp:
+        raise ValueError(f"dim {arr.shape[axis]} on axis {axis} does not divide over tp={tp}")
+    return np.stack(np.split(arr, tp, axis=axis), axis=0)
+
+
+def reshard_tp_params(params: Any, old_tp: int, new_tp: int, tp_param_axes: Dict[str, int]) -> Any:
+    """Re-split every ``tp_param_axes`` leaf (by its ``"/"``-joined path)
+    from ``old_tp`` shards to ``new_tp`` (merge to full, split back); the
+    other leaves are replicated and pass through. ``params`` itself where
+    the degrees match or nothing is TP-sharded."""
+    if old_tp == new_tp or not tp_param_axes:
+        return params
+
+    def _move(key, leaf):
+        if key not in tp_param_axes:
+            return leaf
+        axis = int(tp_param_axes[key])
+        return split_tp_leaf(merge_tp_leaf(leaf, axis), new_tp, axis)
+
+    return _tree_map_with_path(_move, params)
+
+
 # -- the topology record ------------------------------------------------------
 
 
@@ -318,36 +383,88 @@ def reshard_mesh_state(
     tp_param_axes: Optional[Dict[str, int]] = None,
     samples_per_rank: Optional[Sequence[int]] = None,
 ) -> Any:
-    """Move per-rank rows from one mesh to another along the data axis
-    (:func:`reshard_train_state`); a tensor or fsdp degree above 1, or
-    TP-sharded leaves, raise ``NotImplementedError``."""
+    """Move per-rank rows (a NamedTuple with ``memories``, ``model_state``
+    and, optionally, ``params``: :class:`RankRows`, or the JAX package's
+    ``TrainState`` of numpy arrays) from one mesh to another: TP leaves of
+    ``params`` re-split along their recorded axes (exact byte movement),
+    memories and model state fold or widen along the data axis
+    (:func:`reshard_train_state`), and ``fsdp`` changes degree with no data
+    movement."""
     old_axes = normalize_mesh_axes(old_axes)
     new_axes = normalize_mesh_axes(new_axes)
-    _require_data_axis(old_axes)
-    _require_data_axis(new_axes)
-    if tp_param_axes:
-        raise NotImplementedError("TP-sharded parameters do not reshard yet (parallel/tensor.py is not ported)")
+    params = getattr(state, "params", None)
+    if params is not None:
+        state = state._replace(
+            params=reshard_tp_params(params, old_axes["tensor"], new_axes["tensor"], tp_param_axes or {})
+        )
+    elif tp_param_axes and old_axes["tensor"] != new_axes["tensor"]:
+        raise ValueError("tp_param_axes name leaves of params, and the state holds no per-rank params")
     return reshard_train_state(state, new_axes["data"], samples_per_rank=samples_per_rank)
 
 
-def widen_template(template: Any, old_world: int, tp_param_axes: Optional[Dict[str, int]] = None,
-                   old_tp: Optional[int] = None) -> RankRows:
-    """Per-rank rows shaped as the CHECKPOINT holds them: zeros of
-    ``(old_world,) + shape`` for each leaf of ``template``'s (one rank's)
-    ``memories`` and ``model_state``, the target the row files are read
-    into before the move."""
-    if tp_param_axes or (old_tp is not None and old_tp > 1):
-        raise NotImplementedError("TP-sharded parameters do not reshard yet (parallel/tensor.py is not ported)")
+def _zeros_like(leaf: Any, lead: Tuple[int, ...] = (), shape: Optional[Sequence[int]] = None) -> np.ndarray:
+    """numpy zeros of ``lead + shape`` (``shape``: the leaf's) in the
+    leaf's dtype; a torch tensor gives its shape and dtype, not its data."""
+    if hasattr(leaf, "detach"):
+        dtype = leaf.detach().new_zeros(()).cpu().numpy().dtype
+    else:
+        dtype = np.asarray(leaf).dtype
+    return np.zeros(tuple(lead) + tuple(leaf.shape if shape is None else shape), dtype)
 
-    def _rerank(leaf):
-        if hasattr(leaf, "detach"):  # a torch tensor: its shape and dtype, not its data
-            dtype = leaf.detach().new_zeros(()).cpu().numpy().dtype
-            return np.zeros((old_world,) + tuple(leaf.shape), dtype)
-        arr = np.asarray(leaf)
-        return np.zeros((old_world,) + arr.shape, arr.dtype)
+
+def widen_template(
+    template: Any,
+    old_world: int,
+    tp_param_axes: Optional[Dict[str, int]] = None,
+    old_tp: Optional[int] = None,
+    new_tp: int = 1,
+) -> RankRows:
+    """Per-rank rows shaped as the CHECKPOINT holds them, the target the
+    rank files are read into before the move: zeros of ``(old_world,) +
+    shape`` for each leaf of ``template``'s (one rank's) ``memories`` and
+    ``model_state``; where ``template`` holds per-rank ``params`` (built
+    for a mesh of TP degree ``new_tp``), each ``tp_param_axes`` leaf as the
+    ``(old_tp,) + shard`` stack of the checkpoint's TP degree and every
+    other leaf as one rank holds it."""
+    from ..utils.checkpoint import per_rank_fields
 
     model_state = getattr(template, "model_state", None)
-    return RankRows(_tree_map(_rerank, template.memories), _tree_map(_rerank, model_state) if model_state else None)
+    memories = _tree_map(lambda leaf: _zeros_like(leaf, (old_world,)), template.memories)
+    model_state = _tree_map(lambda leaf: _zeros_like(leaf, (old_world,)), model_state) if model_state else None
+    if "params" not in per_rank_fields(template):
+        return RankRows(memories, model_state)
+    tp_param_axes = tp_param_axes or {}
+    old_tp = old_tp or 1
+
+    def _retp(key, leaf):
+        if key not in tp_param_axes:
+            return _zeros_like(leaf)
+        axis = int(tp_param_axes[key])
+        shard = list(leaf.shape)
+        full_dim = shard[axis] * new_tp
+        if full_dim % old_tp:
+            raise ValueError(f"param {key!r} dim {full_dim} does not divide over checkpoint tp={old_tp}")
+        shard[axis] = full_dim // old_tp
+        return _zeros_like(leaf, (old_tp,), shard)
+
+    return RankRows(memories, model_state, _tree_map_with_path(_retp, template.params))
+
+
+def mesh_rank(coord: Dict[str, int], axes: Dict[str, int]) -> int:
+    """The rank at ``coord`` of a mesh laid over the world row-major in
+    :data:`MESH_AXES` order, as ``parallel.mesh.make_mesh`` lays it."""
+    rank = 0
+    for name in MESH_AXES:
+        rank = rank * int(axes[name]) + int(coord.get(name, 0))
+    return rank
+
+
+def mesh_coord(rank: int, axes: Dict[str, int]) -> Dict[str, int]:
+    """The coordinate of ``rank`` on the mesh (:func:`mesh_rank`'s inverse)."""
+    coord = {}
+    for name in reversed(MESH_AXES):
+        rank, coord[name] = divmod(rank, int(axes[name]))
+    return coord
 
 
 def reshard_from_checkpoint(
@@ -358,13 +475,17 @@ def reshard_from_checkpoint(
     mesh_axes: Optional[Dict[str, int]] = None,
     group=None,
 ) -> Any:
-    """The resharder ``restore_latest`` routes a world change through:
-    restore the replicated fields into ``template`` (this rank's state),
-    read every old rank's row into :func:`widen_template`'s rows, move
-    them to the world of ``group`` (:func:`reshard_mesh_state`) and write
-    this rank's row into ``template``. Every rank of ``group`` calls it.
-    ``mesh_axes`` names the new mesh; ``None`` means all data. Returns
-    ``template``."""
+    """The resharder ``restore_latest`` routes a world or mesh change
+    through: restore the replicated fields into ``template`` (this rank's
+    state), read the old ranks' rows into :func:`widen_template`'s rows (a
+    data row from the first rank of each old data slice; each TP shard of
+    per-rank ``params`` from the rank of the first data slice that holds
+    it; the other params from rank 0), move them to the new mesh
+    (:func:`reshard_mesh_state`) and write this rank's part into
+    ``template``: the row of its data coordinate and the shard of its
+    tensor coordinate. Every rank of ``group`` calls it. ``mesh_axes``
+    names the new mesh, over the ranks of ``group``; ``None`` means all
+    data. Returns ``template``."""
     import torch
 
     from ..utils.checkpoint import (
@@ -385,32 +506,50 @@ def reshard_from_checkpoint(
     rank, world = rank_and_world(group)
     old_axes = topology_mesh(topo)
     new_axes = normalize_mesh_axes(mesh_axes if mesh_axes is not None else {"data": world})
-    if new_axes["data"] != world:
-        raise ValueError(f"{world} ranks restore, but the requested mesh has data degree {new_axes['data']}")
+    if mesh_world(new_axes) != world:
+        raise ValueError(f"{world} ranks restore, but the requested mesh {new_axes} has {mesh_world(new_axes)}")
+    tp_axes = {str(k): int(v) for k, v in (topo.get("tp_param_axes") or {}).items()}
     own = per_rank_fields(template)
-    extra = [n for n in own if n not in ("memories", "model_state") and _leaves(getattr(template, n, None))]
+    extra = [n for n in own if n not in ("memories", "model_state", "params") and _leaves(getattr(template, n, None))]
     if extra:
         raise NotImplementedError(f"per-rank fields {extra} do not reshard yet")
     replicated = [f for f in state_fields(template) if f not in own]
     apply = load_checked(path, template, group, fields=replicated)
-    rows = widen_template(template, old_axes["data"], topo.get("tp_param_axes") or None, old_axes["tensor"])
-    for r in range(old_axes["data"]):
-        saved = torch.load(os.path.join(path, rank_file(r)), map_location="cpu", weights_only=True)
+    rows = widen_template(template, old_axes["data"], tp_axes, old_axes["tensor"], new_axes["tensor"])
+    files: Dict[int, Dict[str, Any]] = {}
+
+    def saved(r: int) -> Dict[str, Any]:
+        if r not in files:
+            files[r] = torch.load(os.path.join(path, rank_file(r)), map_location="cpu", weights_only=True)
+        return files[r]
+
+    def fill(dst: np.ndarray, index: Any, r: int, name: str, key: str) -> None:
+        """Row ``index`` of ``dst`` (all of it: ``...``) from rank ``r``'s file."""
+        src = saved(r)[name][key]
+        want = dst.shape if index is Ellipsis else dst.shape[1:]
+        if tuple(src.shape) != want:
+            raise ValueError(f"{name}[{key!r}] of rank {r}: {tuple(src.shape)}, template {want}")
+        dst[index] = src.numpy()
+
+    for d in range(old_axes["data"]):
         for name, stacked in (("memories", rows.memories), ("model_state", rows.model_state)):
-            if stacked is None:
-                continue
-            for key, dst in stacked.items():
-                src = saved[name][key]
-                if tuple(src.shape) != dst.shape[1:]:
-                    raise ValueError(f"{name}[{key!r}] of rank {r}: {tuple(src.shape)}, template {dst.shape[1:]}")
-                dst[r] = src.numpy()
-    moved = reshard_mesh_state(
-        rows, old_axes, new_axes, tp_param_axes=topo.get("tp_param_axes") or None, samples_per_rank=samples_per_rank
-    )
+            for key, dst in (stacked or {}).items():
+                fill(dst, d, mesh_rank({"data": d}, old_axes), name, key)
+    for key, dst in (rows.params or {}).items():
+        if key in tp_axes:
+            for t in range(old_axes["tensor"]):
+                fill(dst, t, mesh_rank({"tensor": t}, old_axes), "params", key)
+        else:
+            fill(dst, Ellipsis, 0, "params", key)
+    moved = reshard_mesh_state(rows, old_axes, new_axes, tp_param_axes=tp_axes, samples_per_rank=samples_per_rank)
     apply()
+    me = mesh_coord(rank, new_axes)
     with torch.no_grad():
-        for name in ("memories", "model_state"):
+        for name, index in (("memories", me["data"]), ("model_state", me["data"]), ("params", me["tensor"])):
             dst, src = getattr(template, name, None), getattr(moved, name)
+            if src is None:
+                continue
             for key in dst or {}:
-                dst[key].copy_(torch.from_numpy(np.array(src[key][rank])))  # 0-d stays 0-d
+                value = src[key][index] if name != "params" or key in tp_axes else src[key]
+                dst[key].copy_(torch.from_numpy(np.array(value)))  # 0-d stays 0-d
     return template

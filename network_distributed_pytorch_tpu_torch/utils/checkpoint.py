@@ -325,23 +325,27 @@ def read_loader_state(path: str) -> Optional[Dict[str, Any]]:
     return state if isinstance(state, dict) else None
 
 
-def check_topology(path: str, world: int) -> Optional[Dict[str, Any]]:
+def check_topology(path: str, world: int, mesh_axes: Optional[Dict[str, int]] = None) -> Optional[Dict[str, Any]]:
     """The checkpoint's topology record (None when untagged); raises
-    :class:`TopologyMismatchError` when it was written at a data-axis
-    degree (a world size, for records without ``mesh_axes``) other than
-    ``world``, the ranks restoring it."""
+    :class:`TopologyMismatchError` when it was written on another mesh than
+    ``mesh_axes`` (``None``: all data over ``world`` ranks), the ranks
+    restoring it, or, for records without ``mesh_axes``, at a world size
+    other than ``world``."""
     topo = read_topology(path)
     if topo is None:
         return None
     saved = topo.get("world_size")
     axes = topo.get("mesh_axes")
-    data = axes.get("data") if isinstance(axes, dict) else None
-    if data is not None:
-        if int(data) != world:
+    if isinstance(axes, dict):
+        from ..resilience.reshard import normalize_mesh_axes
+
+        recorded = normalize_mesh_axes(axes)
+        want = normalize_mesh_axes(mesh_axes if mesh_axes is not None else {"data": world}, world_size=world)
+        if recorded != want:
             raise TopologyMismatchError(
                 f"topology mismatch: checkpoint {os.path.basename(path)} was written at world size {saved} on"
-                f" mesh {axes} (data degree {data}), restoring at {world} ranks; reshard via"
-                f" resilience.reshard.reshard_from_checkpoint"
+                f" mesh {recorded} (data degree {recorded['data']}), restoring at {world} ranks on mesh {want};"
+                f" reshard via resilience.reshard.reshard_from_checkpoint"
             )
     elif saved is not None and int(saved) != world:
         raise TopologyMismatchError(
@@ -480,19 +484,36 @@ def _load(path: str, name: str) -> Dict[str, Any]:
     return torch.load(os.path.join(path, name), map_location="cpu", weights_only=True)
 
 
-def load_checked(path: str, template: Any, group=None, fields: Optional[Sequence[str]] = None) -> Callable[[], Any]:
+def load_checked(
+    path: str, template: Any, group=None, fields: Optional[Sequence[str]] = None, sharded: bool = False,
+    mesh_axes: Optional[Dict[str, int]] = None,
+) -> Callable[[], Any]:
     """Read the checkpoint at ``path`` for this rank and check it against
     ``template`` without writing anything; returns the function that
     writes it into ``template`` (and returns the template). ``fields``
     restores only those fields; a restore of replicated fields alone does
-    not depend on the world size."""
+    not depend on the world size. ``sharded`` reads this rank's own file
+    and nothing else (every field restored must be per rank), after
+    checking that the checkpoint holds one file for each rank of
+    ``group``. ``mesh_axes`` is the mesh of the ranks restoring
+    (:func:`check_topology`)."""
     path = os.path.abspath(path)
     rank, world = rank_and_world(group)
     names = list(fields) if fields is not None else state_fields(template)
     own = per_rank_fields(template)
     per_rank = [n for n in names if n in own]
+    if sharded and len(per_rank) < len(names):
+        replicated = [n for n in names if n not in own]
+        raise ValueError(f"a sharded restore reads per-rank fields only; {replicated} are replicated")
     if per_rank:
-        check_topology(path, world)
+        check_topology(path, world, mesh_axes)
+    if sharded:
+        files = sum(1 for n in os.listdir(path) if n.startswith("rank_") and n.endswith(".pt"))
+        if files != world:
+            raise TopologyMismatchError(
+                f"topology mismatch: checkpoint {os.path.basename(path)} holds {files} rank files, restoring at"
+                f" {world} ranks; reshard via resilience.reshard.reshard_from_checkpoint"
+            )
     saved: Dict[str, Any] = {}
     if len(per_rank) < len(names):
         replicated = _load(path, REPLICATED_FILE)
@@ -504,12 +525,26 @@ def load_checked(path: str, template: Any, group=None, fields: Optional[Sequence
     return lambda: (_assign_fields(template, saved, names, dry=False), template)[1]
 
 
-def restore_checkpoint(path: str, template: Any, group=None, fields: Optional[Sequence[str]] = None) -> Any:
+def restore_checkpoint(
+    path: str, template: Any, group=None, fields: Optional[Sequence[str]] = None,
+    mesh_axes: Optional[Dict[str, int]] = None,
+) -> Any:
     """Restore the checkpoint at ``path`` into ``template`` (built the way
     the run built its initial state) and return it: each rank reads the
     replicated file and its own row. A checkpoint tagged with another
-    world size raises :class:`TopologyMismatchError`."""
-    return load_checked(path, template, group, fields)()
+    world size, or another mesh than ``mesh_axes``, raises
+    :class:`TopologyMismatchError`."""
+    return load_checked(path, template, group, fields, mesh_axes=mesh_axes)()
+
+
+def restore_checkpoint_sharded(path: str, template: Any, group=None) -> Any:
+    """Restore a state whose every field is per rank (``parallel.fsdp.
+    FSDPState``) from this rank's own file only: no rank reads, or holds,
+    another rank's shards (the reference's ``utils/checkpoint.py:334-363``).
+    A checkpoint of another world size (by its topology record, or by its
+    count of rank files) raises :class:`TopologyMismatchError`; a
+    template with replicated fields raises ``ValueError``."""
+    return load_checked(path, template, group, sharded=True)()
 
 
 def committed_step_paths(root: str) -> List[Tuple[int, str]]:
@@ -541,6 +576,7 @@ def restore_latest(
     resharder: Optional[Callable[[str, Optional[Dict[str, Any]]], Any]] = None,
     group=None,
     fields: Optional[Sequence[str]] = None,
+    sharded: bool = False,
 ) -> Optional[Tuple[Any, int]]:
     """Restore the newest checkpoint that passes verification, walking back
     through older committed steps when the newest is corrupt (a bit flip,
@@ -550,11 +586,12 @@ def restore_latest(
     split the hashing and agree on each verdict, so all of them restore
     the same step.
 
-    A checkpoint of another world size is never restored as it is: with
-    ``resharder`` (a ``(path, saved_topology) -> state`` callable,
-    typically around ``resilience.reshard.reshard_from_checkpoint``) the
-    restore goes through it; without one, :class:`TopologyMismatchError`
-    propagates."""
+    ``sharded`` restores through :func:`restore_checkpoint_sharded` (each
+    rank reads its own file only). A checkpoint of another world size is
+    never restored as it is: with ``resharder`` (a ``(path, saved_topology) ->
+    state`` callable, typically around
+    ``resilience.reshard.reshard_from_checkpoint``) the restore goes
+    through it; without one, :class:`TopologyMismatchError` propagates."""
     from ..observe import FailureEvent
 
     rank, world = rank_and_world(group)
@@ -564,7 +601,7 @@ def restore_latest(
         if ok:
             apply = None
             try:
-                apply = load_checked(path, template, group, fields)
+                apply = load_checked(path, template, group, fields, sharded=sharded)
             except TopologyMismatchError:
                 if resharder is None:
                     raise

@@ -17,7 +17,14 @@ hold its own (``test_checkpoint.py``, ``test_chaos.py``):
 - the entry points: ``exact_cifar10 --checkpoint-dir`` through the
   launcher resumes at epoch 1, a preempted run exits with 75 and resumes
   past its step, and ``serve_gpt.run(checkpoint_dir=...)`` serves the
-  trained parameters bit for bit and reports ``checkpoint_step``.
+  trained parameters bit for bit and reports ``checkpoint_step``;
+- the sharded restore (reference ``test_checkpoint.py:147-216``) on two
+  Gloo ranks: an FSDP state (``sgd`` and AdamW) saved by both and restored
+  by ``restore_checkpoint_sharded`` and ``restore_latest(sharded=True)``
+  bit for bit, the next step from it bitwise the uninterrupted one's; a
+  restore at a world of one refused, by the topology record and, on an
+  untagged checkpoint, by the count of rank files; a template with
+  replicated fields refused.
 """
 
 import json
@@ -52,6 +59,7 @@ from network_distributed_pytorch_tpu_torch.utils.checkpoint import (
     latest_step_path,
     read_loader_state,
     restore_checkpoint,
+    restore_checkpoint_sharded,
     restore_latest,
     save_checkpoint,
     verify_checkpoint,
@@ -61,9 +69,12 @@ from torch_worker import (  # few_torch_threads: autouse
     Events,
     LinReg,
     few_torch_threads,
+    fsdp_checkpoint_rank,
     mse_loss,
+    numpy_batches,
     regression_problem,
     resume_batches,
+    spawn,
 )
 
 CPU = torch.device("cpu")
@@ -379,3 +390,42 @@ def test_serve_gpt_without_a_checkpoint_serves_fresh_params(tmp_path, capsys):
     )
     assert out["checkpoint_step"] is None and out["slo"]["n_finished"] == 2
     assert "no restorable checkpoint" in capsys.readouterr().err
+
+
+# ---- the sharded restore of an FSDP state, on two ranks --------------------------
+
+
+@pytest.fixture(scope="module")
+def fsdp_ranks(tmp_path_factory):
+    root = tmp_path_factory.mktemp("fsdp_ckpt")
+    return spawn(fsdp_checkpoint_rank, 2, root, str(root), numpy_batches(60, 3, batch=8, hw=16))
+
+
+@pytest.mark.parametrize("algorithm", ["sgd", "optax"])
+def test_fsdp_state_restores_sharded_bit_for_bit(fsdp_ranks, algorithm):
+    """Each rank's shards, momenta or AdamW moments and BN buffers come back
+    bit for bit from its own file, by both restores, and the next step from
+    the restored state is the uninterrupted run's."""
+    for res in fsdp_ranks:
+        got = res[algorithm]
+        _assert_bitwise(got["restored"], got["saved"])
+        _assert_bitwise(got["latest"], got["saved"])
+        assert got["latest_step"] == 0
+        assert got["losses"][0] == got["losses"][1]
+        _assert_bitwise(got["resumed"], got["after"])
+    # the ranks hold different shards: nothing was read from the other's file
+    a, b = (res["sgd"]["saved"] for res in fsdp_ranks)
+    assert any(not torch.equal(a[k], b[k]) for k in a if k.startswith("param_shards"))
+
+
+def test_fsdp_restore_at_another_world_is_refused(fsdp_ranks):
+    tagged, untagged = fsdp_ranks[0]["refused"]
+    assert tagged is not None and "world size 2" in tagged
+    assert untagged is not None and "2 rank files" in untagged
+
+
+def test_sharded_restore_refuses_replicated_fields(tmp_path):
+    _, _, state = _setup("sgd")
+    save_checkpoint(str(tmp_path), state, step=0)
+    with pytest.raises(ValueError, match="replicated"):
+        restore_checkpoint_sharded(str(tmp_path / "step_0"), _setup("sgd")[2])

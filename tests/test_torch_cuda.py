@@ -24,10 +24,11 @@ ops on the card against the CPU (positions past the table included), and
 the tiny GPT served on the card by the slot and paged engines (and under
 speculative decoding) with the same tokens, a checkpointed resume of the
 small ResNet-18 on the card bit for bit under deterministic algorithms,
-a checkpoint written from CPU tensors restored onto the card, and K5
+a checkpoint written from CPU tensors restored onto the card, K5
 causal at GPT-2 small's width inside a pipeline stage and inside a
 one-rank MoE block, each against the same module on the CPU (K5's plain
-versions).
+versions), and the FSDP step of a SmallCNN over a one-rank NCCL group bit
+for bit the DDP step (monolithic and chunked).
 
 This file imports torch and the port, never jax, so it also runs on a
 machine that has the card and no JAX (``--noconftest`` skips the JAX
@@ -81,8 +82,14 @@ from network_distributed_pytorch_tpu_torch.ops import gram_schmidt as gs
 from network_distributed_pytorch_tpu_torch.ops import powersgd as ps
 from network_distributed_pytorch_tpu_torch.ops.orthogonalize import orthogonalize
 from network_distributed_pytorch_tpu_torch.parallel import compression
+from network_distributed_pytorch_tpu_torch.parallel.fsdp import make_fsdp_train_step
 from network_distributed_pytorch_tpu_torch.parallel.localsgd import make_diloco_train_fn
-from network_distributed_pytorch_tpu_torch.parallel.reducers import PowerSGDReducer
+from network_distributed_pytorch_tpu_torch.parallel.mesh import (
+    DistributedConfig,
+    initialize_distributed,
+    shutdown_distributed,
+)
+from network_distributed_pytorch_tpu_torch.parallel.reducers import ExactReducer, PowerSGDReducer
 from network_distributed_pytorch_tpu_torch.parallel.trainer import make_train_step
 from network_distributed_pytorch_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
@@ -1290,3 +1297,48 @@ def test_k5_inside_a_world1_moe_block_matches_its_plain_version(cuda_device, exa
     assert [a - b for a, b in zip(after, before)] == [1, 1]
     names = ["logits", "aux", *base, *experts, *routers]
     _held(got, block(torch.device("cpu"), None), names)
+
+
+@pytest.fixture
+def one_rank_nccl(cuda_device):
+    """A one-rank NCCL group on the card, destroyed after."""
+    group = initialize_distributed(DistributedConfig(), cuda_device)
+    yield group
+    shutdown_distributed()
+
+
+@pytest.mark.cuda
+def test_world1_fsdp_step_is_the_ddp_step_bit_for_bit(cuda_device, deterministic_algorithms, one_rank_nccl):
+    """At world 1 every gather is a copy, the reduce-scatter sums one term
+    and the update is the same elementwise SGD: two FSDP steps of the
+    SmallCNN give the DDP step's parameters and losses bit for bit, and
+    chunked FSDP (K = 3) the monolithic one's."""
+    rng = np.random.RandomState(70)
+    batches = [
+        (torch.from_numpy(rng.randn(16, 32, 32, 3).astype(np.float32)).to(cuda_device),
+         torch.from_numpy(rng.randint(0, 10, 16)).to(cuda_device))
+        for _ in range(2)
+    ]
+
+    def two_steps(fsdp, chunks=None):
+        model = SmallCNN(width=8, device=cuda_device, seed=4)
+        if fsdp:
+            step = make_fsdp_train_step(image_classifier_loss(), model, 0.05, 0.9, "sgd", one_rank_nccl,
+                                        comm_chunks=chunks)
+        else:
+            step = make_train_step(image_classifier_loss(), ExactReducer(), model, 0.05, 0.9, "sgd", one_rank_nccl)
+        state = step.init_state()
+        losses = []
+        for b in batches:
+            state, loss = step(state, b)
+            losses.append(loss.item())
+        params = step.unshard(state) if fsdp else {k: v.detach().clone() for k, v in state.params.items()}
+        return losses, params
+
+    ddp_losses, ddp = two_steps(False)
+    for chunks in (None, 3):
+        losses, params = two_steps(True, chunks)
+        assert losses == ddp_losses
+        assert set(params) == set(ddp)
+        for k, want in ddp.items():
+            assert params[k].device.type == "cuda" and torch.equal(params[k], want), (chunks, k)

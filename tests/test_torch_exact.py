@@ -320,8 +320,6 @@ def test_run_matches_jax_run(layout, monkeypatch):
 
 
 def test_run_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        exact_cifar10.run(strategy="fsdp", device="cpu")
     with pytest.raises(ValueError, match="strategy"):
         exact_cifar10.run(strategy="zero", device="cpu")
     cfg = exact_cifar10.default_config()
@@ -350,7 +348,7 @@ def test_launcher_runs_exact_cifar10_with_buckets_and_chunks(capsys):
 @pytest.mark.parametrize(
     "args,error",
     [
-        (["exact_cifar10", "--strategy", "fsdp"], NotImplementedError),
+        (["exact_cifar10", "--strategy", "fsdp", "--comm-strategy", "ring"], ValueError),
         (["powersgd_cifar10", "--bucket-bytes", "1024"], ValueError),
         (["powersgd_imdb", "--comm-chunks", "2"], ValueError),
         (["imdb_baseline", "--comm-strategy", "ring"], ValueError),

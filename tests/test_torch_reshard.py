@@ -9,7 +9,20 @@ the same dict; then a world change on four Gloo ranks (one spawn): a
 resharder gives each new rank the rows of the JAX ``reshard_train_state``
 on the same stacked arrays, bit for bit, and ``restore_serving_params``
 reads that checkpoint into one process with the params bit-identical.
+
+The tensor and fsdp axes: ``merge_tp_leaf``, ``split_tp_leaf`` and
+``reshard_tp_params`` against the JAX functions on the same arrays, bit for
+bit (reference ``tests/test_reshard.py:382-413``); ``reshard_mesh_state``
+and ``widen_template`` against the JAX ones; and the mesh moves of
+reference ``tests/test_reshard.py:447-525`` on four Gloo ranks (a 2 data x
+2 tensor checkpoint traded for data, folded along data keeping tensor,
+collapsed to one rank, spread over an fsdp axis; the same-mesh restore and
+the data-degree refusal), each rank holding its part of the JAX
+resharder's bytes.
 """
+
+import dataclasses
+from typing import Any, NamedTuple
 
 import numpy as np
 import pytest
@@ -24,7 +37,13 @@ from network_distributed_pytorch_tpu_torch.utils.checkpoint import (
     read_topology,
     restore_checkpoint,
 )
-from torch_worker import few_torch_threads, resnet_resume_setup, reshard_rank, spawn  # few_torch_threads: autouse
+from torch_worker import (  # few_torch_threads: autouse
+    few_torch_threads,
+    mesh_reshard_rank,
+    resnet_resume_setup,
+    reshard_rank,
+    spawn,
+)
 
 WORLDS = [(4, 1), (4, 2), (4, 3), (3, 2), (5, 3), (2, 2)]
 
@@ -154,13 +173,112 @@ def test_make_topology_matches_jax(kwargs):
     assert reshard.topology_mesh(got) == jax_reshard.topology_mesh(got)
 
 
-def test_tensor_and_fsdp_degrees_raise():
-    rows = reshard.RankRows({"w": np.zeros((2, 3), np.float32)}, None)
-    for axes in ({"data": 1, "tensor": 2}, {"data": 1, "fsdp": 2}):
-        with pytest.raises(NotImplementedError):
-            reshard.reshard_mesh_state(rows, axes, {"data": 1})
-    with pytest.raises(NotImplementedError):
-        reshard.reshard_mesh_state(rows, {"data": 2}, {"data": 1}, tp_param_axes={"w": 0})
+class MeshState(NamedTuple):
+    """The reference test's ``TrainState``-like mini on a data x tensor
+    mesh: ``w`` TP-stacked ``(T,) + shard``, memories per data rank."""
+
+    params: Any
+    memories: Any
+    model_state: Any
+
+
+def _mesh_state(data, tp, seed=0):
+    rng = np.random.RandomState(seed)
+    full = rng.randn(6, 8).astype(np.float32)
+    return MeshState(
+        {"w": reshard.split_tp_leaf(full, tp, 1), "b": rng.randn(8).astype(np.float32)},
+        {"m": rng.randn(data, 6, 8).astype(np.float32)}, None,
+    )
+
+
+@pytest.mark.parametrize("tp,axis", [(4, 1), (3, 0), (2, 1), (1, 0)])
+def test_tp_leaf_split_and_merge_match_jax(tp, axis):
+    full = np.random.RandomState(11 + tp).randn(6, 8).astype(np.float32)
+    got = reshard.split_tp_leaf(full, tp, axis)
+    _equal(got, jax_reshard.split_tp_leaf(full, tp, axis))
+    _equal(reshard.merge_tp_leaf(got, axis), jax_reshard.merge_tp_leaf(got, axis))
+    assert reshard.merge_tp_leaf(got, axis).tobytes() == full.tobytes()
+    # a torch tensor reads as its array
+    _equal(reshard.split_tp_leaf(torch.from_numpy(full), tp, axis), got)
+
+
+@pytest.mark.parametrize(
+    "fn,args",
+    [("split_tp_leaf", (np.zeros((6, 8), np.float32), 5, 1)), ("split_tp_leaf", (np.zeros((6, 8), np.float32), 0, 1)),
+     ("merge_tp_leaf", (np.zeros(4, np.float32), 0))],
+    ids=["does_not_divide", "tp_zero", "no_shard_axis"],
+)
+def test_tp_leaf_refusals_match_jax(fn, args):
+    with pytest.raises(ValueError):
+        getattr(jax_reshard, fn)(*args)
+    with pytest.raises(ValueError):
+        getattr(reshard, fn)(*args)
+
+
+@pytest.mark.parametrize("old,new", [(2, 1), (1, 2), (2, 4), (4, 2)])
+def test_reshard_tp_params_matches_jax(old, new):
+    rng = np.random.RandomState(12)
+    full, v = rng.randn(6, 8).astype(np.float32), rng.randn(4, 3).astype(np.float32)
+    params = {"w": reshard.split_tp_leaf(full, old, 1), "b": rng.randn(8).astype(np.float32),
+              "blocks": {"v": reshard.split_tp_leaf(v, old, 0)}}
+    axes = {"w": 1, "blocks/v": 0}
+    got = reshard.reshard_tp_params(params, old, new, axes)
+    _equal(got, jax_reshard.reshard_tp_params(params, old, new, axes))
+    assert got["w"].shape[0] == new and got["b"] is params["b"]  # unlisted: replicated, untouched
+    _equal(reshard.reshard_tp_params(got, new, old, axes), params)  # pure byte movement both ways
+    assert reshard.reshard_tp_params(params, old, old, axes) is params
+    assert reshard.reshard_tp_params(params, old, new, {}) is params
+
+
+MESH_MOVES = [
+    ({"data": 2, "tensor": 2}, {"data": 2, "tensor": 1}),
+    ({"data": 2, "tensor": 2}, {"data": 1, "tensor": 2}),
+    ({"data": 2, "tensor": 2}, {"data": 1, "tensor": 1}),
+    ({"data": 1, "fsdp": 2}, {"data": 1}),
+    ({"data": 2, "fsdp": 2}, {"data": 1, "fsdp": 4}),
+    ({"data": 1, "fsdp": 2, "tensor": 2}, {"data": 2, "fsdp": 2, "tensor": 1}),
+]
+
+
+@pytest.mark.parametrize("old,new", MESH_MOVES, ids=["trade", "fold", "collapse", "fsdp_off", "fsdp_wider", "widen"])
+def test_tensor_and_fsdp_degrees_reshard(old, new):
+    """A tensor or fsdp degree above 1 reshards: the port's
+    ``reshard_mesh_state`` gives the JAX one's bytes (TP leaves re-split,
+    memories folded or widened along the data axis, fsdp a layout axis
+    that moves nothing)."""
+    old_n, new_n = reshard.normalize_mesh_axes(old), reshard.normalize_mesh_axes(new)
+    state = _mesh_state(old_n["data"], old_n["tensor"], seed=13)
+    got = reshard.reshard_mesh_state(state, old, new, tp_param_axes={"w": 1})
+    want = jax_reshard.reshard_mesh_state(state, old, new, tp_param_axes={"w": 1})
+    _equal(got.params, want.params)
+    _equal(got.memories, want.memories)
+    _equal(reshard.memory_total(got.memories), reshard.memory_total(state.memories))
+    assert got.params["w"].shape[0] == new_n["tensor"] and got.memories["m"].shape[0] == new_n["data"]
+
+
+@dataclasses.dataclass
+class _RankCarry:
+    PER_RANK_FIELDS = ("params", "memories", "model_state")
+    params: dict
+    memories: dict
+    model_state: dict
+
+
+def test_widen_template_states_the_checkpoint_layout():
+    """From one rank's state on the new mesh (TP degree 1 here: ``w``
+    whole), the shapes the JAX ``widen_template`` gives from its stacked
+    template: ``w`` as the checkpoint's ``(2,) + shard`` stack, memories
+    with the checkpoint's data rows; a replicated ``params`` field is no
+    part of the rows."""
+    one_rank = _RankCarry({"w": torch.zeros(6, 8), "b": torch.zeros(8)}, {"m": torch.zeros(6, 8)}, {})
+    got = reshard.widen_template(one_rank, 2, {"w": 1}, old_tp=2, new_tp=1)
+    want = jax_reshard.widen_template(_mesh_state(1, 1), 2, {"w": 1}, old_tp=2)
+    for tree_got, tree_want in ((got.params, want.params), (got.memories, want.memories)):
+        for k, v in tree_want.items():
+            assert tree_got[k].shape == v.shape and tree_got[k].dtype == v.dtype and not tree_got[k].any(), k
+    assert reshard.widen_template(reshard.RankRows({"m": np.zeros((6, 8))}, None), 3).params is None
+    with pytest.raises(ValueError, match="does not divide"):
+        reshard.widen_template(one_rank, 2, {"w": 1}, old_tp=3, new_tp=1)
 
 
 @pytest.fixture(scope="module")
@@ -211,3 +329,61 @@ def test_serving_hot_load_reads_a_4_rank_checkpoint(four_ranks):
     assert step == 0 and restored is params
     for k, v in ranks[0]["saved"]["params"].items():
         assert torch.equal(params[k].detach(), v), k
+
+
+# ---- the mesh moves on four Gloo ranks -------------------------------------------------
+
+MOVES = [
+    ("trade_tensor_for_data", [0, 1], {"data": 2, "tensor": 1}),
+    ("fold_data_keep_tensor", [0, 1], {"data": 1, "tensor": 2}),
+    ("collapse_2x2_to_1x1", [0], {"data": 1, "tensor": 1}),
+    ("spread_over_fsdp", [0, 1, 2, 3], {"data": 1, "fsdp": 2, "tensor": 2}),
+]
+OLD_MESH = {"data": 2, "fsdp": 1, "tensor": 2}
+
+
+def _mesh_arrays():
+    rng = np.random.RandomState(14)
+    return rng.randn(6, 8).astype(np.float32), rng.randn(8).astype(np.float32), rng.randn(2, 6, 8).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory):
+    root = tmp_path_factory.mktemp("mesh")
+    return spawn(mesh_reshard_rank, 4, root, str(root), *_mesh_arrays(), MOVES)
+
+
+@pytest.mark.parametrize("name,members,axes", MOVES, ids=[m[0] for m in MOVES])
+def test_mesh_move_gives_the_jax_resharders_bytes(mesh_ranks, name, members, axes):
+    """Each rank of the new mesh holds, bit for bit, its TP shard of the
+    JAX ``reshard_mesh_state``'s ``w``, its ``b``, and the row of its data
+    coordinate of the memories (folded by summation where data shrinks)."""
+    full_w, b, mem = _mesh_arrays()
+    state = MeshState({"w": reshard.split_tp_leaf(full_w, 2, 1), "b": b}, {"m": mem}, None)
+    want = jax_reshard.reshard_mesh_state(state, OLD_MESH, axes, tp_param_axes={"w": 1})
+    new = reshard.normalize_mesh_axes(axes)
+    for r, rank in enumerate(members):
+        got = mesh_ranks[rank][name]
+        coord = reshard.mesh_coord(r, new)
+        assert got["params.w"].numpy().tobytes() == np.asarray(want.params["w"][coord["tensor"]]).tobytes(), rank
+        assert got["params.b"].numpy().tobytes() == np.asarray(want.params["b"]).tobytes(), rank
+        assert got["memories.m"].numpy().tobytes() == np.asarray(want.memories["m"][coord["data"]]).tobytes(), rank
+    for rank in range(4):
+        if rank not in members:
+            assert name not in mesh_ranks[rank]
+
+
+def test_mesh_checkpoint_restores_on_its_mesh_and_refuses_another_data_degree(mesh_ranks):
+    """The reference's ``test_check_topology_mesh_data_axis_mismatch``: the
+    same 2 x 2 mesh restores every rank's own part bit for bit, though the
+    world (4) is not the data degree (2); three ranks at data degree 3 are
+    refused with the recorded degree named."""
+    full_w, b, mem = _mesh_arrays()
+    shards = reshard.split_tp_leaf(full_w, 2, 1)
+    for rank, res in enumerate(mesh_ranks):
+        coord = reshard.mesh_coord(rank, OLD_MESH)
+        got = res["same_mesh"]
+        assert got["params.w"].numpy().tobytes() == shards[coord["tensor"]].tobytes()
+        assert got["memories.m"].numpy().tobytes() == mem[coord["data"]].tobytes()
+        if rank < 3:
+            assert res["refused"] is not None and "data degree 2" in res["refused"]

@@ -9,6 +9,7 @@ share a port), and returns what each rank returned.
 
 from __future__ import annotations
 
+import dataclasses
 import multiprocessing as mp
 import os
 import signal
@@ -18,14 +19,15 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from network_distributed_pytorch_tpu_torch.experiments import bandwidth_study, exact_cifar10
+from network_distributed_pytorch_tpu_torch import launch
+from network_distributed_pytorch_tpu_torch.experiments import bandwidth_study, exact_cifar10, imdb_baseline
 from network_distributed_pytorch_tpu_torch.experiments.common import (
     average_model_state,
     image_classifier_loss,
     resilient_train_loop,
 )
 from network_distributed_pytorch_tpu_torch.models.cnn import SmallCNN
-from network_distributed_pytorch_tpu_torch.models.import_weights import train_state_from_jax
+from network_distributed_pytorch_tpu_torch.models.import_weights import fsdp_state_from_jax, train_state_from_jax
 from network_distributed_pytorch_tpu_torch.models.resnet import resnet18
 from network_distributed_pytorch_tpu_torch.parallel import compression
 from network_distributed_pytorch_tpu_torch.parallel.comm import (
@@ -36,6 +38,7 @@ from network_distributed_pytorch_tpu_torch.parallel.comm import (
     ring_all_reduce_mean,
 )
 from network_distributed_pytorch_tpu_torch.parallel.compression import QSGDReducer, SignSGDReducer, TopKReducer
+from network_distributed_pytorch_tpu_torch.parallel.fsdp import make_fsdp_train_step
 from network_distributed_pytorch_tpu_torch.parallel.hierarchical import HierarchicalReducer, make_hierarchical_groups
 from network_distributed_pytorch_tpu_torch.parallel.localsgd import (
     drift_stats,
@@ -55,7 +58,15 @@ from network_distributed_pytorch_tpu_torch.parallel.reducers import (
 )
 from network_distributed_pytorch_tpu_torch.parallel.trainer import make_train_step
 from network_distributed_pytorch_tpu_torch.resilience import PreemptionGuard, make_topology, reshard_from_checkpoint
-from network_distributed_pytorch_tpu_torch.utils.checkpoint import read_topology, restore_latest, save_checkpoint
+from network_distributed_pytorch_tpu_torch.resilience.reshard import mesh_coord, split_tp_leaf
+from network_distributed_pytorch_tpu_torch.utils.checkpoint import (
+    TopologyMismatchError,
+    read_topology,
+    restore_checkpoint,
+    restore_checkpoint_sharded,
+    restore_latest,
+    save_checkpoint,
+)
 from network_distributed_pytorch_tpu_torch.utils.config import ExperimentConfig
 
 
@@ -815,5 +826,265 @@ def reshard_rank(rank, world, group, root):
 
         restored, step_restored = restore_latest(os.path.join(root, "ckpt"), fresh, resharder=resharder, group=pair)
         out.update(restored=snapshot(restored), restored_step=step_restored, resharded_from=worlds)
+    dist.barrier()
+    return out
+
+
+# ---- FSDP ----------------------------------------------------------------------------
+
+# the reference's test_fsdp.py model: SmallCNN of width 4 on 8x8x3 images
+FSDP_WIDTH, FSDP_HW = 4, 8
+
+
+def fsdp_optimizer(algorithm, lr):
+    return imdb_baseline.adamw(lr) if algorithm == "optax" else None
+
+
+def fsdp_train_rank(rank, world, group, jax_init, algorithm, lr, batches, comm_chunks=None):
+    """FSDP steps of the SmallCNN from the JAX FSDP state ``jax_init``
+    (numpy leaves, read by attribute): the losses, the unsharded
+    parameters and the length of each of this rank's shards."""
+    model = SmallCNN(width=FSDP_WIDTH, image_size=FSDP_HW, device="cpu")
+    states = fsdp_state_from_jax(jax_init, model, world)
+    step = make_fsdp_train_step(
+        image_classifier_loss(), model, lr, 0.9, algorithm, group, fsdp_optimizer(algorithm, lr), comm_chunks
+    )
+    state = step.init_state(states[rank])
+    shard_len = {k: v.numel() for k, v in state.param_shards.items()}
+    losses = []
+    for batch in batches:
+        state, loss = step(state, shard(batch, rank, world))
+        losses.append(float(loss))
+    return {"losses": losses, "params": step.unshard(state), "shard_len": shard_len}
+
+
+def fsdp_bits_rank(rank, world, group, chunk_counts, batch):
+    """One FSDP step of the SmallCNN for each K: what it put on the wire,
+    and the step's own count by kind."""
+    out = {}
+    for k in chunk_counts:
+        model = SmallCNN(width=FSDP_WIDTH, image_size=FSDP_HW, device="cpu")
+        step = make_fsdp_train_step(image_classifier_loss(), model, 0.05, group=group, comm_chunks=k)
+        state = step.init_state()
+        with record_collectives() as records:
+            step(state, shard(batch, rank, world))
+        out[k] = {"records": plain_records(records), "bits_by_kind": step.bits_by_kind,
+                  "collectives_by_kind": step.collectives_by_kind, "bits_per_step": step.bits_per_step}
+    return out
+
+
+def fsdp_vs_ddp_rank(rank, world, group, batches, chunk_counts):
+    """The port's DDP ``sgd`` step and its FSDP step, monolithic and at each
+    K, from the same seeded SmallCNN: losses and final parameters."""
+    out = {}
+    model = SmallCNN(width=FSDP_WIDTH, image_size=FSDP_HW, device="cpu", seed=2)
+    ddp = make_train_step(image_classifier_loss(), ExactReducer(), model, 0.05, 0.9, "sgd", group)
+    state = ddp.init_state()
+    losses = []
+    for batch in batches:
+        state, loss = ddp(state, shard(batch, rank, world))
+        losses.append(float(loss))
+    out["ddp"] = {"losses": losses, "params": _clone(state.params)}
+    for k in (None,) + tuple(chunk_counts):
+        model = SmallCNN(width=FSDP_WIDTH, image_size=FSDP_HW, device="cpu", seed=2)
+        step = make_fsdp_train_step(image_classifier_loss(), model, 0.05, 0.9, "sgd", group, comm_chunks=k)
+        state = step.init_state()
+        losses = []
+        for batch in batches:
+            state, loss = step(state, shard(batch, rank, world))
+            losses.append(float(loss))
+        out[k] = {"losses": losses, "params": step.unshard(state), "released": [p.numel() for p in model.parameters()]}
+    try:
+        step.eval_model_state(state, reduce="first")
+        out["first_refused"] = False
+    except ValueError:
+        out["first_refused"] = True
+    return out
+
+
+def fsdp_dyadic_rank(rank, world, group, chunk_counts, xs, coeffs):
+    """FSDP ``sgd`` steps of a bias-carrying linear map on integer inputs
+    with an integer loss weighting, so every gradient, its sum over the
+    ranks, the mean (times 1/4) and the update (lr 0.5) are exact: the
+    parameters after two steps for each K, monolithic first."""
+
+    def loss_fn(model, batch):
+        x, c = batch
+        return (model(x) * c).sum()
+
+    out = {}
+    for k in (None,) + tuple(chunk_counts):
+        torch.manual_seed(0)
+        model = torch.nn.Linear(13, 7)
+        with torch.no_grad():
+            model.weight.copy_(torch.arange(91.0).view(7, 13) - 40)
+            model.bias.copy_(torch.arange(7.0))
+        step = make_fsdp_train_step(loss_fn, model, 0.5, 0.5, "sgd", group, comm_chunks=k)
+        state = step.init_state()
+        for x, c in zip(xs, coeffs):
+            state, _ = step(state, shard((x, c), rank, world))
+        out[k] = step.unshard(state)
+    return out
+
+
+def exact_fsdp_rank(rank, world, group, cfg_kwargs, state_dict, steps):
+    """``exact_cifar10.run(strategy="fsdp")`` at preset small from
+    ``state_dict``, with the evaluation: the summary and the unsharded
+    parameters at the end of training; then the launcher's ``exact_cifar10
+    --strategy fsdp --comm-chunks 3`` on the same ranks."""
+    kept = {}
+    loop = exact_cifar10.train_loop
+
+    def keep(step, state, *args, **kwargs):
+        state, logger = loop(step, state, *args, **kwargs)
+        kept["params"] = step.unshard(state)
+        return state, logger
+
+    exact_cifar10.train_loop = keep
+    try:
+        cfg = ExperimentConfig(process_id=rank, num_processes=world, **cfg_kwargs)
+        summary = exact_cifar10.run(
+            cfg, preset="small", device="cpu", max_steps_per_epoch=steps, eval_after=True, strategy="fsdp",
+            pretrained_state_dict=state_dict,
+        )
+    finally:
+        exact_cifar10.train_loop = loop
+    launched = launch.main([
+        "exact_cifar10", "--device", "cpu", "--global-batch", "16", "--epochs", "1", "--max-steps-per-epoch", "2",
+        "--strategy", "fsdp", "--comm-chunks", "3",
+    ])
+    return {"summary": summary, "params": kept["params"], "launched": launched}
+
+
+def _fsdp_tensors(state):
+    """Every tensor of an ``FSDPState``, cloned (an optimizer's state by
+    parameter index)."""
+    out = {f"param_shards.{k}": v.detach().clone() for k, v in state.param_shards.items()}
+    out.update({f"model_state.{k}": v.clone() for k, v in state.model_state.items()})
+    if isinstance(state.opt_shards, dict):
+        out.update({f"opt_shards.{k}": v.clone() for k, v in state.opt_shards.items()})
+    else:
+        for i, st in state.opt_shards.state_dict()["state"].items():
+            out.update({f"opt_shards.{i}.{k}": v.clone() for k, v in st.items()})
+    return out
+
+
+def fsdp_checkpoint_rank(rank, world, group, root, batches):
+    """For ``sgd`` and ``"optax"`` (AdamW): two FSDP steps of the ResNet-18
+    (width 8, BatchNorm), saved; restored by ``restore_checkpoint_sharded``
+    into a state of other weights, and by ``restore_latest(sharded=True)``;
+    one more step from the restored state and from the original. Then a
+    restore at a world of one (rank 0 alone) of a tagged and of an
+    untagged checkpoint, which must be refused."""
+    out = {}
+    for algorithm in ("sgd", "optax"):
+
+        def setup(seed):
+            model = resnet18(num_classes=10, norm="batch", stem="cifar", width=8, device="cpu", seed=seed)
+            step = make_fsdp_train_step(
+                image_classifier_loss(), model, 0.05, 0.9, algorithm, group, fsdp_optimizer(algorithm, 1e-3)
+            )
+            return step, step.init_state()
+
+        step, state = setup(3)
+        for batch in batches[:2]:
+            state, _ = step(state, shard(batch, rank, world))
+        path = save_checkpoint(os.path.join(root, algorithm), state, step=0, group=group, topology=make_topology(world))
+        saved = _fsdp_tensors(state)
+        fresh_step, fresh = setup(5)
+        restored = restore_checkpoint_sharded(path, fresh, group)
+        got = {"restored": _fsdp_tensors(restored)}
+        latest_step, latest = setup(6)
+        latest, got["latest_step"] = restore_latest(os.path.join(root, algorithm), latest, group=group, sharded=True)
+        got["latest"] = _fsdp_tensors(latest)
+        _, loss = step(state, shard(batches[2], rank, world))
+        _, resumed_loss = fresh_step(restored, shard(batches[2], rank, world))
+        got.update(saved=saved, after=_fsdp_tensors(state), resumed=_fsdp_tensors(restored),
+                   losses=(float(loss), float(resumed_loss)))
+        out[algorithm] = got
+    save_checkpoint(os.path.join(root, "untagged"), state, step=0, group=group)
+    solo = dist.new_group([0])
+    if rank == 0:
+        model = resnet18(num_classes=10, norm="batch", stem="cifar", width=8, device="cpu")
+        wrong = make_fsdp_train_step(image_classifier_loss(), model, 0.05, group=solo).init_state()
+        out["refused"] = []
+        for name in ("sgd", "untagged"):
+            try:
+                restore_checkpoint_sharded(os.path.join(root, name, "step_0"), wrong, solo)
+                out["refused"].append(None)
+            except TopologyMismatchError as e:
+                out["refused"].append(str(e))
+    dist.barrier()
+    return out
+
+
+@dataclasses.dataclass
+class MeshCarry:
+    """One rank's state on a data x fsdp x tensor mesh: its TP shard of
+    ``w`` (the full ``b``), its data row of the memories; all its own."""
+
+    PER_RANK_FIELDS = ("params", "memories", "model_state")
+    params: dict
+    memories: dict
+    model_state: dict
+
+
+def mesh_carry(full_w, b, mem, axes, rank):
+    """Rank ``rank``'s :class:`MeshCarry` of ``full_w`` (split on axis 1),
+    ``b`` and the data rows ``mem`` on the mesh ``axes``."""
+    coord = mesh_coord(rank, axes)
+    w = split_tp_leaf(full_w, axes["tensor"], 1)[coord["tensor"]]
+    return MeshCarry(
+        {"w": torch.from_numpy(np.ascontiguousarray(w)), "b": torch.from_numpy(b.copy())},
+        {"m": torch.from_numpy(mem[coord["data"]].copy())}, {},
+    )
+
+
+def _mesh_tensors(carry):
+    return {f"{f}.{k}": v.clone() for f in ("params", "memories") for k, v in getattr(carry, f).items()}
+
+
+def mesh_reshard_rank(rank, world, group, root, full_w, b, mem, moves):
+    """A data 2 x tensor 2 checkpoint on four ranks (``w`` TP-sharded on
+    axis 1), then each move of ``moves`` (``(name, ranks, new mesh)``)
+    through ``reshard_from_checkpoint`` (the first through
+    ``restore_latest``'s resharder) on a group of those ranks, into a
+    template of zeros; the same-mesh restore, and a restore by three ranks
+    (data degree 3), which must be refused."""
+    old = {"data": 2, "fsdp": 1, "tensor": 2}
+    ckpt = os.path.join(root, "mesh")
+    save_checkpoint(
+        ckpt, mesh_carry(full_w, b, mem, old, rank), step=0, group=group,
+        topology=make_topology(4, mesh_axes=old, tp_param_axes={"w": 1}),
+    )
+    path = os.path.join(ckpt, "step_0")
+
+    def zeros(axes, r):
+        rows = np.zeros((axes["data"],) + mem.shape[1:], mem.dtype)
+        return mesh_carry(np.zeros_like(full_w), np.zeros_like(b), rows, axes, r)
+
+    out = {}
+    for i, (name, members, axes) in enumerate(moves):
+        sub = group if len(members) == world else dist.new_group(members)
+        if rank not in members:
+            continue
+        r = members.index(rank)
+        template = zeros({"fsdp": 1, **axes}, r)
+        if i == 0:
+            carry, _ = restore_latest(
+                ckpt, template, group=sub,
+                resharder=lambda p, topo: reshard_from_checkpoint(p, template, topo, mesh_axes=axes, group=sub),
+            )
+        else:
+            carry = reshard_from_checkpoint(path, template, mesh_axes=axes, group=sub)
+        out[name] = _mesh_tensors(carry)
+    out["same_mesh"] = _mesh_tensors(restore_checkpoint(path, zeros(old, rank), group, mesh_axes=old))
+    trio = dist.new_group([0, 1, 2])
+    if rank < 3:
+        try:
+            restore_checkpoint(path, zeros({"data": 3, "fsdp": 1, "tensor": 1}, rank), trio, mesh_axes={"data": 3})
+            out["refused"] = None
+        except TopologyMismatchError as e:
+            out["refused"] = str(e)
     dist.barrier()
     return out
