@@ -141,7 +141,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (``main_path_exact_fsdp``), and a save of the FSDP state restored by
    ``restore_checkpoint_sharded`` whose next step is the uninterrupted
    run's bit for bit, with the save and restore times
-   (``fsdp_checkpoint``);
+   (``fsdp_checkpoint``); then the options that the ported entries no
+   longer refuse, 3 steps each (``option_phases``): ``powersgd_cifar10``
+   at ``compute_dtype="bfloat16"`` (ResNet-152 at flax's cast points,
+   fp32 parameters, gradients and wire: 36,249,536 + 32 bits) on both
+   pipelines with a profile of each, and its fused parameters after two
+   steps against the xla ones at ``PARAM_TOL`` (``main_path_bf16``);
+   ``gpt_lm`` plain and with ``remat`` in fp32 and bf16 (K5's forward 24
+   launches a step, its backward 12), peak memory side by side, a profile
+   of each remat run, and two remat steps bit for bit two plain ones under
+   deterministic algorithms (``main_path_gpt_remat``); ``gpt_lm`` with
+   ``scan_layers`` (13,302,784 + 32 bits in 6 shape groups), one forward
+   and backward bit for bit the unrolled model's, and K1 at each stacked
+   shape group, up to (1, 36864, 4), against its plain version
+   (``main_path_gpt_scan``); ``powersgd_imdb`` plain and with ``remat``,
+   the peaks, and one forward and backward bit for bit
+   (``main_path_imdb_remat``);
 4. two steps from the same weights and batches, deterministic cuDNN: plain
    Gram-Schmidt against the kernel; two DiLoCo rounds of ResNet-152 with
    the outer delta's Gram-Schmidt plain against the kernel; fused against xla; fused against xla
@@ -326,6 +341,16 @@ KEY_BIAS_TOL = 1e-7
 # reduce-scatter of every leaf (2 x 752,912,704 bits) and the loss's 32
 FSDP_BITS = 1_505_825_440
 FSDP_CHUNKS = 4
+# the ported options of ported entries (option_phases), OPT_STEPS steps
+# each, the first untimed: ResNet-152 in bf16 on both pipelines (fp32
+# parameters, gradients and wire: the fp32 bits, 36,249,536 + 32), GPT-2
+# small with remat in fp32 and bf16 (K5's forward twice a layer a step)
+# and under scan_layers (each stacked leaf one matrix, as the JAX reducer
+# sees the scanned flax leaves: 13,302,784 bits in 6 shape groups, K1 on P
+# stacks up to (1, 36864, 4)), and distilbert_base with remat
+OPT_STEPS = 3
+RESNET152_BITS = 36_249_536
+SCAN_BITS, SCAN_GROUPS = 13_302_784, 6
 
 
 def fail(msg: str) -> None:
@@ -2081,6 +2106,290 @@ def fsdp_tensors(state):
     return out
 
 
+def option_phases(dev, drive, images, labels, n_groups, smi, preset="full"):
+    """The options that the ported entries no longer refuse, each run with
+    the launch counts set to 0 just before it and read just after
+    (``drive``, ``main``'s), OPT_STEPS steps:
+
+    - ``main_path_bf16``: ``powersgd_cifar10`` at ``compute_dtype=
+      "bfloat16"`` on the xla (K1) and fused (K2a, K3, K4) pipelines, its
+      bits the fp32 run's, p50, peak memory and a profile of each; then,
+      under deterministic algorithms, the fused parameters after two steps
+      against the xla ones at PARAM_TOL (both reduce the same fp32
+      gradients);
+    - ``main_path_gpt_remat``: ``gpt_lm`` plain and with ``remat`` in fp32
+      and bf16 (K5's forward twice a layer a step, its backward once), the
+      peaks side by side and a profile of each remat run; two steps of
+      remat bit for bit two plain steps under deterministic algorithms;
+    - ``main_path_gpt_scan``: ``gpt_lm`` with ``scan_layers`` (its bits and
+      shape groups), one forward and backward bit for bit the unrolled
+      model's, and K1 at every stacked shape group against its plain
+      version;
+    - ``main_path_imdb_remat``: ``powersgd_imdb`` plain and with ``remat``,
+      the peaks, and one forward and backward of remat bit for bit plain.
+
+    ``n_groups`` is the ResNet's shape groups; ``preset="small"`` rehearses
+    the phases on the CPU (``drive`` of your own)."""
+    import torch
+
+    from network_distributed_pytorch_tpu_torch.data.imdb import prepare_imdb
+    from network_distributed_pytorch_tpu_torch.experiments import gpt_lm, powersgd_cifar10, powersgd_imdb
+    from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches
+    from network_distributed_pytorch_tpu_torch.models.gpt import next_token_loss, unstack_gpt_layer_params
+    from network_distributed_pytorch_tpu_torch.ops import flash_attention as fa
+    from network_distributed_pytorch_tpu_torch.ops import gram_schmidt as gs
+    from network_distributed_pytorch_tpu_torch.ops.orthogonalize import orthogonalize
+
+    full = preset == "full"
+    on_cuda = dev.type == "cuda"
+    steps = OPT_STEPS
+    gen = torch.Generator().manual_seed(17)
+
+    def timing(result, units_per_step):
+        ms = [m for m in result["device_time_ms"][1:] if m is not None]
+        p50 = statistics.median(ms) if ms else None
+        return {
+            "step_device_ms": result["device_time_ms"], "step_device_ms_p50": p50,
+            "step_host_s_p50": statistics.median(result["step_time_s"][1:]),
+            "per_s": units_per_step / (p50 / 1e3) if p50 else None,
+        }
+
+    def finite(name, result):
+        losses = result["losses"]
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            fail(f"{name} losses {losses}")
+        return losses
+
+    def profiled(experiment, cfg, kernels, build, batches=None, arrays=None):
+        if not on_cuda:
+            return None
+        return profile_main_path(dev, experiment, cfg, arrays, kernels, build=build, batches=batches)
+
+    def bitwise_grads(make, loss_of, transform=lambda g: g):
+        """Loss and gradients of one forward and backward of each of the two
+        models ``make(False)`` and ``make(True)``, under deterministic
+        algorithms: the leaves that differ."""
+        got = []
+        with deterministic_algorithms():
+            for flag in (False, True):
+                model = make(flag)
+                loss = loss_of(model)
+                loss.backward()
+                grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+                got.append((loss.detach().clone(), transform(grads) if flag else grads))
+                del model, loss, grads
+        (loss_a, a), (loss_b, b) = got
+        differ = bitwise_equal(b, a) + ([] if torch.equal(loss_a, loss_b) else ["loss"])
+        return differ, len(a)
+
+    # ---- main_path_bf16: ResNet-152 in bf16 on both pipelines ----------------
+    t_phase = time.perf_counter()
+
+    def resnet_cfg(impl, dtype):
+        cfg = powersgd_cifar10.default_config()
+        cfg.training_epochs, cfg.compress_impl, cfg.compute_dtype = 1, impl, dtype
+        if not full:
+            cfg.global_batch_size = 16
+        return cfg
+
+    # the fp32 step's payload and the loss's 32 bits, which a run sums over its group
+    want_bits = 32 + (RESNET152_BITS if full else powersgd_cifar10.build(
+        resnet_cfg("xla", "float32"), preset, dev, None
+    )[1].bits_per_step)
+    record = {"phase": "main_path_bf16", "model": "resnet152" if full else "resnet18", "compute_dtype": "bfloat16",
+              "steps": steps, "nvidia_smi": smi}
+    for impl in ("xla", "pallas"):
+        cfg = resnet_cfg(impl, "bfloat16")
+        want = (
+            {"gram_schmidt": steps * n_groups} if impl == "xla" else
+            {"ef_compress": steps * n_groups, "orthogonalize_project": steps * n_groups,
+             "decompress_residual": steps * n_groups}
+        )
+        name = f"bf16_{impl}"
+        result, peak = drive(
+            name, lambda: powersgd_cifar10.run(cfg, preset=preset, device=dev, max_steps_per_epoch=steps), want
+        )
+        losses = finite(name, result)
+        if result["bits_per_step"] != want_bits or result["compute_dtype"] != "bfloat16":
+            fail(f"{name}: {result['bits_per_step']} bits a step, the fp32 run's are {want_bits}")
+        parts = {"xla": ("gram_schmidt",), "pallas": ("ef_compress", "orthogonalize_project", "decompress_residual")}
+        record[impl] = {
+            "losses": losses, **timing(result, cfg.global_batch_size), "peak_memory_bytes": peak,
+            "bits_per_step": result["bits_per_step"], "shape_groups": result["shape_groups"],
+            "profile": profiled(
+                powersgd_cifar10, cfg, {k: k + "_kernel" for k in parts[impl]},
+                lambda g, cfg=cfg: powersgd_cifar10.build(cfg, preset, dev, g), arrays=[images, labels],
+            ),
+        }
+    finals = {}
+    with deterministic_algorithms():
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            for impl in ("xla", "pallas"):
+                cfg = resnet_cfg(impl, "bfloat16")
+                model, step, state = powersgd_cifar10.build(cfg, preset, dev, group=None)
+                for batch in accumulated_batches([images, labels], cfg, max_steps_per_epoch=2)(0):
+                    state, _ = step(state, tuple(torch.from_numpy(a).to(dev) for a in batch))
+                finals[impl] = {k: v.detach().cpu() for k, v in state.params.items()}
+                del model, step, state
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+    diff, leaf = worst_diff(finals["pallas"], finals["xla"])
+    if not math.isfinite(diff) or diff > PARAM_TOL:
+        fail(f"bf16 ResNet, fused vs xla after 2 steps: {diff} at {leaf} > {PARAM_TOL}")
+    record.update(fused_vs_xla={"steps": 2, "max_param_diff": diff, "max_param_diff_leaf": leaf,
+                                "tolerance": PARAM_TOL}, phase_s=time.perf_counter() - t_phase)
+    emit(record)
+    del finals
+
+    # ---- main_path_gpt_remat: GPT-2 small plain and remat, fp32 and bf16 -----
+    t_phase = time.perf_counter()
+    gpt_b, gpt_t = (GPT_B, GPT_T) if full else (4, 32)
+    layers, groups = (GPT_LAYERS, GPT_GROUPS) if full else (2, 3)
+    record = {"phase": "main_path_gpt_remat", "model": "gpt2_small" if full else "gpt_tiny", "seq_len": gpt_t,
+              "global_batch": gpt_b, "steps": steps, "nvidia_smi": smi}
+
+    def gpt_cfg(dtype):
+        cfg = gpt_lm.default_config()
+        cfg.global_batch_size, cfg.compute_dtype = gpt_b, dtype
+        return cfg
+
+    for dtype in ("float32", "bfloat16"):
+        fwd = (fa.KERNEL if dtype == "float32" else fa.KERNEL_BF16).name
+        bwd = fa.BWD_KERNELS[getattr(torch, dtype)].name
+        runs = {}
+        for remat in (False, True):
+            name = f"gpt_{'remat' if remat else 'plain'}_{dtype}"
+            cfg = gpt_cfg(dtype)
+            result, peak = drive(
+                name,
+                lambda: gpt_lm.run(cfg, preset=preset, seq_len=gpt_t, steps_per_epoch=steps, device=dev, remat=remat),
+                {"gram_schmidt": steps * groups, fwd: steps * layers * (2 if remat else 1), bwd: steps * layers},
+            )
+            runs["remat" if remat else "plain"] = {
+                "losses": finite(name, result), **timing(result, gpt_b * gpt_t), "peak_memory_bytes": peak,
+                "bits_per_step": result["bits_per_step"],
+            }
+            if remat:
+                vocab = result["vocab"]
+                runs["remat"]["profile"] = profiled(
+                    gpt_lm, cfg,
+                    {"gram_schmidt": "gram_schmidt_kernel", "flash_attention": "flash_fwd", "flash_attention_bwd": "flash_bwd"},
+                    lambda g, cfg=cfg: gpt_lm.build(cfg, preset, gpt_t, "powersgd", dev, g, remat=True),
+                    batches=list(gpt_lm.synthetic_lm_batches(vocab, gpt_b, gpt_t, 1 + PROFILE_STEPS, cfg.seed)),
+                )
+        if runs["remat"]["bits_per_step"] != runs["plain"]["bits_per_step"]:
+            fail(f"gpt remat {dtype}: bits {runs['remat']['bits_per_step']} against {runs['plain']['bits_per_step']}")
+        # two steps of each from the same weights and batches, bit for bit
+        finals = {}
+        with deterministic_algorithms():
+            for remat in (False, True):
+                cfg = gpt_cfg(dtype)
+                model, step, state = gpt_lm.build(cfg, preset, gpt_t, "powersgd", dev, None, remat=remat)
+                losses = []
+                for b in gpt_lm.synthetic_lm_batches(model.config.vocab_size, gpt_b, gpt_t, 2, cfg.seed):
+                    state, loss = step(state, tuple(torch.from_numpy(a).to(dev) for a in b))
+                    losses.append(loss.item())
+                finals[remat] = (losses, {k: v.detach().clone() for k, v in state.params.items()})
+                del model, step, state
+        differ = bitwise_equal(finals[True][1], finals[False][1])
+        if differ or finals[True][0] != finals[False][0]:
+            fail(f"gpt remat {dtype}: 2 steps differ from plain at {differ[:3]}, losses {finals[True][0]} {finals[False][0]}")
+        runs["two_steps_bitwise_equal_plain"] = True
+        runs["peak_ratio_remat_to_plain"] = (
+            runs["remat"]["peak_memory_bytes"] / runs["plain"]["peak_memory_bytes"]
+            if runs["plain"]["peak_memory_bytes"] else None
+        )
+        record[dtype] = runs
+        del finals
+    record["phase_s"] = time.perf_counter() - t_phase
+    emit(record)
+
+    # ---- main_path_gpt_scan: GPT-2 small under scan_layers --------------------
+    t_phase = time.perf_counter()
+    cfg = gpt_cfg("float32")
+    scan_groups = SCAN_GROUPS if full else 6
+    result, peak = drive(
+        "gpt_scan",
+        lambda: gpt_lm.run(cfg, preset=preset, seq_len=gpt_t, steps_per_epoch=steps, device=dev, scan_layers=True),
+        {"gram_schmidt": steps * scan_groups, fa.KERNEL.name: steps * layers,
+         fa.BWD_KERNELS[torch.float32].name: steps * layers},
+    )
+    losses = finite("gpt_scan", result)
+    if full and (result["shape_groups"], result["bits_per_step"]) != (SCAN_GROUPS, SCAN_BITS + 32):
+        fail(f"gpt_scan: {result['bits_per_step']} bits (want {SCAN_BITS} + 32), {result['shape_groups']} groups")
+    ids = next(iter(gpt_lm.synthetic_lm_batches(result["vocab"], gpt_b, gpt_t, 1, cfg.seed)))
+    x, y = (torch.from_numpy(a).to(dev) for a in ids)
+    differ, n_leaves = bitwise_grads(
+        lambda scan: gpt_lm.build_model(preset, gpt_t, device=dev, seed=cfg.seed, scan_layers=scan),
+        lambda model: next_token_loss(model(x), y), unstack_gpt_layer_params,
+    )
+    if differ:
+        fail(f"gpt_scan: one forward and backward differ from the unrolled model at {differ[:3]}")
+    # K1 at every stacked shape group, against its plain version
+    model, step, _ = gpt_lm.build(cfg, preset, gpt_t, "powersgd", dev, None, scan_layers=True)
+    leaves = list(model.parameters())
+    metas = step.reducer._metas(leaves)
+    k1 = []
+    for poss in step.reducer._shape_groups(metas):
+        shape = (len(poss), metas[poss[0]].n, metas[poss[0]].r)
+        p = torch.randn(shape, generator=gen).to(dev)
+        before = gs.KERNEL.launches
+        got = gs.gram_schmidt(p)
+        if on_cuda:
+            torch.cuda.synchronize()
+        err = (got - orthogonalize(p)).abs().max().item()
+        if not err <= GS_TOL or (on_cuda and gs.KERNEL.launches != before + 1):
+            fail(f"K1 at the stacked group {shape}: max err {err} (tol {GS_TOL})")
+        k1.append({"shape": shape, "max_abs_err": err})
+    del model, step
+    emit({
+        "phase": "main_path_gpt_scan", "model": "gpt2_small" if full else "gpt_tiny", "seq_len": gpt_t,
+        "global_batch": gpt_b, "losses": losses, **timing(result, gpt_b * gpt_t), "peak_memory_bytes": peak,
+        "bits_per_step": result["bits_per_step"], "shape_groups": result["shape_groups"],
+        "grads_bitwise_equal_unrolled": True, "leaves_compared": n_leaves, "k1_stacked_groups": k1,
+        "k1_tolerance": GS_TOL, "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi,
+    })
+
+    # ---- main_path_imdb_remat: distilbert_base plain and remat ----------------
+    t_phase = time.perf_counter()
+    imdb_layers, imdb_groups = (IMDB_LAYERS, 6) if full else (2, 6)
+    record = {"phase": "main_path_imdb_remat", "model": "distilbert_base" if full else "distilbert_tiny",
+              "steps": steps, "nvidia_smi": smi}
+    for remat in (False, True):
+        name = f"imdb_{'remat' if remat else 'plain'}"
+        cfg = powersgd_imdb.default_config()
+        cfg.training_epochs = 1
+        result, peak = drive(
+            name, lambda: powersgd_imdb.run(cfg, preset=preset, device=dev, max_steps_per_epoch=steps, remat=remat),
+            {"gram_schmidt": steps * imdb_groups, fa.KERNEL.name: steps * imdb_layers * (2 if remat else 1),
+             fa.BWD_KERNELS[torch.float32].name: steps * imdb_layers},
+        )
+        record["remat" if remat else "plain"] = {
+            "losses": finite(name, result), **timing(result, result["global_batch"]), "peak_memory_bytes": peak,
+            "bits_per_step": result["bits_per_step"], "max_len": result["max_len"],
+        }
+    max_len = record["plain"]["max_len"]
+    split, _, _ = prepare_imdb(max_len=max_len, vocab_size=30522 if full else 1024, seed=cfg.seed)
+    batch = [torch.from_numpy(split[k][:IMDB_B]).to(dev) for k in ("input_ids", "attention_mask", "labels")]
+    differ, n_leaves = bitwise_grads(
+        lambda remat: powersgd_imdb.build_model(preset, dev, seed=cfg.seed, remat=remat),
+        lambda model: powersgd_imdb.sequence_classifier_loss()(model, batch),
+    )
+    if differ:
+        fail(f"imdb remat: one forward and backward differ from plain at {differ[:3]}")
+    record.update(
+        grads_bitwise_equal_plain=True, leaves_compared=n_leaves,
+        peak_ratio_remat_to_plain=(
+            record["remat"]["peak_memory_bytes"] / record["plain"]["peak_memory_bytes"]
+            if record["plain"]["peak_memory_bytes"] else None
+        ),
+        phase_s=time.perf_counter() - t_phase,
+    )
+    emit(record)
+
+
 def main() -> None:
     import torch
 
@@ -2884,7 +3193,7 @@ def main() -> None:
 
     # bare_init through the launcher, in a process of its own
     launched = subprocess.run(
-        [sys.executable, "-m", "network_distributed_pytorch_tpu_torch.launch", "bare_init"],
+        [sys.executable, "-m", "network_distributed_pytorch_tpu_torch.launch", "bare_init", "--json"],
         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=300,
     )
     lines = launched.stdout.strip().splitlines()
@@ -2903,6 +3212,9 @@ def main() -> None:
 
     # exact_cifar10 under FSDP (ZeRO-3) at preset full, and its sharded restore
     fsdp_phases(dev, drive, images, labels, smi)
+
+    # the ported options: ResNet-152 in bf16, GPT-2 remat and scan_layers, DistilBERT remat
+    option_phases(dev, drive, images, labels, len(group_shapes), smi)
 
     # ---- 4. two steps against two steps ---------------------------------------
     # with deterministic cuDNN and no TF32, so that only what is compared differs
@@ -3176,6 +3488,11 @@ def main() -> None:
         "resnet152_resilient_resume": "resilient_resume", "gpt2_small_serve_hot_load": "serve_hot_load",
         "gpt2_small_moe_top1": "gpt_moe_top1", "gpt2_small_moe_top2": "gpt_moe_top2",
         "gpt2_small_moe_bf16": "gpt_moe_bf16",
+        # option_phases: ResNet-152 in bf16, GPT-2 plain and remat, scan_layers, DistilBERT plain and remat
+        "resnet152_bf16_xla": "bf16_xla", "gpt2_small_opt_plain_fp32": "gpt_plain_float32",
+        "gpt2_small_remat_fp32": "gpt_remat_float32", "gpt2_small_opt_plain_bf16": "gpt_plain_bfloat16",
+        "gpt2_small_remat_bf16": "gpt_remat_bfloat16", "gpt2_small_scan_layers": "gpt_scan",
+        "distilbert_imdb_opt_plain": "imdb_plain", "distilbert_imdb_remat": "imdb_remat",
     }
     kernels = [{
         "name": "gram_schmidt",
@@ -3206,11 +3523,14 @@ def main() -> None:
         "route_and_cluster": routes,
     }]
     for name, row in fused_rows.items():
+        fused_paths = {"resnet152_fused": "pallas", "resnet152_bf16_fused": "bf16_pallas"}
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces[name],
-            "launches": launches["pallas"][name],
+            "launches": sum(launches[path][name] for path in fused_paths.values()),
             # K2b runs only with an extra power iteration: its launches come from that phase
-            **({"launches_by_path": compress_by_path} if name == "compress" else {}),
+            "launches_by_path": (
+                compress_by_path if name == "compress" else {k: launches[v][name] for k, v in fused_paths.items()}
+            ),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "library_device_ms": row["library_device_ms"],
@@ -3223,9 +3543,15 @@ def main() -> None:
         "gpt2_small_pp": "gpt_pp",
         "gpt2_small_moe_top1": "gpt_moe_top1",
         "gpt2_small_moe_top2": "gpt_moe_top2",
+        "gpt2_small_opt_plain_fp32": "gpt_plain_float32",
+        "gpt2_small_remat_fp32": "gpt_remat_float32",  # the forward twice a layer a step
+        "gpt2_small_scan_layers": "gpt_scan",
+        "distilbert_imdb_opt_plain": "imdb_plain",
+        "distilbert_imdb_remat": "imdb_remat",
     }
     k5_bf16_paths = {
         "gpt2_small_bf16": "gpt_bfloat16", "distilbert_imdb_bf16": "imdb_bf16", "gpt2_small_moe_bf16": "gpt_moe_bf16",
+        "gpt2_small_opt_plain_bf16": "gpt_plain_bfloat16", "gpt2_small_remat_bf16": "gpt_remat_bfloat16",
     }
 
     def by_kind(name, paths):

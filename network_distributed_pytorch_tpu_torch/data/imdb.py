@@ -6,8 +6,8 @@ is not on disk.
 
 The arrays are the JAX package's, value for value, from the same seed.
 Only the Python path of ``HashTokenizer`` is kept (the JAX package's native
-tokenizer gives the same ids); a ``vocab.txt`` beside the dataset, which
-selects WordPiece there, raises here until ``data/wordpiece.py`` is ported.
+tokenizer gives the same ids). A ``vocab.txt`` beside the dataset selects
+the WordPiece tokenizer (``data/wordpiece.py``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -126,8 +126,10 @@ def prepare_imdb(
     """``(train, val, is_real)``, each split ``{'input_ids',
     'attention_mask', 'labels'}`` as fixed-shape int32 numpy arrays. The
     dataset under ``{data_dir}/train`` when it is there, else
-    :func:`synthetic_imdb`; the :class:`HashTokenizer` unless one is
-    passed."""
+    :func:`synthetic_imdb`. Without a ``tokenizer``: the
+    :class:`~.wordpiece.WordPieceTokenizer` of ``{data_dir}/vocab.txt``
+    where that file exists (refused if its ids reach past ``vocab_size``,
+    the model's table), else the :class:`HashTokenizer`."""
     if data_dir is not None and os.path.isdir(os.path.join(data_dir, "train")):
         texts, labels = read_imdb_split(os.path.join(data_dir, "train"))
         is_real = True
@@ -138,12 +140,23 @@ def prepare_imdb(
         texts, labels, test_size=0.2, seed=seed
     )
     if tokenizer is None:
-        if data_dir is not None and os.path.isfile(os.path.join(data_dir, "vocab.txt")):
-            raise NotImplementedError(
-                f"{data_dir}/vocab.txt selects the WordPiece tokenizer, which is"
-                " not ported yet; pass a tokenizer or remove the file"
-            )
-        tokenizer = HashTokenizer(vocab_size=vocab_size, max_len=max_len)
+        vocab_file = os.path.join(data_dir, "vocab.txt") if data_dir is not None else ""
+        if vocab_file and os.path.isfile(vocab_file):
+            from .wordpiece import WordPieceTokenizer
+
+            tokenizer = WordPieceTokenizer(vocab_file, max_len=max_len)
+            # max id + 1, not len(): blank or repeated lines leave ids unused
+            vocab_span = max(tokenizer.vocab.values()) + 1
+            if vocab_span > vocab_size:
+                # an id past the embedding table would fail in the gather (or
+                # read another row): size the model to the vocabulary
+                raise ValueError(
+                    f"{vocab_file} spans token ids up to {vocab_span - 1} but the model vocab_size is"
+                    f" {vocab_size}; pass vocab_size={vocab_span} (and size the model to match) or pass an"
+                    " explicit tokenizer"
+                )
+        else:
+            tokenizer = HashTokenizer(vocab_size=vocab_size, max_len=max_len)
 
     def encode(ts, ls):
         enc = tokenizer(ts)

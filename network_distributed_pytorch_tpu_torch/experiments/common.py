@@ -64,10 +64,13 @@ def require_defaults(config, names, experiment: str) -> None:
 
 def require_float32(config, experiment: str) -> None:
     """Raise ``NotImplementedError`` for a ``compute_dtype`` other than
-    float32 in an experiment whose model has no bf16 path yet (the ResNet's:
-    flax's BatchNorm and GroupNorm casts are not ported)."""
+    float32 where the JAX package builds its model in fp32 whatever the
+    config says (``bandwidth_study``)."""
     if config.compute_dtype != "float32":
-        raise NotImplementedError(f"{experiment}: compute_dtype={config.compute_dtype!r} is not ported yet")
+        raise NotImplementedError(
+            f"{experiment}: compute_dtype={config.compute_dtype!r} is not supported: it builds fp32 models,"
+            " as the JAX package's does"
+        )
 
 
 def compute_dtype(config) -> torch.dtype:

@@ -37,8 +37,8 @@ from .common import (
     evaluate_image_classifier,
     image_classifier_loss,
     local_shard,
+    compute_dtype,
     process_group,
-    require_float32,
     summarize,
 )
 from .powersgd_cifar10 import build_model
@@ -57,8 +57,7 @@ def build(config: ExperimentConfig, preset: str, device, group, sync_every: int 
     ``fragments > 1``) and its initial state."""
     if reducer not in REDUCERS:
         raise ValueError(f"reducer must be one of {REDUCERS}, got {reducer!r}")
-    require_float32(config, "diloco_cifar10")
-    model = build_model(preset, device, seed=config.seed)
+    model = build_model(preset, device, seed=config.seed, dtype=compute_dtype(config))
     red = (
         PowerSGDReducer(random_seed=config.seed, compression_rank=config.reducer_rank, matricize="last")
         if reducer == "powersgd" else ExactReducer()

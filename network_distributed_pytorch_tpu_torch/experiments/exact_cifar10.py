@@ -46,8 +46,8 @@ from .common import (
     evaluate_on_test_split,
     exact_reducer_kwargs,
     image_classifier_loss,
+    compute_dtype,
     process_group,
-    require_float32,
     resilient_train_loop,
     summarize,
     train_loop,
@@ -60,11 +60,11 @@ def default_config() -> ExperimentConfig:
     return ExperimentConfig(training_epochs=1, global_batch_size=256, learning_rate=0.001)
 
 
-def build_model(preset: str, device="cuda", seed: int = 0):
+def build_model(preset: str, device="cuda", seed: int = 0, dtype=torch.float32):
     if preset == "full":
-        return resnet50(num_classes=10, norm="batch", stem="imagenet", device=device, seed=seed)
+        return resnet50(num_classes=10, norm="batch", stem="imagenet", device=device, seed=seed, dtype=dtype)
     if preset == "small":
-        return resnet18(num_classes=10, norm="batch", stem="cifar", width=16, device=device, seed=seed)
+        return resnet18(num_classes=10, norm="batch", stem="cifar", width=16, device=device, seed=seed, dtype=dtype)
     raise ValueError(f"unknown preset {preset!r}")
 
 
@@ -94,8 +94,7 @@ def build(config: ExperimentConfig, preset: str, device, group, pretrained_state
     from ``models.import_weights``, else from the seed), the training step
     of ``strategy`` and its initial state. Under ``"fsdp"`` the state holds
     this rank's shards and the model's own parameters are released."""
-    require_float32(config, "exact_cifar10")
-    model = build_model(preset, device, seed=config.seed)
+    model = build_model(preset, device, seed=config.seed, dtype=compute_dtype(config))
     if pretrained_state_dict is not None:
         model.load_state_dict(pretrained_state_dict)
     if strategy == "fsdp":
@@ -204,6 +203,7 @@ def run(
             "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
             "num_devices": world,
             "strategy": strategy,
+            "compute_dtype": config.compute_dtype,
             "losses": [r.loss for r in logger.records],
             "step_time_s": [r.step_time_s for r in logger.records],
             "device_time_ms": [r.device_time_ms for r in logger.records],

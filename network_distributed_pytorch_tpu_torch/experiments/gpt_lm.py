@@ -12,7 +12,11 @@ Weights come from the seed (or ``pretrained_state_dict``). The model runs
 without dropout (``deterministic=True``, as the JAX package's loss calls
 it), so attention is the flash-attention kernel (K5, causal) on the card
 and its plain version on the CPU, in ``config.compute_dtype``; parameters,
-gradients and the reducer stay fp32.
+gradients and the reducer stay fp32. ``remat`` recomputes each block in
+the backward (the flash forward runs twice a step); ``scan_layers`` keeps
+the blocks' parameters stacked ``(n_layers, ...)`` under ``h_scan.block``,
+the JAX package's scanned layout, and the reducer compresses each stacked
+leaf as the JAX run does, one matrix ``(n_layers * in, out)``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch.distributed as dist
 
 from ..models.gpt import gpt_small, gpt_tiny, next_token_loss
 from ..parallel.mesh import resolve_device
-from ..parallel.reducers import ExactReducer, PowerSGDReducer, embedding_leaves
+from ..parallel.reducers import ExactReducer, PowerSGDReducer, embedding_leaves, layer_stacked_leaves
 from ..parallel.trainer import make_train_step
 from ..utils.config import ExperimentConfig
 from .common import compute_dtype, process_group, require_defaults, summarize, train_loop
@@ -56,11 +60,14 @@ def synthetic_lm_batches(
         yield toks[:, :-1], toks[:, 1:]
 
 
-def build_model(preset: str, seq_len: int, dtype=torch.float32, device="cuda", seed: int = 0, attn_impl="auto"):
+def build_model(
+    preset: str, seq_len: int, dtype=torch.float32, device="cuda", seed: int = 0, attn_impl="auto",
+    remat: bool = False, scan_layers: bool = False,
+):
     make = gpt_tiny if preset == "small" else gpt_small
     return make(
         dtype=dtype, device=device, seed=seed, vocab_size=preset_vocab(preset),
-        max_position_embeddings=seq_len, attn_impl=attn_impl,
+        max_position_embeddings=seq_len, attn_impl=attn_impl, remat=remat, scan_layers=scan_layers,
     )
 
 
@@ -75,18 +82,23 @@ def lm_loss():
 
 
 def build(
-    config: ExperimentConfig, preset: str, seq_len: int, reducer: str, device, group, pretrained_state_dict=None
+    config: ExperimentConfig, preset: str, seq_len: int, reducer: str, device, group, pretrained_state_dict=None,
+    remat: bool = False, scan_layers: bool = False,
 ):
     """The model, the training step and its initial state. PowerSGD runs
     the JAX package's default pipeline (the Gram-Schmidt kernel on the
-    card), one collective per payload; other pipeline fields are refused."""
+    card), one collective per payload; other pipeline fields are refused.
+    ``pretrained_state_dict`` is in the model's layout (under
+    ``scan_layers``, ``models.gpt.stack_gpt_layer_params`` of an unrolled
+    one)."""
     if reducer not in REDUCERS:
         raise ValueError(f"reducer must be one of {REDUCERS}, got {reducer!r}")
     require_defaults(
         config, ("compress_impl", "orthogonalize_impl", "comm_chunks", "comm_strategy", "bucket_bytes"), "gpt_lm"
     )
     model = build_model(
-        preset, seq_len, compute_dtype(config), device, seed=config.seed, attn_impl=config.attn_impl or "auto"
+        preset, seq_len, compute_dtype(config), device, seed=config.seed, attn_impl=config.attn_impl or "auto",
+        remat=remat, scan_layers=scan_layers,
     )
     if pretrained_state_dict is not None:
         model.load_state_dict(pretrained_state_dict)
@@ -97,6 +109,7 @@ def build(
             reuse_query=config.reuse_query,
             matricize="last",  # the JAX package's matrices: output features last
             features_last=embedding_leaves(model),  # wte, wpe as flax stores them
+            layer_stacked=layer_stacked_leaves(model),  # h_scan.block.* under scan_layers
         )
     else:
         red = ExactReducer()
@@ -128,10 +141,7 @@ def run(
 ) -> Dict:
     """Train and return the run summary, with ``final_perplexity``. Joins
     the default process group (creating one, of ``config.num_processes``
-    ranks, if none exists), and leaves it as it found it. ``remat`` and
-    ``scan_layers`` raise until they are ported."""
-    if remat or scan_layers:
-        raise NotImplementedError("gpt_lm: remat and scan_layers are not ported yet")
+    ranks, if none exists), and leaves it as it found it."""
     config = config or default_config()
     device = resolve_device(device)
     if max_steps_per_epoch is not None:
@@ -139,7 +149,9 @@ def run(
     vocab = preset_vocab(preset)
     with process_group(config, device) as group:
         rank, world = dist.get_rank(group), dist.get_world_size(group)
-        model, step, state = build(config, preset, seq_len, reducer, device, group, pretrained_state_dict)
+        model, step, state = build(
+            config, preset, seq_len, reducer, device, group, pretrained_state_dict, remat, scan_layers
+        )
 
         def batches(epoch):
             return synthetic_lm_batches(vocab, config.global_batch_size, seq_len, steps_per_epoch, config.seed + epoch)
@@ -155,6 +167,8 @@ def run(
             "seq_len": seq_len,
             "preset": preset,
             "compute_dtype": config.compute_dtype,
+            "remat": remat,
+            "scan_layers": scan_layers,
             "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
             "num_devices": world,
             "global_batch": config.global_batch_size,

@@ -6,7 +6,10 @@ Preset ``full`` is the reference configuration: ResNet-152 with the
 ImageNet stem at width 64, global batch 512, PowerSGD rank 4,
 error-feedback SGD with momentum 0.9, lr 0.001. Preset ``small`` is
 ResNet-18 with the CIFAR stem at width 16. Without CIFAR-10 on disk the
-data is the deterministic synthetic stand-in; weights come from the seed.
+data is the deterministic synthetic stand-in; weights come from the seed
+(or ``pretrained_state_dict``). ``compute_dtype="bfloat16"`` runs the
+ResNet at flax's cast points (``models/resnet.py``) with fp32 parameters,
+gradients, reducer state and wire: the bits per step do not change.
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ from .common import (
     image_classifier_loss,
     powersgd_reducer_kwargs,
     process_group,
+    compute_dtype,
     require_defaults,
-    require_float32,
     summarize,
     train_loop,
 )
@@ -41,19 +44,22 @@ def default_config() -> ExperimentConfig:
     )
 
 
-def build_model(preset: str, device="cuda", seed: int = 0):
+def build_model(preset: str, device="cuda", seed: int = 0, dtype=torch.float32):
     if preset == "full":
-        return resnet152(num_classes=10, norm="batch", stem="imagenet", device=device, seed=seed)
+        return resnet152(num_classes=10, norm="batch", stem="imagenet", device=device, seed=seed, dtype=dtype)
     if preset == "small":
-        return resnet18(num_classes=10, norm="batch", stem="cifar", width=16, device=device, seed=seed)
+        return resnet18(num_classes=10, norm="batch", stem="cifar", width=16, device=device, seed=seed, dtype=dtype)
     raise ValueError(f"unknown preset {preset!r}")
 
 
-def build(config: ExperimentConfig, preset: str, device, group):
-    """The model, the training step and its initial state."""
+def build(config: ExperimentConfig, preset: str, device, group, pretrained_state_dict=None):
+    """The model (from ``pretrained_state_dict`` where one is given, e.g.
+    from ``models.import_weights``, else from the seed), the training step
+    and its initial state."""
     require_defaults(config, ("bucket_bytes",), "powersgd_cifar10")  # the exact reducer's knob
-    require_float32(config, "powersgd_cifar10")
-    model = build_model(preset, device, seed=config.seed)
+    model = build_model(preset, device, seed=config.seed, dtype=compute_dtype(config))
+    if pretrained_state_dict is not None:
+        model.load_state_dict(pretrained_state_dict)
     reducer = PowerSGDReducer(
         random_seed=config.seed,
         compression_rank=config.reducer_rank,
@@ -82,6 +88,7 @@ def run(
     device="cuda",
     max_steps_per_epoch: Optional[int] = None,
     eval_after: bool = False,
+    pretrained_state_dict=None,
 ) -> Dict:
     """Train and return the run summary. Joins the default process group
     (creating one, of ``config.num_processes`` ranks, if none exists; a
@@ -93,7 +100,7 @@ def run(
     with process_group(config, device) as group:
         rank, world = dist.get_rank(group), dist.get_world_size(group)
         images, labels, is_real = load_cifar10_or_synthetic(data_dir, train=True)
-        model, step, state = build(config, preset, device, group)
+        model, step, state = build(config, preset, device, group, pretrained_state_dict)
         batches = accumulated_batches([images, labels], config, max_steps_per_epoch)
         state, logger = train_loop(
             step, state, batches, config.training_epochs, device,
@@ -106,6 +113,7 @@ def run(
             "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
             "num_devices": world,
             "reducer_rank": config.reducer_rank,
+            "compute_dtype": config.compute_dtype,
             "bits_per_step": step.bits_per_step,
             "shape_groups": step.reducer.n_shape_groups(params),
             "losses": [r.loss for r in logger.records],

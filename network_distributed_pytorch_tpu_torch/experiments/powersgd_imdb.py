@@ -12,6 +12,9 @@ the seed. Dropout is off in training, as in the JAX package's loss
 (``deterministic=True``), so attention runs flash attention (K5).
 ``compute_dtype="bfloat16"`` runs the model in bf16 at the JAX model's cast
 points (K5 on bf16 q, k, v) with fp32 parameters, gradients and reducer.
+``remat`` recomputes each block in the backward (K5's forward twice a
+step); weights come from the seed or ``pretrained_state_dict`` (e.g.
+``models.import_weights.distilbert_state_dict_from_hf``).
 """
 
 from __future__ import annotations
@@ -43,11 +46,14 @@ def default_config() -> ExperimentConfig:
     )
 
 
-def build_model(preset: str, device="cuda", seed: int = 0, attn_impl: str = "auto", dtype=torch.float32):
+def build_model(
+    preset: str, device="cuda", seed: int = 0, attn_impl: str = "auto", dtype=torch.float32, remat: bool = False
+):
+    kw = dict(num_labels=2, device=device, seed=seed, attn_impl=attn_impl, dtype=dtype, remat=remat)
     if preset == "full":
-        return distilbert_base(num_labels=2, device=device, seed=seed, attn_impl=attn_impl, dtype=dtype)
+        return distilbert_base(**kw)
     if preset == "small":
-        return distilbert_tiny(num_labels=2, device=device, seed=seed, attn_impl=attn_impl, dtype=dtype)
+        return distilbert_tiny(**kw)
     raise ValueError(f"unknown preset {preset!r}")
 
 
@@ -63,19 +69,23 @@ def sequence_classifier_loss():
     return loss_fn
 
 
-def build(config: ExperimentConfig, preset: str, device, group):
-    """The model, the training step and its initial state. The reducer is
-    the JAX package's: its default pipeline (``compress_impl="xla"``, the
-    Gram-Schmidt kernel on the card) and one collective per payload; other
-    values are refused."""
+def build(config: ExperimentConfig, preset: str, device, group, pretrained_state_dict=None, remat: bool = False):
+    """The model (from ``pretrained_state_dict`` where one is given, else
+    from the seed), the training step and its initial state. The reducer
+    is the JAX package's: its default pipeline (``compress_impl="xla"``,
+    the Gram-Schmidt kernel on the card) and one collective per payload;
+    other values are refused."""
     require_defaults(
         config,
         ("compress_impl", "orthogonalize_impl", "comm_chunks", "comm_strategy", "bucket_bytes"),
         "powersgd_imdb",
     )
     model = build_model(
-        preset, device, seed=config.seed, attn_impl=config.attn_impl or "auto", dtype=compute_dtype(config)
+        preset, device, seed=config.seed, attn_impl=config.attn_impl or "auto", dtype=compute_dtype(config),
+        remat=remat,
     )
+    if pretrained_state_dict is not None:
+        model.load_state_dict(pretrained_state_dict)
     reducer = PowerSGDReducer(
         random_seed=config.seed,
         compression_rank=config.reducer_rank,
@@ -104,6 +114,8 @@ def run(
     device="cuda",
     max_steps_per_epoch: Optional[int] = None,
     max_len: int = 256,
+    remat: bool = False,
+    pretrained_state_dict=None,
 ) -> Dict:
     """Train and return the run summary. ``data_dir`` is the ``aclImdb``
     root (None: synthetic). Joins the default process group (creating one,
@@ -115,7 +127,7 @@ def run(
         rank, world = dist.get_rank(group), dist.get_world_size(group)
         if not config.global_batch_size:
             config = dataclasses.replace(config, global_batch_size=PER_WORKER_BATCH * world)
-        model, step, state = build(config, preset, device, group)
+        model, step, state = build(config, preset, device, group, pretrained_state_dict, remat)
         if preset == "small":
             max_len = min(max_len, model.config.max_position_embeddings)
         train_split, _, is_real = prepare_imdb(
@@ -135,6 +147,7 @@ def run(
             "num_devices": world,
             "reducer_rank": config.reducer_rank,
             "compute_dtype": config.compute_dtype,
+            "remat": remat,
             "global_batch": config.global_batch_size,
             "max_len": max_len,
             "bits_per_step": step.bits_per_step,

@@ -9,6 +9,9 @@ Usage, one process per rank (torchrun sets ``RANK``, ``WORLD_SIZE``,
     python -m network_distributed_pytorch_tpu_torch.launch exact_cifar10 --preset full --bucket-bytes 26214400
     python -m network_distributed_pytorch_tpu_torch.launch imdb_baseline --preset full
     python -m network_distributed_pytorch_tpu_torch.launch gpt_lm --preset full --dtype bfloat16
+    python -m network_distributed_pytorch_tpu_torch.launch gpt_lm --preset full --remat --scan-layers
+    python -m network_distributed_pytorch_tpu_torch.launch powersgd_cifar10 --preset full --dtype bfloat16 --json
+    python -m network_distributed_pytorch_tpu_torch.launch powersgd_imdb --accum-steps 2 --max-grad-norm 1.0
     python -m network_distributed_pytorch_tpu_torch.launch gpt_generate --preset full --max-new-tokens 128
     python -m network_distributed_pytorch_tpu_torch.launch diloco_cifar10 --preset full --diloco-reducer powersgd
     python -m network_distributed_pytorch_tpu_torch.launch diloco_cifar10 --preset full --fragments 4
@@ -24,7 +27,8 @@ Usage, one process per rank (torchrun sets ``RANK``, ``WORLD_SIZE``,
     torchrun --nproc-per-node 4 -m network_distributed_pytorch_tpu_torch.launch gpt_pp --data-shards 2 --checkpoint-dir ckpt
     torchrun --nproc-per-node 4 -m network_distributed_pytorch_tpu_torch.launch gpt_moe --experts-per-device 2 --moe-top-k 2
 
-The last line of standard output is the run summary as JSON. A worker of
+With ``--json`` the last line of standard output is the run summary as
+JSON; ``main`` returns it either way. A worker of
 ``exact_cifar10 --checkpoint-dir`` that is sent SIGTERM commits an
 emergency checkpoint at the next step and exits with code 75
 (``resilience.PREEMPT_EXIT_CODE``); run again, it resumes there. Code 44
@@ -93,6 +97,11 @@ _DILOCO_OK = ("diloco_cifar10",)
 _CHECKPOINT_OK = ("exact_cifar10", "serve_gpt", "gpt_pp", "gpt_sp")
 # the model-parallel GPT entries' own flags, as the JAX launcher gives them
 _TP_OK, _PP_OK, _MOE_OK = ("gpt_tp",), ("gpt_pp",), ("gpt_moe",)
+# the JAX launcher's: gradient accumulation and clipping, rematerialisation
+# and the stacked layer layout
+_ACCUM_OK = ("exact_cifar10", "powersgd_cifar10", "powersgd_imdb", "imdb_baseline")
+_REMAT_OK = ("gpt_lm", "powersgd_imdb")
+_SCAN_OK = ("gpt_lm",)
 # the experiments whose epochs of steps --max-steps-per-epoch caps
 _STEPS_OK = (
     "diloco_cifar10", "exact_cifar10", "gpt_lm", "gpt_moe", "gpt_pp", "gpt_sp", "gpt_tp", "imdb_baseline",
@@ -120,6 +129,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=714)
     p.add_argument("--data-dir", type=str, default=DEFAULT_DATA_DIR)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument(
+        "--accum-steps", type=int, default=None,
+        help="gradient-accumulation microbatches per step (cifar and imdb experiments)",
+    )
+    p.add_argument(
+        "--max-grad-norm", type=float, default=None,
+        help="clip the reduced update to this global norm (cifar/imdb experiments)",
+    )
+    p.add_argument("--log-every", type=int, default=10, help="log the mean loss every N steps (0: never)")
+    p.add_argument("--json", action="store_true", help="print the summary as JSON")
+    p.add_argument(
+        "--remat", action="store_true",
+        help="rematerialize transformer blocks in the backward pass (gpt_lm, powersgd_imdb)",
+    )
+    p.add_argument(
+        "--scan-layers", action="store_true",
+        help="gpt_lm only: the blocks' parameters stacked (n_layers, ...) under h_scan.block, the JAX"
+             " package's scanned layout, applied layer by layer; same math",
+    )
     p.add_argument(
         "--compress-impl", choices=list(COMPRESS_IMPLS), default=None,
         help="PowerSGD compress pipeline (powersgd_cifar10): 'pallas' runs the fused"
@@ -160,9 +188,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--dtype", choices=list(COMPUTE_DTYPES), default=None,
-        help="compute dtype of the transformers (gpt_lm, gpt_generate and the IMDb"
-             " experiments): 'bfloat16' runs matmuls, attention and activations in bf16"
-             " with fp32 parameters; the ResNet experiments refuse it",
+        help="compute dtype of the models: 'bfloat16' runs matmuls, convolutions, attention and"
+             " activations in bf16 at flax's cast points with fp32 parameters, gradients and wire;"
+             " bandwidth_study refuses it",
     )
     p.add_argument(
         "--sync-every", type=int, default=None,
@@ -283,6 +311,9 @@ def config_from_args(args) -> ExperimentConfig:
         ("comm_chunks", args.comm_chunks),
         ("comm_strategy", args.comm_strategy),
         ("bucket_bytes", args.bucket_bytes),
+        ("accum_steps", args.accum_steps),
+        ("max_grad_norm", args.max_grad_norm),
+        ("log_every", args.log_every),
     ):
         if value is not None:
             setattr(cfg, attr, value)
@@ -324,6 +355,10 @@ def main(argv=None) -> dict:
         ("--experts-per-device", args.experts_per_device, _MOE_OK),
         ("--moe-reducer", args.moe_reducer, _MOE_OK),
         ("--moe-top-k", args.moe_top_k, _MOE_OK),
+        ("--accum-steps", args.accum_steps if cfg.accum_steps > 1 else None, _ACCUM_OK),
+        ("--max-grad-norm", args.max_grad_norm, _ACCUM_OK),
+        ("--remat", args.remat or None, _REMAT_OK),
+        ("--scan-layers", args.scan_layers or None, _SCAN_OK),
     ):
         if value is not None and exp not in ok:
             raise ValueError(f"{flag} is not supported by {exp!r} (supported: {', '.join(ok)})")
@@ -349,6 +384,8 @@ def main(argv=None) -> dict:
             kwargs[name] = default if value is None else value
     elif exp in ("gpt_lm", "gpt_moe", "gpt_pp", "gpt_sp", "gpt_tp"):
         kwargs.update(preset=args.preset, max_steps_per_epoch=args.max_steps_per_epoch)
+        if exp == "gpt_lm":
+            kwargs.update(remat=args.remat, scan_layers=args.scan_layers)
         for name, value in {
             "gpt_tp": (("model_shards", args.model_shards), ("reducer", args.tp_reducer),
                        ("vocab_parallel", args.vocab_parallel or None)),
@@ -367,6 +404,8 @@ def main(argv=None) -> dict:
         if exp in ("powersgd_imdb", "imdb_baseline") and data_dir == DEFAULT_DATA_DIR:
             data_dir = None
         kwargs.update(preset=args.preset, data_dir=data_dir, max_steps_per_epoch=args.max_steps_per_epoch)
+    if exp == "powersgd_imdb":
+        kwargs.update(remat=args.remat)
     if exp == "exact_cifar10":
         kwargs.update(strategy=args.strategy, checkpoint_dir=args.checkpoint_dir)
     if exp == "diloco_cifar10":
@@ -378,7 +417,8 @@ def main(argv=None) -> dict:
             if value is not None:
                 kwargs[name] = value
     result = EXPERIMENTS[exp].run(cfg, **kwargs)
-    sys.stdout.write(json.dumps(result) + "\n")
+    if args.json:
+        sys.stdout.write(json.dumps(result) + "\n")
     return result
 
 

@@ -53,7 +53,7 @@ from ..ops.flash_attention import flash_attention
 from ..parallel.mesh import resolve_device
 from ..parallel.sequence import ring_attention, ulysses_attention
 from ..utils.config import ATTN_IMPLS
-from .layers import check_compute_dtype, dense, embed, layer_norm, score_scale
+from .layers import check_compute_dtype, dense, embed, layer_norm, remat_call, score_scale
 
 _LN_EPS = 1e-12
 _INIT_STD = 0.02
@@ -73,11 +73,13 @@ class DistilBertConfig:
     dtype: Any = torch.float32
     # sequence parallelism: the process group the sequence is sharded over
     # (a mesh axis) and the exact schedule that attends across it
-    # (``parallel/sequence.py``); rematerialization keeps its slot and
-    # raises until it is ported
+    # (``parallel/sequence.py``)
     seq_axis: Any = None
     seq_impl: str = "ring"
     attn_impl: str = "auto"
+    # rematerialization: each block under ``models.layers.remat_call``
+    # (``torch.utils.checkpoint``, the RNG state preserved for dropout),
+    # recomputed in the backward; the gradients are the plain model's
     remat: bool = False
 
     def __post_init__(self) -> None:
@@ -88,8 +90,6 @@ class DistilBertConfig:
         check_compute_dtype(self.dtype)
         if self.seq_impl not in ("ring", "ulysses"):
             raise ValueError(f"DistilBertConfig.seq_impl must be 'ring' or 'ulysses', got {self.seq_impl!r}")
-        if self.remat:
-            raise NotImplementedError("DistilBertConfig.remat is not ported yet")
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -201,7 +201,7 @@ class DistilBertEncoder(nn.Module):
         neg_inf = torch.tensor(torch.finfo(torch.float32).min, device=x.device).to(dt)
         mask = torch.where(attention_mask > 0, torch.zeros((), dtype=dt, device=x.device), neg_inf)
         for block in self.transformer["layer"]:
-            x = block(x, mask, deterministic)
+            x = remat_call(cfg.remat, block, x, mask, deterministic)
         return x
 
 
@@ -242,32 +242,35 @@ class DistilBertForSequenceClassification(nn.Module):
 
 
 def distilbert_base(
-    num_labels: int = 2, device="cuda", seed: int = 0, attn_impl: str = "auto", dtype=torch.float32
+    num_labels: int = 2, device="cuda", seed: int = 0, attn_impl: str = "auto", dtype=torch.float32,
+    remat: bool = False,
 ) -> DistilBertForSequenceClassification:
     """distilbert-base-uncased's shape (66,955,010 parameters at 2 labels)."""
-    config = DistilBertConfig(num_labels=num_labels, attn_impl=attn_impl, dtype=dtype)
+    config = DistilBertConfig(num_labels=num_labels, attn_impl=attn_impl, dtype=dtype, remat=remat)
     return DistilBertForSequenceClassification(config, device, seed)
 
 
 def distilbert_wide(
-    num_labels: int = 2, device="cuda", seed: int = 0, attn_impl: str = "auto", dtype=torch.float32
+    num_labels: int = 2, device="cuda", seed: int = 0, attn_impl: str = "auto", dtype=torch.float32,
+    remat: bool = False,
 ) -> DistilBertForSequenceClassification:
     """The accuracy-study tier: dim 256 at depth 1, wide enough that
     PowerSGD rank 16 is a real compression."""
     config = DistilBertConfig(
         vocab_size=1024, max_position_embeddings=64, dim=256, n_layers=1, n_heads=4,
-        hidden_dim=512, num_labels=num_labels, attn_impl=attn_impl, dtype=dtype,
+        hidden_dim=512, num_labels=num_labels, attn_impl=attn_impl, dtype=dtype, remat=remat,
     )
     return DistilBertForSequenceClassification(config, device, seed)
 
 
 def distilbert_tiny(
-    num_labels: int = 2, device="cuda", seed: int = 0, attn_impl: str = "auto", dtype=torch.float32
+    num_labels: int = 2, device="cuda", seed: int = 0, attn_impl: str = "auto", dtype=torch.float32,
+    remat: bool = False,
 ) -> DistilBertForSequenceClassification:
     """The test tier: a DistilBERT-shaped toy transformer."""
     config = DistilBertConfig(
         vocab_size=1024, max_position_embeddings=64, dim=32, n_layers=2, n_heads=4,
-        hidden_dim=64, num_labels=num_labels, attn_impl=attn_impl, dtype=dtype,
+        hidden_dim=64, num_labels=num_labels, attn_impl=attn_impl, dtype=dtype, remat=remat,
     )
     return DistilBertForSequenceClassification(config, device, seed)
 

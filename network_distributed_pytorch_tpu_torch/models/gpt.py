@@ -37,8 +37,23 @@ Sequence parallelism: ``seq_axis`` is the process group the sequence is
 sharded over (a mesh axis, ``ProcessMesh.group("seq")``), and attention
 runs ``seq_impl``'s exact schedule from ``parallel/sequence.py``
 (``"ring"`` or ``"ulysses"``, plain PyTorch, no attention-weight dropout)
-with positions offset by ``axis_index * T_local``. ``remat`` and
-``scan_layers`` keep their slots and raise until they are ported.
+with positions offset by ``axis_index * T_local``.
+
+``remat``: each block runs under ``models.layers.remat_call``
+(``torch.utils.checkpoint``, non-reentrant, the RNG state preserved): its
+activations are dropped after the forward and recomputed in the backward,
+dropout masks and the flash kernel's saved ``out`` and ``lse`` included,
+so the gradients are the plain model's. The flash forward then runs twice
+a step. ``scan_layers``: the reference's stacked layout, every block
+parameter one leaf of shape ``(n_layers, ...)`` under ``h_scan.block.*``
+(torch layout behind the layer axis), the blocks applied in turn through
+``torch.func.functional_call`` on the leaves' rows (:class:`StackedBlocks`;
+one checkpoint a layer under ``remat``). The unrolled ``h.{i}.*`` layout
+converts both ways with :func:`stack_gpt_layer_params` and
+:func:`unstack_gpt_layer_params`; a seed gives a ``scan_layers`` model the
+stacked weights of the unrolled model's, so the two compute the same bits.
+The KV-cache decoding and the model-parallel halves take the unrolled
+layout.
 
 Below the model, the JAX package's model-parallel halves of the GPT on
 parameter dicts keyed by the port's names (``model.state_dict()``'s):
@@ -65,6 +80,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import math
+import re
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -82,7 +98,7 @@ from ..parallel.pipeline import local_stage, make_pipeline_train_fn, stacked_sta
 from ..parallel.sequence import ring_attention, ulysses_attention
 from ..parallel.tensor import column_parallel_dense, row_parallel_dense, tp_mlp
 from ..utils.config import ATTN_IMPLS
-from .layers import attend, check_compute_dtype, dense, embed, layer_norm, score_scale
+from .layers import attend, check_compute_dtype, dense, embed, layer_norm, remat_call, score_scale
 
 _LN_EPS = 1e-5
 _INIT_STD = 0.02
@@ -115,9 +131,6 @@ class GPTConfig:
             raise ValueError(f"dim {self.dim} does not split into {self.n_heads} heads")
         if self.seq_impl not in SEQ_IMPLS:
             raise ValueError(f"GPTConfig.seq_impl must be one of {SEQ_IMPLS}, got {self.seq_impl!r}")
-        for name in ("remat", "scan_layers"):
-            if getattr(self, name):
-                raise NotImplementedError(f"GPTConfig.{name} is not ported yet")
 
     @property
     def head_dim(self) -> int:
@@ -188,6 +201,34 @@ class GPTBlock(nn.Module):
         return x + h
 
 
+class StackedBlocks(nn.Module):
+    """``h_scan`` of a ``scan_layers`` GPT: every :class:`GPTBlock`
+    parameter as one leaf ``(n_layers, ...)`` under ``block.*``, each layer
+    applied as the model's own block through ``functional_call`` on the
+    leaves' rows (``unbind``: one stack of the rows' gradients a leaf).
+    ``stacks_layers`` marks its leaves for the reducer
+    (``parallel.reducers.layer_stacked_leaves``)."""
+
+    stacks_layers = True
+
+    def __init__(self, config: GPTConfig):
+        super().__init__()
+        self.config = config
+        self.block = GPTBlock(config)
+        for name, p in list(self.block.named_parameters()):
+            owner, _, attr = name.rpartition(".")
+            setattr(self.block.get_submodule(owner), attr, nn.Parameter(p.new_empty((config.n_layers,) + p.shape)))
+        self._template = [_block_template(config)]  # a list: not a submodule
+
+    def forward(self, x: torch.Tensor, deterministic: bool) -> torch.Tensor:
+        names, leaves = zip(*self.block.named_parameters())
+        template = self._template[0]
+        for rows in zip(*(leaf.unbind(0) for leaf in leaves)):
+            layer = dict(zip(names, rows))
+            x = remat_call(self.config.remat, lambda x, layer=layer: functional_call(template, layer, (x, deterministic)), x)
+        return x
+
+
 class GPTLM(nn.Module):
     """Decoder LM: token ids ``(B, T)`` -> next-token logits ``(B, T, V)``
     in fp32, the head tied to the token table."""
@@ -202,16 +243,27 @@ class GPTLM(nn.Module):
         with device if meta else contextlib.nullcontext():
             self.wte = nn.Embedding(config.vocab_size, config.dim)
             self.wpe = nn.Embedding(config.max_position_embeddings, config.dim)
-            self.h = nn.ModuleList(GPTBlock(config) for _ in range(config.n_layers))
+            blocks = nn.ModuleList(GPTBlock(config) for _ in range(config.n_layers))
+            if config.scan_layers:
+                self.h_scan = StackedBlocks(config)
+            else:
+                self.h = blocks
             self.ln_f = nn.LayerNorm(config.dim, eps=_LN_EPS)
         if not meta:
-            self._init_weights(torch.Generator().manual_seed(seed))
+            self._init_weights(torch.Generator().manual_seed(seed), blocks)
+            if config.scan_layers:  # the unrolled model's weights, stacked
+                self.load_state_dict(stack_gpt_layer_params(_unrolled_state(self, blocks), config.n_layers))
             self.to(device)
 
     @torch.no_grad()
-    def _init_weights(self, gen: torch.Generator) -> None:
+    def _init_weights(self, gen: torch.Generator, blocks: nn.ModuleList) -> None:
         residual_std = _INIT_STD / math.sqrt(2 * self.config.n_layers)
-        for name, mod in self.named_modules():
+        # the unrolled model's order: the tables, the blocks, the final LayerNorm
+        modules = [
+            ("wte", self.wte), ("wpe", self.wpe), *((f"h.{k}", m) for k, m in blocks.named_modules()),
+            ("ln_f", self.ln_f),
+        ]
+        for name, mod in modules:
             if isinstance(mod, (nn.Linear, nn.Embedding)):
                 std = residual_std if name.endswith(("out_proj", "mlp_proj")) else _INIT_STD
                 mod.weight.normal_(0.0, std, generator=gen)
@@ -227,10 +279,72 @@ class GPTLM(nn.Module):
         positions = gpt_position_ids(cfg, input_ids)
         x = embed(self.wte, input_ids, dt) + embed(self.wpe, positions, dt)
         x = F.dropout(x, cfg.dropout, training=not deterministic)
-        for block in self.h:
-            x = block(x, deterministic)
+        if cfg.scan_layers:
+            x = self.h_scan(x, deterministic)
+        else:
+            for block in self.h:
+                x = remat_call(cfg.remat, block, x, deterministic)
         x = layer_norm(self.ln_f, x, dt)
         return attend(self.wte, x, dt).float()
+
+
+def _unrolled_state(model: GPTLM, blocks: nn.ModuleList) -> Params:
+    """The unrolled ``state_dict`` of a ``scan_layers`` model whose blocks
+    are ``blocks``."""
+    state = {k: v for k, v in model.state_dict().items() if not k.startswith("h_scan.")}
+    state.update({f"h.{k}": v for k, v in blocks.state_dict().items()})
+    return state
+
+
+_UNROLLED_BLOCK = re.compile(r"^h\.(\d+)\.(.+)$")
+_STACKED_PREFIX = "h_scan.block."
+
+
+def stack_gpt_layer_params(params: Params, n_layers: int) -> Params:
+    """Unrolled block parameters (``h.{i}.*``) -> the ``scan_layers``
+    layout (``h_scan.block.*``, each leaf stacked on a leading layer axis),
+    the reference's ``stack_gpt_layer_params`` on the port's names. Refuses
+    a ``params`` whose blocks are not exactly ``0 .. n_layers - 1``: a
+    wrong ``n_layers`` would otherwise drop or miss blocks silently."""
+    blocks: Dict[int, Params] = {}
+    out: Params = {}
+    for name, value in params.items():
+        m = _UNROLLED_BLOCK.match(name)
+        if m:
+            blocks.setdefault(int(m.group(1)), {})[m.group(2)] = value
+        else:
+            out[name] = value
+    if sorted(blocks) != list(range(n_layers)):
+        raise ValueError(
+            f"stack_gpt_layer_params(n_layers={n_layers}): params carry blocks {sorted(blocks)},"
+            f" expected exactly {list(range(n_layers))}"
+        )
+    for leaf in blocks[0]:
+        out[_STACKED_PREFIX + leaf] = torch.stack([blocks[i][leaf] for i in range(n_layers)])
+    return out
+
+
+def unstack_gpt_layer_params(params: Params) -> Params:
+    """The ``scan_layers`` layout -> unrolled ``h.{i}.*`` names (rows of
+    the stacked leaves), e.g. to decode with the KV cache or to split into
+    pipeline stages."""
+    out = {k: v for k, v in params.items() if not k.startswith(_STACKED_PREFIX)}
+    for name, value in params.items():
+        if name.startswith(_STACKED_PREFIX):
+            for i, row in enumerate(value.unbind(0)):
+                out[f"h.{i}.{name[len(_STACKED_PREFIX):]}"] = row
+    return out
+
+
+def _unrolled_blocks(model: GPTLM) -> nn.ModuleList:
+    """The blocks of an unrolled model; a ``scan_layers`` model is refused
+    (the KV-cache paths address blocks one by one)."""
+    if model.config.scan_layers:
+        raise ValueError(
+            "the KV-cache decoding takes the unrolled layout: load unstack_gpt_layer_params(model.state_dict())"
+            " into a GPTLM without scan_layers"
+        )
+    return model.h
 
 
 def gpt_small(dtype=torch.float32, device="cuda", seed: int = 0, **overrides) -> GPTLM:
@@ -626,7 +740,7 @@ def gpt_prefill(model: GPTLM, prompt_ids: torch.Tensor, max_len: int):
     x = model.wte.weight[prompt_ids].to(dt) + model.wpe.weight[:t][None].to(dt)
     cache = init_gpt_cache(cfg, b, max_len, device=device)
     causal = torch.ones((t, t), dtype=torch.bool, device=device).tril()
-    for layer, block in zip(cache, model.h):
+    for layer, block in zip(cache, _unrolled_blocks(model)):
         h = layer_norm(block.ln_1, x, dt)
         q, k, v = (
             dense(lin, h, dt).reshape(b, t, cfg.n_heads, cfg.head_dim)
@@ -646,7 +760,7 @@ def _decode_layers(model: GPTLM, cache: Cache, x, valid, write) -> torch.Tensor:
     Returns the logits ``(B, V)`` in fp32."""
     cfg = model.config
     dt = cfg.dtype
-    for layer, block in zip(cache, model.h):
+    for layer, block in zip(cache, _unrolled_blocks(model)):
         h = layer_norm(block.ln_1, x, dt)
         q, k, v = (
             dense(lin, h, dt).reshape(-1, 1, cfg.n_heads, cfg.head_dim)
@@ -757,7 +871,7 @@ def gpt_prefill_shared(model: GPTLM, suffix_ids: torch.Tensor, prefix_cache: Cac
     # query j sits at position p_len + j: it attends to keys 0 .. p_len + j
     causal = torch.arange(p_len + t, device=device)[None, :] <= (p_len + torch.arange(t, device=device))[:, None]
     suffix_cache = []
-    for prefix, block in zip(prefix_cache, model.h):
+    for prefix, block in zip(prefix_cache, _unrolled_blocks(model)):
         h = layer_norm(block.ln_1, x, dt)
         q, k, v = (
             dense(lin, h, dt).reshape(b, t, cfg.n_heads, cfg.head_dim)

@@ -18,7 +18,28 @@ Linear weights (out, in); Embed tables (num, dim) stay as they are, since
 ``gpt_state_dict_from_flax`` maps the JAX GPT's ``{"params"}`` onto the
 port ``GPTLM``'s ``state_dict``: Dense kernels (in, out) -> Linear weights
 (out, in); the tied ``wte`` and ``wpe`` tables (num, dim) as they are;
-LayerNorm scale -> weight.
+LayerNorm scale -> weight. The ``scan_layers`` layout maps too: a stacked
+kernel ``(L, in, out)`` under ``h_scan/block`` becomes the port's stacked
+weight ``(L, out, in)`` under ``h_scan.block``.
+
+Published checkpoints, the port's counterparts of the JAX package's
+``resnet_variables_from_torch``, ``distilbert_variables_from_torch`` and
+``gpt2_variables_from_torch``: each maps a state dict (tensors or numpy
+arrays, already on disk: nothing here downloads, and nothing imports
+``torchvision`` or ``transformers``) onto the port's names and layouts.
+
+- :func:`resnet_state_dict_from_torchvision`: torchvision's ``conv1`` /
+  ``bn1`` / ``layer{s}.{b}.conv{c}`` / ``downsample`` / ``fc`` -> the
+  port's ``conv_init`` / ``norm_init`` / ``blocks.{i}.conv{c-1}`` /
+  ``conv_proj``, ``norm_proj`` / ``head``; the layouts are torch's on both
+  sides.
+- :func:`distilbert_state_dict_from_hf`: HuggingFace's
+  ``DistilBertForSequenceClassification`` names are the port's; its
+  parameters are taken, its buffers (``position_ids``) left.
+- :func:`gpt2_state_dict_from_hf`: ``GPT2LMHeadModel``'s ``Conv1D``
+  weights are ``(in, out)`` and become the port's ``nn.Linear`` ``(out,
+  in)``; the fused ``c_attn`` splits into ``q_proj``, ``k_proj`` and
+  ``v_proj``; ``lm_head`` is tied to ``wte`` and is not carried.
 
 The model-parallel layouts, from the JAX package's parameters as numpy
 arrays, so that both packages compute the same thing:
@@ -59,7 +80,7 @@ import numpy as np
 import torch
 
 from ..parallel.reducers import PowerSGDState
-from .gpt import tp_shard
+from .gpt import stack_gpt_layer_params, tp_shard
 
 _BLOCK = re.compile(r"^(?:BasicBlock|BottleneckBlock)_(\d+)$")
 _SUB = re.compile(r"^(Conv|BatchNorm|GroupNorm|Dense)_(\d+)$")
@@ -162,13 +183,14 @@ def gpt_torch_name(path: Tuple[str, ...]) -> str:
 
 
 def gpt_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax ``{"params"}`` of ``GPTLM`` (the unrolled ``h_{i}`` layout) ->
-    the port model's ``state_dict``. Also maps any params-shaped tree given
-    as ``{"params": tree}`` (momenta, error memories, gradients)."""
+    """flax ``{"params"}`` of ``GPTLM`` (the unrolled ``h_{i}`` layout, or
+    ``scan_layers``' ``h_scan/block`` with its leading layer axis) -> the
+    port model's ``state_dict``. Also maps any params-shaped tree given as
+    ``{"params": tree}`` (momenta, error memories, gradients)."""
     sd: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(variables["params"]):
-        if path[-1] == "kernel":  # Dense (in, out) -> Linear (out, in)
-            value = value.T
+        if path[-1] == "kernel":  # Dense (in, out) -> Linear (out, in), behind any layer axis
+            value = value.swapaxes(-1, -2)
         sd[gpt_torch_name(path)] = torch.from_numpy(np.array(value, order="C", copy=True))
     return sd
 
@@ -416,3 +438,116 @@ def _leaves_of(tree: Any) -> List[Any]:
     if isinstance(tree, (list, tuple)):
         return [leaf for v in tree for leaf in _leaves_of(v)]
     return [] if tree is None else [tree]
+
+
+# ---- published checkpoints: torchvision and HuggingFace state dicts ----------
+
+
+def _tensor(value) -> torch.Tensor:
+    """A checkpoint entry (a tensor or a numpy array) as a contiguous CPU
+    tensor of its own."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().contiguous().clone()
+    return torch.from_numpy(np.array(value, order="C", copy=True))
+
+
+_BN_ENTRIES = ("weight", "bias", "running_mean", "running_var")
+
+
+def resnet_state_dict_from_torchvision(
+    state_dict: Mapping[str, Any], stage_sizes, bottleneck: bool
+) -> Dict[str, torch.Tensor]:
+    """A torchvision ResNet's ``state_dict`` -> the port ResNet's (BatchNorm
+    norm; ``stage_sizes`` and ``bottleneck`` as the target model's:
+    resnet18 ``[2, 2, 2, 2]`` / False, resnet50 ``[3, 4, 6, 3]`` / True,
+    resnet152 ``[3, 8, 36, 3]`` / True). Every BatchNorm gets
+    torchvision's ``num_batches_tracked``, or 0 where the checkpoint has
+    none, so ``load_state_dict`` is strict."""
+    sd = state_dict
+    out: Dict[str, torch.Tensor] = {}
+
+    def bn(dst: str, src: str) -> None:
+        for entry in _BN_ENTRIES:
+            out[f"{dst}.{entry}"] = _tensor(sd[f"{src}.{entry}"])
+        tracked = sd.get(f"{src}.num_batches_tracked")
+        out[f"{dst}.num_batches_tracked"] = (
+            torch.zeros((), dtype=torch.long) if tracked is None else _tensor(tracked).long()
+        )
+
+    out["conv_init.weight"] = _tensor(sd["conv1.weight"])
+    bn("norm_init", "bn1")
+    n_convs = 3 if bottleneck else 2
+    index = 0
+    for stage, n_blocks in enumerate(stage_sizes):
+        for b in range(n_blocks):
+            src, dst = f"layer{stage + 1}.{b}", f"blocks.{index}"
+            if (f"{src}.conv3.weight" in sd) != bottleneck:
+                raise ValueError(f"{src}: the checkpoint's blocks are not {'bottleneck' if bottleneck else 'basic'}")
+            for c in range(n_convs):
+                out[f"{dst}.conv{c}.weight"] = _tensor(sd[f"{src}.conv{c + 1}.weight"])
+                bn(f"{dst}.norm{c}", f"{src}.bn{c + 1}")
+            if f"{src}.downsample.0.weight" in sd:
+                out[f"{dst}.conv_proj.weight"] = _tensor(sd[f"{src}.downsample.0.weight"])
+                bn(f"{dst}.norm_proj", f"{src}.downsample.1")
+            index += 1
+    out["head.weight"] = _tensor(sd["fc.weight"])
+    out["head.bias"] = _tensor(sd["fc.bias"])
+    return out
+
+
+_HF_LAYER = re.compile(r"^distilbert\.transformer\.layer\.(\d+)\.")
+
+
+def distilbert_state_dict_from_hf(state_dict: Mapping[str, Any], n_layers: int = 6) -> Dict[str, torch.Tensor]:
+    """HuggingFace ``DistilBertForSequenceClassification``'s ``state_dict``
+    -> the port model's: the same names and layouts, the parameters only
+    (not the ``position_ids`` buffer). ``n_layers`` must be the
+    checkpoint's: a smaller one would silently drop blocks."""
+    layers = {int(m.group(1)) for m in map(_HF_LAYER.match, state_dict) if m}
+    if layers != set(range(n_layers)):
+        raise ValueError(f"n_layers={n_layers} but the checkpoint has layers {sorted(layers)}")
+    out: Dict[str, torch.Tensor] = {}
+    for name, value in state_dict.items():
+        if name.endswith("position_ids"):
+            continue
+        out[name] = _tensor(value)
+    return out
+
+
+_HF_GPT2_LINEARS = {"attn.c_proj": "attn.out_proj", "mlp.c_fc": "mlp_fc", "mlp.c_proj": "mlp_proj"}
+
+
+def gpt2_state_dict_from_hf(
+    state_dict: Mapping[str, Any], n_layers: Optional[int] = None, scan_layers: bool = False
+) -> Dict[str, torch.Tensor]:
+    """HuggingFace ``GPT2LMHeadModel``'s (or ``GPT2Model``'s) ``state_dict``
+    -> the port ``GPTLM``'s: ``Conv1D`` weights ``(in, out)`` transposed to
+    ``nn.Linear``'s ``(out, in)``, the fused ``c_attn`` split into q, k and
+    v, the tied ``lm_head`` left (the port's head is ``wte``). ``n_layers``
+    defaults to the checkpoint's and must equal it; ``scan_layers`` stacks
+    the blocks into the ``h_scan.block`` layout
+    (``models.gpt.stack_gpt_layer_params``)."""
+    sd = state_dict
+    pfx = "transformer." if any(k.startswith("transformer.") for k in sd) else ""
+    found = 1 + max((int(k[len(pfx) + 2 :].split(".")[0]) for k in sd if k.startswith(f"{pfx}h.")), default=-1)
+    if n_layers is None:
+        n_layers = found
+    elif n_layers != found:
+        raise ValueError(f"n_layers={n_layers} but the checkpoint has {found} layers")
+    out = {name: _tensor(sd[f"{pfx}{name}"]) for name in ("wte.weight", "wpe.weight", "ln_f.weight", "ln_f.bias")}
+    for i in range(n_layers):
+        src, dst = f"{pfx}h.{i}", f"h.{i}"
+        for ln in ("ln_1", "ln_2"):
+            for entry in ("weight", "bias"):
+                out[f"{dst}.{ln}.{entry}"] = _tensor(sd[f"{src}.{ln}.{entry}"])
+        weight, bias = _tensor(sd[f"{src}.attn.c_attn.weight"]), _tensor(sd[f"{src}.attn.c_attn.bias"])
+        dim = weight.shape[0]
+        if weight.shape[1] != 3 * dim:
+            raise ValueError(f"{src}.attn.c_attn.weight is {tuple(weight.shape)}, not (dim, 3 * dim)")
+        for j, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            out[f"{dst}.attn.{name}.weight"] = weight[:, j * dim : (j + 1) * dim].t().contiguous()
+            out[f"{dst}.attn.{name}.bias"] = bias[j * dim : (j + 1) * dim].clone()
+        for hf, port in _HF_GPT2_LINEARS.items():
+            out[f"{dst}.{port}.weight"] = _tensor(sd[f"{src}.{hf}.weight"]).t().contiguous()
+            out[f"{dst}.{port}.bias"] = _tensor(sd[f"{src}.{hf}.bias"])
+    return stack_gpt_layer_params(out, n_layers) if scan_layers else out

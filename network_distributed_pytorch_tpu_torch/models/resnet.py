@@ -15,6 +15,14 @@ Details kept from the JAX model so weights carry across
   ``norm="group"``: flax's ``GroupNorm(num_groups=32)``, epsilon 1e-6
   (torch's default is 1e-5), stateless.
 
+``dtype`` (``compute_dtype``) is flax's, as in the transformers
+(``models/layers.py``): parameters and BatchNorm's running statistics stay
+fp32; the input is cast to ``dtype``; each convolution casts its input and
+kernel and returns ``dtype``; BatchNorm and GroupNorm take their
+statistics and normalise in fp32 and return ``dtype``; the residual add,
+ReLU, max-pool and mean pool run in ``dtype``; the ``head`` follows flax's
+Dense rule; the logits leave in fp32. Gradients come back fp32.
+
 ``forward`` takes NHWC float input, the JAX package's layout, and permutes
 it inside; the permuted view has channels-last strides, which cuDNN takes
 as they are. Submodule names follow the flax ones (``blocks.{i}`` for
@@ -37,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.mesh import resolve_device
+from .layers import check_compute_dtype, conv, dense, norm
 
 # flax BatchNorm(momentum=0.9) keeps 0.9 of the old running stat; torch's
 # momentum is the weight of the new batch statistic
@@ -59,13 +68,18 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, stride, padding=k // 2, bias=False)
 
 
+def _conv_norm(conv_layer: nn.Conv2d, norm_layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return norm(norm_layer, conv(conv_layer, x, dtype), dtype)
+
+
 class BasicBlock(nn.Module):
     """2-conv residual block (ResNet-18/34)."""
 
     expansion = 1
 
-    def __init__(self, cin: int, filters: int, stride: int, norm: str):
+    def __init__(self, cin: int, filters: int, stride: int, norm: str, dtype: torch.dtype):
         super().__init__()
+        self.dtype = dtype
         self.conv0 = _conv(cin, filters, 3, stride)
         self.norm0 = _norm(filters, norm)
         self.conv1 = _conv(filters, filters, 3)
@@ -76,9 +90,9 @@ class BasicBlock(nn.Module):
             self.norm_proj = _norm(filters, norm)
 
     def forward(self, x):
-        y = F.relu(self.norm0(self.conv0(x)))
-        y = self.norm1(self.conv1(y))
-        residual = x if self.conv_proj is None else self.norm_proj(self.conv_proj(x))
+        y = F.relu(_conv_norm(self.conv0, self.norm0, x, self.dtype))
+        y = _conv_norm(self.conv1, self.norm1, y, self.dtype)
+        residual = x if self.conv_proj is None else _conv_norm(self.conv_proj, self.norm_proj, x, self.dtype)
         return F.relu(residual + y)
 
 
@@ -87,8 +101,9 @@ class BottleneckBlock(nn.Module):
 
     expansion = 4
 
-    def __init__(self, cin: int, filters: int, stride: int, norm: str):
+    def __init__(self, cin: int, filters: int, stride: int, norm: str, dtype: torch.dtype):
         super().__init__()
+        self.dtype = dtype
         cout = filters * 4
         self.conv0 = _conv(cin, filters, 1)
         self.norm0 = _norm(filters, norm)
@@ -102,10 +117,10 @@ class BottleneckBlock(nn.Module):
             self.norm_proj = _norm(cout, norm)
 
     def forward(self, x):
-        y = F.relu(self.norm0(self.conv0(x)))
-        y = F.relu(self.norm1(self.conv1(y)))
-        y = self.norm2(self.conv2(y))
-        residual = x if self.conv_proj is None else self.norm_proj(self.conv_proj(x))
+        y = F.relu(_conv_norm(self.conv0, self.norm0, x, self.dtype))
+        y = F.relu(_conv_norm(self.conv1, self.norm1, y, self.dtype))
+        y = _conv_norm(self.conv2, self.norm2, y, self.dtype)
+        residual = x if self.conv_proj is None else _conv_norm(self.conv_proj, self.norm_proj, x, self.dtype)
         return F.relu(residual + y)
 
 
@@ -127,12 +142,15 @@ class ResNet(nn.Module):
         stem: str = "imagenet",
         device="cuda",
         seed: int = 0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if stem not in ("imagenet", "cifar"):
             raise ValueError(f"unknown stem {stem!r}")
+        check_compute_dtype(dtype)
         device = resolve_device(device)
         self.stem = stem
+        self.dtype = dtype
         if stem == "imagenet":
             self.conv_init = _conv(3, width, 7, 2)
         else:
@@ -143,7 +161,7 @@ class ResNet(nn.Module):
         for i, count in enumerate(stage_sizes):
             for j in range(count):
                 stride = 2 if i > 0 and j == 0 else 1
-                blocks.append(block_cls(cin, width * 2**i, stride, norm))
+                blocks.append(block_cls(cin, width * 2**i, stride, norm, dtype))
                 cin = width * 2**i * block_cls.expansion
         self.blocks = nn.ModuleList(blocks)
         self.head = nn.Linear(cin, num_classes)
@@ -166,14 +184,15 @@ class ResNet(nn.Module):
             last.weight.zero_()
 
     def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
-        x = x_nhwc.permute(0, 3, 1, 2)
-        x = F.relu(self.norm_init(self.conv_init(x)))
+        dt = self.dtype
+        x = x_nhwc.to(dt).permute(0, 3, 1, 2)
+        x = F.relu(_conv_norm(self.conv_init, self.norm_init, x, dt))
         if self.stem == "imagenet":
             x = F.max_pool2d(x, 3, 2, padding=1)
         for block in self.blocks:
             x = block(x)
         x = x.mean(dim=(2, 3))
-        return self.head(x).float()
+        return dense(self.head, x, dt).float()
 
 
 def resnet18(**kw) -> ResNet:

@@ -33,6 +33,12 @@ cotangent are not issued: those values are returned on the stage that owns
 them (zeros elsewhere), and the caller sums what it needs replicated
 (``models.gpt.make_gpt_pipeline_train_fn`` does, in one all-reduce).
 
+``remat=True`` (the JAX package's ``jax.checkpoint`` of the stage
+function) runs each stage call under a non-reentrant
+``torch.utils.checkpoint`` (``models.layers.remat_call``): a GPipe tick or
+a 1F1B microbatch then keeps only the stage's input and recomputes its
+activations in the backward, with the same values and gradients.
+
 Parameters are dicts of tensors. A train function never writes them: it
 differentiates detached copies and returns the gradients, as ``jax.grad``
 does. Gradients are this rank's own; the JAX function's
@@ -47,6 +53,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.distributed as dist
 
+from ..models.layers import remat_call
 from .comm import all_reduce_sum, exchange, ppermute, reduce_from_axis, world_size
 
 Params = Dict[str, torch.Tensor]
@@ -56,12 +63,20 @@ def _index(group) -> int:
     return 0 if group is None else dist.get_rank(group)
 
 
+def _stage(stage_fn: Callable[[Params, torch.Tensor], torch.Tensor], remat: bool):
+    """``stage_fn``, each call checkpointed under ``remat``."""
+    if not remat:
+        return stage_fn
+    return lambda p, a: remat_call(True, stage_fn, p, a)
+
+
 def pipeline_apply(
     stage_fn: Callable[[Params, torch.Tensor], torch.Tensor],
     stage_params: Params,
     x: torch.Tensor,
     group,
     num_microbatches: int,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Run ``x`` through the ``N`` stages of the ``pipe`` axis ``group``.
 
@@ -77,6 +92,7 @@ def pipeline_apply(
     if b % m:
         raise ValueError(f"batch {b} must divide into {m} microbatches")
     micro = x.reshape((m, b // m) + tuple(x.shape[1:]))
+    stage_fn = _stage(stage_fn, remat)
     # right shift without wraparound: stage 0 receives zeros
     perm = [(i, i + 1) for i in range(n - 1)]
     first = torch.tensor(idx == 0, device=x.device)
@@ -130,6 +146,7 @@ def make_pipeline_train_fn(
     num_microbatches: int,
     loss_has_params: bool = False,
     return_input_grads: bool = False,
+    remat: bool = False,
 ):
     """The 1F1B training schedule over the ``pipe`` axis ``group``.
 
@@ -150,6 +167,7 @@ def make_pipeline_train_fn(
 
     Output: ``(loss, stage_grads[, loss_param_grads][, dx])``."""
     m = num_microbatches
+    stage_fn = _stage(stage_fn, remat)
 
     def fn(stage_params: Params, *rest):
         if loss_has_params:
@@ -256,6 +274,7 @@ def make_pipeline_fn(
     stage_fn: Callable[[Params, torch.Tensor], torch.Tensor],
     group,
     num_microbatches: int,
+    remat: bool = False,
 ) -> Callable[[Params, torch.Tensor], torch.Tensor]:
     """``fn(stage_params, x)``: :func:`pipeline_apply` with this rank's
     stage given as the JAX package's ``shard_map`` slice of stacked
@@ -268,6 +287,6 @@ def make_pipeline_fn(
                 raise ValueError(
                     f"stage leaf {name} has {n * leaf.shape[0]} stages for {n} pipe ranks: one stage a rank"
                 )
-        return pipeline_apply(stage_fn, local_stage(stage_params, 0), x, group, num_microbatches)
+        return pipeline_apply(stage_fn, local_stage(stage_params, 0), x, group, num_microbatches, remat)
 
     return fn

@@ -153,6 +153,18 @@ def embedding_leaves(model: nn.Module) -> Tuple[int, ...]:
     return tuple(i for i, p in enumerate(model.parameters()) if id(p) in tables)
 
 
+def layer_stacked_leaves(model: nn.Module) -> Tuple[int, ...]:
+    """Positions, in ``model.parameters()`` order, of the leaves stored
+    with a leading layer axis: the parameters of every submodule that sets
+    ``stacks_layers`` (a ``scan_layers`` GPT's ``h_scan``, the layout of
+    the JAX package's ``nn.scan``). ``PowerSGDReducer``'s
+    ``layer_stacked`` takes them."""
+    stacked = {
+        id(p) for mod in model.modules() if getattr(mod, "stacks_layers", False) for p in mod.parameters()
+    }
+    return tuple(i for i, p in enumerate(model.parameters()) if id(p) in stacked)
+
+
 class _MatrixMeta(NamedTuple):
     leaf_index: int
     shape: Tuple[int, ...]
@@ -188,6 +200,14 @@ class PowerSGDReducer:
       as flax's ``Embed`` does, and are taken as stored:
       ``(prod(shape[:-1]), shape[-1])``, so a ``(30522, 768)`` word table
       is the JAX package's ``(30522, 768)`` matrix, not its transpose.
+      The leaves at the positions in ``layer_stacked`` (see
+      :func:`layer_stacked_leaves`) hold a torch-layout leaf behind a
+      leading layer axis ``L``, as flax's scanned leaves hold theirs: the
+      matrix is the stacked flax leaf's, ``(L * prod(flax_shape[:-1]),
+      flax_shape[-1])``, so a stacked Linear weight ``(L, out, in)`` is
+      ``(L * in, out)``, one matrix, and a stacked bias ``(L, out)`` is
+      taken as stored, as in the JAX package's ``gpt_lm`` under
+      ``scan_layers``.
 
     ``orthogonalize_impl``: ``"auto"`` runs the CUDA Gram-Schmidt kernel on
     CUDA tensors and its plain version on CPU tensors; ``"cuda"`` requires
@@ -217,6 +237,7 @@ class PowerSGDReducer:
         features_last: Sequence[int] = (),
         comm_chunks: Optional[int] = None,
         comm_strategy: str = "interleave",
+        layer_stacked: Sequence[int] = (),
     ):
         if comm_strategy not in COMM_STRATEGIES:
             raise ValueError(f"comm_strategy must be one of {COMM_STRATEGIES}, got {comm_strategy!r}")
@@ -241,6 +262,7 @@ class PowerSGDReducer:
         self.compression_dtype = compression_dtype
         self.compress_impl = compress_impl
         self.features_last = frozenset(features_last)
+        self.layer_stacked = frozenset(layer_stacked)
         self.comm_chunks = comm_chunks
         self.comm_strategy = comm_strategy
 
@@ -262,6 +284,12 @@ class PowerSGDReducer:
                 n, m, perm = shape[0], math.prod(shape[1:]), None
             elif i in self.features_last:
                 n, m, perm = math.prod(shape[:-1]), shape[-1], None
+            elif i in self.layer_stacked:
+                if len(shape) == 2:  # stacked biases and LayerNorm parameters: (L, features)
+                    n, m, perm = shape[0], shape[1], None
+                else:  # (L, out, in, ...) -> (L, ..., in, out)
+                    n, m = shape[0] * math.prod(shape[2:]), shape[1]
+                    perm = (0,) + tuple(range(3, len(shape))) + (2, 1)
             else:
                 n, m = math.prod(shape[1:]), shape[0]
                 perm = tuple(range(2, len(shape))) + (1, 0)
@@ -295,6 +323,8 @@ class PowerSGDReducer:
         meta = metas[poss[0]]
         views = [leaves[metas[p].leaf_index] for p in poss]
         views = [v if metas[p].perm is None else v.permute(metas[p].perm) for v, p in zip(views, poss)]
+        if any(v.shape != views[0].shape for v in views):  # e.g. a table beside stacked (L, in, out) leaves
+            views = [v.reshape(meta.n, meta.m) for v in views]
         return torch.stack(views).reshape(len(poss), meta.n, meta.m)
 
     @staticmethod

@@ -40,10 +40,9 @@ class ExperimentConfig:
     reducer_rank: int = 4
     reuse_query: bool = True
 
-    # "bfloat16": the transformers' matrix products, attention and
+    # "bfloat16": the models' matrix products, convolutions, attention and
     # activations in bf16 at the JAX package's cast points, with fp32
-    # parameters (models/gpt.py, models/distilbert.py); the ResNet
-    # experiments refuse it
+    # parameters (models/layers.py); bandwidth_study refuses it
     compute_dtype: str = "float32"
     log_every: int = 10
     accum_steps: int = 1  # gradient accumulation microbatches per step

@@ -324,7 +324,7 @@ def test_powersgd_cifar10_evaluates_after_training():
 
 
 def test_launcher_runs_imdb_baseline_on_cpu(capsys):
-    args = ["imdb_baseline", "--device", "cpu", "--epochs", "1", "--max-steps-per-epoch", "2"]
+    args = ["imdb_baseline", "--device", "cpu", "--epochs", "1", "--max-steps-per-epoch", "2", "--json"]
     cfg = launch.config_from_args(launch.build_parser().parse_args(args))
     assert (cfg.learning_rate, cfg.global_batch_size) == (5e-5, 16)
     out = launch.main(args)
@@ -334,6 +334,6 @@ def test_launcher_runs_imdb_baseline_on_cpu(capsys):
 
 
 def test_launcher_runs_bare_init_on_cpu(capsys):
-    out = launch.main(["bare_init", "--device", "cpu"])
+    out = launch.main(["bare_init", "--device", "cpu", "--json"])
     assert out == {"experiment": "bare_init", "num_devices": 1, "process_id": 0, "backend": "gloo", "device": "cpu"}
     assert capsys.readouterr().out.strip().splitlines()[-1].startswith('{"experiment": "bare_init"')

@@ -28,6 +28,12 @@ biases, whose gradient is 0 in exact arithmetic (a softmax does not move
 when all of a query's scores do), so both sides give rounding noise: they
 are held to GRAD_REL of the largest entry of the whole gradient.
 
+The ResNet entries (``powersgd_cifar10``, ``exact_cifar10`` under DDP and
+FSDP, ``diloco_cifar10``) run in bf16 from the JAX runs' initial weights
+and are held to the JAX runs' losses at RESNET_LOSS_REL, with the fp32
+run's bits; ``bandwidth_study`` refuses bf16, as the JAX study builds fp32.
+The ResNet's own cast points are ``tests/test_torch_resnet_bf16.py``.
+
 Flash attention's plain version on bf16 q, k, v against the JAX kernel in
 interpret mode: both widen each tile to fp32 and round ``out`` (and each
 gradient) once, so they are held to :func:`assert_bf16_match`, ``lse`` to
@@ -46,6 +52,8 @@ import torch
 import torch.nn.functional as F
 
 from network_distributed_pytorch_tpu_torch.experiments import (
+    bandwidth_study,
+    diloco_cifar10,
     exact_cifar10,
     gpt_lm,
     imdb_baseline,
@@ -373,11 +381,117 @@ def test_experiments_run_in_bf16(experiment):
     assert out["losses"] != outs["float32"]["losses"]
 
 
-@pytest.mark.parametrize("experiment", [powersgd_cifar10, exact_cifar10], ids=["powersgd_cifar10", "exact_cifar10"])
-def test_resnet_experiments_refuse_bf16(experiment):
-    cfg = experiment.default_config()
+# ---- the ResNet experiments in bf16 against the JAX runs ----------------------
+
+RESNET_RUNS = ("powersgd_cifar10", "exact_cifar10", "exact_cifar10_fsdp", "diloco_cifar10")
+RESNET_CFG = {"training_epochs": 1, "global_batch_size": 16, "learning_rate": 0.01, "seed": 3}
+# each run's losses against the JAX run's: an fp32 mean of per-example
+# losses of bf16 logits that agree to a few bf16 ulps of the largest
+# (test_torch_resnet_bf16.py), through weights updated from bf16 gradients
+# that agree as a whole (ibid.): held to half of bf16's relative spacing,
+# 2 ** -9; they read up to 2.5e-4 on the CPU
+RESNET_LOSS_REL = 2e-3
+
+
+def _resnet_run_kwargs(name):
+    kw = {"preset": "small", "max_steps_per_epoch": 4 if name == "diloco_cifar10" else 2}
+    if name == "exact_cifar10_fsdp":
+        kw["strategy"] = "fsdp"
+    if name == "diloco_cifar10":
+        kw["sync_every"] = 2
+    return kw
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_resnet_run(name):
+    """The JAX entry's bf16 run on one CPU device: its initial variables
+    (the seed's flax init, as the run draws them), its losses, bits and
+    initial PowerSGD Q."""
+    from network_distributed_pytorch_tpu.parallel.mesh import make_mesh
+    from network_distributed_pytorch_tpu.utils.config import ExperimentConfig as JaxExperimentConfig
+
+    module = importlib.import_module(f"network_distributed_pytorch_tpu.experiments.{name.replace('_fsdp', '')}")
+    cfg = JaxExperimentConfig(**RESNET_CFG, compute_dtype="bfloat16")
+    model = module.build_model("small", dtype=jnp.bfloat16)
+    variables = jax.device_get(
+        model.init(jax.random.PRNGKey(cfg.seed), jnp.zeros((1, 32, 32, 3)), train=True)
+    )
+    kept = {}
+    if name != "diloco_cifar10":
+        train_loop = module.train_loop
+
+        def keep(step, state, *args, **kwargs):
+            if name == "powersgd_cifar10":
+                kept["q0"] = np.asarray(state.reducer_state.q_memory)
+            state, logger = train_loop(step, state, *args, **kwargs)
+            kept["bits"] = step.bits_per_step
+            return state, logger
+
+        module.train_loop = keep
+    try:
+        out = module.run(cfg, mesh=make_mesh(devices=jax.devices()[:1]), **_resnet_run_kwargs(name))
+    finally:
+        if name != "diloco_cifar10":
+            module.train_loop = train_loop
+    return to_numpy(variables), out, kept
+
+
+@pytest.mark.parametrize("name", RESNET_RUNS)
+def test_resnet_experiments_run_in_bf16(name, monkeypatch):
+    """The ResNet entries at compute_dtype="bfloat16" from the JAX run's
+    initial weights (and Q): finite losses held to the JAX run's at
+    RESNET_LOSS_REL, the bits of the fp32 run and of the JAX run, and
+    fp32 parameters throughout."""
+    from network_distributed_pytorch_tpu_torch.models.import_weights import (
+        powersgd_state_from_jax,
+        resnet_state_dict_from_flax,
+    )
+
+    variables, jax_out, jax_kept = _jax_resnet_run(name)
+    module = {"powersgd_cifar10": powersgd_cifar10, "diloco_cifar10": diloco_cifar10}.get(name, exact_cifar10)
+    pretrained = resnet_state_dict_from_flax(variables)
+    models = []
+    build_model = module.build_model
+
+    def from_jax(*args, **kwargs):
+        model = build_model(*args, **kwargs)
+        model.load_state_dict(pretrained)
+        models.append(model)
+        return model
+
+    monkeypatch.setattr(module, "build_model", from_jax)
+    if name == "powersgd_cifar10":
+        build = module.build
+
+        def keep_q(*args, **kwargs):
+            model, step, state = build(*args, **kwargs)
+            state.reducer_state = powersgd_state_from_jax(jax_kept["q0"], variables["params"], step.reducer, model)
+            return model, step, state
+
+        monkeypatch.setattr(module, "build", keep_q)
+    outs = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = ExperimentConfig(**RESNET_CFG, compute_dtype=dtype)
+        outs[dtype] = module.run(cfg, device="cpu", **_resnet_run_kwargs(name))
+    out = outs["bfloat16"]
+    assert all(m.dtype == (torch.bfloat16 if i else torch.float32) for i, m in enumerate(models[-2:]))
+    assert all(p.dtype == torch.float32 for p in models[-1].parameters())
+    assert np.isfinite(out["losses"]).all() and out["losses"] != outs["float32"]["losses"]
+    assert out["bits_per_step"] == outs["float32"]["bits_per_step"]
+    if "bits" in jax_kept:
+        assert out["bits_per_step"] == jax_kept["bits"]
+    else:
+        assert out["bits_per_round"] == jax_out["bits_per_round"]
+    assert out["steps"] == jax_out["steps"] == 2
+    np.testing.assert_allclose(out["losses"], [jax_out["first_loss"], jax_out["final_loss"]], rtol=RESNET_LOSS_REL)
+
+
+def test_bandwidth_study_refuses_bf16_and_the_config_fp16():
+    """``bandwidth_study`` builds fp32 whatever the config says, as the
+    JAX study does; a dtype outside the two is refused by the config."""
+    cfg = bandwidth_study.default_config()
     cfg.compute_dtype = "bfloat16"
     with pytest.raises(NotImplementedError, match="compute_dtype"):
-        experiment.build(cfg, "small", "cpu", None)
+        bandwidth_study.run(cfg, device="cpu")
     with pytest.raises(ValueError, match="compute_dtype"):
         ExperimentConfig(compute_dtype="float16")

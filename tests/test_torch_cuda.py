@@ -27,8 +27,11 @@ small ResNet-18 on the card bit for bit under deterministic algorithms,
 a checkpoint written from CPU tensors restored onto the card, K5
 causal at GPT-2 small's width inside a pipeline stage and inside a
 one-rank MoE block, each against the same module on the CPU (K5's plain
-versions), and the FSDP step of a SmallCNN over a one-rank NCCL group bit
-for bit the DDP step (monolithic and chunked).
+versions), the FSDP step of a SmallCNN over a one-rank NCCL group bit
+for bit the DDP step (monolithic and chunked), a remat step of the tiny
+GPT and DistilBERT (K5's forward twice a layer) and a ``scan_layers`` GPT
+bit for bit the plain ones, K1 at GPT-2 small's stacked shape groups, and
+the small ResNet-18 in bf16 on the fused pipeline against the xla one.
 
 This file imports torch and the port, never jax, so it also runs on a
 machine that has the card and no JAX (``--noconftest`` skips the JAX
@@ -89,7 +92,12 @@ from network_distributed_pytorch_tpu_torch.parallel.mesh import (
     initialize_distributed,
     shutdown_distributed,
 )
-from network_distributed_pytorch_tpu_torch.parallel.reducers import ExactReducer, PowerSGDReducer
+from network_distributed_pytorch_tpu_torch.parallel.reducers import (
+    ExactReducer,
+    PowerSGDReducer,
+    embedding_leaves,
+    layer_stacked_leaves,
+)
 from network_distributed_pytorch_tpu_torch.parallel.trainer import make_train_step
 from network_distributed_pytorch_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
@@ -1342,3 +1350,113 @@ def test_world1_fsdp_step_is_the_ddp_step_bit_for_bit(cuda_device, deterministic
         assert set(params) == set(ddp)
         for k, want in ddp.items():
             assert params[k].device.type == "cuda" and torch.equal(params[k], want), (chunks, k)
+
+
+# ---- remat, scan_layers and the ResNet in bf16 on the card -------------------------
+
+
+def _k5_launches():
+    return {k.name: k.launches for k in (fa.KERNEL, fa.KERNEL_BF16, *fa.BWD_KERNELS.values())}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gpt", "distilbert"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_remat_step_is_the_plain_step_bit_for_bit_on_the_card(cuda_device, deterministic_algorithms, kind, dtype):
+    """A remat step recomputes each block (K5's forward twice a layer, its
+    backward once) and lands on the plain step's loss and gradients bit for
+    bit under deterministic algorithms."""
+    rng = np.random.RandomState(80)
+    if kind == "gpt":
+        ids = torch.from_numpy(rng.randint(0, 128, (2, 33))).long().to(cuda_device)
+        batch = (ids[:, :-1], ids[:, 1:])
+        make = lambda remat: gpt.gpt_tiny(device=cuda_device, seed=5, dtype=dtype, remat=remat)  # noqa: E731
+        loss_fn = lambda m: gpt.next_token_loss(m(batch[0]), batch[1])  # noqa: E731
+    else:
+        ids = torch.from_numpy(rng.randint(3, 1024, (4, 32))).long().to(cuda_device)
+        mask = torch.ones_like(ids)
+        mask[1, 20:] = 0
+        labels = torch.tensor([0, 1, 1, 0], device=cuda_device)
+        make = lambda remat: distilbert_tiny(device=cuda_device, seed=5, dtype=dtype, remat=remat)  # noqa: E731
+        loss_fn = lambda m: torch.nn.functional.cross_entropy(m(ids, mask), labels)  # noqa: E731
+    got = {}
+    for remat in (False, True):
+        model = make(remat)
+        before = _k5_launches()
+        loss = loss_fn(model)
+        loss.backward()
+        torch.cuda.synchronize()
+        after = _k5_launches()
+        fwd = (fa.KERNEL if dtype == torch.float32 else fa.KERNEL_BF16).name
+        n = model.config.n_layers
+        assert after[fwd] - before[fwd] == (2 if remat else 1) * n
+        assert after[fa.BWD_KERNELS[dtype].name] - before[fa.BWD_KERNELS[dtype].name] == n
+        got[remat] = (loss.detach(), {k: p.grad for k, p in model.named_parameters()})
+    assert torch.equal(got[False][0], got[True][0])
+    for k, g in got[False][1].items():
+        assert torch.equal(g, got[True][1][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_scan_layers_is_the_unrolled_model_bit_for_bit_on_the_card(cuda_device, deterministic_algorithms, dtype):
+    ids = torch.from_numpy(np.random.RandomState(81).randint(0, 128, (2, 33))).long().to(cuda_device)
+    got = {}
+    for scan in (False, True):
+        model = gpt.gpt_tiny(device=cuda_device, seed=6, dtype=dtype, n_layers=3, scan_layers=scan, remat=scan)
+        loss = gpt.next_token_loss(model(ids[:, :-1]), ids[:, 1:])
+        loss.backward()
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        got[scan] = (loss.detach(), gpt.unstack_gpt_layer_params(grads) if scan else grads)
+    assert torch.equal(got[False][0], got[True][0])
+    assert set(got[False][1]) == set(got[True][1])
+    for k, g in got[False][1].items():
+        assert torch.equal(g, got[True][1][k]), k
+
+
+@pytest.mark.cuda
+def test_k1_at_gpt2_small_stacked_groups_matches_plain(cuda_device):
+    """``scan_layers`` makes each stacked leaf one matrix: K1 runs on P
+    stacks up to (1, 36864, 4) (the stacked MLP projection)."""
+    model = gpt.gpt_small(device="meta", vocab_size=1024, scan_layers=True)
+    params = list(model.parameters())
+    reducer = PowerSGDReducer(
+        compression_rank=4, matricize="last", features_last=embedding_leaves(model),
+        layer_stacked=layer_stacked_leaves(model),
+    )
+    metas = reducer._metas(params)
+    shapes = sorted({(len(g), metas[g[0]].n, metas[g[0]].r) for g in reducer._shape_groups(metas)})
+    assert (1, 36864, 4) in shapes and (4, 9216, 4) in shapes and len(shapes) == 6
+    for i, shape in enumerate(shapes):
+        x = torch.from_numpy(_x(shape, 90 + i)).to(cuda_device)
+        launches = gs.KERNEL.launches
+        got = gs.gram_schmidt(x)
+        torch.cuda.synchronize()
+        assert gs.KERNEL.launches == launches + 1
+        torch.testing.assert_close(got, orthogonalize(x), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_resnet_bf16_fused_pipeline_matches_xla_on_the_card(cuda_device, exact_conv_math):
+    """The small ResNet-18 in bf16, two PowerSGD steps on each compress
+    pipeline from the same weights and batches: the same bits as fp32, and
+    the fused kernels' parameters within 1e-5 of the xla pipeline's (both
+    reduce the same fp32 gradients; only the compress arithmetic differs)."""
+    images, labels, _ = load_cifar10_or_synthetic(train=True)
+    params, bits = {}, {}
+    for impl in ("xla", "pallas"):
+        for dtype in ("float32", "bfloat16"):
+            cfg = powersgd_cifar10.default_config()
+            cfg.global_batch_size, cfg.compress_impl, cfg.compute_dtype = 16, impl, dtype
+            model, step, state = powersgd_cifar10.build(cfg, "small", cuda_device, group=None)
+            assert model.dtype == getattr(torch, dtype)
+            for b in accumulated_batches([images, labels], cfg, max_steps_per_epoch=2)(0):
+                state, loss = step(state, tuple(torch.from_numpy(a).to(cuda_device) for a in b))
+                assert torch.isfinite(loss)
+            bits[impl, dtype] = step.bits_per_step
+            params[impl, dtype] = {k: v.detach().clone() for k, v in state.params.items()}
+    assert len(set(bits.values())) == 1
+    for k, want in params["xla", "bfloat16"].items():
+        got = params["pallas", "bfloat16"][k]
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL, msg=k)

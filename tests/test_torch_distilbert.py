@@ -264,9 +264,16 @@ def test_prepare_imdb_matches_jax():
 
 
 def test_vocab_file_raises_until_wordpiece_is_ported(tmp_path):
+    """WordPiece is ported: a ``vocab.txt`` selects it, so a file without
+    its special tokens is refused by the tokenizer (the hash tokenizer
+    would ignore it), and a whole one tokenizes (``test_torch_wordpiece.py``
+    holds it to the JAX and HF tokenizers)."""
     (tmp_path / "vocab.txt").write_text("[PAD]\n")
-    with pytest.raises(NotImplementedError, match="WordPiece"):
+    with pytest.raises(ValueError, match="special token"):
         imdb.prepare_imdb(data_dir=str(tmp_path), max_len=8, synthetic_n=16)
+    (tmp_path / "vocab.txt").write_text("[PAD]\n[UNK]\n[CLS]\n[SEP]\n[MASK]\n")
+    train, _, _ = imdb.prepare_imdb(data_dir=str(tmp_path), max_len=8, synthetic_n=16)
+    assert (train["input_ids"][:, 0] == 2).all() and set(np.unique(train["input_ids"])) <= {0, 1, 2, 3}
 
 
 def test_run_on_cpu_end_to_end():
@@ -289,8 +296,9 @@ def test_attn_impl_options():
     ids, mask, _ = (torch.from_numpy(a) for a in _batch(4))
     with pytest.raises(ValueError, match="attention_dropout"):
         model(ids, mask, deterministic=False)
-    with pytest.raises(NotImplementedError):
-        distilbert.DistilBertConfig(remat=True)
+    # rematerialisation is ported: the same weights and logits, the block recomputed in the backward
+    remat = distilbert.distilbert_tiny(device="cpu", attn_impl="flash", remat=True)
+    assert remat.config.remat and torch.equal(remat(ids, mask), model(ids, mask))
     # sequence parallelism is ported: the schedule is checked, dropout refused
     with pytest.raises(ValueError, match="seq_impl"):
         distilbert.DistilBertConfig(seq_impl="pallas")
@@ -314,7 +322,10 @@ def test_launcher_runs_powersgd_imdb_on_cpu(capsys):
     data and passes ``--attn-impl`` on."""
     from network_distributed_pytorch_tpu_torch import launch
 
-    args = ["powersgd_imdb", "--device", "cpu", "--epochs", "1", "--max-steps-per-epoch", "1", "--attn-impl", "einsum"]
+    args = [
+        "powersgd_imdb", "--device", "cpu", "--epochs", "1", "--max-steps-per-epoch", "1", "--attn-impl", "einsum",
+        "--json",
+    ]
     cfg = launch.config_from_args(launch.build_parser().parse_args(args))
     assert (cfg.learning_rate, cfg.reducer_rank, cfg.global_batch_size, cfg.attn_impl) == (5e-5, 16, 0, "einsum")
     out = launch.main(args)

@@ -333,7 +333,7 @@ def test_run_refuses_what_is_not_ported():
 def test_launcher_runs_exact_cifar10_with_buckets_and_chunks(capsys):
     args = [
         "exact_cifar10", "--device", "cpu", "--global-batch", "16", "--epochs", "1",
-        "--max-steps-per-epoch", "2", "--bucket-bytes", "100000", "--comm-chunks", "3",
+        "--max-steps-per-epoch", "2", "--bucket-bytes", "100000", "--comm-chunks", "3", "--json",
     ]
     out = launch.main(args)
     assert out["experiment"] == "exact_cifar10" and out["steps"] == 2 and np.isfinite(out["losses"]).all()

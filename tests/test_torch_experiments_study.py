@@ -106,6 +106,7 @@ def test_launcher_runs_diloco_with_its_flags(capsys):
     out = launch.main([
         "diloco_cifar10", "--device", "cpu", "--global-batch", "16", "--epochs", "1", "--max-steps-per-epoch", "4",
         "--sync-every", "2", "--diloco-reducer", "powersgd", "--fragments", "2", "--lr", "0.1", "--reducer-rank", "2",
+        "--json",
     ])
     assert out["experiment"] == "diloco_cifar10" and out["steps"] == 2
     assert (out["sync_every"], out["fragments"], out["reducer"], out["reducer_rank"]) == (2, 2, "powersgd", 2)

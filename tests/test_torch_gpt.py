@@ -402,15 +402,19 @@ def test_gpt_generate_run_matches_jax_run():
 
 
 def test_config_slots_and_dtypes():
+    # remat and scan_layers are ported: the unrolled model's weights and logits
+    ids = torch.from_numpy(_ids(9, t=8))
+    plain = gpt.gpt_tiny(device="cpu", seed=3)
     for field in ({"remat": True}, {"scan_layers": True}):
-        with pytest.raises(NotImplementedError):
-            gpt.GPTConfig(**field)
+        model = gpt.gpt_tiny(device="cpu", seed=3, **field)
+        assert all(getattr(model.config, k) for k in field)
+        assert torch.equal(model(ids), plain(ids))
     # sequence parallelism is ported: any group and either schedule
     assert gpt.GPTConfig(seq_axis=object(), seq_impl="ulysses").seq_impl == "ulysses"
     with pytest.raises(ValueError, match="seq_impl"):
         gpt.GPTConfig(seq_impl="pallas")
-    with pytest.raises(NotImplementedError):
-        gpt_lm.run(preset="small", device="cpu", remat=True)
+    out = gpt_lm.run(preset="small", device="cpu", remat=True, scan_layers=True, max_steps_per_epoch=1)
+    assert out["remat"] and out["scan_layers"] and np.isfinite(out["losses"]).all()
     with pytest.raises(ValueError):
         gpt.GPTConfig(dtype=torch.float16)
     with pytest.raises(ValueError):
@@ -428,7 +432,7 @@ def test_config_slots_and_dtypes():
 def test_launcher_runs_gpt_on_cpu(experiment, extra, capsys):
     from network_distributed_pytorch_tpu_torch import launch
 
-    out = launch.main([experiment, "--device", "cpu", "--dtype", "bfloat16", *extra])
+    out = launch.main([experiment, "--device", "cpu", "--dtype", "bfloat16", "--json", *extra])
     assert out["experiment"] == experiment and out["compute_dtype"] == "bfloat16"
     if experiment == "gpt_lm":
         assert out["steps"] == 2 and np.isfinite(out["losses"]).all() and out["final_perplexity"] > 1

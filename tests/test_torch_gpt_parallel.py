@@ -357,7 +357,7 @@ def test_launcher_refuses_model_parallel_flags_elsewhere(args):
     ],
 )
 def test_launcher_runs_the_model_parallel_entries_on_cpu(args, capsys):
-    out = launch.main([*args, "--device", "cpu", "--epochs", "1", "--global-batch", "8"]
+    out = launch.main([*args, "--device", "cpu", "--epochs", "1", "--global-batch", "8", "--json"]
                       + ([] if "--max-steps-per-epoch" in args else ["--max-steps-per-epoch", "2"]))
     assert out["experiment"] == args[0] and np.isfinite(out["final_loss"])
     assert capsys.readouterr().out.strip().splitlines()[-1].startswith("{")

@@ -294,7 +294,7 @@ def test_launcher_runs_the_fused_pipeline_on_cpu(capsys):
     from network_distributed_pytorch_tpu_torch import launch
 
     args = ["powersgd_cifar10", "--device", "cpu", "--global-batch", "16", "--epochs", "1",
-            "--max-steps-per-epoch", "1", "--compress-impl", "pallas", "--orthogonalize-impl", "eager"]
+            "--max-steps-per-epoch", "1", "--compress-impl", "pallas", "--orthogonalize-impl", "eager", "--json"]
     cfg = launch.config_from_args(launch.build_parser().parse_args(args))
     assert (cfg.compress_impl, cfg.orthogonalize_impl) == ("pallas", "eager")
     out = launch.main(args)

@@ -493,7 +493,7 @@ def test_launch_serve_gpt_on_the_cpu(capsys):
     out = launch.main(
         ["serve_gpt", "--device", "cpu", "--slots", "2", "--requests", "4", "--request-rate", "0",
          "--max-new-tokens", "5", "--engine", "paged", "--block-len", "8", "--spec-k", "2", "--no-prefix-sharing",
-         "--n-blocks", "9", "--max-wall-s", "60"]
+         "--n-blocks", "9", "--max-wall-s", "60", "--json"]
     )
     assert out["engine"] == "paged" and out["slo"]["n_finished"] == 4 and out["kv"]["n_blocks"] == 9
     assert out["kv"]["prefix_hits_total"] == 0 and out["spec"]["spec_k"] == 2

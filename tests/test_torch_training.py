@@ -239,10 +239,10 @@ def test_config_rejects_unported_options():
     for unported in ({"event_log": "events.jsonl"}, {"health_every": 5}, {"adaptive_comm": True}):
         with pytest.raises(NotImplementedError):
             ExperimentConfig(**unported)
-    # compute_dtype is ported for the transformers; the ResNet refuses bf16
+    # compute_dtype is ported, the ResNet's bf16 included (held to JAX in test_torch_resnet_bf16.py)
     with pytest.raises(ValueError):
         ExperimentConfig(compute_dtype="float16")
-    with pytest.raises(NotImplementedError):
-        powersgd_cifar10.build(ExperimentConfig(compute_dtype="bfloat16"), "small", "cpu", None)
+    model, _, _ = powersgd_cifar10.build(ExperimentConfig(compute_dtype="bfloat16"), "small", "cpu", None)
+    assert model.dtype == torch.bfloat16 and all(p.dtype == torch.float32 for p in model.parameters())
     with pytest.raises(ValueError):
         ExperimentConfig(orthogonalize_impl="pallas")

@@ -227,6 +227,35 @@ def onef1b_rank(rank, world, group, stages, x, y, m, n_stages, loss_params=None)
     return {"loss": float(loss), "grads": grads, "dlp": dlp, "dx": dx, "stage": s}
 
 
+def pipeline_remat_rank(rank, world, group, stages, x, cot, y, m, n_stages):
+    """GPipe's forward and gradients, and 1F1B's loss and gradients, on
+    the toy stages with ``remat`` off and on: each run's results and how
+    often the stage function ran (a remat run recomputes every call in
+    the backward)."""
+    mesh = mesh_for(world, (n_stages,), ("pipe",))
+    g, s = mesh.group("pipe"), mesh.axis_index("pipe")
+    out = {"stage": s}
+    for remat in (False, True):
+        calls = [0]
+
+        def stage(p, a):
+            calls[0] += 1
+            return toy_stage(p, a)
+
+        xl = t(x).requires_grad_(True)
+        leaves = {k: t(v)[None].requires_grad_(True) for k, v in stages[s].items()}
+        y_out = make_pipeline_fn(stage, g, m, remat=remat)(leaves, xl)
+        grads = _grads((y_out * t(cot)).sum(), {**leaves, "x": xl})
+        gpipe_calls = calls[0]
+        fn = make_pipeline_train_fn(stage, lambda o, lab: torch.mean((o - lab) ** 2), g, m, remat=remat)
+        loss, train_grads = fn({k: t(v) for k, v in stages[s].items()}, t(x), t(y))
+        out[remat] = {
+            "gpipe_out": y_out.detach(), "gpipe_grads": grads, "gpipe_calls": gpipe_calls,
+            "loss": loss.detach(), "train_grads": train_grads, "train_calls": calls[0] - gpipe_calls,
+        }
+    return out
+
+
 def gpt_pipeline_rank(rank, world, group, cfg_kw, sd, ids, labels, n_data, n_stages, n_model, m):
     """Full-model 1F1B GPT training gradients on a (data, pipe[, model])
     mesh, meaned over the data axis: the loss and this rank's embed, stage
