@@ -156,7 +156,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    shape group, up to (1, 36864, 4), against its plain version
    (``main_path_gpt_scan``); ``powersgd_imdb`` plain and with ``remat``,
    the peaks, and one forward and backward bit for bit
-   (``main_path_imdb_remat``);
+   (``main_path_imdb_remat``); then the telemetry core
+   (``telemetry_phases``): ``powersgd_cifar10`` at preset full on each
+   pipeline, 6 steps off, on with a trace, on, off (``event_log``,
+   ``audit_wire``, a health probe every 2 steps: K1, or K2b, K3 and K4,
+   once a shape group a probe), the states with and without the probe bit
+   for bit, each run log's steps, exact audit at 36,249,536 + 32 bits,
+   probes, fidelity groups joined to the ledger and ``MemoryEvent``s from
+   the card, the trace's step ranges and kernels, the probe on the kernels
+   against their plain versions, its time a call and the step p50 with
+   telemetry on against off (``main_path_telemetry``,
+   ``main_path_telemetry_fused``), and ``exact_cifar10`` under FSDP with
+   its exact audit (``main_path_telemetry_fsdp``);
 4. two steps from the same weights and batches, deterministic cuDNN: plain
    Gram-Schmidt against the kernel; two DiLoCo rounds of ResNet-152 with
    the outer delta's Gram-Schmidt plain against the kernel; fused against xla; fused against xla
@@ -351,6 +362,12 @@ FSDP_CHUNKS = 4
 OPT_STEPS = 3
 RESNET152_BITS = 36_249_536
 SCAN_BITS, SCAN_GROUPS = 13_302_784, 6
+# the telemetry core (telemetry_phases): powersgd_cifar10 at preset full for
+# TELEMETRY_STEPS steps with the memory and health probe every
+# TELEMETRY_EVERY steps (3 probes, each one diagnostic PowerSGD round: K1,
+# or K2b, K3 and K4, once a shape group); the probe timed over
+# TELEMETRY_PROBE_REPS calls
+TELEMETRY_STEPS, TELEMETRY_EVERY, TELEMETRY_PROBE_REPS = 6, 2, 3
 
 
 def fail(msg: str) -> None:
@@ -1057,8 +1074,12 @@ class Events:
     def __init__(self):
         self.seen = []
 
-    def emit(self, event):
-        self.seen.append((getattr(event, "kind", type(event).__name__), getattr(event, "step", None)))
+    def emit(self, event, record=None):
+        # the loop's telemetry also carries its steps, epochs and spans
+        from network_distributed_pytorch_tpu_torch.observe import FailureEvent
+
+        if isinstance(event, FailureEvent):
+            self.seen.append((event.kind, event.step))
 
 
 class Crash(Exception):
@@ -2390,6 +2411,269 @@ def option_phases(dev, drive, images, labels, n_groups, smi, preset="full"):
     emit(record)
 
 
+def telemetry_phases(dev, drive, launches, images, labels, n_groups, preset="full"):
+    """The telemetry core and the training loop's probes
+    (``main_path_telemetry`` on the xla pipeline, ``main_path_telemetry_fused``
+    on the fused one, ``main_path_telemetry_fsdp``).
+
+    ``powersgd_cifar10`` (ResNet-152, batch 512, rank 4, 21 shape groups
+    at preset full) runs TELEMETRY_STEPS steps four times a pipeline, in
+    turns under deterministic algorithms: off, on with the trace, on, off
+    ("on": ``event_log``, ``audit_wire``, ``health_every=TELEMETRY_EVERY``;
+    the first also ``trace_dir``). Each run's launches are counted by
+    ``drive``: the probe's diagnostic round adds one launch a shape group
+    of K1 (xla), or of K2b, K3 and K4 (fused), a probe. Every "on" run's
+    final state (params, momenta, EF memories, Q, BN buffers and the
+    reducer's generator) must equal the "off" runs' bit for bit: the probe
+    reads the state and never writes it. Each run log must hold a
+    ``StepEvent`` a step, the ``EpochEvent``, one exact ``CompileEvent`` at
+    the step's bits, a finite ``TrainHealthEvent`` a probe, a
+    ``FidelityEvent`` a fidelity group a probe whose tag is a ledger line,
+    a ``MemoryEvent`` a probe from the card, and no ``audit_error`` or
+    ``health_probe_error``; the trace its step ranges and the pipeline's
+    kernels. Then the probe on the final state on the kernels against the
+    same probe on their plain versions (GS_TOL, FUSED_TOL), its time a
+    call, and the step p50 with telemetry on against off. Last,
+    ``exact_cifar10`` under FSDP with its audit. ``preset="small"``
+    rehearses on the CPU with a ``drive`` of your own."""
+    import torch
+
+    from network_distributed_pytorch_tpu_torch.experiments import exact_cifar10, powersgd_cifar10
+    from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches
+    from network_distributed_pytorch_tpu_torch.ops import gram_schmidt as gs
+    from network_distributed_pytorch_tpu_torch.ops import powersgd as ps
+    from network_distributed_pytorch_tpu_torch.parallel import reducers as reducers_mod
+    from network_distributed_pytorch_tpu_torch.utils.overlap import kernels_from_chrome_trace, overlap_report
+    from network_distributed_pytorch_tpu_torch.utils.profiling import TRACE_NAME
+
+    full = preset == "full"
+    on_cuda = dev.type == "cuda"
+    steps, probes = TELEMETRY_STEPS, TELEMETRY_STEPS // TELEMETRY_EVERY
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    paths = {}
+
+    def records_of(path):
+        with open(path) as f:
+            return [json.loads(line) for line in f]
+
+    def of(recs, kind):
+        return [r for r in recs if r["event"] == kind]
+
+    def config(impl, on, tag):
+        cfg = powersgd_cifar10.default_config()
+        cfg.training_epochs, cfg.compress_impl = 1, impl
+        if not full:
+            cfg.global_batch_size = 16
+        if on:
+            cfg.event_log = os.path.join(tmp, f"{tag}.jsonl")
+            cfg.audit_wire, cfg.health_every = True, TELEMETRY_EVERY
+        return cfg
+
+    def check_log(name, path, want_bits, groups):
+        """The run log's checks; returns its summary."""
+        recs = records_of(path)
+        counts = {k: len(of(recs, k)) for k in ("step", "epoch", "compile", "train_health", "fidelity", "memory")}
+        if (counts["step"], counts["epoch"], counts["compile"], counts["train_health"]) != (steps, 1, 1, probes):
+            fail(f"{name}: records {counts}")
+        compile_ = of(recs, "compile")[0]
+        if not compile_["exact"] or compile_["analytic_bytes"] * 8 != want_bits:
+            fail(f"{name}: the audit {compile_}, want exact at {want_bits} bits")
+        for h in of(recs, "train_health"):
+            if not all(math.isfinite(h[k]) for k in ("grad_norm", "ef_memory_norm", "powersgd_rel_error", "loss")):
+                fail(f"{name}: a health probe {h}")
+        tags = {r["tag"] for r in of(recs, "collective")}
+        fid = of(recs, "fidelity")
+        if len(fid) != probes * (groups + 1) or any(r["tag"] not in tags for r in fid):
+            fail(f"{name}: {len(fid)} fidelity events (want {probes * (groups + 1)}), tags {sorted({r['tag'] for r in fid})}"
+                 f" against the ledger's {sorted(tags)}")
+        bad = [r for r in of(recs, "failure") if r["kind"] in ("audit_error", "health_probe_error")]
+        if bad:
+            fail(f"{name}: {bad}")
+        mem = of(recs, "memory")
+        if on_cuda:
+            limit = torch.cuda.get_device_properties(dev).total_memory
+            if len(mem) != probes or not all(
+                m["bytes_in_use"] > 0 and m["peak_bytes_in_use"] >= m["bytes_in_use"] and m["bytes_limit"] == limit
+                for m in mem
+            ):
+                fail(f"{name}: memory events {mem} (the card holds {limit} bytes)")
+        return {
+            "records_by_kind": {k: sum(1 for r in recs if r["event"] == k) for k in sorted({r["event"] for r in recs})},
+            "audit": {k: compile_[k] for k in ("analytic_bytes", "hlo_bytes", "exact", "hlo_by_kind", "compression_ratio")},
+            "jsonl_bytes": os.path.getsize(path), "jsonl_bytes_per_step": os.path.getsize(path) / steps,
+            "memory_peak_bytes": max((m["peak_bytes_in_use"] for m in mem), default=None),
+            "memory_events": len(mem), "health": of(recs, "train_health"),
+            "fidelity_worst": max(((r["rel_error"], r["group"], r["step"]) for r in fid), default=None),
+        }
+
+    def plain_pipeline(impl, reducer):
+        """The probe's kernels swapped for their plain versions."""
+        if impl == "xla":
+            saved = reducer.orthogonalize_impl
+            reducer.orthogonalize_impl = "eager"
+            return lambda: setattr(reducer, "orthogonalize_impl", saved)
+        saved = {k: getattr(reducers_mod, k) for k in (
+            "fused_ef_compress", "fused_orthogonalize_project", "fused_decompress_residual")}
+        reducers_mod.fused_ef_compress = lambda g, q, r=None: (
+            (g, ps.compress_reference(g, q)) if r is None else ps.ef_compress_reference(g, q, r))
+        reducers_mod.fused_orthogonalize_project = lambda p, m: ps.orthogonalize_project_reference(p, m)
+        reducers_mod.fused_decompress_residual = ps.decompress_residual_reference
+        return lambda: [setattr(reducers_mod, k, v) for k, v in saved.items()]
+
+    def flat_probe(stats):
+        out = {k: stats[k] for k in ("grad_norm", "ef_memory_norm", "powersgd_rel_error", "loss")}
+        for g, vals in stats["fidelity"].items():
+            out.update({f"{g}.{k}": v for k, v in vals.items()})
+        return out
+
+    def probe_check(impl, step, state):
+        """The probe on the final state on the kernels, timed, then on
+        their plain versions (inside the run: the probe's all-reduce needs
+        its group)."""
+        names = ("gram_schmidt",) if impl == "xla" else ("compress", "orthogonalize_project", "decompress_residual")
+        ks = [k for k in (gs.KERNEL, *ps.KERNELS) if k.name in names]
+        counts = {k.name: k.launches for k in ks}
+        got = step.health_fn(state, batch)
+        probe_launches = {k.name: k.launches - counts[k.name] for k in ks}
+        t0 = time.perf_counter()
+        for _ in range(TELEMETRY_PROBE_REPS):
+            step.health_fn(state, batch)
+        probe_ms = (time.perf_counter() - t0) * 1e3 / TELEMETRY_PROBE_REPS
+        counts = {k.name: k.launches for k in ks}
+        restore = plain_pipeline(impl, step.reducer)
+        try:
+            plain = step.health_fn(state, batch)
+        finally:
+            restore()
+        plain_launches = {k.name: k.launches - counts[k.name] for k in ks}
+        for k in ks:  # the checks' launches are not the run's
+            k.launches = counts[k.name] - probe_launches[k.name] * (1 + TELEMETRY_PROBE_REPS)
+        if on_cuda and (set(probe_launches.values()) != {n_groups} or any(plain_launches.values())):
+            fail(f"{impl}: the probe launched {probe_launches}, its plain version {plain_launches}")
+        tol = GS_TOL if impl == "xla" else FUSED_TOL
+        got_f, plain_f = flat_probe(got), flat_probe(plain)
+        if set(got_f) != set(plain_f):
+            fail(f"{impl}: the probe's keys {sorted(got_f)} against its plain version's {sorted(plain_f)}")
+        err = max(abs(got_f[k] - plain_f[k]) for k in plain_f)
+        if not err <= tol:
+            fail(f"{impl}: the probe on the kernels against its plain version: {err} > {tol}")
+        return {
+            "probe_launches": probe_launches, "probe_ms_per_call": probe_ms,
+            "probe_against_plain_max_abs_err": err, "probe_tolerance": tol,
+            "probe_rel_error": got["powersgd_rel_error"], "probe_rel_error_plain": plain["powersgd_rel_error"],
+        }
+
+    records = {}
+    batch = tuple(torch.from_numpy(a).to(dev) for a in next(accumulated_batches(
+        [images, labels], config("xla", False, ""), 1)(0)))
+    for impl in ("xla", "pallas"):
+        name = "main_path_telemetry" if impl == "xla" else "main_path_telemetry_fused"
+        per_run = n_groups * steps
+        runs, finals = [], []
+        with deterministic_algorithms():
+            for turn, on in enumerate((False, True, True, False)):
+                tag = f"telemetry_{impl}_{turn}"
+                cfg = config(impl, on, tag)
+                if turn == 1:
+                    cfg.trace_dir = os.path.join(tmp, f"trace_{impl}")
+                extra = n_groups * probes if on else 0
+                want = ({"gram_schmidt": per_run + extra} if impl == "xla" else {
+                    "ef_compress": per_run, "compress": extra, "orthogonalize_project": per_run + extra,
+                    "decompress_residual": per_run + extra})
+                kept = {}
+                loop = powersgd_cifar10.train_loop
+
+                def keep(step, state, *args, turn=turn, **kwargs):
+                    state, logger = loop(step, state, *args, **kwargs)
+                    kept["state"] = state
+                    if turn == 2:
+                        kept["probe"] = probe_check(impl, step, state)
+                    return state, logger
+
+                powersgd_cifar10.train_loop = keep
+                try:
+                    result, peak = drive(tag, lambda: powersgd_cifar10.run(
+                        cfg, preset=preset, device=dev, max_steps_per_epoch=steps), want if full else {})
+                finally:
+                    powersgd_cifar10.train_loop = loop
+                runs.append((on, result, peak, cfg))
+                # on the host, so that the runs' peaks do not hold the earlier finals
+                finals.append({
+                    **{k: v.cpu() for k, v in tensors_of(kept["state"]).items()},
+                    "generator": kept["state"].reducer_state.generator.get_state(),
+                })
+                if turn == 2:
+                    probe = kept["probe"]
+                del kept
+        paths[impl] = f"telemetry_{impl}_1"
+        diffs = [bitwise_equal(f, finals[0]) for f in finals[1:]]
+        if any(diffs):
+            fail(f"{name}: the runs with the probe differ from those without it in {diffs}")
+        want_bits = runs[1][1]["bits_per_step"]
+        if full and want_bits != RESNET152_BITS + 32:
+            fail(f"{name}: {want_bits} bits a step")
+        log = check_log(name, runs[1][3].event_log, want_bits, n_groups)
+        check_log(name, runs[2][3].event_log, want_bits, n_groups)
+        trace_path = os.path.join(runs[1][3].trace_dir, TRACE_NAME)
+        if not os.path.exists(trace_path):
+            fail(f"{name}: no trace at {trace_path}")
+        with open(trace_path) as f:
+            trace_text = f.read()
+        if f'"powersgd_cifar10#{steps - 1}"' not in trace_text:
+            fail(f"{name}: the trace holds no range of step {steps - 1}")
+        kernels_in_trace = kernels_from_chrome_trace(json.loads(trace_text))
+        del trace_text
+        if on_cuda:
+            names = {k["name"] for k in kernels_in_trace}
+            parts = ("gram_schmidt_kernel",) if impl == "xla" else (
+                "ef_compress_kernel", "orthogonalize_project_kernel", "decompress_residual_kernel")
+            missing = [p for p in parts if not any(p in n for n in names)]
+            if missing:
+                fail(f"{name}: the trace holds no {missing}")
+        off = [m for on, r, _, _ in runs if not on for m in r["device_time_ms"][WARMUP_STEPS:] if m is not None]
+        on_ = [m for on, r, _, _ in runs[2:3] for m in r["device_time_ms"][WARMUP_STEPS:] if m is not None]
+        host = {
+            label: statistics.median([s for i in idx for s in runs[i][1]["step_time_s"][WARMUP_STEPS:]])
+            for label, idx in (("off", (0, 3)), ("on", (2,)), ("on_with_trace", (1,)))
+        }
+        records[impl] = {
+            "phase": name, "model": "resnet152" if full else "resnet18_small", "compress_impl": impl,
+            "global_batch": runs[0][3].global_batch_size, "steps": steps, "health_every": TELEMETRY_EVERY,
+            "turns": ["off", "on+trace", "on", "off"], "bits_per_step": want_bits, "shape_groups": n_groups,
+            "launches_by_turn": [launches.get(f"telemetry_{impl}_{turn}") for turn in range(4)],
+            "state_bitwise_equal_with_and_without_probe": True, "log": log,
+            "trace_bytes": os.path.getsize(trace_path), "trace_kernels": len(kernels_in_trace),
+            "trace_overlap": {k: v for k, v in overlap_report(kernels_in_trace).items() if k != "collectives"},
+            **probe,
+            "step_device_ms_p50_off": statistics.median(off) if off else None,
+            "step_device_ms_p50_on": statistics.median(on_) if on_ else None,
+            "step_host_s_p50": host, "peak_memory_bytes": [r[2] for r in runs],
+        }
+        emit(records[impl])
+
+    # exact_cifar10 under FSDP (ResNet-50) with its audit: the ledger of the
+    # gathers, the reduce-scatters and the loss against what the step issued
+    cfg = exact_cifar10.default_config()
+    cfg.training_epochs, cfg.event_log, cfg.audit_wire = 1, os.path.join(tmp, "fsdp.jsonl"), True
+    if not full:
+        cfg.global_batch_size = 16
+    result, _ = drive("telemetry_fsdp", lambda: exact_cifar10.run(
+        cfg, preset=preset, device=dev, strategy="fsdp", max_steps_per_epoch=2), {}, kernel_free=True)
+    recs = records_of(cfg.event_log)
+    audits = of(recs, "compile")
+    bits = FSDP_BITS if full else result["bits_per_step"]
+    if (len(audits) != 1 or not audits[0]["exact"] or audits[0]["analytic_bytes"] * 8 != bits
+            or result["bits_per_step"] != bits or of(recs, "failure")):
+        fail(f"telemetry fsdp: audits {audits}, {result['bits_per_step']} bits (want {bits}), {of(recs, 'failure')}")
+    emit({
+        "phase": "main_path_telemetry_fsdp", "model": "resnet50" if full else "resnet18_small",
+        "bits_per_step": bits, "audit": {k: audits[0][k] for k in ("analytic_bytes", "hlo_bytes", "exact", "hlo_by_kind")},
+        "ledger": [{k: r[k] for k in ("tag", "op", "payload_bytes", "count")} for r in of(recs, "collective")],
+    })
+    shutil.rmtree(tmp, ignore_errors=True)
+    return paths
+
+
 def main() -> None:
     import torch
 
@@ -3216,6 +3500,10 @@ def main() -> None:
     # the ported options: ResNet-152 in bf16, GPT-2 remat and scan_layers, DistilBERT remat
     option_phases(dev, drive, images, labels, len(group_shapes), smi)
 
+    # the telemetry core: run logs, the wire audit, the health and fidelity
+    # probe (K1; K2b, K3, K4), the memory sampler and the trace
+    telemetry_paths = telemetry_phases(dev, drive, launches, images, labels, len(group_shapes))
+
     # ---- 4. two steps against two steps ---------------------------------------
     # with deterministic cuDNN and no TF32, so that only what is compared differs
     torch.backends.cudnn.deterministic = True
@@ -3300,7 +3588,6 @@ def main() -> None:
         if counts != want:
             fail(f"{phase}: fused launches {counts}, expected {want}")
         if extra_rounds:
-            launches["pallas"]["compress"] = counts["compress"]
             compress_by_path = {phase: counts["compress"]}
         diff = max_diff(finals["xla"], finals["pallas"])
         if not math.isfinite(diff) or diff > PARAM_TOL:
@@ -3493,6 +3780,8 @@ def main() -> None:
         "gpt2_small_remat_fp32": "gpt_remat_float32", "gpt2_small_opt_plain_bf16": "gpt_plain_bfloat16",
         "gpt2_small_remat_bf16": "gpt_remat_bfloat16", "gpt2_small_scan_layers": "gpt_scan",
         "distilbert_imdb_opt_plain": "imdb_plain", "distilbert_imdb_remat": "imdb_remat",
+        # telemetry_phases: 6 steps and 3 probes a run, each probe once a shape group
+        "resnet152_telemetry_xla": telemetry_paths["xla"],
     }
     kernels = [{
         "name": "gram_schmidt",
@@ -3523,14 +3812,21 @@ def main() -> None:
         "route_and_cluster": routes,
     }]
     for name, row in fused_rows.items():
-        fused_paths = {"resnet152_fused": "pallas", "resnet152_bf16_fused": "bf16_pallas"}
+        fused_paths = {
+            "resnet152_fused": "pallas", "resnet152_bf16_fused": "bf16_pallas",
+            # 6 steps and 3 probes: the probe's round is K2b's first main path
+            "resnet152_telemetry_fused": telemetry_paths["pallas"],
+        }
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces[name],
-            "launches": sum(launches[path][name] for path in fused_paths.values()),
-            # K2b runs only with an extra power iteration: its launches come from that phase
-            "launches_by_path": (
-                compress_by_path if name == "compress" else {k: launches[v][name] for k, v in fused_paths.items()}
+            "launches": sum(launches[path][name] for path in fused_paths.values()) + (
+                sum(compress_by_path.values()) if name == "compress" else 0
             ),
+            # K2b: the health probe's diagnostic round, and the phase with an extra power iteration
+            "launches_by_path": {
+                **{k: launches[v][name] for k, v in fused_paths.items()},
+                **(compress_by_path if name == "compress" else {}),
+            },
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "library_device_ms": row["library_device_ms"],

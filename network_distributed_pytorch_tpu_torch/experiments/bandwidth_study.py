@@ -22,7 +22,6 @@ with each configuration's bits at that world (a gather's grow with it).
 
 from __future__ import annotations
 
-import logging
 import time
 from typing import Callable, Dict, Optional
 
@@ -30,6 +29,8 @@ import torch
 import torch.distributed as dist
 
 from ..data.cifar10 import synthetic_cifar10
+from ..observe.events import NoteEvent
+from ..observe.telemetry import telemetry_from_config
 from ..parallel.comm import record_collectives, recorded_bits
 from ..parallel.compression import QSGDReducer, SignSGDReducer, TopKReducer
 from ..parallel.hierarchical import HierarchicalReducer, make_hierarchical_groups
@@ -42,7 +43,6 @@ from ..utils.config import ExperimentConfig
 from .common import image_classifier_loss, local_shard, process_group, require_float32
 from .powersgd_cifar10 import build_model
 
-_log = logging.getLogger(__name__)
 
 SCAN_SYNC_EVERY = 8  # inner steps a round of the avoidance rows
 HIER_NAME = "hier_powersgd_r4"
@@ -219,7 +219,14 @@ def run(
             del model, step, state
 
         text = format_table(tables)
-        _log.info("bandwidth study, %d workers (projected: %d), global batch %d\n%s", world, workers, global_batch, text)
+        telemetry = telemetry_from_config(config)
+        try:
+            telemetry.emit(NoteEvent(
+                f"\nBandwidth study: {world} workers (projected: {workers}), global batch {global_batch}"
+            ))
+            telemetry.emit(NoteEvent(text))
+        finally:
+            telemetry.close()
         exact_bits = results["exact"]["bits_per_step"]
         for name, r in results.items():
             if name != "exact":

@@ -20,6 +20,11 @@ from torch import nn
 
 from ..data.cifar10 import load_cifar10_or_synthetic
 from ..data.loader import iterate_batches
+from ..observe.events import FailureEvent, TrainHealthEvent
+from ..observe.fidelity import FidelityTracker
+from ..observe.ledger import audit_recorded_step
+from ..observe.memory import MemorySampler
+from ..observe.spans import recording, span
 from ..parallel.comm import CollectiveRecord, agree, record_collectives, world_size
 from ..parallel.localsgd import mean_model_state
 from ..parallel.mesh import DistributedConfig, initialize_distributed, shutdown_distributed
@@ -27,6 +32,7 @@ from ..parallel.trainer import TrainState, TrainStep
 from ..utils.checkpoint import restore_latest, save_checkpoint
 from ..utils.losses import cross_entropy_loss
 from ..utils.metrics import MetricsLogger
+from ..utils.profiling import step_annotation, trace
 
 
 @contextlib.contextmanager
@@ -170,14 +176,42 @@ def train_loop(
     heartbeat: Any = None,
     on_epoch_end: Optional[Callable[[int, TrainState], None]] = None,
     on_step_end: Optional[Callable[[int, int, TrainState], bool]] = None,
+    telemetry: Any = None,
+    trace_dir: Optional[str] = None,
+    audit: bool = False,
+    run_name: str = "train",
+    health_every: int = 0,
 ) -> Tuple[TrainState, MetricsLogger]:
     """Run epochs ``start_epoch..epochs-1`` over the global batches, each
-    rank stepping on its own slice. Logs loss, step time and cumulative
-    bits per step; the host clock spans the step until its loss is on the
+    rank stepping on its own slice, the JAX package's loop of the same
+    name. Every step emits a ``StepEvent`` and every epoch an
+    ``EpochEvent`` through ``telemetry`` (None: the banner-only default
+    registry); the host clock spans the step until its loss is on the
     host, and on CUDA a pair of events around the step gives its device
     time.
 
-    The hooks, all off by default (:func:`resilient_train_loop` sets
+    Observability, all off by default:
+
+    - ``telemetry`` is the ambient span recorder for the loop: spans
+      ``data_load`` (the fetch and the copy to the device), ``step`` with
+      ``step/compute`` and ``step/loss_sync`` inside it, ``memory_probe``,
+      ``health_probe`` and ``epoch_hook``;
+    - ``trace_dir``: a ``torch.profiler`` trace of the loop
+      (``utils.profiling.trace``), every step a range ``"{run_name}#{n}"``;
+    - ``audit``: the first step runs under ``record_collectives``, and its
+      wire ledger is reconciled against what it issued
+      (``observe.ledger.audit_recorded_step``: a ``CollectiveEvent`` a
+      ledger line and a ``CompileEvent``, before the step's
+      ``StepEvent``). The audit is advisory: an error in it is a
+      ``FailureEvent(kind="audit_error")`` and the run goes on;
+    - ``health_every > 0`` (with a ``telemetry``): every N completed steps
+      a ``MemoryEvent`` from the card (``observe.memory.MemorySampler``,
+      which turns itself off after one empty read on the CPU), then the
+      step's health probe (``step.health_fn``) on the step's own batch: a
+      ``TrainHealthEvent`` and a ``FidelityEvent`` a fidelity group. An
+      error in the probe is a ``FailureEvent(kind="health_probe_error")``.
+
+    The hooks, also off by default (:func:`resilient_train_loop` sets
     them): ``skip_steps`` leaves out the first steps of ``start_epoch``
     (already in a restored state); a ``utils.failure.StepWatchdog``
     watches every step; a ``utils.failure.HeartbeatMonitor`` beats after
@@ -185,35 +219,96 @@ def train_loop(
     each (``steps_done`` counts this call's steps of the epoch), and True
     ends the loop there; ``on_epoch_end(epoch, state)`` runs after each
     epoch."""
-    logger = MetricsLogger(bits_per_step=step.bits_per_step, log_every=log_every)
+    logger = MetricsLogger(bits_per_step=step.bits_per_step, log_every=log_every, telemetry=telemetry)
     on_cuda = device.type == "cuda"
-    for epoch in range(start_epoch, epochs):
-        batches = batches_for_epoch(epoch)
-        if skip_steps and epoch == start_epoch:
-            batches = itertools.islice(batches, skip_steps, None)
-        steps_done = 0
-        for batch in batches:
-            batch = local_shard(batch, rank, world_size, step.accum_steps)
-            batch = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in batch)
-            logger.start_step()
-            watch = watchdog.watch(f"epoch {epoch}") if watchdog is not None else contextlib.nullcontext()
-            with watch:
-                if on_cuda:
-                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                    start.record()
-                state, loss = step(state, batch)
-                if on_cuda:
-                    end.record()
-                loss = loss.item()  # waits for the step
-            logger.end_step(epoch, loss, start.elapsed_time(end) if on_cuda else None)
-            steps_done += 1
-            if heartbeat is not None:
-                heartbeat.beat(epoch=epoch)
-            if on_step_end is not None and on_step_end(epoch, steps_done, state):
-                return state, logger
-        logger.end_epoch(epoch, rank=rank)
-        if on_epoch_end is not None:
-            on_epoch_end(epoch, state)
+    probing = health_every > 0 and telemetry is not None
+    memory_sampler = MemorySampler(telemetry, label=run_name, rank=rank, device=device) if probing else None
+    health_fn = getattr(step, "health_fn", None) if probing else None
+    fidelity_tracker = None
+    audit_pending = audit
+    trace_ctx = trace(trace_dir) if trace_dir else contextlib.nullcontext()
+    with trace_ctx, recording(telemetry):
+        for epoch in range(start_epoch, epochs):
+            batches = iter(batches_for_epoch(epoch))
+            if skip_steps and epoch == start_epoch:
+                batches = itertools.islice(batches, skip_steps, None)
+            steps_done = 0
+            while True:
+                with span("data_load", step=logger._step):
+                    batch = next(batches, None)
+                    if batch is not None:
+                        batch = local_shard(batch, rank, world_size, step.accum_steps)
+                        batch = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in batch)
+                if batch is None:
+                    break
+                logger.start_step()
+                watch = watchdog.watch(f"epoch {epoch}") if watchdog is not None else contextlib.nullcontext()
+                recorder = record_collectives() if audit_pending else contextlib.nullcontext()
+                with watch, step_annotation(run_name, logger._step), span("step", step=logger._step):
+                    with span("step/compute", step=logger._step), recorder as records:
+                        if on_cuda:
+                            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                            start.record()
+                        state, loss = step(state, batch)
+                        if on_cuda:
+                            end.record()
+                    with span("step/loss_sync", step=logger._step):
+                        loss = loss.item()  # waits for the step
+                if audit_pending:
+                    audit_pending = False
+                    try:
+                        audit_recorded_step(
+                            step, records, label=run_name, telemetry=telemetry,
+                            device_kind=torch.cuda.get_device_name(device) if on_cuda else "cpu",
+                        )
+                    except Exception as e:  # the audit is advisory, never fatal
+                        if telemetry is not None:
+                            telemetry.emit(
+                                FailureEvent(kind="audit_error", label=run_name, message=f"{type(e).__name__}: {e}")
+                            )
+                logger.end_step(epoch, loss, start.elapsed_time(end) if on_cuda else None)
+                steps_done += 1
+                if probing and logger._step % health_every == 0:
+                    if memory_sampler.enabled:
+                        with span("memory_probe", step=logger._step):
+                            memory_sampler.sample(logger._step)
+                    if health_fn is not None:
+                        with span("health_probe", step=logger._step):
+                            try:
+                                stats = health_fn(state, batch)
+                                telemetry.emit(
+                                    TrainHealthEvent(
+                                        step=logger._step, epoch=epoch, grad_norm=stats["grad_norm"],
+                                        ef_memory_norm=stats["ef_memory_norm"],
+                                        powersgd_rel_error=stats["powersgd_rel_error"], loss=stats["loss"],
+                                        rank=rank, label=run_name,
+                                    )
+                                )
+                                fid = stats.get("fidelity")
+                                if fid:
+                                    if fidelity_tracker is None:
+                                        reducer = getattr(step, "reducer", None)
+                                        tags = (
+                                            reducer.fidelity_group_tags(list(state.params.values()))
+                                            if hasattr(reducer, "fidelity_group_tags") else {}
+                                        )
+                                        fidelity_tracker = FidelityTracker(tags, rank=rank, label=run_name)
+                                    for ev in fidelity_tracker.events(logger._step, fid, epoch=epoch):
+                                        telemetry.emit(ev)
+                            except Exception as e:  # advisory, never fatal
+                                telemetry.emit(
+                                    FailureEvent(
+                                        kind="health_probe_error", label=run_name, message=f"{type(e).__name__}: {e}"
+                                    )
+                                )
+                if heartbeat is not None:
+                    heartbeat.beat(epoch=epoch)
+                if on_step_end is not None and on_step_end(epoch, steps_done, state):
+                    return state, logger
+            logger.end_epoch(epoch, rank=rank)
+            if on_epoch_end is not None:
+                with span("epoch_hook", step=epoch):
+                    on_epoch_end(epoch, state)
     return state, logger
 
 
@@ -340,6 +435,7 @@ def resilient_train_loop(
     trace_dir: Optional[str] = None,
     audit: bool = False,
     run_name: str = "train",
+    health_every: int = 0,
     chaos_plan: Any = None,
     incarnation: int = 0,
     step_retries: int = 0,
@@ -380,16 +476,17 @@ def resilient_train_loop(
 
     A save that the directory keeps refusing emits
     ``checkpoint_unwritable`` and exits with ``CKPT_UNWRITABLE_EXIT_CODE``.
-    ``chaos_plan``, ``trace_dir``, ``audit``, ``step_retries`` and
-    ``guard_batches`` are not ported yet and raise. Returns ``(state,
-    logger, start_epoch)``."""
-    from ..observe import FailureEvent, NoteEvent
+    ``telemetry``, ``trace_dir``, ``audit``, ``run_name`` and
+    ``health_every`` reach :func:`train_loop`. ``chaos_plan``,
+    ``step_retries`` and ``guard_batches`` are not ported yet and raise.
+    Returns ``(state, logger, start_epoch)``."""
+    from ..observe import NoteEvent
     from ..resilience.guards import CKPT_UNWRITABLE_EXIT_CODE, CheckpointUnwritableError
     from ..utils.checkpoint import read_topology
     from ..utils.failure import StepWatchdog
 
-    for name, value in (("chaos_plan", chaos_plan), ("trace_dir", trace_dir), ("audit", audit or None),
-                        ("step_retries", step_retries or None), ("guard_batches", guard_batches or None)):
+    for name, value in (("chaos_plan", chaos_plan), ("step_retries", step_retries or None),
+                        ("guard_batches", guard_batches or None)):
         if value is not None:
             raise NotImplementedError(f"resilient_train_loop: {name} is not ported yet")
     group = step.group
@@ -512,6 +609,7 @@ def resilient_train_loop(
         start_epoch=start_epoch, skip_steps=resume_skip, watchdog=wd, heartbeat=heartbeat,
         on_epoch_end=lambda epoch, st: _commit_save(st, epoch),
         on_step_end=_on_step_end if preemption_guard is not None else None,
+        telemetry=telemetry, trace_dir=trace_dir, audit=audit, run_name=run_name, health_every=health_every,
     )
     return state, logger, start_epoch
 

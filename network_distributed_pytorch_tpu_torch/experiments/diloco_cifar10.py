@@ -15,7 +15,9 @@ group a round); ``fragments > 1`` is streaming DiLoCo.
 Only whole rounds run under ``max_steps_per_epoch`` (it floors to
 ``max_steps_per_epoch // sync_every`` rounds). A trailing partial round is
 padded with zero batches of weight 0, not dropped; a malformed batch is
-skipped and counted.
+skipped, emitted as a ``DataDropEvent`` and counted in the summary's
+``skipped_batches``. Every round is a ``StepEvent`` of the run's registry
+(``telemetry_from_config``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import torch.distributed as dist
 
 from ..data.cifar10 import load_cifar10_or_synthetic
 from ..data.loader import iterate_batches
+from ..observe.events import DataDropEvent
+from ..observe.telemetry import telemetry_from_config
 from ..parallel.localsgd import make_diloco_train_fn, make_streaming_diloco_train_fn
 from ..parallel.mesh import resolve_device
 from ..parallel.reducers import ExactReducer, PowerSGDReducer
@@ -107,7 +111,8 @@ def run(
             inner_learning_rate, outer_learning_rate, outer_momentum,
         )
         phase_bits = list(diloco.bits_per_phase) if fragments > 1 else [diloco.bits_per_round]
-        logger = MetricsLogger(log_every=config.log_every)
+        telemetry = telemetry_from_config(config)
+        logger = MetricsLogger(log_every=config.log_every, telemetry=telemetry)
         on_cuda = device.type == "cuda"
         max_rounds = None if max_steps_per_epoch is None else max_steps_per_epoch // sync_every
         skipped_batches = padded_slots = rounds_done = 0
@@ -138,22 +143,33 @@ def run(
             rounds_done += 1
             return pad
 
-        for epoch in range(config.training_epochs):
-            pending, epoch_rounds = [], 0
-            for bx, by in iterate_batches([images, labels], config.global_batch_size, seed=config.seed, epoch=epoch):
-                if max_rounds is not None and epoch_rounds >= max_rounds:
-                    pending = []
-                    break
-                if len(bx) != len(by) or len(by) == 0:
-                    skipped_batches += 1  # malformed: the only batch dropped
-                    continue
-                pending.append((bx, by))
-                if len(pending) == sync_every:
-                    one_round(epoch, pending, sync_every)
-                    pending, epoch_rounds = [], epoch_rounds + 1
-            if pending:
-                padded_slots += one_round(epoch, pending, len(pending))
-            logger.end_epoch(epoch, rank=rank)
+        try:
+            for epoch in range(config.training_epochs):
+                pending, epoch_rounds = [], 0
+                for bx, by in iterate_batches(
+                    [images, labels], config.global_batch_size, seed=config.seed, epoch=epoch
+                ):
+                    if max_rounds is not None and epoch_rounds >= max_rounds:
+                        pending = []
+                        break
+                    if len(bx) != len(by) or len(by) == 0:
+                        # a malformed batch is the only one dropped (and tallied)
+                        skipped_batches += 1
+                        telemetry.emit(DataDropEvent(
+                            label="diloco_cifar10", epoch=epoch, dropped_batches=1,
+                            dropped_samples=max(len(bx), len(by)),
+                            reason=f"malformed batch: {len(bx)} images vs {len(by)} labels", rank=config.process_id,
+                        ))
+                        continue
+                    pending.append((bx, by))
+                    if len(pending) == sync_every:
+                        one_round(epoch, pending, sync_every)
+                        pending, epoch_rounds = [], epoch_rounds + 1
+                if pending:
+                    padded_slots += one_round(epoch, pending, len(pending))
+                logger.end_epoch(epoch, rank=rank)
+        finally:
+            telemetry.close()
 
         params = list(model.parameters())
         extra = {

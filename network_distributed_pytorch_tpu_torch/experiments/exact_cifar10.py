@@ -21,6 +21,11 @@ an exit with ``PREEMPT_EXIT_CODE`` (75).
 momenta sharded over the ranks (ZeRO-3, :mod:`..parallel.fsdp`): the same
 exact data-parallel SGD, each rank's model and optimizer memory about
 ``1 / world`` of DDP's.
+
+Every path emits through the registry of ``telemetry_from_config``
+(``event_log``), with ``trace_dir``, ``audit_wire`` and ``health_every``
+as :func:`.common.train_loop` takes them (the FSDP step has no health
+probe, as the JAX package's has none).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch.distributed as dist
 
 from ..data.cifar10 import load_cifar10_or_synthetic
 from ..models.resnet import resnet18, resnet50
+from ..observe.telemetry import audit_from_config, telemetry_from_config
 from ..parallel.comm import recorded_bits
 from ..parallel.fsdp import make_fsdp_train_step
 from ..parallel.mesh import resolve_device
@@ -168,35 +174,39 @@ def run(
             step = RecordedStep(step)
         batches = accumulated_batches([images, labels], config, max_steps_per_epoch)
         extra = {}
-        if checkpoint_dir is not None:
-            from ..observe import BannerSink
-            from ..resilience import PREEMPT_EXIT_CODE, PreemptionGuard, incarnation_from_env, make_topology
+        telemetry = telemetry_from_config(config)
+        loop_kw = dict(
+            rank=rank, world_size=world, log_every=config.log_every, telemetry=telemetry,
+            trace_dir=config.trace_dir, audit=audit_from_config(config), run_name="exact_cifar10",
+            health_every=config.health_every,
+        )
+        try:
+            if checkpoint_dir is not None:
+                from ..resilience import PREEMPT_EXIT_CODE, PreemptionGuard, incarnation_from_env, make_topology
 
-            telemetry = BannerSink()
-            incarnation = incarnation_from_env()
-            with PreemptionGuard(
-                telemetry=telemetry, rank=rank, incarnation=incarnation, label="exact_cifar10"
-            ) as guard:
-                state, logger, extra["start_epoch"] = resilient_train_loop(
-                    step, state, batches, config.training_epochs, checkpoint_dir, device,
-                    rank=rank, world_size=world, log_every=config.log_every, telemetry=telemetry,
-                    run_name="exact_cifar10", incarnation=incarnation, keep_last=keep_last,
-                    # a restart at another world reshards instead of mis-resuming
-                    topology=make_topology(
-                        world, global_batch=config.global_batch_size, accum_steps=config.accum_steps,
-                        data_seed=config.seed, bits_per_step=step.bits_per_step, rng_seed=config.seed,
-                        incarnation=incarnation,
-                    ),
-                    preemption_guard=guard,
-                )
-            if guard.requested:
-                # the emergency checkpoint is committed: die with the graceful code
-                raise SystemExit(PREEMPT_EXIT_CODE)
-        else:
-            state, logger = train_loop(
-                step, state, batches, config.training_epochs, device,
-                rank=rank, world_size=world, log_every=config.log_every,
-            )
+                incarnation = incarnation_from_env()
+                with PreemptionGuard(
+                    telemetry=telemetry, rank=rank, incarnation=incarnation, label="exact_cifar10"
+                ) as guard:
+                    state, logger, extra["start_epoch"] = resilient_train_loop(
+                        step, state, batches, config.training_epochs, checkpoint_dir, device,
+                        incarnation=incarnation, keep_last=keep_last,
+                        # a restart at another world reshards instead of mis-resuming
+                        topology=make_topology(
+                            world, global_batch=config.global_batch_size, accum_steps=config.accum_steps,
+                            data_seed=config.seed, bits_per_step=step.bits_per_step, rng_seed=config.seed,
+                            incarnation=incarnation,
+                        ),
+                        preemption_guard=guard, **loop_kw,
+                    )
+                if guard.requested:
+                    # the emergency checkpoint is committed: die with the
+                    # graceful code (the finally still closes the telemetry)
+                    raise SystemExit(PREEMPT_EXIT_CODE)
+            else:
+                state, logger = train_loop(step, state, batches, config.training_epochs, device, **loop_kw)
+        finally:
+            telemetry.close()
         extra.update({
             "preset": preset,
             "real_data": is_real,

@@ -10,6 +10,11 @@ data is the deterministic synthetic stand-in; weights come from the seed
 (or ``pretrained_state_dict``). ``compute_dtype="bfloat16"`` runs the
 ResNet at flax's cast points (``models/resnet.py``) with fp32 parameters,
 gradients, reducer state and wire: the bits per step do not change.
+
+The run's telemetry follows the config: ``event_log`` (the JSONL run log),
+``audit_wire`` (the wire ledger against the first step's collectives; on
+with an event log), ``health_every`` (the memory and health probe) and
+``trace_dir`` (a ``torch.profiler`` trace of the loop).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch.distributed as dist
 
 from ..data.cifar10 import load_cifar10_or_synthetic
 from ..models.resnet import resnet18, resnet152
+from ..observe.telemetry import audit_from_config, telemetry_from_config
 from ..parallel.mesh import resolve_device
 from ..parallel.reducers import PowerSGDReducer
 from ..parallel.trainer import make_train_step
@@ -102,10 +108,16 @@ def run(
         images, labels, is_real = load_cifar10_or_synthetic(data_dir, train=True)
         model, step, state = build(config, preset, device, group, pretrained_state_dict)
         batches = accumulated_batches([images, labels], config, max_steps_per_epoch)
-        state, logger = train_loop(
-            step, state, batches, config.training_epochs, device,
-            rank=rank, world_size=world, log_every=config.log_every,
-        )
+        telemetry = telemetry_from_config(config)
+        try:
+            state, logger = train_loop(
+                step, state, batches, config.training_epochs, device,
+                rank=rank, world_size=world, log_every=config.log_every,
+                telemetry=telemetry, trace_dir=config.trace_dir, audit=audit_from_config(config),
+                run_name="powersgd_cifar10", health_every=config.health_every,
+            )
+        finally:
+            telemetry.close()
         params = [p for p in model.parameters()]
         extra = {
             "preset": preset,

@@ -32,11 +32,13 @@ with nothing restorable the fresh parameters serve, and a
 come from a model of the serving shape: the position table has
 ``max_len`` rows.
 
-The summary holds the JAX run's keys (``device`` is the card's name), and
-``compute_dtype`` and ``kv_cache_bytes``. ``live_requests_total`` counts
-the engine's terminal request events in state ``finished``, through the
-run's own sink; the reference's metric registry is not ported yet
-(ROADMAP.md §A item 8).
+The run's events (each request's ``RequestEvent``, the paged engine's
+``KVPoolEvent``s, the checkpoint notes) go through the registry of
+``telemetry_from_config`` (``event_log``). The summary holds the JAX
+run's keys (``device`` is the card's name), and ``compute_dtype`` and
+``kv_cache_bytes``. ``live_requests_total`` counts the terminal request
+events in state ``finished`` through one more sink of the registry; the
+reference's metric registry is not ported yet (ROADMAP.md §A item 5).
 """
 
 from __future__ import annotations
@@ -46,7 +48,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..models.gpt import GPTLM, gpt_small, gpt_tiny
-from ..observe.events import BannerSink, NoteEvent, RequestEvent
+from ..observe.events import NoteEvent, RequestEvent
+from ..observe.sinks import Sink
+from ..observe.telemetry import telemetry_from_config
 from ..parallel.mesh import resolve_device
 from ..resilience import incarnation_from_env
 from ..serving import FileSpool, Request, WorkloadConfig, poisson_workload, replay, serve_from_spool, slo_summary
@@ -87,14 +91,14 @@ def build_model(preset: str, max_len: int, dtype=torch.float32, device="cuda", s
     return make(dtype=dtype, device=device, seed=seed, vocab_size=vocab, max_position_embeddings=max_len).eval()
 
 
-class _FinishedCount:
-    """The run's telemetry sink: counts the terminal request events in
+class _FinishedCount(Sink):
+    """A sink of the run's registry: counts the terminal request events in
     state ``finished``."""
 
     def __init__(self):
         self.count = 0
 
-    def emit(self, event) -> None:
+    def emit(self, event, record=None) -> None:
         if isinstance(event, RequestEvent) and event.state == "finished":
             self.count += 1
 
@@ -132,38 +136,43 @@ def serve(
     workload = workload_config(preset, requests, request_rate, max_new_tokens, config.seed)
     max_len = serving_max_len(preset, max_new_tokens, engine, block_len)
     model = build_model(preset, max_len, compute_dtype(config), device, config.seed)
-    ckpt_step = None
-    if checkpoint_dir is not None:
-        notes = BannerSink()
-        restored = restore_serving_params(
-            checkpoint_dir, dict(model.named_parameters()), telemetry=notes, label="serve_gpt"
-        )
-        if restored is None:
-            notes.emit(NoteEvent(f"serve_gpt: no restorable checkpoint under {checkpoint_dir}; serving fresh params"))
+    telemetry = telemetry_from_config(config)
+    sink = telemetry.add_sink(_FinishedCount())
+    try:
+        ckpt_step = None
+        if checkpoint_dir is not None:
+            restored = restore_serving_params(
+                checkpoint_dir, dict(model.named_parameters()), telemetry=telemetry, label="serve_gpt"
+            )
+            if restored is None:
+                telemetry.emit(NoteEvent(
+                    f"serve_gpt: no restorable checkpoint under {checkpoint_dir}; serving fresh params"
+                ))
+            else:
+                ckpt_step = restored[1]
+
+        common = dict(device=device, telemetry=telemetry, rank=config.process_id, label="serve_gpt")
+        if engine == "paged":
+            eng = PagedEngine(
+                model, n_slots=slots, max_len=max_len, block_len=block_len, n_blocks=n_blocks,
+                prefix_sharing=prefix_sharing, draft_model=model if spec_k >= 2 else None, spec_k=spec_k, **common,
+            )
         else:
-            ckpt_step = restored[1]
+            eng = SlotEngine(model, n_slots=slots, max_len=max_len, **common)
 
-    sink = _FinishedCount()
-    common = dict(device=device, telemetry=sink, rank=config.process_id, label="serve_gpt")
-    if engine == "paged":
-        eng = PagedEngine(
-            model, n_slots=slots, max_len=max_len, block_len=block_len, n_blocks=n_blocks,
-            prefix_sharing=prefix_sharing, draft_model=model if spec_k >= 2 else None, spec_k=spec_k, **common,
-        )
-    else:
-        eng = SlotEngine(model, n_slots=slots, max_len=max_len, **common)
-
-    if spool_dir is not None:
-        # every rank (and every restart) enqueues the same deterministic
-        # workload; ensure() is idempotent, so exactly one copy lands
-        spool = FileSpool(spool_dir, rank=config.process_id, incarnation=incarnation_from_env())
-        spool.ensure(poisson_workload(workload))
-        served = serve_from_spool(eng, spool, world=config.num_processes, max_wall_s=max_wall_s)
-        finished = served.pop("requests")
-        mode: Dict = {"mode": "spool", **served}
-    else:
-        finished = replay(eng, poisson_workload(workload), max_wall_s=max_wall_s)
-        mode = {"mode": "in_process"}
+        if spool_dir is not None:
+            # every rank (and every restart) enqueues the same deterministic
+            # workload; ensure() is idempotent, so exactly one copy lands
+            spool = FileSpool(spool_dir, rank=config.process_id, incarnation=incarnation_from_env())
+            spool.ensure(poisson_workload(workload))
+            served = serve_from_spool(eng, spool, world=config.num_processes, max_wall_s=max_wall_s)
+            finished = served.pop("requests")
+            mode: Dict = {"mode": "spool", **served}
+        else:
+            finished = replay(eng, poisson_workload(workload), max_wall_s=max_wall_s)
+            mode = {"mode": "in_process"}
+    finally:
+        telemetry.close()
 
     # ticks spent against what padded static batching would spend on the
     # same workload (decode lengths in arrival order: ids sort by arrival)

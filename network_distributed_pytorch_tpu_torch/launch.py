@@ -102,6 +102,10 @@ _TP_OK, _PP_OK, _MOE_OK = ("gpt_tp",), ("gpt_pp",), ("gpt_moe",)
 _ACCUM_OK = ("exact_cifar10", "powersgd_cifar10", "powersgd_imdb", "imdb_baseline")
 _REMAT_OK = ("gpt_lm", "powersgd_imdb")
 _SCAN_OK = ("gpt_lm",)
+# the experiments that build a telemetry registry from the config, and
+# those whose training loop takes the trace, the audit and the probes
+_PROBES_OK = ("exact_cifar10", "powersgd_cifar10")
+_EVENT_LOG_OK = _PROBES_OK + ("bandwidth_study", "bare_init", "diloco_cifar10", "serve_gpt")
 # the experiments whose epochs of steps --max-steps-per-epoch caps
 _STEPS_OK = (
     "diloco_cifar10", "exact_cifar10", "gpt_lm", "gpt_moe", "gpt_pp", "gpt_sp", "gpt_tp", "imdb_baseline",
@@ -138,6 +142,26 @@ def build_parser() -> argparse.ArgumentParser:
         help="clip the reduced update to this global norm (cifar/imdb experiments)",
     )
     p.add_argument("--log-every", type=int, default=10, help="log the mean loss every N steps (0: never)")
+    p.add_argument(
+        "--event-log", type=str, default=None,
+        help="append structured JSONL telemetry (steps, wire ledger, compile"
+             " audits) to this path; read it back with scripts/report.py",
+    )
+    p.add_argument(
+        "--trace-dir", type=str, default=None,
+        help="capture a torch.profiler trace of the training loop under this directory (trace.json)",
+    )
+    p.add_argument(
+        "--audit-wire", action="store_true", default=None,
+        help="force the wire audit, the ledger against the first step's issued collectives (default:"
+             " on whenever --event-log is set)",
+    )
+    p.add_argument(
+        "--health-every", type=int, default=None,
+        help="emit a TrainHealthEvent (grad norm, EF memory norm, PowerSGD"
+             " relative compression error) and a MemoryEvent every N steps via the separately"
+             " dispatched health probe (cifar experiments; 0/unset = never, zero overhead)",
+    )
     p.add_argument("--json", action="store_true", help="print the summary as JSON")
     p.add_argument(
         "--remat", action="store_true",
@@ -314,6 +338,10 @@ def config_from_args(args) -> ExperimentConfig:
         ("accum_steps", args.accum_steps),
         ("max_grad_norm", args.max_grad_norm),
         ("log_every", args.log_every),
+        ("event_log", args.event_log),
+        ("trace_dir", args.trace_dir),
+        ("audit_wire", args.audit_wire),
+        ("health_every", args.health_every),
     ):
         if value is not None:
             setattr(cfg, attr, value)
@@ -359,6 +387,10 @@ def main(argv=None) -> dict:
         ("--max-grad-norm", args.max_grad_norm, _ACCUM_OK),
         ("--remat", args.remat or None, _REMAT_OK),
         ("--scan-layers", args.scan_layers or None, _SCAN_OK),
+        ("--event-log", args.event_log, _EVENT_LOG_OK),
+        ("--trace-dir", args.trace_dir, _PROBES_OK),
+        ("--audit-wire", args.audit_wire, _PROBES_OK),
+        ("--health-every", args.health_every, _PROBES_OK),
     ):
         if value is not None and exp not in ok:
             raise ValueError(f"{flag} is not supported by {exp!r} (supported: {', '.join(ok)})")

@@ -40,10 +40,11 @@ import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
+from ..observe.ledger import LedgerEntry, WireLedger, dtype_name, loss_sync_entry
 from .comm import all_gather_tiled, all_reduce_mean, chunk_bounds, chunked_all_gather_tiled, world_size
 from .localsgd import _check_reduce, mean_model_state
 from .trainer import (
-    LOSS_SYNC_BITS,
+    DATA_AXIS,
     LossFn,
     OptimizerFactory,
     sgd_momentum_update,
@@ -160,13 +161,24 @@ class FSDPStep:
         }
         chunks = {k: chunk_size(t.numel(), self.world) for k, t in self.templates.items()}
         gather_bytes = sum(self.world * chunks[k] * t.element_size() for k, t in self.templates.items())
+        # a collective each way a leaf, or a leaf's chunk when the gather is
+        # split (the payload does not depend on K)
         n_gathers = sum(len(chunk_bounds(c, comm_chunks or 1)) for c in chunks.values())
-        # the stand-in for the reference's WireLedger (observe/ledger.py is
-        # not ported): bits and collectives by kind
-        self.bits_by_kind = {"all-gather": 8 * gather_bytes, "reduce-scatter": 8 * gather_bytes,
-                             "all-reduce": LOSS_SYNC_BITS}
-        self.collectives_by_kind = {"all-gather": n_gathers, "reduce-scatter": n_gathers, "all-reduce": 1}
-        self.bits_per_step = sum(self.bits_by_kind.values())
+        dtypes = {dtype_name(t.dtype) for t in self.templates.values()}
+        dtype = dtypes.pop() if len(dtypes) == 1 else "mixed"
+        # the JAX package's FSDP ledger: the gathers, the reduce-scatters and
+        # the loss's all-reduce
+        self.ledger = WireLedger(
+            [
+                LedgerEntry("fsdp.param-gather", "fsdp", "all-gather", DATA_AXIS, dtype, gather_bytes, n_gathers),
+                LedgerEntry("fsdp.grad-scatter", "fsdp", "reduce-scatter", DATA_AXIS, dtype, gather_bytes, n_gathers),
+                loss_sync_entry(DATA_AXIS),
+            ],
+            dense_grad_bits=sum(8 * t.numel() * t.element_size() for t in self.templates.values()),
+        )
+        self.bits_by_kind = {e.op: 8 * e.payload_bytes for e in self.ledger.entries}
+        self.collectives_by_kind = {e.op: e.count for e in self.ledger.entries}
+        self.bits_per_step = self.ledger.total_bits()
 
     @property
     def rank(self) -> int:

@@ -21,11 +21,13 @@ reducer, is not ported yet.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
+from ..observe.ledger import LedgerEntry, dtype_name, reducer_ledger_entries
 from .comm import all_reduce_mean, n_bits
 from .packing import TensorPacker
 
@@ -77,7 +79,12 @@ class HierarchicalReducer:
 
     With no groups (one process) it is ``outer`` alone. The step's own
     ``group`` (the trainer's, for its loss) is not used: the reducer's
-    collectives run over its two groups."""
+    collectives run over its two groups. The wire ledger names the two
+    fabrics by the JAX package's mesh axes (:attr:`inner_axis`,
+    :attr:`outer_axis`)."""
+
+    inner_axis = "ici"
+    outer_axis = "dcn"
 
     def __init__(self, outer, inner_group, outer_group, inner_world: int, outer_world: int):
         if (inner_group is None) != (outer_group is None):
@@ -117,3 +124,72 @@ class HierarchicalReducer:
     def bits_per_step(self, grads_template, n_workers: int = 1) -> int:
         bits = self.bits_by_fabric(grads_template)
         return bits["inner"] + bits["outer"]
+
+    # ---- the health probe and the wire ledger ----------------------------
+
+    @staticmethod
+    def _inner_groups(leaves) -> List[Tuple[str, List[int]]]:
+        """(group, leaf indices) of the exact inner payload, one a dtype as
+        :meth:`ledger_entries` prices it (``inner.grads``, or
+        ``inner.grads.d{i}`` where the dtypes differ)."""
+        by_dtype: Dict[str, List[int]] = {}
+        for i, leaf in enumerate(leaves):
+            by_dtype.setdefault(dtype_name(leaf.dtype), []).append(i)
+        multi = len(by_dtype) > 1
+        return [
+            (f"inner.grads.d{gi}" if multi else "inner.grads", idx)
+            for gi, (_, idx) in enumerate(sorted(by_dtype.items()))
+        ]
+
+    def diagnose(self, state, send, memories=None):
+        """``(rel_error, stats)`` of the outer reducer's collective-free
+        diagnostic round, the only lossy stage: the inner exact groups read
+        0 and 1 by construction, the outer groups are re-keyed under
+        ``outer.``."""
+        leaves = list(send)
+        device = leaves[0].device if leaves else None
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        stats = {
+            name: {
+                "rel_error": zero, "cosine_sim": torch.ones((), dtype=torch.float32, device=device),
+                "ef_norm": zero, "quantized_share": zero,
+            }
+            for name, _ in self._inner_groups(leaves)
+        }
+        rel_error, outer = zero, {}
+        if hasattr(self.outer, "diagnose"):
+            rel_error, outer = self.outer.diagnose(state, leaves, memories)
+        stats.update({f"outer.{g}": v for g, v in outer.items()})
+        return rel_error, stats
+
+    def compression_error(self, state, send, group=None) -> torch.Tensor:
+        return self.diagnose(state, send)[0]
+
+    def fidelity_stats(self, state, send, memories=None, group=None) -> dict:
+        return self.diagnose(state, send, memories)[1]
+
+    def fidelity_group_tags(self, grads_template) -> Dict[str, str]:
+        """``fidelity group -> wire-ledger tag``: the inner groups are their
+        own tags, the outer reducer's are re-keyed under ``outer.``."""
+        tags = {name: name for name, _ in self._inner_groups(list(grads_template))}
+        if hasattr(self.outer, "fidelity_group_tags"):
+            for g, t in self.outer.fidelity_group_tags(grads_template).items():
+                tags[f"outer.{g}"] = f"outer.{t}"
+        return tags
+
+    def ledger_entries(self, grads_template, axis: str = "", n_workers: int = 1) -> list:
+        """The packed exact inner payload on :attr:`inner_axis` and the outer
+        reducer's own entries, re-tagged under ``outer.``, on
+        :attr:`outer_axis`; sums to :meth:`bits_per_step`."""
+        leaves = list(grads_template)
+        entries = [
+            LedgerEntry(
+                tag=name, layer="reducer", op="all-reduce", axis=self.inner_axis,
+                dtype=dtype_name(leaves[idx[0]].dtype),
+                payload_bytes=sum(n_bits(leaves[i]) for i in idx) // 8,
+            )
+            for name, idx in self._inner_groups(leaves)
+        ]
+        for e in reducer_ledger_entries(self.outer, leaves, axis=self.outer_axis, n_workers=self.outer_world):
+            entries.append(dataclasses.replace(e, tag=f"outer.{e.tag}", axis=self.outer_axis))
+        return entries

@@ -28,6 +28,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..observe.ledger import LedgerEntry, dtype_name
 from ..ops.gram_schmidt import gram_schmidt
 from ..ops.orthogonalize import orthogonalize
 from ..ops.powersgd import fused_decompress_residual, fused_ef_compress, fused_orthogonalize_project
@@ -49,6 +50,14 @@ def _n_chunk_collectives(total_size: int, comm_chunks: Optional[int]) -> int:
     if comm_chunks is None or total_size <= 0:
         return 1
     return len(chunk_bounds(total_size, comm_chunks))
+
+
+def sq_norm(tensors) -> torch.Tensor:
+    """The sum of the squares of every element, in fp32."""
+    tensors = list(tensors)
+    if not tensors:
+        return torch.zeros((), dtype=torch.float32)
+    return sum(torch.sum(torch.square(t.float())) for t in tensors)
 
 
 class ExactReducer:
@@ -142,6 +151,78 @@ class ExactReducer:
 
     def bits_per_step(self, grads_template, n_workers: int = 1) -> int:
         return sum(n_bits(t) for t in grads_template)
+
+    # ---- the health probe and the wire ledger ----------------------------
+
+    def _fidelity_groups(self, leaves) -> List[Tuple[str, List[int]]]:
+        """(group, leaf indices): a group a backward-order bucket
+        (``grads.b{i}``), or ``grads``; each group key is its ledger tag."""
+        if not leaves:
+            return []
+        if self.packed and self.bucket_bytes is not None:
+            return [(f"grads.b{bi}", idxs) for bi, idxs in enumerate(self._buckets(leaves))]
+        return [("grads", list(range(len(leaves))))]
+
+    def fidelity_group_tags(self, grads_template) -> dict:
+        """``fidelity group -> wire-ledger tag``: the group key is the tag
+        (``grads``, ``grads.b{i}``), priced by :meth:`ledger_entries`."""
+        return {name: name for name, _ in self._fidelity_groups(list(grads_template))}
+
+    def diagnose(self, state: dict, send, memories=None):
+        """``(rel_error, stats)`` of the health probe, as scalar tensors: an
+        exact reduction loses nothing, so the error is 0, and a
+        :meth:`fidelity_group_tags` group reads ``rel_error`` 0 and
+        ``cosine_sim`` 1 by construction, its EF norm measured from
+        ``memories`` (the trainer keeps it 0, so a breach shows) and
+        ``quantized_share`` 0. No collective."""
+        leaves = list(send)
+        device = leaves[0].device if leaves else None
+        mems = list(memories) if memories is not None else None
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        stats = {
+            name: {
+                "rel_error": zero,
+                "cosine_sim": torch.ones((), dtype=torch.float32, device=device),
+                "ef_norm": torch.sqrt(sq_norm([mems[i] for i in idxs])) if mems is not None else zero,
+                "quantized_share": zero,
+            }
+            for name, idxs in self._fidelity_groups(leaves)
+        }
+        return zero, stats
+
+    def compression_error(self, state: dict, send, group=None) -> torch.Tensor:
+        """The probe's relative compression error: 0 (:meth:`diagnose`; the
+        signature is PowerSGD's, so the probe treats both alike)."""
+        return self.diagnose(state, send)[0]
+
+    def fidelity_stats(self, state: dict, send, memories=None, group=None) -> dict:
+        """The per-group diagnostics of :meth:`diagnose`."""
+        return self.diagnose(state, send, memories)[1]
+
+    def ledger_entries(self, grads_template, axis: str = "", n_workers: int = 1) -> list:
+        """The wire ledger of one exact reduction: one all-reduce of the
+        packed gradient (``count`` its chunks), one entry a bucket
+        (``grads.b{i}``), or one batch of per-tensor all-reduces. The
+        payload does not depend on the layout; the entries sum to
+        :meth:`bits_per_step`."""
+        leaves = list(grads_template)
+        if not leaves:
+            return []
+
+        def entry(tag, idxs, count):
+            dtypes = {dtype_name(leaves[i].dtype) for i in idxs}
+            return LedgerEntry(
+                tag=tag, layer="reducer", op="all-reduce", axis=axis,
+                dtype=dtypes.pop() if len(dtypes) == 1 else "mixed",
+                payload_bytes=sum(n_bits(leaves[i]) for i in idxs) // 8, count=count,
+            )
+
+        if not self.packed:
+            return [entry("grads", list(range(len(leaves))), len(leaves))]
+        return [
+            entry(name, idxs, _n_chunk_collectives(sum(leaves[i].numel() for i in idxs), self.comm_chunks))
+            for name, idxs in self._fidelity_groups(leaves)
+        ]
 
 
 def embedding_leaves(model: nn.Module) -> Tuple[int, ...]:
@@ -513,3 +594,103 @@ class PowerSGDReducer:
         p_packer, q_packer, rank1_packer = self._packers(leaves, metas)
         rounds = 1 + self.n_power_iterations
         return rounds * (p_packer.bits() + q_packer.bits()) + rank1_packer.bits()
+
+    def ledger_entries(self, grads_template, axis: str = "", n_workers: int = 1) -> list:
+        """The wire ledger of one compressed reduction: the P and the Q
+        all-reduces (once each a power-iteration round) and the rank-1
+        payload, each ``count`` its chunks; sums to :meth:`bits_per_step`."""
+        leaves = list(grads_template)
+        metas = self._metas(leaves)
+        p_packer, q_packer, rank1_packer = self._packers(leaves, metas)
+        rounds = 1 + self.n_power_iterations
+        entries = []
+        for tag, packer, repeats in (
+            ("powersgd.P", p_packer, rounds), ("powersgd.Q", q_packer, rounds), ("powersgd.rank1", rank1_packer, 1),
+        ):
+            if packer.bits():
+                chunks = _n_chunk_collectives(packer.total_size, self.comm_chunks)
+                entries.append(LedgerEntry(
+                    tag=tag, layer="reducer", op="all-reduce", axis=axis, dtype=dtype_name(packer.dtype),
+                    payload_bytes=repeats * packer.bits() // 8, count=repeats * chunks,
+                ))
+        return entries
+
+    # ---- the health probe: one collective-free diagnostic round -----------
+
+    def _fidelity_group_names(self, metas, groups) -> List[str]:
+        """A key a shape group, ``powersgd.g{k}:{n}x{m}r{r}``, in the order
+        the compressed path batches them."""
+        return [f"powersgd.g{k}:{metas[poss[0]].n}x{metas[poss[0]].m}r{metas[poss[0]].r}" for k, poss in enumerate(groups)]
+
+    def fidelity_group_tags(self, grads_template) -> dict:
+        """``fidelity group -> wire-ledger tag``: every shape group rides the
+        packed P all-reduce (``powersgd.P``), the rank-1 tensors
+        ``powersgd.rank1``."""
+        leaves = list(grads_template)
+        metas = self._metas(leaves)
+        tags = {name: "powersgd.P" for name in self._fidelity_group_names(metas, self._shape_groups(metas))}
+        if self._split(leaves)[0]:
+            tags["powersgd.rank1"] = "powersgd.rank1"
+        return tags
+
+    def diagnose(self, state: PowerSGDState, send, memories=None):
+        """``(rel_error, stats)`` of ONE diagnostic round,
+        ``self.reduce(state, send, None)``: no collective, so on the card it
+        launches the pipeline's kernels at the step's own shape groups.
+
+        ``rel_error`` is ``|M - P-hat Q^T| / |M|`` over every leaf (the
+        residual is the round's new error memory, 0 for the rank-1
+        leaves); ``stats`` holds a :meth:`fidelity_group_tags` group's
+        ``rel_error``, ``cosine_sim`` of ``M`` and ``P-hat Q^T``, the EF
+        norm of its leaves' ``memories`` and ``quantized_share`` (1 where
+        ``compression_dtype`` narrows the wire), each a scalar tensor.
+
+        The state is read, never written: the round gets a copy of the
+        generator (``reuse_query=False`` draws Q from it), its new Q is
+        dropped, and the JAX package's two rounds (one for
+        ``compression_error``, one for ``fidelity_stats``) are this one."""
+        leaves = list(send)
+        generator = torch.Generator(device=state.generator.device)
+        generator.set_state(state.generator.get_state())
+        _, _, residual, _ = self.reduce(PowerSGDState(state.q_memory, generator), leaves, None)
+        device = leaves[0].device if leaves else None
+        eps = torch.tensor(1e-30, dtype=torch.float32, device=device)
+        rel_error = torch.sqrt(sq_norm(residual)) / torch.maximum(torch.sqrt(sq_norm(leaves)), eps)
+        metas = self._metas(leaves)
+        groups = self._shape_groups(metas)
+        mems = list(memories) if memories is not None else None
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        quantized = torch.full((), 1.0 if self.compression_dtype is not None else 0.0, device=device)
+
+        def ef(idxs):
+            return torch.sqrt(sq_norm([mems[i] for i in idxs])) if mems is not None else zero
+
+        stats: dict = {}
+        for name, poss in zip(self._fidelity_group_names(metas, groups), groups):
+            idxs = [metas[p].leaf_index for p in poss]
+            sends = [leaves[i].float() for i in idxs]
+            outs = [leaves[i].float() - residual[i].float() for i in idxs]
+            send_norm, out_norm = torch.sqrt(sq_norm(sends)), torch.sqrt(sq_norm(outs))
+            dot = sum(torch.sum(s * o) for s, o in zip(sends, outs))
+            stats[name] = {
+                "rel_error": torch.sqrt(sq_norm([residual[i] for i in idxs])) / torch.maximum(send_norm, eps),
+                "cosine_sim": dot / torch.maximum(send_norm * out_norm, eps),
+                "ef_norm": ef(idxs),
+                "quantized_share": quantized,
+            }
+        rank1 = self._split(leaves)[0]
+        if rank1:
+            stats["powersgd.rank1"] = {
+                "rel_error": zero, "cosine_sim": torch.ones((), dtype=torch.float32, device=device),
+                "ef_norm": ef(rank1), "quantized_share": quantized,
+            }
+        return rel_error, stats
+
+    def compression_error(self, state: PowerSGDState, send, group=None) -> torch.Tensor:
+        """The relative compression error ``|M - P-hat Q^T| / |M|`` over the
+        whole send (:meth:`diagnose`)."""
+        return self.diagnose(state, send)[0]
+
+    def fidelity_stats(self, state: PowerSGDState, send, memories=None, group=None) -> dict:
+        """The per-group diagnostics of :meth:`diagnose`."""
+        return self.diagnose(state, send, memories)[1]

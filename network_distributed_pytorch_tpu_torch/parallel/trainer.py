@@ -27,6 +27,11 @@ unsynced, as torch DDP keeps them. Momenta and error memories start at zero
 Parameters and momenta are updated IN PLACE: the model's own ``Parameter``
 tensors are the training state, so a step allocates no second copy of the
 weights.
+
+A step carries its wire ledger (``ledger``, the itemisation of
+``bits_per_step``), the reducer's comm settings (``comm_config``) and the
+health probe (``health_fn``, :func:`make_health_fn`), as the JAX package's
+compiled step does.
 """
 
 from __future__ import annotations
@@ -37,11 +42,15 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..observe.ledger import step_ledger
 from .comm import all_reduce_mean, world_size
+from .reducers import sq_norm
 
 # The one collective outside the reducer: the scalar loss is all-reduced
 # for reporting (f32 = 32 bits), counted in bits_per_step.
 LOSS_SYNC_BITS = 32
+# the mesh axis the data-parallel collectives ride, by the JAX package's name
+DATA_AXIS = "data"
 
 # (model, batch) -> scalar loss; the forward runs in train mode, so it also
 # updates the model's BatchNorm running stats
@@ -138,6 +147,14 @@ class TrainStep:
         self.bits_per_step = reducer.bits_per_step(params, world_size(group)) + (
             LOSS_SYNC_BITS if group is not None else 0
         )
+        # the single-process step (no group) has no loss collective: the
+        # ledger leaves it out by the same rule
+        self.ledger = step_ledger(
+            reducer, params, axis=DATA_AXIS if group is not None else "", n_workers=world_size(group),
+            expected_bits=self.bits_per_step, include_loss_sync=group is not None,
+        )
+        self.comm_config = reducer_comm_config(reducer)
+        self.health_fn = make_health_fn(loss_fn, reducer, model, group, accum_steps)
 
     def init_state(self) -> TrainState:
         params = dict(self.model.named_parameters())
@@ -213,6 +230,98 @@ class TrainStep:
             state.reducer_state = reducer_state
             loss = all_reduce_mean(loss.clone(), self.group)
         return state, loss
+
+
+def reducer_comm_config(reducer) -> Dict:
+    """The comm settings a reducer was built with, read back from it:
+    ``reducer`` (its class's name, lower case), ``reducer_rank``,
+    ``comm_chunks``, ``comm_strategy`` and ``bucket_bytes`` where it has
+    them, for ``CompileEvent.comm_config``."""
+    cfg: Dict = {"reducer": type(reducer).__name__.lower()}
+    for attr, key in (
+        ("compression_rank", "reducer_rank"),
+        ("comm_chunks", "comm_chunks"),
+        ("comm_strategy", "comm_strategy"),
+        ("bucket_bytes", "bucket_bytes"),
+    ):
+        v = getattr(reducer, attr, None)
+        if v is not None:
+            cfg[key] = v
+    return cfg
+
+
+def make_health_fn(
+    loss_fn: LossFn, reducer, model: nn.Module, group=None, accum_steps: int = 1
+) -> Callable[[TrainState, Any], Dict]:
+    """The training-health probe behind ``TrainHealthEvent``, the JAX
+    package's function of the same name: ``health(state, batch)`` returns
+    ``{grad_norm, ef_memory_norm, powersgd_rel_error, loss}`` on the host
+    and, where the reducer has diagnostics (``diagnose``), ``fidelity``: a
+    group's ``{rel_error, cosine_sim, ef_norm, quantized_share}``, its keys
+    the reducer's ``fidelity_group_tags``.
+
+    It costs one more forward and backward on the batch (the step's own
+    gradient is gone by then), one collective-free diagnostic round of the
+    reducer (its ``diagnose``, the round of ``compression_error`` and
+    ``fidelity_stats``: ``reduce(state, send, None)``, which on the card
+    launches the pipeline's kernels at the step's shape groups) and ONE
+    all-reduce of every scalar stacked into one tensor over ``group``,
+    fetched to the host once. With ``accum_steps > 1`` it samples
+    microbatch 0.
+
+    The probe reads the state and never writes it: the gradient comes from
+    ``torch.autograd.grad`` (no ``.grad`` is left set), the model's buffers
+    (BatchNorm's running statistics, which a forward in train mode
+    updates in place) are copied before and written back after, the
+    random generators are forked (``torch.random.fork_rng``), and the
+    reducer's round works on a copy of its generator and drops its new
+    Q."""
+
+    def health(state: TrainState, batch) -> Dict:
+        if accum_steps > 1:
+            batch = tuple(a[0] for a in batch)
+        names = list(state.params)
+        params = [state.params[k] for k in names]
+        device = params[0].device
+        buffers = list(model.buffers())
+        was_training = model.training
+        with torch.no_grad():
+            saved = [b.clone() for b in buffers]
+        try:
+            with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
+                model.train()
+                with torch.enable_grad():
+                    loss = loss_fn(model, batch)
+                    grads = torch.autograd.grad(loss, params)
+        finally:
+            with torch.no_grad():
+                for b, s in zip(buffers, saved):
+                    b.copy_(s)
+            model.train(was_training)
+        with torch.no_grad():
+            mems = [state.memories[k] for k in names]
+            send = [g + e for g, e in zip(grads, mems)]
+            if hasattr(reducer, "diagnose"):
+                rel, fidelity = reducer.diagnose(state.reducer_state, send, mems)
+            else:  # a reducer with no diagnostics (the gather compressors)
+                rel, fidelity = torch.zeros((), dtype=torch.float32, device=device), None
+            scalars = [sq_norm(grads), sq_norm(mems), rel, loss.detach()]
+            keys = [(group_name, k) for group_name, vals in (fidelity or {}).items() for k in vals]
+            scalars += [fidelity[g][k] for g, k in keys]
+            stacked = torch.stack([s.to(device=device, dtype=torch.float32).reshape(()) for s in scalars])
+            stacked = all_reduce_mean(stacked, group)
+            stacked[:2] = torch.sqrt(stacked[:2])
+            host = stacked.cpu().tolist()  # the probe's one fetch
+        out: Dict = {
+            "grad_norm": host[0], "ef_memory_norm": host[1], "powersgd_rel_error": host[2], "loss": host[3],
+        }
+        if fidelity is not None:
+            out["fidelity"] = {}
+            for (g, k), v in zip(keys, host[4:]):
+                out["fidelity"].setdefault(g, {})[k] = v
+        return out
+
+    return health
 
 
 def make_train_step(

@@ -4,7 +4,7 @@ guards of the checkpointed training loop (:mod:`.guards`: the
 ``PreemptionGuard``, the typed errors and the exit codes) and the
 data-axis resharding of a checkpoint at another world size
 (:mod:`.reshard`). The supervisor itself, the chaos plan, ``GuardedStep``
-and the controller are not ported yet (ROADMAP.md §A item 8)."""
+and the controller are not ported yet (ROADMAP.md §A item 4)."""
 
 from .guards import (  # noqa: F401
     CKPT_UNWRITABLE_EXIT_CODE,

@@ -68,11 +68,15 @@ class ExperimentConfig:
     orthogonalize_impl: str = "auto"
     attn_impl: Optional[str] = None
 
-    # observability, resilience and planning: not ported yet
+    # observability: the JSONL run log (observe.telemetry_from_config), a
+    # torch.profiler trace of the training loop, the wire ledger's audit
+    # against the first step's collectives (None: on with an event log) and
+    # the memory and health probe every N steps (0: off)
     event_log: Optional[str] = None
     trace_dir: Optional[str] = None
     audit_wire: Optional[bool] = None
     health_every: int = 0
+    # resilience and planning: not ported yet
     chaos_plan: Optional[str] = None
     adaptive_comm: bool = False
     comm_fabric: str = "ICI(v5e)"
@@ -106,7 +110,4 @@ class ExperimentConfig:
                 raise NotImplementedError(f"ExperimentConfig.{name} is not ported yet")
 
 
-_NOT_PORTED = (
-    "event_log", "trace_dir", "audit_wire", "health_every",
-    "chaos_plan", "adaptive_comm", "comm_fabric", "plan_path",
-)
+_NOT_PORTED = ("chaos_plan", "adaptive_comm", "comm_fabric", "plan_path")

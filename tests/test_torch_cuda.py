@@ -1460,3 +1460,90 @@ def test_resnet_bf16_fused_pipeline_matches_xla_on_the_card(cuda_device, exact_c
         got = params["pallas", "bfloat16"][k]
         assert got.dtype == torch.float32
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL, msg=k)
+
+
+# ---- the telemetry core on the card -------------------------------------------
+
+
+def _probe_setup(cuda_device, impl):
+    """The small ResNet-18 after one PowerSGD step on the card, and the
+    step's batch."""
+    images, labels, _ = load_cifar10_or_synthetic(train=True)
+    cfg = powersgd_cifar10.default_config()
+    cfg.global_batch_size, cfg.compress_impl = 16, impl
+    model, step, state = powersgd_cifar10.build(cfg, "small", cuda_device, group=None)
+    batch = tuple(torch.from_numpy(a).to(cuda_device) for a in next(accumulated_batches([images, labels], cfg, 1)(0)))
+    state, _ = step(state, batch)
+    return step, state, batch
+
+
+def _flat_probe(stats):
+    out = {k: stats[k] for k in ("grad_norm", "ef_memory_norm", "powersgd_rel_error", "loss")}
+    out.update({f"{g}.{k}": v for g, vals in stats["fidelity"].items() for k, v in vals.items()})
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_health_probe_on_the_kernels_matches_their_plain_versions(cuda_device, exact_conv_math, impl, monkeypatch):
+    """The probe's diagnostic round launches K1 (xla), or K2b, K3 and K4
+    (fused), once a shape group; on their plain versions it gives the same
+    values within 1e-5 and launches none."""
+    from network_distributed_pytorch_tpu_torch.parallel import reducers as reducers_mod
+
+    step, state, batch = _probe_setup(cuda_device, impl)
+    n_groups = step.reducer.n_shape_groups(list(state.params.values()))
+    kernels = [gs.KERNEL] if impl == "xla" else [ps.COMPRESS, ps.ORTHOGONALIZE_PROJECT, ps.DECOMPRESS_RESIDUAL]
+    before = [k.launches for k in kernels]
+    got = step.health_fn(state, batch)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [n_groups] * len(kernels)
+    if impl == "xla":
+        monkeypatch.setattr(step.reducer, "orthogonalize_impl", "eager")
+    else:
+        monkeypatch.setattr(reducers_mod, "fused_ef_compress", lambda g, q, r=None: (g, ps.compress_reference(g, q)))
+        monkeypatch.setattr(reducers_mod, "fused_orthogonalize_project", ps.orthogonalize_project_reference)
+        monkeypatch.setattr(reducers_mod, "fused_decompress_residual", ps.decompress_residual_reference)
+    before = [k.launches for k in kernels]
+    plain = step.health_fn(state, batch)
+    assert [k.launches for k in kernels] == before
+    got, plain = _flat_probe(got), _flat_probe(plain)
+    assert sorted(got) == sorted(plain)
+    for key, want in plain.items():
+        assert got[key] == pytest.approx(want, rel=RTOL, abs=ATOL), key
+
+
+@pytest.mark.cuda
+def test_memory_sampler_reads_the_card(cuda_device):
+    from network_distributed_pytorch_tpu_torch.observe import MemorySink, Telemetry
+    from network_distributed_pytorch_tpu_torch.observe.memory import MemorySampler
+
+    x = torch.empty(1 << 20, device=cuda_device)
+    sink = MemorySink()
+    sampler = MemorySampler(Telemetry([sink]), label="card", device=cuda_device)
+    event = sampler.sample(3)
+    assert sampler.enabled and event.bytes_in_use >= x.numel() * 4
+    assert event.peak_bytes_in_use >= event.bytes_in_use
+    assert event.bytes_limit == torch.cuda.get_device_properties(cuda_device).total_memory
+    assert event.device_kind == torch.cuda.get_device_name(cuda_device) and sink.of_kind("memory")[0]["step"] == 3
+
+
+@pytest.mark.cuda
+def test_the_trace_holds_the_kernels_and_the_step_ranges(cuda_device, tmp_path):
+    from network_distributed_pytorch_tpu_torch.observe import MemorySink, Telemetry
+    from network_distributed_pytorch_tpu_torch.experiments.common import train_loop
+    from network_distributed_pytorch_tpu_torch.utils.overlap import kernels_from_chrome_trace
+
+    images, labels, _ = load_cifar10_or_synthetic(train=True)
+    cfg = powersgd_cifar10.default_config()
+    cfg.global_batch_size = 16
+    _, step, state = powersgd_cifar10.build(cfg, "small", cuda_device, group=None)
+    sink = MemorySink()
+    train_loop(
+        step, state, accumulated_batches([images, labels], cfg, 2), 1, cuda_device,
+        telemetry=Telemetry([sink]), trace_dir=str(tmp_path), run_name="traced", health_every=1,
+    )
+    text = (tmp_path / "trace.json").read_text()
+    assert '"traced#1"' in text and '"health_probe"' in text
+    names = {k["name"] for k in kernels_from_chrome_trace(str(tmp_path / "trace.json"))}
+    assert any("gram_schmidt" in n for n in names)
+    assert len(sink.of_kind("memory")) == 2 and len(sink.of_kind("train_health")) == 2

@@ -218,10 +218,32 @@ def test_heartbeat_monitor_lists_stale_peers(tmp_path):
 
 def test_loop_refuses_what_is_not_ported(tmp_path):
     _, step, state = resnet_resume_setup(None)
-    for kw in ({"chaos_plan": "p.json"}, {"trace_dir": "t"}, {"audit": True}, {"step_retries": 2},
-               {"guard_batches": True}):
+    for kw in ({"chaos_plan": "p.json"}, {"step_retries": 2}, {"guard_batches": True}):
         with pytest.raises(NotImplementedError):
             resilient_train_loop(step, state, resume_batches, 1, str(tmp_path), torch.device("cpu"), **kw)
+
+
+def test_loop_takes_the_trace_the_audit_and_the_probe(tmp_path):
+    """``trace_dir``, ``audit`` and ``health_every`` reach the training
+    loop: the trace is written, the first step's audit is exact and every
+    step has its probe, in the same run log as the checkpoint's events."""
+    from network_distributed_pytorch_tpu_torch.experiments.common import process_group
+    from network_distributed_pytorch_tpu_torch.observe import MemorySink, Telemetry
+    from network_distributed_pytorch_tpu_torch.utils.config import ExperimentConfig
+
+    sink = MemorySink()
+    with process_group(ExperimentConfig(), torch.device("cpu")) as group:  # a world of one
+        _, step, state = resnet_resume_setup(group)
+        resilient_train_loop(
+            step, state, resume_batches, 1, str(tmp_path / "ckpt"), torch.device("cpu"),
+            telemetry=Telemetry([sink]), trace_dir=str(tmp_path / "trace"), audit=True, health_every=1,
+            run_name="resilient",
+        )
+    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    (audit,) = sink.of_kind("compile")
+    assert audit["exact"] and audit["label"] == "resilient"
+    assert len(sink.of_kind("train_health")) == len(sink.of_kind("step")) == RESUME_STEPS
+    assert not sink.of_kind("failure")
 
 
 def test_train_loop_hooks_default_off():

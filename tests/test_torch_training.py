@@ -14,6 +14,7 @@ Losses: 1e-5, as the logits.
 """
 
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -225,6 +226,20 @@ def test_entry_points_raise_without_a_card_unless_cpu():
         powersgd_cifar10.build_model("small")
 
 
+def test_the_telemetry_fields_construct_and_run(tmp_path):
+    """``event_log``, ``trace_dir``, ``audit_wire`` and ``health_every`` are
+    ported: they construct, and a run writes the log, the audit, the probes
+    and the trace they ask for."""
+    cfg = ExperimentConfig(
+        training_epochs=1, global_batch_size=16, event_log=str(tmp_path / "run.jsonl"),
+        trace_dir=str(tmp_path / "trace"), audit_wire=True, health_every=2,
+    )
+    out = powersgd_cifar10.run(cfg, preset="small", device="cpu", max_steps_per_epoch=2)
+    kinds = [json.loads(line)["event"] for line in open(cfg.event_log)]
+    assert kinds.count("step") == 2 and kinds.count("compile") == 1 and kinds.count("train_health") == 1
+    assert np.isfinite(out["losses"]).all() and (tmp_path / "trace" / "trace.json").stat().st_size > 0
+
+
 def test_config_rejects_unported_options():
     """The comm fields are ported and validated; the fields still unported
     raise rather than being ignored."""
@@ -236,7 +251,7 @@ def test_config_rejects_unported_options():
     for bad in ({"comm_chunks": 0}, {"bucket_bytes": 0}, {"comm_strategy": "tree"}):
         with pytest.raises(ValueError):
             ExperimentConfig(**bad)
-    for unported in ({"event_log": "events.jsonl"}, {"health_every": 5}, {"adaptive_comm": True}):
+    for unported in ({"chaos_plan": "plan.json"}, {"comm_fabric": "DCN"}, {"adaptive_comm": True}):
         with pytest.raises(NotImplementedError):
             ExperimentConfig(**unported)
     # compute_dtype is ported, the ResNet's bf16 included (held to JAX in test_torch_resnet_bf16.py)

@@ -697,8 +697,12 @@ class Events:
     def __init__(self):
         self.seen = []
 
-    def emit(self, event):
-        self.seen.append((getattr(event, "kind", type(event).__name__), getattr(event, "step", None)))
+    def emit(self, event, record=None):
+        # the loop's telemetry also carries its steps, epochs and spans
+        from network_distributed_pytorch_tpu_torch.observe import FailureEvent
+
+        if isinstance(event, FailureEvent):
+            self.seen.append((event.kind, event.step))
 
 
 def resnet_resume_setup(group, seed=3):
@@ -1087,4 +1091,61 @@ def mesh_reshard_rank(rank, world, group, root, full_w, b, mem, moves):
         except TopologyMismatchError as e:
             out["refused"] = str(e)
     dist.barrier()
+    return out
+
+
+# ---- telemetry: the audit and the health probe on ranks ---------------------
+
+
+def _telemetry_case(name, group):
+    """A model and its step for one audited case of ``telemetry_rank``."""
+    if name == "fsdp":
+        model = SmallCNN(width=FSDP_WIDTH, image_size=FSDP_HW, device="cpu")
+        step = make_fsdp_train_step(image_classifier_loss(), model, 0.05, group=group, comm_chunks=2)
+        return model, step, step.init_state()
+    model = SmallCNN(width=FSDP_WIDTH, image_size=FSDP_HW, device="cpu")
+    algorithm = "sgd"
+    if name == "exact_buckets_chunks":
+        reducer = ExactReducer(bucket_bytes=2_000, comm_chunks=3)
+    elif name == "exact_ring":
+        reducer = ExactReducer(comm_strategy="ring")
+    elif name == "powersgd_chunks":
+        reducer, algorithm = PowerSGDReducer(compression_rank=2, matricize="last", comm_chunks=4), "ef_momentum"
+    elif name == "hierarchical":
+        inner, outer, inner_world, outer_world = make_hierarchical_groups(2, group)
+        reducer = HierarchicalReducer(
+            PowerSGDReducer(compression_rank=2, matricize="last"), inner, outer, inner_world, outer_world
+        )
+        algorithm = "ef_momentum"
+    else:
+        reducer = ExactReducer()
+    step = make_train_step(image_classifier_loss(), reducer, model, 0.05, 0.9, algorithm, group)
+    return model, step, step.init_state()
+
+
+TELEMETRY_CASES = ("exact", "exact_buckets_chunks", "exact_ring", "powersgd_chunks", "hierarchical", "fsdp")
+
+
+def telemetry_rank(rank, world, group, batches):
+    """For each of ``TELEMETRY_CASES``: ``train_loop`` with the audit and a
+    probe every step over ``batches`` (this rank's slice of each), its
+    records in memory. Returns each case's records (JSON-plain dicts) and,
+    for the PowerSGD case, this rank's own probe of its last step without
+    a group (the local values the group's probe averages)."""
+    from network_distributed_pytorch_tpu_torch.experiments.common import train_loop
+    from network_distributed_pytorch_tpu_torch.observe import MemorySink, Telemetry
+    from network_distributed_pytorch_tpu_torch.parallel.trainer import make_health_fn
+
+    out = {}
+    for name in TELEMETRY_CASES:
+        model, step, state = _telemetry_case(name, group)
+        sink = MemorySink()
+        state, _ = train_loop(
+            step, state, lambda epoch: iter(batches), 1, torch.device("cpu"), rank=rank, world_size=world,
+            telemetry=Telemetry([sink]), audit=True, run_name=name, health_every=1,
+        )
+        out[name] = {"records": [{k: v for k, v in r.items() if k not in ("ts", "ts_mono")} for r in sink.records]}
+        if name == "powersgd_chunks":
+            local = make_health_fn(image_classifier_loss(), step.reducer, model, None)
+            out[name]["local_probe"] = local(state, shard(batches[-1], rank, world))
     return out
