@@ -17,7 +17,6 @@ from __future__ import annotations
 import datetime
 import itertools
 import math
-import socket
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -46,40 +45,41 @@ class DistributedConfig:
     process_id: int = 0
     num_processes: int = 1
     # init_method: "tcp://host:port", "file:///path" or "env://"; None = a
-    # free localhost port for a world of one, the torchrun environment else
+    # localhost store on a port the OS picks for a world of one, the
+    # torchrun environment else
     coordinator_address: Optional[str] = None
     timeout_seconds: int = 600
-
-
-def _free_localhost_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def initialize_distributed(config: DistributedConfig, device: torch.device):
     """Join (or create) the default process group and return it.
 
     On CUDA the rank's current device is set to ``device`` first, so NCCL
-    binds the right card."""
+    binds the right card. A world of one with no address gets its own
+    store on localhost, bound to a port the OS picks in the same call: a
+    port probed free and bound later can be taken in between (by another
+    process, or by a socket of an earlier group on another address)."""
     if dist.is_initialized():
         raise RuntimeError("torch.distributed is already initialized")
     backend = "nccl" if device.type == "cuda" else "gloo"
-    init_method = config.coordinator_address
+    timeout = datetime.timedelta(seconds=config.timeout_seconds)
+    init_method, store = config.coordinator_address, None
     if init_method is None:
-        init_method = (
-            f"tcp://127.0.0.1:{_free_localhost_port()}"
-            if config.num_processes == 1
-            else "env://"
-        )
+        if config.num_processes == 1:
+            store = dist.TCPStore(
+                "127.0.0.1", 0, 1, is_master=True, timeout=timeout, wait_for_workers=False
+            )
+        else:
+            init_method = "env://"
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(
         backend=backend,
         init_method=init_method,
+        store=store,
         world_size=config.num_processes,
         rank=config.process_id,
-        timeout=datetime.timedelta(seconds=config.timeout_seconds),
+        timeout=timeout,
     )
     return dist.group.WORLD
 

@@ -114,6 +114,28 @@ def test_world_of_one_creates_a_group(tmp_path):
     assert not dist.is_initialized()
 
 
+def test_world_of_one_without_an_address_binds_its_own_port():
+    """With no address, a world of one gets a localhost store on a port the
+    OS picks when the store binds it, group after group in one process."""
+    if dist.is_initialized():
+        pytest.skip("a process group already exists in this process")
+    ports = []
+    for _ in range(3):
+        group = initialize_distributed(DistributedConfig(), torch.device("cpu"))
+        try:
+            assert dist.get_world_size(group) == 1 and dist.get_backend(group) == "gloo"
+            x = torch.tensor([2.0, -1.0])
+            assert torch.equal(all_reduce_mean(x, group), x)
+            store = dist.distributed_c10d._get_default_store()
+            while isinstance(store, dist.PrefixStore):
+                store = store.underlying_store
+            ports.append(store.port)
+        finally:
+            shutdown_distributed()
+        assert not dist.is_initialized()
+    assert all(p > 0 for p in ports)
+
+
 def test_cuda_device_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
