@@ -368,6 +368,36 @@ SCAN_BITS, SCAN_GROUPS = 13_302_784, 6
 # or K2b, K3 and K4, once a shape group); the probe timed over
 # TELEMETRY_PROBE_REPS calls
 TELEMETRY_STEPS, TELEMETRY_EVERY, TELEMETRY_PROBE_REPS = 6, 2, 3
+# the chaos plan and the guarded step (chaos_phases): ResNet-152 PowerSGD at
+# powersgd_cifar10's preset full (batch 512, rank 4, the xla pipeline: K1
+# once a shape group a step) through resilient_train_loop, 2 epochs of 2
+# steps a run. The real steps (an injected step fault runs no step): clean
+# 4; plan (a), a transient and a NaN retried, 4; plan (b), a bad and a
+# short batch dropped, 2; one good step and a real NaN tried three times,
+# 4; the oom fault, 0; ckpt_torn and ckpt_bitflip, each 4 and a resume of
+# 2; the guarded step against the plain one in turns, CHAOS_TURNS each
+CHAOS_EPOCHS, CHAOS_STEPS, CHAOS_TURNS = 2, 2, 11
+CHAOS_K1_STEPS = 4 + 4 + 2 + 4 + 0 + 2 * (4 + 2) + 2 * CHAOS_TURNS
+# the supervised launch: exact_cifar10 at preset full (ResNet-50, batch 256)
+# for 2 epochs of 3 steps, once without faults and once with proc_kill
+# before step 4 in the first life and proc_preempt before its step 1 in
+# the second (the emergency checkpoint after epoch 1's second step)
+SUPERVISED_EPOCHS, SUPERVISED_STEPS = 2, 3
+# the supervised workers' deterministic algorithms, as chaos_guarded's
+# deterministic_algorithms() sets them in process; any sitecustomize the
+# interpreter had is run after it
+SUPERVISED_SITECUSTOMIZE = """import os, sys
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+_here = os.path.dirname(os.path.abspath(__file__))
+for _p in sys.path:
+    _f = os.path.join(_p or ".", "sitecustomize.py")
+    if os.path.abspath(_p or ".") != _here and os.path.isfile(_f):
+        exec(compile(open(_f).read(), _f, "exec"), {"__name__": "sitecustomize", "__file__": _f})
+        break
+"""
 
 
 def fail(msg: str) -> None:
@@ -2674,6 +2704,275 @@ def telemetry_phases(dev, drive, launches, images, labels, n_groups, preset="ful
     return paths
 
 
+def chaos_phases(dev, drive, images, labels, n_groups, smi, preset="full"):
+    """``chaos_guarded`` and ``supervised_resume``: the chaos plan, the
+    guarded step and the supervising launcher on one card, their files
+    under a temporary directory removed at the end.
+
+    ``chaos_guarded`` runs ResNet-152 PowerSGD through
+    ``resilient_train_loop`` under deterministic algorithms: plan (a), a
+    ``step_transient`` and a ``step_nan`` with ``step_retries=2``, must end
+    bit for bit where the clean run ends; plan (b), a bad and a short batch
+    with the batch guard, finite with one ``bad_batch_dropped`` a fault; a
+    real NaN given to ``GuardedStep`` must leave the state bit for bit as
+    it was once the guard gives up; the ``oom`` fault must write the report
+    and raise ``OutOfMemoryError``; ``ckpt_torn`` and ``ckpt_bitflip`` must
+    fall back to the previous epoch on resume (and land on the clean run);
+    and the guarded step's time is held against the plain step's, in turns.
+
+    ``supervised_resume`` runs ``launch exact_cifar10 --checkpoint-dir D
+    --chaos-plan P --supervise --num-processes 1`` in a subprocess, with
+    ``proc_kill`` in the first life and ``proc_preempt`` in the second: it
+    must succeed after 2 restarts, the second resuming mid-epoch from the
+    emergency checkpoint, with a final checkpoint bit for bit that of the
+    same launch without faults (the workers run under deterministic
+    algorithms, set by a ``sitecustomize`` on their ``PYTHONPATH``), and it
+    reports the time from each death to the restarted worker's first step.
+    ``preset="small"`` (global batch 16) rehearses both on the CPU."""
+    import torch
+
+    from network_distributed_pytorch_tpu_torch.experiments import powersgd_cifar10
+    from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches, resilient_train_loop
+    from network_distributed_pytorch_tpu_torch.parallel.mesh import (
+        DistributedConfig,
+        initialize_distributed,
+        shutdown_distributed,
+    )
+    from network_distributed_pytorch_tpu_torch.resilience import (
+        ChaosPlan,
+        FaultSpec,
+        GuardedStep,
+        NonFiniteLossError,
+        OutOfMemoryError,
+        make_topology,
+    )
+    from network_distributed_pytorch_tpu_torch.utils.checkpoint import latest_step_path, verify_checkpoint
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    group = initialize_distributed(DistributedConfig(), dev)
+    try:
+        # ---- chaos_guarded: ResNet-152 PowerSGD through the guarded loop ---------
+        t_phase = time.perf_counter()
+        cfg = powersgd_cifar10.default_config()
+        cfg.compress_impl = "xla"
+        if preset == "small":
+            cfg.global_batch_size = 16
+        batches = accumulated_batches([images, labels], cfg, max_steps_per_epoch=CHAOS_STEPS)
+
+        def train(name, plan=None, **kw):
+            _, step, state = powersgd_cifar10.build(cfg, preset, dev, group)
+            events = Events()
+            topology = make_topology(
+                1, global_batch=cfg.global_batch_size, data_seed=cfg.seed, bits_per_step=step.bits_per_step,
+                rng_seed=cfg.seed,
+            )
+            state, logger, start = resilient_train_loop(
+                step, state, batches, CHAOS_EPOCHS, os.path.join(root, name), dev, topology=topology,
+                telemetry=events, run_name=name, chaos_plan=plan, **kw,
+            )
+            return state, logger, start, [k for k, _ in events.seen]
+
+        def chaos_guarded():
+            out = {}
+            with deterministic_algorithms():
+                state, logger, _, _ = train("clean")
+                ref = tensors_of(state)
+                out["clean_losses"] = [r.loss for r in logger.records]
+                del state
+                plan = ChaosPlan([FaultSpec(kind="step_transient", step=1), FaultSpec(kind="step_nan", step=3)])
+                state, logger, _, kinds = train("plan_a", plan, step_retries=2)
+                out["plan_a"] = {
+                    "steps": len(logger.records), "kinds": kinds, "differ_at": bitwise_equal(tensors_of(state), ref),
+                }
+                del state
+                plan = ChaosPlan(
+                    [FaultSpec(kind="loader_bad_batch", step=1), FaultSpec(kind="loader_short_batch", step=2)], seed=3
+                )
+                state, logger, _, kinds = train(
+                    "plan_b", plan, guard_batches=True, expected_batch=cfg.global_batch_size
+                )
+                out["plan_b"] = {
+                    "steps": len(logger.records), "kinds": kinds,
+                    "finite": all(bool(torch.isfinite(v).all()) for v in state.params.values()),
+                }
+                del state
+                # a real NaN on a real step: three attempts, then the state as it was
+                _, step, state = powersgd_cifar10.build(cfg, preset, dev, group)
+                good, bad = [
+                    tuple(torch.from_numpy(a).to(dev) for a in b) for b in list(batches(0))[:2]
+                ]
+                state, _ = step(state, good)
+                before = tensors_of(state)
+                bad[0][0, 0, 0, 0] = float("nan")
+                events = Events()
+                guarded = GuardedStep(step, retries=2, backoff_seconds=0.0, telemetry=events, label="real_nan")
+                try:
+                    guarded(state, bad)
+                    fail("chaos_guarded: a NaN batch gave a finite loss")
+                except NonFiniteLossError:
+                    pass
+                out["real_nan"] = {
+                    "kinds": [k for k, _ in events.seen], "differ_at": bitwise_equal(tensors_of(state), before),
+                }
+                # the guarded step against the plain one, in turns, from the same state
+                plain_ms, guarded_ms = [], []
+                good = [tuple(torch.from_numpy(a).to(dev) for a in b) for b in batches(1)][0]
+                for turn in range(CHAOS_TURNS):
+                    for fn, times in ((step, plain_ms), (guarded, guarded_ms)):
+                        sync()
+                        t0 = time.perf_counter()
+                        state, loss = fn(state, good)
+                        float(loss)
+                        sync()
+                        if turn:  # the first turn warms the snapshot's buffers
+                            times.append((time.perf_counter() - t0) * 1e3)
+                out["step_ms_p50"] = {"plain": statistics.median(plain_ms), "guarded": statistics.median(guarded_ms)}
+                out["step_ms"] = {"plain": plain_ms, "guarded": guarded_ms}
+                del state, guarded, before
+                # the oom fault: the report in the working directory's artifacts/
+                cwd = os.getcwd()
+                os.makedirs(os.path.join(root, "oom"), exist_ok=True)
+                os.chdir(os.path.join(root, "oom"))
+                try:
+                    train("oom", ChaosPlan([FaultSpec(kind="oom", step=0, payload={"bytes": 1 << 40})]), step_retries=2)
+                    fail("chaos_guarded: the oom fault did not stop the run")
+                except OutOfMemoryError:
+                    pass
+                finally:
+                    os.chdir(cwd)
+                with open(os.path.join(root, "oom", "artifacts", "oom_report.json")) as f:
+                    report = json.load(f)
+                out["oom"] = {"top_buffer": report["top_buffer"], "buffers": report["buffers"], "step": report["step"]}
+                # the checkpoint faults: the resume falls back to step_0
+                for kind in ("ckpt_torn", "ckpt_bitflip"):
+                    train(kind, ChaosPlan([FaultSpec(kind=kind, step=1)], seed=3))
+                    path = os.path.join(root, kind)
+                    newest = latest_step_path(path)
+                    state, logger, start, kinds = train(kind)
+                    out[kind] = {
+                        "newest_before_resume": os.path.basename(newest), "start_epoch": start,
+                        "steps": len(logger.records), "kinds": kinds,
+                        "step_1_verified_after": verify_checkpoint(os.path.join(path, "step_1"))[0],
+                        "differ_at": bitwise_equal(tensors_of(state), ref),
+                    }
+                    del state
+            return out
+
+        result, peak = drive("chaos_guarded", chaos_guarded, {"gram_schmidt": CHAOS_K1_STEPS * n_groups})
+        a, b = result["plan_a"], result["plan_b"]
+        if a["differ_at"] or a["steps"] != CHAOS_EPOCHS * CHAOS_STEPS or a["kinds"].count("retry") != 2:
+            fail(f"chaos_guarded plan (a): {a}")
+        if not b["finite"] or b["kinds"].count("bad_batch_dropped") != 2 or b["steps"] != CHAOS_EPOCHS * CHAOS_STEPS - 2:
+            fail(f"chaos_guarded plan (b): {b}")
+        if result["real_nan"]["differ_at"] or result["real_nan"]["kinds"] != ["retry"] * 3:
+            fail(f"chaos_guarded real NaN: {result['real_nan']}")
+        for kind, newest in (("ckpt_torn", "step_0"), ("ckpt_bitflip", "step_1")):
+            r = result[kind]
+            if (r["newest_before_resume"], r["start_epoch"], r["steps"]) != (newest, 1, CHAOS_STEPS) or r["differ_at"] \
+                    or not r["step_1_verified_after"] or (kind == "ckpt_bitflip" and "checkpoint_fallback" not in r["kinds"]):
+                fail(f"chaos_guarded {kind}: {r}")
+        emit({
+            "phase": "chaos_guarded", "preset": preset, "global_batch": cfg.global_batch_size,
+            "reducer_rank": cfg.reducer_rank, "compress_impl": "xla", "epochs": CHAOS_EPOCHS,
+            "steps_per_epoch": CHAOS_STEPS, **result,
+            "bitwise": "plan (a) and each checkpoint fault's resume: params, momenta, EF memories, Q and BN buffers"
+                       " equal the clean run's; the real NaN: the state equals the state before the step",
+            "launches": {"gram_schmidt": CHAOS_K1_STEPS * n_groups}, "peak_memory_bytes": peak, "nvidia_smi": smi,
+            "wall_s": time.perf_counter() - t_phase,
+        })
+    finally:
+        shutdown_distributed()
+
+    try:
+        # ---- supervised_resume: the supervising launcher, killed and preempted -------
+        t_phase = time.perf_counter()
+        site = os.path.join(root, "site")
+        os.makedirs(site)
+        with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+            f.write(SUPERVISED_SITECUSTOMIZE)
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([site, here, os.environ.get("PYTHONPATH", "")]))
+
+        def launch_supervised(name, faults):
+            run_dir = os.path.join(root, name)
+            os.makedirs(run_dir)
+            argv = [
+                sys.executable, "-m", "network_distributed_pytorch_tpu_torch.launch", "exact_cifar10",
+                "--preset", preset, "--device", dev.type, "--epochs", str(SUPERVISED_EPOCHS),
+                "--max-steps-per-epoch", str(SUPERVISED_STEPS), "--checkpoint-dir", os.path.join(run_dir, "ckpt"),
+                "--supervise", "--num-processes", "1", "--restart-backoff", "0.05", "--json",
+                "--event-log", os.path.join(run_dir, "events.jsonl"), "--worker-log-dir", os.path.join(run_dir, "logs"),
+                "--log-every", "0", *(["--global-batch", "16"] if preset == "small" else []),
+            ]
+            if faults:
+                ChaosPlan(faults).save(os.path.join(run_dir, "plan.json"))
+                argv += ["--chaos-plan", os.path.join(run_dir, "plan.json")]
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv, cwd=run_dir, env=env, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            lines = proc.stdout.strip().splitlines()
+            if proc.returncode != 0 or not lines:
+                logs = ""
+                for log in sorted(os.listdir(os.path.join(run_dir, "logs"))) if os.path.isdir(os.path.join(run_dir, "logs")) else []:
+                    with open(os.path.join(run_dir, "logs", log)) as f:
+                        logs += f"--- {log}\n" + f.read()[-3000:]
+                fail(f"supervised_resume {name}: exit {proc.returncode}: {proc.stderr[-2000:]} {logs}")
+            events = []
+            with open(os.path.join(run_dir, "events.jsonl")) as f:
+                for line in f:
+                    try:
+                        events.append(json.loads(line))
+                    except ValueError:
+                        pass
+            return json.loads(lines[-1]), events, wall, os.path.join(run_dir, "ckpt")
+
+        def supervised_resume():
+            clean, _, clean_wall, clean_ckpt = launch_supervised("supervised_clean", [])
+            faulted, events, wall, ckpt = launch_supervised("supervised_faulted", [
+                FaultSpec(kind="proc_kill", step=SUPERVISED_STEPS + 1),
+                FaultSpec(kind="proc_preempt", step=1, incarnation=1),
+            ])
+            steps = [e for e in events if e.get("event") == "step"]
+            # each death to the first step the restarted worker finished
+            recovery_ms = []
+            for died, respawned in faulted["restart_times"]:
+                after = [e["ts_mono"] for e in steps if e.get("ts_mono", 0) > respawned]
+                recovery_ms.append((min(after) - died) * 1e3 if after else None)
+            resumed = [e.get("message", "") for e in events if e.get("kind") == "resumed"]
+            got = saved_leaves(latest_step_path(ckpt))
+            want = saved_leaves(latest_step_path(clean_ckpt))
+            differ = sorted(
+                k for k in want
+                if k not in got or (torch.is_tensor(want[k]) and not torch.equal(got[k], want[k]))
+                or (not torch.is_tensor(want[k]) and got[k] != want[k])
+            )
+            return {
+                "clean": clean, "faulted": faulted, "clean_wall_s": clean_wall, "faulted_wall_s": wall,
+                "resumed": resumed, "death_to_first_step_ms": recovery_ms,
+                "worker_exits": [e.get("message") for e in events if e.get("kind") == "worker_exit"],
+                "final_checkpoint": os.path.basename(latest_step_path(ckpt)), "leaves": len(want),
+                "differ_at": differ,
+            }
+
+        result, peak = drive("supervised_resume", supervised_resume, {}, kernel_free=True)
+        f = result["faulted"]
+        if not f["success"] or f["total_restarts"] != 2 or len(result["resumed"]) != 2 or result["differ_at"] \
+                or "+2 steps" not in result["resumed"][-1] or None in result["death_to_first_step_ms"]:
+            fail(f"supervised_resume: {result}")
+        emit({
+            "phase": "supervised_resume", "preset": preset, "epochs": SUPERVISED_EPOCHS,
+            "steps_per_epoch": SUPERVISED_STEPS, **result,
+            "bitwise": "every leaf of the final checkpoint equals the unfaulted supervised run's",
+            "nvidia_smi": smi, "wall_s": time.perf_counter() - t_phase,
+        })
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     import torch
 
@@ -3504,6 +3803,10 @@ def main() -> None:
     # probe (K1; K2b, K3, K4), the memory sampler and the trace
     telemetry_paths = telemetry_phases(dev, drive, launches, images, labels, len(group_shapes))
 
+    # the chaos plan and the guarded step on ResNet-152 (K1), and the
+    # supervising launcher restarting exact_cifar10 at preset full
+    chaos_phases(dev, drive, images, labels, len(group_shapes), smi)
+
     # ---- 4. two steps against two steps ---------------------------------------
     # with deterministic cuDNN and no TF32, so that only what is compared differs
     torch.backends.cudnn.deterministic = True
@@ -3782,6 +4085,8 @@ def main() -> None:
         "distilbert_imdb_opt_plain": "imdb_plain", "distilbert_imdb_remat": "imdb_remat",
         # telemetry_phases: 6 steps and 3 probes a run, each probe once a shape group
         "resnet152_telemetry_xla": telemetry_paths["xla"],
+        # chaos_phases: the guarded runs, the real NaN's three attempts and the timed turns
+        "resnet152_chaos_guarded": "chaos_guarded",
     }
     kernels = [{
         "name": "gram_schmidt",

@@ -253,7 +253,8 @@ def train_loop(
                         if on_cuda:
                             end.record()
                     with span("step/loss_sync", step=logger._step):
-                        loss = loss.item()  # waits for the step
+                        # waits for the step; a chaos step_nan reports a host float
+                        loss = float(loss)
                 if audit_pending:
                     audit_pending = False
                     try:
@@ -440,6 +441,7 @@ def resilient_train_loop(
     incarnation: int = 0,
     step_retries: int = 0,
     guard_batches: bool = False,
+    expected_batch: Optional[int] = None,
     keep_last: Optional[int] = None,
     topology: Optional[Dict] = None,
     preemption_guard: Any = None,
@@ -472,23 +474,32 @@ def resilient_train_loop(
       steps done;
     - ``loader_state_fn(epoch, batches_done)`` gives the loader-state
       record committed with each checkpoint (``(epoch + 1, 0)`` at an
-      epoch's end, the cursor on a preemption save).
+      epoch's end, the cursor on a preemption save);
+    - ``step_retries > 0`` wraps the step in
+      :class:`resilience.guards.GuardedStep` (transient-error retry and
+      non-finite-loss rejection, each attempt from a snapshot of the state,
+      and the OOM forensics report, ``buffers_fn`` sizing the state's
+      classes); ``guard_batches`` drops malformed batches
+      (:func:`resilience.guards.guarded_batches`: a leading dim other than
+      ``expected_batch``, non-finite values), the ranks agreeing on each
+      verdict;
+    - ``chaos_plan`` (a :class:`resilience.chaos.ChaosPlan`) threads its
+      faults into all of the above: the step's and the process's
+      (``ChaosStep``, every rank raising the twin of a peer's step fault),
+      the loader's (``chaos_batches``, on the host batch before it is cut
+      and copied) and the checkpoint's (``apply_checkpoint_fault`` after
+      each epoch's save), in this run's ``incarnation``.
 
     A save that the directory keeps refusing emits
     ``checkpoint_unwritable`` and exits with ``CKPT_UNWRITABLE_EXIT_CODE``.
     ``telemetry``, ``trace_dir``, ``audit``, ``run_name`` and
-    ``health_every`` reach :func:`train_loop`. ``chaos_plan``,
-    ``step_retries`` and ``guard_batches`` are not ported yet and raise.
-    Returns ``(state, logger, start_epoch)``."""
+    ``health_every`` reach :func:`train_loop`. Returns ``(state, logger,
+    start_epoch)``."""
     from ..observe import NoteEvent
     from ..resilience.guards import CKPT_UNWRITABLE_EXIT_CODE, CheckpointUnwritableError
     from ..utils.checkpoint import read_topology
     from ..utils.failure import StepWatchdog
 
-    for name, value in (("chaos_plan", chaos_plan), ("step_retries", step_retries or None),
-                        ("guard_batches", guard_batches or None)):
-        if value is not None:
-            raise NotImplementedError(f"resilient_train_loop: {name} is not ported yet")
     group = step.group
     state = init_state
     start_epoch = 0
@@ -548,6 +559,40 @@ def resilient_train_loop(
                 )
             )
 
+    if chaos_plan is not None:
+        from ..resilience.chaos import ChaosStep, chaos_batches
+
+        step = ChaosStep(
+            step, chaos_plan, rank=rank, incarnation=incarnation, telemetry=telemetry, world_size=world_size
+        )
+        batches_for_epoch = chaos_batches(
+            batches_for_epoch, chaos_plan, rank=rank, incarnation=incarnation, telemetry=telemetry
+        )
+    if step_retries > 0:
+        from ..observe.memory import tree_bytes
+        from ..resilience.guards import GuardedStep
+
+        def _buffer_classes() -> Dict[str, float]:
+            # the state's leaves never change shape, so their sizes
+            # attribute the live bytes (runs only inside the OOM report)
+            return {
+                "params": float(tree_bytes(getattr(state, "params", None))),
+                "momenta": float(tree_bytes(getattr(state, "momenta", None))),
+                "ef_memory": float(tree_bytes(getattr(state, "memories", None))),
+                "reducer_state": float(tree_bytes(getattr(state, "reducer_state", None))),
+                "model_state": float(tree_bytes(getattr(state, "model_state", None))),
+            }
+
+        step = GuardedStep(
+            step, retries=step_retries, telemetry=telemetry, label=run_name, rank=rank, buffers_fn=_buffer_classes
+        )
+    if guard_batches:
+        from ..resilience.guards import guarded_batches
+
+        batches_for_epoch = guarded_batches(
+            batches_for_epoch, expected_batch=expected_batch, telemetry=telemetry, label=run_name, group=group
+        )
+
     def _topo(cursor: Optional[Dict] = None) -> Optional[Dict]:
         if topology is None:
             return {"epoch_cursor": cursor} if cursor else None
@@ -583,6 +628,16 @@ def resilient_train_loop(
             )
         raise SystemExit(CKPT_UNWRITABLE_EXIT_CODE) from last
 
+    def _save(epoch: int, st) -> None:
+        _commit_save(st, epoch)
+        if chaos_plan is not None:
+            from ..resilience.chaos import apply_checkpoint_fault
+
+            apply_checkpoint_fault(
+                chaos_plan, checkpoint_dir, epoch, rank=rank, incarnation=incarnation, telemetry=telemetry,
+                world_size=world_size,
+            )
+
     def _on_step_end(epoch: int, steps_done: int, st) -> bool:
         # the ranks agree on the flag: a SIGTERM may have reached one of them
         if not agree(int(preemption_guard.requested), group, "max", kind="preempt-flag"):
@@ -607,7 +662,7 @@ def resilient_train_loop(
     state, logger = train_loop(
         step, state, batches_for_epoch, epochs, device, rank=rank, world_size=world_size, log_every=log_every,
         start_epoch=start_epoch, skip_steps=resume_skip, watchdog=wd, heartbeat=heartbeat,
-        on_epoch_end=lambda epoch, st: _commit_save(st, epoch),
+        on_epoch_end=_save,
         on_step_end=_on_step_end if preemption_guard is not None else None,
         telemetry=telemetry, trace_dir=trace_dir, audit=audit, run_name=run_name, health_every=health_every,
     )

@@ -15,7 +15,11 @@ the seed.
 :func:`.common.resilient_train_loop`: a committed checkpoint at every
 epoch, resume on entry, a topology record of the world, and a
 ``PreemptionGuard`` that turns a SIGTERM into an emergency checkpoint and
-an exit with ``PREEMPT_EXIT_CODE`` (75).
+an exit with ``PREEMPT_EXIT_CODE`` (75). ``config.chaos_plan`` (a
+``resilience.chaos.ChaosPlan`` JSON file, which needs ``checkpoint_dir``)
+injects its faults into that loop, with two step retries and the batch
+guard on, as in the JAX package; ``heartbeat_dir`` beats a heartbeat after
+every step for a supervisor's hang detection.
 
 ``strategy="fsdp"`` runs the same workload with parameters, gradients and
 momenta sharded over the ranks (ZeRO-3, :mod:`..parallel.fsdp`): the same
@@ -135,6 +139,7 @@ def run(
     checkpoint_dir: Optional[str] = None,
     pretrained_state_dict=None,
     keep_last: Optional[int] = None,
+    heartbeat_dir: Optional[str] = None,
 ) -> Dict:
     """Train and return the run summary. Joins the default process group
     (creating one, of ``config.num_processes`` ranks, if none exists; a
@@ -155,16 +160,21 @@ def run(
     keeps the newest K), the newest resumed on entry (the summary's
     ``start_epoch``), each checkpoint tagged with ``make_topology`` of the
     world, and under a ``PreemptionGuard``: a SIGTERM saves at the next
-    step and exits with ``SystemExit(PREEMPT_EXIT_CODE)``. The JAX
-    package's ``config.adaptive_comm`` and ``config.chaos_plan`` are not
-    ported yet and raise."""
+    step and exits with ``SystemExit(PREEMPT_EXIT_CODE)``.
+    ``config.chaos_plan`` adds the plan's faults to that loop
+    (``step_retries=2``, ``guard_batches`` against the global batch's
+    leading dimension), and without ``checkpoint_dir`` is the reference's
+    ``ValueError``. The JAX package's ``config.adaptive_comm`` is not
+    ported yet and raises."""
     config = config or default_config()
     if strategy not in STRATEGIES:
         raise ValueError(f"strategy must be one of {STRATEGIES}, got {strategy!r}")
     if strategy == "fsdp":
         check_fsdp(config, checkpoint_dir)
-    if config.adaptive_comm or config.chaos_plan:
-        raise NotImplementedError("adaptive_comm and chaos_plan are not ported yet")
+    if config.adaptive_comm:
+        raise NotImplementedError("adaptive_comm is not ported yet")
+    if config.chaos_plan and checkpoint_dir is None:
+        raise ValueError("config.chaos_plan requires checkpoint_dir or adaptive_comm")
     device = resolve_device(device)
     with process_group(config, device) as group:
         rank, world = dist.get_rank(group), dist.get_world_size(group)
@@ -182,15 +192,31 @@ def run(
         )
         try:
             if checkpoint_dir is not None:
-                from ..resilience import PREEMPT_EXIT_CODE, PreemptionGuard, incarnation_from_env, make_topology
+                from ..resilience import (
+                    PREEMPT_EXIT_CODE,
+                    ChaosPlan,
+                    PreemptionGuard,
+                    incarnation_from_env,
+                    make_topology,
+                )
+                from ..utils.failure import HeartbeatMonitor
 
+                plan = ChaosPlan.load(config.chaos_plan) if config.chaos_plan else None
                 incarnation = incarnation_from_env()
+                heartbeat = (
+                    HeartbeatMonitor(heartbeat_dir, rank, world, incarnation=incarnation)
+                    if heartbeat_dir is not None else None
+                )
                 with PreemptionGuard(
                     telemetry=telemetry, rank=rank, incarnation=incarnation, label="exact_cifar10"
                 ) as guard:
                     state, logger, extra["start_epoch"] = resilient_train_loop(
                         step, state, batches, config.training_epochs, checkpoint_dir, device,
-                        incarnation=incarnation, keep_last=keep_last,
+                        incarnation=incarnation, keep_last=keep_last, heartbeat=heartbeat,
+                        chaos_plan=plan, step_retries=2 if plan is not None else 0,
+                        guard_batches=plan is not None,
+                        # a short batch would skew the accounting (or not split over the ranks)
+                        expected_batch=config.global_batch_size if config.accum_steps == 1 else config.accum_steps,
                         # a restart at another world reshards instead of mis-resuming
                         topology=make_topology(
                             world, global_batch=config.global_batch_size, accum_steps=config.accum_steps,

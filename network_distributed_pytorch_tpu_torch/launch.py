@@ -26,13 +26,28 @@ Usage, one process per rank (torchrun sets ``RANK``, ``WORLD_SIZE``,
     torchrun --nproc-per-node 4 -m network_distributed_pytorch_tpu_torch.launch gpt_sp --preset full
     torchrun --nproc-per-node 4 -m network_distributed_pytorch_tpu_torch.launch gpt_pp --data-shards 2 --checkpoint-dir ckpt
     torchrun --nproc-per-node 4 -m network_distributed_pytorch_tpu_torch.launch gpt_moe --experts-per-device 2 --moe-top-k 2
+    python -m network_distributed_pytorch_tpu_torch.launch exact_cifar10 --preset full --checkpoint-dir ckpt --chaos-plan plan.json
+    python -m network_distributed_pytorch_tpu_torch.launch exact_cifar10 --preset full --checkpoint-dir ckpt --supervise --num-processes 4
 
 With ``--json`` the last line of standard output is the run summary as
 JSON; ``main`` returns it either way. A worker of
 ``exact_cifar10 --checkpoint-dir`` that is sent SIGTERM commits an
 emergency checkpoint at the next step and exits with code 75
 (``resilience.PREEMPT_EXIT_CODE``); run again, it resumes there. Code 44
-(``CKPT_UNWRITABLE_EXIT_CODE``) means the directory refused the save.
+(``CKPT_UNWRITABLE_EXIT_CODE``) means the directory refused the save, and
+code 43 (``resilience.CHAOS_EXIT_CODE``) is a ``proc_exit`` fault of a
+``--chaos-plan``.
+
+``--supervise`` makes this process the supervising parent
+(``resilience.supervisor.Supervisor``): it spawns ``--num-processes``
+copies of the same command, one per rank, with ``--process-id``,
+``--num-processes`` and, at a world above one, a fresh ``--coordinator``
+rendezvous of each generation rewritten, restarts a dead or hung rank from
+the newest committed checkpoint (at a world above one, the whole
+generation), and shrinks the world when a rank has spent
+``--max-restarts``. It exits 3 when the run fails. The parent creates no
+CUDA context; each worker takes ``cuda:<LOCAL_RANK>``, or
+``cuda:<process id>`` when ``LOCAL_RANK`` is not set.
 """
 
 from __future__ import annotations
@@ -95,6 +110,9 @@ _GENERATE_OK = ("gpt_generate",)
 _SERVE_OK = ("serve_gpt",)
 _DILOCO_OK = ("diloco_cifar10",)
 _CHECKPOINT_OK = ("exact_cifar10", "serve_gpt", "gpt_pp", "gpt_sp")
+# the experiments that train through resilient_train_loop: the chaos plan's
+# and the heartbeat's
+_CHAOS_OK = ("exact_cifar10",)
 # the model-parallel GPT entries' own flags, as the JAX launcher gives them
 _TP_OK, _PP_OK, _MOE_OK = ("gpt_tp",), ("gpt_pp",), ("gpt_moe",)
 # the JAX launcher's: gradient accumulation and clipping, rematerialisation
@@ -133,6 +151,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=714)
     p.add_argument("--data-dir", type=str, default=DEFAULT_DATA_DIR)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    # the rank, the world and the rendezvous; without them torchrun's RANK,
+    # WORLD_SIZE and MASTER_ADDR/MASTER_PORT (env://), or a world of one
+    p.add_argument("--process-id", type=int, default=None, help="rank of this process (default: $RANK, or 0)")
+    p.add_argument(
+        "--num-processes", type=int, default=None, help="world size in processes (default: $WORLD_SIZE, or 1)"
+    )
+    p.add_argument(
+        "--coordinator", type=str, default=None,
+        help="the process group's init method, e.g. tcp://host:port or file:///path (default: env:// in a world"
+             " above one)",
+    )
     p.add_argument(
         "--accum-steps", type=int, default=None,
         help="gradient-accumulation microbatches per step (cifar and imdb experiments)",
@@ -279,6 +308,60 @@ def build_parser() -> argparse.ArgumentParser:
              " of the newest committed training checkpoint; gpt_pp, gpt_sp: save the carry every epoch and"
              " resume the newest",
     )
+    p.add_argument(
+        "--chaos-plan", type=str, default=None,
+        help="exact_cifar10 --checkpoint-dir: a JSON fault schedule (resilience.chaos.ChaosPlan) injected into the"
+             " checkpointed loop, with two step retries and the batch guard; forwarded to workers under --supervise",
+    )
+    # --- the supervised launch (resilience.supervisor) ---------------------
+    # these configure the PARENT only and are stripped from the workers'
+    # command lines (_SUPERVISOR_FLAGS below)
+    p.add_argument(
+        "--supervise", action="store_true",
+        help="run as the supervising parent: spawn --num-processes copies of this command (one per rank), restart"
+             " crashed or hung ranks with a bounded backoff (the whole generation in a world above one), and"
+             " shrink the world when a rank is gone for good",
+    )
+    p.add_argument("--max-restarts", type=int, default=3, help="supervise: restarts per rank before it is declared dead")
+    p.add_argument(
+        "--restart-backoff", type=float, default=0.25, help="supervise: base seconds of the bounded exponential backoff"
+    )
+    p.add_argument(
+        "--heartbeat-dir", type=str, default=None,
+        help="supervise: the shared heartbeat directory for hang detection (exact_cifar10 --checkpoint-dir workers"
+             " beat it after every step)",
+    )
+    p.add_argument(
+        "--heartbeat-timeout", type=float, default=None,
+        help="supervise: seconds without a beat before a rank is killed and restarted",
+    )
+    p.add_argument(
+        "--term-grace", type=float, default=5.0,
+        help="supervise: seconds between SIGTERM and SIGKILL on every kill the supervisor makes (the window a"
+             " worker's PreemptionGuard has to commit an emergency checkpoint)",
+    )
+    p.add_argument(
+        "--min-world-size", type=int, default=1,
+        help="supervise: the smallest world a degraded restart may shrink to (the quorum planner's floor)",
+    )
+    p.add_argument(
+        "--mesh-shape", type=str, default=None,
+        help="supervise: the world's mesh shape as DATAxFSDPxTENSOR (e.g. 2x1x2; the product must equal"
+             " --num-processes); degraded restarts then go through the quorum planner, and workers read the shape"
+             " from RESILIENCE_MESH",
+    )
+    p.add_argument(
+        "--correlation-window", type=float, default=2.0,
+        help="supervise: hard deaths of >= 2 distinct ranks within this many seconds are one correlated incident"
+             " (a zone outage), replanned as a whole",
+    )
+    p.add_argument(
+        "--no-degraded", action="store_true",
+        help="supervise: declare the run dead instead of shrinking the world when a rank exhausts its restarts",
+    )
+    p.add_argument(
+        "--worker-log-dir", type=str, default=None, help="supervise: each rank's output, one file a life"
+    )
     # --- the model-parallel GPT entries -----------------------------------
     p.add_argument(
         "--model-shards", type=int, default=None,
@@ -316,12 +399,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args) -> ExperimentConfig:
-    world = int(os.environ.get("WORLD_SIZE", 1))
+    world = args.num_processes if args.num_processes is not None else int(os.environ.get("WORLD_SIZE", 1))
     cfg = EXPERIMENTS[args.experiment].default_config()
     cfg.seed = args.seed
-    cfg.process_id = int(os.environ.get("RANK", 0))
+    cfg.process_id = args.process_id if args.process_id is not None else int(os.environ.get("RANK", 0))
     cfg.num_processes = world
-    cfg.coordinator_address = "env://" if world > 1 else None
+    cfg.coordinator_address = args.coordinator if args.coordinator is not None else ("env://" if world > 1 else None)
     for attr, value in (
         ("training_epochs", args.epochs),
         ("global_batch_size", args.global_batch),
@@ -342,15 +425,142 @@ def config_from_args(args) -> ExperimentConfig:
         ("trace_dir", args.trace_dir),
         ("audit_wire", args.audit_wire),
         ("health_every", args.health_every),
+        ("chaos_plan", args.chaos_plan),
     ):
         if value is not None:
             setattr(cfg, attr, value)
     return cfg
 
 
+# supervisor-parent-only flags, stripped from the workers' command lines
+# (True: the flag takes a value), the JAX launcher's; the live plane's two
+# are not flags of this launcher, and --coordinator is rewritten for each
+# generation
+_SUPERVISOR_FLAGS = {
+    "--supervise": False,
+    "--max-restarts": True,
+    "--restart-backoff": True,
+    "--heartbeat-timeout": True,
+    "--term-grace": True,
+    "--min-world-size": True,
+    "--mesh-shape": True,
+    "--correlation-window": True,
+    "--no-degraded": False,
+    "--worker-log-dir": True,
+    "--metrics-port": True,
+    "--alert-restart-after": True,
+    # re-appended per worker with the supervisor's own numbering
+    "--process-id": True,
+    "--num-processes": True,
+    "--coordinator": True,
+}
+
+
+def parse_mesh_shape(spec: str) -> dict:
+    """``DATAxFSDPxTENSOR`` (or the two-axis shorthand ``DATAxTENSOR``)
+    into a mesh-axes dict for ``SupervisorConfig``."""
+    try:
+        degrees = [int(p) for p in spec.lower().replace("×", "x").split("x")]
+    except ValueError:
+        degrees = []
+    if len(degrees) == 2:
+        data, fsdp, tensor = degrees[0], 1, degrees[1]
+    elif len(degrees) == 3:
+        data, fsdp, tensor = degrees
+    else:
+        raise ValueError(
+            f"--mesh-shape must look like DATAxFSDPxTENSOR (e.g. 2x1x2) or DATAxTENSOR (e.g. 2x2), got {spec!r}"
+        )
+    return {"data": data, "fsdp": fsdp, "tensor": tensor}
+
+
+def worker_argv_base(argv) -> list:
+    """The launch argv with the supervisor-only flags (and any explicit
+    rank, world size or rendezvous) removed: what every worker's command
+    line starts from."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+            continue
+        flag = a.split("=", 1)[0]
+        if flag in _SUPERVISOR_FLAGS:
+            skip = _SUPERVISOR_FLAGS[flag] and "=" not in a
+            continue
+        out.append(a)
+    return out
+
+
+def _supervise(args, argv) -> dict:
+    """Run as the supervising parent: every worker is this same command
+    with ``--process-id``, ``--num-processes`` and (in a world above one)
+    the generation's ``--coordinator`` rewritten. Creates no CUDA
+    context."""
+    from .observe import telemetry_for_run
+    from .resilience.supervisor import Supervisor, SupervisorConfig
+
+    base = worker_argv_base(argv)
+    supervisor = None
+
+    def argv_for_rank(rank: int, world: int, incarnation: int) -> list:
+        out = [
+            sys.executable, "-m", "network_distributed_pytorch_tpu_torch.launch", *base,
+            "--process-id", str(rank), "--num-processes", str(world),
+        ]
+        if supervisor.coordinator is not None:
+            out += ["--coordinator", supervisor.coordinator]
+        return out
+
+    telemetry = telemetry_for_run(event_log=args.event_log)
+    with telemetry:
+        supervisor = Supervisor(
+            argv_for_rank,
+            world_size=args.num_processes if args.num_processes is not None else 1,
+            config=SupervisorConfig(
+                max_restarts=args.max_restarts,
+                backoff_base_s=args.restart_backoff,
+                heartbeat_dir=args.heartbeat_dir,
+                heartbeat_timeout_s=args.heartbeat_timeout,
+                term_grace_s=args.term_grace,
+                allow_degraded=not args.no_degraded,
+                min_world_size=args.min_world_size,
+                seed=args.seed,
+                mesh_axes=parse_mesh_shape(args.mesh_shape) if args.mesh_shape else None,
+                correlation_window_s=args.correlation_window,
+            ),
+            telemetry=telemetry,
+            log_dir=args.worker_log_dir,
+        )
+        result = supervisor.run()
+    summary = {
+        "supervised": True,
+        "experiment": args.experiment,
+        "success": result.success,
+        "world_size": result.world_size,
+        "total_restarts": result.total_restarts,
+        "degraded": result.degraded,
+        "reason": result.reason,
+        "final_mesh": result.final_mesh,
+        "exit_codes": {str(k): v for k, v in result.exit_codes.items()},
+        # each restart's (death seen, respawned) on the parent's monotonic clock
+        "restart_times": supervisor.restart_times,
+    }
+    if args.json:
+        sys.stdout.write(json.dumps(summary) + "\n")
+    if not result.success:
+        raise SystemExit(3)
+    return summary
+
+
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    if args.mesh_shape and not args.supervise:
+        raise ValueError("--mesh-shape requires --supervise")
+    if args.chaos_plan is not None and args.experiment not in _CHAOS_OK:
+        raise ValueError(f"--chaos-plan is not supported by {args.experiment!r} (supported: {', '.join(_CHAOS_OK)})")
+    if args.supervise:
+        return _supervise(args, argv if argv is not None else sys.argv[1:])
     cfg = config_from_args(args)
     exp = args.experiment
     # refuse a flag the experiment does not take before any rendezvous
@@ -374,6 +584,7 @@ def main(argv=None) -> dict:
             )
         ),
         ("--checkpoint-dir", args.checkpoint_dir, _CHECKPOINT_OK),
+        ("--heartbeat-dir", args.heartbeat_dir, _CHAOS_OK),
         ("--no-prefix-sharing", args.no_prefix_sharing or None, _SERVE_OK),
         ("--model-shards", args.model_shards, _TP_OK),
         ("--tp-reducer", args.tp_reducer, _TP_OK),
@@ -396,7 +607,9 @@ def main(argv=None) -> dict:
             raise ValueError(f"{flag} is not supported by {exp!r} (supported: {', '.join(ok)})")
     device = args.device
     if device == "cuda":
-        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        # a supervised worker has no LOCAL_RANK: one host, a card a rank
+        local = os.environ.get("LOCAL_RANK", args.process_id if args.process_id is not None else 0)
+        device = f"cuda:{int(local)}"
     kwargs = {"device": device}
     if exp == "gpt_generate":
         kwargs.update(
@@ -439,7 +652,7 @@ def main(argv=None) -> dict:
     if exp == "powersgd_imdb":
         kwargs.update(remat=args.remat)
     if exp == "exact_cifar10":
-        kwargs.update(strategy=args.strategy, checkpoint_dir=args.checkpoint_dir)
+        kwargs.update(strategy=args.strategy, checkpoint_dir=args.checkpoint_dir, heartbeat_dir=args.heartbeat_dir)
     if exp == "diloco_cifar10":
         for name, value in (
             ("sync_every", args.sync_every), ("fragments", args.fragments), ("reducer", args.diloco_reducer),

@@ -1,17 +1,54 @@
-"""The parts of the JAX package's ``resilience/`` that the port has: which
-life of a supervised worker is running (:mod:`.supervisor`), the recovery
-guards of the checkpointed training loop (:mod:`.guards`: the
-``PreemptionGuard``, the typed errors and the exit codes) and the
-data-axis resharding of a checkpoint at another world size
-(:mod:`.reshard`). The supervisor itself, the chaos plan, ``GuardedStep``
-and the controller are not ported yet (ROADMAP.md §A item 4)."""
+"""The parts of the JAX package's ``resilience/`` that the port has:
 
+- :mod:`.chaos`: the seeded fault schedule (``ChaosPlan``) and its
+  injectors into the step, the loader and the checkpoint;
+- :mod:`.guards`: the recovery guards of the checkpointed training loop
+  (``GuardedStep``, ``guarded_batches``, ``PreemptionGuard``), the typed
+  errors and the exit codes;
+- :mod:`.supervisor`: the supervising parent (spawn, watch, restart,
+  degrade) and the worker side of its environment contract;
+- :mod:`.reshard`: the data-axis resharding of a checkpoint at another
+  world size.
+
+The collective watchdog, the deadline guard, the comm fault injector, the
+fallback controller, the partition policy and the outer-sync driver go with
+the adaptive loop (ROADMAP.md §A item 5); the fleet scheduler and the
+serving autoscaler after it. Nothing here imports torch at import time
+(the supervising parent imports this package).
+"""
+
+from .chaos import (  # noqa: F401
+    CHAOS_EXIT_CODE,
+    CHECKPOINT_FAULTS,
+    COMM_FAULTS,
+    CORRELATED_FAULTS,
+    FAULT_KINDS,
+    HEALTH_FAULTS,
+    INJECTION_SITES,
+    LOADER_FAULTS,
+    MEMORY_FAULTS,
+    PROCESS_FAULTS,
+    STEP_FAULTS,
+    ChaosOutOfMemoryError,
+    ChaosPlan,
+    ChaosStep,
+    ChaosTransientError,
+    FaultSpec,
+    apply_checkpoint_fault,
+    chaos_batches,
+    check_fault_registry,
+)
 from .guards import (  # noqa: F401
     CKPT_UNWRITABLE_EXIT_CODE,
     PREEMPT_EXIT_CODE,
     CheckpointUnwritableError,
+    GuardedStep,
     NonFiniteLossError,
+    OutOfMemoryError,
     PreemptionGuard,
+    StateSnapshot,
+    guarded_batches,
+    is_oom_error,
 )
 from .reshard import (  # noqa: F401
     MESH_AXES,
@@ -32,4 +69,17 @@ from .reshard import (  # noqa: F401
     widen_model_state,
     widen_template,
 )
-from .supervisor import ENV_INCARNATION, incarnation_from_env  # noqa: F401
+from .supervisor import (  # noqa: F401
+    ENV_DEVICE_RANKS,
+    ENV_INCARNATION,
+    ENV_MESH,
+    ENV_RANK,
+    ENV_WORLD,
+    Supervisor,
+    SupervisorConfig,
+    SupervisorResult,
+    device_ranks_from_env,
+    incarnation_from_env,
+    mesh_from_env,
+    plan_mesh,
+)

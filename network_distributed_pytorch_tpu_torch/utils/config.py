@@ -76,8 +76,9 @@ class ExperimentConfig:
     trace_dir: Optional[str] = None
     audit_wire: Optional[bool] = None
     health_every: int = 0
-    # resilience and planning: not ported yet
+    # a resilience.chaos.ChaosPlan JSON file (exact_cifar10 --checkpoint-dir)
     chaos_plan: Optional[str] = None
+    # the adaptive loop and the planner: not ported yet
     adaptive_comm: bool = False
     comm_fabric: str = "ICI(v5e)"
     plan_path: Optional[str] = None
@@ -110,4 +111,4 @@ class ExperimentConfig:
                 raise NotImplementedError(f"ExperimentConfig.{name} is not ported yet")
 
 
-_NOT_PORTED = ("chaos_plan", "adaptive_comm", "comm_fabric", "plan_path")
+_NOT_PORTED = ("adaptive_comm", "comm_fabric", "plan_path")

@@ -7,6 +7,9 @@
   reports and decides (e.g. ``os._exit`` for a supervisor restart).
   ``compile_grace`` leaves the first watched regions unwatched: the first
   step pays the kernels' build and the allocator's warm-up.
+- :func:`retry_transient` retries a call that raised a transient error,
+  with a capped exponential backoff and a seeded jitter; every attempt is a
+  ``FailureEvent(kind="retry")``.
 - :class:`HeartbeatMonitor` is liveness over a shared filesystem: each
   process beats its own file, any process lists the peers whose beat has
   gone stale.
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import json
 import os
+import random
 import sys
 import threading
 import time
@@ -119,6 +123,51 @@ class StepWatchdog:
 
     def watch(self, label: str = "step") -> "_Watch":
         return self._Watch(self, label)
+
+
+def retry_transient(
+    fn: Callable,
+    retries: int = 3,
+    backoff_seconds: float = 1.0,
+    exceptions=(RuntimeError,),
+    on_retry: Optional[Callable[[int, BaseException], None]] = None,
+    max_backoff_seconds: Optional[float] = None,
+    jitter: float = 0.0,
+    telemetry=None,
+    label: str = "",
+    rng: Optional[random.Random] = None,
+):
+    """Call ``fn()``; on one of ``exceptions`` retry up to ``retries``
+    times, sleeping ``backoff_seconds * 2 ** (attempt - 1)`` (capped at
+    ``max_backoff_seconds``) times ``1 + jitter * u`` with ``u`` uniform
+    in [0, 1) from ``rng`` (the ``random`` module when None), so ranks
+    retrying the same fault do not stampede in lockstep. Re-raises the last
+    error when the retries are spent. Every failed attempt is emitted as a
+    ``FailureEvent(kind="retry")`` through ``telemetry`` (the banner-only
+    default registry when None)."""
+    from ..observe import FailureEvent, default_telemetry
+
+    emit_to = telemetry if telemetry is not None else default_telemetry()
+    rng = rng if rng is not None else random
+    attempt = 0
+    while True:
+        try:
+            return fn()
+        except exceptions as e:  # noqa: PERF203
+            attempt += 1
+            emit_to.emit(
+                FailureEvent(kind="retry", label=label, message=f"attempt {attempt}/{retries}: {type(e).__name__}: {e}")
+            )
+            if attempt > retries:
+                raise
+            if on_retry is not None:
+                on_retry(attempt, e)
+            delay = backoff_seconds * (2 ** (attempt - 1))
+            if max_backoff_seconds is not None:
+                delay = min(delay, max_backoff_seconds)
+            if jitter > 0:
+                delay *= 1.0 + jitter * rng.random()
+            time.sleep(delay)
 
 
 class HeartbeatMonitor:

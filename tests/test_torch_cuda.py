@@ -30,8 +30,12 @@ one-rank MoE block, each against the same module on the CPU (K5's plain
 versions), the FSDP step of a SmallCNN over a one-rank NCCL group bit
 for bit the DDP step (monolithic and chunked), a remat step of the tiny
 GPT and DistilBERT (K5's forward twice a layer) and a ``scan_layers`` GPT
-bit for bit the plain ones, K1 at GPT-2 small's stacked shape groups, and
-the small ResNet-18 in bf16 on the fused pipeline against the xla one.
+bit for bit the plain ones, K1 at GPT-2 small's stacked shape groups,
+the small ResNet-18 in bf16 on the fused pipeline against the xla one, and
+the guarded step on the card: ``is_oom_error`` and ``GuardedStep`` on a
+real ``torch.cuda.OutOfMemoryError`` (the report written, the state as it
+was), and the snapshot's restore bit for bit after a step that wrote
+everything.
 
 This file imports torch and the port, never jax, so it also runs on a
 machine that has the card and no JAX (``--noconftest`` skips the JAX
@@ -1547,3 +1551,85 @@ def test_the_trace_holds_the_kernels_and_the_step_ranges(cuda_device, tmp_path):
     names = {k["name"] for k in kernels_from_chrome_trace(str(tmp_path / "trace.json"))}
     assert any("gram_schmidt" in n for n in names)
     assert len(sink.of_kind("memory")) == 2 and len(sink.of_kind("train_health")) == 2
+
+
+def _small_resnet_on(device):
+    from network_distributed_pytorch_tpu_torch.models.resnet import resnet18
+    from network_distributed_pytorch_tpu_torch.parallel.reducers import PowerSGDReducer
+
+    model = resnet18(num_classes=10, norm="batch", stem="cifar", width=8, device=device, seed=3)
+    step = make_train_step(
+        image_classifier_loss(), PowerSGDReducer(random_seed=7, compression_rank=2, matricize="last"), model, 0.05,
+        0.9, "ef_momentum", None,
+    )
+    return step, step.init_state()
+
+
+def _guard_batch(device, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(16, 8, 8, 3, generator=g).to(device), torch.randint(0, 10, (16,), generator=g).to(device)
+
+
+def _state_tensors(state):
+    out = {"q": state.reducer_state.q_memory.clone()}
+    for field in ("params", "momenta", "memories", "model_state"):
+        out.update({f"{field}.{k}": v.detach().clone() for k, v in getattr(state, field).items()})
+    return out
+
+
+@pytest.mark.cuda
+def test_guarded_step_on_a_real_cuda_oom_writes_the_report_and_keeps_the_state(cuda_device, tmp_path):
+    from network_distributed_pytorch_tpu_torch.resilience import GuardedStep, OutOfMemoryError, is_oom_error
+
+    step, state = _small_resnet_on(cuda_device)
+    state, _ = step(state, _guard_batch(cuda_device, 0))
+    before = _state_tensors(state)
+    calls = []
+
+    def oversized(st, batch):
+        calls.append(1)
+        out = step(st, batch)  # the update lands, then the allocation fails
+        torch.empty(1 << 46, dtype=torch.uint8, device=cuda_device)  # 64 TiB: more than any card
+        return out
+
+    with pytest.raises(torch.cuda.OutOfMemoryError) as real:
+        oversized(state, _guard_batch(cuda_device, 1))
+    assert is_oom_error(real.value)
+    # the bare call moved the state; start again from the saved one
+    for k, v in before.items():
+        field, _, name = k.partition(".")
+        if field != "q":
+            getattr(state, field)[name].data.copy_(v)
+    state.reducer_state.q_memory.copy_(before["q"])
+    calls.clear()
+    path = str(tmp_path / "oom_report.json")
+    guarded = GuardedStep(oversized, retries=2, backoff_seconds=0.0, oom_report_path=path,
+                          buffers_fn=lambda: {"params": 1.0, "ef_memory": 2.0})
+    with pytest.raises(OutOfMemoryError):
+        guarded(state, _guard_batch(cuda_device, 1))
+    assert calls == [1]  # never retried
+    import json as _json
+
+    report = _json.load(open(path))
+    assert report["kind"] == "oom" and "out of memory" in report["error"].lower()
+    after = _state_tensors(state)
+    assert [k for k in before if not torch.equal(after[k], before[k])] == []
+
+
+@pytest.mark.cuda
+def test_snapshot_restore_is_bit_for_bit_on_the_card(cuda_device):
+    from network_distributed_pytorch_tpu_torch.resilience import StateSnapshot
+
+    step, state = _small_resnet_on(cuda_device)
+    state, _ = step(state, _guard_batch(cuda_device, 0))
+    before = _state_tensors(state)
+    rng = torch.cuda.get_rng_state()
+    snap = StateSnapshot()
+    snap.take(state)
+    state, _ = step(state, _guard_batch(cuda_device, 1))
+    torch.rand(7, device=cuda_device)
+    assert any(not torch.equal(v, before[k]) for k, v in _state_tensors(state).items())
+    snap.restore(state)
+    after = _state_tensors(state)
+    assert [k for k in before if not torch.equal(after[k], before[k])] == []
+    assert torch.equal(torch.cuda.get_rng_state(), rng)

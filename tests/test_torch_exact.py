@@ -326,8 +326,9 @@ def test_run_refuses_what_is_not_ported():
     cfg.adaptive_comm = True  # set after construction, past the config's own check
     with pytest.raises(NotImplementedError, match="adaptive_comm"):
         exact_cifar10.run(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ExperimentConfig(chaos_plan="plan.json")
+    # the chaos plan is ported, and needs the checkpointed loop, as in the JAX package
+    with pytest.raises(ValueError, match="chaos_plan requires checkpoint_dir"):
+        exact_cifar10.run(ExperimentConfig(chaos_plan="plan.json"), device="cpu")
 
 
 def test_launcher_runs_exact_cifar10_with_buckets_and_chunks(capsys):

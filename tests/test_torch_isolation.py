@@ -45,6 +45,8 @@ def port_files():
     yield os.path.join(REPO, "tests", "torch_worker.py")
     yield os.path.join(REPO, "tests", "torch_model_parallel_worker.py")
     yield os.path.join(REPO, "tests", "test_torch_cuda.py")
+    # the supervisor tests' toy worker, which imports neither torch nor jax
+    yield os.path.join(REPO, "tests", "torch_toy_supervised_worker.py")
 
 
 def violations(path):
@@ -109,7 +111,8 @@ def test_port_imports_and_trains_with_jax_blocked():
         mods = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
         for m in mods:
             importlib.import_module(m)
-        for m in ("ops.paged", "observe.events", "observe.memory", "resilience.supervisor", "serving.blocks",
+        for m in ("ops.paged", "observe.events", "observe.memory", "resilience.supervisor", "resilience.chaos",
+                  "resilience.guards", "data.partition", "serving.blocks",
                   "serving.cache", "serving.engine", "serving.frontend", "serving.request", "experiments.serve_gpt"):
             assert {PORT!r} + "." + m in mods, m
         import torch
@@ -133,3 +136,30 @@ def test_port_imports_and_trains_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     n_modules = int(proc.stdout.split()[-1])
     assert n_modules >= 20, proc.stdout
+
+
+def test_parent_modules_import_with_torch_blocked():
+    """The supervising parent holds no card: ``resilience/supervisor.py``,
+    ``resilience/chaos.py`` (and the package around them) and the toy test
+    worker import with torch blocked too."""
+    script = textwrap.dedent(
+        f"""
+        import importlib, sys
+        class Blocker:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".", 1)[0] in ("torch",) + {BANNED_ROOTS!r} or name.startswith({JAX_PACKAGE!r}):
+                    if not name.startswith({PORT!r}):
+                        raise ImportError("blocked: " + name)
+                return None
+        sys.meta_path.insert(0, Blocker())
+        for m in ("resilience", "resilience.supervisor", "resilience.chaos", "resilience.guards"):
+            importlib.import_module({PORT!r} + "." + m)
+        sys.path.insert(0, "tests")
+        import torch_toy_supervised_worker
+        assert "torch" not in sys.modules
+        print("OK")
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0 and proc.stdout.strip() == "OK", proc.stderr[-3000:]

@@ -217,10 +217,22 @@ def test_heartbeat_monitor_lists_stale_peers(tmp_path):
 
 
 def test_loop_refuses_what_is_not_ported(tmp_path):
-    _, step, state = resnet_resume_setup(None)
-    for kw in ({"chaos_plan": "p.json"}, {"step_retries": 2}, {"guard_batches": True}):
-        with pytest.raises(NotImplementedError):
-            resilient_train_loop(step, state, resume_batches, 1, str(tmp_path), torch.device("cpu"), **kw)
+    """``chaos_plan``, ``step_retries`` and ``guard_batches`` are ported
+    (``test_torch_chaos.py``) and run; what stays unported around the loop,
+    the adaptive loop and the supervisor's live plane, refuses."""
+    from network_distributed_pytorch_tpu_torch.resilience import ChaosPlan, SupervisorConfig
+    from network_distributed_pytorch_tpu_torch.utils.config import ExperimentConfig
+
+    for i, kw in enumerate(({"chaos_plan": ChaosPlan()}, {"step_retries": 2}, {"guard_batches": True})):
+        _, step, state = resnet_resume_setup(None)
+        _, logger, _ = resilient_train_loop(
+            step, state, resume_batches, 1, str(tmp_path / str(i)), torch.device("cpu"), **kw
+        )
+        assert len(logger.records) == RESUME_STEPS
+    with pytest.raises(NotImplementedError, match="adaptive_comm"):
+        ExperimentConfig(adaptive_comm=True)
+    with pytest.raises(NotImplementedError, match="observe.live"):
+        SupervisorConfig(metrics_port=0)
 
 
 def test_loop_takes_the_trace_the_audit_and_the_probe(tmp_path):

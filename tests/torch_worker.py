@@ -57,7 +57,13 @@ from network_distributed_pytorch_tpu_torch.parallel.reducers import (
     PowerSGDState,
 )
 from network_distributed_pytorch_tpu_torch.parallel.trainer import make_train_step
-from network_distributed_pytorch_tpu_torch.resilience import PreemptionGuard, make_topology, reshard_from_checkpoint
+from network_distributed_pytorch_tpu_torch.resilience import (
+    ChaosPlan,
+    FaultSpec,
+    PreemptionGuard,
+    make_topology,
+    reshard_from_checkpoint,
+)
 from network_distributed_pytorch_tpu_torch.resilience.reshard import mesh_coord, split_tp_leaf
 from network_distributed_pytorch_tpu_torch.utils.checkpoint import (
     TopologyMismatchError,
@@ -790,6 +796,45 @@ def resume_rank(rank, world, group, root):
     with PreemptionGuard() as guard, record_collectives() as records:
         _resume_loop(setup, os.path.join(root, "flag"), preemption_guard=guard)
     out["flag_records"], out["bits_per_step"] = plain_records(records), setup[1].bits_per_step
+    return out
+
+
+# ---- the chaos plan at world 2 --------------------------------------------------
+
+CHAOS_EPOCHS, CHAOS_STEPS, CHAOS_BATCH = 2, 3, 16
+
+
+def chaos_batches_np(epoch, steps=CHAOS_STEPS, batch=CHAOS_BATCH, hw=RESUME_HW):
+    """The chaos matrix's global batches: ``resume_batches`` of three steps."""
+    return resume_batches(epoch, steps=steps, batch=batch, hw=hw)
+
+
+def chaos_world_rank(rank, world, group, root):
+    """``resilient_train_loop`` of the small ResNet-18 under four plans: none
+    (``clean``), two step faults on rank 1 (``step_one``), a bad batch and
+    a transient on rank 1 with the batch guard (``one``), and the same
+    faults on every rank (``every``)."""
+    out = {}
+    plans = {
+        "clean": ([], {}),
+        "step_one": ([FaultSpec(kind="step_transient", step=1, rank=1), FaultSpec(kind="step_nan", step=3, rank=1)], {}),
+        "one": ([FaultSpec(kind="loader_bad_batch", step=2, rank=1), FaultSpec(kind="step_transient", step=1, rank=1)],
+                {"guard_batches": True, "expected_batch": CHAOS_BATCH}),
+        "every": ([FaultSpec(kind="loader_bad_batch", step=2), FaultSpec(kind="step_transient", step=1)],
+                  {"guard_batches": True, "expected_batch": CHAOS_BATCH}),
+    }
+    for name, (faults, kw) in plans.items():
+        _, step, state = resnet_resume_setup(group)
+        events = Events()
+        with record_collectives() as records:
+            state, logger, _ = resilient_train_loop(
+                step, state, chaos_batches_np, CHAOS_EPOCHS, os.path.join(root, name), torch.device("cpu"),
+                rank=rank, world_size=world, telemetry=events, chaos_plan=ChaosPlan(faults, seed=3) if faults else None,
+                step_retries=2, **kw,
+            )
+        kinds = [k for k, _ in events.seen]
+        out[name], out[f"{name}_kinds"], out[f"{name}_steps"] = snapshot(state), kinds, len(logger.records)
+        out[f"{name}_records"], out[f"{name}_dropped"] = plain_records(records), kinds.count("bad_batch_dropped")
     return out
 
 
