@@ -383,6 +383,27 @@ CHAOS_K1_STEPS = 4 + 4 + 2 + 4 + 0 + 2 * (4 + 2) + 2 * CHAOS_TURNS
 # before step 4 in the first life and proc_preempt before its step 1 in
 # the second (the emergency checkpoint after epoch 1's second step)
 SUPERVISED_EPOCHS, SUPERVISED_STEPS = 2, 3
+# the adaptive phases (adaptive_phases). main_path_adaptive: exact_cifar10
+# --adaptive-comm at preset full (ResNet-50, batch 256, world 1) for 2
+# epochs of ADAPTIVE_STEPS steps, a plan document ranking "compress" next to
+# the baseline for NVLink4(H100), and a comm_stall of ADAPTIVE_STALL_S at
+# step 2 (20 times the 0.05 s deadline floor): the deadline expires, the
+# step is retried, epoch 0's verdict descends to "compress" (PowerSGD rank
+# 4: K1 once a shape group a step of epoch 1). Then the carry run: 2 epochs
+# of 3 steps, a scripted descent after epoch 0 (K1 in epoch 1), and the
+# timed turns of the baseline rung's step: plain, with a no-op hook (the
+# fence syncs), and guarded (the watchdog and CommDeadlineGuard(GuardedStep))
+ADAPTIVE_STEPS, ADAPTIVE_STALL_S, ADAPTIVE_CARRY_STEPS, ADAPTIVE_TURNS = 4, 1.0, 3, 11
+ADAPTIVE_LADDER = ["baseline", "compress", "compress-low-rank"]
+# main_path_hierarchical: make_hierarchical_train_fn on ResNet-152 (batch
+# 256) over a 1 x 1 grid, PowerSGD rank 4 across the outer group, sync_every
+# HIER_H; for outer_async False and True: sync, sync, local, sync (K1 once a
+# shape group a sync round), each round against the same round with K1's
+# plain version from a copy of the state it started from. Reported beside it,
+# unchecked: the K1 trajectory against the plain one over all the rounds,
+# and the plain one against itself from parameters moved 1 ulp (the drift
+# that training alone makes of a rounding-sized difference)
+HIER_H, HIER_PLAN = 4, ("sync", "sync", "local", "sync")
 # the supervised workers' deterministic algorithms, as chaos_guarded's
 # deterministic_algorithms() sets them in process; any sitecustomize the
 # interpreter had is run after it
@@ -2973,6 +2994,437 @@ def chaos_phases(dev, drive, images, labels, n_groups, smi, preset="full"):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def adaptive_phases(dev, drive, images, labels, smi, preset="full"):
+    """``main_path_adaptive`` and ``main_path_hierarchical``: the adaptive
+    communication path and the two-level round on one card (see the
+    constants above); their files under a temporary directory removed at
+    the end. ``preset="small"`` rehearses both on the CPU (the small
+    ResNet-18, batch 16, and ResNet-18 for the round)."""
+    import torch
+
+    from network_distributed_pytorch_tpu_torch.experiments import exact_cifar10, powersgd_cifar10
+    from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches, adaptive_train_loop
+    from network_distributed_pytorch_tpu_torch.experiments.common import image_classifier_loss
+    from network_distributed_pytorch_tpu_torch.ops import gram_schmidt as gs
+    from network_distributed_pytorch_tpu_torch.ops.orthogonalize import orthogonalize
+    from network_distributed_pytorch_tpu_torch.parallel import comm
+    from network_distributed_pytorch_tpu_torch.parallel.hierarchical import (
+        make_hierarchical_groups,
+        make_hierarchical_train_fn,
+    )
+    from network_distributed_pytorch_tpu_torch.parallel.mesh import (
+        DistributedConfig,
+        initialize_distributed,
+        shutdown_distributed,
+    )
+    from network_distributed_pytorch_tpu_torch.parallel.reducers import PowerSGDReducer
+    from network_distributed_pytorch_tpu_torch.resilience import (
+        ChaosPlan,
+        CollectiveWatchdog,
+        CommDeadlineGuard,
+        FallbackController,
+        FaultSpec,
+        GuardedStep,
+        StateSnapshot,
+        ladder_from_plan,
+    )
+
+    on_cuda = dev.type == "cuda"
+
+    def sync():
+        if on_cuda:
+            torch.cuda.synchronize()
+
+    def exact_state(state):
+        """Params, momenta, EF memories and BN buffers, cloned (the exact
+        reducer keeps no Q)."""
+        return {f"{field}.{k}": v.detach().clone() for field in ("params", "momenta", "memories", "model_state")
+                for k, v in getattr(state, field).items()}
+
+    def kernel_names(fn):
+        """The CUDA kernels ``fn()`` launches, by name and count (None on
+        the CPU)."""
+        if not on_cuda:
+            fn()
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        counts = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                counts[e.name] = counts.get(e.name, 0) + 1
+        return counts
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_adaptive_")
+    cfg = exact_cifar10.default_config()
+    cfg.training_epochs = 2
+    cfg.log_every = 0
+    if preset == "small":
+        cfg.global_batch_size = 16
+    cfg.adaptive_comm = True
+    cfg.comm_fabric = "NVLink4(H100)"
+    cfg.plan_path = os.path.join(root, "plan_doc.json")
+    with open(cfg.plan_path, "w") as f:
+        json.dump({"ladder": {cfg.comm_fabric: ADAPTIVE_LADDER}}, f)
+    cfg.chaos_plan = os.path.join(root, "chaos.json")
+    ChaosPlan([FaultSpec(kind="comm_stall", step=2, payload={"stall_seconds": ADAPTIVE_STALL_S})]).save(cfg.chaos_plan)
+    cfg.event_log = os.path.join(root, "events.jsonl")
+    # the compress rung's shape groups: PowerSGD rank 4 over ResNet-50
+    model = exact_cifar10.build_model(preset, dev, seed=cfg.seed)
+    compress = PowerSGDReducer(random_seed=cfg.seed, compression_rank=cfg.reducer_rank)
+    metas = compress._metas(list(model.parameters()))
+    r50_shapes = [(len(p), metas[p[0]].n, metas[p[0]].r) for p in compress._shape_groups(metas)]
+    del model
+    n_groups = len(r50_shapes)
+    try:
+        # ---- main_path_adaptive ---------------------------------------------------
+        t_phase = time.perf_counter()
+
+        def main_path_adaptive():
+            out = {}
+            summary = exact_cifar10.run(cfg, preset=preset, device=dev, max_steps_per_epoch=ADAPTIVE_STEPS)
+            with open(cfg.event_log) as f:
+                events = [json.loads(line) for line in f]
+            out["summary"] = {k: summary[k] for k in ("final_rung", "policy_decisions", "bits_per_step", "steps")}
+            out["losses"] = summary["losses"]
+            out["failures"] = [(e["kind"], e.get("label"), e.get("step")) for e in events if e.get("event") == "failure"]
+            out["policy"] = [
+                {k: e[k] for k in ("action", "trigger", "epoch", "rung_before", "rung_after",
+                                   "predicted_bytes_per_step", "realized_bytes_per_step")}
+                for e in events if e.get("event") == "policy"
+            ]
+            out["audits"] = [
+                {k: e[k] for k in ("analytic_bytes", "hlo_bytes", "exact", "hlo_collective_count", "comm_config")}
+                for e in events if e.get("event") == "compile"
+            ]
+            out["step_ms"] = [e["step_time_s"] * 1e3 for e in events if e.get("event") == "step"]
+            # the carry: a scripted descent after epoch 0, the parameters
+            # before it held against those after it
+            group = initialize_distributed(DistributedConfig(), dev)
+            try:
+                model = exact_cifar10.build_model(preset, dev, seed=cfg.seed)
+                factory = exact_cifar10.adaptive_step_factory(cfg, model, group)
+                ladder = ladder_from_plan({"ladder": {cfg.comm_fabric: ADAPTIVE_LADDER}}, cfg.comm_fabric)
+                built = []  # every state a step's init_state gave the loop, in order
+
+                def keeping(overrides):
+                    step = factory(overrides)
+                    init = step.init_state
+
+                    def init_state():
+                        built.append(init())
+                        return built[-1]
+
+                    step.init_state = init_state
+                    return step
+
+                seen, carried = {}, {}
+
+                class Scripted(FallbackController):
+                    """Descends after epoch 0; checks the carry where the
+                    loop reports the rebuild, before the new rung's first
+                    step: the state it began with against the old one's
+                    values at the verdict."""
+
+                    def observe(self, health):
+                        if health.epoch != 0:
+                            return None
+                        seen.update({f: {k: v.detach().clone() for k, v in getattr(built[-1], f).items()}
+                                     for f in ("params", "momenta")})
+                        return self._move(+1, "scripted", health.epoch)
+
+                    def record(self, decision, **kw):
+                        old, new = built[-2], built[-1]
+                        carried.update(
+                            rung=decision.rung_after,
+                            params_bitwise=all(torch.equal(new.params[k], v) for k, v in seen["params"].items()),
+                            momenta_bitwise=all(torch.equal(new.momenta[k], v) for k, v in seen["momenta"].items()),
+                            params_same_tensors=all(new.params[k] is old.params[k] for k in old.params),
+                            momenta_same_tensors=all(new.momenta[k] is old.momenta[k] for k in old.momenta),
+                            memories_zero=all(not bool(m.any()) for m in new.memories.values()),
+                        )
+                        return super().record(decision, **kw)
+
+                batches = accumulated_batches([images, labels], cfg, max_steps_per_epoch=ADAPTIVE_CARRY_STEPS)
+                controller = Scripted(ladder=ladder)
+                adaptive_train_loop(keeping, batches, 2, controller, dev, fabric=cfg.comm_fabric)
+                out["carry"] = carried
+                # the baseline rung's step: no hook, a no-op hook (the fence's
+                # syncs) and the guard, in turns, each turn from the same state
+                step = factory({})
+                state = step.init_state()
+                batch = tuple(torch.from_numpy(a).to(dev) for a in next(iter(batches(0))))
+                watchdog = CollectiveWatchdog(n_workers=1, fabric=cfg.comm_fabric, label="timed")
+                guarded = CommDeadlineGuard(GuardedStep(step, retries=2), watchdog, group=group)
+
+                def noop(info):
+                    pass
+
+                def run_plain():
+                    return step(state, batch)
+
+                def run_hooked():
+                    comm.add_fence_hook(noop)
+                    try:
+                        return step(state, batch)
+                    finally:
+                        comm.remove_fence_hook(noop)
+
+                def run_guarded():
+                    comm.add_fence_hook(watchdog)
+                    try:
+                        return guarded(state, batch)
+                    finally:
+                        comm.remove_fence_hook(watchdog)
+
+                # hook-free against hooked from the same state (a snapshot):
+                # the same kernels and the same bits; only the hooked one waits
+                snap = StateSnapshot()
+                snap.take(state)
+                with deterministic_algorithms():
+                    syncs = comm.fence_syncs()
+                    plain_kernels = kernel_names(run_plain)
+                    plain_syncs = comm.fence_syncs() - syncs
+                    after_plain = exact_state(state)
+                    snap.restore(state)
+                    syncs = comm.fence_syncs()
+                    hooked_kernels = kernel_names(run_hooked)
+                    hooked_syncs = comm.fence_syncs() - syncs
+                    after_hooked = exact_state(state)
+                del snap
+                out["hook_free_vs_hooked"] = {
+                    "state_differs_at": bitwise_equal(after_hooked, after_plain),
+                    "kernels_equal": plain_kernels == hooked_kernels,
+                    "kernel_launches": sum((plain_kernels or {}).values()),
+                    "fence_syncs": [plain_syncs, hooked_syncs],
+                }
+                times = {"plain": [], "hooked": [], "guarded": []}
+                for turn in range(ADAPTIVE_TURNS):
+                    for name, fn in (("plain", run_plain), ("hooked", run_hooked), ("guarded", run_guarded)):
+                        sync()
+                        t0 = time.perf_counter()
+                        _, loss = fn()
+                        float(loss)
+                        sync()
+                        if turn:  # the first turn warms the snapshot's buffers
+                            times[name].append((time.perf_counter() - t0) * 1e3)
+                watchdog.stop()
+                p50 = {k: statistics.median(v) for k, v in times.items()}
+                out["step_ms_p50"] = p50
+                out["step_ms"] = times
+                out["retire_sync_ms_per_step"] = p50["hooked"] - p50["plain"]
+                out["guard_extra_ms_per_step"] = p50["guarded"] - p50["plain"]
+                del state, step, guarded, model
+            finally:
+                shutdown_distributed()
+            return out
+
+        k1_adaptive = (ADAPTIVE_STEPS + ADAPTIVE_CARRY_STEPS) * n_groups
+        result, peak = drive("main_path_adaptive", main_path_adaptive, {"gram_schmidt": k1_adaptive})
+        # K1 at ResNet-50's compress groups against its plain version (these
+        # launches are outside the path's count)
+        gen = torch.Generator().manual_seed(5)
+        xs = [torch.randn(shape, generator=gen).to(dev) for shape in r50_shapes]
+        errs = [float((gs.gram_schmidt(x) - orthogonalize(x)).abs().max()) for x in xs]
+        result["k1_resnet50"] = {"groups": len(xs), "tolerance": GS_TOL, "max_abs_err": max(errs)}
+        if on_cuda:
+            result["k1_resnet50"].update(
+                ms=cuda_ms(lambda: [gs.gram_schmidt(x) for x in xs]),
+                plain_ms=cuda_ms(lambda: [orthogonalize(x) for x in xs], reps=5),
+            )
+            result["k1_resnet50"]["bound_ms"], result["k1_resnet50"]["bound_by"] = gs_bound(r50_shapes)
+        del xs
+        kinds = [k for k, _, _ in result["failures"]]
+        policy = result["policy"]
+        if not policy or (policy[0]["rung_before"], policy[0]["rung_after"], policy[0]["epoch"]) != (
+                "baseline", "compress", 0) or result["summary"]["final_rung"] not in ("compress", "compress-low-rank"):
+            fail(f"main_path_adaptive: no descent to compress after epoch 0: {policy} {result['summary']}")
+        if not {"chaos_injected", "comm_deadline", "comm_step_retry"} <= set(kinds):
+            fail(f"main_path_adaptive: the stall did not expire and retry: {result['failures']}")
+        audits = result["audits"]
+        if len(audits) != 1 + len(policy) or not all(a["exact"] for a in audits) \
+                or audits[0]["analytic_bytes"] != policy[0]["realized_bytes_per_step"] \
+                or audits[1]["analytic_bytes"] != policy[0]["predicted_bytes_per_step"]:
+            fail(f"main_path_adaptive: a rung's recorded bits differ from its bits_per_step: {audits} {policy}")
+        if not all(math.isfinite(v) for v in result["losses"]) or len(result["losses"]) != 2 * ADAPTIVE_STEPS:
+            fail(f"main_path_adaptive losses {result['losses']}")
+        carry = result["carry"]
+        if carry.get("rung") != "compress" or not all(carry[k] for k in (
+                "params_bitwise", "momenta_bitwise", "params_same_tensors", "momenta_same_tensors",
+                "memories_zero")):
+            fail(f"main_path_adaptive: the switch did not carry the state: {carry}")
+        hv = result["hook_free_vs_hooked"]
+        if hv["state_differs_at"] or not hv["kernels_equal"] or hv["fence_syncs"][0] != 0 \
+                or (on_cuda and hv["fence_syncs"][1] != 2):
+            fail(f"main_path_adaptive: the hook-free step differs from the hooked one: {hv}")
+        if result["k1_resnet50"]["max_abs_err"] > GS_TOL:
+            fail(f"main_path_adaptive: K1 at ResNet-50's groups: {result['k1_resnet50']}")
+        emit({
+            "phase": "main_path_adaptive", "preset": preset, "global_batch": cfg.global_batch_size,
+            "epochs": cfg.training_epochs, "steps_per_epoch": ADAPTIVE_STEPS, "ladder": ADAPTIVE_LADDER,
+            "stall_s": ADAPTIVE_STALL_S, **result,
+            "final_rung": result["summary"]["final_rung"], "policy_decisions": result["summary"]["policy_decisions"],
+            "bitwise": "the carry: params and momenta after the switch equal those at the verdict (and are the same"
+                       " tensors); the baseline rung's step with no hook equals it with a no-op hook (every tensor of"
+                       " the state), with the same CUDA kernels",
+            "launches": {"gram_schmidt": k1_adaptive}, "peak_memory_bytes": peak, "nvidia_smi": smi,
+            "wall_s": time.perf_counter() - t_phase,
+        })
+
+        # ---- main_path_hierarchical ------------------------------------------------
+        t_phase = time.perf_counter()
+        hcfg = powersgd_cifar10.default_config()
+        # 16 steps of the 4,096 synthetic images (the flagship's 512 gives 8)
+        hcfg.global_batch_size = 16 if preset == "small" else 256
+        hbatches = list(accumulated_batches([images, labels], hcfg, max_steps_per_epoch=HIER_H * len(HIER_PLAN))(0))
+        rounds = [
+            [tuple(torch.from_numpy(a).to(dev) for a in b) for b in hbatches[i * HIER_H:(i + 1) * HIER_H]]
+            for i in range(len(HIER_PLAN))
+        ]
+
+        def hier_fn(impl, outer_async, group, groups):
+            model = powersgd_cifar10.build_model(preset, dev, seed=hcfg.seed)
+            reducer = PowerSGDReducer(random_seed=hcfg.seed, compression_rank=hcfg.reducer_rank, orthogonalize_impl=impl)
+            kw = dict(outer_learning_rate=0.5, outer_momentum=0.5, outer_nesterov=False) if outer_async else {}
+            return make_hierarchical_train_fn(
+                image_classifier_loss(), model, inner_learning_rate=0.05, sync_every=HIER_H, outer_reducer=reducer,
+                groups=groups, group=group, outer_async=outer_async, **kw,
+            )
+
+        @torch.no_grad()
+        def copy_state(dst, src):
+            """Every tensor of a round's carry, and the reducer's Q and generator."""
+            for field in ("params", "anchors", "outer_momenta", "inner_opt", "memories", "inflight", "model_state"):
+                for k, v in getattr(src, field).items():
+                    getattr(dst, field)[k].copy_(v)
+            dst.reducer_state.q_memory.copy_(src.reducer_state.q_memory)
+            dst.reducer_state.generator.set_state(src.reducer_state.generator.get_state())
+
+        def state_diff(a, b):
+            """The largest difference over every tensor a round writes (under
+            outer_async the round's outer update lands in inflight, not yet in
+            the parameters) and Q, with where it is."""
+            diffs = [
+                (float((getattr(a, f)[k] - getattr(b, f)[k]).abs().max()), f"{f}.{k}")
+                for f in ("params", "anchors", "outer_momenta", "memories", "inflight") for k in a.params
+            ]
+            diffs.append((float((a.reducer_state.q_memory - b.reducer_state.q_memory).abs().max()), "q_memory"))
+            return max(diffs)
+
+        def hier_runs(outer_async, group, groups):
+            """The rounds with K1, each also run with K1's plain version from
+            a copy of the state it started from: what each round writes held
+            against the plain round's. Beside it, the trajectories: K1's
+            against the plain version's over all the rounds, and the plain
+            version's against itself from parameters (and anchors) moved 1
+            ulp up."""
+            fn, twin = hier_fn("auto", outer_async, group, groups), hier_fn("eager", outer_async, group, groups)
+            state, twin_state = fn.init_state(), twin.init_state()
+            plain, nudged = hier_fn("eager", outer_async, group, groups), hier_fn("eager", outer_async, group, groups)
+            plain_state, nudged_state = plain.init_state(), nudged.init_state()
+            copy_state(plain_state, state)
+            copy_state(nudged_state, state)
+            with torch.no_grad():
+                for f in ("params", "anchors"):
+                    for v in getattr(nudged_state, f).values():
+                        v.copy_(torch.nextafter(v, torch.full_like(v, math.inf)))
+            losses, plain_losses, recorded, by_level, round_ms, diffs = [], [], [], [], [], []
+            k1_vs_plain, plain_vs_nudged = [], []
+            k1 = 0
+            for kind, batches in zip(HIER_PLAN, rounds):
+                copy_state(twin_state, state)
+                levels = {"inner": 0, "outer": 0}
+
+                def by_tag(info, levels=levels):
+                    if info["phase"] == "retire":
+                        levels[info["tag"].split(".", 1)[0]] += info["payload_bytes"]
+
+                comm.add_fence_hook(by_tag)
+                sync()
+                before = gs.KERNEL.launches
+                t0 = time.perf_counter()
+                try:
+                    with comm.record_collectives() as records:
+                        state, round_losses = fn(state, batches, local=kind == "local")
+                    losses.append(round_losses.tolist())
+                finally:
+                    comm.remove_fence_hook(by_tag)
+                sync()
+                round_ms.append((time.perf_counter() - t0) * 1e3)
+                k1 += gs.KERNEL.launches - before
+                recorded.append(8 * sum(r.payload_bytes for r in records))
+                by_level.append({k: 8 * v for k, v in levels.items()})
+                twin_state, twin_losses = twin(twin_state, batches, local=kind == "local")
+                plain_losses.append(twin_losses.tolist())
+                diffs.append(state_diff(state, twin_state))
+                plain_state, _ = plain(plain_state, batches, local=kind == "local")
+                nudged_state, _ = nudged(nudged_state, batches, local=kind == "local")
+                k1_vs_plain.append(state_diff(state, plain_state))
+                plain_vs_nudged.append(state_diff(plain_state, nudged_state))
+            bits = {
+                "round": fn.bits_per_round, "local": fn.local_bits_per_round, "inner": fn.inner_bits_per_round,
+                "outer": fn.outer_bits_per_round, "ledger_total": fn.ledger.total_bits(),
+            }
+            worst = max(diffs)
+            return {
+                "kernel": {"losses": losses, "recorded_bits": recorded, "hooked_bits": by_level, "round_ms": round_ms,
+                           "bits": bits},
+                "plain_losses": plain_losses, "k1_launches": k1,
+                "max_state_diff_by_round": [d[0] for d in diffs],
+                "max_state_diff": worst[0], "max_state_diff_at": worst[1],
+                "trajectory_unchecked": {
+                    "k1_vs_plain_by_round": [d[0] for d in k1_vs_plain], "k1_vs_plain_at": k1_vs_plain[-1][1],
+                    "plain_vs_plain_1ulp_by_round": [d[0] for d in plain_vs_nudged],
+                    "plain_vs_plain_1ulp_at": plain_vs_nudged[-1][1],
+                },
+            }
+
+        def main_path_hierarchical():
+            out = {}
+            group = initialize_distributed(DistributedConfig(), dev)
+            try:
+                groups = make_hierarchical_groups(1, group)
+                with deterministic_algorithms():
+                    for outer_async in (False, True):
+                        out["async" if outer_async else "sync"] = hier_runs(outer_async, group, groups)
+            finally:
+                shutdown_distributed()
+            return out
+
+        hmodel = powersgd_cifar10.build_model(preset, dev, seed=hcfg.seed)
+        hred = PowerSGDReducer(random_seed=hcfg.seed, compression_rank=hcfg.reducer_rank)
+        hmetas = hred._metas(list(hmodel.parameters()))
+        h_groups = len(hred._shape_groups(hmetas))
+        del hmodel
+        syncs = sum(1 for k in HIER_PLAN if k == "sync")
+        k1_hier = 2 * syncs * h_groups
+        result, peak = drive("main_path_hierarchical", main_path_hierarchical, {"gram_schmidt": k1_hier})
+        for name in ("sync", "async"):
+            r = result[name]
+            bits = r["kernel"]["bits"]
+            want_recorded = [bits["local"] if k == "local" else bits["round"] for k in HIER_PLAN]
+            want_hooked = [
+                {"inner": bits["local"] - HIER_H * 32, "outer": 0} if k == "local"
+                else {"inner": bits["inner"] - HIER_H * 32, "outer": bits["outer"]} for k in HIER_PLAN
+            ]
+            if (on_cuda and r["k1_launches"] != syncs * h_groups) or not math.isfinite(r["max_state_diff"]) \
+                    or r["max_state_diff"] > PARAM_TOL or bits["ledger_total"] != bits["round"] \
+                    or r["kernel"]["recorded_bits"] != want_recorded or r["kernel"]["hooked_bits"] != want_hooked:
+                fail(f"main_path_hierarchical {name}: {r}")
+        emit({
+            "phase": "main_path_hierarchical", "preset": preset, "global_batch": hcfg.global_batch_size,
+            "grid": "1 x 1", "sync_every": HIER_H, "rounds": list(HIER_PLAN), "outer_reducer_rank": hcfg.reducer_rank,
+            "shape_groups": h_groups, **result, "tolerance": PARAM_TOL,
+            "launches": {"gram_schmidt": k1_hier}, "peak_memory_bytes": peak, "nvidia_smi": smi,
+            "wall_s": time.perf_counter() - t_phase,
+        })
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     import torch
 
@@ -3807,6 +4259,11 @@ def main() -> None:
     # supervising launcher restarting exact_cifar10 at preset full
     chaos_phases(dev, drive, images, labels, len(group_shapes), smi)
 
+    # adaptive communication: exact_cifar10 --adaptive-comm at preset full
+    # under a stall (K1 once it descends to compress) and the two-level round
+    # on ResNet-152 (K1 in its PowerSGD outer reduction)
+    adaptive_phases(dev, drive, images, labels, smi)
+
     # ---- 4. two steps against two steps ---------------------------------------
     # with deterministic cuDNN and no TF32, so that only what is compared differs
     torch.backends.cudnn.deterministic = True
@@ -4087,6 +4544,8 @@ def main() -> None:
         "resnet152_telemetry_xla": telemetry_paths["xla"],
         # chaos_phases: the guarded runs, the real NaN's three attempts and the timed turns
         "resnet152_chaos_guarded": "chaos_guarded",
+        # adaptive_phases: ResNet-50's compress rung and ResNet-152's hierarchical outer reduction
+        "resnet50_adaptive": "main_path_adaptive", "resnet152_hierarchical": "main_path_hierarchical",
     }
     kernels = [{
         "name": "gram_schmidt",

@@ -1,6 +1,7 @@
 """Shared experiment machinery: the reducers' keyword arguments, batches,
-the loss, the epoch/step loop and its checkpointed form
-(:func:`resilient_train_loop`), the model-parallel experiments' loop over a
+the loss, the epoch/step loop, its checkpointed form
+(:func:`resilient_train_loop`) and its degraded-fabric form
+(:func:`adaptive_train_loop`), the model-parallel experiments' loop over a
 hand-written step (:func:`carry_loop`), evaluation and the run summary."""
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from ..data.loader import iterate_batches
 from ..observe.events import FailureEvent, TrainHealthEvent
 from ..observe.fidelity import FidelityTracker
 from ..observe.ledger import audit_recorded_step
-from ..observe.memory import MemorySampler
+from ..observe.memory import MemorySampler, tree_bytes
 from ..observe.spans import recording, span
 from ..parallel.comm import CollectiveRecord, agree, record_collectives, world_size
 from ..parallel.localsgd import mean_model_state
@@ -161,6 +162,113 @@ def image_classifier_loss():
     return loss_fn
 
 
+class _Probes:
+    """The memory and health probes of a training loop, every
+    ``health_every`` completed steps (with a ``telemetry``): a
+    ``MemoryEvent`` from the card, then the step's health probe
+    (``step.health_fn``) on the step's own batch, a ``TrainHealthEvent``
+    and a ``FidelityEvent`` a fidelity group. An error in the probe is a
+    ``FailureEvent(kind="health_probe_error")``."""
+
+    def __init__(self, telemetry, health_every: int, run_name: str, rank: int, device: torch.device):
+        self.telemetry, self.every, self.run_name, self.rank = telemetry, health_every, run_name, rank
+        self.on = health_every > 0 and telemetry is not None
+        self.memory_sampler = MemorySampler(telemetry, label=run_name, rank=rank, device=device) if self.on else None
+        self.fidelity_tracker = None
+
+    def after_step(self, n: int, epoch: int, step, state, batch) -> None:
+        """Probe after the ``n``-th completed step, if it is due."""
+        if not self.on or n % self.every:
+            return
+        if self.memory_sampler.enabled:
+            with span("memory_probe", step=n):
+                self.memory_sampler.sample(n)
+        health_fn = getattr(step, "health_fn", None)
+        if health_fn is None:
+            return
+        with span("health_probe", step=n):
+            try:
+                stats = health_fn(state, batch)
+                self.telemetry.emit(
+                    TrainHealthEvent(
+                        step=n, epoch=epoch, grad_norm=stats["grad_norm"], ef_memory_norm=stats["ef_memory_norm"],
+                        powersgd_rel_error=stats["powersgd_rel_error"], loss=stats["loss"], rank=self.rank,
+                        label=self.run_name,
+                    )
+                )
+                fid = stats.get("fidelity")
+                if fid:
+                    if self.fidelity_tracker is None:
+                        reducer = getattr(step, "reducer", None)
+                        tags = (
+                            reducer.fidelity_group_tags(list(state.params.values()))
+                            if hasattr(reducer, "fidelity_group_tags") else {}
+                        )
+                        self.fidelity_tracker = FidelityTracker(tags, rank=self.rank, label=self.run_name)
+                    for ev in self.fidelity_tracker.events(n, fid, epoch=epoch):
+                        self.telemetry.emit(ev)
+            except Exception as e:  # advisory, never fatal
+                self.telemetry.emit(
+                    FailureEvent(kind="health_probe_error", label=self.run_name, message=f"{type(e).__name__}: {e}")
+                )
+
+
+def buffer_classes(state) -> Dict[str, float]:
+    """The bytes of each class of a training state's tensors, for the OOM
+    report (``GuardedStep(buffers_fn=...)``): the leaves never change shape,
+    so their sizes attribute the live bytes."""
+    return {
+        "params": float(tree_bytes(getattr(state, "params", None))),
+        "momenta": float(tree_bytes(getattr(state, "momenta", None))),
+        "ef_memory": float(tree_bytes(getattr(state, "memories", None))),
+        "reducer_state": float(tree_bytes(getattr(state, "reducer_state", None))),
+        "model_state": float(tree_bytes(getattr(state, "model_state", None))),
+    }
+
+
+def _device_batch(batch, rank: int, world_size: int, accum_steps: int, device: torch.device):
+    """This rank's slice of a global batch (:func:`local_shard`), on ``device``."""
+    batch = local_shard(batch, rank, world_size, accum_steps)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in batch)
+
+
+def _run_step(call, state, batch, n: int, run_name: str, on_cuda: bool, record: bool, watch=None):
+    """Step ``n`` of a training loop, ``call(state, batch)``, inside
+    ``watch`` (a ``StepWatchdog``'s context, or None), the profiler range
+    ``"{run_name}#{n}"`` and the span ``step``, which holds
+    ``step/compute`` (the call, between two CUDA events on the card, under
+    ``record_collectives`` when ``record``) and ``step/loss_sync`` (the
+    loss as a host float). Returns ``(state, loss, device_ms, records)``:
+    ``device_ms`` None off the card, ``records`` None unless ``record``."""
+    recorder = record_collectives() if record else contextlib.nullcontext()
+    with watch or contextlib.nullcontext(), step_annotation(run_name, n), span("step", step=n):
+        with span("step/compute", step=n), recorder as records:
+            if on_cuda:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+            state, loss = call(state, batch)
+            if on_cuda:
+                end.record()
+        with span("step/loss_sync", step=n):
+            # waits for the step; a chaos step_nan reports a host float
+            loss = float(loss)
+    return state, loss, start.elapsed_time(end) if on_cuda else None, records
+
+
+def _audit_step(step, records, run_name: str, telemetry, device: torch.device) -> None:
+    """Reconcile ``step``'s wire ledger against the collectives it issued
+    (``observe.ledger.audit_recorded_step``). Advisory: an error in it is a
+    ``FailureEvent(kind="audit_error")`` and the run goes on."""
+    try:
+        audit_recorded_step(
+            step, records, label=run_name, telemetry=telemetry,
+            device_kind=torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        )
+    except Exception as e:  # the audit is advisory, never fatal
+        if telemetry is not None:
+            telemetry.emit(FailureEvent(kind="audit_error", label=run_name, message=f"{type(e).__name__}: {e}"))
+
+
 def train_loop(
     step: TrainStep,
     state: TrainState,
@@ -221,10 +329,7 @@ def train_loop(
     epoch."""
     logger = MetricsLogger(bits_per_step=step.bits_per_step, log_every=log_every, telemetry=telemetry)
     on_cuda = device.type == "cuda"
-    probing = health_every > 0 and telemetry is not None
-    memory_sampler = MemorySampler(telemetry, label=run_name, rank=rank, device=device) if probing else None
-    health_fn = getattr(step, "health_fn", None) if probing else None
-    fidelity_tracker = None
+    probes = _Probes(telemetry, health_every, run_name, rank, device)
     audit_pending = audit
     trace_ctx = trace(trace_dir) if trace_dir else contextlib.nullcontext()
     with trace_ctx, recording(telemetry):
@@ -237,71 +342,20 @@ def train_loop(
                 with span("data_load", step=logger._step):
                     batch = next(batches, None)
                     if batch is not None:
-                        batch = local_shard(batch, rank, world_size, step.accum_steps)
-                        batch = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in batch)
+                        batch = _device_batch(batch, rank, world_size, step.accum_steps, device)
                 if batch is None:
                     break
                 logger.start_step()
-                watch = watchdog.watch(f"epoch {epoch}") if watchdog is not None else contextlib.nullcontext()
-                recorder = record_collectives() if audit_pending else contextlib.nullcontext()
-                with watch, step_annotation(run_name, logger._step), span("step", step=logger._step):
-                    with span("step/compute", step=logger._step), recorder as records:
-                        if on_cuda:
-                            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                            start.record()
-                        state, loss = step(state, batch)
-                        if on_cuda:
-                            end.record()
-                    with span("step/loss_sync", step=logger._step):
-                        # waits for the step; a chaos step_nan reports a host float
-                        loss = float(loss)
+                watch = watchdog.watch(f"epoch {epoch}") if watchdog is not None else None
+                state, loss, device_ms, records = _run_step(
+                    step, state, batch, logger._step, run_name, on_cuda, audit_pending, watch
+                )
                 if audit_pending:
                     audit_pending = False
-                    try:
-                        audit_recorded_step(
-                            step, records, label=run_name, telemetry=telemetry,
-                            device_kind=torch.cuda.get_device_name(device) if on_cuda else "cpu",
-                        )
-                    except Exception as e:  # the audit is advisory, never fatal
-                        if telemetry is not None:
-                            telemetry.emit(
-                                FailureEvent(kind="audit_error", label=run_name, message=f"{type(e).__name__}: {e}")
-                            )
-                logger.end_step(epoch, loss, start.elapsed_time(end) if on_cuda else None)
+                    _audit_step(step, records, run_name, telemetry, device)
+                logger.end_step(epoch, loss, device_ms)
                 steps_done += 1
-                if probing and logger._step % health_every == 0:
-                    if memory_sampler.enabled:
-                        with span("memory_probe", step=logger._step):
-                            memory_sampler.sample(logger._step)
-                    if health_fn is not None:
-                        with span("health_probe", step=logger._step):
-                            try:
-                                stats = health_fn(state, batch)
-                                telemetry.emit(
-                                    TrainHealthEvent(
-                                        step=logger._step, epoch=epoch, grad_norm=stats["grad_norm"],
-                                        ef_memory_norm=stats["ef_memory_norm"],
-                                        powersgd_rel_error=stats["powersgd_rel_error"], loss=stats["loss"],
-                                        rank=rank, label=run_name,
-                                    )
-                                )
-                                fid = stats.get("fidelity")
-                                if fid:
-                                    if fidelity_tracker is None:
-                                        reducer = getattr(step, "reducer", None)
-                                        tags = (
-                                            reducer.fidelity_group_tags(list(state.params.values()))
-                                            if hasattr(reducer, "fidelity_group_tags") else {}
-                                        )
-                                        fidelity_tracker = FidelityTracker(tags, rank=rank, label=run_name)
-                                    for ev in fidelity_tracker.events(logger._step, fid, epoch=epoch):
-                                        telemetry.emit(ev)
-                            except Exception as e:  # advisory, never fatal
-                                telemetry.emit(
-                                    FailureEvent(
-                                        kind="health_probe_error", label=run_name, message=f"{type(e).__name__}: {e}"
-                                    )
-                                )
+                probes.after_step(logger._step, epoch, step, state, batch)
                 if heartbeat is not None:
                     heartbeat.beat(epoch=epoch)
                 if on_step_end is not None and on_step_end(epoch, steps_done, state):
@@ -569,22 +623,11 @@ def resilient_train_loop(
             batches_for_epoch, chaos_plan, rank=rank, incarnation=incarnation, telemetry=telemetry
         )
     if step_retries > 0:
-        from ..observe.memory import tree_bytes
         from ..resilience.guards import GuardedStep
 
-        def _buffer_classes() -> Dict[str, float]:
-            # the state's leaves never change shape, so their sizes
-            # attribute the live bytes (runs only inside the OOM report)
-            return {
-                "params": float(tree_bytes(getattr(state, "params", None))),
-                "momenta": float(tree_bytes(getattr(state, "momenta", None))),
-                "ef_memory": float(tree_bytes(getattr(state, "memories", None))),
-                "reducer_state": float(tree_bytes(getattr(state, "reducer_state", None))),
-                "model_state": float(tree_bytes(getattr(state, "model_state", None))),
-            }
-
         step = GuardedStep(
-            step, retries=step_retries, telemetry=telemetry, label=run_name, rank=rank, buffers_fn=_buffer_classes
+            step, retries=step_retries, telemetry=telemetry, label=run_name, rank=rank,
+            buffers_fn=lambda: buffer_classes(state),
         )
     if guard_batches:
         from ..resilience.guards import guarded_batches
@@ -667,6 +710,189 @@ def resilient_train_loop(
         telemetry=telemetry, trace_dir=trace_dir, audit=audit, run_name=run_name, health_every=health_every,
     )
     return state, logger, start_epoch
+
+
+def adaptive_train_loop(
+    step_factory: Callable[[Dict[str, Any]], TrainStep],
+    batches_for_epoch: Callable[[int], Iterator[Any]],
+    epochs: int,
+    controller: Any,
+    device: torch.device,
+    injector: Any = None,
+    telemetry: Any = None,
+    rank: int = 0,
+    world_size: int = 1,
+    log_every: int = 0,
+    run_name: str = "train",
+    fabric: str = "NVLink4(H100)",
+    deadline_slack: float = 4.0,
+    deadline_floor_s: float = 0.05,
+    escalate_after: int = 3,
+    step_retries: int = 2,
+    stragglers_for_epoch: Optional[Callable[[int], int]] = None,
+    health_every: int = 0,
+    alert_feed: Any = None,
+    trace_dir: Optional[str] = None,
+    audit: bool = False,
+) -> Tuple[TrainState, MetricsLogger, Any]:
+    """The degraded-fabric loop, the JAX package's function of the same
+    name (its ``common.py:569``): :func:`train_loop`'s epochs and steps
+    over a step that is rebuilt at each move of the
+    :class:`resilience.controller.FallbackController`.
+
+    ``step_factory(overrides)`` builds the training step of one ladder rung
+    (``reducer``, ``reducer_rank``, ``comm_chunks``, ``comm_strategy``,
+    ``sync_every``) over the same model, whose parameters are the state.
+    Around every step: a :class:`resilience.guards.CollectiveWatchdog`
+    fence hook arms a deadline at each chunk (registered FIRST, so that it
+    is armed when an injected stall sleeps), the optional
+    :class:`resilience.chaos.CommFaultInjector` is advanced on the host and
+    registered second, and the step runs as
+    ``CommDeadlineGuard(GuardedStep(step))``: a transient error retries
+    inside, an expired deadline retries once from the state the step began
+    with, then marks the step degraded, and ``escalate_after`` degraded
+    steps in a row raise :class:`resilience.guards.CommEscalationError`.
+
+    At each epoch's end the loop builds an ``EpochHealth`` (the host p50 of
+    the step times, the first two steps after each build left out; the
+    bytes a step over that p50; the watchdog's expiries and degraded
+    steps; ``stragglers_for_epoch(epoch)``) and hands it to
+    ``controller.observe``. Over more than one rank each number is first
+    agreed (the max; the p50 in microseconds), so every rank makes the
+    same decision and the next collectives match. A decision rebuilds the
+    step once: the parameters and momenta carry over exactly (the same
+    tensors), the BatchNorm buffers are averaged over the ranks
+    (:func:`average_model_state`), the EF memories restart at 0, and
+    ``controller.record`` gets the new rung's bytes a step (predicted) and
+    the old one's (realised).
+
+    ``health_every`` runs the memory and health probes and ``trace_dir``
+    the ``torch.profiler`` trace as :func:`train_loop` does; ``audit``
+    audits the first step of each rung that ran once (its collectives
+    against its ledger, the deadline guard's agreements left out).
+    ``alert_feed`` (the JAX package's live plane) is
+    not ported and raises ``NotImplementedError``.
+
+    Returns ``(state, logger, controller)``."""
+    import statistics
+
+    from ..resilience.controller import EpochHealth
+    from ..resilience.guards import CollectiveWatchdog, CommDeadlineGuard, GuardedStep
+    from ..parallel import comm
+
+    if alert_feed is not None:
+        raise NotImplementedError("alert_feed needs observe.live, which is not ported yet")
+    base = step_factory(controller.overrides)
+    state = base.init_state()
+    group = base.group
+    watchdog = CollectiveWatchdog(
+        n_workers=comm.world_size(group), fabric=fabric, slack=deadline_slack, floor_s=deadline_floor_s,
+        escalate_after=escalate_after, telemetry=telemetry, rank=rank, label=run_name,
+    )
+    on_cuda = device.type == "cuda"
+    probes = _Probes(telemetry, health_every, run_name, rank, device)
+
+    def _guard(inner: TrainStep):
+        return CommDeadlineGuard(
+            GuardedStep(
+                inner, retries=step_retries, telemetry=telemetry, label=run_name, rank=rank,
+                memory_sampler=probes.memory_sampler, buffers_fn=lambda: buffer_classes(state),
+            ),
+            watchdog, telemetry=telemetry, label=run_name, rank=rank, group=group,
+        )
+
+    def _agreed(value: int) -> int:
+        if comm.world_size(group) == 1:
+            return int(value)
+        return agree(int(value), group, "max", kind="epoch-health")
+
+    guard = _guard(base)
+    logger = MetricsLogger(bits_per_step=base.bits_per_step, log_every=log_every, telemetry=telemetry)
+    # the first steps after every build pay the kernels' builds and the
+    # allocator's warm-up, which would poison the p50 the controller
+    # compares against: left out of the step times (still logged)
+    compile_grace = 2
+    audit_pending = audit
+
+    def _rebuild(decision) -> None:
+        # ONE rebuild a decision, the state carried across the switch
+        nonlocal base, state, guard, compile_grace, audit_pending
+        probes.fidelity_tracker = None  # new reducer, new fidelity groups
+        realized = base.bits_per_step / 8
+        average_model_state(base.model, group)
+        new_base = step_factory(controller.overrides)
+        new_state = new_base.init_state()
+        new_state.momenta = state.momenta
+        base, state = new_base, new_state
+        guard = _guard(base)
+        logger.bits_per_step = base.bits_per_step
+        compile_grace = 2
+        audit_pending = audit
+        controller.record(decision, predicted_bytes_per_step=base.bits_per_step / 8, realized_bytes_per_step=realized)
+
+    # a NCCL group sets its communicator up at its first collective: done
+    # here, or the first step's deadline window would hold it
+    if group is not None:
+        agree(0, group, "max", kind="warm-up")
+    # the watchdog BEFORE the injector: arm the deadline, then let the fault sleep
+    comm.add_fence_hook(watchdog)
+    if injector is not None:
+        comm.add_fence_hook(injector)
+    gstep = 0
+    try:
+        with trace(trace_dir) if trace_dir else contextlib.nullcontext(), recording(telemetry):
+            for epoch in range(epochs):
+                step_times: List[float] = []
+                for batch in batches_for_epoch(epoch):
+                    with span("data_load", step=gstep):
+                        batch = _device_batch(batch, rank, world_size, base.accum_steps, device)
+                    if injector is not None:
+                        injector.advance(gstep)
+                    logger.start_step()
+                    t0 = time.monotonic()
+                    state, loss, device_ms, records = _run_step(
+                        guard, state, batch, gstep, run_name, on_cuda, audit_pending
+                    )
+                    if compile_grace > 0:
+                        compile_grace -= 1
+                    else:
+                        step_times.append(time.monotonic() - t0)
+                    # a retried step issued its collectives twice: the audit
+                    # waits for a step of one attempt
+                    if audit_pending and guard.last_attempts == 1:
+                        audit_pending = False
+                        issued = [r for r in records if r.kind != "comm-deadline-flag"]
+                        _audit_step(base, issued, run_name, telemetry, device)
+                    logger.end_step(epoch, loss, device_ms)
+                    gstep += 1
+                    probes.after_step(gstep, epoch, base, state, batch)
+                logger.end_epoch(epoch, rank=rank)
+                if not step_times:
+                    continue
+                # the ranks agree on every number of the verdict (the max), or
+                # two of them could pick different rungs
+                p50 = statistics.median(step_times)
+                if comm.world_size(group) > 1:
+                    p50 = _agreed(round(p50 * 1e6)) / 1e6
+                counters = watchdog.take_epoch()
+                bytes_per_step = base.bits_per_step / 8
+                health = EpochHealth(
+                    epoch=epoch,
+                    step_p50_s=p50,
+                    achieved_bytes_per_s=bytes_per_step / p50 if p50 > 0 else 0.0,
+                    deadline_expiries=_agreed(counters["deadline_expiries"]),
+                    degraded_steps=_agreed(counters["degraded_steps"]),
+                    stragglers=_agreed(stragglers_for_epoch(epoch) if stragglers_for_epoch is not None else 0),
+                )
+                decision = controller.observe(health)
+                if decision is not None:
+                    _rebuild(decision)
+    finally:
+        if injector is not None:
+            comm.remove_fence_hook(injector)
+        comm.remove_fence_hook(watchdog)
+        watchdog.stop()
+    return state, logger, controller
 
 
 @torch.no_grad()

@@ -26,6 +26,13 @@ momenta sharded over the ranks (ZeRO-3, :mod:`..parallel.fsdp`): the same
 exact data-parallel SGD, each rank's model and optimizer memory about
 ``1 / world`` of DDP's.
 
+``config.adaptive_comm`` trains through :func:`.common.adaptive_train_loop`
+instead: a deadline watchdog around every chunk collective and the
+``FallbackController`` walking the reducer fallback ladder at epoch
+boundaries (``config.plan_path`` reorders the ladder for
+``config.comm_fabric``; ``config.chaos_plan`` then drives the comm faults
+in process, with no checkpoint directory).
+
 Every path emits through the registry of ``telemetry_from_config``
 (``event_log``), with ``trace_dir``, ``audit_wire`` and ``health_every``
 as :func:`.common.train_loop` takes them (the FSDP step has no health
@@ -45,12 +52,13 @@ from ..observe.telemetry import audit_from_config, telemetry_from_config
 from ..parallel.comm import recorded_bits
 from ..parallel.fsdp import make_fsdp_train_step
 from ..parallel.mesh import resolve_device
-from ..parallel.reducers import ExactReducer
+from ..parallel.reducers import ExactReducer, PowerSGDReducer
 from ..parallel.trainer import make_train_step
 from ..utils.config import ExperimentConfig
 from .common import (
     RecordedStep,
     accumulated_batches,
+    adaptive_train_loop,
     collective_audit,
     evaluate_image_classifier,
     evaluate_on_test_split,
@@ -128,6 +136,57 @@ def build(config: ExperimentConfig, preset: str, device, group, pretrained_state
     return model, step, step.init_state()
 
 
+def adaptive_step_factory(config: ExperimentConfig, model, group):
+    """``build(overrides)``: the training step of one fallback-ladder rung
+    over ``model`` (the JAX package's ``_build_step``): PowerSGD for
+    ``reducer == "powersgd"`` and the exact reducer otherwise (the
+    hierarchical rungs included, whose ``sync_every`` this synchronous
+    entry ignores, as the JAX package's does), always under
+    ``ef_momentum``, so that the momenta carry over a switch of reducer."""
+
+    def build(overrides: Dict) -> object:
+        comm = {
+            "comm_chunks": overrides.get("comm_chunks", config.comm_chunks),
+            "comm_strategy": overrides.get("comm_strategy", config.comm_strategy),
+        }
+        if overrides.get("reducer") == "powersgd":
+            reducer = PowerSGDReducer(
+                random_seed=config.seed, compression_rank=overrides.get("reducer_rank", config.reducer_rank),
+                reuse_query=config.reuse_query, compress_impl=config.compress_impl,
+                orthogonalize_impl=config.orthogonalize_impl, **comm,
+            )
+        else:
+            reducer = ExactReducer(bucket_bytes=overrides.get("bucket_bytes", config.bucket_bytes), **comm)
+        return make_train_step(
+            image_classifier_loss(), reducer, model, learning_rate=config.learning_rate, momentum=config.momentum,
+            algorithm="ef_momentum", group=group, accum_steps=config.accum_steps,
+            max_grad_norm=config.max_grad_norm,
+        )
+
+    return build
+
+
+def adaptive_controller(config: ExperimentConfig, telemetry=None, rank: int = 0):
+    """The ``FallbackController`` of an adaptive run: the default ladder,
+    or with ``config.plan_path`` the plan's ranking for
+    ``config.comm_fabric`` first (``ladder_from_plan``; a plan that cannot
+    be read leaves the default ladder)."""
+    import json
+
+    from ..resilience import FallbackController, ladder_from_plan
+
+    ladder = None
+    if config.plan_path:
+        try:
+            with open(config.plan_path, "r", encoding="utf-8") as fh:
+                plan_doc = json.load(fh)
+        except (OSError, ValueError):
+            plan_doc = None
+        if plan_doc is not None:
+            ladder = ladder_from_plan(plan_doc, config.comm_fabric)
+    return FallbackController(ladder=ladder, telemetry=telemetry, rank=rank)
+
+
 def run(
     config: Optional[ExperimentConfig] = None,
     preset: str = "small",
@@ -163,18 +222,27 @@ def run(
     step and exits with ``SystemExit(PREEMPT_EXIT_CODE)``.
     ``config.chaos_plan`` adds the plan's faults to that loop
     (``step_retries=2``, ``guard_batches`` against the global batch's
-    leading dimension), and without ``checkpoint_dir`` is the reference's
-    ``ValueError``. The JAX package's ``config.adaptive_comm`` is not
-    ported yet and raises."""
+    leading dimension).
+
+    ``config.adaptive_comm`` trains through the adaptive loop
+    (:func:`adaptive_step_factory`, :func:`adaptive_controller`), and the
+    summary adds ``final_rung`` and ``policy_decisions``. The reference's
+    refusals, before any rendezvous: ``adaptive_comm`` with
+    ``checkpoint_dir`` or under ``"fsdp"``, and ``chaos_plan`` with neither
+    ``checkpoint_dir`` nor ``adaptive_comm``."""
     config = config or default_config()
     if strategy not in STRATEGIES:
         raise ValueError(f"strategy must be one of {STRATEGIES}, got {strategy!r}")
+    adaptive = bool(config.adaptive_comm)
+    if adaptive and checkpoint_dir is not None:
+        raise ValueError(
+            "adaptive_comm rebuilds the step per fallback-ladder rung; the checkpointed resilient loop carries one"
+            " fixed step — pick one (checkpoint_dir or adaptive_comm)"
+        )
+    if config.chaos_plan and not (checkpoint_dir is not None or adaptive):
+        raise ValueError("config.chaos_plan requires checkpoint_dir or adaptive_comm")
     if strategy == "fsdp":
         check_fsdp(config, checkpoint_dir)
-    if config.adaptive_comm:
-        raise NotImplementedError("adaptive_comm is not ported yet")
-    if config.chaos_plan and checkpoint_dir is None:
-        raise ValueError("config.chaos_plan requires checkpoint_dir or adaptive_comm")
     device = resolve_device(device)
     with process_group(config, device) as group:
         rank, world = dist.get_rank(group), dist.get_world_size(group)
@@ -229,6 +297,18 @@ def run(
                     # the emergency checkpoint is committed: die with the
                     # graceful code (the finally still closes the telemetry)
                     raise SystemExit(PREEMPT_EXIT_CODE)
+            elif adaptive:
+                from ..resilience import ChaosPlan, CommFaultInjector
+
+                del state  # each rung builds its own state over the model
+                plan = ChaosPlan.load(config.chaos_plan) if config.chaos_plan else None
+                injector = CommFaultInjector(plan, rank=rank, telemetry=telemetry) if plan is not None else None
+                controller = adaptive_controller(config, telemetry, rank)
+                state, logger, controller = adaptive_train_loop(
+                    adaptive_step_factory(config, model, group), batches, config.training_epochs, controller, device,
+                    injector=injector, fabric=config.comm_fabric, **loop_kw,
+                )
+                extra.update(final_rung=controller.rung.name, policy_decisions=len(controller.decisions))
             else:
                 state, logger = train_loop(step, state, batches, config.training_epochs, device, **loop_kw)
         finally:
@@ -247,6 +327,8 @@ def run(
         if strategy == "fsdp":
             audit = collective_audit(step.records)
             extra.update(bits_per_step=recorded_bits(step.records), n_collectives=audit["count"], collectives=audit)
+        elif adaptive:
+            extra["bits_per_step"] = logger.bits_per_step  # the final rung's
         else:
             extra.update(
                 bits_per_step=step.bits_per_step, n_collectives=step.reducer.n_collectives(list(model.parameters()))

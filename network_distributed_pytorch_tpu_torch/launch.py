@@ -28,6 +28,8 @@ Usage, one process per rank (torchrun sets ``RANK``, ``WORLD_SIZE``,
     torchrun --nproc-per-node 4 -m network_distributed_pytorch_tpu_torch.launch gpt_moe --experts-per-device 2 --moe-top-k 2
     python -m network_distributed_pytorch_tpu_torch.launch exact_cifar10 --preset full --checkpoint-dir ckpt --chaos-plan plan.json
     python -m network_distributed_pytorch_tpu_torch.launch exact_cifar10 --preset full --checkpoint-dir ckpt --supervise --num-processes 4
+    python -m network_distributed_pytorch_tpu_torch.launch exact_cifar10 --preset full --adaptive-comm --chaos-plan plan.json
+    python -m network_distributed_pytorch_tpu_torch.launch exact_cifar10 --adaptive-comm --comm-fabric 10GbE --plan plan_doc.json
 
 With ``--json`` the last line of standard output is the run summary as
 JSON; ``main`` returns it either way. A worker of
@@ -74,6 +76,7 @@ from .experiments import (
     powersgd_imdb,
     serve_gpt,
 )
+from .utils.bandwidth import FABRICS_BYTES_PER_S
 from .utils.config import (
     ATTN_IMPLS,
     COMM_STRATEGIES,
@@ -113,6 +116,9 @@ _CHECKPOINT_OK = ("exact_cifar10", "serve_gpt", "gpt_pp", "gpt_sp")
 # the experiments that train through resilient_train_loop: the chaos plan's
 # and the heartbeat's
 _CHAOS_OK = ("exact_cifar10",)
+# the adaptive loop's (exact_cifar10's DDP) and the planner's
+_ADAPTIVE_OK = ("exact_cifar10",)
+_PLAN_OK = ("exact_cifar10", "powersgd_cifar10")
 # the model-parallel GPT entries' own flags, as the JAX launcher gives them
 _TP_OK, _PP_OK, _MOE_OK = ("gpt_tp",), ("gpt_pp",), ("gpt_moe",)
 # the JAX launcher's: gradient accumulation and clipping, rematerialisation
@@ -311,7 +317,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--chaos-plan", type=str, default=None,
         help="exact_cifar10 --checkpoint-dir: a JSON fault schedule (resilience.chaos.ChaosPlan) injected into the"
-             " checkpointed loop, with two step retries and the batch guard; forwarded to workers under --supervise",
+             " checkpointed loop, with two step retries and the batch guard; forwarded to workers under --supervise;"
+             " with --adaptive-comm it drives the comm faults in process (no --checkpoint-dir)",
+    )
+    p.add_argument(
+        "--adaptive-comm", action="store_true",
+        help="exact_cifar10 (ddp) only: deadline watchdogs around every chunk collective and the fallback ladder"
+             " of reducers (resilience.controller) walked at epoch boundaries",
+    )
+    p.add_argument(
+        "--comm-fabric", type=str, default=None, choices=tuple(FABRICS_BYTES_PER_S),
+        help="--adaptive-comm: the fabric whose modelled line rate (utils.bandwidth) budgets the collective"
+             " deadlines (default NVLink4(H100)); --plan: the fabric whose best pick is applied",
+    )
+    p.add_argument(
+        "--plan", type=str, default=None,
+        help="a per-fabric plan file of scripts/plan.py: apply its best comm knobs for --comm-fabric (flags given"
+             " on the command line win), and under --adaptive-comm walk the fallback ladder in its order",
     )
     # --- the supervised launch (resilience.supervisor) ---------------------
     # these configure the PARENT only and are stripped from the workers'
@@ -426,10 +448,46 @@ def config_from_args(args) -> ExperimentConfig:
         ("audit_wire", args.audit_wire),
         ("health_every", args.health_every),
         ("chaos_plan", args.chaos_plan),
+        ("comm_fabric", args.comm_fabric),
     ):
         if value is not None:
             setattr(cfg, attr, value)
+    cfg.adaptive_comm = args.adaptive_comm
     return cfg
+
+
+def apply_plan(cfg: ExperimentConfig, args) -> None:
+    """Apply the best comm knobs of a ``scripts/plan.py`` plan file for the
+    launch's fabric onto ``cfg`` (the JAX launcher's ``apply_plan``): knobs
+    given on the command line win over the plan, and the plan over the
+    defaults. A plan whose best pick runs another reducer family than the
+    experiment only warns; one with no entry for the fabric (a TPU fabric,
+    say, which the port's table lacks) leaves the knobs as they are."""
+    from .observe import costmodel
+
+    with open(args.plan, "r", encoding="utf-8") as fh:
+        plan = json.load(fh)
+    fabric = args.comm_fabric or cfg.comm_fabric
+    slot = (plan.get("fabrics") or {}).get(fabric)
+    cfg.plan_path = args.plan
+    if not isinstance(slot, dict):
+        sys.stderr.write(f"# launch: plan {args.plan} has no fabric {fabric!r}; knobs unchanged\n")
+        return
+    best = costmodel.canonical_config((slot.get("best") or {}).get("config"))
+    if args.comm_chunks is None and best["comm_chunks"]:
+        cfg.comm_chunks = best["comm_chunks"]
+    if args.comm_strategy is None:
+        cfg.comm_strategy = best["comm_strategy"]
+    if args.bucket_bytes is None and best["bucket_bytes"]:
+        cfg.bucket_bytes = best["bucket_bytes"]
+    if args.reducer_rank is None and best["reducer_rank"]:
+        cfg.reducer_rank = best["reducer_rank"]
+    exp_reducer = "powersgd" if "powersgd" in args.experiment else "exact"
+    if best["reducer"] != exp_reducer:
+        sys.stderr.write(
+            f"# launch: plan's best pick for {fabric} uses the {best['reducer']!r} reducer but {args.experiment!r}"
+            f" runs {exp_reducer!r} — comm knobs applied, reducer unchanged\n"
+        )
 
 
 # supervisor-parent-only flags, stripped from the workers' command lines
@@ -564,7 +622,14 @@ def main(argv=None) -> dict:
     cfg = config_from_args(args)
     exp = args.experiment
     # refuse a flag the experiment does not take before any rendezvous
+    if args.plan is not None:
+        if exp not in _PLAN_OK:
+            raise ValueError(f"--plan is not supported by {exp!r} (supported: {', '.join(_PLAN_OK)})")
+        apply_plan(cfg, args)
+    if args.comm_fabric is not None and not args.adaptive_comm and args.plan is None:
+        raise ValueError("--comm-fabric requires --adaptive-comm or --plan")
     for flag, value, ok in (
+        ("--adaptive-comm", args.adaptive_comm or None, _ADAPTIVE_OK),
         ("--comm-chunks", args.comm_chunks, _CHUNKS_OK),
         ("--comm-strategy", args.comm_strategy, _CHUNKS_OK),
         ("--bucket-bytes", args.bucket_bytes, _BUCKETS_OK),

@@ -12,12 +12,13 @@
 - :mod:`.fidelity`: the per-group compression-fidelity events and their
   summaries;
 - :mod:`.memory`: the device-memory sampler, the OOM report and
-  ``tree_bytes``.
+  ``tree_bytes``;
+- :mod:`.costmodel`: the cost model's ``canonical_config`` (the launcher's
+  ``--plan``).
 
 The rest of the JAX package's ``observe/`` (the health detectors, the live
-plane, the run log merger, the cost model, MFU, the critical path and the
-fabric matrix) is ROADMAP.md §A item 5; the step guard that writes the OOM
-report is item 4.
+plane, the run log merger, the rest of the cost model, MFU, the critical
+path and the fabric matrix) is ROADMAP.md §A item 5.
 """
 
 from . import fidelity, memory, spans  # noqa: F401

@@ -49,13 +49,21 @@ records each one (its kind, the group's ranks and its payload bytes): the
 port's counterpart of the JAX package's HLO audit
 (``utils/hlo_audit.collective_summary``). With no recorder open, recording
 costs one test of an empty list a collective.
+
+Fence hooks (:func:`add_fence_hook`) are host callables that
+:func:`chunked_all_reduce_mean` calls at each chunk's launch and once at
+the payload's retire, with the JAX package's info dict; the collective
+watchdog and the comm fault injector of ``resilience/`` are two of them.
+A payload's tag carries the reducer's name for it (``"grads"``,
+``"powersgd.P"``, ...) under the levels of :func:`tag_scope`
+(``"inner."``, ``"outer."``).
 """
 
 from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -167,6 +175,90 @@ def agree(value: int, group, op: str = "max", kind: str = "agree") -> int:
     _record(kind, group, x.numel() * x.element_size())
     dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.MIN, group=group)
     return int(x.item())
+
+
+# ---- tags and fence hooks -------------------------------------------------------
+
+# The tag-prefix stack of the hierarchical levels: the reducers name their
+# payloads ("grads", "powersgd.P", ...) without knowing the fabric, and the
+# hierarchical reducer runs the same reducer code under tag_scope("inner")
+# and tag_scope("outer"), so a hook can tell the levels apart.
+_TAG_SCOPE: List[str] = []
+
+
+@contextlib.contextmanager
+def tag_scope(prefix: str):
+    """Prefix every collective tag issued inside the ``with`` body with
+    ``prefix + "."``; scopes nest, the outermost first."""
+    _TAG_SCOPE.append(str(prefix))
+    try:
+        yield
+    finally:
+        _TAG_SCOPE.pop()
+
+
+def scoped_tag(tag: str) -> str:
+    """``tag`` under the open :func:`tag_scope` prefixes."""
+    if not _TAG_SCOPE:
+        return tag
+    return ".".join(_TAG_SCOPE + [tag])
+
+
+# Host-side fence hooks: each is called at every fence point of
+# chunked_all_reduce_mean with {tag, chunk, n_chunks, payload_bytes, phase,
+# device_index}, phase "launch" (the chunk is about to ride its collective)
+# or "retire" (the reduced payload is there), device_index this process's
+# global rank (the hooks a process runs are its own collectives'). A
+# hook issues no collective, so the wire ledger does not change; a hook
+# that sleeps delays the collective (fault injection) and one that reads
+# the clock brackets it (deadline watchdogs).
+_FENCE_HOOKS: List[Callable[[Dict], None]] = []
+# synchronisations the fence points made (on CUDA, with a hook registered)
+_FENCE_SYNCS = [0]
+
+
+def add_fence_hook(fn: Callable[[Dict], None]) -> None:
+    """Register a fence hook. Hooks run in registration order: register a
+    watchdog before an injector, so that the deadline is armed when an
+    injected stall starts sleeping."""
+    _FENCE_HOOKS.append(fn)
+
+
+def remove_fence_hook(fn: Callable[[Dict], None]) -> None:
+    """Unregister a fence hook (nothing happens when it is not there)."""
+    try:
+        _FENCE_HOOKS.remove(fn)
+    except ValueError:
+        pass
+
+
+def fence_hooks_active() -> bool:
+    """Whether any fence hook is registered."""
+    return bool(_FENCE_HOOKS)
+
+
+def fence_syncs() -> int:
+    """How many times a fence point waited for the current CUDA stream."""
+    return _FENCE_SYNCS[0]
+
+
+def _fence(x: torch.Tensor, group, *, tag: str, chunk: int, n_chunks: int, payload_bytes: int, phase: str) -> None:
+    """Call the hooks at one fence point. NCCL collectives are asynchronous:
+    on a CUDA tensor the host first waits for the current stream (an event,
+    then its ``synchronize``), so that a ``launch`` sees the payload (and
+    the chunk before it) computed and a ``retire`` the collective done, and
+    a watchdog times the wire, not the host's enqueue."""
+    if x.is_cuda:
+        event = torch.cuda.Event()
+        event.record()
+        event.synchronize()
+        _FENCE_SYNCS[0] += 1
+    info = {
+        "tag": tag, "chunk": chunk, "n_chunks": n_chunks, "payload_bytes": int(payload_bytes), "phase": phase,
+        "device_index": 0 if group is None else dist.get_rank(),
+    }
+    for hook in list(_FENCE_HOOKS):
+        hook(info)
 
 
 def _scale_to_mean_(x: torch.Tensor, world: int) -> torch.Tensor:
@@ -281,6 +373,7 @@ def chunked_all_reduce_mean(
     group,
     n_chunks: Optional[int],
     strategy: str = "interleave",
+    tag: str = "payload",
 ) -> torch.Tensor:
     """All-reduce-mean of a flat buffer as K collectives, one per chunk of
     :func:`chunk_bounds`, in place. ``n_chunks=None`` is one collective.
@@ -290,20 +383,44 @@ def chunked_all_reduce_mean(
     on the payload's size (two ranks, or dyadic values) the result is
     bitwise equal to one collective over the whole buffer. ``"ring"`` runs
     :func:`ring_all_reduce_mean` on each chunk. Wire bytes do not depend on
-    K or the strategy."""
+    K or the strategy.
+
+    With a fence hook registered, the hooks are called at each chunk's
+    launch and once at the retire, with ``tag`` under the open
+    :func:`tag_scope` (also without a group, as the JAX package's do on
+    its mesh-less path), each after the current CUDA stream is waited for.
+    With none registered, nothing of that runs: no synchronisation, the
+    same launches and the same bits."""
     if strategy not in COMM_STRATEGIES:
         raise ValueError(f"comm strategy must be one of {COMM_STRATEGIES}, got {strategy!r}")
-    if group is None:
+    hooked = fence_hooks_active()
+    if group is None and not hooked:
         return flat
     bounds = chunk_bounds(flat.numel(), n_chunks if n_chunks is not None else 1)
+    tag = scoped_tag(tag)
+    itemsize = flat.element_size()
+    # an empty payload still has its launch, as in the JAX package
+    k = max(len(bounds), 1)
     # a contiguous slice is a view: each chunk is reduced in place
+    for idx, (start, end) in enumerate(bounds or [(0, 0)]):
+        if hooked:
+            _fence(flat, group, tag=tag, chunk=idx, n_chunks=k, payload_bytes=(end - start) * itemsize, phase="launch")
+        if group is not None and end > start:
+            _reduce_chunk(flat[start:end], group, strategy)
+    if group is not None and strategy != "ring":
+        _scale_to_mean_(flat, world_size(group))
+    if hooked:
+        _fence(flat, group, tag=tag, chunk=k, n_chunks=k, payload_bytes=flat.numel() * itemsize, phase="retire")
+    return flat
+
+
+def _reduce_chunk(chunk: torch.Tensor, group, strategy: str) -> None:
+    """One chunk's collective: its ring (a mean), or its all-reduce (a sum,
+    scaled once the last chunk is in)."""
     if strategy == "ring":
-        for start, end in bounds:
-            ring_all_reduce_mean(flat[start:end], group)
-        return flat
-    for start, end in bounds:
-        all_reduce_sum(flat[start:end], group)
-    return _scale_to_mean_(flat, world_size(group))
+        ring_all_reduce_mean(chunk, group)
+    else:
+        all_reduce_sum(chunk, group)
 
 
 # ---- differentiable collectives (the model-parallel layers) -------------------

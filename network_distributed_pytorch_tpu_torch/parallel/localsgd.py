@@ -515,30 +515,14 @@ def make_streaming_diloco_train_fn(
     )
 
 
-@torch.no_grad()
 def drift_stats(state, group) -> Dict[str, float]:
     """Replica and anchor drift of a round's state (the JAX package's
-    ``drift_stats``): ``replica_drift``, the RMS distance of the ranks'
-    parameters from their mean over the mean's norm, and ``anchor_drift``,
-    the distance of the mean from the anchors over the anchors' norm (0
-    without anchors). DiLoCo's parameters are re-synced every round, so
-    both are 0 there. The ranks' parameters meet in two all-reduces (not
-    part of a round's bits)."""
+    ``drift_stats``): :func:`.hierarchical.replica_drift_stats` of the
+    ranks' parameters, against streaming DiLoCo's anchors. DiLoCo's
+    parameters are re-synced every round, so both are 0 there."""
+    from .hierarchical import replica_drift_stats
+
     if isinstance(state, DiLoCoState):
         return {"replica_drift": 0.0, "anchor_drift": 0.0}
-    names = list(state.params)
-    leaves = [state.params[n].detach().float() for n in names]
-    packer = TensorPacker.for_tensors(leaves)
-    means = packer.unpack(all_reduce_mean(packer.pack(leaves), group))
-    dev_sq = torch.stack([torch.sum(torch.square(p - mu)) for p, mu in zip(leaves, means)]).sum()
-    dev_sq = all_reduce_mean(dev_sq.reshape(1), group)[0]
-    mean_sq = torch.stack([torch.sum(torch.square(mu)) for mu in means]).sum()
-    eps = 1e-30
-    replica = torch.sqrt(dev_sq) / torch.clamp(torch.sqrt(mean_sq), min=eps)
-    anchor = 0.0
-    if isinstance(state, StreamingDiLoCoState):
-        anchors = [state.anchors[n].float() for n in names]
-        diff_sq = torch.stack([torch.sum(torch.square(mu - a)) for mu, a in zip(means, anchors)]).sum()
-        a_sq = torch.stack([torch.sum(torch.square(a)) for a in anchors]).sum()
-        anchor = float(torch.sqrt(diff_sq) / torch.clamp(torch.sqrt(a_sq), min=eps))
-    return {"replica_drift": float(replica), "anchor_drift": anchor}
+    anchors = state.anchors if isinstance(state, StreamingDiLoCoState) else None
+    return replica_drift_stats(state.params, anchors, group)

@@ -128,11 +128,12 @@ class ExactReducer:
         out: List[Optional[torch.Tensor]] = [None] * len(send)
         if self.packed:
             bits = 0
-            for idxs in self._buckets(send):
+            for bi, idxs in enumerate(self._buckets(send)):
                 blk = [send[i] for i in idxs]
                 packer = TensorPacker.for_tensors(blk)
                 reduced = chunked_all_reduce_mean(
-                    packer.pack(blk), group, self.comm_chunks, self.comm_strategy
+                    packer.pack(blk), group, self.comm_chunks, self.comm_strategy,
+                    tag=f"grads.b{bi}" if self.bucket_bytes is not None else "grads",
                 )
                 bits += packer.bits()
                 for i, o in zip(idxs, packer.unpack(reduced)):
@@ -419,9 +420,10 @@ class PowerSGDReducer:
             inv[p] = k
         return mat.reshape([shape[p] for p in perm]).permute(inv)
 
-    def _reduce_flat(self, flat: torch.Tensor, group) -> torch.Tensor:
-        """One packed payload, all-reduce-meaned in place as configured."""
-        return chunked_all_reduce_mean(flat, group, self.comm_chunks, self.comm_strategy)
+    def _reduce_flat(self, flat: torch.Tensor, group, tag: str = "payload") -> torch.Tensor:
+        """One packed payload, all-reduce-meaned in place as configured;
+        ``tag`` names it to the fence hooks."""
+        return chunked_all_reduce_mean(flat, group, self.comm_chunks, self.comm_strategy, tag=tag)
 
     def _orthogonalize(self, p: torch.Tensor) -> torch.Tensor:
         if self.orthogonalize_impl == "eager":
@@ -523,7 +525,7 @@ class PowerSGDReducer:
                 for poss, p_st in zip(groups, p_sts):
                     for j, p in enumerate(poss):
                         ps[p] = p_st[j]
-                p_flat = self._reduce_flat(p_packer.pack(ps), group)
+                p_flat = self._reduce_flat(p_packer.pack(ps), group, tag="powersgd.P")
                 bits += n_bits(p_flat)
                 ps = p_packer.unpack(p_flat)
                 p_stacks = [
@@ -533,7 +535,7 @@ class PowerSGDReducer:
             # rank-1 tensors: uncompressed, once
             if it == 0 and rank1_idx:
                 rank1_flat = self._reduce_flat(
-                    rank1_packer.pack([leaves[i] for i in rank1_idx]), group
+                    rank1_packer.pack([leaves[i] for i in rank1_idx]), group, tag="powersgd.rank1"
                 )
                 bits += rank1_packer.bits()
                 for i, o in zip(rank1_idx, rank1_packer.unpack(rank1_flat)):
@@ -556,7 +558,7 @@ class PowerSGDReducer:
                 for poss, q_st in zip(groups, q_sts):
                     for j, p in enumerate(poss):
                         qs[p] = q_st[j]
-                q_flat = self._reduce_flat(q_packer.pack(qs), group)
+                q_flat = self._reduce_flat(q_packer.pack(qs), group, tag="powersgd.Q")
                 bits += n_bits(q_flat)
                 qs = q_packer.unpack(q_flat)
                 q_stacks = [

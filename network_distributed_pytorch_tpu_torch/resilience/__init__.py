@@ -8,13 +8,16 @@
 - :mod:`.supervisor`: the supervising parent (spawn, watch, restart,
   degrade) and the worker side of its environment contract;
 - :mod:`.reshard`: the data-axis resharding of a checkpoint at another
-  world size.
+  world size;
+- :mod:`.controller`: the fallback ladder of the degraded fabric and the
+  controller that walks it from each epoch's health;
+- and, for the adaptive loop and the hierarchical round, the collective
+  watchdog, the deadline guard, the partition policy and the outer-sync
+  driver (:mod:`.guards`) and the comm fault injector (:mod:`.chaos`).
 
-The collective watchdog, the deadline guard, the comm fault injector, the
-fallback controller, the partition policy and the outer-sync driver go with
-the adaptive loop (ROADMAP.md §A item 5); the fleet scheduler and the
-serving autoscaler after it. Nothing here imports torch at import time
-(the supervising parent imports this package).
+The fleet scheduler and the serving autoscaler are ROADMAP.md §A item 5.
+Nothing here imports torch at import time (the supervising parent imports
+this package).
 """
 
 from .chaos import (  # noqa: F401
@@ -33,20 +36,39 @@ from .chaos import (  # noqa: F401
     ChaosPlan,
     ChaosStep,
     ChaosTransientError,
+    CommFaultInjector,
     FaultSpec,
     apply_checkpoint_fault,
     chaos_batches,
     check_fault_registry,
+    make_checkpoint_unwritable,
+    restore_checkpoint_writable,
+)
+from .controller import (  # noqa: F401
+    DEFAULT_LADDER,
+    EpochHealth,
+    FallbackController,
+    PolicyDecision,
+    Rung,
+    ladder_from_plan,
 )
 from .guards import (  # noqa: F401
     CKPT_UNWRITABLE_EXIT_CODE,
     PREEMPT_EXIT_CODE,
     CheckpointUnwritableError,
+    CollectiveWatchdog,
+    CommDeadlineError,
+    CommDeadlineGuard,
+    CommEscalationError,
     GuardedStep,
     NonFiniteLossError,
+    OuterSyncDriver,
     OutOfMemoryError,
+    PartitionPolicy,
     PreemptionGuard,
     StateSnapshot,
+    derive_collective_deadline,
+    derive_outer_deadline,
     guarded_batches,
     is_oom_error,
 )

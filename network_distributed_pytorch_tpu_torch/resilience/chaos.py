@@ -31,12 +31,21 @@ accepts also loads here. Where they bite in the port:
 ``zone_outage``          every rank of ``payload["ranks"]`` SIGKILLs itself
 ``host_flap``            the rank SIGKILLs itself in each of its first
                          ``payload["flaps"]`` lives
-``comm_*``, ``grad_spike``, ``fidelity_degrade``
-                         accepted and registered; their injectors (the comm
-                         fence hooks, the health probe) come with the
-                         adaptive loop (ROADMAP.md §A item 5), and nothing
-                         on the port's resilient path pops them, as nothing
-                         on the JAX package's does
+``comm_throttle``        every collective launch of the rank sleeps its
+                         bytes over a mock line rate (:class:`CommFaultInjector`,
+                         a ``parallel.comm`` fence hook), for a window
+``comm_flap``            the same throttle, clearing after 3 steps
+``comm_slow_edge``       the same throttle, paid by the edge's source rank
+``comm_stall``           one chunk's launch sleeps ``stall_seconds``, once
+``comm_partition``       every launch sleeps ``max_sleep_s`` and
+                         ``partitioned`` holds until ``comm_heal``
+``comm_heal``            clears a partition and a throttle
+``grad_spike``, ``fidelity_degrade``
+                         accepted and registered; their injector (the health
+                         sampler) comes with the health detectors (ROADMAP.md
+                         §A item 5), and nothing on the port's paths pops
+                         them, as nothing on the JAX package's resilient
+                         path does
 ====================  =======================================================
 
 Process- and step-level faults carry an ``incarnation`` filter (default 0)
@@ -136,12 +145,12 @@ INJECTION_SITES: Dict[str, str] = {
     "proc_preempt": "process",          # ChaosStep (process-level branch)
     "zone_outage": "process",           # ChaosStep (process-level branch)
     "host_flap": "process",             # ChaosStep (process-level branch)
-    "comm_throttle": "comm-hook",       # CommFaultInjector fence hook (ROADMAP §A item 5)
-    "comm_stall": "comm-hook",          # CommFaultInjector fence hook (ROADMAP §A item 5)
-    "comm_flap": "comm-hook",           # CommFaultInjector fence hook (ROADMAP §A item 5)
-    "comm_slow_edge": "comm-hook",      # CommFaultInjector fence hook (ROADMAP §A item 5)
-    "comm_partition": "comm-hook",      # CommFaultInjector fence hook (ROADMAP §A item 5)
-    "comm_heal": "comm-hook",           # CommFaultInjector fence hook (ROADMAP §A item 5)
+    "comm_throttle": "comm-hook",       # CommFaultInjector fence hook
+    "comm_stall": "comm-hook",          # CommFaultInjector fence hook
+    "comm_flap": "comm-hook",           # CommFaultInjector fence hook
+    "comm_slow_edge": "comm-hook",      # CommFaultInjector fence hook
+    "comm_partition": "comm-hook",      # CommFaultInjector fence hook (and its host-side flag)
+    "comm_heal": "comm-hook",           # CommFaultInjector.advance
     "grad_spike": "health-probe",       # health sampler (TrainHealthEvent)
     "fidelity_degrade": "health-probe", # health sampler (FidelityEvent group)
     "oom": "step",                      # ChaosStep (allocator-death branch)
@@ -501,6 +510,166 @@ def chaos_batches(
             yield batch
 
     return gen
+
+
+class CommFaultInjector:
+    """The comm faults of a plan (``COMM_FAULTS``): a callable registered as
+    a ``parallel.comm`` fence hook, and :meth:`advance`, which the training
+    loop calls once a step before running it.
+
+    ``advance`` does the plan's bookkeeping on the loop's thread (pop the
+    specs, start and clear throttles, emit ``chaos_injected`` and
+    ``comm_fault_cleared``); ``__call__``, at the fence points of this
+    rank's collectives (``device_index == rank``), only sleeps: the
+    collective is delayed and not one byte is added to the wire.
+
+    Payload knobs, the JAX package's: ``bytes_per_s`` (the mock line rate,
+    10GbE by default), ``max_sleep_s`` (the clamp of a chunk's sleep),
+    ``duration_steps`` / ``clears_after`` (a throttle's or a flap's life in
+    steps; a flap clears after 3 by default), ``stall_seconds`` and
+    ``chunk`` (which chunk's launch hangs, once)."""
+
+    def __init__(self, plan: ChaosPlan, rank: int = 0, incarnation: int = 0, telemetry: Any = None):
+        self._plan = plan
+        self._rank = rank
+        self._incarnation = incarnation
+        self._telemetry = telemetry
+        self._step_index = -1
+        self._throttle: Optional[Dict[str, Any]] = None
+        self._stall: Optional[Dict[str, Any]] = None
+        self._partition: Optional[Dict[str, Any]] = None
+
+    # -- the plan's bookkeeping (the loop's thread, once a step) -----------------
+    @property
+    def throttled(self) -> bool:
+        return self._throttle is not None
+
+    @property
+    def stall_pending(self) -> bool:
+        return self._stall is not None
+
+    @property
+    def partitioned(self) -> bool:
+        """True while a ``comm_partition`` holds the edge down: the host
+        flag the hierarchical round's ``OuterSyncDriver`` polls."""
+        return self._partition is not None
+
+    @property
+    def partition_edge(self) -> Optional[Tuple[int, int]]:
+        """The (src, dst) ranks of the partition (None without one, or when
+        the spec named no edge)."""
+        p = self._partition
+        if p is None or not p.get("edge"):
+            return None
+        return (int(p["edge"][0]), int(p["edge"][1]))
+
+    @property
+    def throttle_edge(self) -> Optional[Tuple[int, int]]:
+        """The (src, dst) ranks of a ``comm_slow_edge`` throttle (None for
+        a throttle or flap without an edge)."""
+        t = self._throttle
+        if t is None or not t.get("edge"):
+            return None
+        return (int(t["edge"][0]), int(t["edge"][1]))
+
+    def host_throttle_sleep_s(self, payload_bytes: float) -> float:
+        """The sleep the hook would add to ONE collective of this payload,
+        for a host that models the throttle inline; 0.0 without a throttle
+        or where this rank is not the edge's source."""
+        t = self._throttle
+        if t is None:
+            return 0.0
+        edge = self.throttle_edge
+        if edge is not None and edge[0] != self._rank:
+            return 0.0
+        return min(float(payload_bytes) / t["bytes_per_s"], t["max_sleep_s"])
+
+    def _emit_cleared(self, kind: str, step_index: int) -> None:
+        if self._telemetry is None:
+            return
+        from ..observe import FailureEvent
+
+        self._telemetry.emit(
+            FailureEvent(
+                kind="comm_fault_cleared", label=kind, rank=self._rank, step=step_index,
+                incarnation=self._incarnation,
+            )
+        )
+
+    def advance(self, step_index: int) -> None:
+        """Retire an expiring throttle, flap or partition and pop the comm
+        fault scheduled for ``step_index``. Call it before the step."""
+        self._step_index = step_index
+        t = self._throttle
+        if t is not None and t["until_step"] is not None and step_index >= t["until_step"]:
+            self._throttle = None
+            self._emit_cleared(t["kind"], step_index)
+        part = self._partition
+        if part is not None and part["until_step"] is not None and step_index >= part["until_step"]:
+            self._partition = None
+            self._emit_cleared("comm_partition", step_index)
+        spec = self._plan.pop(COMM_FAULTS, step_index, self._rank, self._incarnation)
+        if spec is None:
+            return
+        _emit_injected(self._telemetry, spec, step_index, self._rank, self._incarnation)
+        p = spec.payload
+        if spec.kind == "comm_partition":
+            duration = p.get("duration_steps")
+            self._partition = {
+                "edge": [int(x) for x in p["edge"]] if p.get("edge") else None,
+                # the block of a launch: long enough to blow any sane outer
+                # deadline, short enough that a run without a watchdog ends
+                "max_sleep_s": float(p.get("max_sleep_s", 0.5)),
+                "until_step": step_index + int(duration) if duration is not None else None,
+            }
+        elif spec.kind == "comm_heal":
+            if self._partition is not None:
+                self._partition = None
+                self._emit_cleared("comm_partition", step_index)
+            if self._throttle is not None:
+                t = self._throttle
+                self._throttle = None
+                self._emit_cleared(t["kind"], step_index)
+        elif spec.kind in ("comm_throttle", "comm_flap", "comm_slow_edge"):
+            clears = p.get("clears_after", 3 if spec.kind == "comm_flap" else None)
+            if clears is None:
+                clears = p.get("duration_steps")
+            edge = p.get("edge")
+            if spec.kind == "comm_slow_edge":
+                # a link's throttle, paid by its source rank only; a spec
+                # that another rank pops keeps the edge for the blame
+                edge = [int(x) for x in (edge or (self._rank, self._rank + 1))]
+            self._throttle = {
+                "kind": spec.kind,
+                "edge": edge,
+                "bytes_per_s": float(p.get("bytes_per_s", 1.25e9)),
+                "max_sleep_s": float(p.get("max_sleep_s", 0.25)),
+                "until_step": step_index + int(clears) if clears is not None else None,
+            }
+        elif spec.kind == "comm_stall":
+            self._stall = {"stall_seconds": float(p.get("stall_seconds", 1.0)), "chunk": int(p.get("chunk", 0))}
+
+    # -- the fence hook ------------------------------------------------------------
+    def __call__(self, info: Dict[str, Any]) -> None:
+        if info.get("device_index") != self._rank or info.get("phase") != "launch":
+            return
+        part = self._partition
+        if part is not None:
+            # the edge is DOWN, not slow: block each launch for the clamp, so
+            # that a deadline derived from the healthy fabric expires, then
+            # let the collective through
+            time.sleep(part["max_sleep_s"])
+            return
+        st = self._stall
+        if st is not None and info.get("chunk") == st["chunk"]:
+            self._stall = None  # one collective hangs, once
+            time.sleep(st["stall_seconds"])
+            return
+        t = self._throttle
+        if t is not None:
+            sleep_s = min(float(info.get("payload_bytes", 0)) / t["bytes_per_s"], t["max_sleep_s"])
+            if sleep_s > 0:
+                time.sleep(sleep_s)
 
 
 def apply_checkpoint_fault(

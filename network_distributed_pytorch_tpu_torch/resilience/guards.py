@@ -19,10 +19,26 @@ of the JAX package's ``resilience/guards.py``:
 - the typed errors of a failed save and of a non-finite loss, and the exit
   codes a worker dies with (also importable from :mod:`.chaos`).
 
-The collective watchdog, the deadline guard and the partition policy of
-the JAX module go with the adaptive loop (ROADMAP.md §A item 5). Nothing
-here imports torch at import time: the supervising parent imports this
-package.
+And the degraded-fabric side, the adaptive loop's:
+
+- :func:`derive_collective_deadline` and :func:`derive_outer_deadline`: a
+  collective's time budget from its bytes on the fabric model of
+  ``utils.bandwidth``, floored by the measured p50 of recent chunks times
+  a slack;
+- :class:`CollectiveWatchdog`: a ``parallel.comm`` fence hook that arms a
+  deadline at every chunk launch on one monitor thread; an expiry emits
+  ``FailureEvent(kind="comm_deadline")`` and marks the attempt, and never
+  stops the step;
+- :class:`CommDeadlineGuard`: around ``GuardedStep``, one retry of an
+  expired step from the state it started from, then the step is marked
+  degraded, and K degraded steps in a row raise
+  :class:`CommEscalationError`;
+- :class:`PartitionPolicy` and :class:`OuterSyncDriver`: the partition
+  state machine of the hierarchical round (local rounds charged against a
+  divergence budget, the rejoin).
+
+Nothing here imports torch at import time: the supervising parent imports
+this package.
 """
 
 from __future__ import annotations
@@ -30,7 +46,12 @@ from __future__ import annotations
 import math
 import signal
 import sys
+import threading
+import time
+from collections import deque
 from typing import Any, Callable, Dict, Iterator, List, Optional
+
+from ..utils.bandwidth import allreduce_time_s
 
 # exit code of a worker that honoured SIGTERM and committed its emergency
 # checkpoint (EX_TEMPFAIL: restartable); the supervisor counts it, like a
@@ -45,6 +66,18 @@ CKPT_UNWRITABLE_EXIT_CODE = 44
 class NonFiniteLossError(RuntimeError):
     """A step reported a NaN or infinite loss: treated as transient, the
     state it produced is discarded and the step re-run."""
+
+
+class CommDeadlineError(RuntimeError):
+    """A collective overran its derived deadline (shaped as a transient
+    error: retryable)."""
+
+
+class CommEscalationError(Exception):
+    """K steps in a row were degraded by collective deadlines: the fabric
+    is persistently sick and the supervisor should take over. Deliberately
+    not a ``RuntimeError``, so that ``GuardedStep`` and ``retry_transient``
+    let it pass."""
 
 
 class OutOfMemoryError(Exception):
@@ -430,3 +463,431 @@ def guarded_batches(
             yield batch
 
     return gen
+
+
+# ---- the degraded fabric: deadlines, the watchdog, the deadline guard ----------
+
+
+def derive_collective_deadline(
+    payload_bytes: int,
+    n_workers: int,
+    fabric: str = "NVLink4(H100)",
+    measured_p50_s: Optional[float] = None,
+    slack: float = 4.0,
+    floor_s: float = 0.05,
+) -> float:
+    """A collective's deadline: ``max(modeled time, measured p50) * slack``,
+    at least ``floor_s``. The model is ``utils.bandwidth.allreduce_time_s``
+    (the ring bound at the fabric's line rate), optimistic by construction,
+    hence the slack; the measured p50 of recent chunks keeps the deadline
+    honest on a fabric slower than its model; the floor keeps a tiny
+    payload from a microsecond deadline."""
+    modeled = allreduce_time_s(int(payload_bytes), int(n_workers), fabric)
+    budget = max(modeled, measured_p50_s or 0.0) * slack
+    return max(budget, floor_s)
+
+
+def derive_outer_deadline(
+    outer_payload_bytes: int,
+    n_sites: int,
+    fabric: str = "1GbE",
+    measured_p50_s: Optional[float] = None,
+    slack: float = 6.0,
+    floor_s: float = 0.25,
+) -> float:
+    """The deadline of ONE cross-site outer reduction of the hierarchical
+    round: :func:`derive_collective_deadline` for the slow fabric, with
+    looser defaults (a WAN edge jitters by orders of magnitude more, and an
+    async outer sync costs nothing until the next round needs it: the
+    deadline declares the edge dead, not slow). ``outer_payload_bytes`` is
+    the compressed outer payload (``bits_by_fabric()["outer"] // 8``)."""
+    return derive_collective_deadline(
+        outer_payload_bytes, n_sites, fabric, measured_p50_s=measured_p50_s, slack=slack, floor_s=floor_s
+    )
+
+
+class PartitionPolicy:
+    """The partition state machine of the hierarchical round, each
+    transition a ``PartitionEvent``:
+
+    - :meth:`note_partition`: the cross-site edge is declared dead (an
+      outer deadline expired, or the injector's ``partitioned``):
+      ``phase="partitioned"``, once a partition;
+    - :meth:`note_local_round`: one round ran site-local (``phase="local"``),
+      its inner steps charged against ``max_local_steps``;
+      :class:`CommEscalationError` once the budget is spent;
+    - :meth:`note_sync`: a cross-site sync completed: the staleness
+      resets, and after a partition it is the rejoin (``phase="rejoin"``).
+
+    It counts steps and rounds and reads no clock, so a test replays it
+    exactly."""
+
+    def __init__(self, max_local_steps: int, telemetry: Any = None, rank: int = 0, incarnation: int = 0):
+        self.max_local_steps = int(max_local_steps)
+        self._telemetry = telemetry
+        self._rank = rank
+        self._incarnation = incarnation
+        self.partitioned = False
+        self.edge: Optional[tuple] = None
+        self.local_steps = 0
+        self.outer_staleness = 0
+        self.events: list = []  # every PartitionEvent, in order
+
+    def _emit(self, phase: str, step: Optional[int], reason: str = ""):
+        from ..observe import PartitionEvent
+
+        ev = PartitionEvent(
+            phase=phase, edge=list(self.edge) if self.edge is not None else None, local_steps=self.local_steps,
+            max_local_steps=self.max_local_steps, outer_staleness=self.outer_staleness, reason=reason,
+            rank=self._rank, step=step, incarnation=self._incarnation,
+        )
+        self.events.append(ev)
+        if self._telemetry is not None:
+            self._telemetry.emit(ev)
+        return ev
+
+    @property
+    def remaining_budget(self) -> int:
+        return max(0, self.max_local_steps - self.local_steps)
+
+    def note_partition(self, edge: Optional[tuple] = None, step: Optional[int] = None, reason: str = "") -> None:
+        """The edge is down; only the first call of a partition emits."""
+        if self.partitioned:
+            return
+        self.partitioned = True
+        self.edge = tuple(edge) if edge is not None else None
+        self.local_steps = 0
+        self._emit("partitioned", step, reason or "cross-site edge declared dead")
+
+    def note_local_round(self, inner_steps: int, step: Optional[int] = None) -> None:
+        """One round completed without its cross-site sync."""
+        self.local_steps += int(inner_steps)
+        self.outer_staleness += 1
+        self._emit("local", step)
+        if self.local_steps > self.max_local_steps:
+            raise CommEscalationError(
+                f"partition divergence budget exhausted: {self.local_steps} site-local steps >"
+                f" max_local_steps={self.max_local_steps}; escalating to supervisor"
+            )
+
+    def note_sync(self, step: Optional[int] = None) -> None:
+        """A cross-site sync completed."""
+        if self.partitioned:
+            self._emit(
+                "rejoin", step,
+                f"edge healed after {self.local_steps} site-local steps; EF catch-up reduction merged",
+            )
+            self.partitioned = False
+            self.edge = None
+            self.local_steps = 0
+        self.outer_staleness = 0
+
+
+class OuterSyncDriver:
+    """Decides before each round whether its cross-site sync may run, from
+    two signals over a :class:`PartitionPolicy`: the ``probes`` (zero-arg
+    callables, such as ``lambda: injector.partitioned``) and an outer
+    :class:`CollectiveWatchdog` whose expiry declares the edge dead::
+
+        if driver.should_sync(step=i):
+            state, losses = rounds(state, batches)
+            driver.note_sync(step=i)
+        else:
+            state, losses = rounds.local_round(state, batches)
+            driver.note_local(rounds.sync_every, step=i)  # may escalate
+
+    The JAX package calls ``watchdog.expired_this_attempt()``, a property
+    there, which would raise; the port reads the property."""
+
+    def __init__(self, policy: PartitionPolicy, probes: Any = (), watchdog: Any = None, edge_probe: Any = None):
+        self.policy = policy
+        self._probes = list(probes)
+        self._watchdog = watchdog
+        self._edge_probe = edge_probe
+
+    def _partition_reason(self) -> Optional[str]:
+        for probe in self._probes:
+            if probe():
+                return "partition fault active"
+        if self._watchdog is not None and self._watchdog.expired_this_attempt:
+            return "outer sync deadline expired"
+        return None
+
+    def should_sync(self, step: Optional[int] = None) -> bool:
+        """True: run the sync round; False: the edge is (still) down, run
+        the local round."""
+        reason = self._partition_reason()
+        if reason is not None:
+            edge = self._edge_probe() if self._edge_probe is not None else None
+            self.policy.note_partition(edge=edge, step=step, reason=reason)
+            return False
+        return True
+
+    def note_sync(self, step: Optional[int] = None) -> None:
+        if self._watchdog is not None:
+            self._watchdog.begin_attempt()
+        self.policy.note_sync(step=step)
+
+    def note_local(self, inner_steps: int, step: Optional[int] = None) -> None:
+        """Charge one site-local round (raises once the budget is spent)."""
+        self.policy.note_local_round(inner_steps, step=step)
+
+
+class CollectiveWatchdog:
+    """A deadline around every fenced chunk collective, as a
+    ``parallel.comm`` fence hook.
+
+    One monitor thread watches one deadline under a ``Condition``. Each
+    ``launch`` of this rank's collectives arms it with
+    :func:`derive_collective_deadline` of the chunk's bytes (the p50 of the
+    last ``history`` chunks as its floor), and the next fence point
+    disarms it, so the window holds one collective. On the card the fence
+    point waits for the stream first (``comm._fence``), so the window is
+    the collective's, not the host's enqueue. An expiry emits
+    ``FailureEvent(kind="comm_deadline")`` from the monitor thread and
+    marks the attempt; it never interrupts the step, which ends (late) on
+    its own.
+
+    :meth:`note_step` keeps the streak of degraded steps,
+    :meth:`should_escalate` compares it with ``escalate_after`` and
+    :meth:`take_epoch` hands the epoch's counters to the fallback
+    controller. Register it before any fault injector."""
+
+    def __init__(
+        self,
+        n_workers: int = 1,
+        fabric: str = "NVLink4(H100)",
+        slack: float = 4.0,
+        floor_s: float = 0.05,
+        escalate_after: int = 3,
+        history: int = 64,
+        telemetry: Any = None,
+        rank: int = 0,
+        label: str = "comm",
+    ):
+        self.n_workers = n_workers
+        self.fabric = fabric
+        self.slack = slack
+        self.floor_s = floor_s
+        self.escalate_after = escalate_after
+        self._telemetry = telemetry
+        self._rank = rank
+        self._label = label
+        self._cond = threading.Condition()
+        self._deadline: Optional[float] = None
+        self._armed: Optional[Dict[str, Any]] = None
+        self._arm_t: Optional[float] = None
+        self._durations: deque = deque(maxlen=history)
+        self._stop = False
+        self._expired_this_attempt = False
+        self._degraded_streak = 0
+        self._epoch_expiries = 0
+        self._epoch_degraded = 0
+        self.fired: list = []
+        self._thread = threading.Thread(target=self._monitor, name=f"collective-watchdog-{label}", daemon=True)
+        self._thread.start()
+
+    # -- the fence hook (the loop's thread) --------------------------------------
+    def __call__(self, info: Dict[str, Any]) -> None:
+        if info.get("device_index") != self._rank:
+            return
+        now = time.monotonic()
+        with self._cond:
+            if self._arm_t is not None:
+                self._durations.append(now - self._arm_t)
+            if info.get("phase") == "launch":
+                durs = sorted(self._durations)
+                p50 = durs[len(durs) // 2] if durs else None
+                budget = derive_collective_deadline(
+                    info.get("payload_bytes", 0), self.n_workers, self.fabric, measured_p50_s=p50,
+                    slack=self.slack, floor_s=self.floor_s,
+                )
+                self._armed = {**info, "deadline_s": budget}
+                self._arm_t = now
+                self._deadline = now + budget
+            else:  # retire: the payload's last result is in
+                self._armed = None
+                self._arm_t = None
+                self._deadline = None
+            self._cond.notify_all()
+
+    # -- the monitor thread -----------------------------------------------------
+    def _monitor(self) -> None:
+        while True:
+            with self._cond:
+                if self._stop:
+                    return
+                if self._deadline is None:
+                    self._cond.wait()
+                    continue
+                now = time.monotonic()
+                if now < self._deadline:
+                    self._cond.wait(self._deadline - now)
+                    continue
+                info = self._armed or {}
+                self._deadline = None
+                self._armed = None
+                self._arm_t = None
+                self._expired_this_attempt = True
+                self._epoch_expiries += 1
+                self.fired.append(info)
+            self._emit_deadline(info)
+
+    def _emit_deadline(self, info: Dict[str, Any]) -> None:
+        if self._telemetry is None:
+            return
+        from ..observe import FailureEvent
+
+        self._telemetry.emit(
+            FailureEvent(
+                kind="comm_deadline",
+                label=f"{info.get('tag', '?')}[{info.get('chunk', '?')}/{info.get('n_chunks', '?')}]",
+                message=(
+                    f"collective exceeded deadline {info.get('deadline_s', 0.0):.3f}s"
+                    f" ({info.get('payload_bytes', 0)} B on {self.fabric})"
+                ),
+                rank=self._rank,
+            )
+        )
+
+    # -- attempt, step and epoch bookkeeping (the loop's thread) ----------------
+    def begin_attempt(self) -> None:
+        with self._cond:
+            self._expired_this_attempt = False
+
+    @property
+    def expired_this_attempt(self) -> bool:
+        with self._cond:
+            return self._expired_this_attempt
+
+    def note_step(self, degraded: bool) -> None:
+        with self._cond:
+            if degraded:
+                self._degraded_streak += 1
+                self._epoch_degraded += 1
+            else:
+                self._degraded_streak = 0
+
+    def should_escalate(self) -> bool:
+        with self._cond:
+            return self._degraded_streak >= self.escalate_after
+
+    def take_epoch(self) -> Dict[str, int]:
+        """The epoch's counters for the fallback controller, reset (the
+        degraded streak is not: escalation is about the fabric, not the
+        calendar)."""
+        with self._cond:
+            out = {"deadline_expiries": self._epoch_expiries, "degraded_steps": self._epoch_degraded}
+            self._epoch_expiries = 0
+            self._epoch_degraded = 0
+            return out
+
+    def stop(self) -> None:
+        with self._cond:
+            self._stop = True
+            self._cond.notify_all()
+        self._thread.join(timeout=5.0)
+
+    def __enter__(self) -> "CollectiveWatchdog":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+
+class CommDeadlineGuard:
+    """Around ``GuardedStep``: an expired collective is not an exception
+    (the step returns, late, with a valid state), so the guard reads the
+    watchdog's attempt flag after each call. An expired step is retried
+    once from the state it started from, then marked degraded; only
+    ``escalate_after`` degraded steps in a row raise
+    :class:`CommEscalationError`. Every other attribute is the step's.
+
+    The port's step writes its state in place, so the retry needs the
+    state back: a :class:`StateSnapshot` taken once a step (one
+    ``_foreach_copy_`` a dtype) and put back only on an expiry. Where the
+    wrapped step is a ``GuardedStep`` with retries it already took that
+    snapshot at the start of its last attempt, and the guard reuses it.
+
+    Over ``group`` (more than one rank) the ranks agree on each attempt's
+    verdict (one int32 max, recorded as ``"comm-deadline-flag"``, outside
+    the step's ledger): a stall seen on one rank only would otherwise
+    retry the step there alone and leave its peers in the next
+    collective."""
+
+    def __init__(
+        self,
+        step: Callable,
+        watchdog: CollectiveWatchdog,
+        telemetry: Any = None,
+        label: str = "step",
+        rank: int = 0,
+        group=None,
+    ):
+        self._inner = step
+        self._watchdog = watchdog
+        self._telemetry = telemetry
+        self._label = label
+        self._rank = rank
+        self._step_index = 0
+        self.last_attempts = 0  # the attempts the last call ran (1 or 2)
+        self._own_snapshot: Optional[StateSnapshot] = None
+        self._agree_group = None
+        if group is not None:
+            from ..parallel.comm import world_size
+
+            if world_size(group) > 1:
+                self._agree_group = group
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def _emit(self, kind: str, step: int, message: str) -> None:
+        if self._telemetry is None:
+            return
+        from ..observe import FailureEvent
+
+        self._telemetry.emit(FailureEvent(kind=kind, label=self._label, message=message, rank=self._rank, step=step))
+
+    def _expired(self) -> bool:
+        flag = int(self._watchdog.expired_this_attempt)
+        if self._agree_group is not None:
+            from ..parallel.comm import agree
+
+            flag = agree(flag, self._agree_group, "max", kind="comm-deadline-flag")
+        return bool(flag)
+
+    def __call__(self, state, batch):
+        wd = self._watchdog
+        i = self._step_index
+        self._step_index += 1
+        snapshot = getattr(self._inner, "snapshot", None)
+        if snapshot is None:
+            if self._own_snapshot is None:
+                self._own_snapshot = StateSnapshot()
+            snapshot = self._own_snapshot
+            snapshot.take(state)
+        wd.begin_attempt()
+        self.last_attempts = 1
+        out = self._inner(state, batch)
+        if not self._expired():
+            wd.note_step(False)
+            return out
+        # a collective overran: the state is usable but suspect; put the
+        # step's inputs back and run it once more
+        self._emit("comm_step_retry", i, "collective deadline expired; retrying step in place")
+        snapshot.restore(state)
+        wd.begin_attempt()
+        self.last_attempts = 2
+        out = self._inner(state, batch)
+        if not self._expired():
+            wd.note_step(False)
+            return out
+        wd.note_step(True)
+        self._emit("comm_degraded", i, "collective deadline expired on retry; step marked degraded")
+        if wd.should_escalate():
+            raise CommEscalationError(
+                f"{self._label}: {wd.escalate_after} consecutive degraded steps (collective deadlines);"
+                f" escalating to supervisor"
+            )
+        return out

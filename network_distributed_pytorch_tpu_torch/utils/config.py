@@ -2,15 +2,17 @@
 same field names and defaults, so a run of either package is described by
 the same words.
 
-Fields whose feature the port does not have yet keep their slot and their
-default; setting one to anything else raises ``NotImplementedError`` rather
-than being ignored (see ``ROADMAP.md`` for what is still to be ported).
+Every field is ported. ``comm_fabric`` names a row of the port's own
+fabric table (``utils.bandwidth.FABRICS_BYTES_PER_S``), NVLink 4 by
+default, where the JAX package defaults to its TPU interconnect.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass
 from typing import Optional
+
+from .bandwidth import FABRICS_BYTES_PER_S
 
 ORTHOGONALIZE_IMPLS = ("auto", "eager", "cuda")
 COMPRESS_IMPLS = ("xla", "pallas")
@@ -76,11 +78,14 @@ class ExperimentConfig:
     trace_dir: Optional[str] = None
     audit_wire: Optional[bool] = None
     health_every: int = 0
-    # a resilience.chaos.ChaosPlan JSON file (exact_cifar10 --checkpoint-dir)
+    # a resilience.chaos.ChaosPlan JSON file (exact_cifar10 --checkpoint-dir,
+    # or --adaptive-comm, where it drives the comm faults)
     chaos_plan: Optional[str] = None
-    # the adaptive loop and the planner: not ported yet
+    # exact_cifar10's adaptive loop (deadline watchdogs and the fallback
+    # ladder), the fabric that budgets its deadlines, and a scripts/plan.py
+    # plan file (the launcher's --plan)
     adaptive_comm: bool = False
-    comm_fabric: str = "ICI(v5e)"
+    comm_fabric: str = "NVLink4(H100)"
     plan_path: Optional[str] = None
 
     def __post_init__(self) -> None:
@@ -105,10 +110,5 @@ class ExperimentConfig:
             value = getattr(self, name)
             if value is not None and value < 1:
                 raise ValueError(f"{name} must be None or >= 1, got {value}")
-        defaults = {f.name: f.default for f in fields(self)}
-        for name in _NOT_PORTED:
-            if getattr(self, name) != defaults[name]:
-                raise NotImplementedError(f"ExperimentConfig.{name} is not ported yet")
-
-
-_NOT_PORTED = ("adaptive_comm", "comm_fabric", "plan_path")
+        if self.comm_fabric not in FABRICS_BYTES_PER_S:
+            raise ValueError(f"comm_fabric must be one of {tuple(FABRICS_BYTES_PER_S)}, got {self.comm_fabric!r}")

@@ -35,7 +35,10 @@ the small ResNet-18 in bf16 on the fused pipeline against the xla one, and
 the guarded step on the card: ``is_oom_error`` and ``GuardedStep`` on a
 real ``torch.cuda.OutOfMemoryError`` (the report written, the state as it
 was), and the snapshot's restore bit for bit after a step that wrote
-everything.
+everything; the fence hooks on the card: the watchdog timing a collective
+slowed on its stream (the fence points wait for the stream), a hook-free
+exact step kernel for kernel and bit for bit the hooked one, and the
+deadline guard's retry landing bit for bit on a clean step.
 
 This file imports torch and the port, never jax, so it also runs on a
 machine that has the card and no JAX (``--noconftest`` skips the JAX
@@ -64,6 +67,7 @@ bf16 that plus 1 bf16 ulp; the mask's gradient (fp32) like an fp32 one.
 import ctypes
 import os
 import subprocess
+import time
 from dataclasses import replace as dataclass_replace
 
 import numpy as np
@@ -1633,3 +1637,144 @@ def test_snapshot_restore_is_bit_for_bit_on_the_card(cuda_device):
     after = _state_tensors(state)
     assert [k for k in before if not torch.equal(after[k], before[k])] == []
     assert torch.equal(torch.cuda.get_rng_state(), rng)
+
+
+# ---- the fence hooks, the watchdog and the deadline guard on the card ------------
+
+
+def _stream_sleep_cycles(device, seconds):
+    """``torch.cuda._sleep`` cycles that keep the stream busy about
+    ``seconds``, from one timed sleep."""
+    probe = 50_000_000
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(probe)
+    end.record()
+    end.synchronize()
+    return int(probe * seconds * 1e3 / max(start.elapsed_time(end), 1e-3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sleep_s", [0.0, 0.5])
+def test_retire_sync_times_the_collective_not_its_enqueue(cuda_device, one_rank_nccl, sleep_s):
+    """A hook that queues a stream-side sleep at the launch slows the
+    all-reduce on its stream; the fence points wait for the stream, so the
+    window from launch to retire holds the sleep and the watchdog (0.05 s
+    deadline) expires. Without the sleep it does not; either way the bits
+    are the plain all-reduce's."""
+    from network_distributed_pytorch_tpu_torch.parallel import comm
+    from network_distributed_pytorch_tpu_torch.resilience import CollectiveWatchdog
+
+    cycles = _stream_sleep_cycles(cuda_device, sleep_s) if sleep_s else 0
+    times = {}
+
+    def slow(info):
+        times[info["phase"]] = time.monotonic()
+        if info["phase"] == "launch" and cycles:
+            torch.cuda._sleep(cycles)
+
+    x = torch.randn(1 << 20, device=cuda_device)
+    want = comm.chunked_all_reduce_mean(x.clone(), one_rank_nccl, None)
+    with CollectiveWatchdog(n_workers=1, fabric="NVLink4(H100)", slack=1.0, floor_s=0.05) as wd:
+        comm.add_fence_hook(wd)
+        comm.add_fence_hook(slow)
+        try:
+            wd.begin_attempt()
+            got = comm.chunked_all_reduce_mean(x.clone(), one_rank_nccl, None)
+        finally:
+            comm.remove_fence_hook(slow)
+            comm.remove_fence_hook(wd)
+        window = times["retire"] - times["launch"]
+        assert wd.expired_this_attempt == bool(sleep_s)
+    assert torch.equal(got, want)
+    if sleep_s:
+        assert window >= 0.8 * sleep_s
+    else:
+        assert window < 0.05
+
+
+def _kernels_of(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [None, 3])
+def test_hook_free_step_is_the_hooked_step_launch_for_launch(cuda_device, deterministic_algorithms, one_rank_nccl,
+                                                            chunks):
+    """An exact_cifar10 step of the small ResNet-18 over a one-rank NCCL
+    group, from the same state, with no hook and with a no-op hook: the
+    same CUDA kernels, the same bits; only the hooked step waits at its
+    fence points (a launch a chunk and the retire)."""
+    from network_distributed_pytorch_tpu_torch.parallel import comm
+    from network_distributed_pytorch_tpu_torch.resilience import StateSnapshot
+
+    cfg = exact_cifar10.default_config()
+    cfg.global_batch_size, cfg.comm_chunks = 16, chunks
+    _, step, state = exact_cifar10.build(cfg, "small", cuda_device, one_rank_nccl)
+    g = torch.Generator().manual_seed(0)
+    batch = (torch.randn(16, 32, 32, 3, generator=g).to(cuda_device), torch.randint(0, 10, (16,), generator=g).to(cuda_device))
+    step(state, batch)  # warm cuDNN and the allocator
+    snap = StateSnapshot()
+    snap.take(state)
+    syncs = comm.fence_syncs()
+    plain = _kernels_of(lambda: step(state, batch))
+    assert comm.fence_syncs() == syncs
+    want = {k: v.detach().clone() for k, v in state.params.items()}
+    snap.restore(state)
+    seen = []
+    comm.add_fence_hook(seen.append)
+    try:
+        hooked = _kernels_of(lambda: step(state, batch))
+    finally:
+        comm.remove_fence_hook(seen.append)
+    assert plain == hooked and sum(plain.values()) > 100
+    assert comm.fence_syncs() - syncs == len(seen) == (chunks or 1) + 1
+    assert all(torch.equal(state.params[k], v) for k, v in want.items())
+
+
+@pytest.mark.cuda
+def test_deadline_guard_restores_the_step_bit_for_bit_on_the_card(cuda_device, deterministic_algorithms):
+    """An expired first attempt (a scripted verdict) is put back from the
+    guarded step's snapshot and run again: the state lands bit for bit on
+    a clean step's, K1 and all."""
+    from network_distributed_pytorch_tpu_torch.resilience import CommDeadlineGuard, GuardedStep
+
+    class Verdicts:
+        escalate_after = 3
+
+        def __init__(self, verdicts):
+            self.verdicts, self.current, self.noted = list(verdicts), False, []
+
+        def begin_attempt(self):
+            self.current = self.verdicts.pop(0) if self.verdicts else False
+
+        @property
+        def expired_this_attempt(self):
+            return self.current
+
+        def note_step(self, degraded):
+            self.noted.append(degraded)
+
+        def should_escalate(self):
+            return False
+
+    step, state = _small_resnet_on(cuda_device)
+    state, _ = step(state, _guard_batch(cuda_device, 0))
+    ref_step, ref_state = _small_resnet_on(cuda_device)
+    ref_state, _ = ref_step(ref_state, _guard_batch(cuda_device, 0))
+    ref_state, _ = ref_step(ref_state, _guard_batch(cuda_device, 1))
+    want = _state_tensors(ref_state)
+    guard = CommDeadlineGuard(GuardedStep(step, retries=2), Verdicts([True, False]))
+    state, _ = guard(state, _guard_batch(cuda_device, 1))
+    got = _state_tensors(state)
+    assert [k for k in want if not torch.equal(got[k], want[k])] == []
+    assert guard._watchdog.noted == [False]

@@ -322,12 +322,14 @@ def test_run_matches_jax_run(layout, monkeypatch):
 def test_run_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="strategy"):
         exact_cifar10.run(strategy="zero", device="cpu")
+    # adaptive_comm is ported (test_torch_adaptive.py); it refuses the
+    # checkpointed loop, as the JAX package's does
     cfg = exact_cifar10.default_config()
-    cfg.adaptive_comm = True  # set after construction, past the config's own check
-    with pytest.raises(NotImplementedError, match="adaptive_comm"):
-        exact_cifar10.run(cfg, device="cpu")
-    # the chaos plan is ported, and needs the checkpointed loop, as in the JAX package
-    with pytest.raises(ValueError, match="chaos_plan requires checkpoint_dir"):
+    cfg.adaptive_comm = True
+    with pytest.raises(ValueError, match="pick one"):
+        exact_cifar10.run(cfg, device="cpu", checkpoint_dir="ckpt")
+    # the chaos plan is ported, and needs the checkpointed or the adaptive loop, as in the JAX package
+    with pytest.raises(ValueError, match="chaos_plan requires checkpoint_dir or adaptive_comm"):
         exact_cifar10.run(ExperimentConfig(chaos_plan="plan.json"), device="cpu")
 
 

@@ -44,6 +44,7 @@ def port_files():
     # test modules that run where there is no JAX: spawned ranks, card tests
     yield os.path.join(REPO, "tests", "torch_worker.py")
     yield os.path.join(REPO, "tests", "torch_model_parallel_worker.py")
+    yield os.path.join(REPO, "tests", "torch_adaptive_worker.py")
     yield os.path.join(REPO, "tests", "test_torch_cuda.py")
     # the supervisor tests' toy worker, which imports neither torch nor jax
     yield os.path.join(REPO, "tests", "torch_toy_supervised_worker.py")
@@ -111,8 +112,9 @@ def test_port_imports_and_trains_with_jax_blocked():
         mods = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
         for m in mods:
             importlib.import_module(m)
-        for m in ("ops.paged", "observe.events", "observe.memory", "resilience.supervisor", "resilience.chaos",
-                  "resilience.guards", "data.partition", "serving.blocks",
+        for m in ("ops.paged", "observe.events", "observe.memory", "observe.costmodel", "resilience.supervisor",
+                  "resilience.chaos", "resilience.guards", "resilience.controller", "parallel.hierarchical",
+                  "experiments.common", "data.partition", "serving.blocks",
                   "serving.cache", "serving.engine", "serving.frontend", "serving.request", "experiments.serve_gpt"):
             assert {PORT!r} + "." + m in mods, m
         import torch
@@ -140,8 +142,9 @@ def test_port_imports_and_trains_with_jax_blocked():
 
 def test_parent_modules_import_with_torch_blocked():
     """The supervising parent holds no card: ``resilience/supervisor.py``,
-    ``resilience/chaos.py`` (and the package around them) and the toy test
-    worker import with torch blocked too."""
+    ``resilience/chaos.py``, ``guards.py`` and ``controller.py`` (and the
+    package around them) and the toy test worker import with torch blocked
+    too."""
     script = textwrap.dedent(
         f"""
         import importlib, sys
@@ -152,7 +155,8 @@ def test_parent_modules_import_with_torch_blocked():
                         raise ImportError("blocked: " + name)
                 return None
         sys.meta_path.insert(0, Blocker())
-        for m in ("resilience", "resilience.supervisor", "resilience.chaos", "resilience.guards"):
+        for m in ("resilience", "resilience.supervisor", "resilience.chaos", "resilience.guards",
+                  "resilience.controller"):
             importlib.import_module({PORT!r} + "." + m)
         sys.path.insert(0, "tests")
         import torch_toy_supervised_worker

@@ -38,7 +38,7 @@ from network_distributed_pytorch_tpu.parallel import make_mesh
 from network_distributed_pytorch_tpu.parallel.trainer import make_train_step as jax_make_train_step
 from network_distributed_pytorch_tpu.parallel.trainer import stateless_loss
 from network_distributed_pytorch_tpu.utils import cross_entropy_loss
-from network_distributed_pytorch_tpu_torch.experiments.common import resilient_train_loop, train_loop
+from network_distributed_pytorch_tpu_torch.experiments.common import adaptive_train_loop, resilient_train_loop, train_loop
 from network_distributed_pytorch_tpu_torch.models.import_weights import resnet_state_dict_from_flax
 from network_distributed_pytorch_tpu_torch.observe import FailureEvent
 from network_distributed_pytorch_tpu_torch.resilience import PreemptionGuard
@@ -218,8 +218,9 @@ def test_heartbeat_monitor_lists_stale_peers(tmp_path):
 
 def test_loop_refuses_what_is_not_ported(tmp_path):
     """``chaos_plan``, ``step_retries`` and ``guard_batches`` are ported
-    (``test_torch_chaos.py``) and run; what stays unported around the loop,
-    the adaptive loop and the supervisor's live plane, refuses."""
+    (``test_torch_chaos.py``) and run, and so is the adaptive loop
+    (``test_torch_adaptive.py``); what stays unported around the loop, the
+    supervisor's live plane and the adaptive loop's alert feed, refuses."""
     from network_distributed_pytorch_tpu_torch.resilience import ChaosPlan, SupervisorConfig
     from network_distributed_pytorch_tpu_torch.utils.config import ExperimentConfig
 
@@ -229,10 +230,11 @@ def test_loop_refuses_what_is_not_ported(tmp_path):
             step, state, resume_batches, 1, str(tmp_path / str(i)), torch.device("cpu"), **kw
         )
         assert len(logger.records) == RESUME_STEPS
-    with pytest.raises(NotImplementedError, match="adaptive_comm"):
-        ExperimentConfig(adaptive_comm=True)
+    assert ExperimentConfig(adaptive_comm=True).adaptive_comm
     with pytest.raises(NotImplementedError, match="observe.live"):
         SupervisorConfig(metrics_port=0)
+    with pytest.raises(NotImplementedError, match="observe.live"):
+        adaptive_train_loop(None, resume_batches, 1, None, torch.device("cpu"), alert_feed=object())
 
 
 def test_loop_takes_the_trace_the_audit_and_the_probe(tmp_path):

@@ -241,8 +241,9 @@ def test_the_telemetry_fields_construct_and_run(tmp_path):
 
 
 def test_config_rejects_unported_options():
-    """The comm fields are ported and validated; the fields still unported
-    raise rather than being ignored."""
+    """The comm fields are ported and validated, the adaptive loop's and
+    the planner's too (``comm_fabric`` a row of the port's fabric table);
+    an unknown value raises rather than being ignored."""
     assert ExperimentConfig(compress_impl="pallas").compress_impl == "pallas"
     with pytest.raises(ValueError):
         ExperimentConfig(compress_impl="bogus")
@@ -251,9 +252,12 @@ def test_config_rejects_unported_options():
     for bad in ({"comm_chunks": 0}, {"bucket_bytes": 0}, {"comm_strategy": "tree"}):
         with pytest.raises(ValueError):
             ExperimentConfig(**bad)
-    for unported in ({"comm_fabric": "DCN"}, {"adaptive_comm": True}):
-        with pytest.raises(NotImplementedError):
-            ExperimentConfig(**unported)
+    cfg = ExperimentConfig(adaptive_comm=True, comm_fabric="10GbE", plan_path="plan.json")
+    assert (cfg.adaptive_comm, cfg.comm_fabric, cfg.plan_path) == (True, "10GbE", "plan.json")
+    assert ExperimentConfig().comm_fabric == "NVLink4(H100)"
+    for bad in ({"comm_fabric": "DCN"}, {"comm_fabric": "ICI(v5e)"}):
+        with pytest.raises(ValueError):
+            ExperimentConfig(**bad)
     assert ExperimentConfig(chaos_plan="plan.json").chaos_plan == "plan.json"  # ported
     # compute_dtype is ported, the ResNet's bf16 included (held to JAX in test_torch_resnet_bf16.py)
     with pytest.raises(ValueError):
