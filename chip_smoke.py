@@ -167,7 +167,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    against their plain versions, its time a call and the step p50 with
    telemetry on against off (``main_path_telemetry``,
    ``main_path_telemetry_fused``), and ``exact_cifar10`` under FSDP with
-   its exact audit (``main_path_telemetry_fsdp``);
+   its exact audit (``main_path_telemetry_fsdp``); after the chaos and
+   the adaptive phases, the run directory and the live plane
+   (``live_phases``): ``launch exact_cifar10 --supervise --run-dir D
+   --metrics-port 0 --adaptive-comm`` at preset full in a subprocess,
+   clean (a scrape of ``/metrics`` mid-run, no page, the losses bit for
+   bit the launch's without the plane: ``main_path_live``) and under a
+   ``comm_throttle`` that the live detectors page on, nudging the worker
+   to ``compress``, K1 there once a shape group a step
+   (``main_path_live_nudge``);
 4. two steps from the same weights and batches, deterministic cuDNN: plain
    Gram-Schmidt against the kernel; two DiLoCo rounds of ResNet-152 with
    the outer delta's Gram-Schmidt plain against the kernel; fused against xla; fused against xla
@@ -404,14 +412,43 @@ ADAPTIVE_LADDER = ["baseline", "compress", "compress-low-rank"]
 # and the plain one against itself from parameters moved 1 ulp (the drift
 # that training alone makes of a rounding-sized difference)
 HIER_H, HIER_PLAN = 4, ("sync", "sync", "local", "sync")
+# the live plane (live_phases): the supervising launcher of exact_cifar10
+# --adaptive-comm at preset full (ResNet-50, batch 256, world 1) with a run
+# dir, /metrics on an ephemeral port and --alert-restart-after 3, 2 epochs
+# of LIVE_STEPS steps (>= 16: step_time_drift needs 10 steady steps, then 5
+# drifted ones), the baseline in LIVE_CHUNKS fenced chunks (the throttle
+# slows each chunk, not the step, and each chunk must stay inside its 0.05 s
+# deadline floor). main_path_live: without faults, and the same launch
+# without --run-dir and --metrics-port, the losses bit for bit.
+# main_path_live_nudge: a comm_throttle on the grads from LIVE_THROTTLE_STEP
+# to the end, sized from main_path_live's step p50 so that the step slows
+# LIVE_SLOWDOWN times with each chunk's sleep at most LIVE_CHUNK_SLEEP_S:
+# the drift alert, a nudge to compress, K1 once a shape group a step there
+LIVE_STEPS, LIVE_CHUNKS, LIVE_THROTTLE_STEP = 16, 4, 12
+LIVE_SLOWDOWN, LIVE_CHUNK_SLEEP_S = 2.2, 0.035
+LIVE_LADDER = ["baseline", "compress"]
 # the supervised workers' deterministic algorithms, as chaos_guarded's
 # deterministic_algorithms() sets them in process; any sitecustomize the
-# interpreter had is run after it
-SUPERVISED_SITECUSTOMIZE = """import os, sys
+# interpreter had is run after it. With CHIP_SMOKE_LAUNCHES set, a process
+# that ran the port's Gram-Schmidt wrapper appends its launch count to that
+# file when it exits (the count of a supervised worker, whose launches the
+# parent cannot see)
+SUPERVISED_SITECUSTOMIZE = """import atexit, json, os, sys
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import torch
 torch.use_deterministic_algorithms(True, warn_only=True)
 torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+
+
+def _launches():
+    out = os.environ.get("CHIP_SMOKE_LAUNCHES")
+    gs = sys.modules.get("network_distributed_pytorch_tpu_torch.ops.gram_schmidt")
+    if out and gs is not None:
+        with open(out, "a") as f:
+            f.write(json.dumps({"pid": os.getpid(), "gram_schmidt": gs.KERNEL.launches}) + "\\n")
+
+
+atexit.register(_launches)
 _here = os.path.dirname(os.path.abspath(__file__))
 for _p in sys.path:
     _f = os.path.join(_p or ".", "sitecustomize.py")
@@ -3049,6 +3086,8 @@ def adaptive_phases(dev, drive, images, labels, smi, preset="full"):
             return None
         from torch.profiler import ProfilerActivity, profile
 
+        # what was launched before (the snapshot's copies) must not land in the window
+        sync()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             sync()
@@ -3198,6 +3237,12 @@ def adaptive_phases(dev, drive, images, labels, smi, preset="full"):
                 out["hook_free_vs_hooked"] = {
                     "state_differs_at": bitwise_equal(after_hooked, after_plain),
                     "kernels_equal": plain_kernels == hooked_kernels,
+                    # each kernel launched a different number of times: (hook-free, hooked)
+                    "kernels_differ": {
+                        k: ((plain_kernels or {}).get(k, 0), (hooked_kernels or {}).get(k, 0))
+                        for k in set(plain_kernels or {}) | set(hooked_kernels or {})
+                        if (plain_kernels or {}).get(k, 0) != (hooked_kernels or {}).get(k, 0)
+                    },
                     "kernel_launches": sum((plain_kernels or {}).values()),
                     "fence_syncs": [plain_syncs, hooked_syncs],
                 }
@@ -3421,6 +3466,314 @@ def adaptive_phases(dev, drive, images, labels, smi, preset="full"):
             "launches": {"gram_schmidt": k1_hier}, "peak_memory_bytes": peak, "nvidia_smi": smi,
             "wall_s": time.perf_counter() - t_phase,
         })
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def live_phases(dev, drive, smi, preset="full"):
+    """``main_path_live`` and ``main_path_live_nudge``: the run directory
+    and the live telemetry plane of a supervised run, through the
+    launcher's entry point in a subprocess (``launch exact_cifar10
+    --supervise --run-dir D --metrics-port 0 --alert-restart-after 3
+    --adaptive-comm --plan P``; see the constants above), the workers under
+    deterministic algorithms by ``SUPERVISED_SITECUSTOMIZE``; files under a
+    temporary directory removed at the end.
+
+    ``main_path_live``: the port file appears and a scrape while the run is
+    alive returns 200 with step counters above 0; no critical alert, no
+    ``alert:`` decision and no ``alert_restart``; ``merge_run`` finds the
+    shard led by its ``run_start`` marker; the live step p50 within 5 % of
+    ``rank_step_stats`` over the merged run; the losses bit for bit those
+    of the same launch without ``--run-dir`` and ``--metrics-port``.
+
+    ``main_path_live_nudge``: the same launch under a ``comm_throttle``: a
+    ``step_time_drift`` or ``bandwidth_collapse`` alert in ``alerts.jsonl``
+    and the supervisor's log, the worker's controller moving to
+    ``compress`` on an ``alert:`` trigger (it fails, and says so, if the
+    deadline guard moves the rung first), the audit exact on both rungs,
+    finite losses, and K1 launched in the worker once a shape group a step
+    on ``compress`` (its count from the worker's own wrapper, written at
+    its exit). Returns that count. ``preset="small"`` rehearses both on
+    the CPU (the small ResNet-18, global batch 16)."""
+    import threading
+    import urllib.request
+
+    from network_distributed_pytorch_tpu_torch.experiments import exact_cifar10
+    from network_distributed_pytorch_tpu_torch.observe import analytics, live, runlog
+    from network_distributed_pytorch_tpu_torch.parallel.reducers import PowerSGDReducer
+    from network_distributed_pytorch_tpu_torch.resilience import ChaosPlan, FaultSpec
+
+    on_cuda = dev.type == "cuda"
+    root = tempfile.mkdtemp(prefix="chip_smoke_live_")
+    site = os.path.join(root, "site")
+    os.makedirs(site)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(SUPERVISED_SITECUSTOMIZE)
+    here = os.path.dirname(os.path.abspath(__file__))
+    plan_doc = os.path.join(root, "plan_doc.json")
+    with open(plan_doc, "w") as f:
+        json.dump({"ladder": {"NVLink4(H100)": LIVE_LADDER}}, f)
+    # the compress rung's shape groups (PowerSGD rank 4), from the model's shapes
+    cfg = exact_cifar10.default_config()
+    model = exact_cifar10.build_model(preset, "cpu", seed=cfg.seed)
+    compress = PowerSGDReducer(random_seed=cfg.seed, compression_rank=4)
+    n_groups = len(compress._shape_groups(compress._metas(list(model.parameters()))))
+    del model
+
+    def records(path, event=None):
+        out = []
+        if not os.path.exists(path):
+            return out
+        with open(path) as f:
+            for line in f:
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                if isinstance(rec, dict) and (event is None or rec.get("event") == event):
+                    out.append(rec)
+        return out
+
+    def launch_live(name, plane, faults=()):
+        """One supervised launch: its summary, the worker's summary, its
+        events, the mid-run scrape, its wall seconds and the worker's K1
+        launches."""
+        d = os.path.join(root, name)
+        run_dir = os.path.join(d, "run")
+        os.makedirs(d)
+        launches_file = os.path.join(d, "launches.jsonl")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([site, here, os.environ.get("PYTHONPATH", "")]),
+                   CHIP_SMOKE_LAUNCHES=launches_file)
+        argv = [
+            sys.executable, "-m", "network_distributed_pytorch_tpu_torch.launch", "exact_cifar10",
+            "--preset", preset, "--device", dev.type, "--epochs", "2", "--max-steps-per-epoch", str(LIVE_STEPS),
+            "--supervise", "--num-processes", "1", "--alert-restart-after", "3", "--adaptive-comm",
+            "--plan", plan_doc, "--comm-chunks", str(LIVE_CHUNKS), "--json", "--log-every", "0",
+            "--worker-log-dir", os.path.join(d, "logs"), *(["--global-batch", "16"] if preset == "small" else []),
+        ]
+        if plane:
+            argv += ["--run-dir", run_dir, "--metrics-port", "0"]
+        if faults:
+            ChaosPlan(list(faults)).save(os.path.join(d, "chaos.json"))
+            argv += ["--chaos-plan", os.path.join(d, "chaos.json")]
+        scrape, done = {}, threading.Event()
+
+        def scraper():
+            while not done.is_set():
+                port = live.read_port_file(run_dir)
+                if port is not None:
+                    try:
+                        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2.0) as resp:
+                            body = resp.read().decode()
+                        steps = [float(line.split()[-1]) for line in body.splitlines()
+                                 if line.startswith("live_steps_total{")]
+                        if steps and max(steps) > 0:
+                            scrape.update(status=resp.status, port=port, steps_total=max(steps),
+                                          lines=len(body.splitlines()), t=time.perf_counter())
+                            return
+                    except OSError:
+                        pass
+                time.sleep(0.05)
+
+        thread = threading.Thread(target=scraper, daemon=True)
+        if plane:
+            thread.start()
+        t0, t0_unix = time.perf_counter(), time.time()
+        proc = subprocess.run(argv, cwd=d, env=env, capture_output=True, text=True, timeout=600)
+        wall, t1_unix = time.perf_counter() - t0, time.time()
+        done.set()
+        if plane:
+            thread.join(timeout=5.0)
+        logs = os.path.join(d, "logs")
+        log_text = ""
+        for log in sorted(os.listdir(logs)) if os.path.isdir(logs) else []:
+            with open(os.path.join(logs, log)) as f:
+                log_text += f"--- {log}\n" + f.read()
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            fail(f"{name}: exit {proc.returncode}: {proc.stderr[-2000:]} {log_text[-4000:]}")
+        worker = None
+        for line in log_text.splitlines():
+            if line.startswith("{") and '"losses"' in line:
+                worker = json.loads(line)
+        if worker is None:
+            fail(f"{name}: no worker summary in {logs}: {log_text[-3000:]}")
+        k1 = sum(r["gram_schmidt"] for r in records(launches_file))
+        return {
+            "summary": json.loads(lines[-1]), "worker": worker, "run_dir": run_dir, "scrape": scrape,
+            "scrape_s_after_start": scrape["t"] - t0 if "t" in scrape else None, "wall_s": wall, "k1": k1,
+            "unix": (t0_unix, t1_unix),
+        }
+
+    def plane_of(run):
+        """What the run directory holds: the supervisor's log, the shard,
+        the alerts, the merge, and the live p50 against the report's."""
+        run_dir = run["run_dir"]
+        sup = records(os.path.join(run_dir, runlog.SUPERVISOR_LOG))
+        shard = records(runlog.shard_path(run_dir, 0))
+        merged = runlog.merge_run(run_dir)
+        stats = analytics.rank_step_stats(merged.events)
+        agg = live.LiveAggregator(run_dir)
+        agg.poll()
+        return {
+            "sup": sup, "shard": shard, "alerts": records(os.path.join(run_dir, runlog.ALERTS_LOG), "alert"),
+            "per_rank": merged.per_rank, "stats": stats, "torn_lines": merged.torn_lines,
+            "live_p50_s": agg.registry.get_gauge("live_step_time_p50_seconds"),
+            "report_p50_s": analytics.percentile([v["p50_s"] for v in stats.values()], 50) if stats else None,
+            "manifest": runlog.RunManifest.load(run_dir),
+        }
+
+    def plane_summary(run, plane):
+        steps = [r for r in plane["shard"] if r.get("event") == "step"]
+        # where the wall went, on the host's clock (unix seconds from the spawn)
+        spawned = plane["manifest"].spawns[0]["spawned_unix"] if plane["manifest"].spawns else None
+        at = {"marker": plane["shard"][0].get("ts") if plane["shard"] else None,
+              "first_step": steps[0].get("ts") if steps else None, "last_step": steps[-1].get("ts") if steps else None}
+        for r in plane["sup"]:
+            if r.get("kind") in ("worker_complete", "run_complete"):
+                at[r["kind"]] = r.get("ts")
+        at["exit"] = run["unix"][1]
+        return {
+            "parent_start_to_spawn_s": spawned - run["unix"][0] if spawned is not None else None,
+            "wall_from_spawn_s": {k: (v - spawned if v is not None and spawned is not None else None)
+                                  for k, v in at.items()},
+            "supervisor_kinds": [r["kind"] for r in plane["sup"] if r.get("event") == "failure"],
+            "alerts": [(a["alert"], a["severity"], a.get("rank"), a.get("step")) for a in plane["alerts"]],
+            "policy": [{k: r.get(k) for k in ("trigger", "epoch", "rung_before", "rung_after",
+                                               "predicted_bytes_per_step", "realized_bytes_per_step")}
+                       for r in plane["shard"] if r.get("event") == "policy"],
+            "audits": [{k: r.get(k) for k in ("analytic_bytes", "hlo_bytes", "exact")}
+                       for r in plane["shard"] if r.get("event") == "compile"],
+            "step_ms": [1e3 * r["step_time_s"] for r in steps],
+            "per_rank": {str(k): v for k, v in plane["per_rank"].items()}, "torn_lines": plane["torn_lines"],
+            "live_p50_s": plane["live_p50_s"], "report_p50_s": plane["report_p50_s"],
+            "scrape": {k: v for k, v in run["scrape"].items() if k != "t"},
+            "scrape_s_after_start": run["scrape_s_after_start"], "launch_wall_s": run["wall_s"],
+            "run_id": run["summary"].get("run_id"), "spawns": len(plane["manifest"].spawns),
+        }
+
+    def check_plane(name, run, plane):
+        out = plane_summary(run, plane)
+        shard = plane["shard"]
+        marker = shard[0] if shard else {}
+        if run["scrape"].get("status") != 200 or not run["scrape"].get("steps_total", 0) > 0 \
+                or run["scrape"]["steps_total"] >= 2 * LIVE_STEPS:
+            fail(f"{name}: no scrape with step counters while the run was alive: {out['scrape']}")
+        if (marker.get("event"), marker.get("kind"), marker.get("run_id")) != ("marker", "run_start",
+                                                                              run["summary"]["run_id"]) \
+                or plane["per_rank"][0].get("missing") or plane["per_rank"][0]["markers"] != 1 or plane["torn_lines"]:
+            fail(f"{name}: the shard is not led by its run_start marker: {marker} {plane['per_rank']}")
+        live_p50, rep_p50 = plane["live_p50_s"], plane["report_p50_s"]
+        if not (live_p50 and rep_p50 and abs(live_p50 - rep_p50) <= 0.05 * rep_p50):
+            fail(f"{name}: live step p50 {live_p50} against the merged run's {rep_p50}")
+        if "alert_restart" in out["supervisor_kinds"] or not run["summary"]["success"] \
+                or run["summary"]["total_restarts"] != 0:
+            fail(f"{name}: the run restarted or failed: {run['summary']} {out['supervisor_kinds']}")
+        if not all(math.isfinite(v) for v in run["worker"]["losses"]) \
+                or len(run["worker"]["losses"]) != 2 * LIVE_STEPS:
+            fail(f"{name}: losses {run['worker']['losses']}")
+        return out
+
+    try:
+        # ---- main_path_live -------------------------------------------------------
+        t_phase = time.perf_counter()
+
+        def main_path_live():
+            plain = launch_live("live_plain", plane=False)
+            run = launch_live("live", plane=True)
+            plane = plane_of(run)
+            out = check_plane("main_path_live", run, plane)
+            out["plain_launch_wall_s"] = plain["wall_s"]
+            out["losses_differ_at"] = [i for i, (a, b) in enumerate(zip(run["worker"]["losses"],
+                                                                        plain["worker"]["losses"])) if a != b]
+            out["losses"] = run["worker"]["losses"]
+            out["final_rung"] = run["worker"]["final_rung"]
+            out["k1"] = run["k1"] + plain["k1"]
+            return out
+
+        live_result, _ = drive("main_path_live", main_path_live, {}, kernel_free=True)
+        if any(a[1] == "critical" for a in live_result["alerts"]) \
+                or any(str(p["trigger"]).startswith("alert:") for p in live_result["policy"]):
+            fail(f"main_path_live: a page on a clean run: {live_result['alerts']} {live_result['policy']}")
+        if live_result["losses_differ_at"] or live_result["final_rung"] != "baseline" or live_result["k1"]:
+            fail(f"main_path_live: the plane changed the training: {live_result}")
+        clean_p50_s = statistics.median(live_result["step_ms"][2:]) / 1e3
+        emit({
+            "phase": "main_path_live", "preset": preset, "epochs": 2, "steps_per_epoch": LIVE_STEPS,
+            "comm_chunks": LIVE_CHUNKS, "ladder": LIVE_LADDER, **live_result,
+            "bitwise": "the losses equal those of the same launch without --run-dir and --metrics-port",
+            "nvidia_smi": smi, "wall_s": time.perf_counter() - t_phase,
+        })
+
+        # ---- main_path_live_nudge ---------------------------------------------------
+        t_phase = time.perf_counter()
+        # the throttle: each of the baseline's fenced chunks sleeps its share
+        # of (LIVE_SLOWDOWN - 1) clean steps, at most LIVE_CHUNK_SLEEP_S
+        base_bytes = live_result["audits"][0]["analytic_bytes"]
+        chunk_bytes = base_bytes / LIVE_CHUNKS
+        chunk_sleep_s = min(LIVE_CHUNK_SLEEP_S, (LIVE_SLOWDOWN - 1.0) * clean_p50_s / LIVE_CHUNKS)
+        throttle = {"bytes_per_s": chunk_bytes / chunk_sleep_s, "max_sleep_s": LIVE_CHUNK_SLEEP_S,
+                    "duration_steps": 2 * LIVE_STEPS - LIVE_THROTTLE_STEP}
+
+        def main_path_live_nudge():
+            run = launch_live("live_nudge", plane=True, faults=[
+                FaultSpec(kind="comm_throttle", step=LIVE_THROTTLE_STEP, payload=throttle)])
+            plane = plane_of(run)
+            out = check_plane("main_path_live_nudge", run, plane)
+            # the steps after the decision, in the shard's order: the compress rung's
+            after, on_compress = False, 0
+            for r in plane["shard"]:
+                if r.get("event") == "policy":
+                    after = True
+                elif r.get("event") == "step" and after:
+                    on_compress += 1
+            out.update(
+                k1=run["k1"], steps_on_compress=on_compress, losses=run["worker"]["losses"],
+                final_rung=run["worker"]["final_rung"], bits_per_step=run["worker"]["bits_per_step"],
+                comm_deadlines=[r.get("step") for r in plane["shard"] if r.get("kind") == "comm_deadline"],
+                alert_in_supervisor_log=[r["alert"] for r in plane["sup"] if r.get("event") == "alert"],
+            )
+            return out
+
+        result, _ = drive("main_path_live_nudge", main_path_live_nudge, {}, kernel_free=True)
+        policy, alerts = result["policy"], result["alerts"]
+        comm = [a for a in alerts if a[0] in ("step_time_drift", "bandwidth_collapse")]
+        if policy and not str(policy[0]["trigger"]).startswith("alert:"):
+            fail(f"main_path_live_nudge: the rung moved on {policy[0]['trigger']!r} before any alert (the deadline"
+                 f" guard moved it first): resize the throttle. {policy} {result['comm_deadlines']}")
+        if not comm or comm[0][0] not in result["alert_in_supervisor_log"]:
+            fail(f"main_path_live_nudge: no step_time_drift or bandwidth_collapse alert: {alerts}")
+        if len(policy) != 1 or policy[0]["rung_after"] != "compress" or result["final_rung"] != "compress" \
+                or policy[0]["trigger"] != f"alert:{comm[0][0]}:{comm[0][1]}":
+            fail(f"main_path_live_nudge: no alert: decision to compress: {policy} {alerts}")
+        audits = result["audits"]
+        if len(audits) != 2 or not all(a["exact"] for a in audits) \
+                or audits[0]["analytic_bytes"] != policy[0]["realized_bytes_per_step"] \
+                or audits[1]["analytic_bytes"] != policy[0]["predicted_bytes_per_step"] \
+                or 8 * audits[1]["analytic_bytes"] != result["bits_per_step"]:
+            fail(f"main_path_live_nudge: the audits: {audits} {policy}")
+        if preset == "full" and (audits[0]["analytic_bytes"], audits[1]["analytic_bytes"]) != (94_114_092, 1_516_540):
+            fail(f"main_path_live_nudge: bytes a step {audits}, expected 94,114,092 then 1,516,540")
+        want_k1 = result["steps_on_compress"] * n_groups
+        if not result["steps_on_compress"] or (on_cuda and result["k1"] != want_k1):
+            fail(f"main_path_live_nudge: K1 launched {result['k1']} times in the worker, expected"
+                 f" {result['steps_on_compress']} steps x {n_groups} groups")
+        step_ms = result["step_ms"]
+        nudged_at = 2 * LIVE_STEPS - result["steps_on_compress"]  # the first step on compress
+        throttled = step_ms[LIVE_THROTTLE_STEP + 1:nudged_at]
+        slowdown = statistics.median(throttled) / (1e3 * clean_p50_s) if throttled else None
+        if on_cuda and not (slowdown and slowdown >= 2.0):
+            fail(f"main_path_live_nudge: the throttle slowed the step {slowdown}x, not 2x: resize it. {step_ms}")
+        emit({
+            "phase": "main_path_live_nudge", "preset": preset, "epochs": 2, "steps_per_epoch": LIVE_STEPS,
+            "comm_chunks": LIVE_CHUNKS, "throttle": {"step": LIVE_THROTTLE_STEP, **throttle},
+            "clean_step_p50_ms": 1e3 * clean_p50_s, "chunk_sleep_ms": 1e3 * chunk_sleep_s, "slowdown": slowdown,
+            "alert_step": comm[0][3], "alert_steps_after_throttle": comm[0][3] - LIVE_THROTTLE_STEP,
+            "first_step_on_compress": nudged_at, "shape_groups": n_groups, **result,
+            "launches_in_worker": {"gram_schmidt": result["k1"]}, "nvidia_smi": smi,
+            "wall_s": time.perf_counter() - t_phase,
+        })
+        return result["k1"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4264,6 +4617,12 @@ def main() -> None:
     # on ResNet-152 (K1 in its PowerSGD outer reduction)
     adaptive_phases(dev, drive, images, labels, smi)
 
+    # the run directory and the live plane: the supervising launcher of
+    # exact_cifar10 --adaptive-comm with --run-dir and --metrics-port, clean
+    # and under a throttle that the live detectors page on (K1 in the worker
+    # once the alert nudges it to compress)
+    k1_live_worker = live_phases(dev, drive, smi)
+
     # ---- 4. two steps against two steps ---------------------------------------
     # with deterministic cuDNN and no TF32, so that only what is compared differs
     torch.backends.cudnn.deterministic = True
@@ -4556,6 +4915,9 @@ def main() -> None:
         # DiLoCo's outer delta (ResNet-152) and the bandwidth study's PowerSGD rows
         "launches": sum(launches[path]["gram_schmidt"] for path in k1_paths.values()),
         "launches_by_path": {name: launches[path]["gram_schmidt"] for name, path in k1_paths.items()},
+        # launched in a supervised worker process (live_phases), counted by
+        # the worker's own wrapper at its exit: steps on compress x groups
+        "launches_in_supervised_workers": {"resnet50_live_nudge": k1_live_worker},
         "max_abs_err": main_err,
         "ms": gs_ms,
         "device_ms": gs_device_ms,

@@ -770,8 +770,17 @@ def adaptive_train_loop(
     the ``torch.profiler`` trace as :func:`train_loop` does; ``audit``
     audits the first step of each rung that ran once (its collectives
     against its ledger, the deadline guard's agreements left out).
-    ``alert_feed`` (the JAX package's live plane) is
-    not ported and raises ``NotImplementedError``.
+
+    ``alert_feed`` (an ``observe.live.AlertFeed`` on the run's
+    ``alerts.jsonl``) is read after every step, and each new alert record
+    goes to ``controller.nudge``: a critical or comm-shaped alert descends
+    one rung at once (a rebuild as at an epoch's end), a fidelity-shaped
+    one ascends, another warn pre-charges the epoch's verdict; the nudged
+    epoch's verdict is then spent. Each rank reads the file at its own
+    moment, so over more than one rank the ranks first agree (one int32
+    max a step, kind ``"alert-nudge"``, outside the step and its audit) on
+    how many records to take, and each takes the same records at the same
+    step: every rank rebuilds at the same step.
 
     Returns ``(state, logger, controller)``."""
     import statistics
@@ -780,8 +789,6 @@ def adaptive_train_loop(
     from ..resilience.guards import CollectiveWatchdog, CommDeadlineGuard, GuardedStep
     from ..parallel import comm
 
-    if alert_feed is not None:
-        raise NotImplementedError("alert_feed needs observe.live, which is not ported yet")
     base = step_factory(controller.overrides)
     state = base.init_state()
     group = base.group
@@ -807,6 +814,7 @@ def adaptive_train_loop(
         return agree(int(value), group, "max", kind="epoch-health")
 
     guard = _guard(base)
+    alerts = _AgreedAlerts(alert_feed, group) if alert_feed is not None else None
     logger = MetricsLogger(bits_per_step=base.bits_per_step, log_every=log_every, telemetry=telemetry)
     # the first steps after every build pay the kernels' builds and the
     # allocator's warm-up, which would poison the p50 the controller
@@ -861,11 +869,18 @@ def adaptive_train_loop(
                     # waits for a step of one attempt
                     if audit_pending and guard.last_attempts == 1:
                         audit_pending = False
-                        issued = [r for r in records if r.kind != "comm-deadline-flag"]
+                        issued = [r for r in records if r.kind not in ("comm-deadline-flag", "alert-nudge")]
                         _audit_step(base, issued, run_name, telemetry, device)
                     logger.end_step(epoch, loss, device_ms)
                     gstep += 1
                     probes.after_step(gstep, epoch, base, state, batch)
+                    if alerts is not None:
+                        for rec in alerts.take():
+                            decision = controller.nudge(
+                                rec.get("alert", ""), epoch, severity=rec.get("severity", "warn")
+                            )
+                            if decision is not None:
+                                _rebuild(decision)
                 logger.end_epoch(epoch, rank=rank)
                 if not step_times:
                     continue
@@ -893,6 +908,38 @@ def adaptive_train_loop(
         comm.remove_fence_hook(watchdog)
         watchdog.stop()
     return state, logger, controller
+
+
+class _AgreedAlerts:
+    """The alert feed as every rank takes it: the records read so far, in
+    the file's order; :meth:`take` returns the ones no earlier call
+    returned, up to the count the ranks agree on (the max of what each has
+    read: the file is append-only, so a rank that has read fewer reads on
+    until it has them all)."""
+
+    # how long a rank reads on for the records a peer has read: the file
+    # is local and append-only, so this only bounds a broken feed
+    TIMEOUT_S = 60.0
+
+    def __init__(self, feed, group):
+        self.feed, self.group = feed, group
+        self.read: List[Dict] = []
+        self.taken = 0
+
+    def take(self) -> List[Dict]:
+        self.read += self.feed.poll()
+        n = len(self.read)
+        if world_size(self.group) > 1:
+            n = agree(n, self.group, "max", kind="alert-nudge")
+            deadline = time.monotonic() + self.TIMEOUT_S
+            while len(self.read) < n:
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"alert feed: {len(self.read)} records read, a peer read {n}")
+                time.sleep(0.005)
+                self.read += self.feed.poll()
+        out = self.read[self.taken:n]
+        self.taken = n
+        return out
 
 
 @torch.no_grad()

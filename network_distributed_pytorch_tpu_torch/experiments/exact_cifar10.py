@@ -41,6 +41,7 @@ probe, as the JAX package's has none).
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import torch
@@ -226,7 +227,9 @@ def run(
 
     ``config.adaptive_comm`` trains through the adaptive loop
     (:func:`adaptive_step_factory`, :func:`adaptive_controller`), and the
-    summary adds ``final_rung`` and ``policy_decisions``. The reference's
+    summary adds ``final_rung`` and ``policy_decisions``; under a
+    supervised run dir (``observe.runlog.ENV_RUN_DIR`` set) the loop reads
+    the run's alert feed. The reference's
     refusals, before any rendezvous: ``adaptive_comm`` with
     ``checkpoint_dir`` or under ``"fsdp"``, and ``chaos_plan`` with neither
     ``checkpoint_dir`` nor ``adaptive_comm``."""
@@ -304,9 +307,15 @@ def run(
                 plan = ChaosPlan.load(config.chaos_plan) if config.chaos_plan else None
                 injector = CommFaultInjector(plan, rank=rank, telemetry=telemetry) if plan is not None else None
                 controller = adaptive_controller(config, telemetry, rank)
+                # under a supervised run dir, the live plane's alerts.jsonl
+                # nudges the controller between epochs' verdicts
+                from ..observe import live, runlog
+
+                run_dir = os.environ.get(runlog.ENV_RUN_DIR)
                 state, logger, controller = adaptive_train_loop(
                     adaptive_step_factory(config, model, group), batches, config.training_epochs, controller, device,
-                    injector=injector, fabric=config.comm_fabric, **loop_kw,
+                    injector=injector, fabric=config.comm_fabric,
+                    alert_feed=live.AlertFeed(run_dir) if run_dir else None, **loop_kw,
                 )
                 extra.update(final_rung=controller.rung.name, policy_decisions=len(controller.decisions))
             else:

@@ -36,9 +36,12 @@ The run's events (each request's ``RequestEvent``, the paged engine's
 ``KVPoolEvent``s, the checkpoint notes) go through the registry of
 ``telemetry_from_config`` (``event_log``). The summary holds the JAX
 run's keys (``device`` is the card's name), and ``compute_dtype`` and
-``kv_cache_bytes``. ``live_requests_total`` counts the terminal request
-events in state ``finished`` through one more sink of the registry; the
-reference's metric registry is not ported yet (ROADMAP.md §A item 5).
+``kv_cache_bytes``. Every event also lands in a live-plane
+``observe.live.MetricRegistry`` through a ``MetricSink`` (the serving SLO
+split: queue, decode and total summaries, ms a token), so a process that
+embeds the server can serve ``/metrics`` from it with no run dir;
+``live_requests_total`` is its ``live_serving_requests_total`` counter in
+state ``finished``, which must equal ``slo.n_finished``.
 """
 
 from __future__ import annotations
@@ -48,8 +51,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..models.gpt import GPTLM, gpt_small, gpt_tiny
-from ..observe.events import NoteEvent, RequestEvent
-from ..observe.sinks import Sink
+from ..observe.events import NoteEvent
+from ..observe.live import MetricRegistry, MetricSink
 from ..observe.telemetry import telemetry_from_config
 from ..parallel.mesh import resolve_device
 from ..resilience import incarnation_from_env
@@ -91,18 +94,6 @@ def build_model(preset: str, max_len: int, dtype=torch.float32, device="cuda", s
     return make(dtype=dtype, device=device, seed=seed, vocab_size=vocab, max_position_embeddings=max_len).eval()
 
 
-class _FinishedCount(Sink):
-    """A sink of the run's registry: counts the terminal request events in
-    state ``finished``."""
-
-    def __init__(self):
-        self.count = 0
-
-    def emit(self, event, record=None) -> None:
-        if isinstance(event, RequestEvent) and event.state == "finished":
-            self.count += 1
-
-
 def serve(
     config: Optional[ExperimentConfig] = None,
     preset: str = "small",
@@ -137,7 +128,8 @@ def serve(
     max_len = serving_max_len(preset, max_new_tokens, engine, block_len)
     model = build_model(preset, max_len, compute_dtype(config), device, config.seed)
     telemetry = telemetry_from_config(config)
-    sink = telemetry.add_sink(_FinishedCount())
+    registry = MetricRegistry()
+    telemetry.add_sink(MetricSink(registry))
     try:
         ckpt_step = None
         if checkpoint_dir is not None:
@@ -191,7 +183,8 @@ def serve(
         "prefills": eng.prefills,
         "padded_static_decode_steps": padded_static_decode_steps(decode_lengths, slots),
         "slo": slo_summary(finished),
-        "live_requests_total": sink.count,
+        # the live registry's view of the run, held to slo_summary's
+        "live_requests_total": registry.get_counter("live_serving_requests_total", state="finished"),
         "kv_cache_bytes": eng.cache_bytes,
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         **mode,

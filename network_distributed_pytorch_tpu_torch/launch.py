@@ -30,6 +30,7 @@ Usage, one process per rank (torchrun sets ``RANK``, ``WORLD_SIZE``,
     python -m network_distributed_pytorch_tpu_torch.launch exact_cifar10 --preset full --checkpoint-dir ckpt --supervise --num-processes 4
     python -m network_distributed_pytorch_tpu_torch.launch exact_cifar10 --preset full --adaptive-comm --chaos-plan plan.json
     python -m network_distributed_pytorch_tpu_torch.launch exact_cifar10 --adaptive-comm --comm-fabric 10GbE --plan plan_doc.json
+    python -m network_distributed_pytorch_tpu_torch.launch exact_cifar10 --preset full --supervise --run-dir run1 --metrics-port 0 --adaptive-comm
 
 With ``--json`` the last line of standard output is the run summary as
 JSON; ``main`` returns it either way. A worker of
@@ -50,6 +51,17 @@ generation), and shrinks the world when a rank has spent
 ``--max-restarts``. It exits 3 when the run fails. The parent creates no
 CUDA context; each worker takes ``cuda:<LOCAL_RANK>``, or
 ``cuda:<process id>`` when ``LOCAL_RANK`` is not set.
+
+``--run-dir D`` gives the run a directory (``observe.runlog``): the
+parent's manifest ``run.json`` and its log ``events_supervisor.jsonl``,
+and each rank's ``events_rank<R>.jsonl``, led by a ``run_start`` marker;
+``observe.runlog.merge_run(D)`` merges them onto the parent's clock. With
+``--supervise``, ``--metrics-port P`` runs the live plane in the parent
+(``observe.live``): ``http://127.0.0.1:<port>/metrics`` (the bound port in
+``D/metrics_port``), the detectors' alerts in the parent's log and in
+``D/alerts.jsonl``, which an ``--adaptive-comm`` worker reads after every
+step to nudge its fallback controller; ``--alert-restart-after N`` kills a
+rank after N critical alerts of it.
 """
 
 from __future__ import annotations
@@ -181,6 +193,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--event-log", type=str, default=None,
         help="append structured JSONL telemetry (steps, wire ledger, compile"
              " audits) to this path; read it back with scripts/report.py",
+    )
+    p.add_argument(
+        "--run-dir", type=str, default=None,
+        help="run-level observability directory: the supervising parent writes the run manifest (observe.runlog)"
+             " and its own event log there, each worker appends events_rank<R>.jsonl; merge with"
+             " observe.runlog.merge_run (use a FRESH directory per run)",
     )
     p.add_argument(
         "--trace-dir", type=str, default=None,
@@ -384,6 +402,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--worker-log-dir", type=str, default=None, help="supervise: each rank's output, one file a life"
     )
+    p.add_argument(
+        "--metrics-port", type=int, default=None,
+        help="supervise + --run-dir: serve the live telemetry plane's Prometheus-text /metrics endpoint on this"
+             " port of 127.0.0.1 (0 = ephemeral; the bound port is advertised in <run-dir>/metrics_port). Unset ="
+             " live plane off",
+    )
+    p.add_argument(
+        "--alert-restart-after", type=int, default=0,
+        help="supervise live plane: restart a rank after this many sustained CRITICAL alerts attributed to it"
+             " (the NaN-precursor path; restarts spend the ordinary restart budget, and at a world above one"
+             " restart the whole generation; 0 = log-only)",
+    )
     # --- the model-parallel GPT entries -----------------------------------
     p.add_argument(
         "--model-shards", type=int, default=None,
@@ -491,9 +521,9 @@ def apply_plan(cfg: ExperimentConfig, args) -> None:
 
 
 # supervisor-parent-only flags, stripped from the workers' command lines
-# (True: the flag takes a value), the JAX launcher's; the live plane's two
-# are not flags of this launcher, and --coordinator is rewritten for each
-# generation
+# (True: the flag takes a value), the JAX launcher's; --coordinator is
+# rewritten for each generation. --run-dir is not among them: a worker
+# writes its shard there
 _SUPERVISOR_FLAGS = {
     "--supervise": False,
     "--max-restarts": True,
@@ -554,7 +584,8 @@ def _supervise(args, argv) -> dict:
     with ``--process-id``, ``--num-processes`` and (in a world above one)
     the generation's ``--coordinator`` rewritten. Creates no CUDA
     context."""
-    from .observe import telemetry_for_run
+    from .observe import MarkerEvent, telemetry_for_run
+    from .observe import runlog
     from .resilience.supervisor import Supervisor, SupervisorConfig
 
     base = worker_argv_base(argv)
@@ -569,11 +600,17 @@ def _supervise(args, argv) -> dict:
             out += ["--coordinator", supervisor.coordinator]
         return out
 
-    telemetry = telemetry_for_run(event_log=args.event_log)
+    # with a run dir, the parent's own events go to the supervisor's log
+    # there, so the merged timeline holds the failure domain
+    event_log = args.event_log
+    if args.run_dir and not event_log:
+        event_log = os.path.join(args.run_dir, runlog.SUPERVISOR_LOG)
+    world = args.num_processes if args.num_processes is not None else 1
+    telemetry = telemetry_for_run(event_log=event_log)
     with telemetry:
         supervisor = Supervisor(
             argv_for_rank,
-            world_size=args.num_processes if args.num_processes is not None else 1,
+            world_size=world,
             config=SupervisorConfig(
                 max_restarts=args.max_restarts,
                 backoff_base_s=args.restart_backoff,
@@ -583,12 +620,17 @@ def _supervise(args, argv) -> dict:
                 allow_degraded=not args.no_degraded,
                 min_world_size=args.min_world_size,
                 seed=args.seed,
+                metrics_port=args.metrics_port,
+                alert_restart_after=args.alert_restart_after,
                 mesh_axes=parse_mesh_shape(args.mesh_shape) if args.mesh_shape else None,
                 correlation_window_s=args.correlation_window,
             ),
             telemetry=telemetry,
             log_dir=args.worker_log_dir,
+            run_dir=args.run_dir,
         )
+        if args.run_dir:
+            telemetry.emit(MarkerEvent(kind="run_start", run_id=supervisor.run_id or "", world_size=world))
         result = supervisor.run()
     summary = {
         "supervised": True,
@@ -603,6 +645,9 @@ def _supervise(args, argv) -> dict:
         # each restart's (death seen, respawned) on the parent's monotonic clock
         "restart_times": supervisor.restart_times,
     }
+    if args.run_dir:
+        summary["run_dir"] = args.run_dir
+        summary["run_id"] = supervisor.run_id
     if args.json:
         sys.stdout.write(json.dumps(summary) + "\n")
     if not result.success:
@@ -613,6 +658,10 @@ def _supervise(args, argv) -> dict:
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    if args.metrics_port is not None and not (args.supervise and args.run_dir):
+        raise ValueError("--metrics-port requires --supervise and --run-dir")
+    if args.alert_restart_after and not args.supervise:
+        raise ValueError("--alert-restart-after requires --supervise")
     if args.mesh_shape and not args.supervise:
         raise ValueError("--mesh-shape requires --supervise")
     if args.chaos_plan is not None and args.experiment not in _CHAOS_OK:
@@ -663,6 +712,7 @@ def main(argv=None) -> dict:
         ("--max-grad-norm", args.max_grad_norm, _ACCUM_OK),
         ("--remat", args.remat or None, _REMAT_OK),
         ("--scan-layers", args.scan_layers or None, _SCAN_OK),
+        ("--run-dir", args.run_dir, _EVENT_LOG_OK),
         ("--event-log", args.event_log, _EVENT_LOG_OK),
         ("--trace-dir", args.trace_dir, _PROBES_OK),
         ("--audit-wire", args.audit_wire, _PROBES_OK),
@@ -670,6 +720,19 @@ def main(argv=None) -> dict:
     ):
         if value is not None and exp not in ok:
             raise ValueError(f"{flag} is not supported by {exp!r} (supported: {', '.join(ok)})")
+    if args.run_dir:
+        # a worker rank of a run-dir launch: its shard in the run dir, and
+        # the run env present so that telemetry_for_run leads the shard
+        # with the run_start marker (a supervised worker inherits the
+        # parent's env; setdefault keeps the parent's run id)
+        from .observe import runlog
+
+        os.environ.setdefault(runlog.ENV_RUN_DIR, args.run_dir)
+        os.environ.setdefault(runlog.ENV_RUN_ID, runlog.default_run_id(args.run_dir))
+        os.environ.setdefault("RESILIENCE_RANK", str(cfg.process_id))
+        os.environ.setdefault("RESILIENCE_WORLD", str(cfg.num_processes))
+        if not cfg.event_log:
+            cfg.event_log = runlog.shard_path(args.run_dir, cfg.process_id)
     device = args.device
     if device == "cuda":
         # a supervised worker has no LOCAL_RANK: one host, a card a rank

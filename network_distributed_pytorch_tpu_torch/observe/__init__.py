@@ -14,14 +14,22 @@
 - :mod:`.memory`: the device-memory sampler, the OOM report and
   ``tree_bytes``;
 - :mod:`.costmodel`: the cost model's ``canonical_config`` (the launcher's
-  ``--plan``).
+  ``--plan``);
+- :mod:`.runlog`: the run directory (its manifest, the rank shards, the
+  supervisor's log and the alert feed) and the merge of its shards onto
+  the supervisor's clock;
+- :mod:`.analytics`: step statistics, stragglers and the effective
+  bandwidth of a merged run;
+- :mod:`.health`: the streaming detectors and their ``HealthMonitor``;
+- :mod:`.live`: the live plane (the metric registry and its Prometheus
+  text, the shard followers, the aggregator, ``/metrics``, the alert
+  feed).
 
-The rest of the JAX package's ``observe/`` (the health detectors, the live
-plane, the run log merger, the rest of the cost model, MFU, the critical
-path and the fabric matrix) is ROADMAP.md §A item 5.
+The rest of the JAX package's ``observe/`` (the rest of the cost model,
+MFU, the critical path and the fabric matrix) is ROADMAP.md §A item 5.
 """
 
-from . import fidelity, memory, spans  # noqa: F401
+from . import analytics, fidelity, health, live, memory, runlog, spans  # noqa: F401
 from .events import (  # noqa: F401
     SCHEMA_VERSION,
     AlertEvent,

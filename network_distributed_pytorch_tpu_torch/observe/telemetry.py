@@ -63,11 +63,24 @@ def default_telemetry() -> Telemetry:
 
 def telemetry_for_run(event_log: Optional[str] = None, stdout: bool = True, append: bool = True) -> Telemetry:
     """A fresh registry for one run: the banners (``stdout``) and, when
-    ``event_log`` is set, a JSONL sink at that path."""
+    ``event_log`` is set, a JSONL sink at that path.
+
+    When the process is a rank of a managed run (the supervisor exported
+    ``observe.runlog.ENV_RUN_ID``), the registry's first emission is the
+    ``run_start`` marker, so every shard of a supervised run leads with
+    the clock anchor :func:`observe.runlog.merge_run` aligns on. A run
+    that is not managed writes what it wrote before (no marker)."""
     sinks: list = [StdoutSink()] if stdout else []
     if event_log:
         sinks.append(JsonlSink(event_log, append=append))
-    return Telemetry(sinks)
+    telemetry = Telemetry(sinks)
+    if event_log:
+        from .runlog import run_marker_from_env
+
+        marker = run_marker_from_env()
+        if marker is not None:
+            telemetry.emit(marker)
+    return telemetry
 
 
 def telemetry_from_config(config) -> Telemetry:

@@ -40,12 +40,13 @@ accepts also loads here. Where they bite in the port:
 ``comm_partition``       every launch sleeps ``max_sleep_s`` and
                          ``partitioned`` holds until ``comm_heal``
 ``comm_heal``            clears a partition and a throttle
-``grad_spike``, ``fidelity_degrade``
-                         accepted and registered; their injector (the health
-                         sampler) comes with the health detectors (ROADMAP.md
-                         §A item 5), and nothing on the port's paths pops
-                         them, as nothing on the JAX package's resilient
-                         path does
+``grad_spike``           the health sampler's reading times ``factor``: the
+                         toy test worker's ``--health-every`` pops it, as
+                         the JAX package's toy worker does (the live plane's
+                         spike detector pages on it); no training path pops
+                         it, as none of the JAX package's does
+``fidelity_degrade``     accepted and registered; nothing on the port's
+                         paths pops it (no fidelity sampler of the toy)
 ====================  =======================================================
 
 Process- and step-level faults carry an ``incarnation`` filter (default 0)

@@ -35,15 +35,23 @@ rank's death restarts the whole generation:
   fresh rendezvous (:attr:`Supervisor.coordinator`, a ``file://`` store in
   a directory the supervisor owns, so no port can be taken in between).
 
-The event kinds are the JAX package's. The live telemetry plane
-(``metrics_port``, ``alert_restart_after``, ``detector_config``) and the
-run directory (``run_dir``) need ``observe.live`` and ``observe.runlog``,
-which the port does not have yet: they raise. The serving autoscaler is
-not ported (ROADMAP.md §A).
+The event kinds are the JAX package's. With a ``run_dir`` the supervisor
+keeps the run's manifest (``observe.runlog``: identity, the shard layout
+and a spawn time on its own clock for each rank's life), exports the run's
+environment to every worker (each worker's telemetry then leads its shard
+with a ``run_start`` marker), and with ``metrics_port`` it runs the live
+telemetry plane (``observe.live``) in its poll loop: the aggregator tails
+the shards and feeds the detectors (``detector_config``), every fired
+alert goes to the supervisor's own log and to the run's ``alerts.jsonl``
+(what the workers' ``AlertFeed`` reads), ``/metrics`` serves the registry
+on 127.0.0.1, and ``alert_restart_after`` critical alerts of one rank kill
+that rank. At a world above one that death restarts the whole generation,
+like any other. The serving autoscaler is not ported (ROADMAP.md §A).
 
 The parent holds no card: this module imports neither torch nor anything
-that does at import time, and never touches a device (an emitted event
-imports ``observe``).
+that does at import time, and never touches a device (an emitted event,
+the run directory and the live plane import ``observe``, which imports
+torch but creates no CUDA context).
 """
 
 from __future__ import annotations
@@ -164,10 +172,16 @@ class SupervisorConfig:
     min_world_size: int = 1
     deadline_s: Optional[float] = None  # whole-run wall clock cap
     seed: int = 0
-    # the live telemetry plane and its alert-driven restarts: not ported
-    # (they need observe.live); anything but the defaults raises
+    # live telemetry plane (observe.live): None = disabled; 0 = bind an
+    # ephemeral port (advertised in the run dir's metrics_port file).
+    # Needs a run_dir: the aggregator tails the run's JSONL shards.
     metrics_port: Optional[int] = None
+    # observe.health.DetectorConfig for the aggregator's streaming
+    # detectors (None = defaults)
     detector_config: Any = None
+    # kill a rank after this many CRITICAL alerts attributed to it (the
+    # NaN-precursor path); the restart that follows spends the rank's
+    # ordinary budget. 0 = log only.
     alert_restart_after: int = 0
     # the mesh shape the world was launched at ({"data": D, "fsdp": F,
     # "tensor": T}; None = pure DP). With a mesh, degraded restarts go
@@ -183,11 +197,6 @@ class SupervisorConfig:
     # how many times this run accepts a scheduler preemption request
     # (:meth:`Supervisor.request_preempt`) before refusing
     preemption_budget: int = 3
-
-    def __post_init__(self) -> None:
-        for name, default in (("metrics_port", None), ("detector_config", None), ("alert_restart_after", 0)):
-            if getattr(self, name) != default:
-                raise NotImplementedError(f"SupervisorConfig.{name} needs observe.live, which is not ported yet")
 
 
 @dataclass
@@ -238,8 +247,6 @@ class Supervisor:
         run_id: Optional[str] = None,
         device_ranks: Optional[List[int]] = None,
     ):
-        if run_dir is not None or run_id is not None:
-            raise NotImplementedError("Supervisor(run_dir=...) needs observe.runlog, which is not ported yet")
         self.argv_for_rank = argv_for_rank
         self.world_size = world_size
         self.config = config or SupervisorConfig()
@@ -268,6 +275,24 @@ class Supervisor:
         self.coordinator: Optional[str] = None
         # (time of the death, time of the respawn) of each restart
         self.restart_times: List[tuple] = []
+        # the run directory (observe.runlog): the manifest, with a spawn
+        # record on this process's clock for each (rank, incarnation), the
+        # times the shard merger aligns the workers' clocks against
+        self.run_dir = run_dir
+        self.run_id: Optional[str] = None
+        self._manifest = None
+        # the live plane (started in run(), closed in its finally): the
+        # aggregator tailing the shards and the /metrics server
+        self._aggregator = None
+        self._metrics_server = None
+        self._critical_alerts: Dict[int, int] = {}  # rank -> critical alerts
+        self.metrics_port: Optional[int] = None  # the bound port once serving
+        if run_dir is not None:
+            from ..observe import runlog
+
+            self.run_id = run_id or f"{runlog.default_run_id(run_dir)}.{int(time.time())}"
+            self._manifest = runlog.new_manifest(self.run_id, world_size)
+            self._manifest.save(run_dir)
 
     # -- telemetry ----------------------------------------------------------
     def _emit(self, kind: str, rank: Optional[int] = None, message: str = "",
@@ -305,6 +330,15 @@ class Supervisor:
             env[ENV_MESH] = json.dumps(self.mesh)
         if self.device_ranks is not None:
             env[ENV_DEVICE_RANKS] = json.dumps(self.device_ranks)
+        if self._manifest is not None:
+            from ..observe import runlog
+
+            env[runlog.ENV_RUN_DIR] = self.run_dir
+            env[runlog.ENV_RUN_ID] = self.run_id
+            self._manifest.record_spawn(
+                rank=rank, incarnation=incarnation, world_size=world_size, spawned_unix=time.time()
+            )
+            self._manifest.save(self.run_dir)
         stdout = stderr = None
         if self.log_dir is not None:
             os.makedirs(self.log_dir, exist_ok=True)
@@ -417,11 +451,70 @@ class Supervisor:
         graceful = rc in (0, PREEMPT_EXIT_CODE, -int(signal.SIGTERM))
         return "graceful" if graceful else "hard"
 
+    # -- the live telemetry plane ------------------------------------------
+    def _start_live_plane(self) -> None:
+        cfg = self.config
+        if self.run_dir is None or cfg.metrics_port is None:
+            return
+        from ..observe import live as live_mod
+
+        self._aggregator = live_mod.LiveAggregator(self.run_dir, detector_config=cfg.detector_config)
+        try:
+            self._metrics_server = live_mod.MetricsHTTPServer(self._aggregator.registry, port=cfg.metrics_port).start()
+        except OSError as e:
+            self._emit("metrics_error", message=f"exposition bind failed: {e}")
+            return
+        self.metrics_port = self._metrics_server.port
+        self._metrics_server.write_port_file(self.run_dir)
+        self._emit("metrics_up", message=f"/metrics serving on port {self.metrics_port}")
+
+    def _close_live_plane(self) -> None:
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+            self._metrics_server = None
+
+    def _poll_live(self, workers: Dict[int, "_Worker"]) -> None:
+        """Drain the aggregator: log every fired alert in the supervisor's
+        own log, append it to the run's ``alerts.jsonl`` (what the
+        workers' ``AlertFeed`` reads), and, when ``alert_restart_after``
+        is set, kill a rank that has had that many critical alerts; the
+        sweep that follows handles the death as any other (at a world
+        above one, a restart of the whole generation)."""
+        if self._aggregator is None:
+            return
+        from ..observe import live as live_mod
+
+        cfg = self.config
+        for alert in self._aggregator.poll():
+            rec = dict(alert.record())
+            rec.setdefault("ts", time.time())
+            live_mod.append_alert(self.run_dir, rec)
+            if self.telemetry is not None:
+                self.telemetry.emit(alert)
+            if alert.severity != "critical" or alert.rank is None:
+                continue
+            rank = int(alert.rank)
+            self._critical_alerts[rank] = self._critical_alerts.get(rank, 0) + 1
+            if cfg.alert_restart_after > 0 and self._critical_alerts[rank] >= cfg.alert_restart_after:
+                self._critical_alerts[rank] = 0
+                w = workers.get(rank)
+                if w is not None and not w.done and w.proc.poll() is None:
+                    self._emit(
+                        "alert_restart", rank=rank, incarnation=w.incarnation,
+                        message=f"sustained critical {alert.alert} x{cfg.alert_restart_after}; recycling rank",
+                    )
+                    self._kill(w)
+
     # -- the run loop -------------------------------------------------------
     def run(self) -> SupervisorResult:
+        self._start_live_plane()
         try:
             return self._run_loop()
         finally:
+            # one last drain, so that what the workers wrote in their last
+            # moments still reaches the gauges and the alert feed
+            self._poll_live({})
+            self._close_live_plane()
             if self._rendezvous_dir is not None:
                 shutil.rmtree(self._rendezvous_dir, ignore_errors=True)
                 self._rendezvous_dir = None
@@ -526,6 +619,10 @@ class Supervisor:
                     success=False, world_size=world, total_restarts=self.total_restarts, degraded=self.degraded,
                     exit_codes=exit_codes, reason=f"preempted: {preempt}", final_mesh=self.mesh, preempted=True,
                 )
+
+            # the live plane first: an alert reaches the feed (and may kill
+            # a sick rank) before this sweep looks at exit codes
+            self._poll_live(workers)
 
             restart_queue: List[int] = []
             dead_rank: Optional[int] = None

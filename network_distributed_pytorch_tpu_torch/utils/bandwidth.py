@@ -10,14 +10,18 @@ table.
 Model: an all-reduce of B bytes over W workers on a fabric of per-link
 bandwidth beta takes ``2 (W - 1) / W * B / beta`` (the ring bound) plus a
 latency term per collective: the first-order model of the PowerSGD paper's
-speedup claims. (The JAX package's per-edge ``FabricModel`` waits for the
-port of the fabric measurement that feeds it.)
+speedup claims.
+
+:func:`fabric_model` is the one accessor of these numbers for the live
+plane (``observe.analytics``, ``observe.live``): the scalar tables, and,
+given a measured per-edge matrix (the JAX package's ``fabric_matrix.json``
+layout), a ring whose slowest edge gates every reduction.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Sequence
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
 # bytes/second. The GbE rows are the reference's fabrics at line rate. The
 # in-node row is NVIDIA's published figure, not a measurement: the H100 SXM5
@@ -50,6 +54,106 @@ class FabricEstimate:
     comm_time_s: float
     step_time_s: float
     comm_fraction: float
+
+
+def ring_neighbors(world_size: int) -> List[Tuple[int, int]]:
+    """The (src, dst) directed edge list of the rank ring: rank r sends to
+    rank (r+1) mod W. One entry per rank; a 1-rank world has no edges."""
+    if world_size < 2:
+        return []
+    return [(r, (r + 1) % world_size) for r in range(world_size)]
+
+
+@dataclass
+class EdgeEstimate:
+    """One measured (or declared) link of the mesh. ``bytes_per_s`` is the
+    EFFECTIVE rate at the measured payload (latency folded in when the
+    measurement cannot separate the two)."""
+
+    src: int
+    dst: int
+    bytes_per_s: float
+    latency_s: float = 0.0
+
+
+@dataclass
+class FabricModel:
+    """The fabric as the planner sees it: the named scalar tables always,
+    plus (when a measured matrix is supplied) a per-edge matrix whose
+    SLOWEST edge gates every ring reduction."""
+
+    fabrics: Dict[str, float] = field(default_factory=lambda: dict(FABRICS_BYTES_PER_S))
+    latency: Dict[str, float] = field(default_factory=lambda: dict(LATENCY_S))
+    edges: List[EdgeEstimate] = field(default_factory=list)
+
+    @property
+    def per_edge(self) -> bool:
+        return bool(self.edges)
+
+    def bytes_per_s(self, fabric: str) -> float:
+        return self.fabrics[fabric]
+
+    def latency_s(self, fabric: str) -> float:
+        return self.latency.get(fabric, 0.0)
+
+    def bottleneck(self) -> Optional[EdgeEstimate]:
+        """The slowest measured edge (None without a matrix)."""
+        if not self.edges:
+            return None
+        return min(self.edges, key=lambda e: e.bytes_per_s)
+
+    def ring_beta(self, fabric: str) -> float:
+        """Effective per-link bandwidth for a ring reduction: the slowest
+        edge when a measured matrix is present (every chunk traverses every
+        link, so the worst link gates the whole ring), else the named
+        fabric's scalar."""
+        worst = self.bottleneck()
+        if worst is not None and worst.bytes_per_s > 0:
+            return worst.bytes_per_s
+        return self.fabrics[fabric]
+
+    def ring_latency_s(self, fabric: str) -> float:
+        """Per-collective latency: the bottleneck edge's measured latency
+        when present, else the named fabric's scalar."""
+        worst = self.bottleneck()
+        if worst is not None and worst.latency_s > 0:
+            return worst.latency_s
+        return self.latency.get(fabric, 0.0)
+
+    def allreduce_time_s(
+        self, payload_bytes: float, n_workers: int, fabric: str, n_collectives: int = 1
+    ) -> float:
+        beta = self.ring_beta(fabric)
+        ring = 2.0 * (n_workers - 1) / max(n_workers, 1) * payload_bytes / beta
+        return ring + n_collectives * self.ring_latency_s(fabric)
+
+
+def fabric_model(matrix: Optional[Dict] = None) -> FabricModel:
+    """The typed accessor every fabric consumer goes through.
+
+    Without arguments: the scalar tables. With a matrix dict (``{"edges":
+    [{"src", "dst", "bytes_per_s", "latency_s"}, ...]}``): a per-edge model
+    whose ring semantics are slowest-edge-gates. Malformed edge rows are
+    skipped rather than raised — a half-written artifact degrades to the
+    scalar model."""
+    model = FabricModel()
+    if not isinstance(matrix, dict):
+        return model
+    for row in matrix.get("edges") or []:
+        if not isinstance(row, dict):
+            continue
+        try:
+            edge = EdgeEstimate(
+                src=int(row["src"]),
+                dst=int(row["dst"]),
+                bytes_per_s=float(row["bytes_per_s"]),
+                latency_s=float(row.get("latency_s", 0.0) or 0.0),
+            )
+        except (KeyError, TypeError, ValueError):
+            continue
+        if edge.bytes_per_s > 0:
+            model.edges.append(edge)
+    return model
 
 
 def allreduce_time_s(

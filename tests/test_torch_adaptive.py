@@ -49,7 +49,7 @@ from network_distributed_pytorch_tpu_torch.experiments import common, exact_cifa
 from network_distributed_pytorch_tpu_torch.models.import_weights import resnet_state_dict_from_flax
 from network_distributed_pytorch_tpu_torch.resilience import ChaosPlan, FaultSpec
 from network_distributed_pytorch_tpu_torch.utils.config import ExperimentConfig
-from torch_adaptive_worker import adaptive_parity_rank
+from torch_adaptive_worker import adaptive_parity_rank, alert_nudge_rank
 from torch_parity import random_flax_variables, to_numpy
 from torch_worker import few_torch_threads, run_all, spawn  # few_torch_threads: autouse
 
@@ -197,9 +197,23 @@ def test_exact_cifar10_descends_under_a_stall(tmp_path):
     assert out["bits_per_step"] == 8 * audits[-1]["analytic_bytes"]
 
 
-def test_alert_feed_is_not_ported():
-    with pytest.raises(NotImplementedError, match="observe.live"):
-        common.adaptive_train_loop(None, None, 1, None, torch.device("cpu"), alert_feed=object())
+def test_alert_feed_is_not_ported(tmp_path):
+    """The alert feed is ported: on two Gloo ranks, an alert that lands
+    between two steps nudges both ranks at the same step, although one of
+    them reads the file a poll late. No hang, one rebuild each at step 5,
+    parameters equal bit for bit across the ranks, and one agreement a
+    step (kind ``alert-nudge``)."""
+    run_dir = tmp_path / "run"
+    run_dir.mkdir()
+    call = (alert_nudge_rank, (str(run_dir), 5, 1))
+    ranks = [r[0] for r in spawn(run_all, WORLD, tmp_path, [call])]
+    for res in ranks:
+        # the initial build, then the rebuild after step 5 (the one the alert preceded)
+        assert res["rebuilt_at"] == [0, 5], res["rebuilt_at"]
+        assert res["decisions"] == [("descend", "alert:step_time_drift:warn", 1, "compress")]
+        assert res["steps"] == 8 and res["nudge_agreements"] == 8
+    a, b = ranks[0]["params"], ranks[1]["params"]
+    assert all(torch.equal(a[k], b[k]) for k in a)
 
 
 # ---- the launcher -------------------------------------------------------------------

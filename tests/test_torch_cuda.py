@@ -38,7 +38,9 @@ was), and the snapshot's restore bit for bit after a step that wrote
 everything; the fence hooks on the card: the watchdog timing a collective
 slowed on its stream (the fence points wait for the stream), a hook-free
 exact step kernel for kernel and bit for bit the hooked one, and the
-deadline guard's retry landing bit for bit on a clean step.
+deadline guard's retry landing bit for bit on a clean step; and a
+supervising parent running the live plane over a worker on the card holds
+no CUDA context.
 
 This file imports torch and the port, never jax, so it also runs on a
 machine that has the card and no JAX (``--noconftest`` skips the JAX
@@ -1778,3 +1780,64 @@ def test_deadline_guard_restores_the_step_bit_for_bit_on_the_card(cuda_device, d
     got = _state_tensors(state)
     assert [k for k in want if not torch.equal(got[k], want[k])] == []
     assert guard._watchdog.noted == [False]
+
+
+@pytest.mark.cuda
+def test_a_supervising_parent_with_the_live_plane_holds_no_cuda_context(cuda_device, tmp_path):
+    """The supervising parent with a run dir and ``metrics_port=0`` runs the
+    live plane (which imports torch through ``observe``) over a worker that
+    uses the card: the parent's pid is never among ``nvidia-smi``'s compute
+    apps while the worker runs, and the parent ends with torch imported and
+    no CUDA context initialised."""
+    import json
+    import sys
+    import textwrap
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run_dir = str(tmp_path / "run")
+    worker = textwrap.dedent(f"""
+        import os, sys, time
+        sys.path.insert(0, {repo!r})
+        import torch
+        from network_distributed_pytorch_tpu_torch.observe import StepEvent, telemetry_for_run
+        from network_distributed_pytorch_tpu_torch.observe.runlog import shard_event_log_from_env
+        x = torch.ones(1 << 20, device="cuda")
+        tel = telemetry_for_run(event_log=shard_event_log_from_env(), stdout=False)
+        for i in range(40):
+            t0 = time.monotonic()
+            time.sleep(0.1)
+            float(x.sum())
+            tel.emit(StepEvent(step=i, epoch=0, loss=1.0, step_time_s=time.monotonic() - t0, bits_cumulative=0))
+        tel.close()
+    """)
+    parent = textwrap.dedent(f"""
+        import json, os, subprocess, sys, threading, time
+        sys.path.insert(0, {repo!r})
+        from network_distributed_pytorch_tpu_torch.resilience import Supervisor, SupervisorConfig
+        from network_distributed_pytorch_tpu_torch.observe import telemetry_for_run
+        seen = []
+
+        def watch():
+            for _ in range(30):
+                out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                                     capture_output=True, text=True).stdout
+                seen.append([int(p) for p in out.split() if p.strip().isdigit()])
+                time.sleep(0.1)
+
+        tel = telemetry_for_run(event_log=os.path.join({run_dir!r}, "events_supervisor.jsonl"), stdout=False)
+        sup = Supervisor(lambda r, w, i: [sys.executable, "-c", {worker!r}], 1,
+                         SupervisorConfig(metrics_port=0, poll_interval_s=0.05), telemetry=tel, run_dir={run_dir!r})
+        threading.Thread(target=watch, daemon=True).start()
+        res = sup.run()
+        tel.close()
+        import torch
+        print(json.dumps({{"success": res.success, "pid": os.getpid(), "seen": seen,
+                          "cuda_initialized": torch.cuda.is_initialized(), "port": sup.metrics_port}}))
+    """)
+    proc = subprocess.run([sys.executable, "-c", parent], capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["success"] and out["port"] and not out["cuda_initialized"]
+    # (in a container nvidia-smi may list no process, or the host's pids: the
+    # context check above is the one that always holds)
+    assert all(out["pid"] not in pids for pids in out["seen"])

@@ -21,6 +21,15 @@ reducer's generator under ``reuse_query=False``, the global generator, no
 microbatch 0 under accumulation; an exact reducer reads 0 and 1 by
 construction; the hierarchical reducer reports its outer stage; an error in
 the probe is a ``health_probe_error`` and the run goes on.
+
+And the streaming detectors (``observe/health.py``) against the JAX
+package's, record for record on numpy-seeded streams: each of the nine
+(grad-norm spike and NaN, loss plateau, step-time drift, bandwidth collapse
+on the aggregate and on an edge, SLO burn, HBM headroom, fidelity
+collapse, EF blow-up, outer staleness), ``Ewma``, ``DetectorConfig``'s
+defaults, ``HealthMonitor``'s per-rank isolation and ``fired_by_kind``,
+and the flagship's stuck-at-1.0 fidelity groups, which page critically at
+the second probe in both packages (the reference's semantics, kept).
 """
 
 import copy
@@ -35,13 +44,14 @@ import torch
 from network_distributed_pytorch_tpu.experiments.common import image_classifier_loss as jax_loss_fn
 from network_distributed_pytorch_tpu.models import resnet18 as jax_resnet18
 from network_distributed_pytorch_tpu.observe import fidelity as jax_fidelity
+from network_distributed_pytorch_tpu.observe import health as jax_health
 from network_distributed_pytorch_tpu.parallel.reducers import ExactReducer as JaxExact
 from network_distributed_pytorch_tpu.parallel.reducers import PowerSGDReducer as JaxPowerSGD
 from network_distributed_pytorch_tpu.parallel.trainer import make_train_step as jax_make_train_step
 from network_distributed_pytorch_tpu_torch.experiments.common import image_classifier_loss, train_loop
 from network_distributed_pytorch_tpu_torch.models.import_weights import powersgd_state_from_jax, resnet_state_dict_from_flax
 from network_distributed_pytorch_tpu_torch.models.resnet import resnet18
-from network_distributed_pytorch_tpu_torch.observe import MemorySink, Telemetry, fidelity
+from network_distributed_pytorch_tpu_torch.observe import MemorySink, Telemetry, fidelity, health
 from network_distributed_pytorch_tpu_torch.observe.ledger import WireLedger
 from network_distributed_pytorch_tpu_torch.parallel.hierarchical import HierarchicalReducer
 from network_distributed_pytorch_tpu_torch.parallel.reducers import ExactReducer, PowerSGDReducer
@@ -293,3 +303,120 @@ def test_frontier_matches_jax():
     recs = _run_records()
     got = fidelity.frontier_from_events(recs)
     assert got == jax_fidelity.frontier_from_events(recs) and [r["rung"] for r in got["rungs"]] == ["exact", "powersgd_r4"]
+
+
+# ---- the streaming detectors ---------------------------------------------------------
+
+
+def _stream(seed, n, base, noise, spikes=()):
+    """``n`` readings around ``base`` (relative noise ``noise``) from a seed,
+    with ``{index: value}`` overrides."""
+    rng = np.random.RandomState(seed)
+    out = [float(base * (1.0 + noise * rng.randn())) for _ in range(n)]
+    for i, v in dict(spikes).items():
+        out[i] = float(v)
+    return out
+
+
+def _records(alerts):
+    return [a.record() for a in alerts]
+
+
+def test_ewma_and_config_are_the_jax_packages():
+    assert health.DetectorConfig() == health.DetectorConfig(**vars(jax_health.DetectorConfig()))
+    a, b = health.Ewma(0.1), jax_health.Ewma(0.1)
+    for x in _stream(1, 50, 2.0, 0.3):
+        a.update(x)
+        b.update(x)
+        assert (a.mean, a.std, a.n) == (b.mean, b.std, b.n)
+
+
+DETECTOR_STREAMS = {
+    # name: (stream, detector class name, extra kwargs of DetectorConfig)
+    "spike_warn": (_stream(2, 40, 1.0, 0.01, {20: 10.0}), "GradNormSpikeDetector", {}),
+    "spike_critical": (_stream(3, 40, 1.0, 0.01, {12: 1000.0, 30: 2000.0}), "GradNormSpikeDetector", {"cooldown": 5}),
+    "nan": (_stream(4, 20, 1.0, 0.01, {5: float("nan"), 15: float("inf")}), "GradNormSpikeDetector", {"cooldown": 0}),
+    "plateau": ([2.0 - 0.1 * i for i in range(10)] + _stream(5, 150, 1.0, 1e-6), "LossPlateauDetector", {}),
+    "drift": (_stream(6, 30, 0.1, 0.02) + _stream(7, 30, 0.25, 0.02), "StepTimeDriftDetector", {}),
+    "collapse": (_stream(8, 30, 1e9, 0.05) + _stream(9, 20, 1e8, 0.05), "BandwidthCollapseDetector", {}),
+    "slo": (_stream(10, 20, 1.5, 0.1) + _stream(11, 20, 3.0, 0.1), "SloBurnRateDetector", {}),
+    "hbm": ([0.5 + 0.05 * i for i in range(12)], "HbmHeadroomDetector", {"cooldown": 2}),
+    "fidelity": (_stream(12, 10, 0.02, 0.1) + [0.2, 0.2, 0.8, 0.9, -1.0], "FidelityCollapseDetector", {"cooldown": 1}),
+    "ef": (_stream(13, 10, 0.1, 0.05) + [0.6, 0.7, 3.0, 3.5], "EfBlowupDetector", {"cooldown": 1}),
+    "staleness": ([i / 10 for i in range(12)], "OuterStalenessDetector", {"cooldown": 3}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DETECTOR_STREAMS))
+def test_detector_fires_as_the_jax_detector(name):
+    stream, cls, kw = DETECTOR_STREAMS[name]
+    det = getattr(health, cls)(health.DetectorConfig(**kw))
+    jdet = getattr(jax_health, cls)(jax_health.DetectorConfig(**kw))
+    got = [det.observe(v, rank=1, step=i) for i, v in enumerate(stream)]
+    want = [jdet.observe(v, rank=1, step=i) for i, v in enumerate(stream)]
+    assert [a is None for a in got] == [a is None for a in want]
+    assert _records(a for a in got if a) == _records(a for a in want if a)
+    assert det.fired == jdet.fired >= 1, name
+
+
+def _feed(monitor, seed):
+    """The same mixed stream into a monitor: two ranks' grad norms (a spike
+    on rank 0), step times (rank 1 drifts), losses, the aggregate rate and
+    an edge's (it collapses), serving p99, HBM, staleness, and two fidelity
+    groups (one degrades) with their EF norms."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(60):
+        for r in (0, 1):
+            gn = 1.0 + 0.01 * rng.randn()
+            out += monitor.observe_grad_norm(500.0 if (r == 0 and i == 30) else gn, rank=r, step=i)
+            st = 0.1 * (2.5 if (r == 1 and i >= 40) else 1.0) * (1 + 0.01 * rng.randn())
+            out += monitor.observe_step_time(st, rank=r, step=i)
+            out += monitor.observe_hbm(0.5e9 + 0.01e9 * i, 1e9, rank=r, step=i)
+        out += monitor.observe_loss(1.0 + 1e-7 * rng.randn(), step=i)
+        out += monitor.observe_bytes_per_s(1e9 * (1 + 0.01 * rng.randn()))
+        out += monitor.observe_bytes_per_s(1e9 if i < 35 else 1e8, edge=(0, 1))
+        out += monitor.observe_serving_p99(1.0 if i < 50 else 2.5)
+        out += monitor.observe_outer_staleness(i % 20, 20, rank=0, step=i)
+        out += monitor.observe_hbm(1.0, 0.0, rank=0)  # no limit: dropped
+        for g, bad in (("g0", False), ("g1", i >= 45)):
+            out += monitor.observe_fidelity(g, 0.9 if bad else 0.02 * (1 + 0.1 * rng.rand()), rank=0, step=i)
+            out += monitor.observe_ef_norm(g, 2.0 if bad else 0.1, rank=0, step=i)
+    return out
+
+
+def test_health_monitor_is_the_jax_monitor():
+    mon, jmon = health.HealthMonitor(), jax_health.HealthMonitor()
+    got, want = _feed(mon, 21), _feed(jmon, 21)
+    assert _records(got) == _records(want) == _records(jmon.alerts)
+    assert mon.fired_by_kind() == jmon.fired_by_kind()
+    kinds = mon.fired_by_kind()
+    for k in ("grad_spike", "step_time_drift", "bandwidth_collapse", "slo_burn", "hbm_headroom", "fidelity_collapse",
+              "ef_blowup", "outer_staleness", "loss_plateau"):
+        assert kinds.get(k, 0) >= 1, (k, kinds)
+    # per-rank isolation: the spike is rank 0's alone, the drift rank 1's
+    assert {a.rank for a in got if a.alert == "grad_spike"} == {0}
+    assert {a.rank for a in got if a.alert == "step_time_drift"} == {1}
+    # the edge's collapse names the edge and blames its source rank
+    edge = [a for a in got if a.alert == "bandwidth_collapse" and a.rank == 0]
+    assert edge and edge[0].message.startswith("edge 0->1: ")
+    # a fidelity page blames its group
+    assert all(a.message.startswith("group g1: ") for a in got if a.alert in ("fidelity_collapse", "ef_blowup"))
+
+
+def test_stuck_fidelity_groups_page_critically_at_the_second_probe():
+    """Under PowerSGD 14 of ResNet-152's 21 groups read rel_error 1.0 at
+    every probe: the fidelity detector calls any reading >= 0.5 critical
+    after 2 samples, in both packages. So a run with the health probe and
+    ``alert_restart_after`` would be recycled at its second probe: the
+    reference's semantics, pinned here, not changed."""
+    groups = [f"g{i}" for i in range(21)]
+    mon, jmon = health.HealthMonitor(), jax_health.HealthMonitor()
+    for probe in range(3):
+        for i, g in enumerate(groups):
+            rel = 1.0 if i < 14 else 0.01
+            mon.observe_fidelity(g, rel, rank=0, step=probe)
+            jmon.observe_fidelity(g, rel, rank=0, step=probe)
+    assert _records(mon.alerts) == _records(jmon.alerts)
+    assert len(mon.alerts) == 14
+    assert {(a.severity, a.step) for a in mon.alerts} == {("critical", 1)}

@@ -47,6 +47,7 @@ def port_files():
     yield os.path.join(REPO, "tests", "torch_adaptive_worker.py")
     yield os.path.join(REPO, "tests", "test_torch_cuda.py")
     # the supervisor tests' toy worker, which imports neither torch nor jax
+    # unless its telemetry is on (then the port's observe, never jax)
     yield os.path.join(REPO, "tests", "torch_toy_supervised_worker.py")
 
 
@@ -95,6 +96,54 @@ def test_serving_modules_are_checked():
         assert not list(violations(os.path.join(REPO, PORT, rel))), rel
 
 
+# the run directory and the live plane: the supervising parent runs them in
+# its poll loop, so they import no torch themselves (observe/__init__.py
+# does, for the spans and the memory sampler), nor do the fabric model and
+# the overlap extract they read
+LIVE_PLANE_MODULES = (
+    "observe/runlog.py", "observe/health.py", "observe/analytics.py", "observe/live.py", "utils/bandwidth.py",
+    "utils/overlap.py",
+)
+
+
+def module_level_imports(path):
+    """The modules a file imports outside any function or class body."""
+    with open(path, "rb") as f:
+        tree = ast.parse(f.read(), filename=path)
+    out = []
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            out += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            out.append("." * node.level + node.module)
+        elif isinstance(node, (ast.If, ast.Try, ast.With)):
+            for sub in ast.walk(node):
+                if isinstance(sub, ast.Import):
+                    out += [alias.name for alias in sub.names]
+                elif isinstance(sub, ast.ImportFrom) and sub.module:
+                    out.append("." * sub.level + sub.module)
+    return out
+
+
+def test_live_plane_modules_import_neither_jax_nor_torch():
+    files = {os.path.relpath(p, os.path.join(REPO, PORT)) for p in port_files()}
+    assert set(LIVE_PLANE_MODULES) <= files
+    for rel in LIVE_PLANE_MODULES:
+        path = os.path.join(REPO, PORT, rel)
+        assert not list(violations(path)), rel
+        imported = module_level_imports(path)
+        assert imported, rel
+        assert not [m for m in imported if m.split(".")[0] == "torch"], (rel, imported)
+        # nor a module of the port that does (observe's are events, runlog, analytics, health, sinks)
+        for m in imported:
+            if m.startswith("."):
+                assert m.lstrip(".").split(".")[0] in (
+                    "events", "runlog", "analytics", "health", "sinks", "utils"), (rel, m)
+    toy = os.path.join(REPO, "tests", "torch_toy_supervised_worker.py")
+    assert not list(violations(toy))
+    assert not [m for m in module_level_imports(toy) if m.split(".")[0] == "torch" or ".observe" in m]
+
+
 def test_port_imports_and_trains_with_jax_blocked():
     """In a fresh interpreter, block the banned imports, import every port
     module, and run one CPU PowerSGD step of the small ResNet-18."""
@@ -115,7 +164,8 @@ def test_port_imports_and_trains_with_jax_blocked():
         for m in ("ops.paged", "observe.events", "observe.memory", "observe.costmodel", "resilience.supervisor",
                   "resilience.chaos", "resilience.guards", "resilience.controller", "parallel.hierarchical",
                   "experiments.common", "data.partition", "serving.blocks",
-                  "serving.cache", "serving.engine", "serving.frontend", "serving.request", "experiments.serve_gpt"):
+                  "serving.cache", "serving.engine", "serving.frontend", "serving.request", "experiments.serve_gpt",
+                  "observe.runlog", "observe.health", "observe.analytics", "observe.live"):
             assert {PORT!r} + "." + m in mods, m
         import torch
         torch.set_num_threads(1)  # a small step; the suite's workers share the cores

@@ -219,9 +219,15 @@ def test_heartbeat_monitor_lists_stale_peers(tmp_path):
 def test_loop_refuses_what_is_not_ported(tmp_path):
     """``chaos_plan``, ``step_retries`` and ``guard_batches`` are ported
     (``test_torch_chaos.py``) and run, and so is the adaptive loop
-    (``test_torch_adaptive.py``); what stays unported around the loop, the
-    supervisor's live plane and the adaptive loop's alert feed, refuses."""
-    from network_distributed_pytorch_tpu_torch.resilience import ChaosPlan, SupervisorConfig
+    (``test_torch_adaptive.py``), and now the supervisor's live plane and
+    the adaptive loop's alert feed: the configuration takes the plane, and
+    a critical alert on the feed descends the adaptive loop at once."""
+    from network_distributed_pytorch_tpu_torch.resilience import (
+        ChaosPlan,
+        FallbackController,
+        Rung,
+        SupervisorConfig,
+    )
     from network_distributed_pytorch_tpu_torch.utils.config import ExperimentConfig
 
     for i, kw in enumerate(({"chaos_plan": ChaosPlan()}, {"step_retries": 2}, {"guard_batches": True})):
@@ -231,10 +237,26 @@ def test_loop_refuses_what_is_not_ported(tmp_path):
         )
         assert len(logger.records) == RESUME_STEPS
     assert ExperimentConfig(adaptive_comm=True).adaptive_comm
-    with pytest.raises(NotImplementedError, match="observe.live"):
-        SupervisorConfig(metrics_port=0)
-    with pytest.raises(NotImplementedError, match="observe.live"):
-        adaptive_train_loop(None, resume_batches, 1, None, torch.device("cpu"), alert_feed=object())
+    assert SupervisorConfig(metrics_port=0).metrics_port == 0
+
+    class Feed:
+        """One critical alert, read after the second step."""
+
+        def __init__(self):
+            self.polls = 0
+
+        def poll(self):
+            self.polls += 1
+            return [{"event": "alert", "alert": "grad_spike", "severity": "critical"}] if self.polls == 2 else []
+
+    _, step, _ = resnet_resume_setup(None)
+    controller = FallbackController(ladder=[Rung("a", {}), Rung("b", {"comm_chunks": 2})])
+    feed = Feed()
+    _, logger, controller = adaptive_train_loop(
+        lambda overrides: step, resume_batches, 1, controller, torch.device("cpu"), alert_feed=feed
+    )
+    assert [(d.trigger, d.rung_after) for d in controller.decisions] == [("alert:grad_spike:critical", "b")]
+    assert len(logger.records) == RESUME_STEPS and feed.polls == RESUME_STEPS
 
 
 def test_loop_takes_the_trace_the_audit_and_the_probe(tmp_path):

@@ -313,12 +313,27 @@ def test_worker_argv_base_and_mesh_shape_are_the_jax_package_s():
         assert launch.parse_mesh_shape(spec) == want
 
 
-def test_supervisor_refuses_the_live_plane():
-    for kw in ({"metrics_port": 0}, {"alert_restart_after": 2}, {"detector_config": object()}):
-        with pytest.raises(NotImplementedError, match="observe.live"):
-            SupervisorConfig(**kw)
-    with pytest.raises(NotImplementedError, match="runlog"):
-        Supervisor(lambda *a: [], 1, run_dir="x")
+def test_supervisor_refuses_the_live_plane(tmp_path):
+    """The live plane and the run directory are ported: the configuration
+    takes them, a supervisor with a run dir writes its manifest, and a
+    world of one with ``metrics_port=0`` advertises its port and records
+    each life's spawn. What stays refused is the launcher's misuse."""
+    from network_distributed_pytorch_tpu_torch.observe import health, runlog
+
+    cfg = SupervisorConfig(metrics_port=0, alert_restart_after=2, detector_config=health.DetectorConfig(),
+                           backoff_base_s=0.01, poll_interval_s=0.02)
+    assert (cfg.metrics_port, cfg.alert_restart_after) == (0, 2)
+    run_dir = str(tmp_path / "run")
+    plan = str(tmp_path / "plan.json")
+    ChaosPlan([FaultSpec(kind="proc_exit", step=1)]).save(plan)
+    argv = _toy_argv(tmp_path, steps=3, plan_path=plan)
+    sup = Supervisor(argv, 1, cfg, run_dir=run_dir, run_id="r1")
+    assert (sup.run_id, runlog.RunManifest.load(run_dir).spawns) == ("r1", [])
+    res = sup.run()
+    assert res.success and res.total_restarts == 1
+    manifest = runlog.RunManifest.load(run_dir)
+    assert [(s["rank"], s["incarnation"]) for s in manifest.spawns] == [(0, 0), (0, 1)]
+    assert sup.metrics_port is not None and runlog.METRICS_PORT_NAME in os.listdir(run_dir)
     with pytest.raises(ValueError, match="--mesh-shape requires --supervise"):
         launch.main(["exact_cifar10", "--device", "cpu", "--mesh-shape", "2x2"])
     with pytest.raises(ValueError, match="--chaos-plan is not supported"):

@@ -205,6 +205,70 @@ def adaptive_parity_rank(rank, world, group, sd, flax_params, q_by_rung, ladder,
     }
 
 
+# ---- the agreed alert nudge ----------------------------------------------------------
+
+
+class LaggingFeed:
+    """An ``AlertFeed`` that hands each poll's records out one poll late: a
+    rank that reads the file after its peer has."""
+
+    def __init__(self, feed):
+        self.feed, self.held = feed, []
+
+    def poll(self):
+        out, self.held = self.held, self.feed.poll()
+        return out
+
+
+def alert_nudge_rank(rank, world, group, run_dir, alert_before_step, lag_rank):
+    """The adaptive loop of the small ResNet-18 over a baseline and a
+    PowerSGD rung, reading the run's ``alerts.jsonl``: rank 0 appends a
+    ``step_time_drift`` alert just before its step ``alert_before_step``
+    (between two steps), and rank ``lag_rank`` reads the file one poll
+    late. Returns the step at which each rebuild happened, the decisions,
+    the final parameters and the agreement's collectives."""
+    from network_distributed_pytorch_tpu_torch.observe.live import AlertFeed, append_alert
+
+    model = resnet18(num_classes=10, norm="batch", stem="cifar", width=16, device="cpu", seed=3)
+    steps_run = [0]
+    rebuilt_at = []
+
+    def factory(overrides):
+        rebuilt_at.append(steps_run[0])
+        if overrides.get("reducer") == "powersgd":
+            reducer = PowerSGDReducer(random_seed=7, compression_rank=overrides["reducer_rank"])
+        else:
+            reducer = ExactReducer()
+        return make_train_step(image_classifier_loss(), reducer, model, 0.01, 0.9, "ef_momentum", group)
+
+    def batches(epoch):
+        for i, b in enumerate(_cnn_batches(epoch, steps=4, batch=8, hw=16)):
+            gstep = 4 * epoch + i
+            if rank == 0 and gstep == alert_before_step:
+                append_alert(run_dir, {"event": "alert", "alert": "step_time_drift", "severity": "warn",
+                                       "rank": 0, "step": gstep})
+            if gstep > 0:
+                steps_run[0] = gstep
+            yield b
+
+    feed = AlertFeed(run_dir)
+    controller = FallbackController(
+        ladder=[Rung("baseline", {}), Rung("compress", {"reducer": "powersgd", "reducer_rank": 1})]
+    )
+    with comm.record_collectives() as records:
+        state, logger, controller = adaptive_train_loop(
+            factory, batches, 2, controller, torch.device("cpu"), rank=rank, world_size=world,
+            alert_feed=LaggingFeed(feed) if rank == lag_rank else feed, deadline_floor_s=30.0,
+        )
+    return {
+        "rebuilt_at": rebuilt_at,
+        "decisions": [(d.action, d.trigger, d.epoch, d.rung_after) for d in controller.decisions],
+        "params": {k: v.detach().clone() for k, v in state.params.items()},
+        "steps": len(logger.records),
+        "nudge_agreements": sum(1 for r in records if r.kind == "alert-nudge"),
+    }
+
+
 # ---- the hierarchical round on a 2 x 2 grid ----------------------------------------
 
 

@@ -12,11 +12,27 @@ path that stays unwritable exits ``CKPT_UNWRITABLE_EXIT_CODE``. With
 ``--graceful-term`` a SIGTERM saves the state and exits
 ``PREEMPT_EXIT_CODE``, the ``PreemptionGuard`` contract.
 
+With ``--event-log`` (or a supervisor-exported run dir: the rank's shard
+from ``observe.runlog.shard_event_log_from_env``) the worker writes real
+telemetry of the port there: the ``run_start`` marker, one
+``CollectiveEvent`` (a toy wire ledger, a fixed payload a step) and a
+timed ``StepEvent`` a step. ``--health-every N`` adds a
+``TrainHealthEvent`` every N steps with a near-constant grad norm, times
+the ``factor`` of a chaos ``grad_spike`` at its step, and a
+``MemoryEvent`` whose occupancy climbs toward the toy limit (as the JAX
+package's toy worker samples them); under a run dir the
+worker then reads the run's ``alerts.jsonl`` after every step
+(``observe.live.AlertFeed``) and hands each alert to a two-rung
+``FallbackController.nudge``, recording its decisions: the live plane's
+round trip from a worker's shard through the supervisor's detectors back
+to the worker. The telemetry imports ``observe`` (and so torch) only when
+it is on: without it the worker imports neither torch nor jax.
+
 Usage::
 
     python torch_toy_supervised_worker.py --rank R --world W --steps N \\
         --state-dir D --result-dir D [--heartbeat-dir D] [--chaos-plan F] \\
-        [--step-seconds S] [--graceful-term]
+        [--step-seconds S] [--graceful-term] [--event-log F] [--health-every N]
 """
 
 import argparse
@@ -34,9 +50,26 @@ from network_distributed_pytorch_tpu_torch.resilience.chaos import (  # noqa: E4
     CORRELATED_FAULTS,
     PREEMPT_EXIT_CODE,
     PROCESS_FAULTS,
+    HEALTH_FAULTS,
     ChaosPlan,
 )
 from network_distributed_pytorch_tpu_torch.resilience.supervisor import incarnation_from_env  # noqa: E402
+
+# the toy wire ledger: a fixed all-reduce payload a step
+TOY_PAYLOAD_BYTES = 1 << 20
+# --health-every: the grad norm's baseline, constant, so the spike
+# detector's envelope has almost no variance and a chaos grad_spike (factor
+# 1000 by default) is unambiguously critical
+TOY_GRAD_NORM = 1.0
+# --health-every also samples a toy device memory: bytes_in_use climbs from
+# 50 % of this limit toward 97 %, one rung a sample, so the supervisor's
+# HbmHeadroomDetector crosses its warn threshold within a few samples
+TOY_HBM_LIMIT = float(1 << 30)
+# the pseudo-epoch the controller's nudges are charged to
+EPOCH_LEN = 4
+# observe.runlog.ENV_RUN_DIR: read before observe is imported, so a worker
+# outside a run dir never imports it
+ENV_RUN_DIR = "RUNLOG_RUN_DIR"
 
 
 def _load_state(path):
@@ -84,6 +117,8 @@ def main() -> int:
     p.add_argument("--chaos-plan", default=None)
     p.add_argument("--step-seconds", type=float, default=0.01)
     p.add_argument("--graceful-term", action="store_true")
+    p.add_argument("--event-log", default=None)
+    p.add_argument("--health-every", type=int, default=0)
     args = p.parse_args()
 
     incarnation = incarnation_from_env()
@@ -101,6 +136,40 @@ def main() -> int:
 
         signal.signal(signal.SIGTERM, _on_term)
 
+    telemetry = controller = feed = None
+    run_dir = os.environ.get(ENV_RUN_DIR)
+    if args.event_log or run_dir:
+        from network_distributed_pytorch_tpu_torch.observe import (
+            CollectiveEvent,
+            MemoryEvent,
+            StepEvent,
+            TrainHealthEvent,
+            telemetry_for_run,
+        )
+        from network_distributed_pytorch_tpu_torch.observe.runlog import shard_event_log_from_env
+
+        event_log = args.event_log or shard_event_log_from_env()
+        if event_log:
+            telemetry = telemetry_for_run(event_log=event_log, stdout=False)
+            telemetry.emit(CollectiveEvent(
+                label="toy", tag="toy.grads", layer="reducer", op="all-reduce", axis="data", dtype="float32",
+                payload_bytes=TOY_PAYLOAD_BYTES,
+            ))
+    if telemetry is not None and run_dir and args.health_every > 0:
+        from network_distributed_pytorch_tpu_torch.observe.live import AlertFeed
+        from network_distributed_pytorch_tpu_torch.resilience.controller import FallbackController, Rung
+
+        feed = AlertFeed(run_dir)
+        controller = FallbackController(
+            ladder=[Rung("baseline", {}), Rung("compress", {"reducer": "powersgd", "reducer_rank": 1})],
+            telemetry=telemetry, rank=args.rank,
+        )
+
+    peak = 0.0
+
+    def rung_bytes(index):
+        return TOY_PAYLOAD_BYTES if index == 0 else TOY_PAYLOAD_BYTES // 8
+
     while state["step"] < args.steps:
         i = state["step"]
         if args.heartbeat_dir:
@@ -117,10 +186,43 @@ def main() -> int:
                 time.sleep(float(spec.payload.get("hang_seconds", 3600.0)))
             if spec.kind == "proc_preempt":
                 os.kill(os.getpid(), signal.SIGTERM)
+        t0 = time.monotonic()
         time.sleep(args.step_seconds)
         state = {"step": i + 1, "value": state["value"] + args.world}
         _save_state(state_path, state)
+        if telemetry is not None:
+            telemetry.emit(StepEvent(
+                step=i, epoch=i // EPOCH_LEN, loss=1.0 / (i + 1), step_time_s=time.monotonic() - t0,
+                bits_cumulative=8 * TOY_PAYLOAD_BYTES * (i + 1),
+            ))
+            if args.health_every > 0 and i % args.health_every == 0:
+                grad_norm = TOY_GRAD_NORM
+                spec = plan.pop(HEALTH_FAULTS, i, args.rank, incarnation)
+                if spec is not None and spec.kind == "grad_spike":
+                    grad_norm *= float(spec.payload.get("factor", 1000.0))
+                telemetry.emit(TrainHealthEvent(
+                    step=i, epoch=i // EPOCH_LEN, grad_norm=grad_norm, ef_memory_norm=0.0, powersgd_rel_error=0.0,
+                    loss=1.0 / (i + 1), rank=args.rank, label="toy",
+                ))
+                in_use = TOY_HBM_LIMIT * min(0.97, 0.5 + 0.2 * (i // args.health_every))
+                peak = max(peak, in_use)
+                telemetry.emit(MemoryEvent(
+                    step=i, bytes_in_use=in_use, peak_bytes_in_use=peak, bytes_limit=TOY_HBM_LIMIT,
+                    device_kind="toy-sim", rank=args.rank, label="toy",
+                ))
+        if feed is not None:
+            # the live plane's return leg: what the supervisor's detectors
+            # appended to alerts.jsonl nudges the controller mid-epoch
+            for rec in feed.poll():
+                decision = controller.nudge(rec.get("alert", ""), i // EPOCH_LEN, severity=rec.get("severity", "warn"))
+                if decision is not None:
+                    controller.record(
+                        decision, predicted_bytes_per_step=rung_bytes(decision.rung_index_after),
+                        realized_bytes_per_step=rung_bytes(decision.rung_index_before),
+                    )
 
+    if telemetry is not None:
+        telemetry.close()
     with open(os.path.join(args.result_dir, f"rank{args.rank}.json"), "w") as f:
         json.dump({"rank": args.rank, "world": args.world, "incarnation": incarnation, **state}, f)
     return 0
