@@ -175,7 +175,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    bit the launch's without the plane: ``main_path_live``) and under a
    ``comm_throttle`` that the live detectors page on, nudging the worker
    to ``compress``, K1 there once a shape group a step
-   (``main_path_live_nudge``);
+   (``main_path_live_nudge``); then the offline analyses on what those
+   phases left (``offline_phases``, no training process): the telemetry
+   runs' audited FLOPs joined with their steady step p50 into an MFU
+   against the H100's bf16 peak (``main_path_mfu``), and
+   ``scripts/torch_report.py``'s report of both live run directories (the
+   step p50 the merged run's, the critical path over every step, no fabric
+   matrix at world 1), the cost model calibrated on ``NVLink4(H100)``, a
+   plan over the four fabric rows and its predictions, the launcher's
+   ``apply_plan`` of it, and the predicted step against the measured one
+   (``main_path_offline``);
 4. two steps from the same weights and batches, deterministic cuDNN: plain
    Gram-Schmidt against the kernel; two DiLoCo rounds of ResNet-152 with
    the outer delta's Gram-Schmidt plain against the kernel; fused against xla; fused against xla
@@ -197,6 +206,7 @@ The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the port beside this script, it prints no result and exits 1.
 """
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -387,7 +397,7 @@ TELEMETRY_STEPS, TELEMETRY_EVERY, TELEMETRY_PROBE_REPS = 6, 2, 3
 CHAOS_EPOCHS, CHAOS_STEPS, CHAOS_TURNS = 2, 2, 11
 CHAOS_K1_STEPS = 4 + 4 + 2 + 4 + 0 + 2 * (4 + 2) + 2 * CHAOS_TURNS
 # the supervised launch: exact_cifar10 at preset full (ResNet-50, batch 256)
-# for 2 epochs of 3 steps, once without faults and once with proc_kill
+# for 2 epochs of 3 steps, once without faults and, beside it, once with proc_kill
 # before step 4 in the first life and proc_preempt before its step 1 in
 # the second (the emergency checkpoint after epoch 1's second step)
 SUPERVISED_EPOCHS, SUPERVISED_STEPS = 2, 3
@@ -427,6 +437,9 @@ HIER_H, HIER_PLAN = 4, ("sync", "sync", "local", "sync")
 LIVE_STEPS, LIVE_CHUNKS, LIVE_THROTTLE_STEP = 16, 4, 12
 LIVE_SLOWDOWN, LIVE_CHUNK_SLEEP_S = 2.2, 0.035
 LIVE_LADDER = ["baseline", "compress"]
+# offline_phases reads what the telemetry and live phases left and launches
+# no training process; the seconds predicted for it before its first run
+OFFLINE_PREDICTED_S = 2.0
 # the supervised workers' deterministic algorithms, as chaos_guarded's
 # deterministic_algorithms() sets them in process; any sitecustomize the
 # interpreter had is run after it. With CHIP_SMOKE_LAUNCHES set, a process
@@ -2522,7 +2535,9 @@ def telemetry_phases(dev, drive, launches, images, labels, n_groups, preset="ful
     kernels. Then the probe on the final state on the kernels against the
     same probe on their plain versions (GS_TOL, FUSED_TOL), its time a
     call, and the step p50 with telemetry on against off. Last,
-    ``exact_cifar10`` under FSDP with its audit. ``preset="small"``
+    ``exact_cifar10`` under FSDP with its audit. Returns the traced runs'
+    tags and, for each pipeline's phase, the MFU join's inputs (the audit
+    of its third run and that run's steady step p50). ``preset="small"``
     rehearses on the CPU with a ``drive`` of your own."""
     import torch
 
@@ -2538,7 +2553,7 @@ def telemetry_phases(dev, drive, launches, images, labels, n_groups, preset="ful
     on_cuda = dev.type == "cuda"
     steps, probes = TELEMETRY_STEPS, TELEMETRY_STEPS // TELEMETRY_EVERY
     tmp = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
-    paths = {}
+    paths, mfu_inputs = {}, {}
 
     def records_of(path):
         with open(path) as f:
@@ -2694,6 +2709,13 @@ def telemetry_phases(dev, drive, launches, images, labels, n_groups, preset="ful
                     probe = kept["probe"]
                 del kept
         paths[impl] = f"telemetry_{impl}_1"
+        # the MFU join's inputs (offline_phases): the audit of the "on" run
+        # without the trace and its steady step p50 (the first step dropped)
+        steady = [r["step_time_s"] for r in of(records_of(runs[2][3].event_log), "step")][1:]
+        mfu_inputs[name] = {
+            "compile": of(records_of(runs[2][3].event_log), "compile")[0],
+            "step_p50_s": statistics.median_low(steady) if steady else None, "n_steps": len(steady),
+        }
         diffs = [bitwise_equal(f, finals[0]) for f in finals[1:]]
         if any(diffs):
             fail(f"{name}: the runs with the probe differ from those without it in {diffs}")
@@ -2759,7 +2781,7 @@ def telemetry_phases(dev, drive, launches, images, labels, n_groups, preset="ful
         "ledger": [{k: r[k] for k in ("tag", "op", "payload_bytes", "count")} for r in of(recs, "collective")],
     })
     shutil.rmtree(tmp, ignore_errors=True)
-    return paths
+    return paths, mfu_inputs
 
 
 def chaos_phases(dev, drive, images, labels, n_groups, smi, preset="full"):
@@ -2783,9 +2805,10 @@ def chaos_phases(dev, drive, images, labels, n_groups, smi, preset="full"):
     ``proc_kill`` in the first life and ``proc_preempt`` in the second: it
     must succeed after 2 restarts, the second resuming mid-epoch from the
     emergency checkpoint, with a final checkpoint bit for bit that of the
-    same launch without faults (the workers run under deterministic
-    algorithms, set by a ``sitecustomize`` on their ``PYTHONPATH``), and it
-    reports the time from each death to the restarted worker's first step.
+    same launch without faults, which runs beside it (the workers run under
+    deterministic algorithms, set by a ``sitecustomize`` on their
+    ``PYTHONPATH``), and it reports the time from each death to the
+    restarted worker's first step.
     ``preset="small"`` (global batch 16) rehearses both on the CPU."""
     import torch
 
@@ -2989,11 +3012,15 @@ def chaos_phases(dev, drive, images, labels, n_groups, smi, preset="full"):
             return json.loads(lines[-1]), events, wall, os.path.join(run_dir, "ckpt")
 
         def supervised_resume():
-            clean, _, clean_wall, clean_ckpt = launch_supervised("supervised_clean", [])
-            faulted, events, wall, ckpt = launch_supervised("supervised_faulted", [
-                FaultSpec(kind="proc_kill", step=SUPERVISED_STEPS + 1),
-                FaultSpec(kind="proc_preempt", step=1, incarnation=1),
-            ])
+            # the unfaulted launch runs beside the faulted one (the workers'
+            # algorithms are deterministic, so sharing the card changes no bit)
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                clean_run = pool.submit(launch_supervised, "supervised_clean", [])
+                faulted, events, wall, ckpt = launch_supervised("supervised_faulted", [
+                    FaultSpec(kind="proc_kill", step=SUPERVISED_STEPS + 1),
+                    FaultSpec(kind="proc_preempt", step=1, incarnation=1),
+                ])
+                clean, _, clean_wall, clean_ckpt = clean_run.result()
             steps = [e for e in events if e.get("event") == "step"]
             # each death to the first step the restarted worker finished
             recovery_ms = []
@@ -3493,8 +3520,13 @@ def live_phases(dev, drive, smi, preset="full"):
     deadline guard moves the rung first), the audit exact on both rungs,
     finite losses, and K1 launched in the worker once a shape group a step
     on ``compress`` (its count from the worker's own wrapper, written at
-    its exit). Returns that count. ``preset="small"`` rehearses both on
-    the CPU (the small ResNet-18, global batch 16)."""
+    its exit). ``preset="small"`` rehearses both on the CPU (the small
+    ResNet-18, global batch 16).
+
+    Returns ``(k1, live)``: ``k1`` is that count; ``live`` names the temporary directory (the
+    caller removes it once ``offline_phases`` has read it; this function
+    removes it only when it fails) and, for each phase, its run directory,
+    the merged run's and the live plane's step p50 and its steps."""
     import threading
     import urllib.request
 
@@ -3689,6 +3721,7 @@ def live_phases(dev, drive, smi, preset="full"):
             out["losses"] = run["worker"]["losses"]
             out["final_rung"] = run["worker"]["final_rung"]
             out["k1"] = run["k1"] + plain["k1"]
+            out["run_dir"], out["steps"] = run["run_dir"], [r["step"] for r in plane["shard"] if r.get("event") == "step"]
             return out
 
         live_result, _ = drive("main_path_live", main_path_live, {}, kernel_free=True)
@@ -3732,6 +3765,7 @@ def live_phases(dev, drive, smi, preset="full"):
                 final_rung=run["worker"]["final_rung"], bits_per_step=run["worker"]["bits_per_step"],
                 comm_deadlines=[r.get("step") for r in plane["shard"] if r.get("kind") == "comm_deadline"],
                 alert_in_supervisor_log=[r["alert"] for r in plane["sup"] if r.get("event") == "alert"],
+                run_dir=run["run_dir"], steps=[r["step"] for r in plane["shard"] if r.get("event") == "step"],
             )
             return out
 
@@ -3773,9 +3807,139 @@ def live_phases(dev, drive, smi, preset="full"):
             "launches_in_worker": {"gram_schmidt": result["k1"]}, "nvidia_smi": smi,
             "wall_s": time.perf_counter() - t_phase,
         })
-        return result["k1"]
-    finally:
+    except BaseException:
         shutil.rmtree(root, ignore_errors=True)
+        raise
+    live = {"root": root, "runs": {
+        name: {k: r[k] for k in ("run_dir", "report_p50_s", "live_p50_s", "steps")}
+        for name, r in (("main_path_live", live_result), ("main_path_live_nudge", result))
+    }}
+    return result["k1"], live
+
+
+def offline_phases(dev, drive, mfu_inputs, live, smi):
+    """The offline analyses on what the telemetry and live phases left; no
+    training process, no kernel (``drive`` holds every count at 0).
+
+    ``main_path_mfu``: each telemetry phase's audit (``flops_per_step``
+    from ``torch.utils.flop_counter``, ``flops_source`` ``"flop_counter"``)
+    joined with its steady step p50 by ``observe.mfu.mfu_from_compile_records``;
+    on the card the peak must be the table's ``"h100"`` row (a device kind
+    the table does not know fails here) and the MFU in (0, 1).
+
+    ``main_path_offline``: ``scripts/torch_report.py``'s ``run_report`` of
+    each live run directory: its step p50 the merged run's that
+    ``live_phases`` printed (and within 5 % of the live plane's, as there);
+    the critical path over every step with ``blame_by_rank == {"0": 1.0}``
+    and ``comm_share == 0.0`` (the real loop has no ``step/comm`` span); no
+    fabric matrix at world 1; ``costmodel.calibrate(report,
+    source_fabric="NVLink4(H100)")``, ``build_plan`` over the four fabric
+    rows and ``prediction_events``: schema 1, every prediction above 0 s;
+    the launcher's ``apply_plan`` of it: the ``ExperimentConfig`` takes the
+    plan's knobs for ``NVLink4(H100)``. Printed, unchecked: the predicted
+    step of the run's own config on ``NVLink4(H100)`` against the measured
+    p50 (``join_realized``'s ``error``)."""
+    import importlib.util
+
+    from network_distributed_pytorch_tpu_torch import launch
+    from network_distributed_pytorch_tpu_torch.observe import costmodel, mfu
+    from network_distributed_pytorch_tpu_torch.utils.bandwidth import FABRICS_BYTES_PER_S
+
+    on_cuda = dev.type == "cuda"
+    t_offline = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "torch_report", os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "torch_report.py"))
+    torch_report = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(torch_report)
+
+    # ---- main_path_mfu ------------------------------------------------------------
+    def main_path_mfu():
+        out = {}
+        for name, inp in mfu_inputs.items():
+            c = inp["compile"]
+            joined = mfu.mfu_from_compile_records([c], inp["step_p50_s"], n_steps=inp["n_steps"])
+            if len(joined) != 1 or not (c.get("flops_per_step") or 0) > 0 or c.get("flops_source") != "flop_counter":
+                fail(f"main_path_mfu: {name}'s audit carries no counted FLOPs: {c}")
+            m = joined[0].record()
+            if on_cuda and (c.get("peak_flops_per_s") != mfu.PEAK_BF16_FLOPS["h100"]
+                            or m["peak_flops_per_s"] != mfu.PEAK_BF16_FLOPS["h100"]):
+                fail(f"main_path_mfu: {name} on {c.get('device_kind')!r}: peak {c.get('peak_flops_per_s')}, not the"
+                     f" table's h100 row {mfu.PEAK_BF16_FLOPS['h100']}")
+            if on_cuda and not (m["mfu"] is not None and 0 < m["mfu"] < 1):
+                fail(f"main_path_mfu: {name}'s MFU {m['mfu']} is not in (0, 1): {m}")
+            if not on_cuda and (m["mfu"] is not None or m["bound"] != "unknown"):
+                fail(f"main_path_mfu: {name} on the CPU published {m}")
+            out[name] = {k: m[k] for k in ("flops_per_step", "flops_source", "peak_flops_per_s", "mfu", "bound",
+                                           "device_kind", "step_time_s", "n_steps", "exposed_comm_fraction")}
+        return out
+
+    t_phase = time.perf_counter()
+    result, _ = drive("main_path_mfu", main_path_mfu, {}, kernel_free=True)
+    emit({"phase": "main_path_mfu", "runs": result, "nvidia_smi": smi, "wall_s": time.perf_counter() - t_phase})
+
+    # ---- main_path_offline --------------------------------------------------------
+    def main_path_offline():
+        out = {}
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_offline_")
+        try:
+            for name, run in live["runs"].items():
+                t0 = time.perf_counter()
+                _, report = torch_report.run_report(run["run_dir"])
+                report_s = time.perf_counter() - t0
+                p50 = report["step_p50_s"]
+                if p50 != run["report_p50_s"] or not abs(p50 - run["live_p50_s"]) <= 0.05 * p50:
+                    fail(f"main_path_offline: {name}'s report p50 {p50} against the merged run's {run['report_p50_s']}"
+                         f" and the live plane's {run['live_p50_s']}")
+                crit = report["critpath"]
+                covered = {e["step"] for e in (crit or {}).get("events", [])}
+                if crit is None or not set(run["steps"]) <= covered or crit["blame_by_rank"] != {"0": 1.0} \
+                        or crit["comm_share"] != 0.0:
+                    fail(f"main_path_offline: {name}'s critical path {crit and {k: crit[k] for k in crit if k != 'events'}}"
+                         f" over steps {sorted(covered)} (the run's {run['steps']})")
+                if report["fabric_matrix"] is not None or report["world_size"] != 1:
+                    fail(f"main_path_offline: {name}: a fabric matrix at world {report['world_size']}")
+                calib = costmodel.calibrate(report, source_fabric="NVLink4(H100)")
+                plan = costmodel.build_plan(calib, fabrics=list(FABRICS_BYTES_PER_S))
+                preds = costmodel.prediction_events(plan)
+                if plan["schema"] != 1 or list(plan["fabrics"]) != list(FABRICS_BYTES_PER_S) or not preds \
+                        or not all((p.predicted_step_s or 0) > 0 for p in preds):
+                    fail(f"main_path_offline: {name}'s plan {plan.get('schema')} {list(plan.get('fabrics', {}))},"
+                         f" predictions {[p.predicted_step_s for p in preds]}")
+                path = os.path.join(tmp, f"{name}_plan.json")
+                with open(path, "w") as f:
+                    json.dump(plan, f)
+                args = launch.build_parser().parse_args(["exact_cifar10", "--plan", path])
+                before, cfg = launch.config_from_args(args), launch.config_from_args(args)
+                with contextlib.redirect_stderr(io.StringIO()):
+                    launch.apply_plan(cfg, args)
+                best = costmodel.canonical_config(plan["fabrics"][cfg.comm_fabric]["best"]["config"])
+                want = {
+                    "comm_chunks": best["comm_chunks"] or before.comm_chunks, "comm_strategy": best["comm_strategy"],
+                    "bucket_bytes": best["bucket_bytes"] or before.bucket_bytes,
+                    "reducer_rank": best["reducer_rank"] or before.reducer_rank, "plan_path": path,
+                }
+                got = {k: getattr(cfg, k) for k in want}
+                if got != want:
+                    fail(f"main_path_offline: {name}: apply_plan gave {got}, the plan's {cfg.comm_fabric} pick {want}")
+                joined = costmodel.join_realized(plan, "NVLink4(H100)", report)
+                out[name] = {
+                    "step_p50_s": p50, "report_s": report_s, "n_events": report["n_events"],
+                    "critpath": {k: crit[k] for k in ("n_steps", "comm_share", "blame_by_rank", "blame_by_phase")},
+                    "stragglers": report["stragglers"], "mfu": report["mfu"], "compile": report["compile"],
+                    "calibration": {k: getattr(calib, k) for k in ("step_time_s", "compute_s", "dense_bytes",
+                                                                   "exposed_fraction", "flops_per_step")},
+                    "predictions": len(preds), "best": {f: plan["fabrics"][f]["best"]["config"]["name"]
+                                                       for f in plan["fabrics"]},
+                    "applied": got, "costmodel": joined,
+                }
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        return out
+
+    t_phase = time.perf_counter()
+    result, _ = drive("main_path_offline", main_path_offline, {}, kernel_free=True)
+    emit({"phase": "main_path_offline", "runs": result, "nvidia_smi": smi, "wall_s": time.perf_counter() - t_phase})
+    emit({"phase": "offline_phases", "wall_s": time.perf_counter() - t_offline, "predicted_s": OFFLINE_PREDICTED_S})
 
 
 def main() -> None:
@@ -4606,7 +4770,7 @@ def main() -> None:
 
     # the telemetry core: run logs, the wire audit, the health and fidelity
     # probe (K1; K2b, K3, K4), the memory sampler and the trace
-    telemetry_paths = telemetry_phases(dev, drive, launches, images, labels, len(group_shapes))
+    telemetry_paths, telemetry_mfu = telemetry_phases(dev, drive, launches, images, labels, len(group_shapes))
 
     # the chaos plan and the guarded step on ResNet-152 (K1), and the
     # supervising launcher restarting exact_cifar10 at preset full
@@ -4621,7 +4785,14 @@ def main() -> None:
     # exact_cifar10 --adaptive-comm with --run-dir and --metrics-port, clean
     # and under a throttle that the live detectors page on (K1 in the worker
     # once the alert nudges it to compress)
-    k1_live_worker = live_phases(dev, drive, smi)
+    k1_live_worker, live_dirs = live_phases(dev, drive, smi)
+
+    # the offline analyses on what those phases left: the flagship's MFU, and
+    # the report, critical path, plan and apply_plan of the live run dirs
+    try:
+        offline_phases(dev, drive, telemetry_mfu, live_dirs, smi)
+    finally:
+        shutil.rmtree(live_dirs["root"], ignore_errors=True)
 
     # ---- 4. two steps against two steps ---------------------------------------
     # with deterministic cuDNN and no TF32, so that only what is compared differs

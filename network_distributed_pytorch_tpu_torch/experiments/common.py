@@ -23,7 +23,7 @@ from ..data.cifar10 import load_cifar10_or_synthetic
 from ..data.loader import iterate_batches
 from ..observe.events import FailureEvent, TrainHealthEvent
 from ..observe.fidelity import FidelityTracker
-from ..observe.ledger import audit_recorded_step
+from ..observe.ledger import audit_recorded_step, count_flops
 from ..observe.memory import MemorySampler, tree_bytes
 from ..observe.spans import recording, span
 from ..parallel.comm import CollectiveRecord, agree, record_collectives, world_size
@@ -237,12 +237,14 @@ def _run_step(call, state, batch, n: int, run_name: str, on_cuda: bool, record: 
     ``watch`` (a ``StepWatchdog``'s context, or None), the profiler range
     ``"{run_name}#{n}"`` and the span ``step``, which holds
     ``step/compute`` (the call, between two CUDA events on the card, under
-    ``record_collectives`` when ``record``) and ``step/loss_sync`` (the
-    loss as a host float). Returns ``(state, loss, device_ms, records)``:
-    ``device_ms`` None off the card, ``records`` None unless ``record``."""
+    ``record_collectives`` and ``observe.ledger.count_flops`` when
+    ``record``) and ``step/loss_sync`` (the loss as a host float). Returns
+    ``(state, loss, device_ms, records, flops)``: ``device_ms`` None off
+    the card, ``records`` and ``flops`` None unless ``record``."""
     recorder = record_collectives() if record else contextlib.nullcontext()
+    counter = count_flops() if record else contextlib.nullcontext()
     with watch or contextlib.nullcontext(), step_annotation(run_name, n), span("step", step=n):
-        with span("step/compute", step=n), recorder as records:
+        with span("step/compute", step=n), recorder as records, counter as counted:
             if on_cuda:
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -252,17 +254,19 @@ def _run_step(call, state, batch, n: int, run_name: str, on_cuda: bool, record: 
         with span("step/loss_sync", step=n):
             # waits for the step; a chaos step_nan reports a host float
             loss = float(loss)
-    return state, loss, start.elapsed_time(end) if on_cuda else None, records
+    flops = counted["flops"] if record else None
+    return state, loss, start.elapsed_time(end) if on_cuda else None, records, flops
 
 
-def _audit_step(step, records, run_name: str, telemetry, device: torch.device) -> None:
+def _audit_step(step, records, run_name: str, telemetry, device: torch.device, flops: Optional[float] = None) -> None:
     """Reconcile ``step``'s wire ledger against the collectives it issued
+    and record the FLOPs its call counted
     (``observe.ledger.audit_recorded_step``). Advisory: an error in it is a
     ``FailureEvent(kind="audit_error")`` and the run goes on."""
     try:
         audit_recorded_step(
             step, records, label=run_name, telemetry=telemetry,
-            device_kind=torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+            device_kind=torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu", flops_per_step=flops,
         )
     except Exception as e:  # the audit is advisory, never fatal
         if telemetry is not None:
@@ -306,12 +310,13 @@ def train_loop(
       ``health_probe`` and ``epoch_hook``;
     - ``trace_dir``: a ``torch.profiler`` trace of the loop
       (``utils.profiling.trace``), every step a range ``"{run_name}#{n}"``;
-    - ``audit``: the first step runs under ``record_collectives``, and its
-      wire ledger is reconciled against what it issued
-      (``observe.ledger.audit_recorded_step``: a ``CollectiveEvent`` a
-      ledger line and a ``CompileEvent``, before the step's
-      ``StepEvent``). The audit is advisory: an error in it is a
-      ``FailureEvent(kind="audit_error")`` and the run goes on;
+    - ``audit``: the first step runs under ``record_collectives`` and
+      ``observe.ledger.count_flops``, and its wire ledger is reconciled
+      against what it issued (``observe.ledger.audit_recorded_step``: a
+      ``CollectiveEvent`` a ledger line and a ``CompileEvent`` carrying
+      the step's FLOPs, before the step's ``StepEvent``). The audit is
+      advisory: an error in it is a ``FailureEvent(kind="audit_error")``
+      and the run goes on;
     - ``health_every > 0`` (with a ``telemetry``): every N completed steps
       a ``MemoryEvent`` from the card (``observe.memory.MemorySampler``,
       which turns itself off after one empty read on the CPU), then the
@@ -347,12 +352,12 @@ def train_loop(
                     break
                 logger.start_step()
                 watch = watchdog.watch(f"epoch {epoch}") if watchdog is not None else None
-                state, loss, device_ms, records = _run_step(
+                state, loss, device_ms, records, flops = _run_step(
                     step, state, batch, logger._step, run_name, on_cuda, audit_pending, watch
                 )
                 if audit_pending:
                     audit_pending = False
-                    _audit_step(step, records, run_name, telemetry, device)
+                    _audit_step(step, records, run_name, telemetry, device, flops)
                 logger.end_step(epoch, loss, device_ms)
                 steps_done += 1
                 probes.after_step(logger._step, epoch, step, state, batch)
@@ -858,7 +863,7 @@ def adaptive_train_loop(
                         injector.advance(gstep)
                     logger.start_step()
                     t0 = time.monotonic()
-                    state, loss, device_ms, records = _run_step(
+                    state, loss, device_ms, records, flops = _run_step(
                         guard, state, batch, gstep, run_name, on_cuda, audit_pending
                     )
                     if compile_grace > 0:
@@ -870,7 +875,7 @@ def adaptive_train_loop(
                     if audit_pending and guard.last_attempts == 1:
                         audit_pending = False
                         issued = [r for r in records if r.kind not in ("comm-deadline-flag", "alert-nudge")]
-                        _audit_step(base, issued, run_name, telemetry, device)
+                        _audit_step(base, issued, run_name, telemetry, device, flops)
                     logger.end_step(epoch, loss, device_ms)
                     gstep += 1
                     probes.after_step(gstep, epoch, base, state, batch)

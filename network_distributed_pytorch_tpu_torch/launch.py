@@ -350,7 +350,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--plan", type=str, default=None,
-        help="a per-fabric plan file of scripts/plan.py: apply its best comm knobs for --comm-fabric (flags given"
+        help="a per-fabric plan file of scripts/torch_plan.py: apply its best comm knobs for --comm-fabric (flags given"
              " on the command line win), and under --adaptive-comm walk the fallback ladder in its order",
     )
     # --- the supervised launch (resilience.supervisor) ---------------------
@@ -487,8 +487,9 @@ def config_from_args(args) -> ExperimentConfig:
 
 
 def apply_plan(cfg: ExperimentConfig, args) -> None:
-    """Apply the best comm knobs of a ``scripts/plan.py`` plan file for the
-    launch's fabric onto ``cfg`` (the JAX launcher's ``apply_plan``): knobs
+    """Apply the best comm knobs of a plan file (``scripts/torch_plan.py``
+    writes one) for the launch's fabric onto ``cfg`` (the JAX launcher's
+    ``apply_plan``): knobs
     given on the command line win over the plan, and the plan over the
     defaults. A plan whose best pick runs another reducer family than the
     experiment only warns; one with no entry for the fabric (a TPU fabric,

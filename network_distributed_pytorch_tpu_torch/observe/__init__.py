@@ -13,8 +13,10 @@
   summaries;
 - :mod:`.memory`: the device-memory sampler, the OOM report and
   ``tree_bytes``;
-- :mod:`.costmodel`: the cost model's ``canonical_config`` (the launcher's
-  ``--plan``);
+- :mod:`.costmodel`: the offline what-if cost model (calibration from a
+  run report, the pricing of comm configs a fabric, the plan the
+  launcher's ``--plan`` reads, the join of a prediction with a realized
+  run);
 - :mod:`.runlog`: the run directory (its manifest, the rank shards, the
   supervisor's log and the alert feed) and the merge of its shards onto
   the supervisor's clock;
@@ -23,13 +25,14 @@
 - :mod:`.health`: the streaming detectors and their ``HealthMonitor``;
 - :mod:`.live`: the live plane (the metric registry and its Prometheus
   text, the shard followers, the aggregator, ``/metrics``, the alert
-  feed).
-
-The rest of the JAX package's ``observe/`` (the rest of the cost model,
-MFU, the critical path and the fabric matrix) is ROADMAP.md §A item 5.
+  feed);
+- :mod:`.mfu`: the H100's peak tables, the roofline verdict and the MFU
+  join of a step's counted FLOPs with its measured time;
+- :mod:`.critpath`: the cross-rank critical path and its blame;
+- :mod:`.fabric`: the measured per-edge fabric matrix.
 """
 
-from . import analytics, fidelity, health, live, memory, runlog, spans  # noqa: F401
+from . import analytics, costmodel, critpath, fabric, fidelity, health, live, memory, mfu, runlog, spans  # noqa: F401
 from .events import (  # noqa: F401
     SCHEMA_VERSION,
     AlertEvent,

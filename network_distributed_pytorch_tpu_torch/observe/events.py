@@ -151,9 +151,10 @@ class CompileEvent(Event):
     overlap: Dict = field(default_factory=dict)  # utils.overlap extract
     # device-cost extension (observe.mfu): per-step FLOPs/bytes recorded at
     # compile time so a report can join them with measured step times.
-    # ``flops_source`` says where the count came from: "cost_analysis" (the
-    # compiler's own model) or "analytic" (the model's hand count). All None
-    # when unknown.
+    # ``flops_source`` says where the count came from: "flop_counter" (the
+    # port's audit: ``observe.ledger.count_flops`` on the first call),
+    # "cost_analysis" (the JAX package's compiler model) or "analytic" (a
+    # hand count). All None when unknown.
     flops_per_step: Optional[float] = None
     bytes_accessed_per_step: Optional[float] = None
     flops_source: Optional[str] = None
@@ -395,7 +396,7 @@ class MfuEvent(Event):
     n_steps: int
     step_time_s: float
     flops_per_step: float
-    flops_source: str  # "cost_analysis" | "analytic"
+    flops_source: str  # "flop_counter" | "cost_analysis" | "analytic"
     peak_flops_per_s: float  # 0.0 = unknown device (CPU smoke)
     mfu: Optional[float]  # None when peak is unknown
     bound: str  # compute | hbm | comm-exposed | unknown

@@ -11,13 +11,16 @@ The JAX package reconciles the ledger against the compiled step's HLO. The
 port runs eagerly and has no HLO: :func:`audit_recorded_step` reconciles
 it against what :func:`..parallel.comm.record_collectives` saw during the
 step's first call, and emits the same events (one ``CollectiveEvent`` a
-ledger line and one ``CompileEvent``).
+ledger line and one ``CompileEvent``). The JAX package takes the step's
+FLOPs from XLA's ``cost_analysis``; the port counts them on that first
+call (:func:`count_flops`).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 from .events import CollectiveEvent, CompileEvent
 
@@ -175,7 +178,34 @@ def step_ledger(
     return ledger
 
 
-def audit_recorded_step(step, records, label: str = "train_step", telemetry=None, device_kind: str = "") -> CompileEvent:
+@contextlib.contextmanager
+def count_flops() -> Iterator[Dict[str, Optional[float]]]:
+    """Count the FLOPs of what runs inside (2 a multiply-add): yields a dict
+    whose ``"flops"`` is set on a normal exit. The count is
+    ``torch.utils.flop_counter.FlopCounterMode``'s (matrix products,
+    convolutions and their backwards, as the ops are dispatched) plus the
+    products of K5's launches (``ops.flash_attention.attention_flops``),
+    which the counter does not see. K1 to K4's are left out. The mode only
+    watches: the ops run as they would without it."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ..ops import flash_attention
+
+    counted: Dict[str, Optional[float]] = {"flops": None}
+    kernel_flops: List[float] = []
+    flash_attention._flop_counts.append(kernel_flops)
+    try:
+        with FlopCounterMode(display=False) as mode:
+            yield counted
+    finally:
+        flash_attention._flop_counts[:] = [c for c in flash_attention._flop_counts if c is not kernel_flops]
+    counted["flops"] = float(mode.get_total_flops()) + sum(kernel_flops)
+
+
+def audit_recorded_step(
+    step, records, label: str = "train_step", telemetry=None, device_kind: str = "",
+    flops_per_step: Optional[float] = None,
+) -> CompileEvent:
     """Reconcile ``step``'s wire ledger against ``records``, the
     collectives its first call issued (``parallel.comm.record_collectives``
     around it), and emit the result through ``telemetry``: one
@@ -183,9 +213,14 @@ def audit_recorded_step(step, records, label: str = "train_step", telemetry=None
 
     The port's counterpart of the JAX package's ``audit_compiled_step``,
     which reads the compiled HLO. Its ``hlo_*`` fields hold the issued
-    collectives here; the compile-time cost, memory and overlap fields
+    collectives here; the compile-time bytes, memory and overlap fields
     have no counterpart in eager PyTorch and stay empty. ``device_kind``
-    names the device the step ran on."""
+    names the device the step ran on. ``flops_per_step`` (that first
+    call's :func:`count_flops`) fills ``flops_per_step`` with
+    ``flops_source`` ``"flop_counter"`` and the device's peak
+    (``observe.mfu.peak_flops``; None where the tables have none, as for
+    ``"cpu"``)."""
+    from .mfu import peak_flops
     from .spans import span
 
     ledger = getattr(step, "ledger", None)
@@ -213,6 +248,11 @@ def audit_recorded_step(step, records, label: str = "train_step", telemetry=None
         comm_config=dict(getattr(step, "comm_config", None) or {}),
         device_kind=device_kind,
     )
+    if flops_per_step is not None:
+        peak = peak_flops(device_kind)
+        event.flops_per_step = flops_per_step
+        event.flops_source = "flop_counter"
+        event.peak_flops_per_s = peak if peak > 0 else None
     if telemetry is not None:
         for ce in ledger.collective_events(label):
             telemetry.emit(ce)

@@ -40,7 +40,7 @@ kernels. The folding transposes stay torch copies.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -74,6 +74,25 @@ BWD_KERNELS = {
         "flash_attention_bwd_bf16", "flash_attention_bwd", "flash_attention_bwd_bf16", _BWD_ARGS
     ),
 }
+
+
+# the FLOPs of the products of each launch made while a count is open
+# (``observe.ledger.count_flops``): torch's flop counter does not see a
+# ctypes launch
+_flop_counts: List[List[float]] = []
+
+
+def attention_flops(bh: int, t: int, d: int, causal: bool, backward: bool = False) -> float:
+    """The FLOPs of K5's products on ``bh`` heads of length ``t`` and width
+    ``d`` (2 a multiply-add): the forward's q.k and P.v 4·BH·T²·D, halved
+    when causal; the backward's five products 2.5 times that."""
+    flops = 4.0 * bh * t * t * d / (2 if causal else 1)
+    return 2.5 * flops if backward else flops
+
+
+def _count(flops: float) -> None:
+    for count in _flop_counts:
+        count.append(flops)
 
 
 # ---- plain versions ------------------------------------------------------
@@ -218,6 +237,7 @@ def _launch(qf, kf, vf, mask, causal: bool, scale: float):
             out.data_ptr(), lse.data_ptr(), bh, t, d, bh // mask.shape[0], int(causal), scale,
             kind="causal" if causal else "masked",
         )
+        _count(attention_flops(bh, t, d, causal))
     return out, lse
 
 
@@ -242,6 +262,7 @@ def _launch_bwd(qf, kf, vf, mask, out, lse, do, causal: bool, scale: float, need
             part.data_ptr() if need_dmask else None, bh, t, d, bh // mask.shape[0], int(causal), scale,
             kind="causal" if causal else "masked",
         )
+        _count(attention_flops(bh, t, d, causal, backward=True))
     dmask = part.view(mask.shape[0], bh // mask.shape[0], t).sum(1) if need_dmask else None
     return dq, dk, dv, dmask
 

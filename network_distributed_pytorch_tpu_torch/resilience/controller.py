@@ -94,7 +94,7 @@ def ladder_from_plan(
 ) -> List[Rung]:
     """Planner-ordered fallback ladder: reorder ``ladder`` (default
     :data:`DEFAULT_LADDER`) so rungs come predicted-best-first per the
-    ``scripts/plan.py`` plan document's per-fabric rung ranking
+    ``scripts/torch_plan.py`` plan document's per-fabric rung ranking
     (``plan["ladder"][fabric]``, cheapest predicted step first).
 
     The controller's semantics are untouched — same hysteresis, one

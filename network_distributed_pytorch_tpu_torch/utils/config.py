@@ -82,7 +82,7 @@ class ExperimentConfig:
     # or --adaptive-comm, where it drives the comm faults)
     chaos_plan: Optional[str] = None
     # exact_cifar10's adaptive loop (deadline watchdogs and the fallback
-    # ladder), the fabric that budgets its deadlines, and a scripts/plan.py
+    # ladder), the fabric that budgets its deadlines, and a scripts/torch_plan.py
     # plan file (the launcher's --plan)
     adaptive_comm: bool = False
     comm_fabric: str = "NVLink4(H100)"

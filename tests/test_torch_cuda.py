@@ -38,9 +38,10 @@ was), and the snapshot's restore bit for bit after a step that wrote
 everything; the fence hooks on the card: the watchdog timing a collective
 slowed on its stream (the fence points wait for the stream), a hook-free
 exact step kernel for kernel and bit for bit the hooked one, and the
-deadline guard's retry landing bit for bit on a clean step; and a
+deadline guard's retry landing bit for bit on a clean step; a
 supervising parent running the live plane over a worker on the card holds
-no CUDA context.
+no CUDA context; and the audit's FLOPs count (``observe.ledger.
+count_flops``) adding K5's products, which torch's counter does not see.
 
 This file imports torch and the port, never jax, so it also runs on a
 machine that has the card and no JAX (``--noconftest`` skips the JAX
@@ -89,6 +90,7 @@ from network_distributed_pytorch_tpu_torch.experiments.common import accumulated
 from network_distributed_pytorch_tpu_torch.models import gpt
 from network_distributed_pytorch_tpu_torch.models.cnn import SmallCNN
 from network_distributed_pytorch_tpu_torch.models.distilbert import distilbert_tiny
+from network_distributed_pytorch_tpu_torch.observe import ledger
 from network_distributed_pytorch_tpu_torch.ops import _build
 from network_distributed_pytorch_tpu_torch.ops import flash_attention as fa
 from network_distributed_pytorch_tpu_torch.ops import gram_schmidt as gs
@@ -624,6 +626,25 @@ def test_flash_attention_autograd_on_the_card_matches_plain(cuda_device, causal,
         _close_grad(fold(leaf.grad), wg)
     assert leaves[3].grad.dtype == torch.float32
     _close_scaled(leaves[3].grad, want[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flop_count_adds_the_k5_launches(cuda_device, causal):
+    """``observe.ledger.count_flops`` around a forward and backward through
+    ``flash_attention`` on the card: torch's counter sees no ctypes launch,
+    so the count is K5's products alone (``attention_flops``, forward and
+    backward), the elementwise ops around them counting none."""
+    b, t, h, d = 2, 128, 3, 64
+    rng = np.random.RandomState(64)
+    q, k, v, w = (torch.from_numpy(rng.randn(b, t, h, d).astype(np.float32)).to(cuda_device) for _ in range(4))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    with ledger.count_flops() as counted:
+        out = fa.flash_attention(*leaves, causal=causal, block_q=64, block_k=64)
+        (out * w).sum().backward()
+    torch.cuda.synchronize()
+    want = fa.attention_flops(b * h, t, d, causal) + fa.attention_flops(b * h, t, d, causal, backward=True)
+    assert counted["flops"] == want and fa._flop_counts == []
 
 
 @pytest.mark.cuda

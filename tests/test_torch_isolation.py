@@ -12,6 +12,7 @@ itself is not mistaken for it.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -144,6 +145,68 @@ def test_live_plane_modules_import_neither_jax_nor_torch():
     assert not [m for m in module_level_imports(toy) if m.split(".")[0] == "torch" or ".observe" in m]
 
 
+# the offline analyses: like the live plane's modules, they import no torch
+# (the report and the planner run anywhere a run directory is copied)
+OFFLINE_MODULES = ("observe/mfu.py", "observe/critpath.py", "observe/fabric.py", "observe/costmodel.py")
+OFFLINE_SCRIPTS = ("torch_report.py", "torch_plan.py")
+
+
+def test_offline_analyses_import_neither_jax_nor_torch():
+    files = {os.path.relpath(p, os.path.join(REPO, PORT)) for p in port_files()}
+    scripts = {os.path.basename(p) for p in port_files()}
+    assert set(OFFLINE_MODULES) <= files and set(OFFLINE_SCRIPTS) <= scripts
+    for rel in OFFLINE_MODULES:
+        path = os.path.join(REPO, PORT, rel)
+        assert not list(violations(path)), rel
+        imported = module_level_imports(path)
+        assert not [m for m in imported if m.split(".")[0] == "torch"], (rel, imported)
+        for m in imported:
+            if m.startswith("."):
+                assert m.lstrip(".").split(".")[0] in ("events", "analytics", "utils"), (rel, m)
+    for name in OFFLINE_SCRIPTS:
+        path = os.path.join(REPO, "scripts", name)
+        assert not list(violations(path)), name
+        assert not [m for m in module_level_imports(path) if m.split(".")[0] == "torch"], name
+
+
+def test_report_and_planner_run_with_jax_blocked(tmp_path):
+    """In a fresh interpreter with the banned imports blocked, the planner
+    plans from a report and the report script reads a run directory."""
+    report = tmp_path / "report.json"
+    report.write_text(json.dumps({
+        "run_dir": "r", "step_p50_s": 0.05, "world_size": 2,
+        "bandwidth": {"total": {"payload_bytes": 1 << 20, "count": 1}, "attribution": {"exposed_fraction": 1.0}},
+        "compile": {"comm_config": {"reducer": "exact"}}, "mfu": [], "spans": None,
+    }))
+    script = textwrap.dedent(
+        f"""
+        import sys
+        BANNED = {BANNED_ROOTS!r}
+        class Blocker:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".", 1)[0] in BANNED or name == {JAX_PACKAGE!r} or name.startswith({JAX_PACKAGE!r} + "."):
+                    raise ImportError("blocked: " + name)
+                return None
+        sys.meta_path.insert(0, Blocker())
+        sys.path.insert(0, "scripts")
+        import torch_plan, torch_report
+        assert torch_plan.main(["--report", {str(report)!r}, "--out", {str(tmp_path / "plan.json")!r},
+                                "--events-out", {str(tmp_path / "pred.jsonl")!r}]) == 0
+        from {PORT}.observe import runlog
+        run_dir = {str(tmp_path / "run")!r}
+        runlog.new_manifest("r", 1).save(run_dir)
+        text, doc = torch_report.run_report(run_dir)
+        assert doc["world_size"] == 1 and doc["critpath"] is None
+        print("OK")
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("OK"), proc.stderr[-3000:]
+    plan = json.loads((tmp_path / "plan.json").read_text())
+    assert list(plan["fabrics"]) == ["1GbE", "10GbE", "100GbE", "NVLink4(H100)"]
+
+
 def test_port_imports_and_trains_with_jax_blocked():
     """In a fresh interpreter, block the banned imports, import every port
     module, and run one CPU PowerSGD step of the small ResNet-18."""
@@ -165,7 +228,8 @@ def test_port_imports_and_trains_with_jax_blocked():
                   "resilience.chaos", "resilience.guards", "resilience.controller", "parallel.hierarchical",
                   "experiments.common", "data.partition", "serving.blocks",
                   "serving.cache", "serving.engine", "serving.frontend", "serving.request", "experiments.serve_gpt",
-                  "observe.runlog", "observe.health", "observe.analytics", "observe.live"):
+                  "observe.runlog", "observe.health", "observe.analytics", "observe.live", "observe.mfu",
+                  "observe.critpath", "observe.fabric"):
             assert {PORT!r} + "." + m in mods, m
         import torch
         torch.set_num_threads(1)  # a small step; the suite's workers share the cores
