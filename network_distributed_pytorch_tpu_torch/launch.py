@@ -49,8 +49,16 @@ rendezvous of each generation rewritten, restarts a dead or hung rank from
 the newest committed checkpoint (at a world above one, the whole
 generation), and shrinks the world when a rank has spent
 ``--max-restarts``. It exits 3 when the run fails. The parent creates no
-CUDA context; each worker takes ``cuda:<LOCAL_RANK>``, or
-``cuda:<process id>`` when ``LOCAL_RANK`` is not set.
+CUDA context; each worker takes ``cuda:<LOCAL_RANK>``, else the card its
+fleet grant names, else ``cuda:<process id>`` (:func:`worker_cuda_device`).
+
+``fleet`` runs the fleet control plane (``resilience.scheduler.main``):
+job manifests, a JSON list given with ``--submit``, are gang-scheduled over
+``--devices`` chips from the job spool at ``--spool-dir``; ``main``
+returns ``{"fleet_rc": 0}`` when no job is left unfinished, else
+``{"fleet_rc": 1}``, and the command exits with that code::
+
+    python -m network_distributed_pytorch_tpu_torch.launch fleet --spool-dir jobs --devices 4 --submit jobs.json --run-dir fleet1 --out summary.json
 
 ``--run-dir D`` gives the run a directory (``observe.runlog``): the
 parent's manifest ``run.json`` and its log ``events_supervisor.jsonl``,
@@ -656,7 +664,55 @@ def _supervise(args, argv) -> dict:
     return summary
 
 
+def worker_cuda_device(process_id, world: int, device_count=None) -> str:
+    """The card a worker takes, as ``"cuda:<index>"``:
+
+    - ``LOCAL_RANK`` where it is set (torchrun; a fleet job's manifest may
+      set it to put several logical chips on one card);
+    - else the card the fleet granted (``RESILIENCE_DEVICE_RANKS``): a
+      supervised job's workers get the job's whole list, one card a rank,
+      indexed by the process id; a serving autoscaler's worker gets its
+      own lease, a list of one card;
+    - else the process id (0 without one): one host, a card a rank.
+
+    A grant of any other shape raises ``ValueError``, and a card at or
+    above ``device_count`` (default ``torch.cuda.device_count()``) raises
+    ``RuntimeError``: a worker never folds onto another card or falls back
+    to the CPU."""
+    from .resilience.supervisor import ENV_DEVICE_RANKS, device_ranks_from_env
+
+    local = os.environ.get("LOCAL_RANK")
+    granted = None if local is not None else device_ranks_from_env()
+    if local is not None:
+        index, source = int(local), "LOCAL_RANK"
+    elif granted is None:
+        index, source = process_id or 0, "the process id"
+    elif len(granted) == 1:
+        index, source = granted[0], f"{ENV_DEVICE_RANKS}={granted}"
+    elif len(granted) == world and process_id is not None and 0 <= process_id < world:
+        index, source = granted[process_id], f"{ENV_DEVICE_RANKS}={granted} at process id {process_id}"
+    else:
+        raise ValueError(
+            f"{ENV_DEVICE_RANKS}={granted} is neither one card nor one card a rank of a world of {world}"
+            f" (process id {process_id})"
+        )
+    if device_count is None:
+        import torch
+
+        device_count = torch.cuda.device_count()
+    if not 0 <= index < device_count:
+        raise RuntimeError(f"{source} names card {index}, but this machine has {device_count} card(s)")
+    return f"cuda:{index}"
+
+
 def main(argv=None) -> dict:
+    raw = argv if argv is not None else sys.argv[1:]
+    if raw and raw[0] == "fleet":
+        # the fleet control plane over a chip inventory: the scheduler owns
+        # the command line, so it is taken before the experiment parser
+        from .resilience import scheduler
+
+        return {"fleet_rc": scheduler.main(raw[1:])}
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
     if args.metrics_port is not None and not (args.supervise and args.run_dir):
@@ -736,9 +792,7 @@ def main(argv=None) -> dict:
             cfg.event_log = runlog.shard_path(args.run_dir, cfg.process_id)
     device = args.device
     if device == "cuda":
-        # a supervised worker has no LOCAL_RANK: one host, a card a rank
-        local = os.environ.get("LOCAL_RANK", args.process_id if args.process_id is not None else 0)
-        device = f"cuda:{int(local)}"
+        device = worker_cuda_device(args.process_id, cfg.num_processes)
     kwargs = {"device": device}
     if exp == "gpt_generate":
         kwargs.update(
@@ -797,4 +851,6 @@ def main(argv=None) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    # `launch fleet` exits with the scheduler's code (1 while a job is left
+    # unfinished); an experiment's failures raise
+    sys.exit(main().get("fleet_rc", 0))

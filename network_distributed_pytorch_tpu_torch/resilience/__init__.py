@@ -15,9 +15,12 @@
   watchdog, the deadline guard, the partition policy and the outer-sync
   driver (:mod:`.guards`) and the comm fault injector (:mod:`.chaos`).
 
-The fleet scheduler and the serving autoscaler are ROADMAP.md §A item 5.
-Nothing here imports torch at import time (the supervising parent imports
-this package).
+:mod:`.scheduler` is the fleet control plane (job manifests, the job
+spool, the gang scheduler with SLO-driven preemption and chip leases), and
+:mod:`.supervisor` also holds the serving autoscaler that leases from it.
+
+Nothing here imports torch at import time (the supervising parent and the
+fleet scheduler import this package).
 """
 
 from .chaos import (  # noqa: F401
@@ -91,12 +94,20 @@ from .reshard import (  # noqa: F401
     widen_model_state,
     widen_template,
 )
+from .scheduler import (  # noqa: F401
+    FleetConfig,
+    FleetScheduler,
+    JobManifest,
+    JobSpool,
+)
 from .supervisor import (  # noqa: F401
     ENV_DEVICE_RANKS,
     ENV_INCARNATION,
     ENV_MESH,
     ENV_RANK,
     ENV_WORLD,
+    AutoscalerConfig,
+    ServingAutoscaler,
     Supervisor,
     SupervisorConfig,
     SupervisorResult,

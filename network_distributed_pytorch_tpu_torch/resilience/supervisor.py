@@ -1,6 +1,6 @@
-"""The supervising launcher: spawn, watch, restart, degrade. The JAX
-package's ``resilience/supervisor.py`` (its lines 1-735), for workers that
-are ``torch.distributed`` ranks.
+"""The supervising launcher: spawn, watch, restart, degrade; and the serving
+autoscaler. The JAX package's ``resilience/supervisor.py``, for workers
+that are ``torch.distributed`` ranks.
 
 The parent spawns one worker process per rank, watches exit codes and the
 heartbeat directory, restarts crashed or hung ranks with a bounded,
@@ -46,7 +46,11 @@ alert goes to the supervisor's own log and to the run's ``alerts.jsonl``
 (what the workers' ``AlertFeed`` reads), ``/metrics`` serves the registry
 on 127.0.0.1, and ``alert_restart_after`` critical alerts of one rank kill
 that rank. At a world above one that death restarts the whole generation,
-like any other. The serving autoscaler is not ported (ROADMAP.md §A).
+like any other.
+
+:class:`ServingAutoscaler` sizes a pool of spool-serving workers to demand
+(the live plane's SLO burn and the spool's backlog), leasing a chip a
+worker from a ``resilience.scheduler.FleetScheduler``.
 
 The parent holds no card: this module imports neither torch nor anything
 that does at import time, and never touches a device (an emitted event,
@@ -775,3 +779,292 @@ class Supervisor:
                     exit_codes=exit_codes, final_mesh=self.mesh,
                 )
             time.sleep(cfg.poll_interval_s)
+
+
+# -- serving-pool autoscaling ----------------------------------------------
+@dataclass
+class AutoscalerConfig:
+    """Knobs for :class:`ServingAutoscaler`.
+
+    ``queue_high`` is backlog per live worker: the pool scales up when the
+    spool's queue depth stays at or above ``queue_high * n_workers`` for
+    ``queue_sustain`` consecutive polls. An SLO burn escalates through the
+    ``serving.frontend.BurnEscalator`` (the detector's sustain, the
+    escalation's own sustain and a cooldown), so one transient alert never
+    spawns a worker.
+    """
+
+    min_workers: int = 1
+    max_workers: int = 3
+    chips_per_worker: int = 1
+    poll_s: float = 0.05
+    queue_high: int = 8
+    queue_sustain: int = 3
+    cooldown_s: float = 1.0
+    burn_sustain: int = 1
+    term_grace_s: float = 5.0
+    max_wall_s: Optional[float] = None
+    detector_config: Any = None
+    owner: str = "serve-pool"
+
+
+class ServingAutoscaler:
+    """An elastic spool-serving pool: spawn and retire workers from live
+    signals.
+
+    Where :class:`Supervisor` keeps a fixed world alive, this keeps a
+    variable one sized to demand: it tails the run's live telemetry plane
+    (the serving p99 gauge and the SLO-burn alerts that the workers'
+    ``RequestEvent``s feed) and the spool's queue depth, and answers
+    sustained pressure by leasing chips from the fleet scheduler and
+    spawning another spool worker. Workers share one ``FileSpool``
+    directory, so a new worker pulls queued requests as soon as it is up.
+    Drain is organic: spool workers exit 0 once the spool is drained, and
+    the autoscaler releases their chip leases as they go.
+
+    Identities follow ``FileSpool.requeue_orphans``: a crashed worker is
+    replaced under the same worker id at incarnation + 1 (so the
+    replacement proves its predecessor dead and recovers its claims);
+    scale-ups take fresh ids below ``max_workers``, and the world exported
+    to every spawn is ``max_workers``, so no live id is ever at or above it.
+    A worker's environment carries only its own lease in
+    ``RESILIENCE_DEVICE_RANKS`` (a list of one chip), where a supervised
+    job's carries the whole job's list.
+
+    ``argv_for_worker(worker_id, device_ranks) -> List[str]`` builds a
+    worker's command line; ``device_ranks`` is the chip lease (empty when
+    no scheduler is attached).
+    """
+
+    def __init__(
+        self,
+        argv_for_worker: Callable[[int, List[int]], List[str]],
+        spool: Any,
+        run_dir: str,
+        scheduler: Any = None,
+        config: Optional[AutoscalerConfig] = None,
+        telemetry: Any = None,
+        env: Optional[Dict[str, str]] = None,
+        log_dir: Optional[str] = None,
+        run_id: Optional[str] = None,
+    ):
+        from ..observe import live as live_mod
+        from ..observe import runlog
+        from ..serving.frontend import BurnEscalator
+
+        self.argv_for_worker = argv_for_worker
+        self.spool = spool
+        self.run_dir = run_dir
+        self.scheduler = scheduler
+        self.config = config or AutoscalerConfig()
+        self.telemetry = telemetry
+        self.env = env
+        self.log_dir = log_dir
+        cfg = self.config
+        if not (1 <= cfg.min_workers <= cfg.max_workers):
+            raise ValueError(f"need 1 <= min_workers <= max_workers, got {cfg.min_workers}..{cfg.max_workers}")
+        self._workers: Dict[int, _Worker] = {}
+        self._chips: Dict[int, List[int]] = {}  # worker id -> leased chips
+        self._incarnations: Dict[int, int] = {}
+        self._queue_streak = 0
+        self.scale_ups = 0
+        self.scale_downs = 0
+        self.denied = 0
+        self.spawned_total = 0
+        self.workers_peak = 0
+        self.run_id = run_id or f"{runlog.default_run_id(run_dir)}.{int(time.time())}"
+        self._manifest = runlog.new_manifest(self.run_id, cfg.max_workers)
+        self._manifest.save(run_dir)
+        self._escalator = BurnEscalator(alert="slo_burn", sustain=cfg.burn_sustain, cooldown_s=cfg.cooldown_s)
+        self._aggregator = live_mod.LiveAggregator(run_dir, detector_config=cfg.detector_config)
+
+    # -- telemetry ----------------------------------------------------------
+    def _emit_autoscale(self, direction: str, reason: str, worker_id: Optional[int] = None,
+                        device_ranks: Optional[List[int]] = None, escalation: Optional[int] = None) -> None:
+        if self.telemetry is None:
+            return
+        from ..observe import AutoscaleEvent
+
+        self.telemetry.emit(
+            AutoscaleEvent(
+                direction=direction, reason=reason, workers=len(self._workers), worker_id=worker_id,
+                device_ranks=device_ranks, queue_depth=self.spool.queue_depth(), p99_s=self._p99(),
+                escalation=escalation,
+            )
+        )
+
+    def _p99(self) -> Optional[float]:
+        return self._aggregator.registry.get_gauge("live_serving_p99_total_seconds")
+
+    # -- worker lifecycle ---------------------------------------------------
+    def _spawn(self, worker_id: int, chips: List[int]) -> None:
+        from ..observe import runlog
+
+        cfg = self.config
+        incarnation = self._incarnations.get(worker_id, 0)
+        self._incarnations[worker_id] = incarnation + 1
+        argv = self.argv_for_worker(worker_id, chips)
+        env = dict(self.env if self.env is not None else os.environ)
+        env[ENV_INCARNATION] = str(incarnation)
+        env[ENV_RANK] = str(worker_id)
+        env[ENV_WORLD] = str(cfg.max_workers)
+        if chips:
+            env[ENV_DEVICE_RANKS] = json.dumps(chips)
+        env[runlog.ENV_RUN_DIR] = self.run_dir
+        env[runlog.ENV_RUN_ID] = self.run_id
+        self._manifest.record_spawn(
+            rank=worker_id, incarnation=incarnation, world_size=cfg.max_workers, spawned_unix=time.time()
+        )
+        self._manifest.save(self.run_dir)
+        stdout = stderr = None
+        if self.log_dir is not None:
+            os.makedirs(self.log_dir, exist_ok=True)
+            log = open(os.path.join(self.log_dir, f"worker{worker_id}.{incarnation}.log"), "w")
+            stdout, stderr = log, subprocess.STDOUT
+        proc = subprocess.Popen(argv, env=env, stdout=stdout, stderr=stderr)
+        if stdout is not None:
+            stdout.close()  # the child holds its own descriptor
+        self._workers[worker_id] = _Worker(
+            rank=worker_id, proc=proc, incarnation=incarnation, spawned_at=time.monotonic()
+        )
+        self._chips[worker_id] = list(chips)
+        self.spawned_total += 1
+        self.workers_peak = max(self.workers_peak, len(self._workers))
+
+    def _release(self, worker_id: int) -> None:
+        chips = self._chips.pop(worker_id, [])
+        if chips and self.scheduler is not None:
+            self.scheduler.lease_release(self.config.owner, chips)
+
+    def _fresh_id(self) -> Optional[int]:
+        for wid in range(self.config.max_workers):
+            if wid not in self._workers:
+                return wid
+        return None
+
+    def _scale_up(self, reason: str, escalation: Optional[int] = None) -> bool:
+        cfg = self.config
+        wid = self._fresh_id()
+        if wid is None:
+            return False  # already at max_workers
+        chips: List[int] = []
+        if self.scheduler is not None:
+            chips = self.scheduler.lease(cfg.owner, cfg.chips_per_worker, reason=reason)
+            if not chips:
+                self.denied += 1
+                self._emit_autoscale("denied", reason, worker_id=wid, escalation=escalation)
+                return False
+        self._spawn(wid, chips)
+        self.scale_ups += 1
+        self._emit_autoscale("up", reason, worker_id=wid, device_ranks=chips or None, escalation=escalation)
+        return True
+
+    # -- signal plumbing ----------------------------------------------------
+    def _poll_signals(self, scale: bool = True) -> None:
+        """Drain the live plane (a sustained SLO burn asks for a worker),
+        then the queue depth. With ``scale=False`` the alerts are only
+        recorded and start no worker: ``run`` passes it once the spool is
+        drained (the p99 that burned outlives the demand) and in its last
+        drain, after the pool has wound down. The JAX package's autoscaler
+        scales up in both cases; a worker it spawns on a drained spool
+        exits at once, and under a stale burn the pool respawns until its
+        wall cap, or is left with a worker nobody reaps and its chip
+        leased."""
+        from ..observe import live as live_mod
+
+        for alert in self._aggregator.poll():
+            rec = dict(alert.record())
+            rec.setdefault("ts", time.time())
+            live_mod.append_alert(self.run_dir, rec)
+            if self.telemetry is not None:
+                self.telemetry.emit(alert)
+            decision = self._escalator.observe(rec)
+            if decision is not None and scale:
+                self._scale_up("slo_burn", escalation=decision.get("escalation"))
+        if not scale:
+            return
+        # a backlog persistently above the per-worker high-water mark means
+        # the pool is undersized even before any SLO alert (a cold start
+        # before any request finishes)
+        cfg = self.config
+        n_live = max(1, len(self._workers))
+        if self.spool.queue_depth() >= cfg.queue_high * n_live:
+            self._queue_streak += 1
+        else:
+            self._queue_streak = 0
+        if self._queue_streak >= cfg.queue_sustain and self._scale_up("queue_depth"):
+            self._queue_streak = 0
+
+    def _reap(self) -> None:
+        """Sweep exited workers: a clean exit is an organic scale-down (the
+        spool drained under it); a crash is replaced under the same id, so
+        the incarnation bump lets the replacement reclaim the orphans."""
+        for wid in list(self._workers):
+            rc = self._workers[wid].proc.poll()
+            if rc is None:
+                continue
+            del self._workers[wid]
+            if rc == 0:
+                self._release(wid)
+                self.scale_downs += 1
+                self._emit_autoscale("down", "drained", worker_id=wid)
+            else:
+                # the same id (its incarnation already bumped in _spawn) on
+                # the same lease: requeue_orphans proves the predecessor dead
+                self._spawn(wid, self._chips.get(wid, []))
+
+    def _kill_all(self, reason: str) -> None:
+        grace = self.config.term_grace_s
+        for wid in list(self._workers):
+            w = self._workers.pop(wid)
+            try:
+                w.proc.terminate()
+                try:
+                    w.proc.wait(timeout=max(0.0, grace))
+                except subprocess.TimeoutExpired:
+                    w.proc.kill()
+                    w.proc.wait(timeout=10)
+            except (OSError, subprocess.TimeoutExpired):
+                pass
+            self._release(wid)
+            self.scale_downs += 1
+            self._emit_autoscale("down", reason, worker_id=wid)
+
+    # -- the run loop -------------------------------------------------------
+    def run(self) -> Dict:
+        """Serve until the spool drains and the pool winds itself down.
+        Returns the summary: scale-ups and downs, denials, the peak size,
+        the wall seconds and whether the spool drained."""
+        cfg = self.config
+        started = time.monotonic()
+        for _ in range(cfg.min_workers):
+            self._scale_up("min_workers")
+        timed_out = False
+        while True:
+            self._reap()
+            drained = self.spool.drained()
+            if not self._workers:
+                if drained:
+                    break
+                # requests still pending with the pool empty (every worker
+                # drained in a lull): start the minimum again
+                for _ in range(cfg.min_workers):
+                    self._scale_up("min_workers")
+            self._poll_signals(scale=not drained)
+            if cfg.max_wall_s is not None and time.monotonic() - started > cfg.max_wall_s:
+                timed_out = True
+                self._kill_all("wall_cap")
+                break
+            time.sleep(cfg.poll_s)
+        # one last drain, so that the workers' final events reach the alert
+        # feed and the gauges before the caller reads them
+        self._poll_signals(scale=False)
+        return {
+            "scale_ups": self.scale_ups,
+            "scale_downs": self.scale_downs,
+            "denied": self.denied,
+            "spawned_total": self.spawned_total,
+            "workers_peak": self.workers_peak,
+            "drained": self.spool.drained() and not timed_out,
+            "wall_s": time.monotonic() - started,
+        }

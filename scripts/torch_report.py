@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The run report of a port run directory: the machine-readable join that
-the offline analyses produce and read, and its text sections for MFU and
-the critical path.
+the offline analyses produce and read, and its text sections for MFU, the
+critical path and the fleet control plane.
 
 It merges the directory's shards (``observe.runlog.merge_run``), then:
 
@@ -15,7 +15,10 @@ It merges the directory's shards (``observe.runlog.merge_run``), then:
   and the measured per-edge fabric matrix (``observe.fabric``);
 - with ``--plan``, the join of a ``scripts/torch_plan.py`` plan with the
   realized run (``observe.costmodel.join_realized``: the model's
-  ``error``).
+  ``error``);
+- on a fleet scheduler's run directory (``launch fleet --run-dir``), the
+  fleet section: each job's outcome, chip-seconds and preemptions, and
+  the deadline-weighted goodput.
 
 Usage (from the root of the repository)::
 
@@ -27,7 +30,7 @@ run_report.json``) and, where the run measured one, the fabric matrix
 beside it (``fabric_matrix.json``, which ``scripts/torch_plan.py
 --fabric-matrix`` and ``utils.bandwidth.fabric_model`` read), and prints
 the text. The rest of the JAX package's ``scripts/report.py`` (its
-failure, SLO, KV-pool, fleet, recovery, memory and fidelity sections, the
+failure, SLO, KV-pool, recovery, memory and fidelity sections, the
 Chrome trace, ``--compare``, ``--watch``) is not ported. Imports no torch
 beyond the port's ``observe`` package.
 """
@@ -199,6 +202,81 @@ def render_critpath_section(crit: Optional[Dict], matrix: Optional[Dict], clock_
     return lines
 
 
+def fleet_summary_from_events(events: List[Dict]) -> Optional[Dict]:
+    """The fleet control plane's aggregate over the scheduler's typed
+    events (``job`` lifecycle, ``preempt``, ``schedule``, ``job_failed``):
+    a row a job and the deadline-weighted goodput, completed work weighted
+    1.0 when its deadline was met (or none was set) and 0.5 when missed,
+    over every chip-second a terminal job held. None when the run scheduled
+    nothing."""
+    job_events = [e for e in events if e.get("event") == "job"]
+    if not job_events:
+        return None
+    jobs: Dict[str, Dict] = {}
+    for e in job_events:
+        j = jobs.setdefault(
+            str(e.get("job_id", "?")),
+            {
+                "kind": e.get("kind", ""), "priority": e.get("priority", 0), "state": "unfinished",
+                "transitions": [], "preemptions": 0, "chip_seconds": None, "work_done": None, "met_deadline": None,
+            },
+        )
+        state = e.get("state")
+        j["transitions"].append(state)
+        j["preemptions"] = max(j["preemptions"], int(e.get("preemptions", 0) or 0))
+        if state in ("completed", "failed"):
+            j["state"] = "quarantined" if state == "failed" else state
+            j["chip_seconds"] = e.get("chip_seconds")
+            j["work_done"] = e.get("work_done")
+            j["met_deadline"] = e.get("met_deadline")
+    schedules = [e for e in events if e.get("event") == "schedule"]
+    terminal = [j for j in jobs.values() if j["state"] != "unfinished"]
+    total_chip_s = sum(j["chip_seconds"] for j in terminal if isinstance(j["chip_seconds"], (int, float)))
+    weighted = sum(
+        (0.5 if j["met_deadline"] is False else 1.0) * j["work_done"]
+        for j in terminal
+        if j["state"] == "completed" and isinstance(j["work_done"], (int, float))
+    )
+    return {
+        "n_jobs": len(jobs),
+        "jobs": jobs,
+        "completed": sorted(k for k, j in jobs.items() if j["state"] == "completed"),
+        "quarantined": sorted(k for k, j in jobs.items() if j["state"] == "quarantined"),
+        "unfinished": sorted(k for k, j in jobs.items() if j["state"] == "unfinished"),
+        "preemptions": sum(1 for e in events if e.get("event") == "preempt"),
+        "admissions": len(schedules),
+        "planner_priced": sum(1 for e in schedules if e.get("planner") == "costmodel"),
+        "total_chip_seconds": total_chip_s,
+        "weighted_work": weighted,
+        "goodput": (weighted / total_chip_s) if total_chip_s else None,
+    }
+
+
+def render_fleet_section(fleet: Dict) -> List[str]:
+    lines = ["", "fleet control plane (gang scheduler)", "------------------------------------"]
+    lines.append(
+        f"  {fleet['n_jobs']} job(s): {len(fleet['completed'])} completed, {len(fleet['quarantined'])} quarantined,"
+        f" {len(fleet['unfinished'])} unfinished; {fleet['preemptions']} preemption(s) over"
+        f" {fleet['admissions']} admission(s) ({fleet['planner_priced']} planner-priced)"
+    )
+    for name, j in sorted(fleet["jobs"].items()):
+        chip = j.get("chip_seconds")
+        chip_txt = f"{chip:8.1f} chip-s" if chip is not None else "     n/a      "
+        met = j.get("met_deadline")
+        met_txt = "deadline met" if met else "deadline MISSED" if met is False else "no deadline"
+        lines.append(
+            f"  {name:<12} {j.get('kind', '?'):<5} prio {j['priority']:>3}  {j['state']:<12} {chip_txt}  {met_txt}"
+            f"  {j['preemptions']} preemption(s)"
+        )
+    gp = fleet.get("goodput")
+    if gp is not None:
+        lines.append(
+            f"  goodput  {gp:.4f} weighted-work/chip-s over {fleet['total_chip_seconds']:.1f} chip-s (higher is"
+            " better)"
+        )
+    return lines
+
+
 def run_report(run_dir: str) -> Tuple[str, Dict]:
     """Merge ``run_dir`` and run the analyses: ``(text, report dict)``. The
     dict's keys are the JAX package's ``scripts/report.py`` ones for what
@@ -250,6 +328,10 @@ def run_report(run_dir: str) -> Tuple[str, Dict]:
         head.append(f"  {ev.banner()}")
     sections = render_critpath_section(crit, matrix, clock_skew_bound_s=merged.clock_skew_bound_s)
     sections += render_mfu_section(mfu_records)
+    # the fleet control plane, where the run is a fleet scheduler's
+    fleet = fleet_summary_from_events(merged.events)
+    if fleet:
+        sections += render_fleet_section(fleet)
     text = "\n".join(head + sections) + "\n"
 
     report = {
@@ -279,6 +361,8 @@ def run_report(run_dir: str) -> Tuple[str, Dict]:
         ),
         "mfu": mfu_records,
         "spans": spans,
+        # None unless the run scheduled jobs (a fleet scheduler's run dir)
+        "fleet": fleet,
     }
     return text, report
 

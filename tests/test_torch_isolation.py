@@ -50,6 +50,8 @@ def port_files():
     # the supervisor tests' toy worker, which imports neither torch nor jax
     # unless its telemetry is on (then the port's observe, never jax)
     yield os.path.join(REPO, "tests", "torch_toy_supervised_worker.py")
+    # the fleet tests' toy serving worker (the port's serving, never jax)
+    yield os.path.join(REPO, "tests", "torch_toy_serving_worker.py")
 
 
 def violations(path):
@@ -256,9 +258,9 @@ def test_port_imports_and_trains_with_jax_blocked():
 
 def test_parent_modules_import_with_torch_blocked():
     """The supervising parent holds no card: ``resilience/supervisor.py``,
-    ``resilience/chaos.py``, ``guards.py`` and ``controller.py`` (and the
-    package around them) and the toy test worker import with torch blocked
-    too."""
+    ``resilience/chaos.py``, ``guards.py``, ``controller.py`` and the fleet
+    scheduler (and the package around them) and the toy test worker import
+    with torch blocked too."""
     script = textwrap.dedent(
         f"""
         import importlib, sys
@@ -270,7 +272,7 @@ def test_parent_modules_import_with_torch_blocked():
                 return None
         sys.meta_path.insert(0, Blocker())
         for m in ("resilience", "resilience.supervisor", "resilience.chaos", "resilience.guards",
-                  "resilience.controller"):
+                  "resilience.controller", "resilience.scheduler"):
             importlib.import_module({PORT!r} + "." + m)
         sys.path.insert(0, "tests")
         import torch_toy_supervised_worker
@@ -281,3 +283,48 @@ def test_parent_modules_import_with_torch_blocked():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0 and proc.stdout.strip() == "OK", proc.stderr[-3000:]
+
+
+def test_fleet_modules_are_checked_and_run_with_jax_blocked(tmp_path):
+    """The fleet control plane: ``resilience/scheduler.py`` (the port's own
+    copy of a JAX package module that imports no jax) and the toy serving
+    worker are among the files walked above; the scheduler imports no torch
+    at module level (its events, live plane, cost model and spool are
+    imported where used); and ``launch fleet`` runs a job and quarantines a
+    crash-looper in a fresh interpreter with the banned imports blocked."""
+    files = set(port_files())
+    scheduler = os.path.join(REPO, PORT, "resilience", "scheduler.py")
+    toy = os.path.join(REPO, "tests", "torch_toy_serving_worker.py")
+    assert {scheduler, toy} <= files
+    for path in (scheduler, toy):
+        assert not list(violations(path)), path
+    imported = module_level_imports(scheduler)
+    assert [m for m in imported if m.startswith(".")] == [".supervisor"], imported
+    assert not [m for m in imported if m.split(".")[0] == "torch"], imported
+    jobs = tmp_path / "jobs.json"
+    jobs.write_text(json.dumps([
+        {"job_id": "ok", "argv": [sys.executable, "-c", "pass"], "priority": 1},
+        {"job_id": "looper", "argv": [sys.executable, "-c", "raise SystemExit(43)"], "max_restarts": 0},
+    ]))
+    script = textwrap.dedent(
+        f"""
+        import sys
+        BANNED = {BANNED_ROOTS!r}
+        class Blocker:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".", 1)[0] in BANNED or name == {JAX_PACKAGE!r} or name.startswith({JAX_PACKAGE!r} + "."):
+                    raise ImportError("blocked: " + name)
+                return None
+        sys.meta_path.insert(0, Blocker())
+        from {PORT} import launch
+        out = launch.main(["fleet", "--spool-dir", {str(tmp_path / "spool")!r}, "--devices", "2",
+                           "--submit", {str(jobs)!r}, "--run-dir", {str(tmp_path / "run")!r}])
+        assert out == {{"fleet_rc": 0}}, out
+        print("OK")
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("OK"), proc.stderr[-3000:]
+    with open(tmp_path / "spool" / "quarantine" / "looper.json") as f:
+        assert json.load(f)["last_rc"] == 43
