@@ -7,12 +7,15 @@ Run from the root of the repository, with no arguments::
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-1. the card (``nvidia-smi``), torch and CUDA versions, and the build of
+1. the CUDA preflight's verdict (``hostenv.backend_preflight``: the device
+   count and the first card's name under a wall deadline), then the card
+   (``nvidia-smi``), torch and CUDA versions, and the build of
    every CUDA kernel of the port (one ``nvcc`` per source, started together),
    beside the launches that launch no port kernel: ``supervised_resume``'s
    two, ``main_path_live``'s without the plane and ``bare_init``, checked
-   where their phases stand; section 2 waits for them before its first
-   timing, so that no kernel is timed beside another process;
+   where their phases stand; section 2 runs every kernel's check beside
+   them and waits for them before its first timing, so that no kernel is
+   timed beside another process;
 2. with TF32 off, each kernel against its plain PyTorch version on the card:
    the Gram-Schmidt kernel (K1) at every (g, n, r) shape group of the
    ResNet path (ResNet-152, rank 4) and of the DistilBERT path
@@ -96,7 +99,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    PowerSGD at ranks 1, 2 and 4, TopK 1 %, SignSGD, QSGD int8, local SGD and
    DiLoCo with PowerSGD at H = 8; each timed, its collectives recorded, its
    step projected over the fabrics for eight workers); ``launch
-   bare_init`` in a process of its own; then the checkpointed paths
+   bare_init`` in a process of its own; then the host data plane
+   (``main_path_data_plane``): the flagship at preset full on the xla
+   pipeline (K1) for 6 steps under deterministic algorithms, fed by the
+   numpy loader with ``prefetch=0`` and then by the native loader with
+   ``prefetch=2``, the parameters after them bit for bit, the native
+   loader's ``last_stats``, the ``data_load``, ``data_load/assemble`` and
+   ``data_load/stage`` span p50s, the ``LoaderEvent`` and each step p50;
+   5 prefetched steps with steps 1 and 2 under ``torch.profiler``, whose
+   batch-sized host-to-device copies must read pinned memory off the
+   step's stream; and 64 staged batches at each of depths 0, 1 and 2
+   behind a consumer slowed by a long kernel, each bit for bit its source;
+   then the checkpointed paths
    through a one-rank NCCL group, their checkpoints under a temporary
    directory that is removed after: ``resilient_resume`` (ResNet-152
    PowerSGD at batch 512, rank 4, the xla pipeline: K1) through
@@ -460,9 +474,14 @@ HIER_H, HIER_PLAN = 4, ("sync", "sync", "local", "sync")
 # LIVE_SLOWDOWN times with each chunk's sleep at most LIVE_CHUNK_SLEEP_S:
 # the drift alert, a nudge to compress, K1 once a shape group a step there.
 # The nudged run's own clean steps have read 0.70 to 1.08 of that p50 on
-# the H100, so at 2.2 the slowdown, which must reach 2, read 2.01 to 2.45
-LIVE_STEPS, LIVE_CHUNKS, LIVE_THROTTLE_STEP = 16, 4, 12
-LIVE_SLOWDOWN, LIVE_CHUNK_SLEEP_S = 2.6, 0.035
+# the H100, so at 2.2 the slowdown, which must reach 2, read 2.01 to 2.45.
+# A chunk's window is its sleep plus its own time, up to 20 ms after the
+# first step on the H100 (scripts/torch_live_deadline_bisect.py), more on a
+# slower host: at 4 chunks and 35 ms a sleep the window came within the
+# floor's last 15 ms and one expiry descended before the alert, so 8 chunks
+# share the sleep, each at most 25 ms
+LIVE_STEPS, LIVE_CHUNKS, LIVE_THROTTLE_STEP = 16, 8, 12
+LIVE_SLOWDOWN, LIVE_CHUNK_SLEEP_S = 2.6, 0.025
 LIVE_LADDER = ["baseline", "compress"]
 # offline_phases reads what the telemetry and live phases left and launches
 # no training process; the seconds predicted for it before its first run
@@ -488,6 +507,21 @@ STORM_CHIPS, STORM_MAX_WORKERS, STORM_SLO_S = 3, 3, 1.5
 STORM_BURST_S, STORM_BURST_RATE, STORM_GAP_S, STORM_TRICKLE_S, STORM_TRICKLE_RATE = 8.0, 84.0, 20.0, 5.0, 9.0
 # the seconds predicted for fleet_phases before its first run on the card
 FLEET_PREDICTED_S = 110.0
+# the host data plane (data_plane_phases). main_path_data_plane: the flagship
+# (ResNet-152, batch 512, rank 4, the xla pipeline: K1 once a shape group a
+# step) for DATA_PLANE_STEPS steps from the same seed under deterministic
+# algorithms, in turns: (a) the numpy loader (iterate_batches) with
+# prefetch=0, (b) the native loader with prefetch=2; then (b) again for
+# DATA_PLANE_TRACE_STEPS steps under torch.profiler with steps 1 and 2
+# recorded (the copies of batches 3 and 4 are staged in them); then the
+# torn-batch check: TORN_BATCHES staged batches of the flagship's shape at
+# each of TORN_DEPTHS, each behind a torch.cuda._sleep of TORN_SLEEP_CYCLES
+# on the consumer's stream (about 1 ms at the H100's 1.98 GHz), cloned
+# after it and read back against its source bit for bit
+DATA_PLANE_STEPS, DATA_PLANE_TRACE_STEPS = 6, 5
+TORN_BATCHES, TORN_DEPTHS, TORN_SLEEP_CYCLES = 64, (0, 1, 2), 2_000_000
+# the seconds predicted for data_plane_phases before its first run on the card
+DATA_PLANE_PREDICTED_S = 45.0
 # the supervised workers' deterministic algorithms, as chaos_guarded's
 # deterministic_algorithms() sets them in process; any sitecustomize the
 # interpreter had is run after it. With CHIP_SMOKE_LAUNCHES set, a process
@@ -3633,15 +3667,23 @@ def read_records(path, event=None):
 
 
 def start_live_plain(dev, preset="full"):
-    """The live phases' files, under a temporary directory (the workers'
-    ``sitecustomize``, the plan document), their launcher, and
-    ``main_path_live``'s launch without ``--run-dir`` and
-    ``--metrics-port`` started in a thread: on the baseline rung its
+    """``main_path_live``'s launch without ``--run-dir`` and
+    ``--metrics-port``, started in a thread: on the baseline rung its
     processes launch no port kernel, and only its losses are read, so
     ``main`` runs it while the kernels build. Returns ``(future, root,
-    launch_live)``: the future's result is that launch's record,
-    ``launch_live(name, plane, faults=())`` runs one launch (see
-    :func:`live_phases`)."""
+    launch_live)``: the future's result is that launch's record, the rest
+    :func:`live_launcher`'s."""
+    root, launch_live = live_launcher(dev, preset)
+    return in_background(launch_live, "live_plain", False), root, launch_live
+
+
+def live_launcher(dev, preset="full", site_extra=""):
+    """The live phases' files, under a temporary directory (the workers'
+    ``sitecustomize``, with ``site_extra`` appended, and the plan
+    document), and their launcher. Returns ``(root, launch_live)``:
+    ``launch_live(name, plane, faults=(), env=None)`` runs one launch (see
+    :func:`live_phases`), with ``env`` added to the workers'
+    environment."""
     import urllib.request
 
     from network_distributed_pytorch_tpu_torch.observe import live
@@ -3651,13 +3693,13 @@ def start_live_plain(dev, preset="full"):
     site = os.path.join(root, "site")
     os.makedirs(site)
     with open(os.path.join(site, "sitecustomize.py"), "w") as f:
-        f.write(SUPERVISED_SITECUSTOMIZE)
+        f.write(SUPERVISED_SITECUSTOMIZE + site_extra)
     here = os.path.dirname(os.path.abspath(__file__))
     plan_doc = os.path.join(root, "plan_doc.json")
     with open(plan_doc, "w") as f:
         json.dump({"ladder": {"NVLink4(H100)": LIVE_LADDER}}, f)
 
-    def launch_live(name, plane, faults=()):
+    def launch_live(name, plane, faults=(), env=None):
         """One supervised launch: its summary, the worker's summary, its
         events, the mid-run scrape, its wall seconds and the worker's K1
         launches."""
@@ -3666,7 +3708,7 @@ def start_live_plain(dev, preset="full"):
         os.makedirs(d)
         launches_file = os.path.join(d, "launches.jsonl")
         env = dict(os.environ, PYTHONPATH=os.pathsep.join([site, here, os.environ.get("PYTHONPATH", "")]),
-                   CHIP_SMOKE_LAUNCHES=launches_file)
+                   CHIP_SMOKE_LAUNCHES=launches_file, **(env or {}))
         argv = [
             sys.executable, "-m", "network_distributed_pytorch_tpu_torch.launch", "exact_cifar10",
             "--preset", preset, "--device", dev.type, "--epochs", "2", "--max-steps-per-epoch", str(LIVE_STEPS),
@@ -3727,7 +3769,7 @@ def start_live_plain(dev, preset="full"):
             "scrape_s_after_start": scrape["t"] - t0 if "t" in scrape else None, "wall_s": wall, "k1": k1,
             "unix": (t0_unix, t1_unix),
         }
-    return in_background(launch_live, "live_plain", False), root, launch_live
+    return root, launch_live
 
 
 def live_phases(dev, drive, smi, started, preset="full"):
@@ -3816,6 +3858,10 @@ def live_phases(dev, drive, smi, started, preset="full"):
             "audits": [{k: r.get(k) for k in ("analytic_bytes", "hlo_bytes", "exact")}
                        for r in plane["shard"] if r.get("event") == "compile"],
             "step_ms": [1e3 * r["step_time_s"] for r in steps],
+            # where a deadline expired and the step it retried (the expiry's own step is None)
+            "deadline_events": [{k: r.get(k) for k in ("kind", "label", "step", "message", "ts")}
+                                for r in plane["shard"] if r.get("event") == "failure"
+                                and r.get("kind") in ("comm_deadline", "comm_step_retry")],
             "per_rank": {str(k): v for k, v in plane["per_rank"].items()}, "torn_lines": plane["torn_lines"],
             "live_p50_s": plane["live_p50_s"], "report_p50_s": plane["report_p50_s"],
             "scrape": {k: v for k, v in run["scrape"].items() if k != "t"},
@@ -3913,7 +3959,8 @@ def live_phases(dev, drive, smi, started, preset="full"):
         comm = [a for a in alerts if a[0] in ("step_time_drift", "bandwidth_collapse")]
         if policy and not str(policy[0]["trigger"]).startswith("alert:"):
             fail(f"main_path_live_nudge: the rung moved on {policy[0]['trigger']!r} before any alert (the deadline"
-                 f" guard moved it first): resize the throttle. {policy} {result['comm_deadlines']}")
+                 f" guard moved it first): resize the throttle. {policy} {result['deadline_events']}"
+                 f" chunk sleep {1e3 * chunk_sleep_s} ms, steps {result['step_ms']}")
         if not comm or comm[0][0] not in result["alert_in_supervisor_log"]:
             fail(f"main_path_live_nudge: no step_time_drift or bandwidth_collapse alert: {alerts}")
         if len(policy) != 1 or policy[0]["rung_after"] != "compress" or result["final_rung"] != "compress" \
@@ -4477,6 +4524,269 @@ def fleet_phases(dev, smi, clean_ckpt, preset="full"):
     emit({"phase": "fleet_phases", "wall_s": time.perf_counter() - t_phase, "predicted_s": FLEET_PREDICTED_S})
 
 
+def torn_batch_check(dev, depth, n=TORN_BATCHES, rows=512, features=3072, sleep_cycles=TORN_SLEEP_CYCLES):
+    """``n`` batches (``rows`` x ``features`` float32 and ``rows`` int32
+    labels, every element different from the batch before's) through
+    ``device_prefetch`` at ``depth``, each received behind a long kernel on
+    the consumer's stream (``torch.cuda._sleep``: the step is still running
+    when the next batches are staged) and cloned there after it; after the
+    last, every clone is read back. Returns the indices of the batches whose
+    clone is not its source bit for bit: a slot rewritten before its copy
+    had read it, or device memory handed out again while the consumer still
+    read it, shows here."""
+    import numpy as np
+    import torch
+
+    from network_distributed_pytorch_tpu_torch.data.loader import device_prefetch
+
+    base = np.random.RandomState(depth).standard_normal((rows, features)).astype(np.float32)
+    sources = [(base + np.float32(i), np.full(rows, i, np.int32)) for i in range(n)]
+    clones = []
+    for bx, by in device_prefetch(iter(sources), dev, depth=depth, label=f"torn_depth_{depth}"):
+        if dev.type == "cuda":
+            torch.cuda._sleep(sleep_cycles)
+        clones.append((bx.clone(), by.clone()))
+        del bx, by
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return [
+        i for i, ((cx, cy), (sx, sy)) in enumerate(zip(clones, sources))
+        if cx.cpu().numpy().tobytes() != sx.tobytes() or cy.cpu().numpy().tobytes() != sy.tobytes()
+    ]
+
+
+def staged_copies(trace_path, batch_bytes):
+    """The host-to-device copies of at least ``batch_bytes`` in a Chrome
+    trace of ``torch.profiler``: how many, whether each read pinned memory,
+    their streams against the step's (the stream with the most kernel
+    time), their times, and how many ran while a kernel of the step's
+    stream ran. None where the trace holds no kernel."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f).get("traceEvents", []) if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        return None
+    busy = {}
+    for k in kernels:
+        busy[k["args"]["stream"]] = busy.get(k["args"]["stream"], 0.0) + k["dur"]
+    compute = max(busy, key=busy.get)
+    on_compute = sorted((k["ts"], k["ts"] + k["dur"]) for k in kernels if k["args"]["stream"] == compute)
+    copies = [
+        e for e in events
+        if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "") and e["args"].get("bytes", 0) >= batch_bytes
+    ]
+
+    def overlaps(c):
+        lo, hi = c["ts"], c["ts"] + c["dur"]
+        return any(a < hi and lo < b for a, b in on_compute)
+
+    return {
+        "copies": len(copies), "names": sorted({c["name"] for c in copies}),
+        "pinned": bool(copies) and all("Pinned" in c["name"] for c in copies),
+        "streams": sorted({c["args"]["stream"] for c in copies}), "step_stream": compute,
+        "on_step_stream": sum(c["args"]["stream"] == compute for c in copies),
+        "overlapping_a_step_kernel": sum(overlaps(c) for c in copies),
+        "copy_us": [c["dur"] for c in copies],
+        "copy_gb_per_s": [c["args"].get("bytes", 0) / max(c["dur"], 1e-3) / 1e3 for c in copies],
+    }
+
+
+def span_p50s(records, names=("data_load", "data_load/assemble", "data_load/stage")):
+    """The median duration in ms of each span of ``names`` in ``records``,
+    None where the run recorded none."""
+    out = {}
+    for name in names:
+        durs = [r["dur_s"] * 1e3 for r in records if r.get("event") == "span" and r["name"] == name]
+        out[name] = statistics.median(durs) if durs else None
+    return out
+
+
+DATA_PLANE_SOURCES = ("numpy", "native", "native1", "listed")
+
+
+def data_plane_run(step, initial, snapshot, cfg, dev, images, labels, source, prefetch, steps, hook=None,
+                   run_name="data_plane"):
+    """One run of ``steps`` flagship steps of ``train_loop`` from
+    ``initial`` (put back first by ``snapshot``, a ``StateSnapshot`` taken
+    of it), under :func:`deterministic_algorithms`, at ``prefetch``, its
+    batches from ``source``: ``"numpy"`` (``iterate_batches``: the numpy
+    gather on the training thread), ``"native"`` (``accumulated_batches``:
+    the native loader, the default path), ``"native1"`` (the native loader
+    with one gather thread) or ``"listed"`` (the native loader's epoch
+    gathered into a list before the loop: no worker thread while it
+    steps). Returns ``(tensors, logger, sink, loader)``: the final state's
+    tensors on the host, the step log, the telemetry records and the
+    native loader (its ``last_stats``), None for ``"numpy"``."""
+    import itertools
+
+    from network_distributed_pytorch_tpu_torch.data.loader import iterate_batches
+    from network_distributed_pytorch_tpu_torch.experiments.common import accumulated_batches, train_loop
+    from network_distributed_pytorch_tpu_torch.native import loader as native_loader
+    from network_distributed_pytorch_tpu_torch.observe import MemorySink, Telemetry
+
+    if source not in DATA_PLANE_SOURCES:
+        raise ValueError(f"data plane source must be one of {DATA_PLANE_SOURCES}, got {source!r}")
+    sink = MemorySink()
+    snapshot.restore(initial)
+    threads = native_loader._N_THREADS
+    if source == "native1":
+        native_loader._N_THREADS = 1
+    try:
+        with deterministic_algorithms():
+            if source == "numpy":
+                batches = lambda epoch: itertools.islice(  # noqa: E731
+                    iterate_batches([images, labels], cfg.global_batch_size, seed=cfg.seed, epoch=epoch), steps
+                )
+            else:
+                batches = accumulated_batches([images, labels], cfg, max_steps_per_epoch=steps)
+            loader = getattr(batches, "loader", None)
+            if source == "listed":
+                listed = list(batches(0))
+                batches = lambda epoch: iter(listed)  # noqa: E731
+            state, logger = train_loop(
+                step, initial, batches, 1, dev, telemetry=Telemetry([sink]), prefetch=prefetch,
+                run_name=run_name, on_step_end=hook,
+            )
+            # on the host: the next run's peak must not hold this one's state
+            out = {k: v.cpu() for k, v in tensors_of(state).items()}
+    finally:
+        native_loader._N_THREADS = threads
+    return out, logger, sink, loader
+
+
+def data_plane_phases(dev, drive, images, labels, n_groups, smi, preset="full"):
+    """``main_path_data_plane``: the flagship fed as the JAX package feeds it
+    (the native loader, ``device_prefetch`` over pinned slots and a side
+    stream) against the numpy loader with synchronous copies, in turns, from
+    the same state: the parameters after ``DATA_PLANE_STEPS`` steps bit for
+    bit, the spans, the ``LoaderEvent``, the step p50s; a trace of the
+    prefetched steps (the batch copies pinned, off the step's stream); and
+    the torn-batch check at each of ``TORN_DEPTHS``. ``drive`` is
+    ``main``'s; ``n_groups`` the ResNet's shape groups. ``preset="small"``
+    (global batch 16) rehearses it on the CPU, where the trace and the
+    slow consumer are left out."""
+    import torch
+
+    from network_distributed_pytorch_tpu_torch.experiments import powersgd_cifar10
+    from network_distributed_pytorch_tpu_torch.native import native_available
+    from network_distributed_pytorch_tpu_torch.parallel.mesh import (
+        DistributedConfig,
+        initialize_distributed,
+        shutdown_distributed,
+    )
+    from network_distributed_pytorch_tpu_torch.resilience.guards import StateSnapshot
+
+    t_phase = time.perf_counter()
+    on_cuda = dev.type == "cuda"
+    cfg = powersgd_cifar10.default_config()
+    cfg.compress_impl = "xla"
+    if preset == "small":
+        cfg.global_batch_size = 16
+    want = {"gram_schmidt": DATA_PLANE_STEPS * n_groups}
+    runs = {}
+    group = initialize_distributed(DistributedConfig(), dev)
+    try:
+        # one build; each run starts from its initial state, put back by the
+        # guarded step's snapshot (which restores a step bit for bit)
+        _, step, initial = powersgd_cifar10.build(cfg, preset, dev, group)
+        snapshot = StateSnapshot()
+        snapshot.take(initial)
+
+        def version(native, steps=DATA_PLANE_STEPS, hook=None):
+            """The native loader and prefetch=2, or the numpy loader and
+            prefetch=0 (:func:`data_plane_run`)."""
+            return data_plane_run(step, initial, snapshot, cfg, dev, images, labels, "native" if native else "numpy",
+                                  2 if native else 0, steps, hook=hook)
+
+        for name, native in (("data_plane_numpy", False), ("data_plane_native", True)):
+            (tensors, logger, sink, loader), peak = drive(name, lambda native=native: version(native), want)
+            # drive keeps each run's result: its tensors (on the host) are cleared below
+            timed = logger.records[WARMUP_STEPS:]
+            runs[name] = {
+                "tensors": tensors, "loader": loader,
+                "record": {
+                    "loader": "native" if native else "numpy", "prefetch": 2 if native else 0,
+                    "losses": [r.loss for r in logger.records],
+                    "step_host_ms_p50": statistics.median(r.step_time_s * 1e3 for r in timed),
+                    "step_device_ms_p50": (
+                        statistics.median(r.device_time_ms for r in timed) if on_cuda else None
+                    ),
+                    "span_ms_p50": span_p50s(sink.records),
+                    "loader_events": [
+                        {k: e[k] for k in ("label", "batches", "samples", "samples_per_s", "prefetch_depth", "wait_s")}
+                        for e in sink.of_kind("loader")
+                    ],
+                    "native_last_stats": loader.last_stats if loader is not None else None,
+                    "peak_memory_bytes": peak,
+                },
+            }
+        differ = bitwise_equal(runs["data_plane_native"]["tensors"], runs["data_plane_numpy"]["tensors"])
+        for run in runs.values():
+            run["tensors"].clear()
+        if differ:
+            fail(f"main_path_data_plane: the native prefetched run differs from the numpy one in {differ[:5]}")
+        stats = runs["data_plane_native"]["loader"].last_stats if runs["data_plane_native"]["loader"] else None
+        available = native_available()
+        if not (available and stats and stats["native"]):
+            fail(f"main_path_data_plane: native_available() {available}, the loader's last_stats {stats}")
+        (event,) = runs["data_plane_native"]["record"]["loader_events"] or [None]
+        if event is None or event["batches"] != DATA_PLANE_STEPS or event["prefetch_depth"] != 2:
+            fail(f"main_path_data_plane: the prefetched run's LoaderEvent {event}")
+
+        # the trace: DATA_PLANE_TRACE_STEPS prefetched steps, steps 1 and 2 recorded
+        trace = None
+        if on_cuda:
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_data_plane_")
+            path = os.path.join(tmp, "trace.json")
+            try:
+                prof = torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA],
+                    schedule=torch.profiler.schedule(wait=0, warmup=1, active=2, repeat=1),
+                    on_trace_ready=lambda p: p.export_chrome_trace(path),
+                )
+                with prof:
+                    (traced, *_), _ = drive(
+                        "data_plane_trace",
+                        lambda: version(True, DATA_PLANE_TRACE_STEPS, hook=lambda e, n, s: bool(prof.step())),
+                        {"gram_schmidt": DATA_PLANE_TRACE_STEPS * n_groups},
+                    )
+                traced.clear()
+                trace = staged_copies(path, int(images[:1].nbytes) * cfg.global_batch_size)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            if trace is None or trace["copies"] < 2 or not trace["pinned"] or trace["on_step_stream"]:
+                fail(f"main_path_data_plane: the traced batch copies {trace}: not 2 or more, pinned, off the step's stream")
+    finally:
+        shutdown_distributed()
+
+    # the torn-batch check: a slow consumer at each depth
+    torn = {}
+    t_torn = time.perf_counter()
+    for depth in TORN_DEPTHS:
+        bad = torn_batch_check(dev, depth, rows=cfg.global_batch_size)
+        if bad:
+            fail(f"main_path_data_plane: at depth {depth} the staged batches {bad[:8]} differ from their sources")
+        torn[str(depth)] = {"batches": TORN_BATCHES, "torn": 0}
+    numpy_rec, native_rec = runs["data_plane_numpy"]["record"], runs["data_plane_native"]["record"]
+    emit({
+        "phase": "main_path_data_plane", "model": "resnet152" if preset == "full" else "resnet18",
+        "global_batch": cfg.global_batch_size,
+        "steps": DATA_PLANE_STEPS, "timed_steps": DATA_PLANE_STEPS - WARMUP_STEPS,
+        "params_bitwise_equal": True, "native_available": available, "native_last_stats": stats,
+        "numpy_prefetch_0": numpy_rec, "native_prefetch_2": native_rec,
+        "step_device_ms_p50_native_over_numpy": (
+            native_rec["step_device_ms_p50"] / numpy_rec["step_device_ms_p50"] if on_cuda else None
+        ),
+        "step_host_ms_p50_native_over_numpy": native_rec["step_host_ms_p50"] / numpy_rec["step_host_ms_p50"],
+        "trace": trace,
+        "torn_batch_check": {
+            "depths": torn, "sleep_cycles": TORN_SLEEP_CYCLES if on_cuda else 0,
+            "batch_shape": [cfg.global_batch_size, 3072], "s": time.perf_counter() - t_torn,
+        },
+        "wall_s": time.perf_counter() - t_phase, "predicted_s": DATA_PLANE_PREDICTED_S, "nvidia_smi": smi,
+    })
+
+
 def main() -> None:
     import torch
 
@@ -4512,6 +4822,14 @@ def main() -> None:
         from network_distributed_pytorch_tpu_torch.parallel.reducers import PowerSGDReducer
     except ImportError as e:
         fail(f"the port is not importable next to this script: {e}")
+    from network_distributed_pytorch_tpu_torch.hostenv import backend_preflight
+
+    # the CUDA preflight first: the device count and the first card's name,
+    # under a wall deadline (a wedged driver is a verdict, not a hang)
+    preflight = backend_preflight()
+    emit({"phase": "preflight", **preflight})
+    if not preflight["ok"]:
+        fail(f"the CUDA preflight failed: {preflight['cause']}")
 
     # ---- 1. the card and the build -------------------------------------------
     smi = subprocess.run(
@@ -4521,8 +4839,9 @@ def main() -> None:
     # processes that launch no port kernel run while the kernels build (the
     # card is otherwise idle): supervised_resume's two launches (checked by
     # chaos_phases), main_path_live's launch without the live plane (by
-    # live_phases) and bare_init. Section 2 waits for them before its first
-    # timing; only section 4, which times nothing, later has a neighbour
+    # live_phases) and bare_init. Section 2 checks every kernel beside them
+    # and waits for them before its first timing; only section 4, which
+    # times nothing, later has a neighbour
     supervised = start_supervised_resume(torch.device("cuda", 0))
     live_plain = start_live_plain(torch.device("cuda", 0))
     bare_init = in_background(launch_bare_init)
@@ -4579,7 +4898,24 @@ def main() -> None:
     if streamed["route"] != "streaming":
         fail(f"gram_schmidt (1, 30522, 32) took {streamed}, not the streaming route")
     main_inputs = [inputs[s] for s in main_shapes]
-    # the first timing: the launches started before the build must have ended
+    # flash attention at DistilBERT's width, with the first synthetic-IMDb
+    # batch's padding (about 214 of 256 keys per row)
+    imdb_full, imdb_val, _ = prepare_imdb(max_len=IMDB_T, seed=imdb_cfg.seed)
+    imdb_arrays = [imdb_full["input_ids"], imdb_full["attention_mask"], imdb_full["labels"]]
+    first_amask = torch.from_numpy(next(accumulated_batches(imdb_arrays, imdb_cfg)(0))[1])
+    imdb_mask = torch.where(first_amask > 0, 0.0, torch.finfo(torch.float32).min)
+    attn_report, (aq, ak, av, amask) = check_flash_attention(fa, dev, gen, imdb_mask)
+    bf16_report, bf16_inputs = check_flash_attention_bf16(fa, dev, gen, imdb_mask)
+    bwd_report, bwd_err, bwd_inputs = check_flash_attention_bwd(fa, dev, gen, imdb_mask)
+    extra_groups = [
+        (3, 100, 37, 8), (1, 2, 3, 2), (2, 70, 7, 3), (2, 50, 10, 4), (2, 5, 256, 4),
+        (1, 4608, 512, 1), (1, 4608, 512, 8), (1, 4608, 512, 32),
+    ]
+    report, kept = check_fused_kernels(ps, gs, group_shapes + extra_groups, dev, gen, set(group_shapes))
+    if report[str((1, 4608, 512, 32))]["route"] != "two_launch":
+        fail("orthogonalize_project at r = 32, n = 4608 did not take the two-launch route")
+    # every check above times nothing, so it runs beside the launches started
+    # before the build; the first timing waits for them to end
     t_wait = time.perf_counter()
     for started in (supervised[0], live_plain[0], bare_init):
         started.result()
@@ -4614,13 +4950,8 @@ def main() -> None:
     })
     del inputs, main_inputs, imdb_inputs
 
-    # flash attention at DistilBERT's width, with the first synthetic-IMDb
-    # batch's padding (about 214 of 256 keys per row)
-    imdb_full, imdb_val, _ = prepare_imdb(max_len=IMDB_T, seed=imdb_cfg.seed)
-    imdb_arrays = [imdb_full["input_ids"], imdb_full["attention_mask"], imdb_full["labels"]]
-    first_amask = torch.from_numpy(next(accumulated_batches(imdb_arrays, imdb_cfg)(0))[1])
-    imdb_mask = torch.where(first_amask > 0, 0.0, torch.finfo(torch.float32).min)
-    attn_report, (aq, ak, av, amask) = check_flash_attention(fa, dev, gen, imdb_mask)
+    # flash attention: one DistilBERT step's launches timed with the IMDb mask
+    # and without one, each beside SDPA on the same inputs
     scale = IMDB_D**-0.5
     sdpa_q, sdpa_k, sdpa_v = (x.view(IMDB_B, IMDB_H, IMDB_T, IMDB_D) for x in (aq, ak, av))
     launches_before = fa.KERNEL.launches
@@ -4663,10 +4994,8 @@ def main() -> None:
     })
     del aq, ak, av, amask, sdpa_q, sdpa_k, sdpa_v
 
-    # K5 on bf16 heads and causal at GPT's shape; one step's launches of each
-    # path's case timed beside SDPA on the same inputs
-    bf16_report, bf16_inputs = check_flash_attention_bf16(fa, dev, gen, imdb_mask)
-
+    # K5 on bf16 heads and causal at GPT's shape (checked above); one step's
+    # launches of each path's case timed beside SDPA on the same inputs
     def attention_step(q, k, v, mask, causal, b, t, h, d, layers):
         """One step's ``layers`` K5 forwards on folded heads, the plain
         version and SDPA (``is_causal``, or the mask's real keys as a
@@ -4718,10 +5047,9 @@ def main() -> None:
     })
     del bf16_inputs
 
-    # K5's backward kernel against its plain version; one GPT-2 step's 12
-    # causal backwards timed in each dtype beside the plain version and
-    # SDPA's backward on the same inputs
-    bwd_report, bwd_err, bwd_inputs = check_flash_attention_bwd(fa, dev, gen, imdb_mask)
+    # K5's backward kernel (checked above against its plain version): one
+    # GPT-2 step's 12 causal backwards timed in each dtype beside the plain
+    # version and SDPA's backward on the same inputs
 
     def backward_step(q, k, v, mask, out, lse, do, b, t, h, d, layers):
         """One step's ``layers`` causal K5 backwards on the forward's own out
@@ -4778,14 +5106,8 @@ def main() -> None:
     })
     del bwd_inputs
 
-    # the fused kernels, at every main-path shape group and a few others
-    extra_groups = [
-        (3, 100, 37, 8), (1, 2, 3, 2), (2, 70, 7, 3), (2, 50, 10, 4), (2, 5, 256, 4),
-        (1, 4608, 512, 1), (1, 4608, 512, 8), (1, 4608, 512, 32),
-    ]
-    report, kept = check_fused_kernels(ps, gs, group_shapes + extra_groups, dev, gen, set(group_shapes))
-    if report[str((1, 4608, 512, 32))]["route"] != "two_launch":
-        fail("orthogonalize_project at r = 32, n = 4608 did not take the two-launch route")
+    # the fused kernels (checked above at every main-path shape group and a
+    # few others), timed at the main path's groups
     main_x = [kept[s] for s in group_shapes]
     timed = {  # name: (kernel, plain version, one PyTorch call or None, the xla path's calls)
         "ef_compress": (
@@ -4917,6 +5239,7 @@ def main() -> None:
         emit(profiles[impl])
     if results["pallas"]["bits_per_step"] != results["xla"]["bits_per_step"]:
         fail(f"bits per step: fused {results['pallas']['bits_per_step']} != xla {results['xla']['bits_per_step']}")
+
 
     # DistilBERT/IMDb: flash attention once per layer and K1 once per shape
     # group in every step
@@ -5296,6 +5619,11 @@ def main() -> None:
     # the kernels built)
     emit({"phase": "bare_init", "summary": bare_init.result()})
 
+    # the host data plane: the flagship fed by the native loader through
+    # device_prefetch (pinned slots, a side stream) against the numpy loader
+    # and synchronous copies, in turns, bit for bit; the trace; torn batches
+    data_plane_phases(dev, drive, images, labels, len(group_shapes), smi)
+
     # the checkpointed paths: ResNet-152 PowerSGD resumed bit for bit (K1),
     # exact_cifar10 --checkpoint-dir through the launcher, and GPT-2 small of
     # the serving shape trained (K5, K1) and hot-loaded by serve_gpt
@@ -5614,6 +5942,9 @@ def main() -> None:
     }
     k1_paths = {
         "resnet152_xla": "xla", "distilbert_imdb": "imdb", "distilbert_imdb_bf16": "imdb_bf16",
+        # data_plane_phases: the numpy loader's run, the native prefetched one and the traced one
+        "resnet152_data_plane_numpy": "data_plane_numpy", "resnet152_data_plane_native": "data_plane_native",
+        "resnet152_data_plane_trace": "data_plane_trace",
         "gpt2_small_fp32": "gpt_float32", "gpt2_small_bf16": "gpt_bfloat16",
         "resnet152_diloco": "diloco", "bandwidth_study": "bandwidth_study",
         "resnet152_resilient_resume": "resilient_resume", "gpt2_small_serve_hot_load": "serve_hot_load",

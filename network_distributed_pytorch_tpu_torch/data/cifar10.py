@@ -3,8 +3,9 @@
 Reads both on-disk forms, the ``cifar-10-batches-py`` pickle batches and the
 ``cifar-10-batches-bin`` binary records, normalises with the reference's
 ``Normalize((.5,.5,.5), (.5,.5,.5))`` and returns NHWC float32, as the JAX
-package's ``data/cifar10.py`` does. The binary form is decoded with numpy
-here. ``synthetic_cifar10`` makes the same numpy calls in the same order as
+package's ``data/cifar10.py`` does. The binary form is decoded by the
+native runtime (``native.decode_cifar10_bin``, numpy where it is off), in
+place into one preallocated array. ``synthetic_cifar10`` makes the same numpy calls in the same order as
 the JAX package's, so its draws are bit-identical.
 """
 
@@ -53,18 +54,32 @@ def _load_pickle_batches(base: str, names) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def _load_bin_batches(base: str, names) -> Tuple[np.ndarray, np.ndarray]:
-    """``cifar-10-batches-bin`` records: ``[label u8][3072 CHW bytes]``."""
-    images, labels = [], []
+    """``cifar-10-batches-bin`` records: ``[label u8][3072 CHW bytes]``,
+    decoded and normalised (as :func:`_normalize`) by the native runtime.
+    One preallocated output: each file decodes in place into its slice
+    (a slice of the outer axis of a C-contiguous array is contiguous), with
+    no concatenation and no float32 temporary a file."""
+    from ..native import decode_cifar10_bin
+
+    raws = []
     for name in names:
         raw = np.fromfile(os.path.join(base, name), dtype=np.uint8)
         if raw.size == 0 or raw.size % 3073 != 0:
             raise ValueError(
                 f"{name}: {raw.size} bytes is not a positive whole number of 3073-byte records"
             )
-        raw = raw.reshape(-1, 3073)
-        labels.append(raw[:, 0].astype(np.int32))
-        images.append(raw[:, 1:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1))
-    return _normalize(np.concatenate(images)), np.concatenate(labels)
+        raws.append(raw.reshape(-1, 3073))
+    total = sum(r.shape[0] for r in raws)
+    images = np.empty((total, 32, 32, 3), np.float32)
+    labels = np.empty((total,), np.int32)
+    at = 0
+    for raw in raws:
+        n = raw.shape[0]
+        decode_cifar10_bin(
+            raw, mean=_MEAN, std=_STD, out_images=images[at : at + n], out_labels=labels[at : at + n]
+        )
+        at += n
+    return images, labels
 
 
 def load_cifar10(data_dir: str = "./data", train: bool = True) -> Tuple[np.ndarray, np.ndarray]:

@@ -5,8 +5,9 @@ fixed ``max_len``, and class-separable synthetic reviews where the dataset
 is not on disk.
 
 The arrays are the JAX package's, value for value, from the same seed.
-Only the Python path of ``HashTokenizer`` is kept (the JAX package's native
-tokenizer gives the same ids). A ``vocab.txt`` beside the dataset selects
+``HashTokenizer``'s hot loop runs in the native runtime
+(``native.tokenize_hash``) where it is built, else in Python; both give the
+same ids. A ``vocab.txt`` beside the dataset selects
 the WordPiece tokenizer (``data/wordpiece.py``), as in the JAX package.
 """
 
@@ -68,9 +69,15 @@ class HashTokenizer:
         return 3 + h % (self.vocab_size - 3)
 
     def __call__(self, texts: Sequence[str]) -> dict:
+        from ..native.loader import tokenize_hash
+
+        out = tokenize_hash(texts, self.vocab_size, self.max_len)
+        if out is not None:
+            return out
         return self.python_call(texts)
 
     def python_call(self, texts: Sequence[str]) -> dict:
+        """The Python loop (also the native path's oracle)."""
         ids = np.zeros((len(texts), self.max_len), dtype=np.int32)
         mask = np.zeros((len(texts), self.max_len), dtype=np.int32)
         for row, text in enumerate(texts):

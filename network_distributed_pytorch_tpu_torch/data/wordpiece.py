@@ -11,8 +11,11 @@ WordPiece, token for token the HF fast tokenizer's and the JAX package's
 (``tests/test_torch_wordpiece.py``).
 
 As in :class:`~.imdb.HashTokenizer`, the output is padded to a fixed
-``max_len``. Only the Python matcher is kept (the JAX package's native
-matcher gives the same ids).
+``max_len``. The matcher runs in the native runtime
+(``native.NativeWordPiece``) where it is built, with the JAX package's
+routing: ASCII rows normalised and matched in one native pass, the others
+through the Python normaliser, then the native matcher; a sparse
+vocabulary stays on the Python matcher.
 """
 
 from __future__ import annotations
@@ -224,7 +227,33 @@ class WordPieceTokenizer:
     # ---- HF-style batch encoding -----------------------------------------
 
     def __call__(self, texts: Sequence[str]) -> dict:
-        return self.python_encode([self.basic_tokenize(t) for t in texts])
+        # the hot loop is the normalisation, not the match: ASCII rows (under
+        # the default lowercase and accent stripping the rules reduce to byte
+        # rules) take one native pass, the other rows the Unicode-aware Python
+        # normaliser and then the native matcher
+        native = self._native_matcher()
+        if native is None:
+            return self.python_encode([self.basic_tokenize(t) for t in texts])
+        ascii_ok = self.lower_case and self.strip_accents
+        ascii_rows: List[int] = []
+        other_rows: List[int] = []
+        for i, t in enumerate(texts):
+            (ascii_rows if ascii_ok and t.isascii() else other_rows).append(i)
+        special = (self.unk_id, self.cls_id, self.sep_id, self.pad_id, self.max_len)
+        if not other_rows:
+            return native.encode_ascii(list(texts), *special, max_word_chars=_MAX_WORD_CHARS)
+        out_o = native.encode(
+            [self.basic_tokenize(texts[i]) for i in other_rows], *special, max_word_chars=_MAX_WORD_CHARS
+        )
+        if not ascii_rows:
+            return out_o
+        out_a = native.encode_ascii([texts[i] for i in ascii_rows], *special, max_word_chars=_MAX_WORD_CHARS)
+        ids = np.empty((len(texts), self.max_len), np.int32)
+        mask = np.empty((len(texts), self.max_len), np.int32)
+        for src, rows in ((out_a, ascii_rows), (out_o, other_rows)):
+            ids[rows] = src["input_ids"]
+            mask[rows] = src["attention_mask"]
+        return {"input_ids": ids, "attention_mask": mask}
 
     def encode_shard(
         self, texts: Sequence[str], world_size: int, rank: int
@@ -239,7 +268,7 @@ class WordPieceTokenizer:
 
     def python_encode(self, words_per_text: Sequence[List[str]]) -> dict:
         """The greedy matcher over basic-tokenized words, padded to
-        ``max_len``."""
+        ``max_len`` (also the native matcher's oracle)."""
         ids = np.full((len(words_per_text), self.max_len), self.pad_id, dtype=np.int32)
         mask = np.zeros((len(words_per_text), self.max_len), dtype=np.int32)
         for row, words in enumerate(words_per_text):
@@ -251,6 +280,22 @@ class WordPieceTokenizer:
             ids[row, : len(toks)] = toks
             mask[row, : len(toks)] = 1
         return {"input_ids": ids, "attention_mask": mask}
+
+    def _native_matcher(self):
+        if not hasattr(self, "_native"):
+            ids = sorted(self.vocab.values())
+            if ids != list(range(len(ids))):
+                # blank or repeated vocab lines leave line-number ids unused;
+                # NativeWordPiece.build numbers tokens by list position, so a
+                # sparse vocabulary would come out compacted: wrong ids, no
+                # error. It stays on the Python matcher
+                self._native = None
+            else:
+                from ..native.loader import NativeWordPiece
+
+                ordered = [t for t, _ in sorted(self.vocab.items(), key=lambda kv: kv[1])]
+                self._native = NativeWordPiece.build(ordered)
+        return self._native
 
 
 # ---- corpus sharding + vocab building/caching -----------------------------

@@ -20,7 +20,7 @@ import torch.distributed as dist
 from torch import nn
 
 from ..data.cifar10 import load_cifar10_or_synthetic
-from ..data.loader import iterate_batches
+from ..data.loader import device_prefetch, iterate_batches
 from ..observe.events import FailureEvent, TrainHealthEvent
 from ..observe.fidelity import FidelityTracker
 from ..observe.ledger import audit_recorded_step, count_flops
@@ -117,7 +117,14 @@ def accumulated_batches(
 ) -> Callable[[int], Iterator[Tuple[np.ndarray, ...]]]:
     """Per-epoch generator of global batches honouring ``config.accum_steps``:
     ``(global_batch, ...)`` arrays, or ``(accum, global_batch / accum, ...)``
-    when accumulating."""
+    when accumulating.
+
+    As in the JAX package, the plain ``(image, label)`` epochs (every CIFAR
+    experiment) run through the native loader
+    (``native.NativeBatchLoader.maybe_create``: a float32 and an integer
+    array, no accumulation): the same batches as :func:`iterate_batches`,
+    assembled on a C++ worker thread up to two batches ahead of the loop.
+    Other batches keep the numpy path."""
     k = config.accum_steps
     if k < 1:
         raise ValueError(f"accum_steps must be >= 1, got {k}")
@@ -126,15 +133,29 @@ def accumulated_batches(
             f"global_batch_size {config.global_batch_size} is not divisible by accum_steps {k}"
         )
 
-    def gen(epoch: int):
-        it = iterate_batches(arrays, config.global_batch_size, seed=config.seed, epoch=epoch)
-        for i, batch in enumerate(it):
-            if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
-                return
-            if k > 1:
-                batch = tuple(a.reshape((k, a.shape[0] // k) + a.shape[1:]) for a in batch)
-            yield batch
+    native_loader = None
+    if k == 1:
+        from ..native import NativeBatchLoader
 
+        native_loader = NativeBatchLoader.maybe_create(arrays, config.global_batch_size, seed=config.seed)
+
+    def gen(epoch: int):
+        it = (
+            native_loader.epoch(epoch)
+            if native_loader is not None
+            else iterate_batches(arrays, config.global_batch_size, seed=config.seed, epoch=epoch)
+        )
+        try:
+            for i, batch in enumerate(it):
+                if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
+                    return
+                if k > 1:
+                    batch = tuple(a.reshape((k, a.shape[0] // k) + a.shape[1:]) for a in batch)
+                yield batch
+        finally:
+            it.close()  # an epoch left early joins the native loader's thread now
+
+    gen.loader = native_loader  # its last_stats say which path ran
     return gen
 
 
@@ -227,7 +248,8 @@ def buffer_classes(state) -> Dict[str, float]:
 
 
 def _device_batch(batch, rank: int, world_size: int, accum_steps: int, device: torch.device):
-    """This rank's slice of a global batch (:func:`local_shard`), on ``device``."""
+    """This rank's slice of a global batch (:func:`local_shard`), on
+    ``device``: a synchronous copy, the loop's path at ``prefetch=0``."""
     batch = local_shard(batch, rank, world_size, accum_steps)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in batch)
 
@@ -293,10 +315,18 @@ def train_loop(
     audit: bool = False,
     run_name: str = "train",
     health_every: int = 0,
+    prefetch: int = 2,
 ) -> Tuple[TrainState, MetricsLogger]:
     """Run epochs ``start_epoch..epochs-1`` over the global batches, each
     rank stepping on its own slice, the JAX package's loop of the same
-    name. Every step emits a ``StepEvent`` and every epoch an
+    name.
+
+    ``prefetch``: stage that many upcoming batches on the device ahead of
+    the step (``data.loader.device_prefetch``: pinned slots, a side
+    stream), so that a batch's copy is issued ahead of its step and off
+    the step's stream; the rank's slice (:func:`local_shard`) is cut before staging, so only
+    this rank's rows are copied. 0 copies each batch synchronously when it
+    is fetched. Every step emits a ``StepEvent`` and every epoch an
     ``EpochEvent`` through ``telemetry`` (None: the banner-only default
     registry); the host clock spans the step until its loss is on the
     host, and on CUDA a pair of events around the step gives its device
@@ -305,7 +335,10 @@ def train_loop(
     Observability, all off by default:
 
     - ``telemetry`` is the ambient span recorder for the loop: spans
-      ``data_load`` (the fetch and the copy to the device), ``step`` with
+      ``data_load`` (the fetch of a staged batch; at ``prefetch=0`` the
+      fetch and the copy to the device) with ``data_load/assemble`` (the
+      numpy gather) and ``data_load/stage`` inside it, one ``LoaderEvent``
+      an epoch from the staging, ``step`` with
       ``step/compute`` and ``step/loss_sync`` inside it, ``memory_probe``,
       ``health_probe`` and ``epoch_hook``;
     - ``trace_dir``: a ``torch.profiler`` trace of the loop
@@ -341,12 +374,17 @@ def train_loop(
         for epoch in range(start_epoch, epochs):
             batches = iter(batches_for_epoch(epoch))
             if skip_steps and epoch == start_epoch:
+                # ahead of the staging: skipped batches are never copied
                 batches = itertools.islice(batches, skip_steps, None)
+            if prefetch:
+                batches = device_prefetch(
+                    (local_shard(b, rank, world_size, step.accum_steps) for b in batches), device, depth=prefetch
+                )
             steps_done = 0
             while True:
                 with span("data_load", step=logger._step):
                     batch = next(batches, None)
-                    if batch is not None:
+                    if batch is not None and not prefetch:
                         batch = _device_batch(batch, rank, world_size, step.accum_steps, device)
                 if batch is None:
                     break
@@ -364,6 +402,8 @@ def train_loop(
                 if heartbeat is not None:
                     heartbeat.beat(epoch=epoch)
                 if on_step_end is not None and on_step_end(epoch, steps_done, state):
+                    if prefetch:  # an epoch left mid-way: no copy in flight, the loader's thread joined
+                        batches.close()
                     return state, logger
             logger.end_epoch(epoch, rank=rank)
             if on_epoch_end is not None:
@@ -774,7 +814,11 @@ def adaptive_train_loop(
     ``health_every`` runs the memory and health probes and ``trace_dir``
     the ``torch.profiler`` trace as :func:`train_loop` does; ``audit``
     audits the first step of each rung that ran once (its collectives
-    against its ledger, the deadline guard's agreements left out).
+    against its ledger, the deadline guard's agreements left out). No
+    deadline watches an audited step (``CollectiveWatchdog.unwatched``):
+    its FLOPs count (``observe.ledger.count_flops``) runs every op through
+    Python dispatch, inside the chunks' windows, a host cost the JAX
+    package's compile-time count does not pay.
 
     ``alert_feed`` (an ``observe.live.AlertFeed`` on the run's
     ``alerts.jsonl``) is read after every step, and each new alert record
@@ -863,9 +907,11 @@ def adaptive_train_loop(
                         injector.advance(gstep)
                     logger.start_step()
                     t0 = time.monotonic()
-                    state, loss, device_ms, records, flops = _run_step(
-                        guard, state, batch, gstep, run_name, on_cuda, audit_pending
-                    )
+                    # no deadline watches the audited step (its FLOPs count)
+                    with watchdog.unwatched() if audit_pending else contextlib.nullcontext():
+                        state, loss, device_ms, records, flops = _run_step(
+                            guard, state, batch, gstep, run_name, on_cuda, audit_pending
+                        )
                     if compile_grace > 0:
                         compile_grace -= 1
                     else:

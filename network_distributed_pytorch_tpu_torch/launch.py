@@ -1,7 +1,9 @@
 """Launcher CLI of the port.
 
 Usage, one process per rank (torchrun sets ``RANK``, ``WORLD_SIZE``,
-``MASTER_ADDR`` and ``MASTER_PORT``; without them the run is one rank)::
+``MASTER_ADDR`` and ``MASTER_PORT``; mpirun's ``OMPI_COMM_WORLD_RANK`` and
+``OMPI_COMM_WORLD_SIZE`` stand in for the first two where torchrun's are
+absent; without them the run is one rank)::
 
     python -m network_distributed_pytorch_tpu_torch.launch powersgd_cifar10 --preset full
     python -m network_distributed_pytorch_tpu_torch.launch powersgd_cifar10 --preset full --compress-impl pallas
@@ -49,8 +51,9 @@ rendezvous of each generation rewritten, restarts a dead or hung rank from
 the newest committed checkpoint (at a world above one, the whole
 generation), and shrinks the world when a rank has spent
 ``--max-restarts``. It exits 3 when the run fails. The parent creates no
-CUDA context; each worker takes ``cuda:<LOCAL_RANK>``, else the card its
-fleet grant names, else ``cuda:<process id>`` (:func:`worker_cuda_device`).
+CUDA context; each worker takes ``cuda:<LOCAL_RANK>``, else
+``cuda:<OMPI_COMM_WORLD_LOCAL_RANK>``, else the card its fleet grant names,
+else ``cuda:<process id>`` (:func:`worker_cuda_device`).
 
 ``fleet`` runs the fleet control plane (``resilience.scheduler.main``):
 job manifests, a JSON list given with ``--submit``, are gang-scheduled over
@@ -79,6 +82,7 @@ import json
 import logging
 import os
 import sys
+from typing import Tuple
 
 from .experiments import (
     bandwidth_study,
@@ -178,10 +182,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data-dir", type=str, default=DEFAULT_DATA_DIR)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     # the rank, the world and the rendezvous; without them torchrun's RANK,
-    # WORLD_SIZE and MASTER_ADDR/MASTER_PORT (env://), or a world of one
-    p.add_argument("--process-id", type=int, default=None, help="rank of this process (default: $RANK, or 0)")
+    # WORLD_SIZE and MASTER_ADDR/MASTER_PORT (env://), else mpirun's
+    # OMPI_COMM_WORLD_RANK/SIZE, or a world of one (env_rank_and_world)
     p.add_argument(
-        "--num-processes", type=int, default=None, help="world size in processes (default: $WORLD_SIZE, or 1)"
+        "--process-id", type=int, default=None,
+        help="rank of this process (default: $RANK, else $OMPI_COMM_WORLD_RANK, else 0)",
+    )
+    p.add_argument(
+        "--num-processes", type=int, default=None,
+        help="world size in processes (default: $WORLD_SIZE, else $OMPI_COMM_WORLD_SIZE, else 1)",
     )
     p.add_argument(
         "--coordinator", type=str, default=None,
@@ -458,11 +467,24 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def env_rank_and_world() -> Tuple[int, int]:
+    """The rank and the world from the environment: torchrun's ``RANK`` and
+    ``WORLD_SIZE``, else mpirun's ``OMPI_COMM_WORLD_RANK`` and
+    ``OMPI_COMM_WORLD_SIZE`` (the JAX launcher's defaults of
+    ``--process-id`` and ``--num-processes``), else 0 and 1; each variable
+    on its own."""
+    env = os.environ
+    rank = env.get("RANK", env.get("OMPI_COMM_WORLD_RANK", "0"))
+    world = env.get("WORLD_SIZE", env.get("OMPI_COMM_WORLD_SIZE", "1"))
+    return int(rank), int(world)
+
+
 def config_from_args(args) -> ExperimentConfig:
-    world = args.num_processes if args.num_processes is not None else int(os.environ.get("WORLD_SIZE", 1))
+    env_rank, env_world = env_rank_and_world()
+    world = args.num_processes if args.num_processes is not None else env_world
     cfg = EXPERIMENTS[args.experiment].default_config()
     cfg.seed = args.seed
-    cfg.process_id = args.process_id if args.process_id is not None else int(os.environ.get("RANK", 0))
+    cfg.process_id = args.process_id if args.process_id is not None else env_rank
     cfg.num_processes = world
     cfg.coordinator_address = args.coordinator if args.coordinator is not None else ("env://" if world > 1 else None)
     for attr, value in (
@@ -669,6 +691,7 @@ def worker_cuda_device(process_id, world: int, device_count=None) -> str:
 
     - ``LOCAL_RANK`` where it is set (torchrun; a fleet job's manifest may
       set it to put several logical chips on one card);
+    - else ``OMPI_COMM_WORLD_LOCAL_RANK`` (mpirun's rank on its host);
     - else the card the fleet granted (``RESILIENCE_DEVICE_RANKS``): a
       supervised job's workers get the job's whole list, one card a rank,
       indexed by the process id; a serving autoscaler's worker gets its
@@ -681,10 +704,12 @@ def worker_cuda_device(process_id, world: int, device_count=None) -> str:
     to the CPU."""
     from .resilience.supervisor import ENV_DEVICE_RANKS, device_ranks_from_env
 
-    local = os.environ.get("LOCAL_RANK")
+    local, source = os.environ.get("LOCAL_RANK"), "LOCAL_RANK"
+    if local is None:
+        local, source = os.environ.get("OMPI_COMM_WORLD_LOCAL_RANK"), "OMPI_COMM_WORLD_LOCAL_RANK"
     granted = None if local is not None else device_ranks_from_env()
     if local is not None:
-        index, source = int(local), "LOCAL_RANK"
+        index = int(local)
     elif granted is None:
         index, source = process_id or 0, "the process id"
     elif len(granted) == 1:
@@ -792,7 +817,7 @@ def main(argv=None) -> dict:
             cfg.event_log = runlog.shard_path(args.run_dir, cfg.process_id)
     device = args.device
     if device == "cuda":
-        device = worker_cuda_device(args.process_id, cfg.num_processes)
+        device = worker_cuda_device(cfg.process_id, cfg.num_processes)
     kwargs = {"device": device}
     if exp == "gpt_generate":
         kwargs.update(

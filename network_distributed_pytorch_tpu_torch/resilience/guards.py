@@ -49,6 +49,7 @@ import sys
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 from ..utils.bandwidth import allreduce_time_s
@@ -651,7 +652,11 @@ class CollectiveWatchdog:
     :meth:`note_step` keeps the streak of degraded steps,
     :meth:`should_escalate` compares it with ``escalate_after`` and
     :meth:`take_epoch` hands the epoch's counters to the fallback
-    controller. Register it before any fault injector."""
+    controller. Register it before any fault injector.
+
+    Inside :meth:`unwatched` the hook arms nothing and keeps no window's
+    time: a step that the caller knows to be slow on the host for its own
+    reasons (the port's audited step, see ``adaptive_train_loop``)."""
 
     def __init__(
         self,
@@ -683,13 +688,14 @@ class CollectiveWatchdog:
         self._degraded_streak = 0
         self._epoch_expiries = 0
         self._epoch_degraded = 0
+        self._unwatched = False
         self.fired: list = []
         self._thread = threading.Thread(target=self._monitor, name=f"collective-watchdog-{label}", daemon=True)
         self._thread.start()
 
     # -- the fence hook (the loop's thread) --------------------------------------
     def __call__(self, info: Dict[str, Any]) -> None:
-        if info.get("device_index") != self._rank:
+        if info.get("device_index") != self._rank or self._unwatched:
             return
         now = time.monotonic()
         with self._cond:
@@ -749,6 +755,16 @@ class CollectiveWatchdog:
                 rank=self._rank,
             )
         )
+
+    @contextmanager
+    def unwatched(self) -> Iterator[None]:
+        """No deadline, and no window in the history, until the block
+        ends. Entered between steps, when no window is open."""
+        self._unwatched = True
+        try:
+            yield
+        finally:
+            self._unwatched = False
 
     # -- attempt, step and epoch bookkeeping (the loop's thread) ----------------
     def begin_attempt(self) -> None:

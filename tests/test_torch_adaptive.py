@@ -47,7 +47,12 @@ from network_distributed_pytorch_tpu.utils.config import ExperimentConfig as Jax
 from network_distributed_pytorch_tpu_torch import launch
 from network_distributed_pytorch_tpu_torch.experiments import common, exact_cifar10
 from network_distributed_pytorch_tpu_torch.models.import_weights import resnet_state_dict_from_flax
-from network_distributed_pytorch_tpu_torch.resilience import ChaosPlan, FaultSpec
+from network_distributed_pytorch_tpu_torch.models.cnn import SmallCNN
+from network_distributed_pytorch_tpu_torch.observe import MemorySink, Telemetry
+from network_distributed_pytorch_tpu_torch.parallel.reducers import ExactReducer
+from network_distributed_pytorch_tpu_torch.parallel.trainer import make_train_step
+from network_distributed_pytorch_tpu_torch.resilience import ChaosPlan, FallbackController, FaultSpec, Rung
+from network_distributed_pytorch_tpu_torch.resilience.chaos import CommFaultInjector
 from network_distributed_pytorch_tpu_torch.utils.config import ExperimentConfig
 from torch_adaptive_worker import adaptive_parity_rank, alert_nudge_rank
 from torch_parity import random_flax_variables, to_numpy
@@ -195,6 +200,32 @@ def test_exact_cifar10_descends_under_a_stall(tmp_path):
     health = [e for e in events if e.get("event") == "train_health"]
     assert [e["step"] for e in health] == [2, 4, 6, 8] and all(np.isfinite(e["grad_norm"]) for e in health)
     assert out["bits_per_step"] == 8 * audits[-1]["analytic_bytes"]
+
+
+@pytest.mark.parametrize("audit", [False, True])
+def test_no_deadline_watches_the_audited_step(audit):
+    """A 0.5 s stall on the collective of step 0 and another on step 1,
+    against the 0.05 s floor, on a SmallCNN in 2 chunks. Unaudited, both
+    expire and both steps are retried. Audited, step 0 counts its FLOPs
+    by dispatching every op through Python inside the chunks' windows, so
+    no deadline watches it: only step 1 expires."""
+    model = SmallCNN(width=4, image_size=8, device="cpu", seed=4)
+    rng = np.random.RandomState(3)
+    batches = [(rng.randn(4, 8, 8, 3).astype(np.float32), rng.randint(0, 10, 4)) for _ in range(3)]
+    sink = MemorySink()
+    telemetry = Telemetry([sink])
+    plan = ChaosPlan([FaultSpec(kind="comm_stall", step=s, payload={"stall_seconds": 0.5}) for s in (0, 1)])
+    common.adaptive_train_loop(
+        lambda overrides: make_train_step(common.image_classifier_loss(), ExactReducer(comm_chunks=2), model, 0.05, 0.9,
+                                          "ef_momentum", None),
+        lambda epoch: iter(batches), 1, FallbackController([Rung("baseline", {})]), torch.device("cpu"),
+        injector=CommFaultInjector(plan, telemetry=telemetry), telemetry=telemetry, audit=audit,
+    )
+    failures = [(r["kind"], r.get("step")) for r in sink.records if r.get("event") == "failure"]
+    assert [f for f in failures if f[0] == "chaos_injected"] == [("chaos_injected", 0), ("chaos_injected", 1)]
+    assert [f[1] for f in failures if f[0] == "comm_step_retry"] == ([1] if audit else [0, 1])
+    assert len([f for f in failures if f[0] == "comm_deadline"]) == (1 if audit else 2)
+    assert len([r for r in sink.records if r.get("event") == "compile"]) == int(audit)
 
 
 def test_alert_feed_is_not_ported(tmp_path):

@@ -68,8 +68,10 @@ bf16 that plus 1 bf16 ulp; the mask's gradient (fp32) like an fp32 one.
 """
 
 import ctypes
+import json
 import os
 import subprocess
+import sys
 import time
 from dataclasses import replace as dataclass_replace
 
@@ -1862,3 +1864,103 @@ def test_a_supervising_parent_with_the_live_plane_holds_no_cuda_context(cuda_dev
     # (in a container nvidia-smi may list no process, or the host's pids: the
     # context check above is the one that always holds)
     assert all(out["pid"] not in pids for pids in out["seen"])
+
+
+# ---- the host data plane: device_prefetch over pinned slots and a side stream
+
+
+def _chip_smoke():
+    """``chip_smoke.py``'s torn-batch check and trace reader (jax-free)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
+    )
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+def test_prefetch_stages_from_pinned_slots_on_a_side_stream(cuda_device, tmp_path):
+    """The batch-sized copies of ``device_prefetch`` read pinned memory
+    (CUPTI names them ``Pinned -> Device``) and run on a stream other than
+    the consumer's, in a ``torch.profiler`` trace of a consumer that
+    computes on each batch; the consumer's stream is left as it was."""
+    from network_distributed_pytorch_tpu_torch.data.loader import device_prefetch
+
+    rng = np.random.RandomState(0)
+    batches = [(rng.randn(256, 1024).astype(np.float32), rng.randint(0, 9, 256).astype(np.int32)) for _ in range(6)]
+    w = torch.randn(1024, 1024, device=cuda_device)
+    current = torch.cuda.current_stream(cuda_device)
+    sums = []
+    warm = [(np.zeros((128, 1024), np.float32), np.zeros(128, np.int32))] * 3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        # half-sized batches first: a trace may miss the first copies it sees
+        for bx, _ in device_prefetch(iter(warm), cuda_device, depth=2):
+            bx.sum().item()
+        for bx, by in device_prefetch(iter(batches), cuda_device, depth=2):
+            for _ in range(20):
+                bx = torch.tanh(bx @ w) / 32
+            sums.append(by.sum())
+        torch.cuda.synchronize()
+    assert torch.cuda.current_stream(cuda_device) == current
+    assert [int(s) for s in sums] == [int(b[1].sum()) for b in batches]
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    copies = _chip_smoke().staged_copies(path, 256 * 1024 * 4)
+    assert copies["copies"] == 6 and copies["pinned"], copies
+    assert copies["on_step_stream"] == 0 and copies["step_stream"] not in copies["streams"], copies
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [0, 1, 2])
+def test_a_slow_consumer_never_sees_a_torn_batch(cuda_device, depth):
+    """64 staged batches of the flagship's shape (512 x 3072 float32), each
+    read behind a long kernel on the consumer's stream, every one bit for
+    bit its source (``chip_smoke.torn_batch_check``)."""
+    assert _chip_smoke().torn_batch_check(cuda_device, depth) == []
+
+
+@pytest.mark.cuda
+def test_train_loop_is_bitwise_the_same_with_and_without_prefetch_on_the_card(cuda_device, exact_conv_math):
+    """A SmallCNN's exact ``sgd`` steps through ``train_loop`` on the card,
+    fed by the native loader (``accumulated_batches``) with prefetch 2 and
+    by the numpy one with prefetch 0: the same parameters bit for bit."""
+    import itertools
+
+    from network_distributed_pytorch_tpu_torch.data.loader import iterate_batches
+    from network_distributed_pytorch_tpu_torch.experiments.common import train_loop
+    from network_distributed_pytorch_tpu_torch.utils.config import ExperimentConfig
+
+    rng = np.random.RandomState(1)
+    x, y = rng.randn(96, 8, 8, 3).astype(np.float32), rng.randint(0, 10, 96).astype(np.int32)
+    cfg = ExperimentConfig(global_batch_size=16, seed=4)
+    out = {}
+    for prefetch in (0, 2):
+        model = SmallCNN(width=4, image_size=8, device=cuda_device, seed=0)
+        step = make_train_step(image_classifier_loss(), ExactReducer(), model, 0.05, 0.9, "sgd")
+        if prefetch:
+            batches = accumulated_batches([x, y], cfg, max_steps_per_epoch=5)
+        else:
+            batches = lambda e: itertools.islice(iterate_batches([x, y], 16, seed=4, epoch=e), 5)  # noqa: E731
+        state, logger = train_loop(step, step.init_state(), batches, 2, cuda_device, prefetch=prefetch)
+        out[prefetch] = ({k: v.detach().cpu() for k, v in state.params.items()}, [r.loss for r in logger.records])
+        if prefetch:
+            assert batches.loader.last_stats["native"]
+    assert out[0][1] == out[2][1]
+    assert all(torch.equal(out[0][0][k], out[2][0][k]) for k in out[0][0])
+
+
+@pytest.mark.cuda
+def test_loader_smoke_script_runs_natively_on_the_card(cuda_device, tmp_path):
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = str(tmp_path / "loader_smoke.json")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(repo, "scripts", "torch_loader_smoke.py"), "--json-out", path],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with open(path) as f:
+        out = json.load(f)
+    assert out["native"] and out["labels_ok"] and out["device"] == "cuda" and out["staged_samples_per_s"] > 0

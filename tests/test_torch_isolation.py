@@ -328,3 +328,106 @@ def test_fleet_modules_are_checked_and_run_with_jax_blocked(tmp_path):
     assert proc.returncode == 0 and proc.stdout.strip().endswith("OK"), proc.stderr[-3000:]
     with open(tmp_path / "spool" / "quarantine" / "looper.json") as f:
         assert json.load(f)["last_rc"] == 43
+
+
+DATA_PLANE_FILES = (
+    os.path.join(PORT, "native", "__init__.py"), os.path.join(PORT, "native", "build.py"),
+    os.path.join(PORT, "native", "loader.py"), os.path.join(PORT, "data", "multihost.py"),
+    os.path.join(PORT, "data", "loader.py"), os.path.join(PORT, "hostenv.py"),
+    os.path.join("scripts", "torch_loader_smoke.py"),
+)
+
+
+def test_data_plane_files_are_checked():
+    """The host data plane (the native runtime, ``data/multihost.py``,
+    ``data/loader.py``, ``hostenv.py`` and the loader smoke) is among the
+    files walked above, and imports none of the banned modules."""
+    files = {os.path.relpath(p, REPO) for p in port_files()}
+    assert set(DATA_PLANE_FILES) <= files
+    for rel in DATA_PLANE_FILES:
+        assert not list(violations(os.path.join(REPO, rel))), rel
+
+
+def _code_strings(path):
+    """The string constants of a Python file's code, docstrings left out
+    (they cite the JAX package's files as the kernels' and modules'
+    originals), or a C++/CUDA source's ``#include`` lines."""
+    with open(path, "rb") as f:
+        text = f.read().decode("utf-8")
+    if not path.endswith(".py"):
+        return [line for line in text.splitlines() if line.lstrip().startswith("#include")]
+    tree = ast.parse(text, filename=path)
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant):
+                docstrings.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docstrings]
+
+
+def test_no_port_file_names_a_path_into_the_jax_package():
+    """No code of the port package (its Python, and the ``#include``s of its
+    C++ and CUDA sources) nor of a ``scripts/torch_*.py`` names the JAX
+    package as a path or a path's part, so no build of the port can read
+    its sources: the native runtime compiles its own
+    ``native/dataloader.cpp``."""
+    import re
+
+    pattern = re.compile(r"(?:^|[/\\\"'<\s])" + JAX_PACKAGE + r"(?:[/\\]|$|[\"'>])")
+    paths = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(REPO, PORT)) for f in fs
+             if "__pycache__" not in d and "_build" not in d and f.endswith((".py", ".cpp", ".cu", ".cuh"))]
+    paths += [os.path.join(REPO, "scripts", f) for f in os.listdir(os.path.join(REPO, "scripts"))
+              if f.startswith("torch_") and f.endswith(".py")]
+    assert any(p.endswith("dataloader.cpp") for p in paths) and any(p.endswith("build.py") for p in paths)
+    found = [f"{os.path.relpath(p, REPO)}: {s!r}" for p in paths for s in _code_strings(p) if pattern.search(s)]
+    assert not found, found
+    for bad in (f"{JAX_PACKAGE}/native/dataloader.cpp", f"../../{JAX_PACKAGE}/native", JAX_PACKAGE,
+                f'#include "{JAX_PACKAGE}/x.h"'):
+        assert pattern.search(bad), bad
+    assert not pattern.search(f"{PORT}/native/dataloader.cpp") and not pattern.search(PORT)
+
+
+def test_data_plane_runs_with_jax_blocked(tmp_path):
+    """In a fresh interpreter with the banned imports blocked: the native
+    runtime builds from the port's own source and runs an epoch, the
+    multihost placement and the preflight run, and the loader smoke exits 0
+    on the CPU."""
+    script = textwrap.dedent(
+        f"""
+        import runpy, sys
+        BANNED = {BANNED_ROOTS!r}
+        class Blocker:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".", 1)[0] in BANNED or name == {JAX_PACKAGE!r} or name.startswith({JAX_PACKAGE!r} + "."):
+                    raise ImportError("blocked: " + name)
+                return None
+        sys.meta_path.insert(0, Blocker())
+        import numpy as np
+        from {PORT} import hostenv
+        from {PORT}.data import NativeBatchLoader, global_batch_from_local, merge_tokenized_shards
+        from {PORT}.native import build, native_available
+        assert native_available() and build._SRC.endswith("{PORT}/native/dataloader.cpp")
+        x, y = np.arange(48, dtype=np.float32).reshape(12, 4), np.arange(12, dtype=np.int32)
+        loader = NativeBatchLoader(x, y, 4, seed=1)
+        assert len(list(loader.epoch(0))) == 3 and loader.last_stats["native"]
+        assert global_batch_from_local((x, y), "cpu")[0].shape == (12, 4)
+        assert merge_tokenized_shards([{{"a": y[:5]}}, {{"a": y[5:]}}])["a"].tolist() == y.tolist()
+        assert set(hostenv.backend_preflight(timeout_s=30, attempts=1)) >= {{"ok", "cause"}}
+        sys.argv = ["torch_loader_smoke.py", "--device", "cpu", "--n", "256", "--batch", "32",
+                    "--json-out", {str(tmp_path / "smoke.json")!r}]
+        try:
+            runpy.run_path("scripts/torch_loader_smoke.py", run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+        bad = [m for m in sys.modules if m.split(".")[0] in BANNED or m == {JAX_PACKAGE!r} or m.startswith({JAX_PACKAGE!r} + ".")]
+        assert not bad, bad
+        print("OK")
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "NDP_TPU_NO_NATIVE")}
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("OK"), proc.stderr[-3000:]
+    smoke = json.loads((tmp_path / "smoke.json").read_text())
+    assert smoke["native"] and smoke["labels_ok"] and smoke["overlapped_steps"] == 8

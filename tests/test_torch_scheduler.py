@@ -348,7 +348,7 @@ def test_lease_sequence_matches(tmp_path):
 
 @pytest.fixture
 def no_placement_env(monkeypatch):
-    for name in ("LOCAL_RANK", "RESILIENCE_DEVICE_RANKS"):
+    for name in ("LOCAL_RANK", "OMPI_COMM_WORLD_LOCAL_RANK", "RESILIENCE_DEVICE_RANKS"):
         monkeypatch.delenv(name, raising=False)
     return monkeypatch
 

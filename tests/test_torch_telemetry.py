@@ -17,11 +17,11 @@ package's, and the entries that emit through it.
   ``health_every`` against the JAX run from the same weights and Q: the
   records' kinds and counts, the audit's ``analytic_bytes``, the losses
   (1e-5, as the run tests) and the probes (1e-4, the run tests' class for
-  a state after steps); the JAX run's loader
-  plane (its ``LoaderEvent`` and ``data_load/stage`` spans from the native
-  loader and the device prefetch, ROADMAP.md §A item 6) has no port yet,
-  and its audit span is ``audit/compile`` where the port's is
-  ``audit/record``;
+  a state after steps); the loader plane (the ``LoaderEvent`` and the
+  ``data_load/stage`` spans of the native loader and the device prefetch)
+  is counted on both sides (its ``samples`` pinned: 0 in the JAX run,
+  whose loop stages jax arrays, the rows in the port's); the JAX run's
+  audit span is ``audit/compile`` where the port's is ``audit/record``;
 - the four config fields and launcher flags; ``diloco_cifar10``'s
   ``DataDropEvent``; the FSDP entry's audit; ``bare_init`` and
   ``serve_gpt`` writing their run logs.
@@ -418,11 +418,10 @@ def _jax_run(tmp_dir):
 
 def _counts(records, port):
     """Kinds and counts of the records, and of the spans by name; the JAX
-    run's loader plane left out, its audit span under the port's name."""
-    kinds = collections.Counter(r["event"] for r in records if r["event"] not in ("span", "loader"))
+    run's audit span under the port's name."""
+    kinds = collections.Counter(r["event"] for r in records if r["event"] != "span")
     names = collections.Counter(
-        {"audit/compile": "audit/record"}.get(r["name"], r["name"]) for r in records
-        if r["event"] == "span" and r["name"] != "data_load/stage"
+        {"audit/compile": "audit/record"}.get(r["name"], r["name"]) for r in records if r["event"] == "span"
     )
     return kinds, names
 
@@ -446,6 +445,12 @@ def test_powersgd_run_log_matches_the_jax_run(tmp_path, tmp_path_factory, monkey
     out = powersgd_cifar10.run(cfg, preset="small", device="cpu", max_steps_per_epoch=2)
     records = [json.loads(x) for x in open(cfg.event_log)]
     assert _counts(records, True) == _counts(jax_records, False)
+    (loader,), (jloader,) = ([r for r in recs if r["event"] == "loader"] for recs in (records, jax_records))
+    fields = ("label", "batches", "prefetch_depth", "native")
+    assert [loader[k] for k in fields] == [jloader[k] for k in fields] == ["train", 2, 2, None]
+    # the JAX loop stages jax arrays, which its device_prefetch does not count
+    # as samples (it counts numpy leaves' rows): the port counts the rows
+    assert (loader["samples"], jloader["samples"], jloader["samples_per_s"]) == (32, 0, 0.0)
     (audit,), (jaudit,) = ([r for r in recs if r["event"] == "compile"] for recs in (records, jax_records))
     assert audit["exact"] and audit["analytic_bytes"] == jaudit["analytic_bytes"] == out["bits_per_step"] // 8
     assert audit["comm_config"] == jaudit["comm_config"]

@@ -285,6 +285,32 @@ def exact_ddp_steps(rank, world, group, batches):
     return {"params": {k: v.detach().clone() for k, v in state.params.items()}, "losses": losses}
 
 
+def multihost_rank(rank, world, group, init, batches, vocab_file, texts):
+    """The port's form of the JAX package's ``tests/multiprocess_worker.py``:
+    the initial weights placed from the host (``global_state_from_host``),
+    each rank fed only its own contiguous shard of every global batch
+    (``global_batch_from_local``), ``sgd`` steps with the exact reducer;
+    and this rank's shard of a WordPiece encode (``encode_shard``)."""
+    from network_distributed_pytorch_tpu_torch.data.multihost import global_batch_from_local, global_state_from_host
+    from network_distributed_pytorch_tpu_torch.data.wordpiece import WordPieceTokenizer
+
+    model = TinyConvNet()
+    model.load_state_dict(global_state_from_host(init, "cpu"))
+    step = make_train_step(image_classifier_loss(), ExactReducer(), model, 0.05, 0.9, "sgd", group)
+    state = step.init_state()
+    losses = []
+    for x, y in batches:
+        b = len(x) // world
+        local = global_batch_from_local((x[rank * b : (rank + 1) * b], y[rank * b : (rank + 1) * b]), "cpu")
+        state, loss = step(state, local)
+        losses.append(float(loss))
+    shard = WordPieceTokenizer(vocab_file, max_len=16).encode_shard(texts, world, rank)
+    return {
+        "params": {k: v.detach().clone() for k, v in state.params.items()}, "losses": losses,
+        "shard": {k: torch.from_numpy(v) for k, v in shard.items()},
+    }
+
+
 def numpy_batches(seed: int, n_steps: int, batch: int, hw: int = 32):
     rng = np.random.RandomState(seed)
     return [
