@@ -226,7 +226,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (K5) against ``attn_impl="einsum"`` on the card; the tiny DistilBERT
    on the card against the CPU; GPT-2 small with flash attention against
    einsum on the card; and the IMDb baseline, under either optimizer, with
-   flash attention against einsum on the card;
+   flash attention against einsum on the card; then, beside the fleet's
+   thread, the run report and the perf gate over the two live run
+   directories (``main_path_report``, no kernel): ``scripts/torch_report.py``
+   (every key of the JAX package's report, the Chrome trace, ``--compare``,
+   ``--watch`` and the event-log mode) and ``scripts/torch_gate.py`` (the
+   clean run against itself, the nudged run against it, a CPU baseline);
 5. one ``{"kernels": [...]}`` line (K5's forward and backward once per
    dtype): each kernel's launches on its paths, its
    time for one main-path step (CUDA events, ``ms``, and the profiler's
@@ -486,6 +491,21 @@ LIVE_LADDER = ["baseline", "compress"]
 # offline_phases reads what the telemetry and live phases left and launches
 # no training process; the seconds predicted for it before its first run
 OFFLINE_PREDICTED_S = 2.0
+# main_path_report reads the two live run directories through
+# scripts/torch_report.py and scripts/torch_gate.py and launches nothing; the
+# seconds predicted for it before its first run. The keys of the JAX
+# package's run report, which torch_report's must all carry; the Chrome
+# trace's spans nest inside their parents up to SPAN_NEST_TOL_US (a span's
+# stamp is its emission, a few microseconds after it closed)
+REPORT_PREDICTED_S = 3.0
+REPORT_KEYS = (
+    "schema", "run_dir", "run_id", "world_size", "generated_unix", "n_events", "torn_lines", "startup_s", "ranks",
+    "step_p50_s", "step_p95_s", "step_skew", "straggler_factor", "stragglers", "bandwidth", "critpath",
+    "clock_skew_bound_s", "fabric_matrix", "compile", "comm_buckets", "hierarchy", "partitions", "mfu",
+    "mfu_headline", "spans", "failures", "policy", "alerts", "data_drops", "recovery_latency_s", "recovery",
+    "recovery_time_s", "slo", "kv_pool", "fleet", "memory", "fidelity", "fidelity_frontier",
+)
+SPAN_NEST_TOL_US = 1000.0
 # the fleet control plane (fleet_phases), its three paths side by side on the
 # one card. main_path_fleet: FLEET_CHIPS logical chips (LOCAL_RANK=0 in every
 # job's environment) under a FleetScheduler; the serving pool (serve_gpt
@@ -4128,6 +4148,211 @@ def offline_phases(dev, drive, mfu_inputs, live, smi):
     emit({"phase": "offline_phases", "wall_s": time.perf_counter() - t_offline, "predicted_s": OFFLINE_PREDICTED_S})
 
 
+def report_phases(dev, drive, live, smi):
+    """``main_path_report``: ``scripts/torch_report.py`` and
+    ``scripts/torch_gate.py`` over the two live run directories (``live``,
+    as ``live_phases`` returned it) through their entry points; no training
+    process, no kernel (``drive`` holds every count at 0).
+
+    The clean run's ``run_report`` (with ``trace_out``) carries every key of
+    the JAX package's report, no alert, no descent, ``mfu_headline`` the
+    largest MFU, and a measured HBM peak no larger than its limit where the
+    directory holds ``MemoryEvent``s (else the peak's source is None). Its
+    Chrome trace is JSON with one process row per rank, every span of the
+    merged run once as a complete event of ``dur >= 0`` inside its
+    parent's interval (up to ``SPAN_NEST_TOL_US``), and the steps on their
+    own track. The nudged run's report: a ``step_time_drift`` alert, a
+    descent to ``compress``, the policy timeline and the alert section in
+    its text. ``--compare clean nudged``: the step-p50 ratio the two
+    reports' and the alert counts 0 against at least 1. The gate: clean
+    against itself exits 0; nudged against clean exits 1 with
+    ``alerts_fired`` regressed and ``step_p50_s`` regressed exactly when the
+    nudged p50 exceeds the clean one by the tolerance, and 0 with
+    ``--advisory``; against a baseline that attests the CPU an advisory
+    ``device_mismatch``, and 1 with ``--strict-device``. ``--watch
+    --interval 0 --watch-iterations 2`` renders two frames; the event-log
+    mode's ``--json`` on the clean run's rank-0 shard counts its records by
+    kind as a plain count of its lines does."""
+    import importlib.util
+
+    from network_distributed_pytorch_tpu_torch.observe import runlog
+
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def script(name):
+        spec = importlib.util.spec_from_file_location(name, os.path.join(here, "scripts", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    torch_report, torch_gate = script("torch_report"), script("torch_gate")
+    clean, nudged = (live["runs"][name]["run_dir"] for name in ("main_path_live", "main_path_live_nudge"))
+
+    def quiet(fn, *args, **kwargs):
+        """``fn``'s return, its standard output and its seconds (its
+        standard error, the scripts' ``# report:`` and ``# gate:`` lines,
+        goes nowhere)."""
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+            ret = fn(*args, **kwargs)
+        return ret, out.getvalue(), time.perf_counter() - t0
+
+    def main_path_report():
+        out = {"report_s": {}}
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_report_")
+        try:
+            # ---- the clean run and its trace
+            trace_path = os.path.join(tmp, "trace.json")
+            (text, rep), _, out["report_s"]["clean"] = quiet(torch_report.run_report, clean, trace_out=trace_path)
+            missing = [k for k in REPORT_KEYS if k not in rep]
+            if missing:
+                fail(f"main_path_report: the clean report lacks {missing}")
+            if rep["alerts"]["fired"] != 0 or rep["policy"]["descends"] != 0:
+                fail(f"main_path_report: the clean run's alerts {rep['alerts']['by_kind']}, policy {rep['policy']}")
+            mfus = [m["mfu"] for m in rep["mfu"] if m.get("mfu") is not None]
+            if not mfus or rep["mfu_headline"] != max(mfus):
+                fail(f"main_path_report: mfu_headline {rep['mfu_headline']} against the records' {mfus}")
+            merged = runlog.merge_run(clean)
+            n_memory = sum(1 for e in merged.events if e.get("event") == "memory")
+            mem = rep["memory"]
+            if n_memory:
+                limit = (mem["measured"] or {}).get("bytes_limit")
+                if mem["hbm_peak_source"] != "measured" or not mem["hbm_peak_bytes"] \
+                        or (limit is not None and mem["hbm_peak_bytes"] > limit):
+                    fail(f"main_path_report: {n_memory} MemoryEvents, memory section {mem}")
+            elif mem["hbm_peak_source"] is not None:
+                fail(f"main_path_report: no MemoryEvent, yet a peak from {mem['hbm_peak_source']}: {mem}")
+            out["clean"] = {
+                "step_p50_s": rep["step_p50_s"], "n_events": rep["n_events"], "mfu_headline": rep["mfu_headline"],
+                "memory_events": n_memory, "hbm_peak_source": mem["hbm_peak_source"],
+                "hbm_peak_bytes": mem["hbm_peak_bytes"], "text_lines": text.count("\n"),
+            }
+
+            # ---- the Chrome trace
+            with open(trace_path) as f:
+                trace = json.load(f)["traceEvents"]
+            rows = [e for e in trace if e.get("ph") == "M" and e.get("name") == "process_name"]
+            ranks = {int(r) for r in rep["ranks"]}
+            if len(rows) != len({e["pid"] for e in rows}) or not ranks <= {e["pid"] for e in rows} \
+                    or any(e["args"]["name"] != f"rank {e['pid']}" for e in rows if e["pid"] >= 0):
+                fail(f"main_path_report: the trace's process rows {rows} for ranks {sorted(ranks)}")
+            spans = [e for e in merged.events if e.get("event") == "span" and isinstance(e.get("dur_s"), (int, float))]
+            complete = {}
+            for e in trace:
+                if e.get("ph") == "X" and e.get("cat") == "span":
+                    complete.setdefault((e["pid"], e["args"].get("span_id")), []).append(e)
+            if len(complete) != len(spans) or any(len(v) != 1 or v[0]["dur"] < 0 or v[0]["tid"] != 0
+                                                  for v in complete.values()):
+                fail(f"main_path_report: {len(spans)} spans in the run, {sum(map(len, complete.values()))} complete"
+                     f" span events under {len(complete)} ids in the trace")
+            worst_us = 0.0
+            for (pid, _), (e,) in complete.items():
+                parent = complete.get((pid, e["args"].get("parent_id")))
+                if parent is not None:
+                    p = parent[0]
+                    worst_us = max(worst_us, p["ts"] - e["ts"], e["ts"] + e["dur"] - (p["ts"] + p["dur"]))
+            if worst_us > SPAN_NEST_TOL_US:
+                fail(f"main_path_report: a span reaches {worst_us} us outside its parent's interval")
+            steps = [e for e in trace if e.get("cat") == "step"]
+            n_steps = sum(1 for e in merged.events
+                          if e.get("event") == "step" and isinstance(e.get("step_time_s"), (int, float)))
+            if len(steps) != n_steps or {e["tid"] for e in steps} != {1}:
+                fail(f"main_path_report: {len(steps)} steps on tracks {sorted({e['tid'] for e in steps})},"
+                     f" {n_steps} in the run")
+            out["trace"] = {"events": len(trace), "spans": len(complete), "steps": len(steps),
+                            "process_rows": len(rows), "worst_nesting_excursion_us": worst_us}
+
+            # ---- the nudged run
+            (ntext, nrep), _, out["report_s"]["nudged"] = quiet(torch_report.run_report, nudged)
+            pol = nrep["policy"]
+            if "step_time_drift" not in nrep["alerts"]["by_kind"] or pol["descends"] < 1 \
+                    or pol["final_rung"] != "compress":
+                fail(f"main_path_report: the nudged run's alerts {nrep['alerts']['by_kind']}, policy {pol}")
+            for section in ("policy — fallback ladder timeline", "live alerts — streaming detector verdicts"):
+                if section not in ntext:
+                    fail(f"main_path_report: the nudged run's text has no {section!r}")
+            out["nudged"] = {"step_p50_s": nrep["step_p50_s"], "alerts": nrep["alerts"]["by_kind"],
+                             "descends": pol["descends"], "final_rung": pol["final_rung"]}
+
+            # ---- --compare clean nudged
+            rc, cmp_line, out["report_s"]["compare"] = quiet(torch_report.main, ["--compare", clean, nudged, "--json"])
+            doc = json.loads(cmp_line)
+            m = doc["metrics"]
+            if rc != 0 or m["step_p50_s"]["ratio"] != nrep["step_p50_s"] / rep["step_p50_s"] \
+                    or m["alerts.fired"]["a"] != 0 or not m["alerts.fired"]["b"] >= 1:
+                fail(f"main_path_report: --compare gave {rc} {m}")
+            out["compare"] = {k: m[k] for k in ("step_p50_s", "alerts.fired", "policy.descends") if k in m}
+
+            # ---- the gate
+            paths = {}
+            for name, doc in (("clean", rep), ("nudged", nrep), ("cpu", {**rep, "platform": "cpu"})):
+                paths[name] = os.path.join(tmp, f"{name}.json")
+                with open(paths[name], "w") as f:
+                    json.dump(doc, f)
+            gate = {}
+            for name, argv in (
+                ("clean_vs_clean", ["--report", paths["clean"], "--baseline", paths["clean"]]),
+                ("nudged_vs_clean", ["--report", paths["nudged"], "--baseline", paths["clean"]]),
+                ("nudged_vs_clean_advisory", ["--report", paths["nudged"], "--baseline", paths["clean"], "--advisory"]),
+                ("clean_vs_cpu", ["--report", paths["clean"], "--baseline", paths["cpu"]]),
+                ("clean_vs_cpu_strict", ["--report", paths["clean"], "--baseline", paths["cpu"], "--strict-device"]),
+            ):
+                rc, line, _ = quiet(torch_gate.main, argv)
+                verdict = json.loads(line)
+                gate[name] = {"rc": rc, "gate": verdict["gate"],
+                              "regressed": sorted(v["metric"] for v in verdict["verdicts"] if v["regressed"]),
+                              "verdicts": {v["metric"]: v["regressed"] for v in verdict["verdicts"]}}
+            # the nudged run's step p50 regresses where it exceeds the clean
+            # one by the default tolerance, 20 %; its other verdicts are
+            # printed (the gate's arithmetic is held to the JAX gate's on the CPU)
+            p50_regressed = nrep["step_p50_s"] > rep["step_p50_s"] * 1.2
+            want = {"clean_vs_clean": (0, []), "clean_vs_cpu": (0, []), "clean_vs_cpu_strict": (1, ["device_mismatch"])}
+            for name, (rc, regressed) in want.items():
+                if (gate[name]["rc"], gate[name]["regressed"]) != (rc, regressed):
+                    fail(f"main_path_report: the gate's {name}: {gate[name]}, expected exit {rc} with {regressed}")
+            nvc = gate["nudged_vs_clean"]
+            if nvc["rc"] != 1 or not nvc["verdicts"].get("alerts_fired") \
+                    or nvc["verdicts"].get("step_p50_s") is not p50_regressed \
+                    or gate["nudged_vs_clean_advisory"]["rc"] != 0 or gate["nudged_vs_clean_advisory"]["gate"] != "fail" \
+                    or gate["clean_vs_cpu"]["verdicts"].get("device_mismatch") is not False:
+                fail(f"main_path_report: the gate {gate} (step p50 regressed: {p50_regressed})")
+            out["gate"] = {name: {k: g[k] for k in ("rc", "gate", "regressed")} for name, g in gate.items()}
+            out["gate"]["nudged_vs_clean"]["verdicts"] = nvc["verdicts"]
+            out["step_p50_ratio"] = nrep["step_p50_s"] / rep["step_p50_s"]
+
+            # ---- the dashboard, twice over the finished clean run
+            rc, frames, out["report_s"]["watch"] = quiet(
+                torch_report.main, ["--run-dir", clean, "--watch", "--interval", "0", "--watch-iterations", "2"])
+            if rc != 0 or frames.count("live: ") != 2:
+                fail(f"main_path_report: --watch gave {rc} and {frames.count('live: ')} frames: {frames[-2000:]}")
+            out["watch"] = {"frames": 2, "lines": frames.count("\n")}
+
+            # ---- the event-log mode on the clean run's rank-0 shard
+            shard = runlog.shard_path(clean, 0)
+            rc, line, out["report_s"]["event_log"] = quiet(torch_report.main, [shard, "--json"])
+            counts = {}
+            with open(shard) as f:
+                for raw in f:
+                    try:
+                        r = json.loads(raw)
+                    except ValueError:
+                        continue
+                    if isinstance(r, dict):
+                        counts[r.get("event", "raw")] = counts.get(r.get("event", "raw"), 0) + 1
+            if rc != 0 or json.loads(line) != {"log": shard, "events": counts}:
+                fail(f"main_path_report: the event-log mode gave {rc} {line[:2000]}, a count of the lines {counts}")
+            out["event_log"] = {"events": counts}
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        return out
+
+    t_phase = time.perf_counter()
+    result, _ = drive("main_path_report", main_path_report, {}, kernel_free=True)
+    emit({"phase": "main_path_report", **result, "nvidia_smi": smi, "wall_s": time.perf_counter() - t_phase,
+          "predicted_s": REPORT_PREDICTED_S})
+
+
 def fleet_phases(dev, smi, clean_ckpt, preset="full"):
     """``main_path_fleet``, ``main_path_autoscale`` and ``main_path_fleet_cli``:
     the fleet control plane over logical chips of the one card, the three
@@ -5659,10 +5884,12 @@ def main() -> None:
 
     # the offline analyses on what those phases left: the flagship's MFU, and
     # the report, critical path, plan and apply_plan of the live run dirs
+    # (which stay until main_path_report, after section 4, has read them)
     try:
         offline_phases(dev, drive, telemetry_mfu, live_dirs, smi)
-    finally:
+    except BaseException:
         shutil.rmtree(live_dirs["root"], ignore_errors=True)
+        raise
 
     # the fleet control plane: a game day (a serving pool's SLO burn preempts
     # supervised_resume's training command, which resumes bit for bit), a
@@ -5926,6 +6153,15 @@ def main() -> None:
             "flash_launches_forward_backward": flash_launches,
         }
     emit(record)
+
+    # the run report and the perf gate over the live run directories. It
+    # launches nothing, but drive sets every launch count to 0, and section
+    # 4 reads them, so it runs after section 4, beside the fleet's thread
+    # (whose jobs are processes of their own)
+    try:
+        report_phases(dev, drive, live_dirs, smi)
+    finally:
+        shutil.rmtree(live_dirs["root"], ignore_errors=True)
     try:
         fleet.result()
     finally:

@@ -35,6 +35,7 @@ from network_distributed_pytorch_tpu_torch.observe import runlog
 from network_distributed_pytorch_tpu_torch.observe.events import CritPathEvent
 from network_distributed_pytorch_tpu_torch.resilience import ChaosPlan, FaultSpec, Supervisor, SupervisorConfig
 from network_distributed_pytorch_tpu_torch.utils import bandwidth
+from torch_report_parity import REPORT_KEYS, assert_key_equal, assert_text_equal
 
 TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(TESTS_DIR)
@@ -321,3 +322,18 @@ def test_report_cli_writes_the_matrix(slow_edge_run, tmp_path):
     assert doc["critpath"] == port["critpath"]
     matrix = fabric.load_matrix(str(tmp_path / "out" / fabric.MATRIX_NAME))
     assert matrix == json.loads(json.dumps(port["fabric_matrix"]))
+
+
+def test_whole_report_and_text_match_the_jax_report(slow_edge_run):
+    """Every key of the JAX report and its text, line by line, on the game
+    day's run directory (the fabric rows pinned), its trace and the
+    comparison of the run with itself."""
+    run_dir, _, _ = slow_edge_run
+    report, jax_report = load_script("torch_report"), load_script("report", tag="jaxcritpath")
+    (text, port), (jtext, ref) = report.run_report(run_dir), jax_report.run_report(run_dir)
+    for key in REPORT_KEYS:
+        assert_key_equal(port, ref, key)
+    assert assert_text_equal(text, jtext) > 0
+    merged = runlog.merge_run(run_dir)
+    assert report.chrome_trace(merged.events) == jax_report.chrome_trace(merged.events)
+    assert report.compare_runs(run_dir, run_dir) == jax_report.compare_runs(run_dir, run_dir)

@@ -150,7 +150,7 @@ def test_live_plane_modules_import_neither_jax_nor_torch():
 # the offline analyses: like the live plane's modules, they import no torch
 # (the report and the planner run anywhere a run directory is copied)
 OFFLINE_MODULES = ("observe/mfu.py", "observe/critpath.py", "observe/fabric.py", "observe/costmodel.py")
-OFFLINE_SCRIPTS = ("torch_report.py", "torch_plan.py")
+OFFLINE_SCRIPTS = ("torch_report.py", "torch_plan.py", "torch_gate.py")
 
 
 def test_offline_analyses_import_neither_jax_nor_torch():
@@ -169,6 +169,9 @@ def test_offline_analyses_import_neither_jax_nor_torch():
         path = os.path.join(REPO, "scripts", name)
         assert not list(violations(path)), name
         assert not [m for m in module_level_imports(path) if m.split(".")[0] == "torch"], name
+    # the gate reads JSON alone: the standard library and nothing else
+    gate = module_level_imports(os.path.join(REPO, "scripts", "torch_gate.py"))
+    assert gate and not [m for m in gate if m.split(".")[0] not in sys.stdlib_module_names], gate
 
 
 def test_report_and_planner_run_with_jax_blocked(tmp_path):
@@ -191,7 +194,7 @@ def test_report_and_planner_run_with_jax_blocked(tmp_path):
                 return None
         sys.meta_path.insert(0, Blocker())
         sys.path.insert(0, "scripts")
-        import torch_plan, torch_report
+        import torch_gate, torch_plan, torch_report
         assert torch_plan.main(["--report", {str(report)!r}, "--out", {str(tmp_path / "plan.json")!r},
                                 "--events-out", {str(tmp_path / "pred.jsonl")!r}]) == 0
         from {PORT}.observe import runlog
@@ -199,6 +202,7 @@ def test_report_and_planner_run_with_jax_blocked(tmp_path):
         runlog.new_manifest("r", 1).save(run_dir)
         text, doc = torch_report.run_report(run_dir)
         assert doc["world_size"] == 1 and doc["critpath"] is None
+        assert torch_gate.main(["--report", {str(report)!r}, "--baseline", {str(report)!r}]) == 0
         print("OK")
         """
     )

@@ -37,6 +37,7 @@ import urllib.request
 import pytest
 
 import network_distributed_pytorch_tpu.resilience.supervisor as jsup
+from network_distributed_pytorch_tpu.observe import live as jax_live
 from network_distributed_pytorch_tpu.observe import health as jax_health
 from network_distributed_pytorch_tpu.observe import telemetry_for_run as jax_telemetry_for_run
 from network_distributed_pytorch_tpu.resilience.chaos import ChaosPlan as JaxChaosPlan
@@ -44,6 +45,7 @@ from network_distributed_pytorch_tpu.resilience.chaos import FaultSpec as JaxFau
 from network_distributed_pytorch_tpu_torch import launch
 from network_distributed_pytorch_tpu_torch.observe import analytics, health, live, runlog, telemetry_for_run
 from network_distributed_pytorch_tpu_torch.resilience import ChaosPlan, FaultSpec, Supervisor, SupervisorConfig
+from torch_report_parity import REPORT_KEYS, assert_key_equal, assert_text_equal, load_script
 
 TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(TESTS_DIR)
@@ -199,6 +201,24 @@ def test_jax_report_reads_a_port_run_directory(game_days, tmp_path):
     assert report["alerts"]["by_kind"] == fired and fired["grad_spike"] == 1
     assert report["policy"]["descends"] == 2
 
+
+
+def test_port_report_of_the_game_day_matches_the_jax_report(game_days):
+    """``scripts/torch_report.py`` on the port's game day: every key and
+    every text line of the JAX script's report of the same directory, and
+    the dashboard's frame off each package's aggregator."""
+    _, run_dir, _, _ = game_days["port"]
+    port_mod, jax_mod = load_script("torch_report", "liveplane"), load_script("report", "jaxliveplane")
+    (text, port), (jtext, ref) = port_mod.run_report(run_dir), jax_mod.run_report(run_dir)
+    for key in REPORT_KEYS:
+        assert_key_equal(port, ref, key)
+    assert_text_equal(text, jtext)
+    assert port["alerts"]["by_kind"]["grad_spike"] == 1 and port["policy"]["descends"] == 2
+    frames = []
+    for mod, agg in ((port_mod, live.LiveAggregator(run_dir)), (jax_mod, jax_live.LiveAggregator(run_dir))):
+        agg.poll()
+        frames.append(mod.render_watch_frame(agg, run_dir))
+    assert_text_equal(*frames)
 
 def test_alert_restart_after_restarts_the_whole_generation(tmp_path):
     """One critical alert on rank 0 kills it; the port then restarts the

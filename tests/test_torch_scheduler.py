@@ -55,6 +55,7 @@ from network_distributed_pytorch_tpu_torch.resilience import (
 )
 from network_distributed_pytorch_tpu_torch.resilience import scheduler as sched_mod
 from network_distributed_pytorch_tpu_torch.serving import FileSpool, WorkloadConfig, poisson_workload
+from torch_report_parity import REPORT_KEYS, assert_key_equal, assert_text_equal
 
 TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(TESTS_DIR)
@@ -600,6 +601,15 @@ def test_game_day_fleet_report_matches_the_jax_report(game_day):
     text, report = load_script("torch_report").run_report(game_day["fleet_dir"])
     assert report["fleet"] == fleet and "fleet control plane" in text
 
+
+
+def test_game_day_whole_report_matches_the_jax_report(game_day):
+    text, report = load_script("torch_report").run_report(game_day["fleet_dir"])
+    jtext, ref = load_script("report").run_report(game_day["fleet_dir"])
+    for key in REPORT_KEYS:
+        assert_key_equal(report, ref, key)
+    assert_text_equal(text, jtext)
+    assert report["fleet"]["goodput"] > 0 and "goodput" in text
 
 def test_detector_config_fields_match():
     assert [f.name for f in dataclasses.fields(DetectorConfig)] == [
