@@ -69,7 +69,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    Nesterov SGD and AdamW; ``gpt_lm.run`` with preset ``full`` (GPT-2
    small at vocabulary 1024, T 1024, global batch 16, PowerSGD rank 4: K5
    causal and K1) in fp32 and in bf16; ``gpt_generate.run`` with preset
-   ``full`` at vocabulary 50257 (batch 8, prompt 128, 64 new tokens; no
+   ``full`` at vocabulary 50257 (batch 8, prompt 128, 32 new tokens; no
    kernel of the port) in fp32 and bf16, with each fp32 decode step's
    logits held to a full forward of the same prefix and the greedy tokens
    to the full forwards' wherever the top two logits stand apart;
@@ -98,7 +98,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``bandwidth_study.run`` with preset ``full`` (ResNet-152, batch 256: exact,
    PowerSGD at ranks 1, 2 and 4, TopK 1 %, SignSGD, QSGD int8, local SGD and
    DiLoCo with PowerSGD at H = 8; each timed, its collectives recorded, its
-   step projected over the fabrics for eight workers); ``launch
+   step projected over the fabrics for eight workers); then
+   ``scripts/torch_bandwidth_artifact.py``'s phases in process
+   (``bandwidth_artifact``, nothing else on the card): its structure from
+   the study at preset small at world 1 projected for eight workers, the
+   card's per-worker step of each flat row, local SGD and DiLoCo (batch
+   32, 3 timed steps) and the flagship's step in fp32 and bf16, and the
+   projection, each row's projected step the compute time plus the ring
+   model's time of its bits, the flagship row's bits the study's; ``launch
    bare_init`` in a process of its own; then the host data plane
    (``main_path_data_plane``): the flagship at preset full on the xla
    pipeline (K1) for 6 steps under deterministic algorithms, fed by the
@@ -217,7 +224,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    rate and a trickle (at least two workers, drained, no request lost, the
    leases granted and released); and ``main_path_fleet_cli``, ``launch
    fleet`` with ``bare_init`` placed on card 0 by its grant, a copy
-   granted logical chip 1 refused (no card 1) and the looper;
+   granted logical chip 1 refused (no card 1) and the looper; and, in a
+   process of its own beside section 4 too, ``scripts/torch_accuracy_study.py
+   --task cifar`` cut to 6 epochs at patience 2 (``accuracy_study``: the
+   bits of both arms, each arm's best accuracy near the Bayes ceiling, the
+   arms' delta, K1 in the PowerSGD arm by the process's own count), after
+   K5's forward and backward at the study's DistilBERT tiers (D 8 and
+   D 64, the IMDb draws' padding) against their plain versions;
 4. two steps from the same weights and batches, deterministic cuDNN: plain
    Gram-Schmidt against the kernel; two DiLoCo rounds of ResNet-152 with
    the outer delta's Gram-Schmidt plain against the kernel; fused against xla; fused against xla
@@ -244,6 +257,7 @@ The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the port beside this script, it prints no result and exits 1.
 """
 
+import atexit
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -331,8 +345,9 @@ GPT_GROUPS = 4  # (1024, 768) x 2, (768, 768) x 48, (768, 3072) x 12, (3072, 768
 # two fp32 steps of GPT-2 small, flash against einsum attention on the card:
 # parameters and losses (both sum in fp32, K5's products in 3xTF32)
 GPT_TOL = 1e-5
-# gpt_generate at GPT-2's own vocabulary: batch 8, prompt 128, 64 new tokens
-GEN_VOCAB, GEN_B, GEN_PROMPT, GEN_NEW = 50257, 8, 128, 64
+# gpt_generate at GPT-2's own vocabulary: batch 8, prompt 128, 32 new tokens
+# (cut from 64 to make room for the bandwidth artifact's phase)
+GEN_VOCAB, GEN_B, GEN_PROMPT, GEN_NEW = 50257, 8, 128, 32
 # diloco_cifar10's preset full: ResNet-152 at global batch 512, H = 8 inner
 # steps a round, PowerSGD rank 4 on the outer delta. The synthetic CIFAR-10
 # set holds 4096 images, 8 global batches: one round an epoch, so two epochs
@@ -464,8 +479,9 @@ ADAPTIVE_LADDER = ["baseline", "compress", "compress-low-rank"]
 # plain version from a copy of the state it started from. Reported beside it,
 # unchecked: the K1 trajectory against the plain one over all the rounds,
 # and the plain one against itself from parameters moved 1 ulp (the drift
-# that training alone makes of a rounding-sized difference)
-HIER_H, HIER_PLAN = 4, ("sync", "sync", "local", "sync")
+# that training alone makes of a rounding-sized difference). HIER_H was cut
+# from 4 to make room for the bandwidth artifact's phase
+HIER_H, HIER_PLAN = 2, ("sync", "sync", "local", "sync")
 # the live plane (live_phases): the supervising launcher of exact_cifar10
 # --adaptive-comm at preset full (ResNet-50, batch 256, world 1) with a run
 # dir, /metrics on an ephemeral port and --alert-restart-after 3, 2 epochs
@@ -542,6 +558,30 @@ DATA_PLANE_STEPS, DATA_PLANE_TRACE_STEPS = 6, 5
 TORN_BATCHES, TORN_DEPTHS, TORN_SLEEP_CYCLES = 64, (0, 1, 2), 2_000_000
 # the seconds predicted for data_plane_phases before its first run on the card
 DATA_PLANE_PREDICTED_S = 45.0
+# the accuracy study (accuracy_study_phase): scripts/torch_accuracy_study.py
+# with ACCURACY_ARGS on the card in a process of its own, beside section 4
+# and the fleet (it times nothing compared): both arms' bits a step at 8
+# workers and their ratio as in the JAX study's record, each arm's best
+# accuracy within ACCURACY_CEILING_PTS of the Bayes ceiling, the arms' delta
+# within ACCURACY_DELTA_PTS. Before it, in this process, K5's forward and
+# backward (fp32) at ACCURACY_K5_SHAPES, the study's DistilBERT tiers (B, T,
+# H, D), with the padding of the first batch of each tier's IMDb draw
+ACCURACY_ARGS = ("--task", "cifar", "--seeds", "1", "--patience", "2", "--max-epochs", "6")
+ACCURACY_BITS = {"exact": 22_446_944, "powersgd_r4": 1_243_104}
+ACCURACY_RATIO, ACCURACY_CEILING_PTS, ACCURACY_DELTA_PTS = 18.1, 5.0, 3.0
+ACCURACY_K5_SHAPES = {"imdb": (128, 64, 4, 8), "imdb_wide": (128, 32, 4, 64)}
+ACCURACY_TIMEOUT_S = 600
+# the seconds predicted for the accuracy study's process before its first run on the card
+ACCURACY_PREDICTED_S = 30.0
+# the bandwidth artifact (bandwidth_artifact_phase): its structure from
+# bandwidth_study at preset small at world 1 (1 timed step a row, 1 timed
+# round), projected for ARTIFACT_WORKERS; its chip phase at ARTIFACT_STEPS
+# timed steps a row and ARTIFACT_FULL_STEPS flagship steps a dtype; each
+# projected step within ARTIFACT_REL_TOL of the compute time plus the ring
+# model's time of the row's bits
+ARTIFACT_WORKERS, ARTIFACT_STEPS, ARTIFACT_FULL_STEPS, ARTIFACT_REL_TOL = 8, 3, 2, 1e-9
+# the seconds predicted for bandwidth_artifact_phase before its first run on the card
+ARTIFACT_PREDICTED_S = 15.0
 # the supervised workers' deterministic algorithms, as chaos_guarded's
 # deterministic_algorithms() sets them in process; any sitecustomize the
 # interpreter had is run after it. With CHIP_SMOKE_LAUNCHES set, a process
@@ -5012,6 +5052,231 @@ def data_plane_phases(dev, drive, images, labels, n_groups, smi, preset="full"):
     })
 
 
+def load_script(name):
+    """The module ``scripts/<name>`` beside this file, loaded by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", name)
+    spec = importlib.util.spec_from_file_location(name[: -len(".py")], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bandwidth_artifact_phase(dev, drive, study, n_groups, smi):
+    """``scripts/torch_bandwidth_artifact.py`` on the card, in process, its
+    record in a temporary directory: the structure from the study at preset
+    small at world 1, projected for ARTIFACT_WORKERS (no Gloo spawn); the
+    chip phase; the projection. K1 once a shape group in each PowerSGD step
+    and DiLoCo round of the structure and the chip phase and in each of the
+    flagship's steps. Fails unless every row is timed on the card, each
+    projected step is the compute time plus the ring model's time of the
+    row's bits (ARTIFACT_REL_TOL), and the flagship row's bits are those
+    ``study`` (the smoke's ``bandwidth_study`` at preset full) records."""
+    import torch
+
+    from network_distributed_pytorch_tpu_torch.experiments import bandwidth_study
+    from network_distributed_pytorch_tpu_torch.experiments.powersgd_cifar10 import build_model
+    from network_distributed_pytorch_tpu_torch.parallel.reducers import PowerSGDReducer
+    from network_distributed_pytorch_tpu_torch.utils.bandwidth import allreduce_time_s
+
+    artifact = load_script("torch_bandwidth_artifact.py")
+    params = list(build_model("small", dev, seed=0).parameters())
+    groups = {r: PowerSGDReducer(compression_rank=r, matricize="last").n_shape_groups(params) for r in (1, 2, 4)}
+    del params
+    rounds = max(1, ARTIFACT_STEPS // bandwidth_study.SCAN_SYNC_EVERY)
+    k1 = (
+        (sum(groups.values()) + groups[4]) * (2 + 1)  # the structure: a warm-up, a recorded and a timed step or round
+        + sum(groups.values()) * (1 + ARTIFACT_STEPS) + groups[4] * (1 + rounds)  # the card's rows
+        + n_groups * (1 + ARTIFACT_FULL_STEPS) * len(artifact.FULL_PRESET_RUNS)  # the flagship in each dtype
+    )
+    root = tempfile.mkdtemp(prefix="chip_smoke_bandwidth_")
+    artifact.OUT = os.path.join(root, "TORCH_BANDWIDTH.json")
+
+    def run():
+        # the script's own conditions, PyTorch's cuDNN defaults: section 3
+        # leaves deterministic cuDNN on from main_path_exact's bitwise check,
+        # under which the fp32 flagship read 1.31 s a step against 0.12
+        saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
+        try:
+            with contextlib.redirect_stdout(sys.stderr):  # the script's tables
+                small = bandwidth_study.run(
+                    preset="small", device=dev, timed_steps=1, timed_rounds=1, project_workers=ARTIFACT_WORKERS
+                )
+                with open(artifact.OUT, "w") as f:
+                    json.dump({"structure": artifact.structure_record(small)}, f)
+                artifact.phase_chip(steps=ARTIFACT_STEPS, device=dev, full_steps=ARTIFACT_FULL_STEPS)
+                return artifact.phase_project()
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+    t0 = time.perf_counter()
+    try:
+        art, peak = drive("bandwidth_artifact", run, {"gram_schmidt": k1})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    elapsed = time.perf_counter() - t0
+    table, card = art["projection"]["table"], art["chip"]["compute_step_s"]
+    timed = set(artifact.CHIP_CONFIGS) | {"local_sgd_h8", "diloco_psgd_r4_h8"}
+    if set(card) != timed or set(table) != timed:
+        fail(f"bandwidth_artifact timed {sorted(card)} and projected {sorted(table)}, not {sorted(timed)}")
+    worst = 0.0
+    for name, row in table.items():
+        if row["compute_source"] != artifact.CARD_SOURCE or not (0 < row["compute_s"] < math.inf):
+            fail(f"bandwidth_artifact {name}: compute {row['compute_s']} from {row['compute_source']!r}")
+        for fabric, e in row["fabrics"].items():
+            want = row["compute_s"] + allreduce_time_s(
+                row["bits_per_step"] / 8.0, ARTIFACT_WORKERS, fabric, row["n_collectives"]
+            )
+            rel = abs(e["step_time_s"] - want) / want
+            worst = max(worst, rel)
+            if not rel <= ARTIFACT_REL_TOL:
+                fail(f"bandwidth_artifact {name} over {fabric}: {e['step_time_s']} s against {want} s")
+    full = art.get("full_preset") or {}
+    want_bits = {k: study["results"][k]["bits_per_step"] for k in ("exact", "powersgd_r4")}
+    if full.get("bits_per_step") != want_bits:
+        fail(f"bandwidth_artifact's flagship bits {full.get('bits_per_step')}, the study's {want_bits}")
+    full_times = {k: r["chip_step_s"] for k, r in full["chip_rows"].items()}
+    if set(full_times) != set(artifact.FULL_PRESET_RUNS) or not all(0 < t < math.inf for t in full_times.values()):
+        fail(f"bandwidth_artifact's flagship rows {full_times}")
+    if smi not in full["source"] or any("skipped" in v for v in art["speedup_vs_exact"].values()):
+        fail(f"bandwidth_artifact: source {full['source']!r}, speed-ups {art['speedup_vs_exact']}")
+    emit({
+        "phase": "bandwidth_artifact", "predicted_s": ARTIFACT_PREDICTED_S, "elapsed_s": elapsed,
+        "structure": {"world_size": art["structure"]["num_devices"], "projected_workers": ARTIFACT_WORKERS},
+        "steps_timed": ARTIFACT_STEPS, "batch_per_worker": art["chip"]["batch_per_worker"],
+        "compute_step_s": card, "flagship": full["chip_rows"], "flagship_bits": full["bits_per_step"],
+        "speedup_vs_exact": art["speedup_vs_exact"], "projection_worst_rel_err": worst,
+        "launches": {"gram_schmidt": k1}, "peak_memory_bytes": peak, "nvidia_smi": smi,
+    })
+
+
+def start_accuracy_study():
+    """Start ``scripts/torch_accuracy_study.py`` with ACCURACY_ARGS on the
+    card in a process of its own, its record and its standard error in a
+    temporary directory."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_accuracy_")
+    out = os.path.join(root, "accuracy.json")
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "torch_accuracy_study.py")
+    with open(os.path.join(root, "stderr.log"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, script, *ACCURACY_ARGS, "--device", "cuda", "--out", out],
+            stdout=subprocess.PIPE, stderr=log, text=True,
+        )
+    atexit.register(stop_process, proc)  # a phase that fails before the study is read leaves no process behind
+    return {"proc": proc, "root": root, "out": out, "t0": time.perf_counter()}
+
+
+def stop_process(proc) -> None:
+    """Kill ``proc`` if it still runs, and reap it."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def check_study_attention(fa, dev, gen):
+    """K5's forward and backward kernels (fp32) at the accuracy study's
+    DistilBERT tiers (ACCURACY_K5_SHAPES: D 8 on the tiny tier, 64 on the
+    wide one) against their plain versions on random q, k, v and dO, with
+    the padding of the first training batch of each tier's IMDb draw; each
+    within ATTN_TOL * max(1, max|plain|), one launch of each kernel."""
+    import torch
+
+    from network_distributed_pytorch_tpu_torch.data.loader import iterate_batches
+
+    study = load_script("torch_accuracy_study.py")
+    report = {}
+    for tier, (b, t, h, d) in ACCURACY_K5_SHAPES.items():
+        train = study.imdb_task(0, wide=tier == "imdb_wide")["train"]
+        first = next(iterate_batches([train["attention_mask"]], b, shuffle=True, seed=1234))[0]
+        if first.shape != (b, t):
+            fail(f"{tier}: the first batch's mask is {first.shape}, not {(b, t)}")
+        mask = torch.where(torch.from_numpy(first) > 0, 0.0, torch.finfo(torch.float32).min).to(dev)
+        q, k, v, do = (torch.randn((b * h, t, d), generator=gen).to(dev) for _ in range(4))
+        scale = d**-0.5
+        bwd = fa.BWD_KERNELS[torch.float32]
+        before = (fa.KERNEL.launches, bwd.launches)
+        out, lse = fa.flash_attention_fwd(q, k, v, mask, False, t, t, scale)
+        grads = fa.flash_attention_vjp(q, k, v, mask, out, lse, do, False, t, scale, False)
+        torch.cuda.synchronize()
+        launched = (fa.KERNEL.launches - before[0], bwd.launches - before[1])
+        want_out, want_lse = fa.flash_attention_reference(q, k, v, mask, False, t, t, scale)
+        want = fa.flash_attention_bwd(q, k, v, mask, out, lse, do, False, t, scale, False)
+        if launched != (1, 1):
+            fail(f"flash_attention at the {tier} tier launched {launched} (forward, backward), not one each")
+        errs = {}
+        for name, g, w in (("out", out, want_out), ("dq", grads[0], want[0]), ("dk", grads[1], want[1]),
+                           ("dv", grads[2], want[2])):
+            err = (g - w).abs().max().item()
+            tol = ATTN_TOL * max(1.0, w.abs().max().item())
+            if not (math.isfinite(err) and err <= tol):
+                fail(f"flash_attention at the {tier} tier {(b, t, h, d)}: max |kernel - plain| of {name} {err} (tol {tol})")
+            errs[name] = err
+        lse_err = ((lse - want_lse).abs() / want_lse.abs().clamp_min(1.0)).max().item()
+        if not (math.isfinite(lse_err) and lse_err <= ATTN_TOL):
+            fail(f"flash_attention at the {tier} tier: lse {lse_err} (tol {ATTN_TOL})")
+        report[tier] = {
+            "shape": [b, t, h, d], "real_keys": int(first.sum()), "keys": b * t, "max_abs_err": errs,
+            "lse_max_rel_err": lse_err, "tolerance": ATTN_TOL,
+        }
+    return report
+
+
+def accuracy_study_phase(started, k5, n_groups, smi):
+    """Wait for the accuracy study started by :func:`start_accuracy_study`
+    and hold its record: both arms' bits at 8 workers and their ratio, each
+    arm's best accuracy within ACCURACY_CEILING_PTS of the Bayes ceiling,
+    the delta within ACCURACY_DELTA_PTS, K1 once a shape group a step of
+    the PowerSGD arm and never in the exact one (the process's own count).
+    Returns the PowerSGD arm's K1 launches."""
+    proc = started["proc"]
+    try:
+        try:
+            stdout, _ = proc.communicate(timeout=ACCURACY_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"the accuracy study did not end in {ACCURACY_TIMEOUT_S} s")
+        wall = time.perf_counter() - started["t0"]
+        with open(os.path.join(started["root"], "stderr.log")) as f:
+            err_tail = f.read()[-3000:]
+        if proc.returncode:
+            fail(f"the accuracy study exited {proc.returncode}: {err_tail}")
+        with open(started["out"]) as f:
+            rec = json.load(f)["cifar"]
+        slim = json.loads(stdout.strip().splitlines()[-1])["cifar"]
+    finally:
+        shutil.rmtree(started["root"], ignore_errors=True)
+    arms = rec["arms"]
+    ceiling = rec["hardness"]["accuracy_ceiling_nearest_mean"]
+    bits = {name: a["bits_per_step"] for name, a in arms.items()}
+    if bits != ACCURACY_BITS or rec["gradient_bytes_ratio"] != ACCURACY_RATIO:
+        fail(f"accuracy_study: bits {bits}, ratio {rec['gradient_bytes_ratio']}")
+    for name, a in arms.items():
+        if not abs(a["best_accuracy"] - ceiling) * 100 <= ACCURACY_CEILING_PTS:
+            fail(f"accuracy_study {name}: best {a['best_accuracy']} against the ceiling {ceiling}")
+    if not abs(rec["accuracy_delta_pts"]) <= ACCURACY_DELTA_PTS:
+        fail(f"accuracy_study: delta {rec['accuracy_delta_pts']} points")
+    k1 = {name: a["kernel_launches"]["gram_schmidt"] for name, a in arms.items()}
+    if k1 != {"exact": 0, "powersgd_r4": arms["powersgd_r4"]["total_steps"] * n_groups}:
+        fail(f"accuracy_study: K1 launched {k1}, {n_groups} groups a step of the PowerSGD arm")
+    if rec["nvidia_smi"] != smi or rec["workers"] != 1 or slim["gradient_bytes_ratio"] != ACCURACY_RATIO:
+        fail(f"accuracy_study: {rec['nvidia_smi']!r}, world {rec['workers']}, the line {slim}")
+    emit({
+        "phase": "accuracy_study", "predicted_s": ACCURACY_PREDICTED_S, "wall_s": wall, "args": list(ACCURACY_ARGS),
+        "ceiling": ceiling, "accuracy_delta_pts": rec["accuracy_delta_pts"],
+        "gradient_bytes_ratio": rec["gradient_bytes_ratio"], "departure": rec["departure"],
+        "arms": {
+            name: {k: a[k] for k in ("eval_accuracy_curve", "best_accuracy", "final_accuracy", "epochs_run",
+                                     "plateaued", "total_steps", "bits_per_step", "wall_s", "kernel_launches")}
+            for name, a in arms.items()
+        },
+        "flash_attention_at_study_tiers": k5, "nvidia_smi": smi,
+    })
+    return k1["powersgd_r4"]
+
+
 def main() -> None:
     import torch
 
@@ -5674,7 +5939,7 @@ def main() -> None:
         )
         gen_runs[dtype] = {**result, "peak_memory_bytes": peak}
     # at full width in fp32: each decode step's logits against a full forward
-    # of the same prefix (einsum attention: a prefix of 129 to 191 tokens does
+    # of the same prefix (einsum attention: a prefix of 129 to 159 tokens does
     # not divide into K5's blocks), and the greedy tokens against the full
     # forwards' wherever the top two logits stand more than the tolerance apart
     total = GEN_PROMPT + GEN_NEW
@@ -5840,6 +6105,10 @@ def main() -> None:
         "nvidia_smi": smi,
     })
 
+    # the bandwidth artifact's structure, card and projection phases, with
+    # nothing else on the card while its rows are timed
+    bandwidth_artifact_phase(dev, drive, study, len(group_shapes), smi)
+
     # bare_init through the launcher, in a process of its own (run while
     # the kernels built)
     emit({"phase": "bare_init", "summary": bare_init.result()})
@@ -5898,6 +6167,14 @@ def main() -> None:
     # reads no launch count for it, so it runs beside section 4, whose
     # comparisons time nothing (a phase that fails there exits from .result())
     fleet = in_background(fleet_phases, dev, smi, clean_ckpt)
+    # the accuracy study's cut CIFAR task in a process of its own, beside
+    # section 4 and the fleet (none of them times anything compared); K5 at
+    # its DistilBERT tiers is checked here, before section 4 reads K5's counts
+    accuracy = start_accuracy_study()
+    small = powersgd_cifar10.build_model("small", dev, seed=0)
+    accuracy_groups = PowerSGDReducer(compression_rank=4, matricize="last").n_shape_groups(list(small.parameters()))
+    del small
+    study_k5 = check_study_attention(fa, dev, gen)
 
     # ---- 4. two steps against two steps ---------------------------------------
     # with deterministic cuDNN and no TF32, so that only what is compared differs
@@ -6166,6 +6443,7 @@ def main() -> None:
         fleet.result()
     finally:
         shutil.rmtree(os.path.dirname(clean_ckpt), ignore_errors=True)
+    k1_accuracy = accuracy_study_phase(accuracy, study_k5, accuracy_groups, smi)
 
     # ---- 5. the kernels ------------------------------------------------------
     # what the xla path runs for the same work, as a yardstick for later work
@@ -6183,6 +6461,8 @@ def main() -> None:
         "resnet152_data_plane_trace": "data_plane_trace",
         "gpt2_small_fp32": "gpt_float32", "gpt2_small_bf16": "gpt_bfloat16",
         "resnet152_diloco": "diloco", "bandwidth_study": "bandwidth_study",
+        # the bandwidth artifact: ResNet-18 w16 rows (structure and card) and the flagship in fp32 and bf16
+        "bandwidth_artifact": "bandwidth_artifact",
         "resnet152_resilient_resume": "resilient_resume", "gpt2_small_serve_hot_load": "serve_hot_load",
         "gpt2_small_moe_top1": "gpt_moe_top1", "gpt2_small_moe_top2": "gpt_moe_top2",
         "gpt2_small_moe_bf16": "gpt_moe_bf16",
@@ -6210,6 +6490,8 @@ def main() -> None:
         # launched in a supervised worker process (live_phases), counted by
         # the worker's own wrapper at its exit: steps on compress x groups
         "launches_in_supervised_workers": {"resnet50_live_nudge": k1_live_worker},
+        # launched in the accuracy study's process (accuracy_study), counted by its own wrapper
+        "launches_in_accuracy_study": {"resnet18_w16_powersgd_r4": k1_accuracy},
         "max_abs_err": main_err,
         "ms": gs_ms,
         "device_ms": gs_device_ms,

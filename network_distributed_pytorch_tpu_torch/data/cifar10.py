@@ -104,9 +104,15 @@ def synthetic_cifar10(
     class_sep: float = 0.5,
     noise: float = 0.25,
     label_noise: float = 0.0,
-) -> Tuple[np.ndarray, np.ndarray]:
+    return_means: bool = False,
+):
     """Deterministic CIFAR-shaped class-blob data (32x32x3, normalised
-    range), learnable by the real models."""
+    range), learnable by the real models.
+
+    ``label_noise`` resamples that fraction of labels after the images are
+    drawn (the pixels keep the original class's blob). ``return_means=True``
+    appends the true class means, the inputs of the Bayes (nearest-mean)
+    rule; it draws nothing more, so every draw is the same either way."""
     rng = np.random.RandomState(seed)
     means = rng.randn(num_classes, 32, 32, 3).astype(np.float32) * class_sep
     labels = rng.randint(0, num_classes, size=n).astype(np.int32)
@@ -115,6 +121,8 @@ def synthetic_cifar10(
         flip = rng.rand(n) < label_noise
         labels = np.where(flip, rng.randint(0, num_classes, size=n).astype(np.int32), labels)
     images = np.clip(images, -1.0, 1.0)
+    if return_means:
+        return images, labels, means
     return images, labels
 
 

@@ -357,7 +357,10 @@ def _attention_inputs(bh, t, d, h, dev, seed=50):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "b,t,h,d,causal", [(4, 256, 12, 64, False), (2, 128, 4, 64, True), (3, 100, 2, 40, False), (2, 64, 2, 128, True)]
+    "b,t,h,d,causal",
+    [(4, 256, 12, 64, False), (2, 128, 4, 64, True), (3, 100, 2, 40, False), (2, 64, 2, 128, True),
+     # the accuracy study's DistilBERT tiers: distilbert_tiny (D 8), distilbert_wide (D 64)
+     (128, 64, 4, 8, False), (128, 32, 4, 64, False)],
 )
 def test_flash_attention_kernel_matches_plain(cuda_device, b, t, h, d, causal):
     q, k, v, mask = _attention_inputs(b * h, t, d, h, cuda_device)
@@ -524,6 +527,9 @@ _BWD_CASES = {
     # two real keys, each alone in its tile (a row with a single real key has
     # dq = dk = 0 exactly, where both fp32 versions return rounding noise)
     "lone_middle_keys": (2, 256, 3, 64, False, [[100, 230], slice(0, 20)]),
+    # the accuracy study's DistilBERT tiers at their batch of 128
+    "study_tiny_d8": (128, 64, 4, 8, False, None),
+    "study_wide_d64": (128, 32, 4, 64, False, None),
 }
 
 

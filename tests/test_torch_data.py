@@ -37,6 +37,23 @@ def test_synthetic_images_bit_identical_to_jax():
     assert not real and not realr and np.array_equal(x, xr) and np.array_equal(y, yr)
 
 
+@pytest.mark.parametrize("label_noise", [0.0, 0.15])
+def test_synthetic_return_means_bit_identical_to_jax(label_noise):
+    """``return_means=True`` appends the true class means and draws nothing
+    more: the images and labels are those of the default call, and all three
+    arrays are the JAX function's bit for bit."""
+    kw = dict(seed=5, class_sep=0.5, label_noise=label_noise)
+    ours = cifar10.synthetic_cifar10(300, return_means=True, **kw)
+    ref = jax_cifar10.synthetic_cifar10(300, return_means=True, **kw)
+    assert len(ours) == len(ref) == 3
+    for a, b in zip(ours, ref):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert ours[2].shape == (10, 32, 32, 3)
+    plain = cifar10.synthetic_cifar10(300, **kw)
+    assert len(plain) == 2
+    assert np.array_equal(plain[0], ours[0]) and np.array_equal(plain[1], ours[1])
+
+
 @pytest.mark.parametrize("drop_last", [True, False])
 def test_batch_order_matches_jax(drop_last):
     xs, ys = cifar10.synthetic_cifar10(100, seed=1)

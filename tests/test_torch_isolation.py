@@ -435,3 +435,56 @@ def test_data_plane_runs_with_jax_blocked(tmp_path):
     assert proc.returncode == 0 and proc.stdout.strip().endswith("OK"), proc.stderr[-3000:]
     smoke = json.loads((tmp_path / "smoke.json").read_text())
     assert smoke["native"] and smoke["labels_ok"] and smoke["overlapped_steps"] == 8
+
+
+# the accuracy study and the bandwidth artifact: the port's scripts of the
+# JAX package's two headline results
+STUDY_SCRIPTS = ("torch_accuracy_study.py", "torch_bandwidth_artifact.py")
+
+
+def test_study_scripts_are_checked_and_run_with_jax_blocked(tmp_path):
+    """Both scripts are among the files walked above and import none of the
+    banned modules; in a fresh interpreter with those blocked, the accuracy
+    study's ``main`` runs the wide IMDb task for an epoch on the CPU and the
+    bandwidth artifact projects a structure record."""
+    scripts = {os.path.basename(p) for p in port_files()}
+    assert set(STUDY_SCRIPTS) <= scripts
+    for name in STUDY_SCRIPTS:
+        assert not list(violations(os.path.join(REPO, "scripts", name))), name
+    structure = {"structure": {"num_devices": 8, "projected_workers": 8, "results": {
+        "exact": {"recorded_bits_per_step": 800_000_000, "collectives": {"all-reduce": 2}, "measured_step_s": 0.1},
+        "powersgd_r4": {"recorded_bits_per_step": 8_000_000, "collectives": {"all-reduce": 4}, "measured_step_s": 0.1},
+    }}}
+    (tmp_path / "bw.json").write_text(json.dumps(structure))
+    script = textwrap.dedent(
+        f"""
+        import json, sys
+        BANNED = {BANNED_ROOTS!r}
+        class Blocker:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".", 1)[0] in BANNED or name == {JAX_PACKAGE!r} or name.startswith({JAX_PACKAGE!r} + "."):
+                    raise ImportError("blocked: " + name)
+                return None
+        sys.meta_path.insert(0, Blocker())
+        sys.path.insert(0, "scripts")
+        import torch
+        torch.set_num_threads(2)
+        import torch_accuracy_study, torch_bandwidth_artifact
+        out = {str(tmp_path / "acc.json")!r}
+        assert torch_accuracy_study.main(["--task", "imdb_wide", "--max-epochs", "1", "--patience", "1",
+                                          "--device", "cpu", "--out", out]) == 0
+        rec = json.load(open(out))["imdb_wide"]
+        assert rec["gradient_bytes_ratio"] == 9.2 and rec["nvidia_smi"] is None and rec["device"] == "cpu"
+        assert torch_bandwidth_artifact.main(["project", "--out", {str(tmp_path / "bw.json")!r}]) == 0
+        bad = [m for m in sys.modules if m.split(".")[0] in BANNED or m == {JAX_PACKAGE!r} or m.startswith({JAX_PACKAGE!r} + ".")]
+        assert not bad, bad
+        print("OK")
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("OK"), proc.stderr[-3000:]
+    # the study's one slim line, before the projection's table
+    slim = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith('{"imdb_wide"')]
+    assert len(slim) == 1 and set(slim[0]["imdb_wide"]) >= {"accuracy_delta_pts", "gradient_bytes_ratio"}
+    assert json.load(open(tmp_path / "bw.json"))["speedup_vs_exact"]["powersgd_r4"]["1GbE"] > 1
